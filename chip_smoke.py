@@ -3,15 +3,21 @@
 
     python3 chip_smoke.py                # all phases, one card
     python3 chip_smoke.py --phases 0,1   # build + kernel checks only
+    python3 chip_smoke.py --phases 0,4,5 # the int8 tier only
 
 Phases, each printing one JSON object per line as it ends:
 
   0  card name and power limit, torch and nvcc versions; builds the CUDA
-     kernels from csrc/ and prints the build seconds and ptxas lines.
-  1  K1 and K2 against their plain PyTorch version on the card: f32 and
-     bf16 corpora up to 131,072 x 768, k in {1, 10, 30, 100, 300}, a ragged
-     N, 1% tombstones, an extra_bias filter, k above the live count and
-     duplicate rows (exact ties). Fails on any id mismatch outside ties.
+     kernels from csrc/ (flat_topk.cu and int8_topk.cu, one nvcc each, in
+     parallel) and prints the build seconds and ptxas lines.
+  1  every kernel against its plain PyTorch version on the card. K1, K2
+     and K3: f32 and bf16 corpora up to 131,072 x 768, k in {1, 10, 30,
+     100, 300}. K5, K6 and K7: int8 corpora of the same sizes, k in {1, 10,
+     100, 300}, with an all-zero row (scale 0) and rows of +-127 everywhere
+     (an int8 wrap would show). Both: a ragged N, 1% tombstones, an
+     extra_bias filter, k above the live count, duplicate rows (exact
+     ties), batches on both sides of 32. Fails on any id mismatch outside
+     ties.
   2  the main path: CodeGraph.open(<copy of codegraph_tpu/>, device="cuda")
      with the hash provider at D=768, .index(), .search() for 5 queries
      (checked against the same snapshot searched on the CPU), then 64
@@ -20,9 +26,20 @@ Phases, each printing one JSON object per line as it ends:
      must both be above zero.
   3  real size: FlatIndex of 1,000,000 x 768 rows, f32 then bf16, made on
      the card from a seeded generator, 1% tombstoned; K1 at B=1 and 8, K2
-     at B=256 and 1024, k=30 and 300: median kernel ms over 7 batches
-     (CUDA events), the plain version's ms, a chunked matmul + topk
-     yardstick (library_ms, checked against), and the bound.
+     at B=256 and 1024, k=30 and 300, and K3 (f32) at B=256 and 1024, k=100
+     and 300: median kernel ms over 7 batches (CUDA events), the plain
+     version's ms, a chunked matmul + topk yardstick (library_ms, checked
+     against), and the bound.
+  4  the int8 main path: phase 2 with index.dtype = "int8" (Int8FlatIndex,
+     bf16 rescore copy): 5 searches (K5) and 64 concurrent queries through
+     QueryService (K6), checked against the same snapshot searched on the
+     CPU and against single queries; then CodeGraph.open with an
+     index.capacity that the planner sends to the int8 tier on this card.
+  5  real size of the int8 tier: Int8FlatIndex of 10,000,000 x 768 rows
+     with a bf16 rescore copy (about 23 GB), made on the card, 1%
+     tombstoned; K5 at B=1 and 8, K6 and K7 at B=256 and 1024, k=100 and
+     300, timed as in phase 3 against a chunked torch._int_mm + topk
+     yardstick; and Int8FlatIndex.search end to end at B=1 and 1024.
 
 Then the card's name and power limit, one JSON line with every kernel's
 numbers, and last {"ok": true, "device": {...}}. Any failed check exits
@@ -37,6 +54,7 @@ import faulthandler
 import json
 import math
 import os
+import re
 import shutil
 import signal
 import statistics
@@ -52,14 +70,48 @@ WATCHDOG_S = 900
 NEG_INF = -1e30
 
 # H100 SXM data sheet (dense): the bound of a kernel is the larger of its
-# bytes over the memory rate and its flops over the peak rate of its type
+# bytes over the memory rate and its operations over the peak rate of its type
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
 
 # Scores of unit-norm rows and queries lie in [-1, 1]. f32 sums taken in
 # another order differ by ~1e-7 at D=768; bf16 rows and queries multiply
 # exactly in f32, so both dtypes are held to the same bound.
 SCORE_TOL = 1e-5
+
+#: the kernel sources under codegraph_tpu_torch/csrc/, built in phase 0
+SOURCES = ("flat_topk", "int8_topk")
+
+
+# name -> (wrapper module, wrapper, source, line of the TPU kernel's pallas_call)
+FLAT_CU = "codegraph_tpu_torch/csrc/flat_topk.cu"
+INT8_CU = "codegraph_tpu_torch/csrc/int8_topk.cu"
+KERNELS = {
+    "K1": ("topk", "streaming_topk_cuda", FLAT_CU, "codegraph_tpu/ops/topk.py:347"),
+    "K2": ("topk", "streaming_topk_cuda_qmajor", FLAT_CU, "codegraph_tpu/ops/topk.py:456"),
+    "K3": ("topk", "streaming_topk_cuda_qres", FLAT_CU, "codegraph_tpu/ops/topk.py:561"),
+    "K5": ("quantize", "streaming_topk_int8_cuda", INT8_CU, "codegraph_tpu/ops/quantize.py:182"),
+    "K6": ("quantize", "streaming_topk_int8_cuda_qmajor", INT8_CU,
+           "codegraph_tpu/ops/quantize.py:287"),
+    "K7": ("quantize", "streaming_topk_int8_cuda_qres", INT8_CU,
+           "codegraph_tpu/ops/quantize.py:396"),
+}
+
+
+def wrapper(mods, name):
+    module, fn, _, _ = KERNELS[name]
+    return getattr(mods[module], fn)
+
+
+def reset_launches(mods) -> None:
+    """Every kernel's launch count to 0: called just before a main path."""
+    for name in KERNELS:
+        wrapper(mods, name).launches = 0
+
+
+def read_launches(mods) -> dict:
+    """Every kernel's launch count: read just after a main path."""
+    return {name: wrapper(mods, name).launches for name in KERNELS}
 
 
 class CheckFailed(Exception):
@@ -87,14 +139,30 @@ def nvidia_smi_line() -> str:
 # ---------------------------------------------------------------------------
 
 
-def check_topk(torch, q, x, bias, s_k, i_k, s_ref, i_ref, tol=SCORE_TOL):
+def dot_judge(q, x, bias):
+    """True scores of rows of x for query b: the dot product in f64 + bias."""
+    return lambda b, rows: (x[rows].double() @ q[b].double()) + bias[rows].double()
+
+
+def int8_judge(qv, qs, xv, xs, bias):
+    """True scores of int8 rows for query b as the reference rounds them:
+    the exact integer dot, then * qs[b], * xs[n], + bias[n] in f32."""
+    def judge(b, rows):
+        raw = (xv[rows].double() @ qv[b].double()).float()
+        return (raw * qs[b] * xs[rows] + bias[rows]).double()
+    return judge
+
+
+def check_topk(torch, q, x, bias, s_k, i_k, s_ref, i_ref, tol=SCORE_TOL, judge=None):
     """Hold (s_k, i_k) to the reference (s_ref, i_ref), tie-aware.
 
     Sentinel (NEG_INF) positions must agree; live scores must agree within
     tol; live ids must be distinct per row; and where an id differs from
-    the reference's, the row it names must score (recomputed in f64)
-    within tol of the reference score at that position, i.e. it is tied.
+    the reference's, the row it names must score (recomputed by `judge`,
+    by default the f64 dot product of q and x plus bias) within tol of the
+    reference score at that position, i.e. it is tied.
     Returns (max_abs_err, id_mismatches, mismatches_outside_ties)."""
+    judge = judge or dot_judge(q, x, bias)
     live_k = s_k > NEG_INF / 2
     live_r = s_ref > NEG_INF / 2
     bad = int((live_k != live_r).sum())
@@ -103,14 +171,13 @@ def check_topk(torch, q, x, bias, s_k, i_k, s_ref, i_ref, tol=SCORE_TOL):
     err = float((s_k - s_ref).abs()[both].max()) if bool(both.any()) else 0.0
     differ = (i_k != i_ref) & both
     n_differ = int(differ.sum())
-    for b in range(q.shape[0]):
+    for b in range(s_k.shape[0]):
         ids = i_k[b][live_k[b]]
         if ids.numel() and torch.unique(ids).numel() != ids.numel():
             bad += 1
         if bool(differ[b].any()):
             pos = differ[b].nonzero().flatten()
-            rows = i_k[b][pos].long()
-            true = (x[rows].double() @ q[b].double()) + bias[rows].double()
+            true = judge(b, i_k[b][pos].long())
             bad += int(((true - s_ref[b][pos].double()).abs() > tol).sum())
     if err > tol:
         bad += 1
@@ -130,10 +197,9 @@ def phase0(torch) -> dict:
     ver = subprocess.run([nvcc, "--version"], capture_output=True, text=True,
                          timeout=60, check=True).stdout.strip().splitlines()[-1]
     t0 = time.perf_counter()
-    cuda_build.build_all(["flat_topk"])
+    cuda_build.build_all(SOURCES)
     build_s = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in cuda_build.build_log("flat_topk").splitlines()
-             if "registers" in ln or "spill" in ln]
+    ptxas = [f"{name}: {line}" for name in SOURCES for line in ptxas_summary(cuda_build.build_log(name))]
     out = {"phase": 0, "gpu": smi, "torch": torch.__version__,
            "torch_cuda": torch.version.cuda, "nvcc": ver,
            "build_seconds": round(build_s, 3), "ptxas": ptxas}
@@ -141,23 +207,42 @@ def phase0(torch) -> dict:
     return out
 
 
+def ptxas_summary(log: str) -> list:
+    """One line per kernel of `nvcc -Xptxas=-v` output: its (mangled,
+    shortened) name, registers and spill bytes."""
+    out, name, spill = [], "?", ""
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            k = re.search(r"(topk_pass1|int8_dp4a_pass1|int8_mma_pass1|topk_merge)(I\w*?EE)?",
+                          m.group(1))
+            name = k.group(1) + (k.group(2) or "") if k else m.group(1)
+        elif "spill stores" in ln:
+            spill = ln.strip()
+        elif "Used" in ln and "registers" in ln:
+            regs = re.search(r"Used (\d+) registers", ln).group(1)
+            out.append(f"{name}: {regs} registers; {spill}")
+    return out
+
+
 def _unit(torch, t):
     return t / t.float().norm(dim=1, keepdim=True).clamp(min=1e-6).to(t.dtype)
 
 
-def phase1(torch, topk, errs) -> dict:
+def phase1(torch, topk, quantize, errs) -> dict:
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(7)
     D = 768
     cases = []
-    # (name, N, B list K1 / K2, ks, options)
-    for dtype in (torch.float32, torch.bfloat16):
-        for N, dup, filt, live in ((131072, False, False, None),
-                                   (100003, True, True, None),
-                                   (200, False, False, 150)):
-            x = _unit(torch, torch.randn(N, D, generator=g, device=dev)).to(dtype)
-            if dup:  # exact ties: rows 1000..1999 repeat rows 0..999
-                x[1000:2000] = x[0:1000]
+    flat = {"K1": topk.streaming_topk_cuda, "K2": topk.streaming_topk_cuda_qmajor,
+            "K3": topk.streaming_topk_cuda_qres}
+    int8 = {"K5": quantize.streaming_topk_int8_cuda, "K6": quantize.streaming_topk_int8_cuda_qmajor,
+            "K7": quantize.streaming_topk_int8_cuda_qres}
+    # (N, duplicate rows, filter, live rows)
+    corpora = ((131072, False, False, None), (100003, True, True, None), (200, False, False, 150))
+    for dtype in (torch.float32, torch.bfloat16, torch.int8):
+        for N, dup, filt, live in corpora:
+            x = _unit(torch, torch.randn(N, D, generator=g, device=dev))
             bias = torch.zeros(N, device=dev)
             dead = torch.randperm(N, generator=g, device=dev)[: max(1, N // 100)]
             bias[dead] = NEG_INF
@@ -166,20 +251,54 @@ def phase1(torch, topk, errs) -> dict:
             if filt:  # extra_bias: a filter excluding ~10% of rows
                 flt = torch.rand(N, generator=g, device=dev) < 0.1
                 bias = bias + torch.where(flt, NEG_INF, 0.0)
-            for kernel, B in (("K1", 1), ("K1", 5), ("K2", 96), ("K2", 256)):
-                q = _unit(torch, torch.randn(B, D, generator=g, device=dev)).to(dtype)
+            if dtype == torch.int8:
+                xv, xs = quantize.quantize_rows(x)
+                xv[17] = 0  # an all-zero row: scale 0
+                xs[17] = 0.0
+                xv[20:25] = 127  # +-127 everywhere: an int8 product would wrap
+                xv[25:30] = -127
+                xs[20:30] = 1.0 / 127
+                if dup:  # exact ties: rows 1000..1999 repeat rows 0..999
+                    xv[1000:2000] = xv[0:1000]
+                    xs[1000:2000] = xs[0:1000]
+                kernels, ks = int8, (1, 10, 100, 300)
+            else:
+                x = x.to(dtype)
                 if dup:
-                    q[0] = x[5]  # its own duplicate pair tops the list
-                for k in (1, 10, 30, 100, 300):
-                    fn = (topk.streaming_topk_cuda if kernel == "K1"
-                          else topk.streaming_topk_cuda_qmajor)
-                    s_k, i_k = fn(q, x, bias, k)
+                    x[1000:2000] = x[0:1000]
+                kernels, ks = flat, (1, 10, 30, 100, 300)
+            for kernel, B in ((0, 1), (0, 5), (1, 96), (1, 256), (2, 96), (2, 256)):
+                name = sorted(kernels)[kernel]
+                fn = kernels[name]
+                q = _unit(torch, torch.randn(B, D, generator=g, device=dev))
+                if dtype == torch.int8:
+                    qv, qs = quantize.quantize_rows(q)
+                    if dup:
+                        qv[0], qs[0] = xv[5], xs[5]  # its own duplicate pair tops the list
+                    if B > 1:
+                        qv[1] = 127  # against the +-127 rows: 127^2 * D exactly
+                        qs[1] = 1.0 / 127
+                    args = (qv, qs, xv, xs, bias)
+                    plain = quantize.streaming_topk_int8
+                    judge = int8_judge(*args)
+                else:
+                    q = q.to(dtype)
+                    if dup:
+                        q[0] = x[5]
+                    args = (q, x, bias)
+                    plain = topk.streaming_topk
+                    judge = dot_judge(q, x, bias)
+                for k in ks:
+                    s_k, i_k = fn(*args, k)
                     torch.cuda.synchronize()
-                    s_p, i_p = topk.streaming_topk(q, x, bias, k)
-                    err, n_diff, bad = check_topk(torch, q, x, bias, s_k, i_k, s_p, i_p)
-                    errs[kernel] = max(errs[kernel], err)
+                    s_p, i_p = plain(*args, k)
+                    err, n_diff, bad = check_topk(torch, None, None, None, s_k, i_k, s_p, i_p,
+                                                  judge=judge)
+                    if dtype == torch.int8:  # same f32 operations in the same order
+                        bad += int(((s_k != s_p) & (s_p > NEG_INF / 2)).sum())
+                    errs[name] = max(errs[name], err)
                     cases.append({
-                        "kernel": kernel, "dtype": str(dtype)[6:], "N": N, "B": B,
+                        "kernel": name, "dtype": str(dtype)[6:], "N": N, "B": B,
                         "k": k, "dup": dup, "filter": filt, "live": live or N,
                         "max_abs_err": err, "id_mismatches": n_diff,
                         "mismatches_outside_ties": bad})
@@ -203,7 +322,7 @@ QUERIES = [
 ]
 
 
-def phase2(torch, topk, errs) -> dict:
+def phase2(torch, mods, errs) -> dict:
     from codegraph_tpu_torch.api import CodeGraph
     from codegraph_tpu_torch.core.config import CodeGraphConfig
     from codegraph_tpu_torch.search.service import QueryService
@@ -220,8 +339,8 @@ def phase2(torch, topk, errs) -> dict:
         cfg.embedding.dimension = 768
         cfg.data_dir = os.path.join(tmp, "data")
 
-        topk.streaming_topk_cuda.launches = 0
-        topk.streaming_topk_cuda_qmajor.launches = 0
+        topk = mods["topk"]
+        reset_launches(mods)
         t0 = time.perf_counter()
         cg = CodeGraph.open(proj, config=cfg, device="cuda")
         stats = cg.index()
@@ -244,8 +363,7 @@ def phase2(torch, topk, errs) -> dict:
         svc = None
         t_service = time.perf_counter() - t0
         # the main path ends here; later launches only check results
-        launches = {"K1": topk.streaming_topk_cuda.launches,
-                    "K2": topk.streaming_topk_cuda_qmajor.launches}
+        launches = read_launches(mods)
         singles = [index.search(e[None, :], k) for e in embs]
 
         # batched (K2) vs single (K1) results on the same index
@@ -271,30 +389,7 @@ def phase2(torch, topk, errs) -> dict:
 
         # the same snapshot searched on the CPU (plain versions) as reference
         cpu = CodeGraph(cfg, device="cpu")
-        # Vector stage: the prefetch (k=30) on the card vs on the CPU,
-        # tie-aware. Hybrid stage: top-10 scores position by position,
-        # unless a tie at the prefetch boundary let a different chunk in
-        # (then the candidate sets differ legitimately and are counted).
-        bad_hybrid, diff_hybrid, err_hybrid, boundary_ties = 0, 0, 0.0, 0
-        qe = cg.indexer.provider.embed_texts(QUERIES)
-        for qt, e, got in zip(QUERIES, qe, hits):
-            s_g, i_g = index.search(e[None, :], k)
-            s_c, i_c = cpu.indexer.index.search(e[None, :], k)
-            q1 = torch.nn.functional.normalize(torch.as_tensor(e[None, :], device="cuda"), dim=1)
-            _, _, bad_v = check_topk(torch, q1, x, bias, *(torch.as_tensor(a, device="cuda")
-                                                           for a in (s_g, i_g, s_c, i_c)))
-            bad_hybrid += bad_v
-            ref = cpu.search(qt, limit=10)
-            require(len(got) == len(ref) > 0, f"phase 2: {len(got)} vs {len(ref)} hits for {qt!r}")
-            require(all(math.isfinite(a.score) for a in got), "phase 2: non-finite score")
-            if set(i_g[0].tolist()) != set(i_c[0].tolist()):
-                boundary_ties += 1
-                continue
-            for a, b in zip(got, ref):
-                d = abs(a.score - b.score)  # position by position: a swap is a tie
-                err_hybrid = max(err_hybrid, d)
-                diff_hybrid += a.node_id != b.node_id
-                bad_hybrid += d > SCORE_TOL
+        hybrid = _hybrid_vs_cpu(torch, cg, cpu, hits, k, lambda q: dot_judge(q, x, bias))
         out = {
             "phase": 2, "files": stats.files_total, "nodes": stats.nodes,
             "chunks": stats.chunks, "edges": stats.edges_total,
@@ -309,9 +404,7 @@ def phase2(torch, topk, errs) -> dict:
             "top1": [h[0].name if h else None for h in hits],
             "service_vs_single": {"max_abs_err": err_svc, "id_mismatches": diff_svc,
                                   "mismatches_outside_ties": bad_svc},
-            "hybrid_vs_cpu": {"max_abs_err": err_hybrid, "id_mismatches": diff_hybrid,
-                              "mismatches_outside_ties": bad_hybrid,
-                              "queries_with_prefetch_boundary_ties": boundary_ties},
+            "hybrid_vs_cpu": hybrid,
             "kernel_vs_plain_main_shapes": main_shapes,
         }
         emit(out)
@@ -319,7 +412,8 @@ def phase2(torch, topk, errs) -> dict:
         require(bad_svc == 0, "phase 2: service results disagree with single queries")
         require(all(v["mismatches_outside_ties"] == 0 for v in main_shapes.values()),
                 "phase 2: a kernel disagrees with its plain version at the main path's shapes")
-        require(bad_hybrid == 0, "phase 2: CUDA hybrid results disagree with the CPU path")
+        require(hybrid["mismatches_outside_ties"] == 0,
+                "phase 2: CUDA hybrid results disagree with the CPU path")
         require(launches["K1"] > 0 and launches["K2"] > 0,
                 f"phase 2: main path did not launch both kernels: {launches}")
         return out
@@ -329,18 +423,21 @@ def phase2(torch, topk, errs) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def _time_ms(torch, fn, batches):
-    """Median ms of fn(batch) over batches (one launch each, CUDA events)."""
+def _time_ms(torch, fn, batches, outs=None):
+    """Median ms of fn(batch) over batches (one launch each, CUDA events);
+    fn's results are appended to `outs` when it is given."""
     fn(batches[0])  # warm
     times = []
     for qb in batches:
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
-        fn(qb)
+        out = fn(qb)
         e1.record()
         torch.cuda.synchronize()
         times.append(e0.elapsed_time(e1))
+        if outs is not None:
+            outs.append(out)
     return statistics.median(times)
 
 
@@ -356,6 +453,14 @@ def yardstick(torch, q, x, bias, k, chunk=131072):
     s = torch.cat(ss, 1)
     v, p = torch.topk(s, k, dim=1)
     return v, torch.gather(torch.cat(ii, 1), 1, p).int()
+
+
+def _bound(nbytes: float, ops: float, dtype_name: str):
+    """(bound ms, what sets it): bytes over the memory rate or operations
+    over the peak rate of the type, whichever is larger."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_FLOPS[dtype_name] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
 def phase3(torch, topk, errs) -> list:
@@ -379,10 +484,14 @@ def phase3(torch, topk, errs) -> list:
         x, bias = idx.arrays()
         x, bias = x[:N], bias[:N]  # capacity padding is dead rows; time the live corpus
         elt = x.element_size()
-        for B, k in ((1, 30), (1, 300), (8, 30), (8, 300),
-                     (256, 30), (256, 300), (1024, 30), (1024, 300)):
-            name = "K1" if B < 32 else "K2"
-            fn = topk.streaming_topk_cuda if B < 32 else topk.streaming_topk_cuda_qmajor
+        shapes = [("K1", 1, 30), ("K1", 1, 300), ("K1", 8, 30), ("K1", 8, 300),
+                  ("K2", 256, 30), ("K2", 256, 300), ("K2", 1024, 30), ("K2", 1024, 300)]
+        if dtype_name == "float32":
+            shapes += [("K3", 256, 100), ("K3", 256, 300), ("K3", 1024, 100), ("K3", 1024, 300)]
+        flat = {"K1": topk.streaming_topk_cuda, "K2": topk.streaming_topk_cuda_qmajor,
+                "K3": topk.streaming_topk_cuda_qres}
+        for name, B, k in shapes:
+            fn = flat[name]
             batches = [
                 _unit(torch, torch.randn(B, D, generator=g, device=dev)).to(idx.dtype)
                 for _ in range(7)
@@ -397,14 +506,11 @@ def phase3(torch, topk, errs) -> list:
             s_y, i_y = yardstick(torch, qs, x, bias, k)
             err, n_diff, bad = check_topk(torch, qs, x, bias, s_k, i_k, s_y, i_y)
             errs[name] = max(errs[name], err)
-            nbytes = N * D * elt + N * 4 + B * D * elt + B * k * 8
-            flops = 2.0 * B * N * D
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
-            bound = max(t_bytes, t_ops)
+            bound, bound_by = _bound(N * D * elt + N * 4 + B * D * elt + B * k * 8,
+                                     2.0 * B * N * D, dtype_name)
             row = {"phase": 3, "kernel": name, "dtype": dtype_name, "N": N, "D": D,
                    "B": B, "k": k, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                   "bound_ms": bound, "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                   "bound_ms": bound, "bound_by": bound_by,
                    "share_of_bound": bound / ms, "max_abs_err": err,
                    "id_mismatches": n_diff, "mismatches_outside_ties": bad,
                    "index_build_seconds": round(build_s, 3)}
@@ -413,6 +519,280 @@ def phase3(torch, topk, errs) -> list:
             require(bad == 0, f"phase 3: {bad} mismatches outside ties ({name} {dtype_name} B={B} k={k})")
         del idx, x, bias
         torch.cuda.empty_cache()
+    return rows_out
+
+
+def _hybrid_vs_cpu(torch, cg, cpu, hits, k, judge) -> dict:
+    """The card's vector stage and hybrid top-10 against the same snapshot
+    searched on the CPU. Vector stage: the prefetch (k) tie-aware. Hybrid
+    stage: top-10 scores position by position, unless a tie at the
+    prefetch boundary let a different chunk in (then the candidate sets
+    differ legitimately and are counted)."""
+    index = cg.indexer.index
+    bad, diff, err, boundary_ties = 0, 0, 0.0, 0
+    qe = cg.indexer.provider.embed_texts(QUERIES)
+    for qt, e, got in zip(QUERIES, qe, hits):
+        s_g, i_g = index.search(e[None, :], k)
+        s_c, i_c = cpu.indexer.index.search(e[None, :], k)
+        q1 = torch.nn.functional.normalize(torch.as_tensor(e[None, :], device="cuda"), dim=1)
+        _, _, bad_v = check_topk(torch, None, None, None,
+                                 *(torch.as_tensor(a, device="cuda") for a in (s_g, i_g, s_c, i_c)),
+                                 judge=judge(q1))
+        bad += bad_v
+        ref = cpu.search(qt, limit=10)
+        require(len(got) == len(ref) > 0, f"{len(got)} vs {len(ref)} hits for {qt!r}")
+        require(all(math.isfinite(a.score) for a in got), "non-finite hybrid score")
+        if set(i_g[0].tolist()) != set(i_c[0].tolist()):
+            boundary_ties += 1
+            continue
+        for a, b in zip(got, ref):
+            d = abs(a.score - b.score)  # position by position: a swap is a tie
+            err = max(err, d)
+            diff += a.node_id != b.node_id
+            bad += d > SCORE_TOL
+    return {"max_abs_err": err, "id_mismatches": diff, "mismatches_outside_ties": bad,
+            "queries_with_prefetch_boundary_ties": boundary_ties}
+
+
+def phase4(torch, mods, errs) -> dict:
+    """The int8 main path: index.dtype = "int8" through the entry points."""
+    from codegraph_tpu_torch.api import CodeGraph, index_memory_budget
+    from codegraph_tpu_torch.core.config import CodeGraphConfig
+    from codegraph_tpu_torch.index.int8_flat import Int8FlatIndex
+    from codegraph_tpu_torch.search.service import QueryService
+    from codegraph_tpu_torch.utils.tuning import plan_index
+
+    quantize = mods["quantize"]
+    src = os.path.join(ROOT, "codegraph_tpu")
+    require(os.path.isdir(src), f"no JAX package source at {src} to index")
+    tmp = tempfile.mkdtemp(prefix="cg_smoke_int8_")
+    svc = None
+    try:
+        proj = os.path.join(tmp, "codegraph_tpu")
+        shutil.copytree(src, proj, ignore=shutil.ignore_patterns("__pycache__"))
+
+        def config(data):
+            cfg = CodeGraphConfig()
+            cfg.embedding.provider = "hash"
+            cfg.embedding.dimension = 768
+            cfg.data_dir = os.path.join(tmp, data)
+            return cfg
+
+        cfg = config("data")
+        cfg.index.dtype = "int8"
+        reset_launches(mods)
+        t0 = time.perf_counter()
+        cg = CodeGraph.open(proj, config=cfg, device="cuda")
+        stats = cg.index()
+        t_index = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        hits = [cg.search(qt, limit=10) for qt in QUERIES]
+        t_search = time.perf_counter() - t0
+
+        index = cg.indexer.index
+        texts = [f"{QUERIES[i % 5]} variant {i}" for i in range(64)]
+        embs = cg.indexer.provider.embed_texts(texts)
+        k = 30
+        t0 = time.perf_counter()
+        svc = QueryService.auto(index, k=k)
+        futures = [svc.submit(e) for e in embs]
+        batched = [f.result(timeout=120) for f in futures]
+        svc.close()
+        svc_stats = svc.stats
+        svc = None
+        t_service = time.perf_counter() - t0
+        # the main path ends here; later launches only check results
+        launches = read_launches(mods)
+        require(isinstance(index, Int8FlatIndex), f"phase 4 built {type(index).__name__}")
+        singles = [index.search(e[None, :], k) for e in embs]
+
+        # batched (K6) vs single (K5) final results: the rescore of the
+        # bf16 rows decides, so a tie is judged by those rows' dot product
+        qv_x, s_x, r_x, bias = index.arrays()
+        no_bias = torch.zeros_like(bias)
+
+        def rescore_judge(q):
+            return dot_judge(q, r_x, no_bias)
+
+        qn = torch.nn.functional.normalize(torch.as_tensor(embs, device="cuda"), dim=1)
+        s_b = torch.as_tensor(np.stack([b[0] for b in batched]), device="cuda")
+        i_b = torch.as_tensor(np.stack([b[1] for b in batched]), device="cuda")
+        s_1 = torch.as_tensor(np.stack([s[0][0] for s in singles]), device="cuda")
+        i_1 = torch.as_tensor(np.stack([s[1][0] for s in singles]), device="cuda")
+        err_svc, diff_svc, bad_svc = check_topk(torch, None, None, None, s_b, i_b, s_1, i_1,
+                                                judge=rescore_judge(qn))
+
+        # each kernel against its plain version at the main path's shapes
+        cand_k = min(max(k, index.rescore_k), index.capacity)
+        main_shapes = {}
+        for name, B in (("K5", 1), ("K6", 64)):
+            qv, qs = quantize.quantize_rows(qn[:B])
+            args = (qv, qs, qv_x, s_x, bias)
+            s_k, i_k = wrapper(mods, name)(*args, cand_k)
+            s_p, i_p = quantize.streaming_topk_int8(*args, cand_k)
+            e, n_d, b_d = check_topk(torch, None, None, None, s_k, i_k, s_p, i_p,
+                                     judge=int8_judge(*args))
+            b_d += int(((s_k != s_p) & (s_p > NEG_INF / 2)).sum())
+            errs[name] = max(errs[name], e)
+            main_shapes[name] = {"N": int(qv_x.shape[0]), "B": B, "k": cand_k, "max_abs_err": e,
+                                 "id_mismatches": n_d, "mismatches_outside_ties": b_d}
+
+        # the same snapshot searched on the CPU (plain versions) as reference
+        cpu = CodeGraph(cfg, device="cpu")
+        require(isinstance(cpu.indexer.index, Int8FlatIndex) and
+                cpu.indexer.index.n_rows == index.n_rows, "phase 4: CPU snapshot load")
+        hybrid = _hybrid_vs_cpu(torch, cg, cpu, hits, k, rescore_judge)
+
+        # the planner: a capacity whose bf16 rows overflow this card's
+        # budget and whose int8 rows fit
+        budget = index_memory_budget("cuda")
+        capacity = int(budget // (768 * 1.5))
+        pcfg = config("planned")
+        pcfg.index.capacity = capacity
+        planned = CodeGraph.open(proj, config=pcfg, device="cuda")
+        plan = plan_index(capacity, 768, hbm_budget_bytes=budget)
+        out = {
+            "phase": 4, "files": stats.files_total, "nodes": stats.nodes,
+            "chunks": stats.chunks, "edges": stats.edges_total,
+            "index": type(index).__name__, "index_rows": index.n_rows,
+            "index_capacity": index.capacity, "rescore_dtype": str(index.rescore_dtype),
+            "rescore_k": index.rescore_k,
+            "index_seconds": round(t_index, 3),
+            "stage_seconds": {k_: round(v, 3) for k_, v in stats.stage_seconds.items()},
+            "search_seconds_5": round(t_search, 3),
+            "search_perf": cg.indexer.search.monitor.report(),
+            "service_seconds_64": round(t_service, 3),
+            "service_batches": svc_stats.batches, "service_max_batch": svc_stats.max_batch_seen,
+            "launches": launches,
+            "top1": [h[0].name if h else None for h in hits],
+            "service_vs_single": {"max_abs_err": err_svc, "id_mismatches": diff_svc,
+                                  "mismatches_outside_ties": bad_svc},
+            "hybrid_vs_cpu": hybrid,
+            "kernel_vs_plain_main_shapes": main_shapes,
+            "plan": {"capacity": capacity, "budget_bytes": budget, "kind": pcfg.index.kind,
+                     "dtype": pcfg.index.dtype, "rescore_k": pcfg.index.rescore_k,
+                     "tile_n": plan.tile_n, "reason": plan.reason,
+                     "index": type(planned.indexer.index).__name__},
+        }
+        emit(out)
+        require(stats.nodes > 0 and stats.chunks > 0 and stats.edges_total > 0, "empty index")
+        require(bad_svc == 0, "phase 4: service results disagree with single queries")
+        require(all(v["mismatches_outside_ties"] == 0 for v in main_shapes.values()),
+                "phase 4: a kernel disagrees with its plain version at the main path's shapes")
+        require(hybrid["mismatches_outside_ties"] == 0,
+                "phase 4: CUDA hybrid results disagree with the CPU path")
+        require(launches["K5"] > 0 and launches["K6"] > 0,
+                f"phase 4: int8 main path did not launch K5 and K6: {launches}")
+        require(launches["K1"] == launches["K2"] == 0,
+                f"phase 4: int8 main path launched a flat kernel: {launches}")
+        require(pcfg.index.dtype == "int8" and isinstance(planned.indexer.index, Int8FlatIndex),
+                f"phase 4: planner chose {pcfg.index.kind}/{pcfg.index.dtype} for {capacity} rows")
+        return out
+    finally:
+        if svc is not None:
+            svc.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def int8_yardstick(torch, qv, qs, xv, xs, bias, k, chunk=131072):
+    """Chunked torch._int_mm + scales + torch.topk (library calls; used
+    only here). torch._int_mm takes more than 16 rows: a smaller batch is
+    padded with zero rows, which are dropped."""
+    B = qv.shape[0]
+    if B < 17:
+        qv = torch.cat([qv, qv.new_zeros((17 - B, qv.shape[1]))])
+    ss, ii = [], []
+    for base in range(0, xv.shape[0], chunk):
+        raw = torch._int_mm(qv, xv[base: base + chunk].t())[:B]
+        s = raw.float() * qs[:, None] * xs[base: base + chunk][None, :] + bias[base: base + chunk]
+        v, i = torch.topk(s, min(k, s.shape[1]), dim=1)
+        ss.append(v)
+        ii.append(i + base)
+    s = torch.cat(ss, 1)
+    v, p = torch.topk(s, k, dim=1)
+    return v, torch.gather(torch.cat(ii, 1), 1, p).int()
+
+
+def phase5(torch, mods, errs) -> list:
+    """Real size of the int8 tier: 10M x 768 with a bf16 rescore copy."""
+    from codegraph_tpu_torch.index.int8_flat import Int8FlatIndex
+
+    quantize = mods["quantize"]
+    dev = torch.device("cuda")
+    N, D = 10_000_000, 768
+    require(N % 8 == 0, "phase 5: torch._int_mm needs N % 8 == 0")
+    g = torch.Generator(device=dev).manual_seed(2025)
+    t0 = time.perf_counter()
+    idx = Int8FlatIndex(D, rescore_dtype="bfloat16", device="cuda")
+    idx.reserve(N)
+    for base in range(0, N, 131072):
+        idx.add(torch.randn(min(131072, N - base), D, generator=g, device=dev))
+    dead = torch.randperm(N, generator=g, device=dev)[: N // 100]
+    idx.delete(dead.cpu().numpy())
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    mem_gb = torch.cuda.memory_allocated() / 1e9
+    xv, xs, _, bias = idx.arrays()
+    xv, xs, bias = xv[:N], xs[:N], bias[:N]  # capacity padding is dead rows; time the live corpus
+    rows_out = []
+    plain_cache = {}  # K6 and K7 compute the same function: one plain timing per shape
+    for name, B, k in (("K5", 1, 100), ("K5", 1, 300), ("K5", 8, 100), ("K5", 8, 300),
+                       ("K6", 256, 100), ("K6", 256, 300), ("K6", 1024, 100), ("K6", 1024, 300),
+                       ("K7", 256, 100), ("K7", 256, 300), ("K7", 1024, 100), ("K7", 1024, 300)):
+        fn = wrapper(mods, name)
+        batches = [quantize.quantize_rows(_unit(torch, torch.randn(B, D, generator=g, device=dev)))
+                   for _ in range(7)]
+        outs = []
+        ms = _time_ms(torch, lambda b: fn(b[0], b[1], xv, xs, bias, k), batches, outs)
+        lib_ms = _time_ms(torch, lambda b: int8_yardstick(torch, b[0], b[1], xv, xs, bias, k),
+                          batches[:3])
+        if (B, k) not in plain_cache:
+            plain_cache[(B, k)] = _time_ms(
+                torch, lambda b: quantize.streaming_topk_int8(b[0], b[1], xv, xs, bias, k),
+                batches[:2])
+        # correctness: a sample of every timed batch against the yardstick
+        err, n_diff, bad = 0.0, 0, 0
+        m = min(B, 4)
+        for (qv, qs), (s_k, i_k) in zip(batches, outs):
+            args = (qv[:m].contiguous(), qs[:m].contiguous(), xv, xs, bias)
+            s_y, i_y = int8_yardstick(torch, *args, k)
+            e, d, b_ = check_topk(torch, None, None, None, s_k[:m], i_k[:m], s_y, i_y,
+                                  judge=int8_judge(*args))
+            err, n_diff, bad = max(err, e), n_diff + d, bad + b_
+        errs[name] = max(errs[name], err)
+        bound, bound_by = _bound(N * D + 8 * N + B * D + 4 * B + B * k * 8, 2.0 * B * N * D, "int8")
+        row = {"phase": 5, "kernel": name, "dtype": "int8", "N": N, "D": D, "B": B, "k": k,
+               "ms": ms, "plain_ms": plain_cache[(B, k)], "library_ms": lib_ms,
+               "bound_ms": bound, "bound_by": bound_by, "share_of_bound": bound / ms,
+               "max_abs_err": err, "sampled_rows": m * len(batches), "id_mismatches": n_diff,
+               "mismatches_outside_ties": bad, "index_build_seconds": round(build_s, 3),
+               "device_gb_allocated": round(mem_gb, 3)}
+        emit(row)
+        rows_out.append(row)
+        require(bad == 0, f"phase 5: {bad} mismatches outside ties ({name} B={B} k={k})")
+    # the index end to end: quantize, scan (K5 or K6), rescore, copy back
+    live = torch.ones(idx.capacity, dtype=torch.bool)
+    live[dead.cpu()] = False
+    live[N:] = False
+    for B in (1, 1024):
+        batches = [torch.randn(B, D, generator=g, device=dev) for _ in range(7)]
+        idx.search(batches[0], 10)  # warm
+        times = []
+        for qb in batches:
+            t0 = time.perf_counter()
+            s_np, i_np = idx.search(qb, 10)  # returns host arrays: synchronized
+            times.append((time.perf_counter() - t0) * 1e3)
+        ok = (s_np.shape == (B, 10) and np.isfinite(s_np).all() and (i_np >= 0).all()
+              and bool(live[torch.as_tensor(i_np).long()].all()))
+        row = {"phase": 5, "kind": "Int8FlatIndex.search", "N": N, "D": D, "B": B, "k": 10,
+               "rescore_k": idx.rescore_k, "ms": statistics.median(times),
+               "ms_all": [round(t, 3) for t in times], "results_ok": ok}
+        emit(row)
+        rows_out.append(row)
+        require(ok, f"phase 5: Int8FlatIndex.search at B={B} returned dead or missing rows")
+    del idx, xv, xs, bias
+    torch.cuda.empty_cache()
     return rows_out
 
 
@@ -425,7 +805,7 @@ def _on_alarm(signum, frame):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="0,1,2,3",
+    ap.add_argument("--phases", default="0,1,2,3,4,5",
                     help="comma-separated phases to run (default: all)")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",") if p.strip()}
@@ -448,15 +828,18 @@ def main(argv=None) -> int:
     signal.alarm(WATCHDOG_S)
     faulthandler.dump_traceback_later(WATCHDOG_S + 60, exit=True)
     t_all = time.perf_counter()
-    from codegraph_tpu_torch.ops import topk
+    from codegraph_tpu_torch.ops import quantize, topk
 
-    errs = {"K1": 0.0, "K2": 0.0}
+    mods = {"topk": topk, "quantize": quantize}
+    errs = {name: 0.0 for name in KERNELS}
     try:
         p0 = phase0(torch) if 0 in phases else None
         if 1 in phases:
-            phase1(torch, topk, errs)
-        p2 = phase2(torch, topk, errs) if 2 in phases else None
+            phase1(torch, topk, quantize, errs)
+        p2 = phase2(torch, mods, errs) if 2 in phases else None
         p3 = phase3(torch, topk, errs) if 3 in phases else []
+        p4 = phase4(torch, mods, errs) if 4 in phases else None
+        p5 = phase5(torch, mods, errs) if 5 in phases else []
     except (CheckFailed, TimeoutError) as exc:
         print(f"chip_smoke FAILED: {exc}", file=sys.stderr, flush=True)
         return 1
@@ -464,21 +847,25 @@ def main(argv=None) -> int:
         signal.alarm(0)
         faulthandler.cancel_dump_traceback_later()
 
+    # each kernel at one shape of its real-size phase; launches from its
+    # tier's main path (K3 and K7 are public ops that no index calls)
+    shapes = {"K1": (p3, "float32", 1, 30), "K2": (p3, "float32", 1024, 30),
+              "K3": (p3, "float32", 1024, 100), "K5": (p5, "int8", 1, 100),
+              "K6": (p5, "int8", 1024, 100), "K7": (p5, "int8", 1024, 100)}
     kernels = []
-    ref = {"K1": ("streaming_topk_cuda", 1, "codegraph_tpu/ops/topk.py:347"),
-           "K2": ("streaming_topk_cuda_qmajor", 1024, "codegraph_tpu/ops/topk.py:456")}
-    for name, (fn_name, B, replaces) in ref.items():
-        row = next((r for r in p3 if r["kernel"] == name and r["dtype"] == "float32"
-                    and r["B"] == B and r["k"] == 30), {})
+    for name, (_, fn_name, source, replaces) in KERNELS.items():
+        rows, dtype, B, k = shapes[name]
+        row = next((r for r in rows if r.get("kernel") == name and r["dtype"] == dtype
+                    and r["B"] == B and r["k"] == k), {})
+        path = p2 if name in ("K1", "K2", "K3") else p4
         kernels.append({
-            "name": f"{name} {fn_name}", "route": "cuda",
-            "source": "codegraph_tpu_torch/csrc/flat_topk.cu", "replaces": replaces,
-            "launches": p2["launches"][name] if p2 else None,
+            "name": f"{name} {fn_name}", "route": "cuda", "source": source, "replaces": replaces,
+            "launches": path["launches"][name] if path else None,
             "max_abs_err": errs[name],
             "ms": row.get("ms"), "plain_ms": row.get("plain_ms"),
             "bound_ms": row.get("bound_ms"), "bound_by": row.get("bound_by"),
             "library_ms": row.get("library_ms"),
-            "shape": f"N=1000000 D=768 f32 B={B} k=30",
+            "shape": f"N={row['N']} D=768 {dtype} B={B} k={k}" if row else None,
         })
     emit({"phase": "total", "seconds": round(time.perf_counter() - t_all, 3),
           "build_seconds": p0["build_seconds"] if p0 else None})

@@ -15,10 +15,24 @@ from __future__ import annotations
 import os
 from typing import Any, Dict, List, Optional
 
+import torch
+
 from codegraph_tpu_torch.core.config import CodeGraphConfig, load_config
 from codegraph_tpu_torch.core.types import SearchResult
 from codegraph_tpu_torch.index.flat import resolve_device
 from codegraph_tpu_torch.indexer.indexer import IndexStats, ProjectIndexer
+from codegraph_tpu_torch.utils.tuning import DEFAULT_HBM_BUDGET, apply_plan, plan_index
+
+
+def index_memory_budget(device) -> int:
+    """Bytes the planner may give the index's rows: on a CUDA device half
+    of the card's memory (the reference's ratio of budget to chip memory,
+    read from the card); on the CPU the reference's default, so that the
+    plan equals the JAX package's."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        return torch.cuda.get_device_properties(dev).total_memory // 2
+    return DEFAULT_HBM_BUDGET
 
 
 class CodeGraph:
@@ -41,12 +55,14 @@ class CodeGraph:
         device="cuda",
         **overrides: Any,
     ) -> "CodeGraph":
+        """Open a project. With auto_tune and a configured index.capacity,
+        the planner (`utils/tuning.py`) picks the index tier for that many
+        rows within `index_memory_budget(device)`."""
         cfg = config or load_config(overrides=overrides or None)
         cfg.project_root = os.path.abspath(project_root)
         if auto_tune and cfg.index.kind == "flat" and cfg.index.capacity:
-            raise NotImplementedError(
-                "index planning for a configured capacity (utils/tuning.py "
-                "plan_index) is not ported yet: ROADMAP item 7")
+            apply_plan(cfg, plan_index(cfg.index.capacity, cfg.embedding.dimension,
+                                       hbm_budget_bytes=index_memory_budget(device)))
         return cls(cfg, device=device)
 
     # -- lifecycle ---------------------------------------------------------
@@ -75,4 +91,4 @@ class CodeGraph:
         }
 
 
-__all__ = ["CodeGraph"]
+__all__ = ["CodeGraph", "index_memory_budget"]

@@ -1,1 +1,8 @@
-"""Vector indexes: the flat exact index and its snapshots."""
+"""Vector indexes: the flat exact index, the int8 flat index and their
+snapshots."""
+
+from codegraph_tpu_torch.index.flat import FlatIndex
+from codegraph_tpu_torch.index.int8_flat import Int8FlatIndex
+from codegraph_tpu_torch.index.snapshot import load_arrays, save_arrays
+
+__all__ = ["FlatIndex", "Int8FlatIndex", "save_arrays", "load_arrays"]

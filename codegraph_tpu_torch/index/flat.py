@@ -71,8 +71,8 @@ class FlatIndex:
             raise ValueError(f"unknown metric {metric!r}")
         if dtype == "int8":
             raise NotImplementedError(
-                "index.dtype 'int8' (Int8FlatIndex, kernels K5/K6) is not "
-                "ported yet: ROADMAP item 7")
+                "FlatIndex holds float32 or bfloat16 rows; the int8 tier is "
+                "Int8FlatIndex (index/int8_flat.py)")
         if dtype not in _DTYPES:
             raise ValueError(f"unknown dtype {dtype!r}")
         self.dim = int(dim)

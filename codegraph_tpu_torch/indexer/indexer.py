@@ -1,7 +1,7 @@
 """Port of `codegraph_tpu/indexer/indexer.py` for `index.kind = "flat"`
-(float32 or bfloat16 rows); the other index tiers raise NotImplementedError.
-Flat snapshots use the same .npy + manifest format as the JAX package, so
-either package loads the other's.
+(float32, bfloat16 or int8 rows); the IVF tiers raise NotImplementedError.
+Flat and int8 snapshots use the same .npy + manifest format as the JAX
+package, so either package loads the other's.
 
 ProjectIndexer: the full build pipeline.
 
@@ -30,6 +30,7 @@ from codegraph_tpu_torch.core.config import CodeGraphConfig
 from codegraph_tpu_torch.core.types import CodeChunk, CodeNode
 from codegraph_tpu_torch.graph.store import GraphStore
 from codegraph_tpu_torch.index.flat import FlatIndex
+from codegraph_tpu_torch.index.int8_flat import Int8FlatIndex
 from codegraph_tpu_torch.indexer.resolve import EdgeResolver
 from codegraph_tpu_torch.models.providers import create_provider
 from codegraph_tpu_torch.parser.chunker import ChunkerConfig, build_chunk_plan
@@ -71,7 +72,6 @@ class IndexStats:
 UNPORTED_INDEXES = {
     "ivf": "ROADMAP item 10 (kmeans + IVFIndex)",
     "ivfpq": "ROADMAP item 11 (PQ/OPQ + IVFPQIndex, kernel K8)",
-    "int8": "ROADMAP item 7 (Int8FlatIndex, kernels K5/K6)",
 }
 
 
@@ -84,10 +84,8 @@ def _make_index(cfg: CodeGraphConfig, dim: Optional[int] = None, device="cuda"):
         raise NotImplementedError(
             f"index.kind {icfg.kind!r} is not ported yet: "
             f"{UNPORTED_INDEXES[icfg.kind]}")
-    if icfg.dtype in UNPORTED_INDEXES:
-        raise NotImplementedError(
-            f"index.dtype {icfg.dtype!r} is not ported yet: "
-            f"{UNPORTED_INDEXES[icfg.dtype]}")
+    if icfg.dtype == "int8":
+        return Int8FlatIndex(dim, metric=icfg.metric, rescore_k=icfg.rescore_k, device=device)
     return FlatIndex(dim, metric=icfg.metric, dtype=icfg.dtype, device=device)
 
 
@@ -415,19 +413,28 @@ class ProjectIndexer:
         return directory
 
     def _save_index(self, directory: str) -> None:
-        """Persist via the mmap snapshot format (index/snapshot.py); rows
-        are saved as f32 whatever the storage dtype, as the JAX package
-        does."""
+        """Persist via the mmap snapshot format (index/snapshot.py), as the
+        JAX package does: flat rows as f32 whatever the storage dtype; int8
+        rows with their scales, and the rescore copy as f32."""
         from codegraph_tpu_torch.index.snapshot import save_arrays
 
-        x, bias = self.index.arrays()
-        if x is None:
-            return
         meta = {"n_rows": self.index.n_rows, "n_live": self.index.n_live,
-                "dim": self.index.dim, "kind": "flat"}
-        save_arrays(directory, {
-            "x": x.float().cpu().numpy(), "bias": bias.cpu().numpy(),
-        }, meta)
+                "dim": self.index.dim}
+        if isinstance(self.index, Int8FlatIndex):
+            q, s, r, bias = self.index.arrays()
+            if q is None:
+                return
+            meta["kind"] = "int8"
+            arrays = {"q": q.cpu().numpy(), "s": s.cpu().numpy(), "bias": bias.cpu().numpy()}
+            if r is not None:
+                arrays["r"] = r.float().cpu().numpy()
+        else:
+            x, bias = self.index.arrays()
+            if x is None:
+                return
+            meta["kind"] = "flat"
+            arrays = {"x": x.float().cpu().numpy(), "bias": bias.cpu().numpy()}
+        save_arrays(directory, arrays, meta)
 
     def load(self, directory: Optional[str] = None) -> None:
         directory = directory or str(self.config.resolved_data_dir())
@@ -441,10 +448,15 @@ class ProjectIndexer:
                 raise NotImplementedError(
                     f"snapshot index kind {kind!r} is not ported yet: "
                     f"{UNPORTED_INDEXES[kind]}")
-            if kind == "flat":
+            if kind == "flat" and isinstance(self.index, FlatIndex):
                 self.index.load_arrays(
                     arrays["x"], arrays["bias"], int(meta["n_rows"]),
                     int(meta["n_live"]),
+                )
+            elif kind == "int8" and isinstance(self.index, Int8FlatIndex):
+                self.index.load_arrays(
+                    arrays["q"], arrays["s"], arrays.get("r"),
+                    arrays["bias"], int(meta["n_rows"]), int(meta["n_live"]),
                 )
         # rebuild BM25 from the store (derived state)
         self.bm25 = BM25Index()

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (`codegraph_tpu_torch/csrc/*.cu`).
 
 Each source is compiled with plain `nvcc` into a shared library with a C
-interface, keyed by a hash of the source and the flags, into
+interface, keyed by a hash of the source, the shared headers
+(`csrc/*.cuh`) and the flags, into
 `codegraph_tpu_torch/_build/` (ignored by git), and loaded with ctypes.
 Nothing here runs at import time: the first call that launches a kernel
 builds it. A failed build raises with nvcc's output; nothing falls back.
@@ -52,6 +53,7 @@ def find_nvcc() -> str:
 
 def library_path(name: str, nvcc: str) -> Path:
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
     key = hashlib.sha256(src + " ".join((nvcc,) + NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{key.hexdigest()[:16]}.so"
 

@@ -1,18 +1,21 @@
 """Exact streaming top-k over a device-resident embedding matrix.
 
-Port of `codegraph_tpu/ops/topk.py` (K1 `streaming_topk_pallas` and K2
-`streaming_topk_pallas_qmajor`; K3/K4 are not ported yet). Scores are
-`q @ x.T + bias` in f32 (a bf16 corpus is widened to f32), and each query
-row keeps its k best rows, sorted descending.
+Port of `codegraph_tpu/ops/topk.py` (K1 `streaming_topk_pallas`, K2
+`streaming_topk_pallas_qmajor` and K3 `streaming_topk_pallas_qres`; K4 is
+not ported yet). Scores are `q @ x.T + bias` in f32 (a bf16 corpus is
+widened to f32), and each query row keeps its k best rows, sorted
+descending.
 
 * `exact_topk`, `merge_topk`, `streaming_topk` are the plain PyTorch
   versions: a matmul per row tile, then a merge by a stable sort of the
   running top-k and the tile. `streaming_topk` is what the kernels are
   held to; `exact_topk` is its small-N oracle.
-* `streaming_topk_cuda` (K1, small batches) and `streaming_topk_cuda_qmajor`
-  (K2, large batches) launch the hand-written kernel in
-  `csrc/flat_topk.cu` on CUDA tensors, and run `streaming_topk` on CPU
-  tensors. On a CUDA tensor they launch or raise; nothing falls back.
+* `streaming_topk_cuda` (K1, small batches), `streaming_topk_cuda_qmajor`
+  (K2, large batches) and `streaming_topk_cuda_qres` (K3, K2 with each
+  block's query tile resident in shared memory) launch the hand-written
+  kernel in `csrc/flat_topk.cu` on CUDA tensors, and run `streaming_topk`
+  on CPU tensors. On a CUDA tensor they launch or raise; nothing falls
+  back.
 
 Order and sentinels, shared by every version: a higher score wins; on
 equal scores the lower row id wins. The running top-k starts as
@@ -35,9 +38,12 @@ MAX_K = 1024
 
 #: pass-1 layouts of csrc/flat_topk.cu: K1 = column warps (the 8 warps
 #: share up to 8 query rows and split a 256-row corpus tile), K2 = row
-#: warps (8 groups of tm query rows over a 128-row corpus tile)
-K1_LAYOUT, K2_LAYOUT = 0, 1
-CORPUS_TILE = {K1_LAYOUT: 256, K2_LAYOUT: 128}
+#: warps (8 groups of tm query rows over a 128-row corpus tile), K3 = row
+#: warps whose query tile stays resident in shared memory for the block's
+#: whole corpus split. csrc/int8_topk.cu numbers K5/K6/K7 the same way,
+#: with the same corpus tiles and query tiles of tm or 8 * tm rows.
+K1_LAYOUT, K2_LAYOUT, K3_LAYOUT = 0, 1, 2
+CORPUS_TILE = {K1_LAYOUT: 256, K2_LAYOUT: 128, K3_LAYOUT: 128}
 #: K2 takes the largest tm (query tile 8 * tm) whose top-k lists fit
 #: K2_SMEM_BYTES of shared memory. Larger tm means fewer shared-memory
 #: reads per FMA, but above ~112 KB a block holds an SM alone, and for
@@ -46,7 +52,7 @@ K2_TMS = (16, 8, 4, 2, 1)
 K2_SMEM_BYTES = 112 * 1024
 #: pass 1 aims at this many blocks per kernel (4 or 2 per SM of an H100);
 #: pass 2 merges MERGE_GROUP per-split lists per warp and level
-TARGET_BLOCKS = {K1_LAYOUT: 4 * 132, K2_LAYOUT: 2 * 132}
+TARGET_BLOCKS = {K1_LAYOUT: 4 * 132, K2_LAYOUT: 2 * 132, K3_LAYOUT: 2 * 132}
 MERGE_GROUP = 16
 
 
@@ -104,7 +110,7 @@ def streaming_topk(
 
 
 # ---------------------------------------------------------------------------
-# K1 / K2: hand-written CUDA kernel (csrc/flat_topk.cu)
+# K1 / K2 / K3: hand-written CUDA kernel (csrc/flat_topk.cu)
 # ---------------------------------------------------------------------------
 
 _lib_handle = None
@@ -120,7 +126,7 @@ def _lib():
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.flat_topk.argtypes = [p, p, i, p, i, i, i, i, i, i, i, i, i, p, p, p, p, p]
         lib.flat_topk.restype = i
-        lib.flat_topk_pass1_smem.argtypes = [i, i, i]
+        lib.flat_topk_pass1_smem.argtypes = [i, i, i, i]
         lib.flat_topk_pass1_smem.restype = ll
         lib.flat_topk_work_entries.argtypes = [i, i, i, i]
         lib.flat_topk_work_entries.restype = ll
@@ -179,8 +185,7 @@ def _launch(q, x, bias, k: int, layout: int, tm: int):
     B, D = q.shape
     N = x.shape[0]
     q = q.float().contiguous()  # bf16 queries widen exactly
-    tile_b = tm if layout == K1_LAYOUT else 8 * tm
-    splits, rows = _plan(B, N, layout, tile_b)
+    splits, rows = _plan(B, N, layout, query_tile(layout, tm))
     out_s = torch.empty((B, k), dtype=torch.float32, device=q.device)
     out_i = torch.empty((B, k), dtype=torch.int32, device=q.device)
     n_work = max(1, lib.flat_topk_work_entries(B, k, splits, MERGE_GROUP))
@@ -203,16 +208,24 @@ def k1_tm(B: int) -> int:
     return next(tm for tm in (1, 2, 4, 8) if tm >= min(B, 8))
 
 
-def k2_tm(B: int, k: int) -> int:
-    """K2's micro-tile rows: the largest whose lists fit, and no larger
-    than the batch needs (a query tile of 8 * tm rows)."""
-    lib = _lib()
-    for tm in K2_TMS:
-        if tm > 1 and 4 * tm >= B:
+def query_tile(layout: int, tm: int) -> int:
+    """Query rows per block: tm for column warps, 8 * tm for row warps."""
+    return tm if layout == K1_LAYOUT else 8 * tm
+
+
+def row_warps_tm(pass1_smem, layout: int, B: int, k: int, D: int, tms=K2_TMS,
+                 budget: int = K2_SMEM_BYTES) -> int:
+    """Micro-tile rows of a row-tile layout (query tile 8 * tm): the
+    largest of `tms` whose pass-1 shared memory (`pass1_smem(layout, tm,
+    k, D)`: lists, operand tiles and, for a resident query tile, the tile)
+    fits `budget`, and no larger than the batch needs; the smallest when
+    none fits (the launch then reports it)."""
+    for tm in tms:
+        if tm > tms[-1] and 4 * tm >= B:
             continue  # half the tile would be padding
-        if lib.flat_topk_pass1_smem(K2_LAYOUT, tm, k) <= K2_SMEM_BYTES:
+        if pass1_smem(layout, tm, k, D) <= budget:
             return tm
-    return K2_TMS[-1]
+    return tms[-1]
 
 
 def streaming_topk_cuda(
@@ -242,14 +255,36 @@ def streaming_topk_cuda_qmajor(
     if _on_cpu(q, x, bias):
         return streaming_topk(q, x, bias, k, tile_n)
     _check(q, x, bias, k)
-    out = _launch(q, x, bias, k, K2_LAYOUT, k2_tm(q.shape[0], k))
+    B, D = q.shape
+    tm = row_warps_tm(_lib().flat_topk_pass1_smem, K2_LAYOUT, B, k, D)
+    out = _launch(q, x, bias, k, K2_LAYOUT, tm)
     with _count_lock:
         streaming_topk_cuda_qmajor.launches += 1
     return out
 
 
+def streaming_topk_cuda_qres(
+    q: torch.Tensor, x: torch.Tensor, bias: torch.Tensor, k: int,
+    tile_n: int = DEFAULT_TILE_N,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3: K2 with each block's query tile resident in shared memory for
+    its whole corpus split, so that only the corpus streams (the resident
+    tile costs shared memory, so it is smaller than K2's at large D).
+    Same contract as `streaming_topk_cuda`."""
+    if _on_cpu(q, x, bias):
+        return streaming_topk(q, x, bias, k, tile_n)
+    _check(q, x, bias, k)
+    B, D = q.shape
+    tm = row_warps_tm(_lib().flat_topk_pass1_smem, K3_LAYOUT, B, k, D)
+    out = _launch(q, x, bias, k, K3_LAYOUT, tm)
+    with _count_lock:
+        streaming_topk_cuda_qres.launches += 1
+    return out
+
+
 streaming_topk_cuda.launches = 0
 streaming_topk_cuda_qmajor.launches = 0
+streaming_topk_cuda_qres.launches = 0
 
 
 __all__ = [
@@ -261,4 +296,5 @@ __all__ = [
     "streaming_topk",
     "streaming_topk_cuda",
     "streaming_topk_cuda_qmajor",
+    "streaming_topk_cuda_qres",
 ]

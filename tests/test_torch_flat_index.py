@@ -156,5 +156,5 @@ def test_cuda_without_gpu_raises():
 
 
 def test_unported_dtype_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
+    with pytest.raises(NotImplementedError, match="Int8FlatIndex"):
         TFlat(64, dtype="int8", device="cpu")

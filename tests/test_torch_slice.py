@@ -10,6 +10,12 @@ tie within that bound). Snapshots written by either package load in the
 other. Files are parsed on a thread pool in completion order (in both
 packages), so row ids may differ between two runs: rows are compared by
 chunk id.
+
+The same run on the int8 tier (`index.dtype = "int8"`: Int8FlatIndex with
+its bf16 rescore copy) holds the banks to the JAX index's (an int8 element
+may land one step away, at most 1 in 1,000, where the f32 norms differ in
+the last bit; scales within 1e-6 relative; bf16 rows within one bf16
+step) and the hybrid results to the same 1e-5.
 """
 
 import os
@@ -227,8 +233,6 @@ def test_adjacency_boost_matches_jax(rng, B, K, n, deg):
     (("embedding", "provider", "openai"), "ROADMAP item 6"),
     (("index", "kind", "ivf"), "ROADMAP item 10"),
     (("index", "kind", "ivfpq"), "ROADMAP item 11"),
-    (("index", "dtype", "int8"), "ROADMAP item 7"),
-    (("index", "capacity", 4096), "ROADMAP item 7"),
 ])
 def test_unported_configurations_raise(tmp_path, override, item):
     cfg = _cfg(TConfig, tmp_path / "d")
@@ -236,3 +240,126 @@ def test_unported_configurations_raise(tmp_path, override, item):
     setattr(getattr(cfg, section), key, value)
     with pytest.raises(NotImplementedError, match=item):
         TCodeGraph.open(str(tmp_path), config=cfg, device="cpu")
+
+
+@pytest.mark.parametrize("override,tier", [
+    (("index", "dtype", "int8"), ("Int8FlatIndex", "int8")),
+    (("index", "capacity", 4096), ("FlatIndex", "float32")),  # planned: small corpus, exact f32
+])
+def test_configurations_of_this_slice_open(tmp_path, override, tier):
+    """The two configurations that raised before the int8 slice: both
+    packages build the same tier and answer alike."""
+    proj = tmp_path / "proj"
+    proj.mkdir()
+    (proj / "a.py").write_text("def alpha(x):\n    return beta(x) + 1\n\n"
+                               "def beta(y):\n    return y * 2\n")
+    (proj / "b.py").write_text("from a import alpha\n\nclass Gamma:\n"
+                               "    def run(self):\n        return alpha(3)\n")
+    section, key, value = override
+    graphs = []
+    for cls, gcls, kw in ((JConfig, JCodeGraph, {}), (TConfig, TCodeGraph, {"device": "cpu"})):
+        cfg = _cfg(cls, tmp_path / cls.__module__.split(".")[0])
+        setattr(getattr(cfg, section), key, value)
+        graphs.append(gcls.open(str(proj), config=cfg, **kw))
+    j, t = graphs
+    assert (type(t.indexer.index).__name__, t.config.index.dtype) == tier
+    assert type(j.indexer.index).__name__ == tier[0] and j.config.index.dtype == tier[1]
+    j.index()
+    t.index()
+    assert len(j.indexer.index) == len(t.indexer.index) > 0
+    _assert_hits_equal(j.search("alpha beta"), t.search("alpha beta"))
+
+
+# ---------------------------------------------------------------------------
+# the same slice on the int8 tier (Int8FlatIndex with its bf16 rescore copy)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def built_int8(tmp_path_factory):
+    root = tmp_path_factory.mktemp("slice_int8")
+    proj = root / "proj"
+    shutil.copytree(os.path.join(REPO, "codegraph_tpu", "parser"), proj,
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    jcfg, tcfg = _cfg(JConfig, root / "jax_data"), _cfg(TConfig, root / "torch_data")
+    jcfg.index.dtype = tcfg.index.dtype = "int8"
+    j = JCodeGraph.open(str(proj), config=jcfg)
+    t = TCodeGraph.open(str(proj), config=tcfg, device="cpu")
+    return {"root": root, "proj": proj, "j": j, "t": t, "js": j.index(), "ts": t.index()}
+
+
+def _int8_cfg(cls, data_dir, proj):
+    cfg = _cfg(cls, data_dir)
+    cfg.index.dtype = "int8"
+    cfg.project_root = str(proj)
+    return cfg
+
+
+def test_int8_index_banks_match_jax(built_int8):
+    """The int8 rows, scales and rescore rows, compared by chunk id."""
+    jq, js_, jr, jb = (np.asarray(a, np.float32) for a in built_int8["j"].indexer.index.arrays())
+    tq, ts_, tr, tb = built_int8["t"].indexer.index.arrays()
+    assert tq.shape == jq.shape and tq.dtype == torch.int8 and tr.dtype == torch.bfloat16
+    jrows = built_int8["j"].indexer.store.chunk_rows
+    trows = built_int8["t"].indexer.store.chunk_rows
+    assert jrows.keys() == trows.keys()
+    ids = sorted(jrows)
+    jr_ = np.asarray([jrows[c] for c in ids])
+    tr_ = np.asarray([trows[c] for c in ids])
+    dq = np.abs(tq.numpy()[tr_].astype(np.float32) - jq[jr_])
+    assert dq.max() <= 1 and (dq > 0).mean() <= 1e-3  # a last-bit norm difference
+    np.testing.assert_allclose(ts_.numpy()[tr_], js_[jr_], rtol=1e-6, atol=0)
+    np.testing.assert_allclose(tr.float().numpy()[tr_], jr[jr_], rtol=2.0**-7, atol=0)
+    np.testing.assert_array_equal(tb.numpy()[tr_], jb[jr_])
+
+
+@pytest.mark.parametrize("query", QUERIES)
+def test_int8_hybrid_search_top10_matches_jax(built_int8, query):
+    a = built_int8["j"].search(query, limit=10)
+    b = built_int8["t"].search(query, limit=10)
+    _assert_hits_equal(a, b)
+    assert [h.node_id for h in a][:3] == [h.node_id for h in b][:3]
+
+
+def test_int8_snapshot_written_by_port_loads_in_jax(built_int8):
+    root = built_int8["root"]
+    jl = JIndexer(_int8_cfg(JConfig, root / "torch_data", built_int8["proj"]))
+    jl.load(str(root / "torch_data"))
+    assert jl.index.n_live == len(built_int8["t"].indexer.index)
+    assert np.asarray(jl.index.arrays()[0]).dtype == np.int8
+    for q in QUERIES[:2]:
+        _assert_hits_equal(jl.search.search_text(q, 10), built_int8["t"].search(q, 10))
+
+
+def test_int8_snapshot_written_by_jax_loads_in_port(built_int8):
+    root = built_int8["root"]
+    tl = TIndexer(_int8_cfg(TConfig, root / "jax_data", built_int8["proj"]), device="cpu")
+    tl.load(str(root / "jax_data"))
+    jidx = built_int8["j"].indexer.index
+    assert (tl.index.n_live, tl.index.n_rows) == (len(jidx), jidx.n_rows)
+    np.testing.assert_array_equal(tl.index.arrays()[0].numpy(), np.asarray(jidx.arrays()[0]))
+    for q in QUERIES[:2]:
+        _assert_hits_equal(tl.search.search_text(q, 10), built_int8["j"].search(q, 10))
+
+
+def test_int8_query_service_batches_match_single_queries(built_int8):
+    """64-query flushes (a K6 batch on the card) against single (K5)
+    searches of the same index."""
+    index = built_int8["t"].indexer.index
+    embs = built_int8["t"].indexer.provider.embed_texts(
+        [f"{q} {i}" for i, q in enumerate(QUERIES * 10)])
+    svc = QueryService.auto(index, k=10)
+    try:
+        got = [f.result(timeout=60) for f in [svc.submit(e) for e in embs]]
+    finally:
+        svc.close()
+    assert svc.stats.queries == len(embs)
+    s_b = np.stack([g[0] for g in got])
+    i_b = np.stack([g[1] for g in got])
+    singles = [index.search(e[None, :], 10) for e in embs]
+    s_1 = np.concatenate([s for s, _ in singles])
+    i_1 = np.concatenate([i for _, i in singles])
+    _, _, r, _ = index.arrays()
+    qn = embs / np.maximum(np.linalg.norm(embs, axis=1, keepdims=True), 1e-6)
+    # the final scores are the bf16 rescore rows' dot products: they judge ties
+    assert_topk_equiv(s_b, i_b, s_1, i_1, qn, r.float().numpy(), np.zeros(r.shape[0], np.float32))

@@ -34,16 +34,18 @@ def _unit(a):
     return (a / np.maximum(n, 1e-6)).astype(np.float32)
 
 
-def assert_topk_equiv(s, i, ref_s, ref_i, q, x, bias, tol=TOL):
+def assert_topk_equiv(s, i, ref_s, ref_i, q, x, bias, tol=TOL, true=None):
     """Scores equal within tol, sentinels at the same places, and an id that
-    differs from the reference's only where its true score ties."""
+    differs from the reference's only where its true score ties. `true`
+    ([B, N] scores) replaces q @ x.T + bias as the judge of a tie."""
     s, i = np.asarray(s, np.float64), np.asarray(i)
     ref_s, ref_i = np.asarray(ref_s, np.float64), np.asarray(ref_i)
     live = ref_s > ttopk.NEG_INF / 2
     assert np.array_equal(s > ttopk.NEG_INF / 2, live)
     np.testing.assert_allclose(s[live], ref_s[live], rtol=0, atol=tol)
-    true = (np.asarray(q, np.float64) @ np.asarray(x, np.float64).T
-            + np.asarray(bias, np.float64)[None, :])
+    if true is None:
+        true = (np.asarray(q, np.float64) @ np.asarray(x, np.float64).T
+                + np.asarray(bias, np.float64)[None, :])
     for b, p in zip(*np.nonzero((i != ref_i) & live)):
         assert abs(true[b, i[b, p]] - ref_s[b, p]) <= tol, (b, p, i[b, p], ref_i[b, p])
     for b in range(i.shape[0]):
@@ -107,15 +109,17 @@ def test_merge_topk_matches_jax(rng):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("kernel,B,k", [("K1", 5, 10), ("K1", 8, 30), ("K2", 64, 10), ("K2", 64, 100)])
+@pytest.mark.parametrize("kernel,B,k", [("K1", 5, 10), ("K1", 8, 30), ("K2", 64, 10),
+                                        ("K2", 64, 100), ("K3", 64, 10), ("K3", 40, 100)])
 def test_kernel_wrappers_match_jax_pallas(rng, dtype, kernel, B, k):
-    """K1/K2 wrappers (plain path on CPU tensors) vs the Pallas kernels in
-    interpret mode, with tombstones, on the same f32 or bf16 inputs."""
+    """K1/K2/K3 wrappers (plain path on CPU tensors) vs the Pallas kernels
+    in interpret mode, with tombstones, on the same f32 or bf16 inputs."""
     N, D = 512, 64
     q, x, bias = _case(rng, B, N, D, dead_frac=0.01)
     jfn, tfn, tile_b = {
         "K1": (jtopk.streaming_topk_pallas, ttopk.streaming_topk_cuda, 8),
         "K2": (jtopk.streaming_topk_pallas_qmajor, ttopk.streaming_topk_cuda_qmajor, 64),
+        "K3": (jtopk.streaming_topk_pallas_qres, ttopk.streaming_topk_cuda_qres, 16),
     }[kernel]
     jd = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
     qpad = np.zeros((-(-B // tile_b) * tile_b, D), np.float32)
@@ -143,7 +147,8 @@ def test_same_lane_position_collisions_match_jax(rng):
             x[(j * 128 + b) % N] += mult * q[b]
     bias = np.zeros(N, np.float32)
     js, ji = jtopk.streaming_topk_pallas(q, x, bias, k, tile_n=256, tile_b=8, interpret=True)
-    for fn in (ttopk.streaming_topk_cuda, ttopk.streaming_topk_cuda_qmajor):
+    for fn in (ttopk.streaming_topk_cuda, ttopk.streaming_topk_cuda_qmajor,
+               ttopk.streaming_topk_cuda_qres):
         ts, ti = fn(*_t(q, x, bias), k, tile_n=256)
         np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
         np.testing.assert_allclose(ts.numpy(), np.asarray(js), rtol=1e-6, atol=1e-4)
@@ -195,6 +200,7 @@ def test_ties_lower_row_id_wins(rng):
     (1, 1_000_000, ttopk.K1_LAYOUT, 1), (1024, 1_000_000, ttopk.K2_LAYOUT, 32),
     (5, 200, ttopk.K1_LAYOUT, 8), (96, 100003, ttopk.K2_LAYOUT, 64),
     (1, 1, ttopk.K1_LAYOUT, 1), (3000, 5120, ttopk.K2_LAYOUT, 64),
+    (1024, 10_000_000, ttopk.K3_LAYOUT, 32), (256, 5120, ttopk.K3_LAYOUT, 16),
 ])
 def test_kernel_plan_covers_corpus(B, N, layout, tile_b):
     """The split plan handed to the CUDA kernel: whole corpus tiles per
@@ -266,10 +272,35 @@ def test_combine_bias_matches_jax(rng):
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA GPU: the K1/K2 kernels have no CPU mode")
+        pytest.skip("needs a CUDA GPU: the CUDA kernels have no CPU mode")
     return torch.device("cuda")
 
 
+@pytest.mark.parametrize("B,k,want", [(1024, 30, 16), (1024, 300, 4), (64, 30, 8),
+                                      (2, 30, 1), (1024, 10**6, 1)])
+def test_row_warps_tile_choice(B, k, want):
+    """The row-warp micro tile (K2/K3/K6/K7) is the largest whose pass-1
+    shared memory fits K2_SMEM_BYTES, never larger than the batch needs,
+    and the smallest one when none fits (the launch then reports it)."""
+    lists = lambda layout, tm, k_, D: 8 * tm * k_ * 8  # [8 tm, k] scores + ids
+    assert ttopk.row_warps_tm(lists, ttopk.K2_LAYOUT, B, k, 768) == want
+    assert ttopk.query_tile(ttopk.K2_LAYOUT, want) == 8 * want
+    assert ttopk.query_tile(ttopk.K1_LAYOUT, 4) == 4
+
+
+@pytest.mark.parametrize("B,k,want", [(1024, 100, 16), (1024, 300, 8), (64, 100, 8),
+                                      (32, 10, 4), (1, 10, 2), (1024, 1024, 2)])
+def test_tensor_core_tile_choice(B, k, want):
+    """K6/K7 (int8, tensor cores): query tiles of 16 to 128 rows, the
+    largest whose lists fit the card's 227 KB beside ~100 KB of tiles."""
+    from codegraph_tpu_torch.ops import quantize as tq
+
+    smem = lambda layout, tm, k_, D: 8 * tm * (k_ * 8 + 700) + 18_432
+    assert tq.row_warps_tm(smem, ttopk.K2_LAYOUT, B, k, 768, tq.MMA_TMS,
+                           tq.MMA_SMEM_BYTES) == want
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_kernels_match_plain_on_card(cuda_device, dtype):
     rng = np.random.default_rng(1)
@@ -277,7 +308,8 @@ def test_kernels_match_plain_on_card(cuda_device, dtype):
     td = getattr(torch, dtype)
     tq, tx, tb = (t.to(cuda_device) for t in _t(q, x, bias))
     tq, tx = tq.to(td), tx.to(td)
-    for fn, B in ((ttopk.streaming_topk_cuda, 3), (ttopk.streaming_topk_cuda_qmajor, 70)):
+    for fn, B in ((ttopk.streaming_topk_cuda, 3), (ttopk.streaming_topk_cuda_qmajor, 70),
+                  (ttopk.streaming_topk_cuda_qres, 70)):
         for k in (1, 30, 300):
             ks, ki = fn(tq[:B].contiguous(), tx, tb, k)
             ps, pi = ttopk.streaming_topk(tq[:B], tx, tb, k)
