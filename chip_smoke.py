@@ -1,23 +1,30 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (`codegraph_tpu_torch`) on one NVIDIA GPU.
 
-    python3 chip_smoke.py                # all phases, one card
-    python3 chip_smoke.py --phases 0,1   # build + kernel checks only
-    python3 chip_smoke.py --phases 0,4,5 # the int8 tier only
+    python3 chip_smoke.py                  # all phases, one card
+    python3 chip_smoke.py --phases 0,1     # build + kernel checks only
+    python3 chip_smoke.py --phases 0,4,5   # the int8 tier only
+    python3 chip_smoke.py --phases 0,1,6,7 # the IVF tiers (K8) only
 
 Phases, each printing one JSON object per line as it ends:
 
   0  card name and power limit, torch and nvcc versions; builds the CUDA
-     kernels from csrc/ (flat_topk.cu and int8_topk.cu, one nvcc each, in
-     parallel) and prints the build seconds and ptxas lines.
+     sources from csrc/ (flat_topk.cu, int8_topk.cu, ivfpq_adc.cu and the
+     host helper ivf_spill.cu, one nvcc each, in parallel) and prints the
+     build seconds and ptxas lines.
   1  every kernel against its plain PyTorch version on the card. K1, K2
      and K3: f32 and bf16 corpora up to 131,072 x 768, k in {1, 10, 30,
      100, 300}. K5, K6 and K7: int8 corpora of the same sizes, k in {1, 10,
      100, 300}, with an all-zero row (scale 0) and rows of +-127 everywhere
      (an int8 wrap would show). Both: a ragged N, 1% tombstones, an
      extra_bias filter, k above the live count, duplicate rows (exact
-     ties), batches on both sides of 32. Fails on any id mismatch outside
-     ties.
+     ties), batches on both sides of 32. K4: K2's cases on xt = x.T. K8:
+     synthetic IVF-PQ cells, m in {8, 16, 96}, ksub in {16, 256}, nprobe in
+     {1, 8, 64, nlist}, k from 1 to 20,000 (above the live probed slots,
+     above pass 2's shared memory, a list in device memory), 1% tombstones,
+     duplicate slots (exact ties), batches on both sides of 256; and the
+     compiled spill placement against the Python loop on overflowing cells.
+     Fails on any id mismatch outside ties.
   2  the main path: CodeGraph.open(<copy of codegraph_tpu/>, device="cuda")
      with the hash provider at D=768, .index(), .search() for 5 queries
      (checked against the same snapshot searched on the CPU), then 64
@@ -27,9 +34,10 @@ Phases, each printing one JSON object per line as it ends:
   3  real size: FlatIndex of 1,000,000 x 768 rows, f32 then bf16, made on
      the card from a seeded generator, 1% tombstoned; K1 at B=1 and 8, K2
      at B=256 and 1024, k=30 and 300, and K3 (f32) at B=256 and 1024, k=100
-     and 300: median kernel ms over 7 batches (CUDA events), the plain
-     version's ms, a chunked matmul + topk yardstick (library_ms, checked
-     against), and the bound.
+     and 300, K3 (f32) at B=256 and 1024, k=100 and 300, and K4 (f32, on
+     xt = x.T) at B=1024, k=30 and 300: median kernel ms over 7 batches
+     (CUDA events), the plain version's ms, a chunked matmul + topk
+     yardstick (library_ms, checked against), and the bound.
   4  the int8 main path: phase 2 with index.dtype = "int8" (Int8FlatIndex,
      bf16 rescore copy): 5 searches (K5) and 64 concurrent queries through
      QueryService (K6), checked against the same snapshot searched on the
@@ -40,6 +48,21 @@ Phases, each printing one JSON object per line as it ends:
      tombstoned; K5 at B=1 and 8, K6 and K7 at B=256 and 1024, k=100 and
      300, timed as in phase 3 against a chunked torch._int_mm + topk
      yardstick; and Int8FlatIndex.search end to end at B=1 and 1024.
+  6  the IVF-PQ main path: phase 2 with index.kind = "ivfpq" at the config
+     defaults (nlist 4096, nprobe 64, pq_m 96, host int8 refine): 5
+     searches, a filtered search keeping <= 3% of rows (a fetch above
+     1,024), 64 concurrent queries through QueryService, each checked
+     against the same snapshot on the CPU or against single queries; K8
+     must launch and no flat or int8 kernel. Then index.kind = "ivf" (no
+     kernel), and CodeGraph.open with an index.capacity that the planner
+     sends to IVF-PQ on this card.
+  7  real size of the IVF-PQ tier: IVFPQIndex(768, nlist 4096, nprobe 64,
+     m 96, refine "int8_device") over 10,000,000 rows of a clustered
+     mixture made on the card, 1% tombstoned; build seconds by stage and
+     card memory; K8 at B=1, 8, 256, 1024 and k=40, 300 against its plain
+     version, the batch-shared route (library_ms) and its bound;
+     IVFPQIndex.search end to end at B=1 and 1024 and its recall@10
+     against an exact f32 scan.
 
 Then the card's name and power limit, one JSON line with every kernel's
 numbers, and last {"ok": true, "device": {...}}. Any failed check exits
@@ -79,22 +102,25 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
 # exactly in f32, so both dtypes are held to the same bound.
 SCORE_TOL = 1e-5
 
-#: the kernel sources under codegraph_tpu_torch/csrc/, built in phase 0
-SOURCES = ("flat_topk", "int8_topk")
+#: the sources under codegraph_tpu_torch/csrc/, built in phase 0
+SOURCES = ("flat_topk", "int8_topk", "ivfpq_adc", "ivf_spill")
 
 
 # name -> (wrapper module, wrapper, source, line of the TPU kernel's pallas_call)
 FLAT_CU = "codegraph_tpu_torch/csrc/flat_topk.cu"
 INT8_CU = "codegraph_tpu_torch/csrc/int8_topk.cu"
+IVFPQ_CU = "codegraph_tpu_torch/csrc/ivfpq_adc.cu"
 KERNELS = {
     "K1": ("topk", "streaming_topk_cuda", FLAT_CU, "codegraph_tpu/ops/topk.py:347"),
     "K2": ("topk", "streaming_topk_cuda_qmajor", FLAT_CU, "codegraph_tpu/ops/topk.py:456"),
     "K3": ("topk", "streaming_topk_cuda_qres", FLAT_CU, "codegraph_tpu/ops/topk.py:561"),
+    "K4": ("topk", "streaming_topk_cuda_qmajor_xt", FLAT_CU, "codegraph_tpu/ops/topk.py:664"),
     "K5": ("quantize", "streaming_topk_int8_cuda", INT8_CU, "codegraph_tpu/ops/quantize.py:182"),
     "K6": ("quantize", "streaming_topk_int8_cuda_qmajor", INT8_CU,
            "codegraph_tpu/ops/quantize.py:287"),
     "K7": ("quantize", "streaming_topk_int8_cuda_qres", INT8_CU,
            "codegraph_tpu/ops/quantize.py:396"),
+    "K8": ("ivfpq", "ivfpq_search_cuda", IVFPQ_CU, "codegraph_tpu/index/ivfpq.py:273"),
 }
 
 
@@ -214,7 +240,8 @@ def ptxas_summary(log: str) -> list:
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", ln)
         if m:
-            k = re.search(r"(topk_pass1|int8_dp4a_pass1|int8_mma_pass1|topk_merge)(I\w*?EE)?",
+            k = re.search(r"(topk_pass1|int8_dp4a_pass1|int8_mma_pass1|adc_pass1|topk_merge)"
+                          r"(I\w*?EE)?",
                           m.group(1))
             name = k.group(1) + (k.group(2) or "") if k else m.group(1)
         elif "spill stores" in ln:
@@ -229,13 +256,15 @@ def _unit(torch, t):
     return t / t.float().norm(dim=1, keepdim=True).clamp(min=1e-6).to(t.dtype)
 
 
-def phase1(torch, topk, quantize, errs) -> dict:
+def phase1(torch, mods, errs) -> dict:
+    topk, quantize = mods["topk"], mods["quantize"]
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(7)
     D = 768
     cases = []
     flat = {"K1": topk.streaming_topk_cuda, "K2": topk.streaming_topk_cuda_qmajor,
             "K3": topk.streaming_topk_cuda_qres}
+    k4 = topk.streaming_topk_cuda_qmajor_xt
     int8 = {"K5": quantize.streaming_topk_int8_cuda, "K6": quantize.streaming_topk_int8_cuda_qmajor,
             "K7": quantize.streaming_topk_int8_cuda_qres}
     # (N, duplicate rows, filter, live rows)
@@ -266,8 +295,13 @@ def phase1(torch, topk, quantize, errs) -> dict:
                 x = x.to(dtype)
                 if dup:
                     x[1000:2000] = x[0:1000]
-                kernels, ks = flat, (1, 10, 30, 100, 300)
-            for kernel, B in ((0, 1), (0, 5), (1, 96), (1, 256), (2, 96), (2, 256)):
+                xt = x.T.contiguous()  # K4's corpus: the same rows as xt [D, N]
+                kernels, ks = dict(flat, K4=lambda q_, x_, b_, k_: k4(q_, xt, b_, k_)), \
+                    (1, 10, 30, 100, 300)
+            layouts = ((0, 1), (0, 5), (1, 96), (1, 256), (2, 96), (2, 256))
+            if dtype != torch.int8:
+                layouts += ((3, 96), (3, 256))
+            for kernel, B in layouts:
                 name = sorted(kernels)[kernel]
                 fn = kernels[name]
                 q = _unit(torch, torch.randn(B, D, generator=g, device=dev))
@@ -302,15 +336,115 @@ def phase1(torch, topk, quantize, errs) -> dict:
                         "k": k, "dup": dup, "filter": filt, "live": live or N,
                         "max_abs_err": err, "id_mismatches": n_diff,
                         "mismatches_outside_ties": bad})
+    cases += phase1_k8(torch, mods, errs)
+    spill = phase1_spill(mods)
     n_bad = sum(c["mismatches_outside_ties"] for c in cases)
-    out = {"phase": 1, "cases": len(cases),
+    out = {"phase": 1, "cases": len(cases), "spill_compiled_vs_python": spill,
            "max_abs_err": {k: v for k, v in errs.items()},
            "id_mismatches": sum(c["id_mismatches"] for c in cases),
            "mismatches_outside_ties": n_bad,
            "failed": [c for c in cases if c["mismatches_outside_ties"]][:10]}
     emit(out)
     require(n_bad == 0, f"phase 1: {n_bad} mismatches outside ties")
+    require(spill["equal"], "phase 1: the compiled spill placement differs from the Python loop")
     return out
+
+
+def ivfpq_state(torch, g, nlist, m, ksub, D, cap, dup=False):
+    """Synthetic IVF-PQ cells on the card: unit centroids, small random
+    codebooks, cells filled to random depths with unique row ids, 1% of
+    the rows tombstoned; with dup, slots 8..15 of every cell repeat slots
+    0..7 (the same codes in the same cell: exact ties, other ids)."""
+    dev = torch.device("cuda")
+    centroids = _unit(torch, torch.randn(nlist, D, generator=g, device=dev))
+    books = 0.1 * torch.randn(m, ksub, D // m, generator=g, device=dev)
+    codes = torch.randint(0, ksub, (nlist, m, cap), generator=g, device=dev).to(torch.uint8)
+    fill = torch.randint(cap // 4, cap + 1, (nlist,), generator=g, device=dev)
+    if dup:
+        fill = torch.clamp(fill, min=16)
+        codes[:, :, 8:16] = codes[:, :, 0:8]
+    used = torch.arange(cap, device=dev)[None, :] < fill[:, None]
+    n = int(used.sum())
+    ids = torch.full((nlist, cap), -1, dtype=torch.int32, device=dev)
+    ids[used] = torch.randperm(n, generator=g, device=dev).to(torch.int32)
+    bias = torch.where(used, 0.0, NEG_INF).float()
+    dead = torch.rand(nlist, cap, generator=g, device=dev) < 0.01
+    bias[dead & used] = NEG_INF
+    return centroids, codes, ids, bias, books
+
+
+def adc_judge(torch, q, centroids, codes, ids, bias, books):
+    """True scores of row ids for query b: the coarse dot plus the ADC of
+    the row's codes plus its bias, in f64 (the kernel's function)."""
+    nlist, m, cap = codes.shape
+    loc = torch.full((int(ids.max()) + 2,), -1, dtype=torch.long, device=ids.device)
+    live = ids >= 0
+    loc[ids[live].long()] = torch.arange(nlist * cap, device=ids.device).view(nlist, cap)[live]
+    dsub = books.shape[2]
+
+    def judge(b, rows):
+        cells, pos = loc[rows] // cap, loc[rows] % cap
+        qb = q[b].double()
+        table = (qb.view(m, dsub)[:, None, :] * books.double()).sum(-1)  # [m, ksub]
+        cds = codes[cells, :, pos].long()                                  # [n, m]
+        adc = table[torch.arange(m, device=q.device)[None, :], cds].sum(-1)
+        return centroids[cells].double() @ qb + adc + bias[cells, pos].double()
+    return judge
+
+
+def phase1_k8(torch, mods, errs) -> list:
+    """K8 against its plain version on synthetic cells."""
+    ivfpq = mods["ivfpq"]
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(8)
+    cases = []
+    # (nlist, m, ksub, D, cap, [(nprobe, B, k), ...])
+    states = (
+        (256, 96, 256, 768, 512, [(1, 1, 1), (1, 300, 10), (1, 1, 1920), (8, 7, 10), (8, 300, 40),
+                                  (8, 7, 300), (64, 1, 40), (64, 7, 300), (64, 300, 40),
+                                  (64, 1, 1920), (64, 2, 5000), (64, 2, 20000), (256, 1, 10),
+                                  (256, 300, 1920)]),
+        (64, 16, 16, 768, 256, [(1, 1, 1), (8, 260, 40), (64, 1, 300), (64, 260, 10)]),
+        (32, 8, 256, 64, 128, [(8, 3, 10), (32, 257, 1920), (32, 3, 40)]),
+    )
+    for nlist, m, ksub, D, cap, shapes in states:
+        state = ivfpq_state(torch, g, nlist, m, ksub, D, cap, dup=True)
+        centroids, codes, ids, bias, books = state
+        qs = _unit(torch, torch.randn(300, D, generator=g, device=dev))
+        qs[1] = centroids[0]  # probes cell 0 first: its duplicate slots tie
+        judge = adc_judge(torch, qs, *state)
+        for nprobe, B, k in shapes:
+            q = qs[:B].contiguous()
+            s_k, i_k = ivfpq.ivfpq_search_cuda(q, centroids, codes, ids, bias, books, k, nprobe)
+            torch.cuda.synchronize()
+            s_p, i_p = ivfpq.ivfpq_search(q, centroids, codes, ids, bias, books, k, nprobe)
+            err, n_diff, bad = check_topk(torch, None, None, None, s_k, i_k, s_p, i_p, judge=judge)
+            errs["K8"] = max(errs["K8"], err)
+            live = int((s_p > NEG_INF / 2).sum(dim=1).min())
+            cases.append({"kernel": "K8", "nlist": nlist, "m": m, "ksub": ksub, "cap": cap,
+                          "nprobe": nprobe, "B": B, "k": k, "min_live_results": live,
+                          "splits": ivfpq.adc_plan(B, nprobe, cap, k)[0],
+                          "max_abs_err": err, "id_mismatches": n_diff,
+                          "mismatches_outside_ties": bad})
+    return cases
+
+
+def phase1_spill(mods) -> dict:
+    """The compiled spill placement against the Python loop, on cells that
+    overflow (skewed first choices) from a partly filled start."""
+    ivf = mods["ivf"]
+    rng = np.random.default_rng(9)
+    nlist, cap, n = 64, 40, 3000
+    top2 = np.stack([rng.zipf(1.6, n) % nlist, rng.integers(0, nlist, n)], 1).astype(np.int32)
+    fill0 = rng.integers(0, cap, nlist).astype(np.int64)
+    f_py, f_c = fill0.copy(), fill0.copy()
+    a_py, p_py = ivf.spill_assign(top2, f_py, cap)
+    a_c, p_c = ivf.spill_assign_host(top2, f_c, cap)
+    third = int(sum(a != t0 and a != t1 for a, (t0, t1) in zip(a_py, top2)))
+    return {"rows": n, "second_or_third_choice": int((a_py != top2[:, 0]).sum()),
+            "third_choice": third,
+            "equal": bool(np.array_equal(a_py, a_c) and np.array_equal(p_py, p_c)
+                          and np.array_equal(f_py, f_c))}
 
 
 QUERIES = [
@@ -486,10 +620,14 @@ def phase3(torch, topk, errs) -> list:
         elt = x.element_size()
         shapes = [("K1", 1, 30), ("K1", 1, 300), ("K1", 8, 30), ("K1", 8, 300),
                   ("K2", 256, 30), ("K2", 256, 300), ("K2", 1024, 30), ("K2", 1024, 300)]
+        xt = None
         if dtype_name == "float32":
-            shapes += [("K3", 256, 100), ("K3", 256, 300), ("K3", 1024, 100), ("K3", 1024, 300)]
+            shapes += [("K3", 256, 100), ("K3", 256, 300), ("K3", 1024, 100), ("K3", 1024, 300),
+                       ("K4", 1024, 30), ("K4", 1024, 300)]
+            xt = x.T.contiguous()  # K4's corpus: the same rows as xt [D, N]
         flat = {"K1": topk.streaming_topk_cuda, "K2": topk.streaming_topk_cuda_qmajor,
-                "K3": topk.streaming_topk_cuda_qres}
+                "K3": topk.streaming_topk_cuda_qres,
+                "K4": lambda q_, x_, b_, k_: topk.streaming_topk_cuda_qmajor_xt(q_, xt, b_, k_)}
         for name, B, k in shapes:
             fn = flat[name]
             batches = [
@@ -517,7 +655,7 @@ def phase3(torch, topk, errs) -> list:
             emit(row)
             rows_out.append(row)
             require(bad == 0, f"phase 3: {bad} mismatches outside ties ({name} {dtype_name} B={B} k={k})")
-        del idx, x, bias
+        del idx, x, xt, bias
         torch.cuda.empty_cache()
     return rows_out
 
@@ -797,6 +935,416 @@ def phase5(torch, mods, errs) -> list:
 
 
 # ---------------------------------------------------------------------------
+# the IVF tiers
+# ---------------------------------------------------------------------------
+
+
+def _project_copy(tmp) -> str:
+    src = os.path.join(ROOT, "codegraph_tpu")
+    require(os.path.isdir(src), f"no JAX package source at {src} to index")
+    proj = os.path.join(tmp, "codegraph_tpu")
+    shutil.copytree(src, proj, ignore=shutil.ignore_patterns("__pycache__"))
+    return proj
+
+
+def _hash_config(tmp, data, kind="flat"):
+    from codegraph_tpu_torch.core.config import CodeGraphConfig
+
+    cfg = CodeGraphConfig()
+    cfg.embedding.provider = "hash"
+    cfg.embedding.dimension = 768
+    cfg.data_dir = os.path.join(tmp, data)
+    cfg.index.kind = kind
+    return cfg
+
+
+def refine_rows(torch, index):
+    """The host int8 refine bank of an IVF-PQ index as f32 rows on the card."""
+    raw = torch.as_tensor(np.concatenate(index._raw_chunks), device="cuda").float()
+    return raw * torch.as_tensor(np.concatenate(index._raw_scales), device="cuda")
+
+
+def ivf_rows(torch, index):
+    """An IVF index's stored rows by row id ([n_rows, D] f32 on the card)."""
+    _, x, ids, _ = index.arrays()
+    rows = torch.zeros((index.n_rows, index.dim), device="cuda")
+    live = ids >= 0
+    rows[ids[live].long()] = x[live].float()
+    return rows
+
+
+def _narrow_filter(cg, proj, max_frac=0.03):
+    """A SearchFilters (one path prefix of the project) that keeps more than
+    0 and at most max_frac of the index rows, and its row mask."""
+    from codegraph_tpu_torch.core.types import SearchFilters
+
+    bank, n = cg.indexer.search.filters_bank, cg.indexer.index.n_rows
+    for name in sorted(os.listdir(proj)):
+        filt = SearchFilters.make(path_prefixes=[os.path.join(proj, name)])
+        eb = bank.bias_for(filt, n)
+        frac = float((eb > NEG_INF / 2).mean()) if eb is not None else 1.0
+        if 0 < frac <= max_frac:
+            return filt, eb, frac
+    raise CheckFailed("phase 6: no path prefix keeps <= 3% of the rows")
+
+
+def _hits_vs(got, ref) -> dict:
+    """Hybrid hits position by position: a swap is a tie within SCORE_TOL."""
+    require(len(got) == len(ref) > 0, f"{len(got)} vs {len(ref)} hits")
+    err = max(abs(a.score - b.score) for a, b in zip(got, ref))
+    return {"max_abs_err": err, "id_mismatches": sum(a.node_id != b.node_id for a, b in zip(got, ref)),
+            "mismatches_outside_ties": int(err > SCORE_TOL)}
+
+
+def phase6(torch, mods, errs) -> dict:
+    """The IVF tiers through the entry points: IVF-PQ (K8), IVF, the planner."""
+    from codegraph_tpu_torch.api import CodeGraph, index_memory_budget
+    from codegraph_tpu_torch.index.ivf import IVFIndex
+    from codegraph_tpu_torch.index.ivfpq import IVFPQIndex, _filter_fetch_k
+    from codegraph_tpu_torch.search.service import QueryService
+    from codegraph_tpu_torch.utils.tuning import plan_index
+
+    ivfpq = mods["ivfpq"]
+    tmp = tempfile.mkdtemp(prefix="cg_smoke_ivf_")
+    svc = None
+    try:
+        proj = _project_copy(tmp)
+        k = 30
+        # -- IVF-PQ at the config defaults ---------------------------------
+        cfg = _hash_config(tmp, "data_ivfpq", "ivfpq")
+        reset_launches(mods)
+        t0 = time.perf_counter()
+        cg = CodeGraph.open(proj, config=cfg, device="cuda")
+        stats = cg.index()
+        t_index = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        hits = [cg.search(qt, limit=10) for qt in QUERIES]
+        t_search = time.perf_counter() - t0
+        index = cg.indexer.index
+        filt, eb, frac = _narrow_filter(cg, proj)
+        fetch_k = _filter_fetch_k(k, eb, index.list_cap * index.nprobe)
+        # the query is the text of a chunk inside the filter, so that the
+        # probed cells hold allowed rows (its own row at least)
+        store = cg.indexer.store
+        f_query = next(c.text for c in store.chunks.values()
+                       if store.nodes[c.parent_node].location.file_path.startswith(
+                           filt.path_prefixes[0]))
+        t0 = time.perf_counter()
+        f_hits = cg.indexer.search.search_text(f_query, 10, filters=filt)
+        t_filter = time.perf_counter() - t0
+        texts = [f"{QUERIES[i % 5]} variant {i}" for i in range(64)]
+        embs = cg.indexer.provider.embed_texts(texts)
+        t0 = time.perf_counter()
+        svc = QueryService.auto(index, k=k)
+        batched = [f.result(timeout=120) for f in [svc.submit(e) for e in embs]]
+        svc.close()
+        svc_stats = svc.stats
+        svc = None
+        t_service = time.perf_counter() - t0
+        # the main path ends here; later launches only check results
+        launches = read_launches(mods)
+        require(isinstance(index, IVFPQIndex), f"phase 6 built {type(index).__name__}")
+        singles = [index.search(e[None, :], k) for e in embs]
+        rows = refine_rows(torch, index)
+        zeros = torch.zeros(rows.shape[0], device="cuda")
+        qn = torch.nn.functional.normalize(torch.as_tensor(embs, device="cuda"), dim=1)
+        s_b, i_b, s_1, i_1 = (torch.as_tensor(np.stack(a), device="cuda") for a in (
+            [b[0] for b in batched], [b[1] for b in batched],
+            [s[0][0] for s in singles], [s[1][0] for s in singles]))
+        err_svc, diff_svc, bad_svc = check_topk(torch, None, None, None, s_b, i_b, s_1, i_1,
+                                                judge=dot_judge(qn, rows, zeros))
+        # K8 against its plain version at the main path's shapes
+        centroids, codes, ids, bias = index.arrays()
+        state = (centroids, codes, ids, bias, index._books)
+        k_refine = max(k, min(k * index.refine_factor, index.list_cap * index.nprobe))
+        main_shapes = {}
+        for B, kk in ((1, k_refine), (64, k_refine), (1, fetch_k)):
+            s_k, i_k = ivfpq.ivfpq_search_cuda(qn[:B].contiguous(), *state, kk, index.nprobe)
+            s_p, i_p = ivfpq.ivfpq_search(qn[:B], *state, kk, index.nprobe)
+            e, n_d, b_d = check_topk(torch, None, None, None, s_k, i_k, s_p, i_p,
+                                     judge=adc_judge(torch, qn[:B], *state))
+            errs["K8"] = max(errs["K8"], e)
+            main_shapes[f"B={B} k={kk}"] = {"max_abs_err": e, "id_mismatches": n_d,
+                                            "mismatches_outside_ties": b_d}
+        # the same snapshot searched on the CPU (plain versions) as reference
+        cpu = CodeGraph(cfg, device="cpu")
+        require(isinstance(cpu.indexer.index, IVFPQIndex)
+                and cpu.indexer.index.n_rows == index.n_rows, "phase 6: CPU snapshot load")
+        hybrid = _hybrid_vs_cpu(torch, cg, cpu, hits, k, lambda q: dot_judge(q, rows, zeros))
+        filtered = _hits_vs(f_hits, cpu.indexer.search.search_text(f_query, 10, filters=filt))
+        kept = all(cg.indexer.store.nodes[h.node_id].location.file_path.startswith(
+            filt.path_prefixes[0]) for h in f_hits)
+        ivfpq_out = {
+            "files": stats.files_total, "chunks": stats.chunks, "index_rows": index.n_rows,
+            "stats": index.stats(), "index_seconds": round(t_index, 3),
+            "stage_seconds": {k_: round(v, 3) for k_, v in stats.stage_seconds.items()},
+            "search_seconds_5": round(t_search, 3),
+            "search_perf": cg.indexer.search.monitor.report(),
+            "filtered": {"rows_kept": frac, "fetch_k": fetch_k, "seconds": round(t_filter, 3),
+                         "hits": len(f_hits), "all_in_filter": kept, "vs_cpu": filtered},
+            "service_seconds_64": round(t_service, 3), "service_batches": svc_stats.batches,
+            "service_max_batch": svc_stats.max_batch_seen, "launches": launches,
+            "top1": [h[0].name if h else None for h in hits],
+            "service_vs_single": {"max_abs_err": err_svc, "id_mismatches": diff_svc,
+                                  "mismatches_outside_ties": bad_svc},
+            "hybrid_vs_cpu": hybrid, "kernel_vs_plain_main_shapes": main_shapes,
+        }
+        # -- IVF (no kernel) -------------------------------------------------
+        icfg = _hash_config(tmp, "data_ivf", "ivf")
+        reset_launches(mods)
+        t0 = time.perf_counter()
+        cg_ivf = CodeGraph.open(proj, config=icfg, device="cuda")
+        istats = cg_ivf.index()
+        hits_ivf = [cg_ivf.search(qt, limit=10) for qt in QUERIES]
+        t_ivf = time.perf_counter() - t0
+        launches_ivf = read_launches(mods)
+        iidx = cg_ivf.indexer.index
+        require(type(iidx) is IVFIndex, f"phase 6 built {type(iidx).__name__} for kind ivf")
+        irows = ivf_rows(torch, iidx)
+        izeros = torch.zeros(irows.shape[0], device="cuda")
+        hybrid_ivf = _hybrid_vs_cpu(torch, cg_ivf, CodeGraph(icfg, device="cpu"), hits_ivf, k,
+                                    lambda q: dot_judge(q, irows, izeros))
+        # -- the planner sends a large capacity to IVF-PQ on this card --------
+        budget = index_memory_budget("cuda")
+        capacity = max(60_000_000, budget // 768 + 1)  # int8 rows over the budget
+        pcfg = _hash_config(tmp, "data_planned")
+        pcfg.index.capacity = capacity
+        t0 = time.perf_counter()
+        planned = CodeGraph.open(proj, config=pcfg, device="cuda")
+        plan = plan_index(capacity, 768, hbm_budget_bytes=budget)
+        pstats = planned.index()
+        phits = planned.search(QUERIES[0], limit=10)
+        t_planned = time.perf_counter() - t0
+        pidx = planned.indexer.index
+        out = {
+            "phase": 6, "ivfpq": ivfpq_out,
+            "ivf": {"index_rows": iidx.n_rows, "stats": iidx.stats(),
+                    "seconds_index_and_5_searches": round(t_ivf, 3), "launches": launches_ivf,
+                    "top1": [h[0].name if h else None for h in hits_ivf],
+                    "hybrid_vs_cpu": hybrid_ivf},
+            "planned": {"capacity": capacity, "budget_bytes": budget, "plan": plan.to_dict(),
+                        "index": type(pidx).__name__, "nlist_after_shrink": pidx.nlist,
+                        "fill_entries": len(pidx._fill), "chunks": pstats.chunks,
+                        "live": len(pidx), "hits": len(phits),
+                        "seconds_open_index_search": round(t_planned, 3)},
+        }
+        emit(out)
+        require(stats.chunks > 0 and len(index) == stats.chunks, "phase 6: IVF-PQ index rows")
+        require(bad_svc == 0, "phase 6: service results disagree with single queries")
+        require(all(v["mismatches_outside_ties"] == 0 for v in main_shapes.values()),
+                "phase 6: K8 disagrees with its plain version at the main path's shapes")
+        require(fetch_k > 1024, f"phase 6: the filtered fetch {fetch_k} is not above 1,024")
+        require(hybrid["mismatches_outside_ties"] == 0 and filtered["mismatches_outside_ties"] == 0
+                and kept, "phase 6: CUDA IVF-PQ results disagree with the CPU path")
+        require(launches["K8"] > 0, f"phase 6: the IVF-PQ main path did not launch K8: {launches}")
+        require(all(v == 0 for n, v in launches.items() if n != "K8"),
+                f"phase 6: the IVF-PQ main path launched a flat or int8 kernel: {launches}")
+        require(all(v == 0 for v in launches_ivf.values()),
+                f"phase 6: the IVF path launched a kernel: {launches_ivf}")
+        require(hybrid_ivf["mismatches_outside_ties"] == 0,
+                "phase 6: CUDA IVF results disagree with the CPU path")
+        require(pcfg.index.kind == "ivfpq" and isinstance(pidx, IVFPQIndex) and len(phits) > 0,
+                f"phase 6: planner chose {pcfg.index.kind} for {capacity} rows")
+        return out
+    finally:
+        if svc is not None:
+            svc.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+class StageTimer:
+    """Seconds spent in named functions (each call synchronized), by
+    wrapping them in place for the duration of a `with` block."""
+
+    def __init__(self, torch, targets):
+        self.torch, self.targets, self.seconds, self._saved = torch, targets, {}, []
+
+    def __enter__(self):
+        for name, (owner, attr) in self.targets.items():
+            fn = getattr(owner, attr)
+            self._saved.append((owner, attr, fn))
+            self.seconds[name] = 0.0
+            setattr(owner, attr, self._timed(name, fn))
+        return self
+
+    def _timed(self, name, fn):
+        def run(*args, **kw):
+            self.torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            self.torch.cuda.synchronize()
+            self.seconds[name] += time.perf_counter() - t0
+            return out
+        return run
+
+    def __exit__(self, *exc):
+        for owner, attr, fn in self._saved:
+            setattr(owner, attr, fn)
+
+
+def mixture_chunk(torch, centers, base, n, seed, spread):
+    """Rows [base, base + n) of the clustered mixture, made on the card from
+    a generator seeded per chunk, so that any chunk can be made again."""
+    g = torch.Generator(device="cuda").manual_seed(seed * 1_000_003 + base)
+    pick = torch.randint(0, centers.shape[0], (n,), generator=g, device="cuda")
+    return centers[pick] + spread * torch.randn(n, centers.shape[1], generator=g, device="cuda")
+
+
+def phase7(torch, mods, errs) -> list:
+    """Real size of the IVF-PQ tier: 10M x 768 rows, device refine bank."""
+    import codegraph_tpu_torch.index.ivf as ivf_mod
+    from codegraph_tpu_torch.index.ivfpq import IVFPQIndex
+
+    ivfpq = mods["ivfpq"]
+    # the reference's clustered mixture (benchmarks/bench_build_device.py
+    # gen_clustered): 16,384 unit centers, offsets of expected norm 1
+    N, D, CHUNK, SEED = 10_000_000, 768, 524_288, 2026
+    SPREAD = 1.0 / math.sqrt(D)
+    nlist, nprobe, m = 4096, 64, 96
+    gc = torch.Generator(device="cuda").manual_seed(SEED)
+    centers = _unit(torch, torch.randn(16_384, D, generator=gc, device="cuda"))
+    torch.cuda.reset_peak_memory_stats()
+    idx = IVFPQIndex(D, nlist=nlist, nprobe=nprobe, m=m, refine="int8_device", device="cuda")
+    t_all = time.perf_counter()
+    t0 = time.perf_counter()
+    idx.reserve(N)
+    torch.cuda.synchronize()
+    t_reserve = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    idx.train(mixture_chunk(torch, centers, N, idx.train_sample, SEED + 1, SPREAD))
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    stages = {"assign": (ivf_mod, "assign_clusters_topk"), "pq_encode": (ivfpq, "pq_encode"),
+              "spill": (ivf_mod.IVFIndex, "_spill"), "scatter": (IVFPQIndex, "_scatter_payload"),
+              "refine_bank": (ivfpq, "_quantize_rows_device")}
+    t_gen = 0.0
+    with StageTimer(torch, stages) as timer:
+        for base in range(0, N, CHUNK):
+            t0 = time.perf_counter()
+            rows = mixture_chunk(torch, centers, base, min(CHUNK, N - base), SEED, SPREAD)
+            torch.cuda.synchronize()
+            t_gen += time.perf_counter() - t0
+            idx.add(rows)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    dead = torch.randperm(N, generator=g, device="cuda")[: N // 100]
+    t0 = time.perf_counter()
+    idx.delete(dead.cpu().numpy())
+    torch.cuda.synchronize()
+    t_delete = time.perf_counter() - t0
+    build_s = time.perf_counter() - t_all
+    mem = {"allocated_gb": torch.cuda.memory_allocated() / 1e9,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "codes_gb": idx._x.numel() / 1e9,
+           "ids_bias_gb": (idx._ids.numel() + idx._bias.numel()) * 4 / 1e9,
+           "refine_bank_gb": (idx._dev_chunks[0].numel() + idx._dev_scales[0].numel() * 4) / 1e9}
+    st = idx.stats()
+    emit({"phase": 7, "build": {"N": N, "D": D, "nlist": nlist, "nprobe": nprobe, "m": m,
+                                "list_cap": idx.list_cap, "seconds": round(build_s, 3),
+                                "reserve": round(t_reserve, 3), "train": round(t_train, 3),
+                                "generate": round(t_gen, 3), "delete": round(t_delete, 3),
+                                **{k_: round(v, 3) for k_, v in timer.seconds.items()}},
+          "memory": mem, "stats": st})
+    centroids, codes, ids, bias = idx.arrays()
+    state = (centroids, codes, ids, bias, idx._books)
+    fill = torch.as_tensor(idx._fill[:nlist], device="cuda")
+    rows_out = []
+    def queries(B, r=0):  # batch r of B queries from the same mixture
+        return _unit(torch, mixture_chunk(torch, centers, N + (r + 1) * 1_000_003 + B, B,
+                                          SEED + 3, SPREAD))
+
+    for B, k in ((1, 40), (1, 300), (8, 40), (8, 300), (256, 40), (256, 300), (1024, 40),
+                 (1024, 300)):
+        batches = [queries(B, r) for r in range(7)]
+        outs = []
+        ms = _time_ms(torch, lambda qb: ivfpq.ivfpq_search_cuda(qb, *state, k, nprobe), batches,
+                      outs)
+        coarse_ms = _time_ms(torch, lambda qb: ivfpq.adc_inputs(qb, centroids, idx._books, nprobe),
+                             batches)
+        plain_ms = _time_ms(torch, lambda qb: ivfpq.ivfpq_search(qb, *state, k, nprobe),
+                            batches[:1])
+
+        def shared(qb):
+            _, probe = ivf_mod.coarse_probe(qb, centroids, nprobe)
+            return ivfpq.ivfpq_batch_search(qb, probe, ivf_mod.union_cells(probe, nlist, 16),
+                                            codes, ids, bias, centroids, idx._books, k)
+        lib_ms = _time_ms(torch, shared, batches[:1])
+        err, n_diff, bad, sampled = 0.0, 0, 0, 0
+        for qb, (s_k, i_k) in zip(batches, outs):
+            qs = qb[: min(B, 4)]
+            s_p, i_p = ivfpq.ivfpq_search(qs, *state, k, nprobe)
+            e, d, b_ = check_topk(torch, None, None, None, s_k[: len(qs)], i_k[: len(qs)], s_p, i_p,
+                                  judge=adc_judge(torch, qs, *state))
+            err, n_diff, bad, sampled = max(err, e), n_diff + d, bad + b_, sampled + len(qs)
+        errs["K8"] = max(errs["K8"], err)
+        # bound: the probed cells' occupied slots read once (codes, ids,
+        # bias), the table, probes and outputs; operations: the coarse
+        # product, the table and m f32 adds per probed slot and query
+        probe = ivf_mod.coarse_probe(batches[0], centroids, nprobe)[1]
+        slots = float(fill[probe].sum())
+        union = float(fill[torch.unique(probe)].sum())
+        nbytes = (union * (m + 8) + nlist * D * 4 + B * D * 4 + B * m * 256 * 4
+                  + B * nprobe * 8 + B * k * 8)
+        ops = 2.0 * B * nlist * D + 2.0 * B * D * 256 + slots * m
+        bound, bound_by = _bound(nbytes, ops, "float32")
+        row = {"phase": 7, "kernel": "K8", "dtype": "uint8 codes", "N": N, "D": D, "B": B, "k": k,
+               "ms": ms, "coarse_and_table_ms": coarse_ms, "plain_ms": plain_ms,
+               "library_ms": lib_ms, "library": "ivfpq_batch_search (batch-shared decode)",
+               "bound_ms": bound, "bound_by": bound_by, "share_of_bound": bound / ms,
+               "probed_slots": slots, "union_slots": union, "max_abs_err": err,
+               "sampled_rows": sampled, "id_mismatches": n_diff, "mismatches_outside_ties": bad,
+               "index_build_seconds": round(build_s, 3)}
+        emit(row)
+        rows_out.append(row)
+        require(bad == 0, f"phase 7: {bad} mismatches outside ties (K8 B={B} k={k})")
+    # the index end to end (K8 + device refine) and its recall@10 against an
+    # exact f32 scan of the same (re-made) rows, tombstones excluded
+    qr = queries(256)
+    live = torch.ones(N, dtype=torch.bool, device="cuda")
+    live[dead] = False
+    best_s = torch.full((256, 10), -float("inf"), device="cuda")
+    best_i = torch.zeros((256, 10), dtype=torch.long, device="cuda")
+    t0 = time.perf_counter()
+    for base in range(0, N, CHUNK):
+        n = min(CHUNK, N - base)
+        s = qr @ _unit(torch, mixture_chunk(torch, centers, base, n, SEED, SPREAD)).T
+        s[:, ~live[base: base + n]] = -float("inf")
+        v, i = torch.topk(torch.cat([best_s, s], 1), 10, dim=1)
+        best_i = torch.gather(torch.cat([best_i, torch.arange(base, base + n, device="cuda")
+                                         .expand(256, -1)], 1), 1, i)
+        best_s = v
+    torch.cuda.synchronize()
+    t_exact = time.perf_counter() - t0
+    _, got = idx.search(qr, 10)
+    recall = float(np.mean([len(set(a) & set(b)) / 10.0
+                            for a, b in zip(got.tolist(), best_i.cpu().tolist())]))
+    for B in (1, 1024):
+        batches = [queries(B, 10 + r) for r in range(7)]
+        idx.search(batches[0], 10)  # warm
+        times = []
+        for qb in batches:
+            t0 = time.perf_counter()
+            s_np, i_np = idx.search(qb, 10)  # returns host arrays: synchronized
+            times.append((time.perf_counter() - t0) * 1e3)
+        ok = (s_np.shape == (B, 10) and np.isfinite(s_np).all() and (i_np >= 0).all()
+              and bool(live[torch.as_tensor(i_np, device="cuda").long()].all()))
+        row = {"phase": 7, "kind": "IVFPQIndex.search", "N": N, "D": D, "B": B, "k": 10,
+               "refine": idx.refine, "k_fetch": 10 * idx.refine_factor,
+               "ms": statistics.median(times), "ms_all": [round(t, 3) for t in times],
+               "results_ok": ok}
+        if B == 1024:
+            row.update({"recall_at_10": recall, "recall_queries": 256,
+                        "exact_scan_seconds": round(t_exact, 3)})
+        emit(row)
+        rows_out.append(row)
+        require(ok, f"phase 7: IVFPQIndex.search at B={B} returned dead or missing rows")
+    # a sanity floor: an index that lost or scrambled its rows scores ~0
+    require(recall > 0.1, f"phase 7: recall@10 {recall} against the exact scan")
+    del idx, state, centroids, codes, ids, bias
+    torch.cuda.empty_cache()
+    return rows_out
+
+
+# ---------------------------------------------------------------------------
 
 
 def _on_alarm(signum, frame):
@@ -805,7 +1353,7 @@ def _on_alarm(signum, frame):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="0,1,2,3,4,5",
+    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7",
                     help="comma-separated phases to run (default: all)")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",") if p.strip()}
@@ -828,18 +1376,31 @@ def main(argv=None) -> int:
     signal.alarm(WATCHDOG_S)
     faulthandler.dump_traceback_later(WATCHDOG_S + 60, exit=True)
     t_all = time.perf_counter()
+    from codegraph_tpu_torch.index import ivf, ivfpq
     from codegraph_tpu_torch.ops import quantize, topk
 
-    mods = {"topk": topk, "quantize": quantize}
+    mods = {"topk": topk, "quantize": quantize, "ivfpq": ivfpq, "ivf": ivf}
     errs = {name: 0.0 for name in KERNELS}
+    seconds = {}
+
+    def run(n, fn, *args, empty=None):
+        if n not in phases:
+            return empty
+        t0 = time.perf_counter()
+        out = fn(torch, *args)
+        seconds[n] = round(time.perf_counter() - t0, 3)
+        emit({"phase": n, "seconds": seconds[n]})
+        return out
+
     try:
-        p0 = phase0(torch) if 0 in phases else None
-        if 1 in phases:
-            phase1(torch, topk, quantize, errs)
-        p2 = phase2(torch, mods, errs) if 2 in phases else None
-        p3 = phase3(torch, topk, errs) if 3 in phases else []
-        p4 = phase4(torch, mods, errs) if 4 in phases else None
-        p5 = phase5(torch, mods, errs) if 5 in phases else []
+        p0 = run(0, phase0)
+        run(1, phase1, mods, errs)
+        p2 = run(2, phase2, mods, errs)
+        p3 = run(3, phase3, topk, errs, empty=[])
+        p4 = run(4, phase4, mods, errs)
+        p5 = run(5, phase5, mods, errs, empty=[])
+        p6 = run(6, phase6, mods, errs)
+        p7 = run(7, phase7, mods, errs, empty=[])
     except (CheckFailed, TimeoutError) as exc:
         print(f"chip_smoke FAILED: {exc}", file=sys.stderr, flush=True)
         return 1
@@ -848,16 +1409,19 @@ def main(argv=None) -> int:
         faulthandler.cancel_dump_traceback_later()
 
     # each kernel at one shape of its real-size phase; launches from its
-    # tier's main path (K3 and K7 are public ops that no index calls)
+    # tier's main path (K3, K4 and K7 are public ops that no index calls)
     shapes = {"K1": (p3, "float32", 1, 30), "K2": (p3, "float32", 1024, 30),
-              "K3": (p3, "float32", 1024, 100), "K5": (p5, "int8", 1, 100),
-              "K6": (p5, "int8", 1024, 100), "K7": (p5, "int8", 1024, 100)}
+              "K3": (p3, "float32", 1024, 100), "K4": (p3, "float32", 1024, 30),
+              "K5": (p5, "int8", 1, 100), "K6": (p5, "int8", 1024, 100),
+              "K7": (p5, "int8", 1024, 100), "K8": (p7, "uint8 codes", 1, 40)}
+    paths = {"K1": p2, "K2": p2, "K3": p2, "K4": p2, "K5": p4, "K6": p4, "K7": p4,
+             "K8": p6["ivfpq"] if p6 else None}
     kernels = []
     for name, (_, fn_name, source, replaces) in KERNELS.items():
         rows, dtype, B, k = shapes[name]
         row = next((r for r in rows if r.get("kernel") == name and r["dtype"] == dtype
                     and r["B"] == B and r["k"] == k), {})
-        path = p2 if name in ("K1", "K2", "K3") else p4
+        path = paths[name]
         kernels.append({
             "name": f"{name} {fn_name}", "route": "cuda", "source": source, "replaces": replaces,
             "launches": path["launches"][name] if path else None,
@@ -868,7 +1432,7 @@ def main(argv=None) -> int:
             "shape": f"N={row['N']} D=768 {dtype} B={B} k={k}" if row else None,
         })
     emit({"phase": "total", "seconds": round(time.perf_counter() - t_all, 3),
-          "build_seconds": p0["build_seconds"] if p0 else None})
+          "phase_seconds": seconds, "build_seconds": p0["build_seconds"] if p0 else None})
     print(nvidia_smi_line(), flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

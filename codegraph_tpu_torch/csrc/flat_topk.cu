@@ -1,11 +1,16 @@
 // Exact streaming top-k over a device-resident corpus: scores = q . x^T + bias,
 // then the k best rows per query, sorted descending.
 //
-// Replaces three Pallas kernels of codegraph_tpu/ops/topk.py:
-//   K1  streaming_topk_pallas        / _flat_topk_kernel         (batches < 32)
-//   K2  streaming_topk_pallas_qmajor / _flat_topk_qmajor_kernel  (batches >= 32)
-//   K3  streaming_topk_pallas_qres   / _flat_topk_qres_kernel    (query-resident)
-// All three are this one kernel with a different warp layout and query tile:
+// Replaces four Pallas kernels of codegraph_tpu/ops/topk.py:
+//   K1  streaming_topk_pallas           / _flat_topk_kernel            (batches < 32)
+//   K2  streaming_topk_pallas_qmajor    / _flat_topk_qmajor_kernel     (batches >= 32)
+//   K3  streaming_topk_pallas_qres      / _flat_topk_qres_kernel       (query-resident)
+//   K4  streaming_topk_pallas_qmajor_xt / _flat_topk_qmajor_xt_kernel  (corpus as xt [D, N])
+// K4 is K2's schedule over a pre-transposed corpus: it stages the same
+// [DK][TN] corpus slices, read along N (one element a thread, a warp reading
+// 32 consecutive rows of one depth), so it takes any N and D with no
+// alignment, and its results equal K2's on xt.T.
+// All four are this one kernel with a different warp layout and query tile:
 // up to 8 query rows for K1, up to 128 for K2 and K3 (the tile shrinks as k
 // grows, so the per-row top-k lists fit in shared memory beside the operand
 // tiles). K3 keeps its block's whole query tile resident in shared memory
@@ -99,9 +104,13 @@ __device__ __forceinline__ void unpack(const uint4& v, float* out, __nv_bfloat16
   }
 }
 
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+
 // Pass 1: block (query tile, split) -> top-k of the split's rows per query.
-// Requires D % (16 / sizeof(XT)) == 0 and a 16-byte aligned x.
-template <typename XT, int WR, int TM, int TNN, bool RES>
+// x is [N, D] and then needs D % (16 / sizeof(XT)) == 0 and 16-byte
+// alignment, or (TRANS) xt [D, N] with neither.
+template <typename XT, int WR, int TM, int TNN, bool RES, bool TRANS>
 __global__ void __launch_bounds__(kThreads)
     topk_pass1(const float* __restrict__ q, const XT* __restrict__ x, const float* __restrict__ bias,
                int B, int N, int D, int k, int rows_per_split, float* __restrict__ part_s,
@@ -111,6 +120,7 @@ __global__ void __launch_bounds__(kThreads)
   constexpr int EPV = 16 / sizeof(XT);                      // elements per 16-byte load
   constexpr int VPR = kDK / EPV;                            // loads per row per step
   constexpr int XV = TN * VPR / kThreads;                   // corpus loads per thread
+  constexpr int XS = TN * kDK / kThreads;                   // TRANS: element loads per thread
   constexpr int QE = RES ? 1 : (BT * kDK + kThreads - 1) / kThreads;  // query loads per thread
   extern __shared__ __align__(16) unsigned char smem[];
   const int n_chunks = (D + kDK - 1) / kDK;
@@ -143,16 +153,25 @@ __global__ void __launch_bounds__(kThreads)
   }
 
   uint4 xr[XV];
+  float xe[XS];
   float qr[QE];
   auto load = [&](int step) {
     const int n0 = n_begin + (step / n_chunks) * TN;
     const int d0 = (step % n_chunks) * kDK;
+    if constexpr (TRANS) {
 #pragma unroll
-    for (int v = 0; v < XV; ++v) {
-      const int vi = tid + v * kThreads, r = vi / VPR, d = d0 + (vi % VPR) * EPV;
-      xr[v] = (n0 + r < n_end && d < D)
-                  ? *reinterpret_cast<const uint4*>(x + (size_t)(n0 + r) * D + d)
-                  : make_uint4(0u, 0u, 0u, 0u);
+      for (int v = 0; v < XS; ++v) {
+        const int vi = tid + v * kThreads, c = vi / TN, r = vi % TN;
+        xe[v] = (n0 + r < n_end && d0 + c < D) ? to_f(x[(size_t)(d0 + c) * N + n0 + r]) : 0.f;
+      }
+    } else {
+#pragma unroll
+      for (int v = 0; v < XV; ++v) {
+        const int vi = tid + v * kThreads, r = vi / VPR, d = d0 + (vi % VPR) * EPV;
+        xr[v] = (n0 + r < n_end && d < D)
+                    ? *reinterpret_cast<const uint4*>(x + (size_t)(n0 + r) * D + d)
+                    : make_uint4(0u, 0u, 0u, 0u);
+      }
     }
     if constexpr (!RES) {
 #pragma unroll
@@ -163,13 +182,21 @@ __global__ void __launch_bounds__(kThreads)
     }
   };
   auto store = [&]() {
+    if constexpr (TRANS) {
 #pragma unroll
-    for (int v = 0; v < XV; ++v) {
-      const int vi = tid + v * kThreads, r = vi / VPR, c = (vi % VPR) * EPV;
-      float f[EPV];
-      unpack(xr[v], f, XT());
+      for (int v = 0; v < XS; ++v) {
+        const int vi = tid + v * kThreads;
+        xs[(vi / TN) * XLD + vi % TN] = xe[v];
+      }
+    } else {
 #pragma unroll
-      for (int e = 0; e < EPV; ++e) xs[(c + e) * XLD + r] = f[e];
+      for (int v = 0; v < XV; ++v) {
+        const int vi = tid + v * kThreads, r = vi / VPR, c = (vi % VPR) * EPV;
+        float f[EPV];
+        unpack(xr[v], f, XT());
+#pragma unroll
+        for (int e = 0; e < EPV; ++e) xs[(c + e) * XLD + r] = f[e];
+      }
     }
     if constexpr (!RES) {
 #pragma unroll
@@ -284,52 +311,55 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename XT, int WR, int TM, int TNN, bool RES>
+template <typename XT, int WR, int TM, int TNN, bool RES, bool TRANS>
 cudaError_t launch_pass1(const float* q, const void* x, const float* bias, int B, int N, int D, int k,
                          int rows_per_split, int splits, float* part_s, int* part_i, cudaStream_t st) {
   using L = Layout<WR, TM, TNN, RES>;
   if (rows_per_split % L::TN != 0) return cudaErrorInvalidValue;
   const size_t smem = L::smem(k, D);
-  cudaError_t err = cudaFuncSetAttribute(topk_pass1<XT, WR, TM, TNN, RES>,
+  cudaError_t err = cudaFuncSetAttribute(topk_pass1<XT, WR, TM, TNN, RES, TRANS>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((B + L::BT - 1) / L::BT, splits);
-  topk_pass1<XT, WR, TM, TNN, RES><<<grid, kThreads, smem, st>>>(
+  topk_pass1<XT, WR, TM, TNN, RES, TRANS><<<grid, kThreads, smem, st>>>(
       q, static_cast<const XT*>(x), bias, B, N, D, k, rows_per_split, part_s, part_i);
   return cudaGetLastError();
 }
 
 // layout 0: column warps (K1), tm in {1, 2, 4, 8};
 // layout 1: row warps (K2), tm in {1, 2, 4, 8, 16};
-// layout 2: row warps with the query tile resident (K3), tm as layout 1
+// layout 2: row warps with the query tile resident (K3), tm as layout 1;
+// layout 3: row warps over xt [D, N] (K4), tm as layout 1
 template <typename XT>
 cudaError_t dispatch_pass1(int layout, int tm, const float* q, const void* x, const float* bias, int B,
                            int N, int D, int k, int rows_per_split, int splits, float* part_s,
                            int* part_i, cudaStream_t st) {
-#define CG_PASS1(WR, TM, TNN, RES) \
-  launch_pass1<XT, WR, TM, TNN, RES>(q, x, bias, B, N, D, k, rows_per_split, splits, part_s, part_i, st)
+#define CG_PASS1(WR, TM, TNN, RES, TRANS)                                                          \
+  launch_pass1<XT, WR, TM, TNN, RES, TRANS>(q, x, bias, B, N, D, k, rows_per_split, splits, part_s, \
+                                            part_i, st)
   if (layout == 0) {
     switch (tm) {
-      case 1: return CG_PASS1(1, 1, 1, false);
-      case 2: return CG_PASS1(1, 2, 1, false);
-      case 4: return CG_PASS1(1, 4, 1, false);
-      case 8: return CG_PASS1(1, 8, 1, false);
+      case 1: return CG_PASS1(1, 1, 1, false, false);
+      case 2: return CG_PASS1(1, 2, 1, false, false);
+      case 4: return CG_PASS1(1, 4, 1, false, false);
+      case 8: return CG_PASS1(1, 8, 1, false, false);
     }
-  } else if (layout == 1) {
+  } else if (layout == 1 || layout == 3) {
+    const bool t = layout == 3;
     switch (tm) {
-      case 1: return CG_PASS1(8, 1, 4, false);
-      case 2: return CG_PASS1(8, 2, 4, false);
-      case 4: return CG_PASS1(8, 4, 4, false);
-      case 8: return CG_PASS1(8, 8, 4, false);
-      case 16: return CG_PASS1(8, 16, 4, false);
+      case 1: return t ? CG_PASS1(8, 1, 4, false, true) : CG_PASS1(8, 1, 4, false, false);
+      case 2: return t ? CG_PASS1(8, 2, 4, false, true) : CG_PASS1(8, 2, 4, false, false);
+      case 4: return t ? CG_PASS1(8, 4, 4, false, true) : CG_PASS1(8, 4, 4, false, false);
+      case 8: return t ? CG_PASS1(8, 8, 4, false, true) : CG_PASS1(8, 8, 4, false, false);
+      case 16: return t ? CG_PASS1(8, 16, 4, false, true) : CG_PASS1(8, 16, 4, false, false);
     }
   } else if (layout == 2) {
     switch (tm) {
-      case 1: return CG_PASS1(8, 1, 4, true);
-      case 2: return CG_PASS1(8, 2, 4, true);
-      case 4: return CG_PASS1(8, 4, 4, true);
-      case 8: return CG_PASS1(8, 8, 4, true);
-      case 16: return CG_PASS1(8, 16, 4, true);
+      case 1: return CG_PASS1(8, 1, 4, true, false);
+      case 2: return CG_PASS1(8, 2, 4, true, false);
+      case 4: return CG_PASS1(8, 4, 4, true, false);
+      case 8: return CG_PASS1(8, 8, 4, true, false);
+      case 16: return CG_PASS1(8, 16, 4, true, false);
     }
   }
 #undef CG_PASS1
@@ -352,6 +382,11 @@ size_t pass1_smem(int layout, int tm, int k, int D) {
     case 68: return Layout<8, 4, 4, true>::smem(k, D);
     case 72: return Layout<8, 8, 4, true>::smem(k, D);
     case 80: return Layout<8, 16, 4, true>::smem(k, D);
+    case 97: return Layout<8, 1, 4, false>::smem(k, D);
+    case 98: return Layout<8, 2, 4, false>::smem(k, D);
+    case 100: return Layout<8, 4, 4, false>::smem(k, D);
+    case 104: return Layout<8, 8, 4, false>::smem(k, D);
+    case 112: return Layout<8, 16, 4, false>::smem(k, D);
   }
   return 0;
 }
@@ -361,8 +396,8 @@ size_t pass1_smem(int layout, int tm, int k, int D) {
 extern "C" {
 
 // Shared memory (bytes) that pass 1 needs for a layout (0 column warps,
-// 1 row warps, 2 row warps with the query tile resident), micro-tile rows
-// tm, k and depth D; 0 for an unknown layout.
+// 1 row warps, 2 row warps with the query tile resident, 3 row warps over
+// xt [D, N]), micro-tile rows tm, k and depth D; 0 for an unknown layout.
 long long flat_topk_pass1_smem(int layout, int tm, int k, int D) {
   return (long long)pass1_smem(layout, tm, k, D);
 }
@@ -374,18 +409,21 @@ long long flat_topk_work_entries(int B, int k, int splits, int group) {
 
 // q [B, D] f32, x [N, D] f32 (x_bf16 = 0) or bf16 (x_bf16 = 1), bias [N] f32,
 // all contiguous on the device of `stream`, x 16-byte aligned with
-// D % 8 == 0. Writes out_s [B, k] f32 and out_i [B, k] i32. Pass 1 runs
+// D % 8 == 0; for layout 3, x is xt [D, N], with no alignment or D
+// condition. Writes out_s [B, k] f32 and out_i [B, k] i32. Pass 1 runs
 // `layout` (0 column warps, 1 row warps, 2 row warps with the query tile
-// resident) with micro-tile rows `tm`, over `splits` ranges of
+// resident, 3 row warps over xt) with micro-tile rows `tm`, over `splits` ranges of
 // `rows_per_split` corpus rows (a multiple of the layout's corpus tile);
 // work_s / work_i hold flat_topk_work_entries(B, k, splits, group) entries
 // each. Returns the CUDA error code of the launches (0 = success).
 int flat_topk(const float* q, const void* x, int x_bf16, const float* bias, int B, int N, int D, int k,
               int layout, int tm, int splits, int rows_per_split, int group, float* out_s, int* out_i,
               float* work_s, int* work_i, void* stream) {
-  if (B < 1 || N < 1 || D < 1 || D % 8 != 0 || k < 1 || k > 1024 || splits < 1 || group < 2 ||
+  const bool rows_in_16 = layout != 3;  // x read in 16-byte pieces along D
+  if (B < 1 || N < 1 || D < 1 || k < 1 || k > 1024 || splits < 1 || group < 2 ||
       rows_per_split < 1 || (long long)splits * rows_per_split < N ||
-      (long long)(splits - 1) * rows_per_split >= N || (reinterpret_cast<size_t>(x) & 15) != 0) {
+      (long long)(splits - 1) * rows_per_split >= N ||
+      (rows_in_16 && (D % 8 != 0 || (reinterpret_cast<size_t>(x) & 15) != 0))) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -29,16 +29,32 @@ __device__ __forceinline__ bool beats(float s1, int i1, float s2, int i2) {
 
 // Insert (cs, ci) into a warp-owned sorted list of length k. The caller has
 // checked that the candidate beats ls[k-1]. The entries that beat the
-// candidate form a prefix; its length is found in two ballots (32 samples,
-// then the one segment), then the tail shifts down one slot, high to low.
+// candidate form a prefix; for k <= 1024 its length is found in two ballots
+// (32 samples, then the one segment of at most 32), for larger k by a
+// binary search that every lane runs on the same entries. Then the tail
+// shifts down one slot, high to low.
 __device__ void warp_insert(float* ls, int* li, int k, float cs, int ci, int lane) {
-  const int seg = (k + 31) / 32;
-  const int e = min(k - 1, (lane + 1) * seg - 1);
-  const int c1 = __popc(__ballot_sync(kFull, beats(ls[e], li[e], cs, ci)));
-  const int base = c1 * seg;
-  const int p2 = base + lane;
-  const bool in2 = lane < seg && p2 < k && beats(ls[p2], li[p2], cs, ci);
-  const int pos = base + __popc(__ballot_sync(kFull, in2));
+  int pos;
+  if (k <= 32 * 32) {
+    const int seg = (k + 31) / 32;
+    const int e = min(k - 1, (lane + 1) * seg - 1);
+    const int c1 = __popc(__ballot_sync(kFull, beats(ls[e], li[e], cs, ci)));
+    const int base = c1 * seg;
+    const int p2 = base + lane;
+    const bool in2 = lane < seg && p2 < k && beats(ls[p2], li[p2], cs, ci);
+    pos = base + __popc(__ballot_sync(kFull, in2));
+  } else {
+    int lo = 0, hi = k;
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (beats(ls[mid], li[mid], cs, ci)) {
+        lo = mid + 1;
+      } else {
+        hi = mid;
+      }
+    }
+    pos = lo;
+  }
   for (int hi = k - 2; hi >= pos; hi -= 32) {
     const int p = hi - lane;
     const bool act = p >= pos;

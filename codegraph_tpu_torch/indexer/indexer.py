@@ -1,7 +1,9 @@
-"""Port of `codegraph_tpu/indexer/indexer.py` for `index.kind = "flat"`
-(float32, bfloat16 or int8 rows); the IVF tiers raise NotImplementedError.
-Flat and int8 snapshots use the same .npy + manifest format as the JAX
-package, so either package loads the other's.
+"""Port of `codegraph_tpu/indexer/indexer.py`: every index kind (flat
+float32/bfloat16, flat int8, ivf, ivfpq). Snapshots use the same .npy +
+manifest format and the same arrays and meta as the JAX package, so either
+package loads the other's. Unlike the JAX package, `load` raises
+SnapshotError when the snapshot holds another index kind than the
+configured one (the reference skips it and leaves an empty index).
 
 ProjectIndexer: the full build pipeline.
 
@@ -27,10 +29,13 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 
 from codegraph_tpu_torch.core.config import CodeGraphConfig
+from codegraph_tpu_torch.core.errors import SnapshotError
 from codegraph_tpu_torch.core.types import CodeChunk, CodeNode
 from codegraph_tpu_torch.graph.store import GraphStore
 from codegraph_tpu_torch.index.flat import FlatIndex
 from codegraph_tpu_torch.index.int8_flat import Int8FlatIndex
+from codegraph_tpu_torch.index.ivf import IVFIndex
+from codegraph_tpu_torch.index.ivfpq import IVFPQIndex
 from codegraph_tpu_torch.indexer.resolve import EdgeResolver
 from codegraph_tpu_torch.models.providers import create_provider
 from codegraph_tpu_torch.parser.chunker import ChunkerConfig, build_chunk_plan
@@ -67,23 +72,20 @@ class IndexStats:
         return d
 
 
-#: index configurations of the JAX package that this port does not run
-#: yet, with the ROADMAP item that ports them
-UNPORTED_INDEXES = {
-    "ivf": "ROADMAP item 10 (kmeans + IVFIndex)",
-    "ivfpq": "ROADMAP item 11 (PQ/OPQ + IVFPQIndex, kernel K8)",
-}
-
-
 def _make_index(cfg: CodeGraphConfig, dim: Optional[int] = None, device="cuda"):
     # dim: the PROVIDER's actual output width when it differs from the
     # configured one (the index follows the provider, not the config)
     icfg = cfg.index
     dim = int(dim) if dim else cfg.embedding.dimension
-    if icfg.kind in UNPORTED_INDEXES:
-        raise NotImplementedError(
-            f"index.kind {icfg.kind!r} is not ported yet: "
-            f"{UNPORTED_INDEXES[icfg.kind]}")
+    if icfg.kind == "ivfpq":
+        # pq_m must divide dim: else the largest divisor below it
+        m = icfg.pq_m if dim % icfg.pq_m == 0 else max(
+            d for d in range(1, min(icfg.pq_m, dim) + 1) if dim % d == 0)
+        return IVFPQIndex(dim, nlist=icfg.nlist, nprobe=icfg.nprobe, m=m, metric=icfg.metric,
+                          kmeans_iters=icfg.kmeans_iters, refine=icfg.pq_refine, device=device)
+    if icfg.kind == "ivf":
+        return IVFIndex(dim, nlist=icfg.nlist, nprobe=icfg.nprobe, metric=icfg.metric,
+                        kmeans_iters=icfg.kmeans_iters, device=device)
     if icfg.dtype == "int8":
         return Int8FlatIndex(dim, metric=icfg.metric, rescore_k=icfg.rescore_k, device=device)
     return FlatIndex(dim, metric=icfg.metric, dtype=icfg.dtype, device=device)
@@ -115,6 +117,7 @@ class ProjectIndexer:
             max_tokens=self.config.embedding.max_chunk_tokens,
             overlap_tokens=self.config.embedding.chunk_overlap_tokens,
         )
+        self._ivf_trained = not isinstance(self.index, IVFIndex)
 
     # -- full / incremental build -----------------------------------------
 
@@ -279,6 +282,7 @@ class ProjectIndexer:
                                  getattr(self.provider, "dimension", None),
                                  self.device)
         self.bm25 = BM25Index()
+        self._ivf_trained = not isinstance(self.index, IVFIndex)
         self.search = HybridSearch(
             self.store, self.index, self.provider, self.bm25, self.config.search
         )
@@ -287,13 +291,19 @@ class ProjectIndexer:
         self, chunks: Sequence[CodeChunk]
     ) -> None:
         """Embed in slices with a live rate/ETA line (reference:
-        indexer.rs:4107 indicatif batch progress)."""
+        indexer.rs:4107 indicatif batch progress). When the IVF/IVF-PQ
+        coarse quantizer is untrained, the first slice is sized to the
+        training sample so that it trains as the unsliced path would."""
         from codegraph_tpu_torch.utils.progress import ProgressReporter
 
         if not chunks:
             return
         bs = max(int(self.config.indexing.batch_size), 256) * 4
-        first = min(len(chunks), bs)
+        first = len(chunks)
+        if isinstance(self.index, IVFIndex) and not self._ivf_trained:
+            first = min(len(chunks), max(bs, self.index.train_sample))
+        elif len(chunks) > bs:
+            first = bs
         prog = ProgressReporter().stage("embed", len(chunks), "chunks")
         done = 0
         for lo in [0] + list(range(first, len(chunks), bs)):
@@ -309,6 +319,15 @@ class ProjectIndexer:
         rows = self.store.upsert_chunks(list(chunks))
         texts = [c.text for c in chunks]
         embs = self.provider.embed_texts_device(texts)
+        if isinstance(self.index, IVFIndex) and not self._ivf_trained:
+            n_train = max(self.index.nlist, min(len(embs), self.index.train_sample))
+            if len(embs) < self.index.nlist:
+                # tiny corpora: shrink nlist to the corpus (the index's
+                # _fill keeps its length, as in the reference)
+                self.index.nlist = max(1, len(embs) // 8 or 1)
+                self.index.nprobe = min(self.index.nprobe, self.index.nlist)
+            self.index.train(embs[:n_train])
+            self._ivf_trained = True
         got = self.index.add(embs)
         # rows from the store must match index rows; both are append-only
         if list(got) != list(rows):
@@ -415,12 +434,35 @@ class ProjectIndexer:
     def _save_index(self, directory: str) -> None:
         """Persist via the mmap snapshot format (index/snapshot.py), as the
         JAX package does: flat rows as f32 whatever the storage dtype; int8
-        rows with their scales, and the rescore copy as f32."""
+        rows with their scales, and the rescore copy as f32; IVF cells with
+        their centroids, fill and list_cap, IVF-PQ cells as subspace-major
+        uint8 codes with the codebooks, the OPQ rotation and the host refine
+        rows (the device refine bank is not saved, as in the reference)."""
         from codegraph_tpu_torch.index.snapshot import save_arrays
 
         meta = {"n_rows": self.index.n_rows, "n_live": self.index.n_live,
                 "dim": self.index.dim}
-        if isinstance(self.index, Int8FlatIndex):
+        if isinstance(self.index, IVFIndex):
+            idx = self.index
+            cents, x, ids, bias = idx.arrays()
+            if x is None:
+                return
+            meta.update({"kind": "ivf", "nlist": idx.nlist, "list_cap": idx.list_cap,
+                         "fill": idx._fill.tolist()})
+            arrays = {"centroids": cents.cpu().numpy(), "id_lists": ids.cpu().numpy(),
+                      "bias_lists": bias.cpu().numpy()}
+            if isinstance(idx, IVFPQIndex):
+                meta.update({"kind": "ivfpq", "m": idx.m, "code_layout": "subspace_major"})
+                arrays["code_lists"] = x.cpu().numpy()
+                arrays["books"] = idx._books.float().cpu().numpy()
+                if idx._rot is not None:
+                    arrays["opq_rot"] = idx._rot.float().cpu().numpy()
+                if idx._raw_chunks:
+                    arrays["refine_rows"] = np.concatenate(idx._raw_chunks)
+                    arrays["refine_scales"] = np.concatenate(idx._raw_scales)
+            else:
+                arrays["x_lists"] = x.float().cpu().numpy()
+        elif isinstance(self.index, Int8FlatIndex):
             q, s, r, bias = self.index.arrays()
             if q is None:
                 return
@@ -444,20 +486,36 @@ class ProjectIndexer:
         if os.path.exists(os.path.join(directory, MANIFEST)):
             arrays, meta = load_arrays(directory)
             kind = meta.get("kind")
-            if kind in UNPORTED_INDEXES:
-                raise NotImplementedError(
-                    f"snapshot index kind {kind!r} is not ported yet: "
-                    f"{UNPORTED_INDEXES[kind]}")
-            if kind == "flat" and isinstance(self.index, FlatIndex):
-                self.index.load_arrays(
-                    arrays["x"], arrays["bias"], int(meta["n_rows"]),
-                    int(meta["n_live"]),
-                )
-            elif kind == "int8" and isinstance(self.index, Int8FlatIndex):
-                self.index.load_arrays(
-                    arrays["q"], arrays["s"], arrays.get("r"),
-                    arrays["bias"], int(meta["n_rows"]), int(meta["n_live"]),
-                )
+            have = _index_kind(self.index)
+            if kind != have:
+                raise SnapshotError(
+                    f"snapshot in {directory} holds a {kind!r} index but the "
+                    f"configuration builds {have!r}; re-index with force=True "
+                    f"or configure index.kind/dtype to match")
+            n_rows, n_live = int(meta["n_rows"]), int(meta["n_live"])
+            if kind == "flat":
+                self.index.load_arrays(arrays["x"], arrays["bias"], n_rows, n_live)
+            elif kind == "int8":
+                self.index.load_arrays(arrays["q"], arrays["s"], arrays.get("r"),
+                                       arrays["bias"], n_rows, n_live)
+            else:
+                state = dict(centroids=arrays["centroids"], id_lists=arrays["id_lists"],
+                             bias_lists=arrays["bias_lists"], fill=meta["fill"],
+                             list_cap=int(meta["list_cap"]), n_rows=n_rows, n_live=n_live)
+                if kind == "ivfpq":
+                    codes = arrays["code_lists"]
+                    if (meta.get("code_layout") != "subspace_major"
+                            or codes.shape[1] != int(meta.get("m", -1))):
+                        raise SnapshotError(
+                            "ivfpq snapshot uses the old [nlist, cap, m] code layout; "
+                            "re-index with force=True to rebuild it")
+                    self.index.load_arrays(
+                        code_lists=codes, books=arrays["books"], rot=arrays.get("opq_rot"),
+                        refine_rows=arrays.get("refine_rows"),
+                        refine_scales=arrays.get("refine_scales"), **state)
+                else:
+                    self.index.load_arrays(x_lists=arrays["x_lists"], **state)
+                self._ivf_trained = True
         # rebuild BM25 from the store (derived state)
         self.bm25 = BM25Index()
         for node in self.store.nodes.values():
@@ -465,6 +523,15 @@ class ProjectIndexer:
         self.search = HybridSearch(
             self.store, self.index, self.provider, self.bm25, self.config.search
         )
+
+
+def _index_kind(index) -> str:
+    """The snapshot kind an index writes: flat, int8, ivf or ivfpq."""
+    if isinstance(index, IVFPQIndex):
+        return "ivfpq"
+    if isinstance(index, IVFIndex):
+        return "ivf"
+    return "int8" if isinstance(index, Int8FlatIndex) else "flat"
 
 
 __all__ = ["ProjectIndexer", "IndexStats"]

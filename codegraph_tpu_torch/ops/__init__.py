@@ -1,6 +1,10 @@
-"""Tensor ops and the CUDA kernels' wrappers (the ported part of
-`codegraph_tpu/ops/__init__.py`; K4, kmeans and PQ are not ported yet)."""
+"""Tensor ops and the CUDA kernels' wrappers (port of
+`codegraph_tpu/ops/__init__.py`: top-k K1-K4, int8 K5-K7, k-means, PQ and
+OPQ; K8 lives with its index, `index/ivfpq.py`)."""
 
+from codegraph_tpu_torch.ops.kmeans import assign_clusters, assign_clusters_topk, kmeans
+from codegraph_tpu_torch.ops.opq import opq_train, pq_distortion, pq_train_batched
+from codegraph_tpu_torch.ops.pq import PQCodebook, pq_adc_topk, pq_decode, pq_encode, pq_train
 from codegraph_tpu_torch.ops.quantize import (
     dequantize_rows,
     quantize_rows,
@@ -18,6 +22,7 @@ from codegraph_tpu_torch.ops.topk import (
     streaming_topk,
     streaming_topk_cuda,
     streaming_topk_cuda_qmajor,
+    streaming_topk_cuda_qmajor_xt,
     streaming_topk_cuda_qres,
 )
 
@@ -31,6 +36,18 @@ __all__ = [
     "streaming_topk_cuda",
     "streaming_topk_cuda_qmajor",
     "streaming_topk_cuda_qres",
+    "streaming_topk_cuda_qmajor_xt",
+    "kmeans",
+    "assign_clusters",
+    "assign_clusters_topk",
+    "PQCodebook",
+    "pq_train",
+    "pq_encode",
+    "pq_decode",
+    "pq_adc_topk",
+    "pq_train_batched",
+    "opq_train",
+    "pq_distortion",
     "quantize_rows",
     "dequantize_rows",
     "streaming_topk_int8",

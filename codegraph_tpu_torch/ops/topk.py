@@ -1,21 +1,22 @@
 """Exact streaming top-k over a device-resident embedding matrix.
 
 Port of `codegraph_tpu/ops/topk.py` (K1 `streaming_topk_pallas`, K2
-`streaming_topk_pallas_qmajor` and K3 `streaming_topk_pallas_qres`; K4 is
-not ported yet). Scores are `q @ x.T + bias` in f32 (a bf16 corpus is
-widened to f32), and each query row keeps its k best rows, sorted
-descending.
+`streaming_topk_pallas_qmajor`, K3 `streaming_topk_pallas_qres` and K4
+`streaming_topk_pallas_qmajor_xt`). Scores are `q @ x.T + bias` in f32 (a
+bf16 corpus is widened to f32), and each query row keeps its k best rows,
+sorted descending.
 
 * `exact_topk`, `merge_topk`, `streaming_topk` are the plain PyTorch
   versions: a matmul per row tile, then a merge by a stable sort of the
   running top-k and the tile. `streaming_topk` is what the kernels are
   held to; `exact_topk` is its small-N oracle.
 * `streaming_topk_cuda` (K1, small batches), `streaming_topk_cuda_qmajor`
-  (K2, large batches) and `streaming_topk_cuda_qres` (K3, K2 with each
-  block's query tile resident in shared memory) launch the hand-written
-  kernel in `csrc/flat_topk.cu` on CUDA tensors, and run `streaming_topk`
-  on CPU tensors. On a CUDA tensor they launch or raise; nothing falls
-  back.
+  (K2, large batches), `streaming_topk_cuda_qres` (K3, K2 with each
+  block's query tile resident in shared memory) and
+  `streaming_topk_cuda_qmajor_xt` (K4, K2 over a pre-transposed corpus
+  xt [D, N]; no index calls it) launch the hand-written kernel in
+  `csrc/flat_topk.cu` on CUDA tensors, and run `streaming_topk` on CPU
+  tensors. On a CUDA tensor they launch or raise; nothing falls back.
 
 Order and sentinels, shared by every version: a higher score wins; on
 equal scores the lower row id wins. The running top-k starts as
@@ -41,9 +42,10 @@ MAX_K = 1024
 #: warps (8 groups of tm query rows over a 128-row corpus tile), K3 = row
 #: warps whose query tile stays resident in shared memory for the block's
 #: whole corpus split. csrc/int8_topk.cu numbers K5/K6/K7 the same way,
-#: with the same corpus tiles and query tiles of tm or 8 * tm rows.
-K1_LAYOUT, K2_LAYOUT, K3_LAYOUT = 0, 1, 2
-CORPUS_TILE = {K1_LAYOUT: 256, K2_LAYOUT: 128, K3_LAYOUT: 128}
+#: with the same corpus tiles and query tiles of tm or 8 * tm rows. K4 =
+#: K2's row warps reading the corpus from xt [D, N].
+K1_LAYOUT, K2_LAYOUT, K3_LAYOUT, K4_LAYOUT = 0, 1, 2, 3
+CORPUS_TILE = {K1_LAYOUT: 256, K2_LAYOUT: 128, K3_LAYOUT: 128, K4_LAYOUT: 128}
 #: K2 takes the largest tm (query tile 8 * tm) whose top-k lists fit
 #: K2_SMEM_BYTES of shared memory. Larger tm means fewer shared-memory
 #: reads per FMA, but above ~112 KB a block holds an SM alone, and for
@@ -52,7 +54,8 @@ K2_TMS = (16, 8, 4, 2, 1)
 K2_SMEM_BYTES = 112 * 1024
 #: pass 1 aims at this many blocks per kernel (4 or 2 per SM of an H100);
 #: pass 2 merges MERGE_GROUP per-split lists per warp and level
-TARGET_BLOCKS = {K1_LAYOUT: 4 * 132, K2_LAYOUT: 2 * 132, K3_LAYOUT: 2 * 132}
+TARGET_BLOCKS = {K1_LAYOUT: 4 * 132, K2_LAYOUT: 2 * 132, K3_LAYOUT: 2 * 132,
+                 K4_LAYOUT: 2 * 132}
 MERGE_GROUP = 16
 
 
@@ -183,7 +186,7 @@ def _plan(B: int, N: int, layout: int, tile_b: int) -> Tuple[int, int]:
 def _launch(q, x, bias, k: int, layout: int, tm: int):
     lib = _lib()
     B, D = q.shape
-    N = x.shape[0]
+    N = x.shape[1] if layout == K4_LAYOUT else x.shape[0]
     q = q.float().contiguous()  # bf16 queries widen exactly
     splits, rows = _plan(B, N, layout, query_tile(layout, tm))
     out_s = torch.empty((B, k), dtype=torch.float32, device=q.device)
@@ -282,9 +285,51 @@ def streaming_topk_cuda_qres(
     return out
 
 
+def _check_xt(q: torch.Tensor, xt: torch.Tensor, bias: torch.Tensor, k: int) -> None:
+    """`_check` for a corpus xt [D, N], which K4 reads along N one element
+    at a time: no condition on D or alignment."""
+    if xt.dim() != 2 or q.dim() != 2 or bias.dim() != 1 or q.shape[1] != xt.shape[0] \
+            or bias.shape[0] != xt.shape[1]:
+        raise ValueError(f"shape mismatch: expected q [B, D], xt [D, N], bias [N], got q "
+                         f"{tuple(q.shape)}, xt {tuple(xt.shape)}, bias {tuple(bias.shape)}")
+    if q.shape[0] < 1 or xt.shape[1] < 1:
+        raise ValueError("empty query batch or corpus")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"q must be float32 or bfloat16, got {q.dtype}")
+    if xt.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"xt must be float32 or bfloat16, got {xt.dtype}")
+    if bias.dtype != torch.float32:
+        raise ValueError(f"bias must be float32, got {bias.dtype}")
+    if not (q.is_contiguous() and xt.is_contiguous() and bias.is_contiguous()):
+        raise ValueError("q, xt and bias must be contiguous")
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"k={k} outside the kernel's range 1..{MAX_K}")
+    if xt.shape[1] >= 2**31 - 1024 or xt.numel() >= 2**62:
+        raise ValueError("corpus too large for 32-bit row ids")
+
+
+def streaming_topk_cuda_qmajor_xt(
+    q: torch.Tensor, xt: torch.Tensor, bias: torch.Tensor, k: int,
+    tile_n: int = DEFAULT_TILE_N,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K4: K2 over a pre-transposed corpus xt [D, N] (any N and D); its
+    results equal K2's on xt.T. CPU tensors run `streaming_topk` on xt.T.
+    Returns (scores [B, k] f32, ids [B, k] int32)."""
+    if _on_cpu(q, xt, bias):
+        return streaming_topk(q, xt.T, bias, k, tile_n)
+    _check_xt(q, xt, bias, k)
+    B, D = q.shape
+    tm = row_warps_tm(_lib().flat_topk_pass1_smem, K4_LAYOUT, B, k, D)
+    out = _launch(q, xt, bias, k, K4_LAYOUT, tm)
+    with _count_lock:
+        streaming_topk_cuda_qmajor_xt.launches += 1
+    return out
+
+
 streaming_topk_cuda.launches = 0
 streaming_topk_cuda_qmajor.launches = 0
 streaming_topk_cuda_qres.launches = 0
+streaming_topk_cuda_qmajor_xt.launches = 0
 
 
 __all__ = [
@@ -297,4 +342,5 @@ __all__ = [
     "streaming_topk_cuda",
     "streaming_topk_cuda_qmajor",
     "streaming_topk_cuda_qres",
+    "streaming_topk_cuda_qmajor_xt",
 ]

@@ -1,4 +1,4 @@
-"""The port's first slice as a whole, held to the JAX package on the CPU.
+"""The port's slices as a whole, held to the JAX package on the CPU.
 
 A small fixture project (a copy of the JAX package's parser sources) is
 indexed by both packages with the hash provider at D=768. Counts, chunk
@@ -16,8 +16,15 @@ its bf16 rescore copy) holds the banks to the JAX index's (an int8 element
 may land one step away, at most 1 in 1,000, where the f32 norms differ in
 the last bit; scales within 1e-6 relative; bf16 rows within one bf16
 step) and the hybrid results to the same 1e-5.
+
+The IVF tiers (`index.kind = "ivf"` and `"ivfpq"` at the config defaults,
+nlist shrunk to the small corpus): the two packages train from different
+random centroids, so their indexes differ; each package's snapshot is
+loaded by the other and searched there, and the hybrid results must equal
+the writer's (same 1e-5, ties as above).
 """
 
+import dataclasses
 import os
 import shutil
 
@@ -231,8 +238,6 @@ def test_adjacency_boost_matches_jax(rng, B, K, n, deg):
 @pytest.mark.parametrize("override,item", [
     (("embedding", "provider", "ensemble"), "ROADMAP item 6"),
     (("embedding", "provider", "openai"), "ROADMAP item 6"),
-    (("index", "kind", "ivf"), "ROADMAP item 10"),
-    (("index", "kind", "ivfpq"), "ROADMAP item 11"),
 ])
 def test_unported_configurations_raise(tmp_path, override, item):
     cfg = _cfg(TConfig, tmp_path / "d")
@@ -363,3 +368,151 @@ def test_int8_query_service_batches_match_single_queries(built_int8):
     qn = embs / np.maximum(np.linalg.norm(embs, axis=1, keepdims=True), 1e-6)
     # the final scores are the bf16 rescore rows' dot products: they judge ties
     assert_topk_equiv(s_b, i_b, s_1, i_1, qn, r.float().numpy(), np.zeros(r.shape[0], np.float32))
+
+
+# ---------------------------------------------------------------------------
+# the IVF tiers: index.kind = "ivf" and "ivfpq" through the entry points
+# ---------------------------------------------------------------------------
+
+
+def _kind_cfg(cls, data_dir, kind, proj=None):
+    cfg = _cfg(cls, data_dir)
+    cfg.index.kind = kind
+    if proj is not None:
+        cfg.project_root = str(proj)
+    return cfg
+
+
+@pytest.fixture(scope="module", params=["ivf", "ivfpq"])
+def built_ivf(request, tmp_path_factory):
+    kind = request.param
+    root = tmp_path_factory.mktemp(f"slice_{kind}")
+    proj = root / "proj"
+    shutil.copytree(os.path.join(REPO, "codegraph_tpu", "parser"), proj,
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    j = JCodeGraph.open(str(proj), config=_kind_cfg(JConfig, root / "jax_data", kind))
+    t = TCodeGraph.open(str(proj), config=_kind_cfg(TConfig, root / "torch_data", kind),
+                        device="cpu")
+    return {"kind": kind, "root": root, "proj": proj, "j": j, "t": t,
+            "js": j.index(), "ts": t.index()}
+
+
+def test_ivf_tiers_index_like_jax(built_ivf):
+    """The same counts, the same shrunk nlist, and every chunk row live in
+    both packages' IVF index."""
+    j, t = built_ivf["j"].indexer.index, built_ivf["t"].indexer.index
+    assert type(t).__name__ == type(j).__name__ == {"ivf": "IVFIndex",
+                                                     "ivfpq": "IVFPQIndex"}[built_ivf["kind"]]
+    assert built_ivf["ts"].chunks == built_ivf["js"].chunks > 100
+    assert (t.nlist, t.nprobe, t.n_rows) == (j.nlist, j.nprobe, j.n_rows)
+    assert t.nlist == built_ivf["ts"].chunks // 8 and len(t._fill) == 4096
+    assert len(t) == len(j) == t.n_rows
+    if built_ivf["kind"] == "ivfpq":
+        assert t.m == j.m == 96 and t.refine == j.refine == "int8"
+        assert len(t._raw_chunks) and t._books.shape == np.asarray(j._books).shape
+
+
+def _loaded(cls, built, writer):
+    """An indexer of package `cls` loading `writer`'s snapshot."""
+    src = "jax_data" if writer == "j" else "torch_data"
+    cfg = _kind_cfg(TConfig if cls is TIndexer else JConfig, built["root"] / src,
+                    built["kind"], built["proj"])
+    idx = cls(cfg, device="cpu") if cls is TIndexer else cls(cfg)
+    idx.load(str(built["root"] / src))
+    return idx
+
+
+@pytest.mark.parametrize("query", QUERIES)
+def test_ivf_snapshot_written_by_jax_searched_in_port(built_ivf, query):
+    tl = _loaded(TIndexer, built_ivf, "j")
+    assert tl.index.n_live == len(built_ivf["j"].indexer.index)
+    _assert_hits_equal(tl.search.search_text(query, 10), built_ivf["j"].search(query, limit=10))
+
+
+@pytest.mark.parametrize("query", QUERIES[:2])
+def test_ivf_snapshot_written_by_port_searched_in_jax(built_ivf, query):
+    jl = _loaded(JIndexer, built_ivf, "t")
+    assert jl.index.n_live == len(built_ivf["t"].indexer.index)
+    _assert_hits_equal(jl.search.search_text(query, 10), built_ivf["t"].search(query, limit=10))
+
+
+def test_ivf_filtered_search_on_jax_snapshot(built_ivf):
+    """A hard filter on identical state: IVF-PQ applies it as extra_bias
+    after an over-fetch; IVF (no extra_bias) through the host fallback."""
+    from codegraph_tpu.core.types import SearchFilters as JFilters
+    from codegraph_tpu_torch.core.types import SearchFilters as TFilters
+
+    tl = _loaded(TIndexer, built_ivf, "j")
+    a = built_ivf["j"].indexer.search.search_text(QUERIES[0], 10,
+                                                  filters=JFilters.make(node_types=["class"]))
+    b = tl.search.search_text(QUERIES[0], 10, filters=TFilters.make(node_types=["class"]))
+    _assert_hits_equal(a, b)
+    assert {h.node_type for h in b} == {"class"}
+
+
+def test_ivf_query_service_batches_match_single_queries(built_ivf):
+    index = built_ivf["t"].indexer.index
+    embs = built_ivf["t"].indexer.provider.embed_texts(
+        [f"{q} {i}" for i, q in enumerate(QUERIES * 8)])
+    svc = QueryService.auto(index, k=10)
+    try:
+        got = [f.result(timeout=60) for f in [svc.submit(e) for e in embs]]
+    finally:
+        svc.close()
+    assert svc.stats.queries == len(embs)
+    singles = [index.search(e[None, :], 10) for e in embs]
+    for (s_b, i_b), (s_1, i_1) in zip(got, singles):
+        # scores position by position; ids may differ only among ties with
+        # the last place
+        np.testing.assert_allclose(s_b, s_1[0], rtol=0, atol=TOL)
+        above = s_1[0] > s_1[0][-1] + TOL
+        assert set(i_b[above]) == set(i_1[0][above])
+
+
+def test_snapshot_of_another_kind_raises_in_port_and_is_skipped_in_jax(built, tmp_path):
+    """The port refuses a snapshot whose index kind differs from the
+    configured one; the JAX package skips it and serves an empty index."""
+    from codegraph_tpu_torch.core.errors import SnapshotError
+
+    data = built["root"] / "torch_data"  # a flat snapshot
+    for kind in ("ivf", "ivfpq"):
+        with pytest.raises(SnapshotError, match="'flat'"):
+            TCodeGraph(_kind_cfg(TConfig, data, kind, built["proj"]), device="cpu")
+    int8 = _cfg(TConfig, data)
+    int8.project_root = str(built["proj"])
+    int8.index.dtype = "int8"
+    with pytest.raises(SnapshotError, match="'int8'"):
+        TCodeGraph(int8, device="cpu")
+    j = JCodeGraph(_kind_cfg(JConfig, data, "ivfpq", built["proj"]))
+    assert len(j.indexer.store.nodes) > 0 and len(j.indexer.index) == 0
+
+
+def test_open_with_capacity_planned_to_ivfpq_matches_jax(tmp_path):
+    """100M x 768 rows: the int8 matrix is over the CPU's 8 GiB budget, so
+    both packages plan IVF-PQ (nlist 32,768, m=96, host int8 refine); a tiny
+    project then shrinks nlist, and _fill keeps its 32,768 entries."""
+    proj = tmp_path / "proj"
+    proj.mkdir()
+    for n in range(3):
+        (proj / f"m{n}.py").write_text("".join(
+            f"def f{n}_{i}(x):\n    return x * {i} + {n}\n\n" for i in range(40)))
+    graphs = []
+    for cls, gcls, kw in ((JConfig, JCodeGraph, {}), (TConfig, TCodeGraph, {"device": "cpu"})):
+        cfg = _cfg(cls, tmp_path / cls.__module__.split(".")[0])
+        cfg.index.capacity = 100_000_000
+        graphs.append(gcls.open(str(proj), config=cfg, **kw))
+    j, t = graphs
+    assert dataclasses.asdict(t.config.index) == dataclasses.asdict(j.config.index)
+    assert (t.config.index.kind, t.config.index.nlist, t.config.index.pq_m) == ("ivfpq", 32768, 96)
+    j.index()
+    t.index()
+    ti = t.indexer.index
+    assert type(ti).__name__ == "IVFPQIndex" and len(ti._fill) == 32768
+    assert ti.nlist == j.indexer.index.nlist and len(ti) == len(j.indexer.index) > 100
+    hits = t.search("f1_7 returns x times", limit=5)
+    assert len(hits) == 5
+    jcfg = _kind_cfg(JConfig, tmp_path / "codegraph_tpu_torch", "ivfpq", proj)
+    jcfg.index.nlist, jcfg.index.nprobe = t.config.index.nlist, t.config.index.nprobe
+    jl = JIndexer(jcfg)
+    jl.load(str(tmp_path / "codegraph_tpu_torch"))
+    _assert_hits_equal(jl.search.search_text("f1_7 returns x times", 5), hits)

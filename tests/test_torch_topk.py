@@ -331,3 +331,76 @@ def test_kernel_build_refuses_without_nvcc(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         cuda_build.build("flat_topk")
     assert not (tmp_path / "build").exists()
+
+
+# ---------------------------------------------------------------------------
+# K4: K2 over a pre-transposed corpus xt [D, N]
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,N,k", [(64, 512, 10), (64, 768, 100), (128, 1024, 300)])
+def test_k4_wrapper_matches_jax_pallas(rng, dtype, B, N, k):
+    """The K4 wrapper (plain path on CPU tensors) vs
+    `streaming_topk_pallas_qmajor_xt` in interpret mode on the same xt."""
+    D = 64
+    q, x, bias = _case(rng, B, N, D, dead_frac=0.01)
+    x[7] = x[3]  # an exact tie
+    xt = np.ascontiguousarray(x.T)
+    jd = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    js, ji = jtopk.streaming_topk_pallas_qmajor_xt(jnp.asarray(q, jd), jnp.asarray(xt, jd),
+                                                   jnp.asarray(bias), k, tile_n=256, tile_b=64,
+                                                   interpret=True)
+    td = getattr(torch, dtype)
+    tq, txt, tb = _t(q, xt, bias)
+    ts, ti = ttopk.streaming_topk_cuda_qmajor_xt(tq.to(td), txt.to(td), tb, k)
+    assert_topk_equiv(ts, ti, js, ji, tq.to(td).float().numpy(), txt.to(td).float().numpy().T,
+                      bias)
+    ks, ki = ttopk.streaming_topk_cuda_qmajor(tq.to(td), txt.to(td).T.contiguous(), tb, k)
+    assert torch.equal(ks, ts) and torch.equal(ki, ti)  # K2 on xt.T: the same function
+
+
+def test_k4_ragged_n_and_odd_depth(rng):
+    """Any N and D: the JAX kernel needs whole tiles; the port's K4 does not."""
+    q, x, bias = _case(rng, 33, 1001, 36, dead_frac=0.02)
+    args = _t(q, np.ascontiguousarray(x.T), bias)
+    ttopk._check_xt(*args, 50)  # the kernel takes D=36 and N=1001 as they are
+    ts, ti = ttopk.streaming_topk_cuda_qmajor_xt(*args, 50)
+    es, ei = jtopk.exact_topk(q, x, 50, bias=bias)
+    assert_topk_equiv(ts, ti, es, ei, q, x, bias)
+
+
+@pytest.mark.parametrize("bad,err", [
+    (dict(k=0), "k=0"), (dict(qdtype=torch.float16), "q must be"),
+    (dict(xdtype=torch.float16), "xt must be"), (dict(bias_dtype=torch.float64), "bias must"),
+    (dict(D2=32), "shape mismatch"), (dict(noncontig=True), "contiguous"),
+])
+def test_k4_input_checks(bad, err):
+    D = 60  # no multiple-of-8 rule: xt is read one element at a time
+    q = torch.zeros((4, D), dtype=bad.get("qdtype", torch.float32))
+    xt = torch.zeros((bad.get("D2", D), 100), dtype=bad.get("xdtype", torch.float32))
+    if bad.get("noncontig"):
+        xt = torch.zeros((100, D)).T
+    bias = torch.zeros(100, dtype=bad.get("bias_dtype", torch.float32))
+    with pytest.raises(ValueError, match=err):
+        ttopk._check_xt(q, xt, bias, bad.get("k", 10))
+
+
+def test_k4_plan_matches_k2():
+    assert ttopk._plan(1024, 1_000_000, ttopk.K4_LAYOUT, 128) == \
+        ttopk._plan(1024, 1_000_000, ttopk.K2_LAYOUT, 128)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k4_matches_plain_on_card(cuda_device, dtype):
+    rng = np.random.default_rng(2)
+    q, x, bias = _case(rng, 70, 5003, 768, dead_frac=0.01)
+    td = getattr(torch, dtype)
+    tq, txt, tb = (t.to(cuda_device) for t in _t(q, np.ascontiguousarray(x.T), bias))
+    tq, txt = tq.to(td), txt.to(td)
+    for k in (1, 30, 300):
+        ks, ki = ttopk.streaming_topk_cuda_qmajor_xt(tq, txt, tb, k)
+        ps, pi = ttopk.streaming_topk(tq, txt.T, tb, k)
+        assert_topk_equiv(ks.cpu(), ki.cpu(), ps.cpu(), pi.cpu(), tq.float().cpu().numpy(),
+                          txt.float().cpu().numpy().T, bias)
