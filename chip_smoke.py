@@ -14,7 +14,9 @@ Phases, each printing one JSON object per line as it ends:
      build seconds and ptxas lines.
   1  every kernel against its plain PyTorch version on the card. K1, K2
      and K3: f32 and bf16 corpora up to 131,072 x 768, k in {1, 10, 30,
-     100, 300}. K5, K6 and K7: int8 corpora of the same sizes, k in {1, 10,
+     100, 300, 1024}, K2-K4 at B = 20, 31 and 32 (a 32-row query tile), 33,
+     40 and 64 (a 64-row tile) and 70, 96, 256 and 1000 (partial 128-row
+     tiles). K5, K6 and K7: int8 corpora of the same sizes, k in {1, 10,
      100, 300}, with an all-zero row (scale 0) and rows of +-127 everywhere
      (an int8 wrap would show). Both: a ragged N, 1% tombstones, an
      extra_bias filter, k above the live count, duplicate rows (exact
@@ -32,12 +34,12 @@ Phases, each printing one JSON object per line as it ends:
      queries). Prints the counts and the kernels' launch counters, which
      must both be above zero.
   3  real size: FlatIndex of 1,000,000 x 768 rows, f32 then bf16, made on
-     the card from a seeded generator, 1% tombstoned; K1 at B=1 and 8, K2
-     at B=256 and 1024, k=30 and 300, and K3 (f32) at B=256 and 1024, k=100
-     and 300, K3 (f32) at B=256 and 1024, k=100 and 300, and K4 (f32, on
-     xt = x.T) at B=1024, k=30 and 300: median kernel ms over 7 batches
-     (CUDA events), the plain version's ms, a chunked matmul + topk
-     yardstick (library_ms, checked against), and the bound.
+     the card from a seeded generator, 1% tombstoned; K1 at B=1 and 8,
+     k=30 and 300; K2 (f32) at B=32 and 64 (QueryService's bucket), k=30
+     and 300; K2, K3 and K4 (f32; K4 on xt = x.T) at B=256 and 1024, k=30,
+     100 and 300; K2 (bf16) at B=256 and 1024, k=30 and 300: median kernel
+     ms over 7 batches (CUDA events), the plain version's ms, a chunked
+     matmul + topk yardstick (library_ms, checked against), and the bound.
   4  the int8 main path: phase 2 with index.dtype = "int8" (Int8FlatIndex,
      bf16 rescore copy): 5 searches (K5) and 64 concurrent queries through
      QueryService (K6), checked against the same snapshot searched on the
@@ -240,7 +242,7 @@ def ptxas_summary(log: str) -> list:
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", ln)
         if m:
-            k = re.search(r"(topk_pass1|int8_dp4a_pass1|int8_mma_pass1|adc_pass1|topk_merge)"
+            k = re.search(r"(topk_pass1|rows_pass1|int8_dp4a_pass1|int8_mma_pass1|adc_pass1|topk_merge)"
                           r"(I\w*?EE)?",
                           m.group(1))
             name = k.group(1) + (k.group(2) or "") if k else m.group(1)
@@ -297,13 +299,17 @@ def phase1(torch, mods, errs) -> dict:
                     x[1000:2000] = x[0:1000]
                 xt = x.T.contiguous()  # K4's corpus: the same rows as xt [D, N]
                 kernels, ks = dict(flat, K4=lambda q_, x_, b_, k_: k4(q_, xt, b_, k_)), \
-                    (1, 10, 30, 100, 300)
-            layouts = ((0, 1), (0, 5), (1, 96), (1, 256), (2, 96), (2, 256))
-            if dtype != torch.int8:
-                layouts += ((3, 96), (3, 256))
+                    (1, 10, 30, 100, 300, 1024)
+            # (kernel, batch); the int8 tier names K5-K7 like K1-K3
+            layouts = (("K1", 1), ("K1", 5), ("K2", 96), ("K2", 256), ("K3", 96), ("K3", 256))
+            if dtype != torch.int8:  # the row tiles: 32-, 64- and partial 128-row query tiles
+                layouts += (("K2", 20), ("K2", 33), ("K2", 64), ("K2", 70), ("K2", 1000),
+                            ("K3", 32), ("K3", 40), ("K3", 70), ("K3", 1000), ("K4", 31),
+                            ("K4", 64), ("K4", 70), ("K4", 96), ("K4", 256), ("K4", 1000))
             for kernel, B in layouts:
-                name = sorted(kernels)[kernel]
-                fn = kernels[name]
+                if dtype == torch.int8:
+                    kernel = {"K1": "K5", "K2": "K6", "K3": "K7"}[kernel]
+                fn = kernels[kernel]
                 q = _unit(torch, torch.randn(B, D, generator=g, device=dev))
                 if dtype == torch.int8:
                     qv, qs = quantize.quantize_rows(q)
@@ -330,9 +336,9 @@ def phase1(torch, mods, errs) -> dict:
                                                   judge=judge)
                     if dtype == torch.int8:  # same f32 operations in the same order
                         bad += int(((s_k != s_p) & (s_p > NEG_INF / 2)).sum())
-                    errs[name] = max(errs[name], err)
+                    errs[kernel] = max(errs[kernel], err)
                     cases.append({
-                        "kernel": name, "dtype": str(dtype)[6:], "N": N, "B": B,
+                        "kernel": kernel, "dtype": str(dtype)[6:], "N": N, "B": B,
                         "k": k, "dup": dup, "filter": filt, "live": live or N,
                         "max_abs_err": err, "id_mismatches": n_diff,
                         "mismatches_outside_ties": bad})
@@ -618,16 +624,19 @@ def phase3(torch, topk, errs) -> list:
         x, bias = idx.arrays()
         x, bias = x[:N], bias[:N]  # capacity padding is dead rows; time the live corpus
         elt = x.element_size()
-        shapes = [("K1", 1, 30), ("K1", 1, 300), ("K1", 8, 30), ("K1", 8, 300),
-                  ("K2", 256, 30), ("K2", 256, 300), ("K2", 1024, 30), ("K2", 1024, 300)]
+        shapes = [("K1", 1, 30), ("K1", 1, 300), ("K1", 8, 30), ("K1", 8, 300)]
         xt = None
         if dtype_name == "float32":
-            shapes += [("K3", 256, 100), ("K3", 256, 300), ("K3", 1024, 100), ("K3", 1024, 300),
-                       ("K4", 1024, 30), ("K4", 1024, 300)]
+            shapes += [("K2", B, k) for B in (32, 64) for k in (30, 300)]
+            shapes += [(name, B, k) for name in ("K2", "K3", "K4") for B in (256, 1024)
+                       for k in (30, 100, 300)]
             xt = x.T.contiguous()  # K4's corpus: the same rows as xt [D, N]
+        else:
+            shapes += [("K2", 256, 30), ("K2", 256, 300), ("K2", 1024, 30), ("K2", 1024, 300)]
         flat = {"K1": topk.streaming_topk_cuda, "K2": topk.streaming_topk_cuda_qmajor,
                 "K3": topk.streaming_topk_cuda_qres,
                 "K4": lambda q_, x_, b_, k_: topk.streaming_topk_cuda_qmajor_xt(q_, xt, b_, k_)}
+        plain_cache = {}
         for name, B, k in shapes:
             fn = flat[name]
             batches = [
@@ -636,8 +645,10 @@ def phase3(torch, topk, errs) -> list:
             ]
             ms = _time_ms(torch, lambda qb: fn(qb, x, bias, k), batches)
             lib_ms = _time_ms(torch, lambda qb: yardstick(torch, qb, x, bias, k), batches[:3])
-            plain_ms = _time_ms(torch, lambda qb: topk.streaming_topk(qb, x, bias, k),
-                                batches[:2])
+            if (B, k) not in plain_cache:  # K2, K3 and K4 share their plain version
+                plain_cache[(B, k)] = _time_ms(
+                    torch, lambda qb: topk.streaming_topk(qb, x, bias, k), batches[:2])
+            plain_ms = plain_cache[(B, k)]
             # correctness on a sample of the first batch against the yardstick
             qs = batches[0][: min(B, 16)].contiguous()
             s_k, i_k = fn(qs, x, bias, k)

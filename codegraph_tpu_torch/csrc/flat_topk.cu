@@ -6,51 +6,50 @@
 //   K2  streaming_topk_pallas_qmajor    / _flat_topk_qmajor_kernel     (batches >= 32)
 //   K3  streaming_topk_pallas_qres      / _flat_topk_qres_kernel       (query-resident)
 //   K4  streaming_topk_pallas_qmajor_xt / _flat_topk_qmajor_xt_kernel  (corpus as xt [D, N])
-// K4 is K2's schedule over a pre-transposed corpus: it stages the same
-// [DK][TN] corpus slices, read along N (one element a thread, a warp reading
-// 32 consecutive rows of one depth), so it takes any N and D with no
-// alignment, and its results equal K2's on xt.T.
-// All four are this one kernel with a different warp layout and query tile:
-// up to 8 query rows for K1, up to 128 for K2 and K3 (the tile shrinks as k
-// grows, so the per-row top-k lists fit in shared memory beside the operand
-// tiles). K3 keeps its block's whole query tile resident in shared memory
-// for the block's whole corpus split, so that the only operand it streams is
-// the corpus (the TPU kernel pins the whole batch in VMEM; 227 KB of shared
-// memory per block holds a tile of it, not all of it).
+//
+// Two pass-1 kernels, one pass 2:
+//   * topk_pass1 (K1, "column warps"): up to 8 query rows per block; the 8
+//     warps split a 256-row corpus tile, so a single query does no work for
+//     padding rows. Each row's sorted top-k list lives in shared memory and
+//     takes a score only if it beats the list's k-th entry (the threshold
+//     idea of _threshold_merge_impl; topk_merge.cuh).
+//   * rows_pass1 (K2, K3, K4, "row tiles"): a 128-query x 128-row block
+//     tile for every k <= 1024, 256 threads, each an 8 x 8 micro tile of
+//     scores in registers; a batch that fits one 32- or 64-row query tile
+//     takes a 32 x 128 or 64 x 128 tile (2 or 4 x 8 a thread), so that no
+//     half of the FMAs is spent on padding rows. K4 is the same schedule over xt [D, N]. K3 runs
+//     K2's schedule: the query tiles of a corpus split read each corpus
+//     slice from L2 within microseconds of each other, which is what K3's
+//     resident batch was for (a thread block cluster sharing each slice
+//     ran about twice as slow on the H100: PERF.md).
+//   * Pass 2 merges the per-split lists [B, S, k] in levels of G lists per
+//     warp (merge path of two sorted lists), until one list per query is left.
 //
 // What bounds it on the H100:
 //   * K1 (B <= 8 live rows per tile) reads the whole corpus once per call
 //     and does 2*BT flops per corpus element: memory bound. 1M x 768 f32 is
 //     3.07 GB, 0.92 ms at 3.35 TB/s.
-//   * K2 and K3 (B = 1024) do 2*B*N*D flops in true f32 FMA (no TF32, no
+//   * K2-K4 (B = 1024) do 2*B*N*D flops in true f32 FMA (no TF32, no
 //     tensor cores): compute bound. 1.61 TFLOP at 1M x 768, about 24 ms at
 //     67 TFLOP/s.
-// What the design does about it:
-//   * Pass 1 splits the corpus rows across blocks, grid (query tiles, splits),
-//     so that even one query tile fills all 132 SMs. Each block walks its
-//     rows in corpus tiles, DK=32 columns per step. A step's query and corpus
-//     slices are loaded from device memory into registers (16-byte loads) one
-//     step ahead, while the block computes on the previous step's slices in
-//     shared memory, so the load latency hides behind the FMAs. Each thread
-//     keeps a TM x TNN micro tile of scores in registers; a bf16 corpus is
-//     widened with __bfloat162float. K3 loads its query tile once, before
-//     the first step, and stages only corpus slices.
-//   * Two warp layouts. K2/K3 ("row warps"): the 8 warps own 8 groups of TM
-//     query rows over a 128-row corpus tile, so one corpus element read from
-//     shared memory feeds TM FMAs per thread (TM up to 16: at B = 1024 the
-//     shared-memory reads, not the FMAs, set the pace below that) and a warp
-//     owns whole rows of scores.
-//     K1 ("column warps"): the 8 warps share the TM = BT <= 8 query rows and
-//     split a 256-row corpus tile between them, so a single query does no
-//     work for padding rows.
-//   * A row's scores are offered to the row's sorted top-k list in shared
-//     memory by the warp that owns the row (K2/K3: straight from registers;
-//     K1: through a score tile in shared memory). A score enters only if it
-//     beats the list's current k-th entry: the threshold idea of
-//     _threshold_merge_impl, so after the first tiles almost nothing is
-//     inserted and the merge costs a ballot per 32 scores (topk_merge.cuh).
-//   * Pass 2 merges the per-split lists [B, S, k] in levels of G lists per
-//     warp (merge path of two sorted lists), until one list per query is left.
+// What rows_pass1 does about it:
+//   * The FMA pipe is fed from registers: each thread reads its 8 query rows
+//     and 8 corpus rows as float4 along the depth from padded, bank-conflict
+//     free [rows][DK + pad] tiles (K4: float4 along N of [DK][TN] tiles),
+//     one 16-byte shared-memory load per 16 FMAs. __launch_bounds__(256, 2)
+//     holds it to 128 registers, so two blocks share an SM.
+//   * Operands reach shared memory through a ring of kStages slices filled
+//     by 16-byte cp.async (zero-filled past B, N and D), with no round trip
+//     through registers and one barrier per slice.
+//   * The top-k lists do not take shared memory: each row has a threshold
+//     (its list's k-th entry) and a 32-entry candidate buffer in shared
+//     memory, which only scores beating the threshold enter. A full buffer
+//     is sorted and merged by the row's half-warp into the row's sorted list,
+//     kept in the [B, S, k] split scratch that pass 2 reads, and the
+//     threshold rises. So the tile, and the FMAs per shared-memory read, are
+//     the same at k = 30 and at k = 1024. The corpus splits of a query row
+//     also share a lower bound of its global k-th score (share_bound), so
+//     that after the first tiles few scores enter any buffer.
 //   * No atomics: every list is built in a fixed order, so the output is
 //     deterministic.
 
@@ -58,6 +57,7 @@
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <type_traits>
 
 #include "topk_merge.cuh"
 
@@ -65,24 +65,26 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kDK = 32;   // depth staged per step
 
-// Pass 1 layouts: warps as WR row groups x (8 / WR) column groups, each
-// thread a TM x TNN micro tile. Row warps (K2, K3): WR = 8, TNN = 4, corpus
-// tile 128. Column warps (K1): WR = 1, TNN = 1, corpus tile 256. RES keeps
-// the query tile resident ([Dpad][QLD] instead of one [DK][QLD] step).
-template <int WR, int TM, int TNN, bool RES>
+// ---------------------------------------------------------------------------
+// K1: column warps
+// ---------------------------------------------------------------------------
+
+constexpr int kDK = 32;  // depth staged per step
+
+// K1's layout: warps as WR row groups x (8 / WR) column groups, each thread
+// a TM x TNN micro tile; K1 runs column warps: WR = 1, TNN = 1, a corpus
+// tile of 256.
+template <int WR, int TM, int TNN>
 struct Layout {
   static constexpr int WC = kWarps / WR;
   static constexpr int BT = WR * TM;          // query rows per block
   static constexpr int TN = WC * 32 * TNN;    // corpus rows per tile
   static constexpr int QLD = BT + 4;          // qs row stride ([DK][QLD])
   static constexpr int XLD = TN + 1;          // xs row stride ([DK][XLD])
-  static constexpr bool kRowMerge = WC == 1;  // a warp holds whole score rows
-  static size_t q_depth(int D) { return RES ? (size_t)(D + kDK - 1) / kDK * kDK : kDK; }
-  static size_t smem(int k, int D) {
-    return sizeof(float) * (q_depth(D) * QLD + (size_t)kDK * XLD +
-                            (kRowMerge ? 0 : (size_t)BT * TN)) +
+  static size_t smem(int k) {
+    return sizeof(float) * ((size_t)kDK * QLD + (size_t)kDK * XLD +
+                            (size_t)BT * TN) +
            (size_t)BT * k * (sizeof(float) + sizeof(int));
   }
 };
@@ -104,31 +106,28 @@ __device__ __forceinline__ void unpack(const uint4& v, float* out, __nv_bfloat16
   }
 }
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-// Pass 1: block (query tile, split) -> top-k of the split's rows per query.
-// x is [N, D] and then needs D % (16 / sizeof(XT)) == 0 and 16-byte
-// alignment, or (TRANS) xt [D, N] with neither.
-template <typename XT, int WR, int TM, int TNN, bool RES, bool TRANS>
+// K1 pass 1: block (query tile, split) -> top-k of the split's rows per
+// query. x is [N, D] with D % (16 / sizeof(XT)) == 0 and 16-byte alignment.
+// A step's query and corpus slices are loaded into registers one step
+// ahead, while the block computes on the previous step's slices in shared
+// memory.
+template <typename XT, int WR, int TM, int TNN>
 __global__ void __launch_bounds__(kThreads)
     topk_pass1(const float* __restrict__ q, const XT* __restrict__ x, const float* __restrict__ bias,
                int B, int N, int D, int k, int rows_per_split, float* __restrict__ part_s,
                int* __restrict__ part_i) {
-  using L = Layout<WR, TM, TNN, RES>;
+  using L = Layout<WR, TM, TNN>;
   constexpr int BT = L::BT, TN = L::TN, QLD = L::QLD, XLD = L::XLD, WC = L::WC;
   constexpr int EPV = 16 / sizeof(XT);                      // elements per 16-byte load
   constexpr int VPR = kDK / EPV;                            // loads per row per step
   constexpr int XV = TN * VPR / kThreads;                   // corpus loads per thread
-  constexpr int XS = TN * kDK / kThreads;                   // TRANS: element loads per thread
-  constexpr int QE = RES ? 1 : (BT * kDK + kThreads - 1) / kThreads;  // query loads per thread
+  constexpr int QE = (BT * kDK + kThreads - 1) / kThreads;  // query loads per thread
   extern __shared__ __align__(16) unsigned char smem[];
   const int n_chunks = (D + kDK - 1) / kDK;
-  const int q_depth = RES ? n_chunks * kDK : kDK;
-  float* qs = reinterpret_cast<float*>(smem);  // [q_depth][QLD]
-  float* xs = qs + q_depth * QLD;              // [DK][XLD]
-  float* ss = xs + kDK * XLD;                  // [BT][TN], column warps only
-  float* ls = ss + (L::kRowMerge ? 0 : BT * TN);  // [BT][k]
+  float* qs = reinterpret_cast<float*>(smem);  // [DK][QLD]
+  float* xs = qs + kDK * QLD;                  // [DK][XLD]
+  float* ss = xs + kDK * XLD;                  // [BT][TN]
+  float* ls = ss + BT * TN;                    // [BT][k]
   int* li = reinterpret_cast<int*>(ls + BT * k);
 
   const int tid = threadIdx.x;
@@ -145,65 +144,38 @@ __global__ void __launch_bounds__(kThreads)
     ls[p] = kNegInf;
     li[p] = -1;
   }
-  if constexpr (RES) {  // the query tile, once, depth-major; zero past D and B
-    for (int p = tid; p < BT * q_depth; p += kThreads) {
-      const int r = p / q_depth, d = p % q_depth;
-      qs[d * QLD + r] = (b0 + r < B && d < D) ? q[(size_t)(b0 + r) * D + d] : 0.f;
-    }
-  }
 
   uint4 xr[XV];
-  float xe[XS];
   float qr[QE];
   auto load = [&](int step) {
     const int n0 = n_begin + (step / n_chunks) * TN;
     const int d0 = (step % n_chunks) * kDK;
-    if constexpr (TRANS) {
 #pragma unroll
-      for (int v = 0; v < XS; ++v) {
-        const int vi = tid + v * kThreads, c = vi / TN, r = vi % TN;
-        xe[v] = (n0 + r < n_end && d0 + c < D) ? to_f(x[(size_t)(d0 + c) * N + n0 + r]) : 0.f;
-      }
-    } else {
-#pragma unroll
-      for (int v = 0; v < XV; ++v) {
-        const int vi = tid + v * kThreads, r = vi / VPR, d = d0 + (vi % VPR) * EPV;
-        xr[v] = (n0 + r < n_end && d < D)
-                    ? *reinterpret_cast<const uint4*>(x + (size_t)(n0 + r) * D + d)
-                    : make_uint4(0u, 0u, 0u, 0u);
-      }
+    for (int v = 0; v < XV; ++v) {
+      const int vi = tid + v * kThreads, r = vi / VPR, d = d0 + (vi % VPR) * EPV;
+      xr[v] = (n0 + r < n_end && d < D)
+                  ? *reinterpret_cast<const uint4*>(x + (size_t)(n0 + r) * D + d)
+                  : make_uint4(0u, 0u, 0u, 0u);
     }
-    if constexpr (!RES) {
 #pragma unroll
-      for (int e = 0; e < QE; ++e) {
-        const int p = tid + e * kThreads, r = p / kDK, d = d0 + p % kDK;
-        qr[e] = (p < BT * kDK && b0 + r < B && d < D) ? q[(size_t)(b0 + r) * D + d] : 0.f;
-      }
+    for (int e = 0; e < QE; ++e) {
+      const int p = tid + e * kThreads, r = p / kDK, d = d0 + p % kDK;
+      qr[e] = (p < BT * kDK && b0 + r < B && d < D) ? q[(size_t)(b0 + r) * D + d] : 0.f;
     }
   };
   auto store = [&]() {
-    if constexpr (TRANS) {
 #pragma unroll
-      for (int v = 0; v < XS; ++v) {
-        const int vi = tid + v * kThreads;
-        xs[(vi / TN) * XLD + vi % TN] = xe[v];
-      }
-    } else {
+    for (int v = 0; v < XV; ++v) {
+      const int vi = tid + v * kThreads, r = vi / VPR, c = (vi % VPR) * EPV;
+      float f[EPV];
+      unpack(xr[v], f, XT());
 #pragma unroll
-      for (int v = 0; v < XV; ++v) {
-        const int vi = tid + v * kThreads, r = vi / VPR, c = (vi % VPR) * EPV;
-        float f[EPV];
-        unpack(xr[v], f, XT());
-#pragma unroll
-        for (int e = 0; e < EPV; ++e) xs[(c + e) * XLD + r] = f[e];
-      }
+      for (int e = 0; e < EPV; ++e) xs[(c + e) * XLD + r] = f[e];
     }
-    if constexpr (!RES) {
 #pragma unroll
-      for (int e = 0; e < QE; ++e) {
-        const int p = tid + e * kThreads;
-        if (p < BT * kDK) qs[(p % kDK) * QLD + p / kDK] = qr[e];
-      }
+    for (int e = 0; e < QE; ++e) {
+      const int p = tid + e * kThreads;
+      if (p < BT * kDK) qs[(p % kDK) * QLD + p / kDK] = qr[e];
     }
   };
 
@@ -220,7 +192,7 @@ __global__ void __launch_bounds__(kThreads)
     store();
     __syncthreads();
     if (step + 1 < steps) load(step + 1);  // in flight during the FMAs below
-    const float* qstep = qs + (RES ? chunk * kDK * QLD : 0);
+    const float* qstep = qs;
 #pragma unroll 4
     for (int c = 0; c < kDK; ++c) {
       float qv[TM];
@@ -251,51 +223,26 @@ __global__ void __launch_bounds__(kThreads)
 
     // The tile's scores are complete: offer them to the rows' lists.
     const int n0 = n_begin + (step / n_chunks) * TN;
-    if constexpr (L::kRowMerge) {
-      // lane holds columns lane + 32*j of this warp's TM rows
-      float bj[TNN];
+    // the row's columns are spread over the warps: gather them in ss
 #pragma unroll
-      for (int j = 0; j < TNN; ++j) {
-        const int n = n0 + lane + 32 * j;
-        bj[j] = n < n_end ? bias[n] : 0.f;
-      }
+    for (int j = 0; j < TNN; ++j) {
+      const int col = wc * 32 * TNN + lane + 32 * j;
+      const float bc = n0 + col < n_end ? bias[n0 + col] : 0.f;
 #pragma unroll
-      for (int i = 0; i < TM; ++i) {
-        const int r = wr * TM + i;
-        if (b0 + r < B) {
-          float* lsr = ls + r * k;
-          int* lir = li + r * k;
-          float ts = lsr[k - 1];
-          int ti = lir[k - 1];
-#pragma unroll
-          for (int j = 0; j < TNN; ++j) {
-            const int n = n0 + lane + 32 * j;
-            warp_offer(acc[i][j] + bj[j], n, n < n_end, lsr, lir, k, ts, ti, lane);
-          }
-        }
-      }
-    } else {
-      // the row's columns are spread over the warps: gather them in ss
-#pragma unroll
-      for (int j = 0; j < TNN; ++j) {
-        const int col = wc * 32 * TNN + lane + 32 * j;
-        const float bc = n0 + col < n_end ? bias[n0 + col] : 0.f;
-#pragma unroll
-        for (int i = 0; i < TM; ++i) ss[(wr * TM + i) * TN + col] = acc[i][j] + bc;
-      }
-      __syncthreads();
-      for (int r = warp; r < BT; r += kWarps) {
-        if (b0 + r >= B) break;
-        float* lsr = ls + r * k;
-        int* lir = li + r * k;
-        float ts = lsr[k - 1];
-        int ti = lir[k - 1];
-        for (int col = lane; col < TN; col += 32) {
-          warp_offer(ss[r * TN + col], n0 + col, n0 + col < n_end, lsr, lir, k, ts, ti, lane);
-        }
-      }
-      // the next write of ss comes after at least one more __syncthreads
+      for (int i = 0; i < TM; ++i) ss[(wr * TM + i) * TN + col] = acc[i][j] + bc;
     }
+    __syncthreads();
+    for (int r = warp; r < BT; r += kWarps) {
+      if (b0 + r >= B) break;
+      float* lsr = ls + r * k;
+      int* lir = li + r * k;
+      float ts = lsr[k - 1];
+      int ti = lir[k - 1];
+      for (int col = lane; col < TN; col += 32) {
+        warp_offer(ss[r * TN + col], n0 + col, n0 + col < n_end, lsr, lir, k, ts, ti, lane);
+      }
+    }
+    // the next write of ss comes after at least one more __syncthreads
   }
   __syncthreads();  // lists were written by their owner warps
 
@@ -311,82 +258,557 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename XT, int WR, int TM, int TNN, bool RES, bool TRANS>
+template <typename XT, int WR, int TM, int TNN>
 cudaError_t launch_pass1(const float* q, const void* x, const float* bias, int B, int N, int D, int k,
                          int rows_per_split, int splits, float* part_s, int* part_i, cudaStream_t st) {
-  using L = Layout<WR, TM, TNN, RES>;
+  using L = Layout<WR, TM, TNN>;
   if (rows_per_split % L::TN != 0) return cudaErrorInvalidValue;
-  const size_t smem = L::smem(k, D);
-  cudaError_t err = cudaFuncSetAttribute(topk_pass1<XT, WR, TM, TNN, RES, TRANS>,
+  const size_t smem = L::smem(k);
+  cudaError_t err = cudaFuncSetAttribute(topk_pass1<XT, WR, TM, TNN>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((B + L::BT - 1) / L::BT, splits);
-  topk_pass1<XT, WR, TM, TNN, RES, TRANS><<<grid, kThreads, smem, st>>>(
+  topk_pass1<XT, WR, TM, TNN><<<grid, kThreads, smem, st>>>(
       q, static_cast<const XT*>(x), bias, B, N, D, k, rows_per_split, part_s, part_i);
   return cudaGetLastError();
 }
 
-// layout 0: column warps (K1), tm in {1, 2, 4, 8};
-// layout 1: row warps (K2), tm in {1, 2, 4, 8, 16};
-// layout 2: row warps with the query tile resident (K3), tm as layout 1;
-// layout 3: row warps over xt [D, N] (K4), tm as layout 1
+// K1 with tm query rows per block, tm in {1, 2, 4, 8}
 template <typename XT>
-cudaError_t dispatch_pass1(int layout, int tm, const float* q, const void* x, const float* bias, int B,
-                           int N, int D, int k, int rows_per_split, int splits, float* part_s,
-                           int* part_i, cudaStream_t st) {
-#define CG_PASS1(WR, TM, TNN, RES, TRANS)                                                          \
-  launch_pass1<XT, WR, TM, TNN, RES, TRANS>(q, x, bias, B, N, D, k, rows_per_split, splits, part_s, \
-                                            part_i, st)
-  if (layout == 0) {
-    switch (tm) {
-      case 1: return CG_PASS1(1, 1, 1, false, false);
-      case 2: return CG_PASS1(1, 2, 1, false, false);
-      case 4: return CG_PASS1(1, 4, 1, false, false);
-      case 8: return CG_PASS1(1, 8, 1, false, false);
-    }
-  } else if (layout == 1 || layout == 3) {
-    const bool t = layout == 3;
-    switch (tm) {
-      case 1: return t ? CG_PASS1(8, 1, 4, false, true) : CG_PASS1(8, 1, 4, false, false);
-      case 2: return t ? CG_PASS1(8, 2, 4, false, true) : CG_PASS1(8, 2, 4, false, false);
-      case 4: return t ? CG_PASS1(8, 4, 4, false, true) : CG_PASS1(8, 4, 4, false, false);
-      case 8: return t ? CG_PASS1(8, 8, 4, false, true) : CG_PASS1(8, 8, 4, false, false);
-      case 16: return t ? CG_PASS1(8, 16, 4, false, true) : CG_PASS1(8, 16, 4, false, false);
-    }
-  } else if (layout == 2) {
-    switch (tm) {
-      case 1: return CG_PASS1(8, 1, 4, true, false);
-      case 2: return CG_PASS1(8, 2, 4, true, false);
-      case 4: return CG_PASS1(8, 4, 4, true, false);
-      case 8: return CG_PASS1(8, 8, 4, true, false);
-      case 16: return CG_PASS1(8, 16, 4, true, false);
-    }
+cudaError_t dispatch_col(int tm, const float* q, const void* x, const float* bias, int B, int N, int D,
+                         int k, int rows_per_split, int splits, float* part_s, int* part_i,
+                         cudaStream_t st) {
+  switch (tm) {
+#define CG_COL(TM) \
+  launch_pass1<XT, 1, TM, 1>(q, x, bias, B, N, D, k, rows_per_split, splits, part_s, part_i, st)
+    case 1: return CG_COL(1);
+    case 2: return CG_COL(2);
+    case 4: return CG_COL(4);
+    case 8: return CG_COL(8);
+#undef CG_COL
   }
-#undef CG_PASS1
   return cudaErrorInvalidValue;
 }
 
-size_t pass1_smem(int layout, int tm, int k, int D) {
-  switch (layout * 32 + tm) {
-    case 1: return Layout<1, 1, 1, false>::smem(k, D);
-    case 2: return Layout<1, 2, 1, false>::smem(k, D);
-    case 4: return Layout<1, 4, 1, false>::smem(k, D);
-    case 8: return Layout<1, 8, 1, false>::smem(k, D);
-    case 33: return Layout<8, 1, 4, false>::smem(k, D);
-    case 34: return Layout<8, 2, 4, false>::smem(k, D);
-    case 36: return Layout<8, 4, 4, false>::smem(k, D);
-    case 40: return Layout<8, 8, 4, false>::smem(k, D);
-    case 48: return Layout<8, 16, 4, false>::smem(k, D);
-    case 65: return Layout<8, 1, 4, true>::smem(k, D);
-    case 66: return Layout<8, 2, 4, true>::smem(k, D);
-    case 68: return Layout<8, 4, 4, true>::smem(k, D);
-    case 72: return Layout<8, 8, 4, true>::smem(k, D);
-    case 80: return Layout<8, 16, 4, true>::smem(k, D);
-    case 97: return Layout<8, 1, 4, false>::smem(k, D);
-    case 98: return Layout<8, 2, 4, false>::smem(k, D);
-    case 100: return Layout<8, 4, 4, false>::smem(k, D);
-    case 104: return Layout<8, 8, 4, false>::smem(k, D);
-    case 112: return Layout<8, 16, 4, false>::smem(k, D);
+// ---------------------------------------------------------------------------
+// K2, K3, K4: row tiles
+// ---------------------------------------------------------------------------
+
+constexpr int kTN = 128;        // corpus rows per tile
+constexpr int kRDK = 16;        // depth of one ring slice (a multiple of 8)
+constexpr int kStages = 3;      // ring slices
+constexpr int kCap = 32;        // candidate buffer entries per query row
+constexpr int kQLD = kRDK + 4;  // query slice row stride ([QT][QLD] f32)
+
+// Shared memory of rows_pass1 with QT query rows a block: the ring (query
+// slice + corpus slice per stage), per-row threshold, buffer count, list
+// length and shared bound, and the candidate buffers. ops/topk.py
+// `row_smem` mirrors it.
+template <typename XT, bool TRANS, int QT>
+struct RowLayout {
+  // [TN][DK + pad] along the depth (pad keeps 16 rows' float4 / 8-byte
+  // reads conflict free), or [DK][TN] for xt
+  static constexpr int XLD = TRANS ? kTN : kRDK + 4;
+  static constexpr int XROWS = TRANS ? kRDK : kTN;
+  static constexpr size_t kQBytes = (size_t)QT * kQLD * sizeof(float);
+  static constexpr size_t kStageBytes = kQBytes + (size_t)XROWS * XLD * sizeof(XT);
+  static constexpr size_t kSmem = kStages * kStageBytes + (size_t)QT * 5 * sizeof(int) +
+                                  (size_t)QT * kCap * (sizeof(float) + sizeof(int));
+};
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16- or 8-byte asynchronous copy global -> shared; bytes = 0 zero-fills
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// xf[d][jj] = corpus column tile_col(j0 + jj) at depth c + d, widened to f32
+template <typename XT, bool TRANS, int XLD, int J>
+__device__ __forceinline__ void load_xfrag(const XT* xs, int c, int tx, int j0, float (&xf)[4][J]) {
+  if constexpr (!TRANS && sizeof(XT) == 4) {
+#pragma unroll
+    for (int jj = 0; jj < J; ++jj) {
+      const float4 v = *reinterpret_cast<const float4*>(xs + (tx + 16 * (j0 + jj)) * XLD + c);
+      xf[0][jj] = v.x;
+      xf[1][jj] = v.y;
+      xf[2][jj] = v.z;
+      xf[3][jj] = v.w;
+    }
+  } else if constexpr (!TRANS) {
+#pragma unroll
+    for (int jj = 0; jj < J; ++jj) {
+      const uint2 u = *reinterpret_cast<const uint2*>(xs + (tx + 16 * (j0 + jj)) * XLD + c);
+      const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+      const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+      xf[0][jj] = a.x;
+      xf[1][jj] = a.y;
+      xf[2][jj] = b.x;
+      xf[3][jj] = b.y;
+    }
+  } else {
+#pragma unroll
+    for (int d = 0; d < 4; ++d)
+#pragma unroll
+      for (int h = 0; h < J / 4; ++h) {
+        const XT* src = xs + (c + d) * XLD + tx * 4 + 64 * (j0 / 4 + h);
+        if constexpr (sizeof(XT) == 4) {
+          const float4 v = *reinterpret_cast<const float4*>(src);
+          xf[d][4 * h] = v.x;
+          xf[d][4 * h + 1] = v.y;
+          xf[d][4 * h + 2] = v.z;
+          xf[d][4 * h + 3] = v.w;
+        } else {
+          const uint2 u = *reinterpret_cast<const uint2*>(src);
+          const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+          const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+          xf[d][4 * h] = a.x;
+          xf[d][4 * h + 1] = a.y;
+          xf[d][4 * h + 2] = b.x;
+          xf[d][4 * h + 3] = b.y;
+        }
+      }
+  }
+}
+
+// The corpus column (0..TN-1) of a thread's micro-tile column j
+template <bool TRANS>
+__device__ __forceinline__ int tile_col(int tx, int j) {
+  return TRANS ? tx * 4 + 64 * (j >> 2) + (j & 3) : tx + 16 * j;
+}
+
+// Entries of the sorted buffer (bs, bi)[0, n) that beat (s, id)
+__device__ __forceinline__ int count_beating(const float* bs, const int* bi, int n, float s, int id) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (beats(bs[mid], bi[mid], s, id)) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  return lo;
+}
+
+// Merge a query row's n <= kCap buffered candidates (bs, bi; each beats the
+// list's k-th entry) into its sorted list (ls, li) of k entries in device
+// memory, run by the 16 lanes of the row's half-warp (hmask). The buffer is
+// sorted by rank; then the list is walked from its end in rounds of 64
+// positions: an entry at p moves to p + (buffer entries that beat it), the
+// buffer entries ranked [c(p-1), c(p)) land at rank + p, and the walk stops
+// below the first position no buffer entry beats. It starts at the list's
+// live length *len plus n: the positions past it stay (NEG_INF, -1). The
+// new k-th entry goes to (*ts, *ti).
+__device__ __noinline__ void flush_row(float* bs, int* bi, int n, float* ls, int* li, int k,
+                                       int* len, float* ts, int* ti, unsigned hmask, int l16) {
+  __syncwarp(hmask);
+  constexpr int E = (kCap + 15) / 16;  // buffer entries a lane ranks
+  float es[E];
+  int ei[E], rk[E];
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    const int idx = l16 + 16 * e;
+    rk[e] = -1;
+    if (idx < n) {
+      es[e] = bs[idx];
+      ei[e] = bi[idx];
+      int r = 0;
+      for (int f = 0; f < n; ++f) r += beats(bs[f], bi[f], es[e], ei[e]);
+      rk[e] = r;
+    }
+  }
+  __syncwarp(hmask);
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    if (rk[e] >= 0) {
+      bs[rk[e]] = es[e];
+      bi[rk[e]] = ei[e];
+    }
+  }
+  __syncwarp(hmask);
+
+  // positions past len + n hold (NEG_INF, -1) before and after
+  const int top = min(k, *len + n);
+  __syncwarp(hmask);
+  if (l16 == 0) *len = top;
+  for (int hi = top; hi > 0;) {
+    const int lo = max(0, hi - 64);
+    float ps[4];
+    int pi[4], cp[4], cq[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int p = lo + l16 + 16 * u;
+      cp[u] = n;
+      if (p < hi) {
+        ps[u] = __ldcg(ls + p);
+        pi[u] = __ldcg(li + p);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      if (lo + l16 + 16 * u < hi) cp[u] = count_beating(bs, bi, n, ps[u], pi[u]);
+    }
+    int below = 0;  // c(lo - 1)
+    if (l16 == 0 && lo > 0) below = count_beating(bs, bi, n, __ldcg(ls + lo - 1), __ldcg(li + lo - 1));
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int up = __shfl_up_sync(hmask, cp[u], 1, 16);
+      const int last = __shfl_sync(hmask, cp[u > 0 ? u - 1 : 0], 15, 16);
+      cq[u] = l16 > 0 ? up : (u > 0 ? last : below);
+    }
+    below = __shfl_sync(hmask, below, 0, 16);
+    __syncwarp(hmask);  // every read of this round is done
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int p = lo + l16 + 16 * u;
+      if (p >= hi) continue;
+      const int c = cp[u];
+      if (c > 0 && p + c < k) {
+        __stcg(ls + p + c, ps[u]);
+        __stcg(li + p + c, pi[u]);
+        if (p + c == k - 1) {
+          *ts = ps[u];
+          *ti = pi[u];
+        }
+      }
+      for (int t = cq[u]; t < c && t + p < k; ++t) {
+        __stcg(ls + t + p, bs[t]);
+        __stcg(li + t + p, bi[t]);
+        if (t + p == k - 1) {
+          *ts = bs[t];
+          *ti = bi[t];
+        }
+      }
+    }
+    __syncwarp(hmask);
+    if (below == 0) break;
+    hi = lo;
+  }
+}
+
+// The bound that corpus splits share for one query row (a half-warp's
+// row): each split publishes the j-th score of its list, j = ceil(k / S),
+// in bound[split]; the smallest published score t has at least j * S >= k
+// rows scoring t or more, so the row's global k-th score is at least t and
+// a score below t can be in no list that pass 2 keeps. A published score
+// only rises and a 4-byte store is read whole, so a stale read is a lower
+// bound too: the splits need neither atomics nor order. The bounds are
+// read and written relaxed at GPU scope, since other blocks write them
+// while this one runs. The new bound goes to *lb.
+__device__ __forceinline__ void st_relaxed(float* p, float v) {
+  asm volatile("st.relaxed.gpu.f32 [%0], %1;\n" ::"l"(p), "f"(v) : "memory");
+}
+__device__ __forceinline__ float ld_relaxed(const float* p) {
+  float v;
+  asm volatile("ld.relaxed.gpu.f32 %0, [%1];\n" : "=f"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ __noinline__ void share_bound(const float* ls, int k, float* bound, int split, int S,
+                                         float* lb, unsigned hmask, int l16) {
+  const int j = (k + S - 1) / S;
+  if (l16 == 0) st_relaxed(bound + split, __ldcg(ls + j - 1));
+  float m = 3.0e38f;
+  for (int s = l16; s < S; s += 16) m = fminf(m, ld_relaxed(bound + s));
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1) m = fminf(m, __shfl_xor_sync(hmask, m, off, 16));
+  if (l16 == 0) *lb = m;
+  __syncwarp(hmask);
+}
+
+// Pass 1 of K2/K3/K4: block (query tile of QT rows, corpus split) -> the
+// top-k of the split's rows for each query, in part_s/part_i [B, S, k].
+// Thread (ty, tx) = (tid / 16, tid % 16) holds the scores of query rows
+// ty + 16 i and corpus columns tile_col(tx, j), i < MI = QT / 16, j < 8, so
+// the 16 lanes of a half-warp hold the whole tile row of their MI query
+// rows, and own those rows' buffers and lists. q is [B, ldq] f32 (ldq % 4
+// == 0, 16-byte aligned; columns D..ldq zero). x is [N, D] (D % 8 == 0,
+// 16-byte aligned) or, TRANS, xt [D, N], read in 16-byte pieces when vec
+// (N a multiple of 16 / sizeof(XT), 16-byte aligned), else an element a
+// thread. bound [B, S] holds NEG_INF at launch (share_bound).
+template <typename XT, bool TRANS, int QT>
+__global__ void __launch_bounds__(kThreads, 2)
+    rows_pass1(const float* __restrict__ q, int ldq, const XT* __restrict__ x,
+               const float* __restrict__ bias, int B, int N, int D, int k, int rows_per_split,
+               int vec, float* __restrict__ part_s, int* __restrict__ part_i,
+               float* __restrict__ bound) {
+  using L = RowLayout<XT, TRANS, QT>;
+  constexpr int XLD = L::XLD;
+  constexpr int MI = QT / 16;  // query rows a thread
+  // corpus columns per register fragment: 4 (x [N, D]) or 8 (xt), the
+  // faster of the two for each on the H100 (PERF.md)
+  constexpr int kFragJ = TRANS ? 8 : 4;
+  using Raw = typename std::conditional<sizeof(XT) == 4, unsigned, unsigned short>::type;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* thr_s = reinterpret_cast<float*>(smem + kStages * L::kStageBytes);
+  int* thr_i = reinterpret_cast<int*>(thr_s + QT);
+  int* cnt = thr_i + QT;
+  int* len = cnt + QT;  // live entries of the row's list
+  float* bnd = reinterpret_cast<float*>(len + QT);
+  float* buf_s = bnd + QT;  // [QT][Cap]
+  int* buf_i = reinterpret_cast<int*>(buf_s + QT * kCap);
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int tx = tid & 15, ty = tid >> 4;
+  const int half = lane >> 4, l16 = lane & 15;
+  const unsigned hmask = 0xFFFFu << (16 * half);
+  const int b0 = blockIdx.x * QT;
+  const int split = blockIdx.y, S = gridDim.y;
+  const int n_begin = split * rows_per_split;
+  const int n_end = min(N, n_begin + rows_per_split);
+
+#pragma unroll 1
+  for (int i = 0; i < MI; ++i) {
+    const int r = ty + 16 * i;
+    if (l16 == 0) {
+      thr_s[r] = kNegInf;
+      thr_i[r] = -1;
+      cnt[r] = 0;
+      len[r] = 0;
+      bnd[r] = kNegInf;
+    }
+    if (b0 + r < B) {
+      const size_t base = ((size_t)(b0 + r) * S + split) * k;
+      for (int p = l16; p < k; p += 16) {
+        __stcg(part_s + base + p, kNegInf);
+        __stcg(part_i + base + p, -1);
+      }
+    }
+  }
+  __syncwarp();
+
+  // A slice of q (and of x [N, D]) is QT (kTN) rows x kRDK / 4 pieces of 4
+  // elements; a thread takes pieces tid, tid + 256, ...
+  constexpr int PPR = kRDK / 4;
+  constexpr int QP = QT * PPR;  // query pieces of a slice
+  constexpr int QPT = (QP + kThreads - 1) / kThreads;
+  constexpr int XPT = kTN * PPR / kThreads;
+  auto issue = [&](int slot, int n0, int d0) {
+    float* qs = reinterpret_cast<float*>(smem + slot * L::kStageBytes);
+    XT* xs = reinterpret_cast<XT*>(smem + slot * L::kStageBytes + L::kQBytes);
+#pragma unroll
+    for (int v = 0; v < QPT; ++v) {
+      const int p = tid + v * kThreads, r = p / PPR, c = (p % PPR) * 4;
+      if (QP % kThreads != 0 && p >= QP) break;
+      const bool ok = b0 + r < B && d0 + c < ldq;
+      cp_async16(qs + r * kQLD + c, ok ? q + (size_t)(b0 + r) * ldq + d0 + c : q, ok ? 16 : 0);
+    }
+    if constexpr (!TRANS) {
+#pragma unroll
+      for (int v = 0; v < XPT; ++v) {
+        const int p = tid + v * kThreads, r = p / PPR, c = (p % PPR) * 4;
+        const bool ok = n0 + r < n_end && d0 + c < D;
+        const XT* src = ok ? x + (size_t)(n0 + r) * D + d0 + c : x;
+        if constexpr (sizeof(XT) == 4) {
+          cp_async16(xs + r * XLD + c, src, ok ? 16 : 0);
+        } else {
+          cp_async8(xs + r * XLD + c, src, ok ? 8 : 0);
+        }
+      }
+    } else if (vec) {
+      constexpr int EPC = 16 / sizeof(XT);  // elements per piece
+      constexpr int CPR = kTN / EPC;        // pieces per depth row
+#pragma unroll
+      for (int v = 0; v < (kRDK * CPR + kThreads - 1) / kThreads; ++v) {
+        const int p = tid + v * kThreads, dr = p / CPR, c = (p % CPR) * EPC;
+        if (p >= kRDK * CPR) break;
+        const bool ok = d0 + dr < D && n0 + c < n_end;
+        cp_async16(xs + dr * XLD + c, ok ? x + (size_t)(d0 + dr) * N + n0 + c : x, ok ? 16 : 0);
+      }
+    } else {
+      const Raw* xr = reinterpret_cast<const Raw*>(x);
+      Raw* xw = reinterpret_cast<Raw*>(xs);
+#pragma unroll
+      for (int v = 0; v < kRDK * kTN / kThreads; ++v) {
+        const int p = tid + v * kThreads, dr = p / kTN, c = p % kTN;
+        xw[dr * XLD + c] = (d0 + dr < D && n0 + c < n_end) ? xr[(size_t)(d0 + dr) * N + n0 + c] : Raw(0);
+      }
+    }
+  };
+  // the ring: slices are issued kStages - 1 ahead of the one computed
+  int is_n0 = n_begin, is_d0 = 0, is_slot = 0;
+  auto issue_next = [&]() {
+    if (is_n0 < n_end) issue(is_slot, is_n0, is_d0);
+    cp_commit();
+    is_d0 += kRDK;
+    if (is_d0 >= D) {
+      is_d0 = 0;
+      is_n0 += kTN;
+    }
+    is_slot = is_slot == kStages - 1 ? 0 : is_slot + 1;
+  };
+#pragma unroll 1
+  for (int s = 0; s < kStages - 1; ++s) issue_next();
+
+  int slot = 0;
+#pragma unroll 1
+  for (int n0 = n_begin; n0 < n_end; n0 += kTN) {
+    float acc[MI][8];
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+#pragma unroll 1
+    for (int d0 = 0; d0 < D; d0 += kRDK) {
+      cp_wait<kStages - 2>();
+      __syncthreads();
+      issue_next();  // into the slot computed last step, now free
+      const float* qs = reinterpret_cast<const float*>(smem + slot * L::kStageBytes);
+      const XT* xs = reinterpret_cast<const XT*>(smem + slot * L::kStageBytes + L::kQBytes);
+#pragma unroll
+      for (int c = 0; c < kRDK; c += 4) {
+#pragma unroll
+        for (int j0 = 0; j0 < 8; j0 += kFragJ) {
+          float xf[4][kFragJ];
+          load_xfrag<XT, TRANS, XLD, kFragJ>(xs, c, tx, j0, xf);
+#pragma unroll
+          for (int i = 0; i < MI; ++i) {
+            const float4 qv = *reinterpret_cast<const float4*>(qs + (ty + 16 * i) * kQLD + c);
+#pragma unroll
+            for (int jj = 0; jj < kFragJ; ++jj) {
+              float& a = acc[i][j0 + jj];
+              a = fmaf(qv.x, xf[0][jj], a);
+              a = fmaf(qv.y, xf[1][jj], a);
+              a = fmaf(qv.z, xf[2][jj], a);
+              a = fmaf(qv.w, xf[3][jj], a);
+            }
+          }
+        }
+      }
+      slot = slot == kStages - 1 ? 0 : slot + 1;
+    }
+
+    // The tile's scores are complete: each half-warp offers its rows' scores
+    // that beat the row's threshold and shared bound to the row's buffer,
+    // in a fixed order. The scores go to a local array first, so that the
+    // loops below (and their one flush site) are not unrolled.
+    float sc[MI][8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int n = n0 + tile_col<TRANS>(tx, j);
+      const float bj = n < n_end ? bias[n] : 0.f;
+#pragma unroll
+      for (int i = 0; i < MI; ++i) sc[i][j] = acc[i][j] + bj;
+    }
+#pragma unroll 1
+    for (int i = 0; i < MI; ++i) {
+      const int r = ty + 16 * i;
+      const bool live = b0 + r < B;
+      const size_t base = ((size_t)(b0 + r) * S + split) * k;
+      float ts = thr_s[r], lb = bnd[r];
+      int ti = thr_i[r];
+      int c = cnt[r];
+#pragma unroll 1
+      for (int j = 0; j < 8; ++j) {
+        const int n = n0 + tile_col<TRANS>(tx, j);
+        const float s = sc[i][j];
+        bool v = live && n < n_end && s >= lb && beats(s, n, ts, ti);
+        unsigned hb = (__ballot_sync(kFull, v) >> (16 * half)) & 0xFFFFu;
+        if (c + __popc(hb) > kCap) {  // the half-warp's row buffer is full
+          flush_row(buf_s + r * kCap, buf_i + r * kCap, c, part_s + base, part_i + base, k,
+                    len + r, thr_s + r, thr_i + r, hmask, l16);
+          share_bound(part_s + base, k, bound + (size_t)(b0 + r) * S, split, S, bnd + r, hmask,
+                      l16);
+          ts = thr_s[r];
+          ti = thr_i[r];
+          lb = bnd[r];
+          c = 0;
+          v = v && s >= lb && beats(s, n, ts, ti);
+          hb = (__ballot_sync(hmask, v) >> (16 * half)) & 0xFFFFu;
+        }
+        if (v) {
+          const int pos = c + __popc(hb & ((1u << l16) - 1u));
+          buf_s[r * kCap + pos] = s;
+          buf_i[r * kCap + pos] = n;
+        }
+        c += __popc(hb);
+      }
+      if (l16 == 0) cnt[r] = c;
+    }
+  }
+
+  __syncwarp();
+#pragma unroll 1
+  for (int i = 0; i < MI; ++i) {
+    const int r = ty + 16 * i;
+    const int c = cnt[r];
+    if (b0 + r < B && c > 0) {
+      const size_t base = ((size_t)(b0 + r) * S + split) * k;
+      flush_row(buf_s + r * kCap, buf_i + r * kCap, c, part_s + base, part_i + base, k, len + r,
+                thr_s + r, thr_i + r, hmask, l16);
+    }
+  }
+}
+
+template <typename XT, bool TRANS, int QT>
+cudaError_t launch_rows(const float* q, int ldq, const void* x, const float* bias, int B, int N,
+                        int D, int k, int rows_per_split, int splits, int grid_x, int vec,
+                        long long smem, float* part_s, int* part_i, float* bound, cudaStream_t st) {
+  using L = RowLayout<XT, TRANS, QT>;
+  if (smem != (long long)L::kSmem || rows_per_split % kTN != 0 || (long long)grid_x * QT < B ||
+      (long long)(grid_x - 1) * QT >= B || ldq % 4 != 0 || ldq < D) {
+    return cudaErrorInvalidValue;
+  }
+  auto kern = rows_pass1<XT, TRANS, QT>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kern<<<dim3(grid_x, splits), kThreads, (size_t)smem, st>>>(
+      q, ldq, static_cast<const XT*>(x), bias, B, N, D, k, rows_per_split, vec, part_s, part_i,
+      bound);
+  return cudaGetLastError();
+}
+
+// layout 1: K2 over x [N, D]; 2: K3, which runs K2's schedule; 3: K4 over
+// xt [D, N]; query tiles of query_tile (32, 64 or 128) rows
+template <typename XT>
+cudaError_t dispatch_rows(int layout, int query_tile, const float* q, int ldq, const void* x,
+                          const float* bias, int B, int N, int D, int k, int rows_per_split,
+                          int splits, int grid_x, int vec, long long smem, float* part_s,
+                          int* part_i, float* bound, cudaStream_t st) {
+#define CG_ROWS(TRANS, QT)                                                                    \
+  launch_rows<XT, TRANS, QT>(q, ldq, x, bias, B, N, D, k, rows_per_split, splits, grid_x, vec, \
+                             smem, part_s, part_i, bound, st)
+  const bool trans = layout == 3;
+  if (layout < 1 || layout > 3) return cudaErrorInvalidValue;
+  switch (query_tile) {
+    case 32: return trans ? CG_ROWS(true, 32) : CG_ROWS(false, 32);
+    case 64: return trans ? CG_ROWS(true, 64) : CG_ROWS(false, 64);
+    case 128: return trans ? CG_ROWS(true, 128) : CG_ROWS(false, 128);
+  }
+  return cudaErrorInvalidValue;
+#undef CG_ROWS
+}
+
+template <typename XT, int QT>
+long long rows_smem_t(bool trans) {
+  return trans ? (long long)RowLayout<XT, true, QT>::kSmem
+               : (long long)RowLayout<XT, false, QT>::kSmem;
+}
+
+long long rows_smem(int layout, int x_bf16, int query_tile) {
+  const bool trans = layout == 3;
+  if (layout < 1 || layout > 3) return 0;
+  switch (query_tile) {
+    case 32: return x_bf16 ? rows_smem_t<__nv_bfloat16, 32>(trans) : rows_smem_t<float, 32>(trans);
+    case 64: return x_bf16 ? rows_smem_t<__nv_bfloat16, 64>(trans) : rows_smem_t<float, 64>(trans);
+    case 128:
+      return x_bf16 ? rows_smem_t<__nv_bfloat16, 128>(trans) : rows_smem_t<float, 128>(trans);
   }
   return 0;
 }
@@ -395,11 +817,11 @@ size_t pass1_smem(int layout, int tm, int k, int D) {
 
 extern "C" {
 
-// Shared memory (bytes) that pass 1 needs for a layout (0 column warps,
-// 1 row warps, 2 row warps with the query tile resident, 3 row warps over
-// xt [D, N]), micro-tile rows tm, k and depth D; 0 for an unknown layout.
-long long flat_topk_pass1_smem(int layout, int tm, int k, int D) {
-  return (long long)pass1_smem(layout, tm, k, D);
+// Shared memory (bytes) of the row-tile pass 1 for layout 1 (K2), 2 (K3)
+// or 3 (K4), the corpus type and the query tile (32, 64 or 128); 0 for an
+// unknown layout or tile.
+long long flat_topk_rows_smem(int layout, int x_bf16, int query_tile) {
+  return rows_smem(layout, x_bf16, query_tile);
 }
 
 // Scratch entries (per scores and per ids) that flat_topk needs.
@@ -407,33 +829,69 @@ long long flat_topk_work_entries(int B, int k, int splits, int group) {
   return merge_work_entries(B, k, splits, group);
 }
 
-// q [B, D] f32, x [N, D] f32 (x_bf16 = 0) or bf16 (x_bf16 = 1), bias [N] f32,
-// all contiguous on the device of `stream`, x 16-byte aligned with
-// D % 8 == 0; for layout 3, x is xt [D, N], with no alignment or D
-// condition. Writes out_s [B, k] f32 and out_i [B, k] i32. Pass 1 runs
-// `layout` (0 column warps, 1 row warps, 2 row warps with the query tile
-// resident, 3 row warps over xt) with micro-tile rows `tm`, over `splits` ranges of
-// `rows_per_split` corpus rows (a multiple of the layout's corpus tile);
-// work_s / work_i hold flat_topk_work_entries(B, k, splits, group) entries
-// each. Returns the CUDA error code of the launches (0 = success).
+// Inputs shared by both entries: q [B, ldq] f32, x [N, D] f32 (x_bf16 = 0)
+// or bf16 (x_bf16 = 1), or for layout 3 xt [D, N], bias [N] f32, all
+// contiguous on the device of `stream`. Pass 1 runs over `splits` ranges
+// of `rows_per_split` corpus rows (a multiple of the layout's corpus
+// tile); work_s / work_i hold flat_topk_work_entries(B, k, splits, group)
+// entries each; out_s [B, k] f32 and out_i [B, k] i32. Each returns the
+// CUDA error code of its launches (0 = success).
+
+// K1: column warps with tm query rows per block; ldq == D, D % 8 == 0 and
+// x 16-byte aligned.
 int flat_topk(const float* q, const void* x, int x_bf16, const float* bias, int B, int N, int D, int k,
-              int layout, int tm, int splits, int rows_per_split, int group, float* out_s, int* out_i,
+              int tm, int splits, int rows_per_split, int group, float* out_s, int* out_i,
               float* work_s, int* work_i, void* stream) {
-  const bool rows_in_16 = layout != 3;  // x read in 16-byte pieces along D
   if (B < 1 || N < 1 || D < 1 || k < 1 || k > 1024 || splits < 1 || group < 2 ||
       rows_per_split < 1 || (long long)splits * rows_per_split < N ||
-      (long long)(splits - 1) * rows_per_split >= N ||
-      (rows_in_16 && (D % 8 != 0 || (reinterpret_cast<size_t>(x) & 15) != 0))) {
+      (long long)(splits - 1) * rows_per_split >= N || D % 8 != 0 ||
+      (reinterpret_cast<size_t>(x) & 15) != 0) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* part_s = splits == 1 ? out_s : work_s;
   int* part_i = splits == 1 ? out_i : work_i;
   cudaError_t err =
-      x_bf16 ? dispatch_pass1<__nv_bfloat16>(layout, tm, q, x, bias, B, N, D, k, rows_per_split, splits,
-                                             part_s, part_i, st)
-             : dispatch_pass1<float>(layout, tm, q, x, bias, B, N, D, k, rows_per_split, splits, part_s,
-                                     part_i, st);
+      x_bf16 ? dispatch_col<__nv_bfloat16>(tm, q, x, bias, B, N, D, k, rows_per_split, splits, part_s,
+                                           part_i, st)
+             : dispatch_col<float>(tm, q, x, bias, B, N, D, k, rows_per_split, splits, part_s,
+                                   part_i, st);
+  if (err != cudaSuccess) return (int)err;
+  if (splits == 1) return 0;
+  return (int)merge_splits(B, k, splits, group, out_s, out_i, work_s, work_i, st);
+}
+
+// K2/K3/K4: row tiles (layout 1, 2 or 3) over grid_x = ceil(B / query_tile)
+// query tiles of query_tile (32, 64 or 128) rows; q is [B, ldq] (ldq % 4 == 0,
+// 16-byte aligned, zero past D); for layouts 1 and 2, D % 8 == 0 and x
+// 16-byte aligned; for layout 3, vec = 1 reads xt in 16-byte pieces (N %
+// (16 / element size) == 0, 16-byte aligned), else an element at a time.
+// smem must equal flat_topk_rows_smem(layout, x_bf16, query_tile); bound
+// holds B * splits f32 set to NEG_INF (-1e30).
+int flat_topk_rows(const float* q, int ldq, const void* x, int x_bf16, const float* bias, int B, int N,
+                   int D, int k, int layout, int splits, int rows_per_split, int grid_x,
+                   int query_tile, int vec, long long smem, int group, float* out_s, int* out_i,
+                   float* work_s, int* work_i, float* bound, void* stream) {
+  const size_t elt = x_bf16 ? 2 : 4;
+  const bool x_ok = layout == 3
+                        ? !vec || ((size_t)N % (16 / elt) == 0 && (reinterpret_cast<size_t>(x) & 15) == 0)
+                        : D % 8 == 0 && (reinterpret_cast<size_t>(x) & 15) == 0;
+  if (B < 1 || N < 1 || D < 1 || k < 1 || k > 1024 || splits < 1 || group < 2 ||
+      rows_per_split < 1 || (long long)splits * rows_per_split < N ||
+      (long long)(splits - 1) * rows_per_split >= N || !x_ok ||
+      (reinterpret_cast<size_t>(q) & 15) != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* part_s = splits == 1 ? out_s : work_s;
+  int* part_i = splits == 1 ? out_i : work_i;
+  cudaError_t err =
+      x_bf16 ? dispatch_rows<__nv_bfloat16>(layout, query_tile, q, ldq, x, bias, B, N, D, k,
+                                            rows_per_split, splits, grid_x, vec, smem, part_s,
+                                            part_i, bound, st)
+             : dispatch_rows<float>(layout, query_tile, q, ldq, x, bias, B, N, D, k,
+                                    rows_per_split, splits, grid_x, vec, smem, part_s, part_i,
+                                    bound, st);
   if (err != cudaSuccess) return (int)err;
   if (splits == 1) return 0;
   return (int)merge_splits(B, k, splits, group, out_s, out_i, work_s, work_i, st);

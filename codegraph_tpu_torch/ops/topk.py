@@ -11,12 +11,13 @@ sorted descending.
   running top-k and the tile. `streaming_topk` is what the kernels are
   held to; `exact_topk` is its small-N oracle.
 * `streaming_topk_cuda` (K1, small batches), `streaming_topk_cuda_qmajor`
-  (K2, large batches), `streaming_topk_cuda_qres` (K3, K2 with each
-  block's query tile resident in shared memory) and
-  `streaming_topk_cuda_qmajor_xt` (K4, K2 over a pre-transposed corpus
-  xt [D, N]; no index calls it) launch the hand-written kernel in
-  `csrc/flat_topk.cu` on CUDA tensors, and run `streaming_topk` on CPU
-  tensors. On a CUDA tensor they launch or raise; nothing falls back.
+  (K2, large batches), `streaming_topk_cuda_qres` (K3, the batch sharing
+  each corpus read: K2's schedule) and `streaming_topk_cuda_qmajor_xt`
+  (K4, K2 over a pre-transposed corpus xt [D, N]; no index calls K3 or
+  K4) launch the
+  hand-written kernels in `csrc/flat_topk.cu` on CUDA tensors, and run
+  `streaming_topk` on CPU tensors. On a CUDA tensor they launch or raise;
+  nothing falls back. `row_plan` is the host-side plan of K2-K4.
 
 Order and sentinels, shared by every version: a higher score wins; on
 equal scores the lower row id wins. The running top-k starts as
@@ -28,6 +29,7 @@ from __future__ import annotations
 
 import ctypes
 import threading
+from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import torch
@@ -38,25 +40,33 @@ DEFAULT_TILE_N = 1024
 MAX_K = 1024
 
 #: pass-1 layouts of csrc/flat_topk.cu: K1 = column warps (the 8 warps
-#: share up to 8 query rows and split a 256-row corpus tile), K2 = row
-#: warps (8 groups of tm query rows over a 128-row corpus tile), K3 = row
-#: warps whose query tile stays resident in shared memory for the block's
-#: whole corpus split. csrc/int8_topk.cu numbers K5/K6/K7 the same way,
-#: with the same corpus tiles and query tiles of tm or 8 * tm rows. K4 =
-#: K2's row warps reading the corpus from xt [D, N].
+#: share up to 8 query rows and split a 256-row corpus tile); K2, K3, K4 =
+#: row tiles (`rows_pass1`: 128 query rows x 128 corpus rows per block for
+#: every k, each thread an 8 x 8 micro tile, or 32 or 64 query rows when
+#: the batch fits them; K3 runs K2's schedule; K4 reads the corpus from xt
+#: [D, N]). csrc/int8_topk.cu numbers
+#: K5/K6/K7 like K1/K2/K3, with the same corpus tiles and query tiles of tm
+#: or 8 * tm rows (`row_warps_tm`).
 K1_LAYOUT, K2_LAYOUT, K3_LAYOUT, K4_LAYOUT = 0, 1, 2, 3
 CORPUS_TILE = {K1_LAYOUT: 256, K2_LAYOUT: 128, K3_LAYOUT: 128, K4_LAYOUT: 128}
-#: K2 takes the largest tm (query tile 8 * tm) whose top-k lists fit
-#: K2_SMEM_BYTES of shared memory. Larger tm means fewer shared-memory
-#: reads per FMA, but above ~112 KB a block holds an SM alone, and for
-#: k=300 that lost more than the reads gained (PERF.md)
-K2_TMS = (16, 8, 4, 2, 1)
-K2_SMEM_BYTES = 112 * 1024
 #: pass 1 aims at this many blocks per kernel (4 or 2 per SM of an H100);
 #: pass 2 merges MERGE_GROUP per-split lists per warp and level
 TARGET_BLOCKS = {K1_LAYOUT: 4 * 132, K2_LAYOUT: 2 * 132, K3_LAYOUT: 2 * 132,
                  K4_LAYOUT: 2 * 132}
 MERGE_GROUP = 16
+
+#: the row-tile schedule of K2/K3/K4 (csrc/flat_topk.cu `rows_pass1`, whose
+#: `RowLayout` these mirror): the query tiles (a small one for a batch
+#: that fits it), the corpus tile, the depth of one ring slice, the ring's
+#: slices, the candidate buffer entries per query row, and the shared
+#: memory one block may have on an H100
+ROW_QUERY_TILE = 128
+ROW_SMALL_QUERY_TILES = (32, 64)
+ROW_CORPUS_TILE = 128
+ROW_DEPTH = 16
+ROW_STAGES = 3
+ROW_CAP = 32
+SMEM_PER_BLOCK = 232_448
 
 
 def _sort_desc(s: torch.Tensor, i: torch.Tensor, k: int):
@@ -113,7 +123,7 @@ def streaming_topk(
 
 
 # ---------------------------------------------------------------------------
-# K1 / K2 / K3: hand-written CUDA kernel (csrc/flat_topk.cu)
+# K1 / K2 / K3 / K4: hand-written CUDA kernels (csrc/flat_topk.cu)
 # ---------------------------------------------------------------------------
 
 _lib_handle = None
@@ -127,10 +137,13 @@ def _lib():
 
         lib = cuda_build.load("flat_topk")
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.flat_topk.argtypes = [p, p, i, p, i, i, i, i, i, i, i, i, i, p, p, p, p, p]
+        lib.flat_topk.argtypes = [p, p, i, p, i, i, i, i, i, i, i, i, p, p, p, p, p]
         lib.flat_topk.restype = i
-        lib.flat_topk_pass1_smem.argtypes = [i, i, i, i]
-        lib.flat_topk_pass1_smem.restype = ll
+        lib.flat_topk_rows.argtypes = [p, i, p, i, p, i, i, i, i, i, i, i, i, i, i, ll, i,
+                                       p, p, p, p, p, p]
+        lib.flat_topk_rows.restype = i
+        lib.flat_topk_rows_smem.argtypes = [i, i, i]
+        lib.flat_topk_rows_smem.restype = ll
         lib.flat_topk_work_entries.argtypes = [i, i, i, i]
         lib.flat_topk_work_entries.restype = ll
         _lib_handle = lib
@@ -183,26 +196,122 @@ def _plan(B: int, N: int, layout: int, tile_b: int) -> Tuple[int, int]:
     return -(-N // rows), rows
 
 
-def _launch(q, x, bias, k: int, layout: int, tm: int):
+def work_entries(B: int, k: int, splits: int, group: int = MERGE_GROUP) -> int:
+    """Scratch entries (per scores and per ids) of a scan over `splits`
+    corpus splits: the per-split lists [B, splits, k] and the first merge
+    level (csrc/topk_merge.cuh `merge_work_entries`)."""
+    return 0 if splits <= 1 else B * k * (splits + -(-splits // group))
+
+
+def row_smem(layout: int, elt: int, query_tile: int) -> int:
+    """Shared memory (bytes) of one K2/K3/K4 block of `query_tile` query
+    rows for a corpus of `elt` bytes an element: the ring of ROW_STAGES
+    (query slice, corpus slice), each row's threshold, buffer count, list
+    length and shared bound, and the candidate buffers. It depends on
+    neither k nor D."""
+    trans = layout == K4_LAYOUT
+    xld = ROW_CORPUS_TILE if trans else ROW_DEPTH + 4
+    x_rows = ROW_DEPTH if trans else ROW_CORPUS_TILE
+    stage = query_tile * (ROW_DEPTH + 4) * 4 + x_rows * xld * elt
+    return ROW_STAGES * stage + query_tile * 5 * 4 + query_tile * ROW_CAP * 8
+
+
+def row_query_tile(B: int) -> int:
+    """Query rows per K2/K3/K4 block: the smallest of ROW_SMALL_QUERY_TILES
+    that holds the whole batch (QueryService's batches of 64, or a direct
+    search of 32 to 63 queries), so that no half of the block's FMAs goes
+    to padding rows; else ROW_QUERY_TILE."""
+    return next((t for t in ROW_SMALL_QUERY_TILES if B <= t), ROW_QUERY_TILE)
+
+
+@dataclass(frozen=True)
+class RowPlan:
+    """What the K2/K3/K4 wrapper hands to `flat_topk_rows`."""
+    layout: int
+    query_tile: int
+    corpus_tile: int
+    depth_step: int
+    stages: int
+    splits: int
+    rows_per_split: int
+    grid_x: int         # query-tile blocks
+    smem: int           # bytes per block
+    work_entries: int   # scratch entries per scores and per ids
+    bound_entries: int  # the bounds the splits share, [B, splits] f32
+
+
+def row_plan(layout: int, B: int, N: int, k: int, elt: int,
+             group: int = MERGE_GROUP) -> RowPlan:
+    """The launch of K2 (layout 1), K3 (2, K2's schedule) or K4 (3) for B
+    queries over N corpus rows of `elt` bytes: the query tile from B, the
+    same tiles for every k, enough splits to fill the card, whole corpus
+    tiles per split."""
+    if layout not in (K2_LAYOUT, K3_LAYOUT, K4_LAYOUT):
+        raise ValueError(f"layout {layout} is not a row-tile layout")
+    tile = row_query_tile(B)
+    splits, rows = _plan(B, N, layout, tile)
+    return RowPlan(layout, tile, ROW_CORPUS_TILE, ROW_DEPTH, ROW_STAGES, splits, rows,
+                   -(-B // tile), row_smem(layout, elt, tile), work_entries(B, k, splits, group),
+                   B * splits)
+
+
+def _outputs(B: int, k: int, n_work: int, dev):
+    return (torch.empty((B, k), dtype=torch.float32, device=dev),
+            torch.empty((B, k), dtype=torch.int32, device=dev),
+            torch.empty((max(1, n_work),), dtype=torch.float32, device=dev),
+            torch.empty((max(1, n_work),), dtype=torch.int32, device=dev))
+
+
+def _launch_col(q, x, bias, k: int, tm: int):
+    """K1: column warps, tm query rows per block."""
     lib = _lib()
     B, D = q.shape
-    N = x.shape[1] if layout == K4_LAYOUT else x.shape[0]
+    N = x.shape[0]
     q = q.float().contiguous()  # bf16 queries widen exactly
-    splits, rows = _plan(B, N, layout, query_tile(layout, tm))
-    out_s = torch.empty((B, k), dtype=torch.float32, device=q.device)
-    out_i = torch.empty((B, k), dtype=torch.int32, device=q.device)
-    n_work = max(1, lib.flat_topk_work_entries(B, k, splits, MERGE_GROUP))
-    work_s = torch.empty((n_work,), dtype=torch.float32, device=q.device)
-    work_i = torch.empty((n_work,), dtype=torch.int32, device=q.device)
+    splits, rows = _plan(B, N, K1_LAYOUT, tm)
+    out_s, out_i, work_s, work_i = _outputs(B, k, work_entries(B, k, splits), q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.flat_topk(
         q.data_ptr(), x.data_ptr(), int(x.dtype == torch.bfloat16), bias.data_ptr(),
-        B, N, D, k, layout, tm, splits, rows, MERGE_GROUP,
+        B, N, D, k, tm, splits, rows, MERGE_GROUP,
         out_s.data_ptr(), out_i.data_ptr(), work_s.data_ptr(), work_i.data_ptr(), stream,
     )
     if err != 0:
         raise RuntimeError(f"flat_topk kernel launch failed: CUDA error {err} "
-                           f"(B={B}, N={N}, D={D}, k={k}, layout={layout}, tm={tm})")
+                           f"(B={B}, N={N}, D={D}, k={k}, K1 tm={tm})")
+    return out_s, out_i
+
+
+def _launch_rows(q, x, bias, k: int, layout: int):
+    """K2/K3/K4: the row-tile schedule; x is xt [D, N] for K4."""
+    lib = _lib()
+    B, D = q.shape
+    N = x.shape[1] if layout == K4_LAYOUT else x.shape[0]
+    elt = x.element_size()
+    plan = row_plan(layout, B, N, k, elt)
+    if lib.flat_topk_rows_smem(layout, int(elt == 2), plan.query_tile) != plan.smem or \
+            lib.flat_topk_work_entries(B, k, plan.splits, MERGE_GROUP) != plan.work_entries:
+        raise RuntimeError("ops/topk.py row_plan disagrees with csrc/flat_topk.cu")
+    # queries as [B, ldq] f32 rows in 16-byte pieces: zero columns up to a
+    # multiple of 4, 16-byte aligned (bf16 queries widen exactly)
+    q = q.float().contiguous()
+    if D % 4:
+        q = torch.nn.functional.pad(q, (0, 4 - D % 4))
+    if q.data_ptr() % 16:
+        q = q.clone()
+    vec = int(layout == K4_LAYOUT and N % (16 // elt) == 0 and x.data_ptr() % 16 == 0)
+    out_s, out_i, work_s, work_i = _outputs(B, k, plan.work_entries, q.device)
+    bound = torch.full((plan.bound_entries,), NEG_INF, dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.flat_topk_rows(
+        q.data_ptr(), q.shape[1], x.data_ptr(), int(elt == 2), bias.data_ptr(), B, N, D, k,
+        layout, plan.splits, plan.rows_per_split, plan.grid_x, plan.query_tile, vec, plan.smem,
+        MERGE_GROUP, out_s.data_ptr(), out_i.data_ptr(), work_s.data_ptr(), work_i.data_ptr(),
+        bound.data_ptr(), stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"flat_topk_rows kernel launch failed: CUDA error {err} "
+                           f"(B={B}, N={N}, D={D}, k={k}, layout={layout}, {plan})")
     return out_s, out_i
 
 
@@ -212,17 +321,17 @@ def k1_tm(B: int) -> int:
 
 
 def query_tile(layout: int, tm: int) -> int:
-    """Query rows per block: tm for column warps, 8 * tm for row warps."""
+    """Query rows per block of the int8 kernels (csrc/int8_topk.cu): tm
+    for column warps, 8 * tm for row warps."""
     return tm if layout == K1_LAYOUT else 8 * tm
 
 
-def row_warps_tm(pass1_smem, layout: int, B: int, k: int, D: int, tms=K2_TMS,
-                 budget: int = K2_SMEM_BYTES) -> int:
-    """Micro-tile rows of a row-tile layout (query tile 8 * tm): the
-    largest of `tms` whose pass-1 shared memory (`pass1_smem(layout, tm,
-    k, D)`: lists, operand tiles and, for a resident query tile, the tile)
-    fits `budget`, and no larger than the batch needs; the smallest when
-    none fits (the launch then reports it)."""
+def row_warps_tm(pass1_smem, layout: int, B: int, k: int, D: int, tms, budget: int) -> int:
+    """Micro-tile rows of the int8 row-warp layouts (K6/K7, query tile
+    8 * tm): the largest of `tms` whose pass-1 shared memory
+    (`pass1_smem(layout, tm, k, D)`: lists, operand tiles and, for a
+    resident query tile, the tile) fits `budget`, and no larger than the
+    batch needs; the smallest when none fits (the launch then reports it)."""
     for tm in tms:
         if tm > tms[-1] and 4 * tm >= B:
             continue  # half the tile would be padding
@@ -242,7 +351,7 @@ def streaming_topk_cuda(
     if _on_cpu(q, x, bias):
         return streaming_topk(q, x, bias, k, tile_n)
     _check(q, x, bias, k)
-    out = _launch(q, x, bias, k, K1_LAYOUT, k1_tm(q.shape[0]))
+    out = _launch_col(q, x, bias, k, k1_tm(q.shape[0]))
     with _count_lock:
         streaming_topk_cuda.launches += 1
     return out
@@ -252,15 +361,15 @@ def streaming_topk_cuda_qmajor(
     q: torch.Tensor, x: torch.Tensor, bias: torch.Tensor, k: int,
     tile_n: int = DEFAULT_TILE_N,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K2: exact top-k for large query batches (up to 64-row query tiles,
-    so each corpus tile read serves many queries). Same contract as
+    """K2: exact top-k for large query batches (128-row query tiles for
+    every k, so each corpus tile read serves 128 queries, or 32- or 64-row
+    tiles for a batch that fits one; the top-k lists live in device memory
+    behind a per-row threshold and candidate buffer). Same contract as
     `streaming_topk_cuda`."""
     if _on_cpu(q, x, bias):
         return streaming_topk(q, x, bias, k, tile_n)
     _check(q, x, bias, k)
-    B, D = q.shape
-    tm = row_warps_tm(_lib().flat_topk_pass1_smem, K2_LAYOUT, B, k, D)
-    out = _launch(q, x, bias, k, K2_LAYOUT, tm)
+    out = _launch_rows(q, x, bias, k, K2_LAYOUT)
     with _count_lock:
         streaming_topk_cuda_qmajor.launches += 1
     return out
@@ -270,16 +379,15 @@ def streaming_topk_cuda_qres(
     q: torch.Tensor, x: torch.Tensor, bias: torch.Tensor, k: int,
     tile_n: int = DEFAULT_TILE_N,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K3: K2 with each block's query tile resident in shared memory for
-    its whole corpus split, so that only the corpus streams (the resident
-    tile costs shared memory, so it is smaller than K2's at large D).
-    Same contract as `streaming_topk_cuda`."""
+    """K3: exact top-k with the batch sharing the corpus reads. It runs
+    K2's schedule, whose query tiles of a corpus split read each corpus
+    slice from the 50 MB L2 within a few microseconds of each other (a
+    thread block cluster sharing each slice ran about twice as slow on an
+    H100: PERF.md). Same contract as `streaming_topk_cuda`."""
     if _on_cpu(q, x, bias):
         return streaming_topk(q, x, bias, k, tile_n)
     _check(q, x, bias, k)
-    B, D = q.shape
-    tm = row_warps_tm(_lib().flat_topk_pass1_smem, K3_LAYOUT, B, k, D)
-    out = _launch(q, x, bias, k, K3_LAYOUT, tm)
+    out = _launch_rows(q, x, bias, k, K3_LAYOUT)
     with _count_lock:
         streaming_topk_cuda_qres.launches += 1
     return out
@@ -318,9 +426,7 @@ def streaming_topk_cuda_qmajor_xt(
     if _on_cpu(q, xt, bias):
         return streaming_topk(q, xt.T, bias, k, tile_n)
     _check_xt(q, xt, bias, k)
-    B, D = q.shape
-    tm = row_warps_tm(_lib().flat_topk_pass1_smem, K4_LAYOUT, B, k, D)
-    out = _launch(q, xt, bias, k, K4_LAYOUT, tm)
+    out = _launch_rows(q, xt, bias, k, K4_LAYOUT)
     with _count_lock:
         streaming_topk_cuda_qmajor_xt.launches += 1
     return out

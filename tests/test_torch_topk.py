@@ -14,6 +14,7 @@ bound holds there. Ids must be equal except where the scores tie within
 that tolerance.
 """
 
+import dataclasses
 import os
 
 import jax.numpy as jnp
@@ -279,13 +280,93 @@ def cuda_device():
 @pytest.mark.parametrize("B,k,want", [(1024, 30, 16), (1024, 300, 4), (64, 30, 8),
                                       (2, 30, 1), (1024, 10**6, 1)])
 def test_row_warps_tile_choice(B, k, want):
-    """The row-warp micro tile (K2/K3/K6/K7) is the largest whose pass-1
-    shared memory fits K2_SMEM_BYTES, never larger than the batch needs,
-    and the smallest one when none fits (the launch then reports it)."""
+    """The int8 row-warp micro tile (csrc/int8_topk.cu) is the largest of
+    `tms` whose pass-1 shared memory fits the budget, never larger than the
+    batch needs, and the smallest one when none fits (the launch then
+    reports it). Here with lists of [8 tm, k] entries and a 112 KB budget."""
     lists = lambda layout, tm, k_, D: 8 * tm * k_ * 8  # [8 tm, k] scores + ids
-    assert ttopk.row_warps_tm(lists, ttopk.K2_LAYOUT, B, k, 768) == want
+    assert ttopk.row_warps_tm(lists, ttopk.K2_LAYOUT, B, k, 768, (16, 8, 4, 2, 1),
+                              112 * 1024) == want
     assert ttopk.query_tile(ttopk.K2_LAYOUT, want) == 8 * want
     assert ttopk.query_tile(ttopk.K1_LAYOUT, 4) == 4
+
+
+ROW_LAYOUTS = (ttopk.K2_LAYOUT, ttopk.K3_LAYOUT, ttopk.K4_LAYOUT)
+
+
+@pytest.mark.parametrize("layout", ROW_LAYOUTS)
+@pytest.mark.parametrize("k", [1, 30, 300, 1024])
+def test_row_plan_tiles_and_stages(layout, k):
+    """K2/K3/K4 take one block tile for every k: 128 queries x 128 corpus
+    rows, a ring of at least 3 slices of 16 depths."""
+    for elt in (4, 2):
+        plan = ttopk.row_plan(layout, 1024, 1_000_000, k, elt)
+        assert (plan.query_tile, plan.corpus_tile) == (128, 128)
+        assert plan.stages >= 3 and plan.depth_step == 16
+        assert plan.smem == ttopk.row_smem(layout, elt, 128) == \
+            ttopk.row_plan(layout, 1024, 1_000_000, 1, elt).smem
+
+
+@pytest.mark.parametrize("layout", ROW_LAYOUTS)
+@pytest.mark.parametrize("B,N", [(1, 1), (31, 200), (70, 100003), (256, 131072),
+                                 (1000, 1_000_000), (1024, 1_000_000), (3000, 5120),
+                                 (1024, 10_000_000)])
+def test_row_plan_covers_corpus(layout, B, N):
+    """Whole corpus tiles per split, every row covered, no empty split,
+    every query row in a block, about TARGET_BLOCKS blocks."""
+    plan = ttopk.row_plan(layout, B, N, 30, 4)
+    assert plan.rows_per_split % plan.corpus_tile == 0
+    assert plan.splits * plan.rows_per_split >= N
+    assert (plan.splits - 1) * plan.rows_per_split < N
+    b_tiles = -(-B // plan.query_tile)
+    assert plan.grid_x == b_tiles  # every query row in a block, no block of padding only
+    n_tiles = -(-N // 128)
+    target = ttopk.TARGET_BLOCKS[layout]
+    assert plan.splits * b_tiles <= max(b_tiles, target + b_tiles)
+    assert plan.splits >= min(n_tiles, target // b_tiles) // 2
+
+
+@pytest.mark.parametrize("B,want", [(1, 32), (31, 32), (32, 32), (33, 64), (64, 64), (65, 128),
+                                    (70, 128), (256, 128), (1000, 128), (1024, 128)])
+def test_row_query_tile(B, want):
+    """The query tile comes from the batch: 32 or 64 rows when the batch
+    fits them (QueryService's bucket of 64), else 128. K3 runs K2's schedule,
+    so its plan is K2's; K4's differs only in its shared memory."""
+    assert ttopk.row_query_tile(B) == want
+    k2, k3, k4 = (ttopk.row_plan(layout, B, 100_000, 10, 4) for layout in ROW_LAYOUTS)
+    assert k2.query_tile == k3.query_tile == k4.query_tile == want
+    assert k3 == dataclasses.replace(k2, layout=ttopk.K3_LAYOUT)
+    assert k4 == dataclasses.replace(k2, layout=ttopk.K4_LAYOUT, smem=k4.smem)
+    assert k2.smem == ttopk.row_smem(ttopk.K2_LAYOUT, 4, want)
+
+
+@pytest.mark.parametrize("B,N,k", [(1, 1, 1), (64, 300, 30), (1024, 1_000_000, 300),
+                                   (70, 5000, 1024)])
+def test_row_plan_scratch_entries(B, N, k):
+    """The scratch holds the per-split lists [B, S, k] and the first merge
+    level; one split writes straight to the output."""
+    plan = ttopk.row_plan(ttopk.K2_LAYOUT, B, N, k, 4)
+    S, G = plan.splits, ttopk.MERGE_GROUP
+    want = 0 if S == 1 else B * k * (S + -(-S // G))
+    assert plan.work_entries == ttopk.work_entries(B, k, S) == want
+    assert S == 1 or plan.work_entries >= B * S * k
+
+
+@pytest.mark.parametrize("layout", ROW_LAYOUTS)
+@pytest.mark.parametrize("elt", [4, 2])
+def test_row_smem_fits_two_blocks_per_sm(layout, elt):
+    """For k = 1..1024 and D = 8..4096 a block's shared memory stays within
+    the 232,448 bytes a block may have, and two blocks (with the 1 KB each
+    reserves) fit an H100 SM's 228 KB."""
+    sizes = {ttopk.row_plan(layout, 1024, 50_000, k, elt).smem for k in (1, 2, 100, 1023, 1024)}
+    assert len(sizes) == 1
+    smem = sizes.pop()
+    assert smem <= ttopk.SMEM_PER_BLOCK
+    assert 2 * (smem + 1024) <= 228 * 1024
+    for D in (8, 36, 768, 4096):  # no term of the layout depends on D
+        assert ttopk.row_smem(layout, elt, 128) == smem
+    assert ttopk.row_plan(layout, 32, 50_000, 1024, elt).smem == \
+        ttopk.row_smem(layout, elt, 32) < ttopk.row_smem(layout, elt, 64) < smem
 
 
 @pytest.mark.parametrize("B,k,want", [(1024, 100, 16), (1024, 300, 8), (64, 100, 8),
@@ -308,13 +389,44 @@ def test_kernels_match_plain_on_card(cuda_device, dtype):
     td = getattr(torch, dtype)
     tq, tx, tb = (t.to(cuda_device) for t in _t(q, x, bias))
     tq, tx = tq.to(td), tx.to(td)
+    xt = tx.T.contiguous()
+    k4 = lambda q_, x_, b_, k_: ttopk.streaming_topk_cuda_qmajor_xt(q_, xt, b_, k_)
     for fn, B in ((ttopk.streaming_topk_cuda, 3), (ttopk.streaming_topk_cuda_qmajor, 70),
-                  (ttopk.streaming_topk_cuda_qres, 70)):
-        for k in (1, 30, 300):
+                  (ttopk.streaming_topk_cuda_qres, 70), (k4, 70),
+                  (ttopk.streaming_topk_cuda_qmajor, 40), (ttopk.streaming_topk_cuda_qres, 64),
+                  (k4, 33), (ttopk.streaming_topk_cuda_qmajor, 20),
+                  (k4, 32)):  # 128-, 64- and 32-row query tiles
+        for k in (1, 30, 300, 1024):
             ks, ki = fn(tq[:B].contiguous(), tx, tb, k)
             ps, pi = ttopk.streaming_topk(tq[:B], tx, tb, k)
             assert_topk_equiv(ks.cpu(), ki.cpu(), ps.cpu(), pi.cpu(),
                               tq[:B].float().cpu().numpy(), tx.float().cpu().numpy(), bias)
+
+
+def _variants_tool():
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.dirname(__file__)), "tools",
+                        "flat_topk_variants.py")
+    spec = importlib.util.spec_from_file_location("flat_topk_variants", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("name", list(_variants_tool().VARIANTS))
+def test_variant_tool_anchors_in_source(name):
+    """Every text change of tools/flat_topk_variants.py still applies to
+    csrc/flat_topk.cu, and every ops/topk.py constant it sets exists."""
+    from codegraph_tpu_torch.ops import cuda_build
+
+    tool = _variants_tool()
+    src = (cuda_build.CSRC_DIR / "flat_topk.cu").read_text()
+    subs, consts, _ = tool.VARIANTS[name]
+    for anchor, _ in subs:
+        assert anchor in src
+    for const in consts:
+        assert hasattr(ttopk, const)
 
 
 def test_kernel_build_refuses_without_nvcc(monkeypatch, tmp_path):

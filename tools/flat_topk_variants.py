@@ -1,0 +1,163 @@
+#!/usr/bin/env python3
+"""Time the row-tile kernels K2 and K4 (csrc/flat_topk.cu `rows_pass1`)
+against variants of their design, on one NVIDIA GPU.
+
+    python3 tools/flat_topk_variants.py [--rows 1000000]
+
+Each variant is the committed source with its text changes and
+ops/topk.py constants (below), built with the same nvcc flags into
+codegraph_tpu_torch/_build/variants/ (one nvcc each, in parallel) and
+loaded in place of the shipped library. On a 1% tombstoned f32 corpus of
+unit rows at D=768 made on the card from a seed, every variant runs K2 at
+B=32 and 64 (k=30, 300), B=1024 (k=30, 300) and B=256 (k=300) and K4 at B=1024
+(k=30, 300): median ms over 3 batches (CUDA events), all variants in
+turns, forward then backward. Variants marked `timing only`
+give wrong top-k on purpose (they skip the offer or the copies); the
+others are checked against a chunked matmul + topk on one batch. Prints
+the card, each variant's ptxas line for K2 and K4, and one JSON line per
+variant. Exits 1 if a variant's text change no longer applies, a build
+fails, or a checked variant disagrees.
+"""
+
+import argparse
+import ctypes
+import json
+import os
+import subprocess
+import sys
+import threading
+
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+import chip_smoke as cs  # noqa: E402
+from codegraph_tpu_torch.ops import cuda_build, topk  # noqa: E402
+
+OFFER = "    float sc[MI][8];\n#pragma unroll\n    for (int j = 0; j < 8; ++j) {"
+ISSUE_NEXT = "      issue_next();  // into the slot computed last step, now free"
+# name -> (text substitutions, ops/topk.py constants it changes, checked)
+VARIANTS = {
+    "shipped": ([], {}, True),
+    "no offer (timing only)": ([(OFFER, "    if (acc[0][0] != 1234.5f) continue;\n" + OFFER)], {},
+                               False),
+    "FMAs only: no offer, no copies (timing only)": (
+        [(OFFER, "    if (acc[0][0] != 1234.5f) continue;\n" + OFFER), (ISSUE_NEXT, "      cp_commit();")],
+        {}, False),
+    "no shared bound": ([("s >= lb && ", "")], {}, True),
+    "K2 fragment of 8 columns": ([("kFragJ = TRANS ? 8 : 4;", "kFragJ = 8;")], {}, True),
+    "K2 fragment of 2 columns": ([("kFragJ = TRANS ? 8 : 4;", "kFragJ = TRANS ? 8 : 2;")], {},
+                                 True),
+    "one block per SM (no register cap)": (
+        [("__launch_bounds__(kThreads, 2)\n    rows_pass1", "__launch_bounds__(kThreads, 1)\n    rows_pass1")],
+        {}, True),
+    "4 ring slices": ([("constexpr int kStages = 3;", "constexpr int kStages = 4;")],
+                      {"ROW_STAGES": 4}, True),
+    "24-deep slices": ([("constexpr int kRDK = 16;", "constexpr int kRDK = 24;")],
+                       {"ROW_DEPTH": 24}, True),
+    "48-entry buffers": ([("constexpr int kCap = 32;", "constexpr int kCap = 48;")],
+                         {"ROW_CAP": 48}, True),
+    "128-row query tile at every B": ([], {"ROW_SMALL_QUERY_TILES": ()}, True),
+    "6 ring slices (1 block/SM at 128 rows)": (
+        [("constexpr int kStages = 3;", "constexpr int kStages = 6;")], {"ROW_STAGES": 6}, True),
+    "32-row tile at 4 blocks per SM, 528-block target at every B": (
+        [("__launch_bounds__(kThreads, 2)\n    rows_pass1",
+          "__launch_bounds__(kThreads, QT == 32 ? 4 : 2)\n    rows_pass1")],
+        {"TARGET_BLOCKS": {**topk.TARGET_BLOCKS, topk.K2_LAYOUT: 4 * 132}}, True),
+}
+SHAPES = (("K2", 32, 30), ("K2", 32, 300), ("K2", 64, 30), ("K2", 64, 300), ("K2", 1024, 30),
+          ("K2", 1024, 300), ("K2", 256, 300), ("K4", 1024, 30), ("K4", 1024, 300))
+
+
+def build(i: int, name: str, out: dict) -> None:
+    subs = VARIANTS[name][0]
+    d = cuda_build.BUILD_DIR / "variants" / str(i)
+    d.mkdir(parents=True, exist_ok=True)
+    src = (cuda_build.CSRC_DIR / "flat_topk.cu").read_text()
+    for a, b in subs:
+        if a not in src:
+            out[name] = f"anchor not found: {a!r}"
+            return
+        src = src.replace(a, b)
+    (d / "flat_topk.cu").write_text(src)
+    so = d / "libflat_topk.so"
+    r = subprocess.run([cuda_build.find_nvcc(), *cuda_build.NVCC_FLAGS,
+                        f"-I{cuda_build.CSRC_DIR}", "-o", str(so), str(d / "flat_topk.cu")],
+                       capture_output=True, text=True, timeout=cuda_build.BUILD_TIMEOUT_S)
+    if r.returncode:
+        out[name] = r.stderr[-2000:]
+        return
+    out[name] = [ln for ln in cs.ptxas_summary(r.stdout + r.stderr)
+                 if ln.startswith(("rows_pass1IfLb0ELi128E", "rows_pass1IfLb1ELi128E",
+                                     "rows_pass1IfLb0ELi32E"))]
+    out[name + "/so"] = str(so)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--rows", type=int, default=1_000_000)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("needs a CUDA GPU", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(cs.nvidia_smi_line(), flush=True)
+    built: dict = {}
+    threads = [threading.Thread(target=build, args=(i, n, built)) for i, n in enumerate(VARIANTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    names = [n for n in VARIANTS if n + "/so" in built]
+    for n in VARIANTS:
+        print(json.dumps({"variant": n, "ptxas": built.get(n)}), flush=True)
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(2024)
+    N, D = args.rows, 768
+    x = cs._unit(torch, torch.randn(N, D, generator=g, device=dev))
+    bias = torch.zeros(N, device=dev)
+    bias[torch.randperm(N, generator=g, device=dev)[: N // 100]] = cs.NEG_INF
+    xt = x.T.contiguous()
+    fns = {"K2": lambda qb, k: topk.streaming_topk_cuda_qmajor(qb, x, bias, k),
+           "K4": lambda qb, k: topk.streaming_topk_cuda_qmajor_xt(qb, xt, bias, k)}
+    qs = {B: [cs._unit(torch, torch.randn(B, D, generator=g, device=dev)) for _ in range(3)]
+          for B in {b for _, b, _ in SHAPES}}
+    ref = {(B, k): cs.yardstick(torch, qs[B][0], x, bias, k) for _, B, k in SHAPES}
+    saved = {a: getattr(topk, a)
+             for a in ("ROW_STAGES", "ROW_DEPTH", "ROW_CAP", "ROW_SMALL_QUERY_TILES",
+                       "TARGET_BLOCKS")}
+    ms = {n: {} for n in names}
+    bad = {n: 0 for n in names}
+    for n in names + names[::-1]:
+        cuda_build._loaded["flat_topk"] = ctypes.CDLL(built[n + "/so"])
+        topk._lib_handle = None
+        for a, v in {**saved, **VARIANTS[n][1]}.items():
+            setattr(topk, a, v)
+        for kern, B, k in SHAPES:
+            key = f"{kern} B={B} k={k}"
+            ms[n].setdefault(key, []).append(cs._time_ms(torch, lambda qb: fns[kern](qb, k), qs[B]))
+            if VARIANTS[n][2]:
+                s_k, i_k = fns[kern](qs[B][0], k)
+                bad[n] += cs.check_topk(torch, qs[B][0], x, bias, s_k, i_k, *ref[(B, k)])[2]
+    cuda_build._loaded.pop("flat_topk", None)
+    topk._lib_handle = None
+    for a, v in saved.items():
+        setattr(topk, a, v)
+    for n in names:
+        print(json.dumps({"variant": n, "ms": ms[n],
+                          "mismatches_outside_ties": bad[n] if VARIANTS[n][2] else "not checked"}),
+              flush=True)
+    for _, B, k in sorted({(0, b, k) for _, b, k in SHAPES}):
+        lib = cs._time_ms(torch, lambda qb: cs.yardstick(torch, qb, x, bias, k), qs[B])
+        print(json.dumps({"library": f"B={B} k={k}", "ms": lib}), flush=True)
+    if len(names) < len(VARIANTS):
+        print(f"not timed (no anchor or no build): {sorted(set(VARIANTS) - set(names))}",
+              file=sys.stderr, flush=True)
+        return 1
+    return 0 if all(v == 0 for n, v in bad.items() if VARIANTS[n][2]) else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())
