@@ -11,14 +11,19 @@ Phases, each printing one JSON object per line as it ends:
   0  card name and power limit, torch and nvcc versions; builds the CUDA
      sources from csrc/ (flat_topk.cu, int8_topk.cu, ivfpq_adc.cu and the
      host helper ivf_spill.cu, one nvcc each, in parallel) and prints the
-     build seconds and ptxas lines.
+     build seconds and the ptxas line (registers, spills) of every kernel
+     instance.
   1  every kernel against its plain PyTorch version on the card. K1, K2
      and K3: f32 and bf16 corpora up to 131,072 x 768, k in {1, 10, 30,
      100, 300, 1024}, K2-K4 at B = 20, 31 and 32 (a 32-row query tile), 33,
      40 and 64 (a 64-row tile) and 70, 96, 256 and 1000 (partial 128-row
      tiles). K5, K6 and K7: int8 corpora of the same sizes, k in {1, 10,
      100, 300}, with an all-zero row (scale 0) and rows of +-127 everywhere
-     (an int8 wrap would show). Both: a ragged N, 1% tombstones, an
+     (an int8 wrap would show), K6 at B = 33, 64 (the 64-row tile), 65,
+     96, 128, 129, 255, 256 and 1000 (128-row tiles), K7 at 64, 96, 129
+     and 256, and K6 at D = 100 (not a multiple of 16: the mma.sync kernel,
+     K6s), its scores equal to the plain version's bit for bit. Both: a
+     ragged N, 1% tombstones, an
      extra_bias filter, k above the live count, duplicate rows (exact
      ties), batches on both sides of 32. K4: K2's cases on xt = x.T. K8:
      synthetic IVF-PQ cells, m in {8, 16, 96}, ksub in {16, 256}, nprobe in
@@ -47,9 +52,11 @@ Phases, each printing one JSON object per line as it ends:
      index.capacity that the planner sends to the int8 tier on this card.
   5  real size of the int8 tier: Int8FlatIndex of 10,000,000 x 768 rows
      with a bf16 rescore copy (about 23 GB), made on the card, 1%
-     tombstoned; K5 at B=1 and 8, K6 and K7 at B=256 and 1024, k=100 and
-     300, timed as in phase 3 against a chunked torch._int_mm + topk
-     yardstick; and Int8FlatIndex.search end to end at B=1 and 1024.
+     tombstoned; K5 at B=1 and 8, K6 and K7 at B=64, 256 and 1024, k=100
+     and 300, and the mma.sync kernel (K6s) at B=1024, k=100, timed as in
+     phase 3 against a chunked torch._int_mm + topk yardstick; and
+     Int8FlatIndex.search end to end at B=1 and 1024, with the time of
+     each of its stages at B=1024 (quantize, scan, rescore, copy back).
   6  the IVF-PQ main path: phase 2 with index.kind = "ivfpq" at the config
      defaults (nlist 4096, nprobe 64, pq_m 96, host int8 refine): 5
      searches, a filtered search keeping <= 3% of rows (a fetch above
@@ -122,6 +129,9 @@ KERNELS = {
            "codegraph_tpu/ops/quantize.py:287"),
     "K7": ("quantize", "streaming_topk_int8_cuda_qres", INT8_CU,
            "codegraph_tpu/ops/quantize.py:396"),
+    # K6/K7 on the shapes TMA cannot take (D % 16 != 0, unaligned rows)
+    "K6s": ("quantize", "streaming_topk_int8_cuda_sync", INT8_CU,
+            "codegraph_tpu/ops/quantize.py:287"),
     "K8": ("ivfpq", "ivfpq_search_cuda", IVFPQ_CU, "codegraph_tpu/index/ivfpq.py:273"),
 }
 
@@ -242,7 +252,8 @@ def ptxas_summary(log: str) -> list:
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", ln)
         if m:
-            k = re.search(r"(topk_pass1|rows_pass1|int8_dp4a_pass1|int8_mma_pass1|adc_pass1|topk_merge)"
+            k = re.search(r"(topk_pass1|rows_pass1|int8_dp4a_pass1|int8_mma_pass1|int8_tc_pass1|adc_pass1|"
+                          r"topk_merge)"
                           r"(I\w*?EE)?",
                           m.group(1))
             name = k.group(1) + (k.group(2) or "") if k else m.group(1)
@@ -306,6 +317,9 @@ def phase1(torch, mods, errs) -> dict:
                 layouts += (("K2", 20), ("K2", 33), ("K2", 64), ("K2", 70), ("K2", 1000),
                             ("K3", 32), ("K3", 40), ("K3", 70), ("K3", 1000), ("K4", 31),
                             ("K4", 64), ("K4", 70), ("K4", 96), ("K4", 256), ("K4", 1000))
+            else:  # both sides of K6/K7's 64- and 128-row query tiles
+                layouts += (("K2", 33), ("K2", 64), ("K2", 65), ("K2", 128), ("K2", 129),
+                            ("K2", 255), ("K2", 1000), ("K3", 64), ("K3", 129))
             for kernel, B in layouts:
                 if dtype == torch.int8:
                     kernel = {"K1": "K5", "K2": "K6", "K3": "K7"}[kernel]
@@ -342,6 +356,7 @@ def phase1(torch, mods, errs) -> dict:
                         "k": k, "dup": dup, "filter": filt, "live": live or N,
                         "max_abs_err": err, "id_mismatches": n_diff,
                         "mismatches_outside_ties": bad})
+    cases += phase1_unaligned(torch, mods, errs, g)
     cases += phase1_k8(torch, mods, errs)
     spill = phase1_spill(mods)
     n_bad = sum(c["mismatches_outside_ties"] for c in cases)
@@ -354,6 +369,36 @@ def phase1(torch, mods, errs) -> dict:
     require(n_bad == 0, f"phase 1: {n_bad} mismatches outside ties")
     require(spill["equal"], "phase 1: the compiled spill placement differs from the Python loop")
     return out
+
+
+def phase1_unaligned(torch, mods, errs, g) -> list:
+    """K6 and K7 at a D that is not a multiple of 16: their wrappers send
+    it to the mma.sync kernel (K6s), which must then have launched."""
+    quantize = mods["quantize"]
+    dev = torch.device("cuda")
+    N, D = 20011, 100
+    xv, xs = quantize.quantize_rows(_unit(torch, torch.randn(N, D, generator=g, device=dev)))
+    bias = torch.zeros(N, device=dev)
+    bias[torch.randperm(N, generator=g, device=dev)[: N // 100]] = NEG_INF
+    cases = []
+    before = quantize.streaming_topk_int8_cuda_sync.launches
+    for name, B in (("K6", 70), ("K6", 129), ("K7", 40)):
+        qv, qs = quantize.quantize_rows(_unit(torch, torch.randn(B, D, generator=g, device=dev)))
+        args = (qv, qs, xv, xs, bias)
+        for k in (1, 10, 100, 300):
+            s_k, i_k = wrapper(mods, name)(*args, k)
+            torch.cuda.synchronize()
+            s_p, i_p = quantize.streaming_topk_int8(*args, k)
+            err, n_diff, bad = check_topk(torch, None, None, None, s_k, i_k, s_p, i_p,
+                                          judge=int8_judge(*args))
+            bad += int(((s_k != s_p) & (s_p > NEG_INF / 2)).sum())
+            errs["K6s"] = max(errs["K6s"], err)
+            cases.append({"kernel": f"K6s (via {name})", "dtype": "int8", "N": N, "D": D, "B": B,
+                          "k": k, "max_abs_err": err, "id_mismatches": n_diff,
+                          "mismatches_outside_ties": bad})
+    require(quantize.streaming_topk_int8_cuda_sync.launches - before == len(cases),
+            "phase 1: K6/K7 at D % 16 != 0 did not run the mma.sync kernel")
+    return cases
 
 
 def ivfpq_state(torch, g, nlist, m, ksub, D, cap, dup=False):
@@ -886,9 +931,10 @@ def phase5(torch, mods, errs) -> list:
     xv, xs, bias = xv[:N], xs[:N], bias[:N]  # capacity padding is dead rows; time the live corpus
     rows_out = []
     plain_cache = {}  # K6 and K7 compute the same function: one plain timing per shape
-    for name, B, k in (("K5", 1, 100), ("K5", 1, 300), ("K5", 8, 100), ("K5", 8, 300),
-                       ("K6", 256, 100), ("K6", 256, 300), ("K6", 1024, 100), ("K6", 1024, 300),
-                       ("K7", 256, 100), ("K7", 256, 300), ("K7", 1024, 100), ("K7", 1024, 300)):
+    shapes = [("K5", 1, 100), ("K5", 1, 300), ("K5", 8, 100), ("K5", 8, 300)]
+    shapes += [(name, B, k) for name in ("K6", "K7") for B in (64, 256, 1024) for k in (100, 300)]
+    shapes += [("K6s", 1024, 100)]  # the mma.sync kernel, called directly at D=768
+    for name, B, k in shapes:
         fn = wrapper(mods, name)
         batches = [quantize.quantize_rows(_unit(torch, torch.randn(B, D, generator=g, device=dev)))
                    for _ in range(7)]
@@ -921,6 +967,7 @@ def phase5(torch, mods, errs) -> list:
         rows_out.append(row)
         require(bad == 0, f"phase 5: {bad} mismatches outside ties ({name} B={B} k={k})")
     # the index end to end: quantize, scan (K5 or K6), rescore, copy back
+    stages = search_stages(torch, mods, idx, g, 1024, 10)
     live = torch.ones(idx.capacity, dtype=torch.bool)
     live[dead.cpu()] = False
     live[N:] = False
@@ -937,12 +984,38 @@ def phase5(torch, mods, errs) -> list:
         row = {"phase": 5, "kind": "Int8FlatIndex.search", "N": N, "D": D, "B": B, "k": 10,
                "rescore_k": idx.rescore_k, "ms": statistics.median(times),
                "ms_all": [round(t, 3) for t in times], "results_ok": ok}
+        if B == 1024:
+            row["stage_ms"] = stages
         emit(row)
         rows_out.append(row)
         require(ok, f"phase 5: Int8FlatIndex.search at B={B} returned dead or missing rows")
     del idx, xv, xs, bias
     torch.cuda.empty_cache()
     return rows_out
+
+
+def search_stages(torch, mods, idx, g, B, k) -> dict:
+    """Median ms (CUDA events, 5 batches) of each stage of
+    Int8FlatIndex.search at batch B: quantize the queries, the scan (K6 at
+    B >= 32), the rescore of the candidates, and the copy of the results
+    to the host."""
+    quantize = mods["quantize"]
+    x_q, x_s, x_r, bias = idx.arrays()
+    cand_k = min(max(k, idx.rescore_k), idx.capacity)
+    qs = [torch.nn.functional.normalize(torch.randn(B, idx.dim, generator=g, device="cuda"), dim=1)
+          for _ in range(5)]
+    qz = [quantize.quantize_rows(q) for q in qs]
+    scan = wrapper(mods, "K6" if B >= 32 else "K5")
+    cands = [scan(v, s, x_q, x_s, bias, cand_k) for v, s in qz]
+    res = [quantize.rescore_topk(q, x_r, c[1], c[0], k) for q, c in zip(qs, cands)]
+    out = {"quantize": _time_ms(torch, lambda q: quantize.quantize_rows(q), qs),
+           "scan": _time_ms(torch, lambda z: scan(z[0], z[1], x_q, x_s, bias, cand_k), qz),
+           "rescore": _time_ms(torch, lambda i: quantize.rescore_topk(qs[i], x_r, cands[i][1],
+                                                                      cands[i][0], k),
+                               list(range(5))),
+           "copy_back": _time_ms(torch, lambda r: (r[0].cpu(), r[1].cpu()), res)}
+    out["sum"] = sum(out.values())
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1420,12 +1493,14 @@ def main(argv=None) -> int:
         faulthandler.cancel_dump_traceback_later()
 
     # each kernel at one shape of its real-size phase; launches from its
-    # tier's main path (K3, K4 and K7 are public ops that no index calls)
+    # tier's main path (K3, K4 and K7 are public ops that no index calls;
+    # K6s runs only at a D that is not a multiple of 16)
     shapes = {"K1": (p3, "float32", 1, 30), "K2": (p3, "float32", 1024, 30),
               "K3": (p3, "float32", 1024, 100), "K4": (p3, "float32", 1024, 30),
               "K5": (p5, "int8", 1, 100), "K6": (p5, "int8", 1024, 100),
-              "K7": (p5, "int8", 1024, 100), "K8": (p7, "uint8 codes", 1, 40)}
-    paths = {"K1": p2, "K2": p2, "K3": p2, "K4": p2, "K5": p4, "K6": p4, "K7": p4,
+              "K7": (p5, "int8", 1024, 100), "K6s": (p5, "int8", 1024, 100),
+              "K8": (p7, "uint8 codes", 1, 40)}
+    paths = {"K1": p2, "K2": p2, "K3": p2, "K4": p2, "K5": p4, "K6": p4, "K7": p4, "K6s": p4,
              "K8": p6["ivfpq"] if p6 else None}
     kernels = []
     for name, (_, fn_name, source, replaces) in KERNELS.items():

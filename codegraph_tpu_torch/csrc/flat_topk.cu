@@ -297,7 +297,6 @@ cudaError_t dispatch_col(int tm, const float* q, const void* x, const float* bia
 constexpr int kTN = 128;        // corpus rows per tile
 constexpr int kRDK = 16;        // depth of one ring slice (a multiple of 8)
 constexpr int kStages = 3;      // ring slices
-constexpr int kCap = 32;        // candidate buffer entries per query row
 constexpr int kQLD = kRDK + 4;  // query slice row stride ([QT][QLD] f32)
 
 // Shared memory of rows_pass1 with QT query rows a block: the ring (query
@@ -389,145 +388,6 @@ __device__ __forceinline__ void load_xfrag(const XT* xs, int c, int tx, int j0, 
 template <bool TRANS>
 __device__ __forceinline__ int tile_col(int tx, int j) {
   return TRANS ? tx * 4 + 64 * (j >> 2) + (j & 3) : tx + 16 * j;
-}
-
-// Entries of the sorted buffer (bs, bi)[0, n) that beat (s, id)
-__device__ __forceinline__ int count_beating(const float* bs, const int* bi, int n, float s, int id) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (beats(bs[mid], bi[mid], s, id)) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
-    }
-  }
-  return lo;
-}
-
-// Merge a query row's n <= kCap buffered candidates (bs, bi; each beats the
-// list's k-th entry) into its sorted list (ls, li) of k entries in device
-// memory, run by the 16 lanes of the row's half-warp (hmask). The buffer is
-// sorted by rank; then the list is walked from its end in rounds of 64
-// positions: an entry at p moves to p + (buffer entries that beat it), the
-// buffer entries ranked [c(p-1), c(p)) land at rank + p, and the walk stops
-// below the first position no buffer entry beats. It starts at the list's
-// live length *len plus n: the positions past it stay (NEG_INF, -1). The
-// new k-th entry goes to (*ts, *ti).
-__device__ __noinline__ void flush_row(float* bs, int* bi, int n, float* ls, int* li, int k,
-                                       int* len, float* ts, int* ti, unsigned hmask, int l16) {
-  __syncwarp(hmask);
-  constexpr int E = (kCap + 15) / 16;  // buffer entries a lane ranks
-  float es[E];
-  int ei[E], rk[E];
-#pragma unroll
-  for (int e = 0; e < E; ++e) {
-    const int idx = l16 + 16 * e;
-    rk[e] = -1;
-    if (idx < n) {
-      es[e] = bs[idx];
-      ei[e] = bi[idx];
-      int r = 0;
-      for (int f = 0; f < n; ++f) r += beats(bs[f], bi[f], es[e], ei[e]);
-      rk[e] = r;
-    }
-  }
-  __syncwarp(hmask);
-#pragma unroll
-  for (int e = 0; e < E; ++e) {
-    if (rk[e] >= 0) {
-      bs[rk[e]] = es[e];
-      bi[rk[e]] = ei[e];
-    }
-  }
-  __syncwarp(hmask);
-
-  // positions past len + n hold (NEG_INF, -1) before and after
-  const int top = min(k, *len + n);
-  __syncwarp(hmask);
-  if (l16 == 0) *len = top;
-  for (int hi = top; hi > 0;) {
-    const int lo = max(0, hi - 64);
-    float ps[4];
-    int pi[4], cp[4], cq[4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int p = lo + l16 + 16 * u;
-      cp[u] = n;
-      if (p < hi) {
-        ps[u] = __ldcg(ls + p);
-        pi[u] = __ldcg(li + p);
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      if (lo + l16 + 16 * u < hi) cp[u] = count_beating(bs, bi, n, ps[u], pi[u]);
-    }
-    int below = 0;  // c(lo - 1)
-    if (l16 == 0 && lo > 0) below = count_beating(bs, bi, n, __ldcg(ls + lo - 1), __ldcg(li + lo - 1));
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int up = __shfl_up_sync(hmask, cp[u], 1, 16);
-      const int last = __shfl_sync(hmask, cp[u > 0 ? u - 1 : 0], 15, 16);
-      cq[u] = l16 > 0 ? up : (u > 0 ? last : below);
-    }
-    below = __shfl_sync(hmask, below, 0, 16);
-    __syncwarp(hmask);  // every read of this round is done
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int p = lo + l16 + 16 * u;
-      if (p >= hi) continue;
-      const int c = cp[u];
-      if (c > 0 && p + c < k) {
-        __stcg(ls + p + c, ps[u]);
-        __stcg(li + p + c, pi[u]);
-        if (p + c == k - 1) {
-          *ts = ps[u];
-          *ti = pi[u];
-        }
-      }
-      for (int t = cq[u]; t < c && t + p < k; ++t) {
-        __stcg(ls + t + p, bs[t]);
-        __stcg(li + t + p, bi[t]);
-        if (t + p == k - 1) {
-          *ts = bs[t];
-          *ti = bi[t];
-        }
-      }
-    }
-    __syncwarp(hmask);
-    if (below == 0) break;
-    hi = lo;
-  }
-}
-
-// The bound that corpus splits share for one query row (a half-warp's
-// row): each split publishes the j-th score of its list, j = ceil(k / S),
-// in bound[split]; the smallest published score t has at least j * S >= k
-// rows scoring t or more, so the row's global k-th score is at least t and
-// a score below t can be in no list that pass 2 keeps. A published score
-// only rises and a 4-byte store is read whole, so a stale read is a lower
-// bound too: the splits need neither atomics nor order. The bounds are
-// read and written relaxed at GPU scope, since other blocks write them
-// while this one runs. The new bound goes to *lb.
-__device__ __forceinline__ void st_relaxed(float* p, float v) {
-  asm volatile("st.relaxed.gpu.f32 [%0], %1;\n" ::"l"(p), "f"(v) : "memory");
-}
-__device__ __forceinline__ float ld_relaxed(const float* p) {
-  float v;
-  asm volatile("ld.relaxed.gpu.f32 %0, [%1];\n" : "=f"(v) : "l"(p) : "memory");
-  return v;
-}
-__device__ __noinline__ void share_bound(const float* ls, int k, float* bound, int split, int S,
-                                         float* lb, unsigned hmask, int l16) {
-  const int j = (k + S - 1) / S;
-  if (l16 == 0) st_relaxed(bound + split, __ldcg(ls + j - 1));
-  float m = 3.0e38f;
-  for (int s = l16; s < S; s += 16) m = fminf(m, ld_relaxed(bound + s));
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) m = fminf(m, __shfl_xor_sync(hmask, m, off, 16));
-  if (l16 == 0) *lb = m;
-  __syncwarp(hmask);
 }
 
 // Pass 1 of K2/K3/K4: block (query tile of QT rows, corpus split) -> the

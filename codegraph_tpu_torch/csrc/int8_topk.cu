@@ -1,67 +1,79 @@
 // Exact streaming top-k over a device-resident int8 corpus with per-row
 // scales: score[b, n] = ((float)(qv[b] . xv[n]) * qs[b]) * xs[n] + bias[n],
 // the dot product exact in int32, then the k best rows per query, sorted
-// descending.
+// descending (a tie goes to the lower row id; (NEG_INF, -1) for rows past
+// the live count).
 //
 // Replaces the three Pallas kernels of codegraph_tpu/ops/quantize.py:
 //   K5  streaming_topk_int8_pallas / _int8_topk_kernel         (batches < 32)
 //   K6  streaming_topk_int8_qmajor / _int8_topk_qmajor_kernel  (batches >= 32)
 //   K7  streaming_topk_int8_qres   / _int8_topk_qres_kernel    (query-resident)
-// K5 is a __dp4a kernel with the column warps of flat_topk.cu (up to 8 query
-// rows). K6 and K7 are one tensor-core kernel (mma.sync m16n8k32 s8) over
-// query tiles of 16 to 128 rows; K7 keeps its block's query tile resident in
-// shared memory for its whole corpus split (the TPU kernel pins the whole
-// batch in VMEM; a block's 227 KB holds a tile of it).
+// Three pass-1 kernels, one pass 2 (topk_merge.cuh):
+//   * int8_dp4a_pass1 (K5): __dp4a with the column warps of flat_topk.cu,
+//     up to 8 query rows a block, lists in shared memory.
+//   * int8_tc_pass1 (K6 and K7, one schedule): wgmma s8 on the tensor
+//     cores, operands brought by TMA, lists in device memory. K7's idea, a
+//     query tile resident for a whole corpus split, is this kernel's
+//     design, so K7 runs it too.
+//   * int8_mma_pass1 (K6/K7 for shapes TMA cannot take: D % 16 != 0 or
+//     rows, scales or bias not 16-byte aligned): mma.sync m16n8k32 s8 from
+//     register-staged 32-bit words, lists in shared memory.
 //
-// What bounds it on the H100:
-//   * K5 (B <= 8 live rows per tile) reads the corpus once per call:
-//     N*D + 8N bytes (rows, scales, bias), memory bound. 10M x 768 is
-//     7.76 GB, 2.32 ms at 3.35 TB/s.
-//   * K6 and K7 at B = 1024 do 2*B*N*D int8 operations: 15.7 TOP at
-//     10M x 768, 7.9 ms at the data sheet's 1,979 TOP/s for int8 tensor
-//     cores. mma.sync reaches part of that rate (wgmma, fed by TMA, is the
-//     way to all of it), and the shared-memory reads that feed it and the
-//     merge take their share.
-// What the design does about it:
-//   * The dot products are exact: int8 x int8 summed in int32 (|acc| <=
-//     127^2 * D fits for D < 133,000), by __dp4a (K5) or the tensor cores
-//     (K6, K7). D must be a multiple of 4; rows are read as 32-bit words, a
-//     warp reading 128 contiguous bytes of a row (K6/K7: 16-byte pieces when
-//     D % 16 == 0 and the rows are 16-byte aligned).
-//   * The epilogue rounds as the reference does, one operation at a time
-//     (__fmul_rn / __fadd_rn, so nvcc cannot contract them into an FMA that
-//     rounds once): (float)acc * qs[b], then * xs[n], then + bias[n]. The
-//     kernel and the plain PyTorch version agree bit for bit.
-//   * Pass 1 splits the corpus rows across blocks, grid (query tiles,
-//     splits). Each block walks its rows in corpus tiles, 32 words (128
-//     int8) of depth per step, loading the next step into registers while
-//     it computes on the current one in shared memory. K7 loads its query
-//     tile once and stages only the corpus. K5 runs two blocks per SM (its
-//     bytes in flight set its pace); K6/K7 one block with the largest query
-//     tile that fits 227 KB (fewer corpus re-reads per query).
-//   * Tensor cores: a step's 32 words of depth are 4 k-steps of m16n8k32.
-//     The lane with threadID_in_group t takes words 8t .. 8t+7 of each row
-//     it touches (words 8t+2j and 8t+2j+1 fill its two k slots in k-step
-//     j), the same words for query and corpus rows, so the sum over all
-//     k-steps and lanes is the whole dot product. Rows are row-major in
-//     shared memory with a stride of 36 words, so those 8 words are two
-//     conflict-free 16-byte loads.
-//   * The scores of a complete tile go through a score tile in shared
-//     memory to the merge of topk_merge.cuh (the one flat_topk.cu uses, with
-//     the same order and sentinels): per-row sorted lists in shared memory
-//     fed by a threshold ballot, then a merge of the splits in levels. A row
-//     none of whose scores beats its list's k-th entry is not offered at
-//     all, which after the first tiles is most rows.
+// What bounds them on the H100:
+//   * K5 reads the corpus once per call: N*D + 8N bytes (rows, scales,
+//     bias), memory bound. 10M x 768 is 7.76 GB, 2.32 ms at 3.35 TB/s.
+//   * K6/K7 do 2*B*N*D int8 operations: 15.7 TOP at 10M x 768, B = 1024,
+//     7.9 ms at the data sheet's 1,979 TOP/s for int8 tensor cores; at
+//     B <= 256 the corpus bytes (2.32 ms) bound them. Beside the products,
+//     each of the B*N scores costs ~6 FP32-pipe instructions in the
+//     epilogue, and each score that may enter a top-k list costs an offer
+//     and, every 32 of a row, a merge into the list in device memory.
+// What int8_tc_pass1 does about it:
+//   * wgmma.mma_async m64n128k32 s32.s8.s8 reads both operands from shared
+//     memory (K-major, 128-byte swizzle: qv [B, D] and xv [N, D] are already
+//     K-major) and keeps the int32 sums in registers.
+//   * One producer warp keeps a ring of corpus boxes (128 rows x 128 bytes
+//     of depth, up to 6 stages) in flight by TMA (cp.async.bulk.tensor,
+//     zero-filled past N and D) behind mbarrier full/empty pairs, and the
+//     tiles' scales and bias in a ring of their own; no block-wide barrier
+//     after set-up. The block's query tile (128 rows x D bytes, 96 KB at D
+//     = 768) is loaded once by TMA and stays resident, so only the corpus
+//     streams; where it does not fit (D above 1,152), it streams with it.
+//   * Two consumer warpgroups take the two 64-row halves of the query tile
+//     against each stage (a batch of <= 64: one warpgroup, a 64-row tile).
+//     Each waits on the full barriers on its own and releases a stage
+//     after its last wgmma on it, so one's epilogue overlaps the other's
+//     products, as far as the ring lets them drift apart.
+//   * The accumulator is mma.sync's fragment repeated: a thread holds query
+//     rows g and g + 8 of its warp's 16, corpus rows 8j + 2t, +1. The
+//     epilogue scores them as the reference rounds, one operation at a time
+//     (__fmul_rn / __fadd_rn, no FMA contraction): (float)acc * qs[b], then
+//     * xs[n], then + bias[n], bit for bit the plain PyTorch version. A
+//     compare against the row's threshold (its list's k-th entry and the
+//     splits' shared bound) and one warp vote skip the offer for most tiles.
+//   * The top-k lists live in the [B, S, k] split scratch. A score that may
+//     enter goes to the row's candidate buffer in device memory, which
+//     holds a whole tile beyond kCap entries, so the offer needs no capacity
+//     check; after the tile, a row past kCap entries is merged into its list
+//     out of line (topk_merge.cuh flush_row), which raises its threshold,
+//     and the corpus splits of a row share a lower bound of its k-th score
+//     (share_bound), as in K2. Shared memory is the same for every k.
+//   * Grid (query tiles, corpus splits), query tiles fastest, at most one
+//     block per SM: the query tiles of a split read its corpus from L2
+//     within microseconds of each other, and every split of a row runs at
+//     once, so the shared bound holds from the first tiles.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
 
 #include "topk_merge.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;  // K5 and the mma.sync kernel
 constexpr int kWarps = kThreads / 32;
 constexpr int kDKW = 32;          // depth staged per step, in words of 4 int8
 constexpr int kRowLd = kDKW + 4;  // row stride (words) of a staged row-major tile
@@ -135,8 +147,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     int8_dp4a_pass1(const int* __restrict__ qw, const float* __restrict__ qsc,
                     const int* __restrict__ xw, const float* __restrict__ xsc,
                     const float* __restrict__ bias, int B, int N, int D, int k, int rows_per_split,
-                    int /*vec: word loads only*/, float* __restrict__ part_s,
-                    int* __restrict__ part_i) {
+                    float* __restrict__ part_s, int* __restrict__ part_i) {
   using L = Dp4aLayout<TM>;
   constexpr int TN = L::TN, QLD = L::QLD, XLD = L::XLD;
   constexpr int XW = TN * kDKW / kThreads;                     // corpus words per thread
@@ -252,22 +263,22 @@ __global__ void __launch_bounds__(kThreads, 2)
 }
 
 // ---------------------------------------------------------------------------
-// K6, K7: tensor cores. The block's BT = WM * MT * 16 query rows x 128 corpus
-// rows; the 8 warps as WM (query rows) x 8/WM (corpus rows), each warp MT
-// m-tiles of 16 rows x NT n-tiles of 8 corpus rows. RES keeps the query
-// tile resident ([BT][Dpad + 4] words instead of one [BT][36] step).
+// K6/K7 for shapes TMA cannot take: mma.sync m16n8k32 s8. The block's BT =
+// WM * MT * 16 query rows x 128 corpus rows; the 8 warps as WM (query rows)
+// x 8/WM (corpus rows), each warp MT m-tiles of 16 rows x NT n-tiles of 8
+// corpus rows. Rows are staged as 32-bit words through registers, 32 words
+// of depth per step; the lists and a score tile live in shared memory.
 // ---------------------------------------------------------------------------
 
-template <int WM, int MT, bool RES>
+template <int WM, int MT>
 struct MmaLayout {
   static constexpr int WN = kWarps / WM;
   static constexpr int BT = WM * MT * 16;  // query rows per block
   static constexpr int TN = 128;           // corpus rows per tile
   static constexpr int NT = TN / 8 / WN;   // n-tiles per warp
   static constexpr int SSLD = TN + 8;      // ss row stride (floats)
-  static size_t q_ld(int D) { return RES ? (size_t)(D / 4 + kDKW - 1) / kDKW * kDKW + 4 : kRowLd; }
-  static size_t smem(int k, int D) {
-    return sizeof(int) * ((size_t)BT * q_ld(D) + (size_t)TN * kRowLd + (size_t)BT * SSLD + BT) +
+  static size_t smem(int k) {
+    return sizeof(int) * ((size_t)(BT + TN) * kRowLd + (size_t)BT * SSLD + BT) +
            (size_t)BT * k * (sizeof(float) + sizeof(int));
   }
 };
@@ -281,25 +292,21 @@ __device__ __forceinline__ void mma_s8(int* c, int a0, int a1, int a2, int a3, i
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
-template <int WM, int MT, bool RES>
+template <int WM, int MT>
 __global__ void __launch_bounds__(kThreads)
     int8_mma_pass1(const int* __restrict__ qw, const float* __restrict__ qsc,
                    const int* __restrict__ xw, const float* __restrict__ xsc,
                    const float* __restrict__ bias, int B, int N, int D, int k, int rows_per_split,
-                   int vec, float* __restrict__ part_s, int* __restrict__ part_i) {
-  using L = MmaLayout<WM, MT, RES>;
+                   float* __restrict__ part_s, int* __restrict__ part_i) {
+  using L = MmaLayout<WM, MT>;
   constexpr int BT = L::BT, TN = L::TN, NT = L::NT, WN = L::WN, SSLD = L::SSLD;
   constexpr int XW = TN * kDKW / kThreads;  // corpus words per thread
-  constexpr int QW = BT * kDKW / kThreads;  // query words per thread (not RES)
-  constexpr int QP = BT * kDKW / 4;         // 16-byte pieces of a query step
-  constexpr int QR = RES ? 1 : (QW > 4 ? QW : 4);
+  constexpr int QW = BT * kDKW / kThreads;  // query words per thread
   extern __shared__ __align__(16) unsigned char smem[];
   const int D4 = D / 4;
   const int n_chunks = (D4 + kDKW - 1) / kDKW;
-  const int q_depth = RES ? n_chunks * kDKW : kDKW;
-  const int QLD = RES ? q_depth + 4 : kRowLd;
-  int* qs = reinterpret_cast<int*>(smem);                    // [BT][QLD]
-  int* xs = qs + BT * QLD;                                   // [TN][kRowLd]
+  int* qs = reinterpret_cast<int*>(smem);                    // [BT][kRowLd]
+  int* xs = qs + BT * kRowLd;                                // [TN][kRowLd]
   float* ss = reinterpret_cast<float*>(xs + TN * kRowLd);    // [BT][SSLD]
   float* ls = ss + BT * SSLD;                                // [BT][k]
   int* li = reinterpret_cast<int*>(ls + BT * k);
@@ -322,84 +329,33 @@ __global__ void __launch_bounds__(kThreads)
     li[p] = -1;
   }
   if (tid < BT) rflag[tid] = 0;
-  if constexpr (RES) {  // the query tile, once; zero past D and B
-    for (int p = tid; p < BT * q_depth; p += kThreads) {
-      const int r = p / q_depth, d = p % q_depth;
-      qs[r * QLD + d] = (b0 + r < B && d < D4) ? qw[(size_t)(b0 + r) * D4 + d] : 0;
-    }
-  }
 
-  // Staging: 32-bit words, or 16-byte pieces of 4 words when `vec` (D % 16
-  // == 0 and 16-byte aligned rows); a piece lies wholly inside or outside D.
   int xr[XW];
-  int qr[QR];
+  int qr[QW];
   auto load = [&](int step) {
     const int n0 = n_begin + (step / n_chunks) * TN;
     const int d0 = (step % n_chunks) * kDKW;
-    if (vec) {
-#pragma unroll
-      for (int v = 0; v < XW / 4; ++v) {
-        const int pi = tid + v * kThreads, r = pi / (kDKW / 4), d = d0 + pi % (kDKW / 4) * 4;
-        *reinterpret_cast<int4*>(&xr[4 * v]) =
-            (n0 + r < n_end && d < D4) ? *reinterpret_cast<const int4*>(xw + (size_t)(n0 + r) * D4 + d)
-                                       : make_int4(0, 0, 0, 0);
-      }
-      if constexpr (!RES) {
-#pragma unroll
-        for (int e = 0; e < QR / 4; ++e) {
-          const int pi = tid + e * kThreads, r = pi / (kDKW / 4), d = d0 + pi % (kDKW / 4) * 4;
-          *reinterpret_cast<int4*>(&qr[4 * e]) =
-              (pi < QP && b0 + r < B && d < D4)
-                  ? *reinterpret_cast<const int4*>(qw + (size_t)(b0 + r) * D4 + d)
-                  : make_int4(0, 0, 0, 0);
-        }
-      }
-      return;
-    }
 #pragma unroll
     for (int w = 0; w < XW; ++w) {
       const int wi = tid + w * kThreads, r = wi / kDKW, d = d0 + wi % kDKW;
       xr[w] = (n0 + r < n_end && d < D4) ? xw[(size_t)(n0 + r) * D4 + d] : 0;
     }
-    if constexpr (!RES) {
 #pragma unroll
-      for (int e = 0; e < QW; ++e) {
-        const int p = tid + e * kThreads, r = p / kDKW, d = d0 + p % kDKW;
-        qr[e] = (b0 + r < B && d < D4) ? qw[(size_t)(b0 + r) * D4 + d] : 0;
-      }
+    for (int e = 0; e < QW; ++e) {
+      const int p = tid + e * kThreads, r = p / kDKW, d = d0 + p % kDKW;
+      qr[e] = (b0 + r < B && d < D4) ? qw[(size_t)(b0 + r) * D4 + d] : 0;
     }
   };
   auto store = [&]() {
-    if (vec) {
-#pragma unroll
-      for (int v = 0; v < XW / 4; ++v) {
-        const int pi = tid + v * kThreads;
-        *reinterpret_cast<int4*>(&xs[(pi / (kDKW / 4)) * kRowLd + pi % (kDKW / 4) * 4]) =
-            *reinterpret_cast<const int4*>(&xr[4 * v]);
-      }
-      if constexpr (!RES) {
-#pragma unroll
-        for (int e = 0; e < QR / 4; ++e) {
-          const int pi = tid + e * kThreads;
-          if (pi < QP) {
-            *reinterpret_cast<int4*>(&qs[(pi / (kDKW / 4)) * kRowLd + pi % (kDKW / 4) * 4]) =
-                *reinterpret_cast<const int4*>(&qr[4 * e]);
-          }
-        }
-      }
-      return;
-    }
 #pragma unroll
     for (int w = 0; w < XW; ++w) {
       const int wi = tid + w * kThreads;
       xs[(wi / kDKW) * kRowLd + wi % kDKW] = xr[w];
     }
-    if constexpr (!RES) {
 #pragma unroll
-      for (int e = 0; e < QW; ++e) {
-        const int p = tid + e * kThreads;
-        qs[(p / kDKW) * kRowLd + p % kDKW] = qr[e];
-      }
+    for (int e = 0; e < QW; ++e) {
+      const int p = tid + e * kThreads;
+      qs[(p / kDKW) * kRowLd + p % kDKW] = qr[e];
     }
   };
 
@@ -419,15 +375,17 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
     if (step + 1 < steps) load(step + 1);  // in flight during the products below
 
-    // this lane's 8 words of each of its query rows (g and g + 8 of each
-    // m-tile) and, per n-tile, of its corpus row g
+    // The lane with threadID_in_group t takes words 8t .. 8t+7 of each row
+    // it touches (words 8t+2j and 8t+2j+1 fill its two k slots in k-step
+    // j), the same words for query and corpus rows, so the sum over all
+    // k-steps and lanes is the whole dot product. Rows have a stride of 36
+    // words, so those 8 words are two conflict-free 16-byte loads.
     int qa[MT][2][8];
-    const int* qstep = qs + (RES ? chunk * kDKW : 0) + t * 8;
 #pragma unroll
     for (int i = 0; i < MT; ++i)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int* p = qstep + (row0 + i * 16 + h * 8 + g) * QLD;
+        const int* p = qs + (row0 + i * 16 + h * 8 + g) * kRowLd + t * 8;
         *reinterpret_cast<int4*>(&qa[i][h][0]) = *reinterpret_cast<const int4*>(p);
         *reinterpret_cast<int4*>(&qa[i][h][4]) = *reinterpret_cast<const int4*>(p + 4);
       }
@@ -489,30 +447,520 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
+// K6, K7: wgmma s8 fed by TMA, warp specialised (int8_tc_pass1).
+// ---------------------------------------------------------------------------
+
+constexpr int kTcConsumers = 2;                      // consumer warpgroups
+constexpr int kTcThreads = 128 * kTcConsumers + 32;  // and one producer warp
+constexpr int kBoxD = 128;   // depth of a TMA box and of a ring stage, bytes (the swizzle span)
+constexpr int kWgM = 64;     // query rows of a consumer's wgmma
+constexpr int kWgN = 128;    // corpus rows of a consumer's wgmma and of a ring stage
+constexpr int kTcSlots = kTcConsumers * kWgM;  // per-row states of a block
+// A row's candidate buffer (device memory) holds what one tile can add to
+// a buffer that is not full (kCap): it is flushed after a tile, never
+// during one, so the epilogue needs no capacity check.
+constexpr int kBufCap = kCap + kWgN;
+constexpr int kHalfWarps = 2 * 4 * kTcConsumers;  // consumer half-warps (flush staging areas)
+// A tile's corpus scales and bias arrive by TMA in a ring of their own
+// (kMetaSlots slots), freed after the tile's epilogue.
+constexpr int kMetaSlots = 4;
+constexpr int kMetaSlotBytes = 2 * kWgN * sizeof(float);
+
+// Shared memory of int8_tc_pass1 for a query tile of qt rows
+// (ops/quantize.py `tc_smem` mirrors it), from a 1024-byte aligned base:
+// the ring (each stage a corpus box of 128 rows x 128 bytes and, when the
+// query tile streams, its box of qt x 128), the
+// resident query tile (one box of qt x 128 per 128 bytes of depth), the
+// ring of tiles' scales and bias, a staging area for each consumer
+// half-warp's flush (kBufCap entries), the per-row states and the
+// barriers. Every box starts on a multiple of 1024
+// bytes, as the 128-byte swizzle needs.
+struct TcLayout {
+  int chunks, corpus_bytes, stage_bytes, ring_bytes, query_bytes;
+  size_t meta_off, flush_off, state_off, bar_off, smem;
+  TcLayout() = default;
+  __host__ __device__ TcLayout(int qt, int resident, int stages, int D) {
+    chunks = (D + kBoxD - 1) / kBoxD;
+    corpus_bytes = kWgN * kBoxD;
+    stage_bytes = corpus_bytes + (resident ? 0 : qt * kBoxD);
+    ring_bytes = stages * stage_bytes;
+    query_bytes = resident ? chunks * qt * kBoxD : 0;
+    meta_off = (size_t)ring_bytes + query_bytes;
+    flush_off = meta_off + (size_t)kMetaSlots * kMetaSlotBytes;
+    state_off = flush_off + (size_t)kHalfWarps * kBufCap * (sizeof(float) + sizeof(int));
+    bar_off = state_off + (size_t)kTcSlots * 5 * sizeof(int);
+    smem = 1024 + bar_off + (size_t)(2 * stages + 1 + 2 * kMetaSlots) * sizeof(uint64_t);
+  }
+};
+
+// The per-row states, at state_off of the aligned base: one pointer, so
+// that they take two registers, not ten.
+struct TcState {
+  float* p;
+  __device__ float* thr_s() const { return p; }  // the row's list's k-th entry
+  __device__ int* thr_i() const { return reinterpret_cast<int*>(p + kTcSlots); }
+  __device__ int* cnt() const { return reinterpret_cast<int*>(p + 2 * kTcSlots); }  // buffered
+  __device__ int* len() const { return reinterpret_cast<int*>(p + 3 * kTcSlots); }  // listed
+  __device__ float* bnd() const { return p + 4 * kTcSlots; }  // the bound the splits share
+};
+
+struct TcArgs {
+  TcLayout L;  // read from the parameters: no registers
+  const float* qsc;
+  float* part_s;  // [B, splits, k]
+  int* part_i;
+  float* bound;   // [B, S], NEG_INF at launch
+  float* cand_s;  // [blocks][kTcSlots][kBufCap], the candidate buffers
+  int* cand_i;
+  int B, N, k, rows_per_split;
+  int qt, resident, stages;
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// until the phase of parity `parity` of the barrier has completed; a wait
+// that lasts ~2^34 cycles (about 10 s) traps, so that a fault in the
+// schedule ends the launch with an error instead of holding the card
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try_wait(bar, parity)) {
+    if (clock64() - t0 > (1ll << 34)) __trap();
+  }
+}
+// a box of the tensor map at (c0 bytes of depth, row c1) into shared memory
+// at dst; its bytes complete on the barrier
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
+                                         int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+// a box of a 1-D tensor map at element c0
+__device__ __forceinline__ void tma_load_1d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0)
+      : "memory");
+}
+// wgmma descriptor of a K-major tile in shared memory with the 128-byte
+// swizzle: rows of 128 bytes, 8-row atoms 1024 bytes apart (SBO); a k32
+// step within the atom adds 32 bytes to the start address
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         ((uint64_t)1 << 62);
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keep the compiler from moving accesses of the sums across a wgmma fence or wait
+__device__ __forceinline__ void fence_operands(int (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// d[64] += A (64 x 32 s8, K-major, descriptor da) * B (128 x 32 s8, K-major,
+// descriptor db)^T in int32; scale_d = 0 overwrites d instead.
+__device__ __forceinline__ void wgmma_m64n128k32_s8(int (&d)[64], uint64_t da, uint64_t db,
+                                                    int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// This lane's sums of round r = 2j + e (query rows g and g + 8, corpus row
+// 8j + 2t + e). A switch on the warp-uniform r: an array in registers takes
+// only compile-time indices, and this keeps the sums there.
+__device__ __forceinline__ void round_sums(const int (&acc)[64], int r, int& s0, int& s1) {
+  switch (r) {
+#define CG_R(R)                                \
+  case R:                                      \
+    s0 = acc[4 * ((R) >> 1) + ((R) & 1)];      \
+    s1 = acc[4 * ((R) >> 1) + 2 + ((R) & 1)];  \
+    break;
+    CG_R(0) CG_R(1) CG_R(2) CG_R(3) CG_R(4) CG_R(5) CG_R(6) CG_R(7)
+    CG_R(8) CG_R(9) CG_R(10) CG_R(11) CG_R(12) CG_R(13) CG_R(14) CG_R(15)
+    CG_R(16) CG_R(17) CG_R(18) CG_R(19) CG_R(20) CG_R(21) CG_R(22) CG_R(23)
+    CG_R(24) CG_R(25) CG_R(26) CG_R(27) CG_R(28) CG_R(29) CG_R(30) CG_R(31)
+#undef CG_R
+  }
+}
+
+// Flush the rows of a warp whose bits are set in full0 (rows g of its quads)
+// and full1 (rows g + 8) from their candidate buffers into their lists, two
+// at a time (one a half-warp), through the half-warp's staging area in
+// shared memory; each flush raises the row's threshold and shares its
+// bound. Run by the whole warp, out of line: it is called after a tile's
+// epilogue, when the sums are no longer live.
+__device__ __noinline__ void tc_flush_rows(unsigned full0, unsigned full1, TcState st,
+                                           const float* cand_s, const int* cand_i,
+                                           unsigned char* stage, int wrow, int wb, float* part_s,
+                                           int* part_i, float* bound, int k, int S, int lslot) {
+  const int lane = threadIdx.x & 31;
+  const int half = lane >> 4, l16 = lane & 15;
+  const unsigned hmask = 0xFFFFu << (16 * half);
+  const int area = (threadIdx.x >> 5) * 2 + half;  // this half-warp's staging area
+  float* const stage_s = reinterpret_cast<float*>(stage) + area * kBufCap;
+  int* const stage_i = reinterpret_cast<int*>(stage) + kHalfWarps * kBufCap + area * kBufCap;
+#pragma unroll 1
+  for (int h = 0; h < 2; ++h) {
+    unsigned full = h ? full1 : full0;
+#pragma unroll 1
+    while (full) {
+      const int q0 = __ffs(full) - 1;
+      full &= full - 1;
+      int q1 = -1;
+      if (full) {
+        q1 = __ffs(full) - 1;
+        full &= full - 1;
+      }
+      const int mine = half ? q1 : q0;  // the quad whose row this half-warp flushes
+      if (mine >= 0) {
+        const int fr = wrow + (mine >> 2) + 8 * h;
+        const int fb = wb + (mine >> 2) + 8 * h;
+        const int n = st.cnt()[fr];
+        for (int p = l16; p < n; p += 16) {
+          stage_s[p] = __ldcg(cand_s + (size_t)fr * kBufCap + p);
+          stage_i[p] = __ldcg(cand_i + (size_t)fr * kBufCap + p);
+        }
+        const size_t base = ((size_t)fb * S + lslot) * k;
+        flush_row_inline<kBufCap>(stage_s, stage_i, n, part_s + base, part_i + base, k,
+                                  st.len() + fr, st.thr_s() + fr, st.thr_i() + fr, hmask, l16);
+        share_bound_inline(part_s + base, k, bound + (size_t)fb * S, lslot, S, st.bnd() + fr, hmask,
+                           l16);
+        if (l16 == 0) st.cnt()[fr] = 0;
+      }
+      __syncwarp();
+    }
+  }
+}
+
+// Pass 1 of K6/K7: block (query tile of qt = 64 or 128 rows, corpus split)
+// -> the top-k of the split's rows for each query, in part_s/part_i
+// [B, S, k]. Warps 0-7 are the consumer warpgroups, warp 8 the producer
+// (one thread issues the copies). Every thread has 168 registers: with a
+// producer warpgroup and setmaxnreg raising the consumers to 232, ptxas
+// still allocated their code within 168 and spilled (SASS: R0-R165), so
+// the code is written for 168. Consumer w computes query rows 64w .. 64w +
+// 63 of the tile against each 128-row corpus stage; a 64-row tile has one
+// consumer. qmap / xmap: qv [B, D] and xv [N, D] as boxes of 128 bytes x
+// qt / 128 rows; smap / bmap: xs [N] and bias [N] as boxes of 128.
+__global__ void __launch_bounds__(kTcThreads, 1)
+    int8_tc_pass1(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap xmap,
+                  const __grid_constant__ CUtensorMap smap, const __grid_constant__ CUtensorMap bmap,
+                  const TcArgs a) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const TcLayout& L = a.L;
+  unsigned char* sp = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  const uint32_t ring = smem_addr(sp);
+  const uint32_t qtile = ring + L.ring_bytes;
+  const uint32_t full_bar = smem_addr(sp + L.bar_off);  // [stages]
+  const uint32_t empty_bar = full_bar + 8 * a.stages;    // [stages]
+  const uint32_t q_bar = empty_bar + 8 * a.stages;
+  const uint32_t meta_full = q_bar + 8;                // [kMetaSlots]
+  const uint32_t meta_empty = meta_full + 8 * kMetaSlots;  // [kMetaSlots]
+  const uint32_t meta = smem_addr(sp + L.meta_off);
+  const int consumers = a.qt / kWgM;  // 1 or 2
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  const int b0 = blockIdx.x * a.qt;
+  const int n_begin = blockIdx.y * a.rows_per_split;
+  const int n_end = min(a.N, n_begin + a.rows_per_split);
+
+  if (tid == 0) {
+    for (int s = 0; s < a.stages; ++s) {
+      mbar_init(full_bar + 8 * s, 1);
+      mbar_init(empty_bar + 8 * s, 4 * consumers);  // lane 0 of each consumer warp
+    }
+    mbar_init(q_bar, 1);
+    for (int s = 0; s < kMetaSlots; ++s) {
+      mbar_init(meta_full + 8 * s, 1);
+      mbar_init(meta_empty + 8 * s, 4 * consumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == kTcConsumers) {
+    // ---- producer: the query tile once (if resident), then the ring ----
+    if (tid == kTcConsumers * 128) {
+      if (a.resident) {
+        mbar_expect_tx(q_bar, L.query_bytes);
+        for (int c = 0; c < L.chunks; ++c) tma_load(qtile + c * a.qt * kBoxD, &qmap, q_bar, c * kBoxD, b0);
+      }
+      int slot = 0;
+      uint32_t phase = 0;
+      for (int n0 = n_begin, tile = 0; n0 < n_end; n0 += kWgN, ++tile) {
+        const int m = tile % kMetaSlots;  // the tile's scales and bias
+        mbar_wait(meta_empty + 8 * m, ((tile / kMetaSlots) & 1) ^ 1);
+        mbar_expect_tx(meta_full + 8 * m, kMetaSlotBytes);
+        tma_load_1d(meta + m * kMetaSlotBytes, &smap, meta_full + 8 * m, n0);
+        tma_load_1d(meta + m * kMetaSlotBytes + kMetaSlotBytes / 2, &bmap, meta_full + 8 * m, n0);
+        for (int c = 0; c < L.chunks; ++c) {
+          mbar_wait(empty_bar + 8 * slot, phase ^ 1);
+          mbar_expect_tx(full_bar + 8 * slot, L.stage_bytes);
+          const uint32_t st = ring + slot * L.stage_bytes;
+          tma_load(st, &xmap, full_bar + 8 * slot, c * kBoxD, n0);
+          if (!a.resident) tma_load(st + L.corpus_bytes, &qmap, full_bar + 8 * slot, c * kBoxD, b0);
+          if (++slot == a.stages) {
+            slot = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+  } else if (wg < consumers) {
+    // ---- consumer warpgroup wg ----
+    const TcState st{reinterpret_cast<float*>(sp + L.state_off)};
+    const int warp = (tid & 127) >> 5, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int S = gridDim.y;  // lists per query row, one a split
+    const int lslot = blockIdx.y;
+    const int wrow = wg * kWgM + 16 * warp;  // the warp's first state slot and row of the tile
+    const int wb = b0 + wrow;                // the warp's first query row
+    const int k = a.k;
+    const size_t blk = (size_t)blockIdx.y * gridDim.x + blockIdx.x;
+    float* const cand_s = a.cand_s + blk * kTcSlots * kBufCap;  // the block's buffers
+    int* const cand_i = a.cand_i + blk * kTcSlots * kBufCap;
+    unsigned char* const stage = sp + L.flush_off;  // the flush staging areas
+
+    for (int i = 0; i < 16; ++i) {  // the warp's rows: states and empty lists
+      if (lane == 0) {
+        st.thr_s()[wrow + i] = kNegInf;
+        st.thr_i()[wrow + i] = -1;
+        st.cnt()[wrow + i] = 0;
+        st.len()[wrow + i] = 0;
+        st.bnd()[wrow + i] = kNegInf;
+      }
+      if (wb + i < a.B) {
+        const size_t base = ((size_t)(wb + i) * S + lslot) * k;
+        for (int p = lane; p < k; p += 32) {
+          __stcg(a.part_s + base + p, kNegInf);
+          __stcg(a.part_i + base + p, -1);
+        }
+      }
+    }
+    __syncwarp();
+    float qi[2];
+    unsigned live = 0;  // bit h: query row g + 8h of the warp exists
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int b = wb + g + 8 * h;
+      qi[h] = b < a.B ? __ldg(a.qsc + b) : 0.f;
+      live |= (b < a.B ? 1u : 0u) << h;
+    }
+    const float above_neg_inf = __int_as_float(__float_as_int(kNegInf) - 1);
+
+    if (a.resident) mbar_wait(q_bar, 0);
+    int acc[64];
+    int slot = 0;
+    uint32_t phase = 0;
+#pragma unroll 1
+    for (int n0 = n_begin, tile = 0; n0 < n_end; n0 += kWgN, ++tile) {
+      // the products: 4 k32 steps per stage, one stage's group in flight
+      // while the next stage is awaited
+      int prev = -1;
+      fence_operands(acc);
+#pragma unroll 1
+      for (int c = 0; c < L.chunks; ++c) {
+        mbar_wait(full_bar + 8 * slot, phase);
+        const uint32_t stage = ring + slot * L.stage_bytes;
+        const uint32_t qa = (a.resident ? qtile + c * a.qt * kBoxD : stage + L.corpus_bytes) +
+                            wg * kWgM * kBoxD;
+        const uint64_t da = smem_desc(qa), db = smem_desc(stage);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kBoxD / 32; ++kk) {
+          wgmma_m64n128k32_s8(acc, da + 2 * kk, db + 2 * kk, (c | kk) != 0);
+        }
+        wgmma_commit();
+        if (prev >= 0) {
+          wgmma_wait<1>();
+          if (lane == 0) mbar_arrive(empty_bar + 8 * prev);
+        }
+        prev = slot;
+        if (++slot == a.stages) {
+          slot = 0;
+          phase ^= 1;
+        }
+      }
+      wgmma_wait<0>();
+      fence_operands(acc);
+      if (lane == 0) mbar_arrive(empty_bar + 8 * prev);
+      // the tile's corpus scales and bias (zero past N), as pairs: n-tile j
+      // holds corpus rows 8j + 2t, +1
+      const int m = tile % kMetaSlots;
+      mbar_wait(meta_full + 8 * m, (tile / kMetaSlots) & 1);
+      const float* xs_t = reinterpret_cast<const float*>(sp + L.meta_off + m * kMetaSlotBytes);
+      const float* bs_t = xs_t + kWgN;
+      const int room = n_end - (n0 + 2 * t);  // corpus rows c + 2t, c < room, are in the split
+
+      // The epilogue. acc[4j + 2h + e] is query row g + 8h, corpus row
+      // 8j + 2t + e. A score that reaches neither its row's threshold nor
+      // the shared bound cannot enter: one compare each, then one vote.
+      float thr[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int sr = wrow + g + 8 * h;
+        thr[h] = (live >> h) & 1u ? fmaxf(fmaxf(st.thr_s()[sr], st.bnd()[sr]), above_neg_inf) : 3.0e38f;
+      }
+      unsigned hit = 0;  // bit 2j + e: a score of round (j, e) may enter
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const float2 xp = reinterpret_cast<const float2*>(xs_t)[4 * j + t];
+        const float2 bp = reinterpret_cast<const float2*>(bs_t)[4 * j + t];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float x = e ? xp.y : xp.x;
+          const float b = e ? bp.y : bp.x;
+          const float s0 = int8_score(acc[4 * j + e], qi[0], x, b);
+          const float s1 = int8_score(acc[4 * j + 2 + e], qi[1], x, b);
+          hit |= (8 * j + e < room && (s0 >= thr[0] || s1 >= thr[1]) ? 1u : 0u) << (2 * j + e);
+        }
+      }
+      const unsigned rounds = __reduce_or_sync(kFull, hit);
+      if (rounds) {
+        // The rare case: the rounds with a candidate, in order. A score
+        // enters its row's buffer if it reaches the bound and beats the
+        // list's k-th entry as they stood before the tile; the buffer
+        // takes a whole tile, and rows past kCap entries are flushed after
+        // the tile, out of line. The states live in registers,
+        // quad-uniform.
+        float ts[2], lb[2];
+        int ti[2], cnt[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int sr = wrow + g + 8 * h;
+          ts[h] = st.thr_s()[sr];
+          ti[h] = st.thr_i()[sr];
+          lb[h] = st.bnd()[sr];
+          cnt[h] = st.cnt()[sr];
+        }
+        unsigned m = rounds;
+#pragma unroll 1
+        while (m) {  // warp-uniform
+          const int r = __ffs(m) - 1;
+          m &= m - 1;
+          const int n = n0 + 8 * (r >> 1) + 2 * t + (r & 1);
+          const bool mine = (hit >> r) & 1u;
+          int s0 = 0, s1 = 0;
+          round_sums(acc, r, s0, s1);
+          const float x = xs_t[8 * (r >> 1) + 2 * t + (r & 1)];
+          const float b = bs_t[8 * (r >> 1) + 2 * t + (r & 1)];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float s = int8_score(h ? s1 : s0, qi[h], x, b);
+            const bool v = mine && ((live >> h) & 1u) && s >= lb[h] && beats(s, n, ts[h], ti[h]);
+            const unsigned qb = (__ballot_sync(kFull, v) >> (4 * g)) & 0xFu;
+            if (v) {
+              const size_t pos = (size_t)(wrow + g + 8 * h) * kBufCap + cnt[h] +
+                                 __popc(qb & ((1u << t) - 1u));
+              __stcg(cand_s + pos, s);
+              __stcg(cand_i + pos, n);
+            }
+            cnt[h] += __popc(qb);
+          }
+        }
+        if (t == 0) {
+          st.cnt()[wrow + g] = cnt[0];
+          st.cnt()[wrow + g + 8] = cnt[1];
+        }
+        const unsigned full0 = __ballot_sync(kFull, t == 0 && cnt[0] > kCap);
+        const unsigned full1 = __ballot_sync(kFull, t == 0 && cnt[1] > kCap);
+        __syncwarp();
+        if (full0 | full1) {
+          tc_flush_rows(full0, full1, st, cand_s, cand_i, stage, wrow, wb, a.part_s,
+                        a.part_i, a.bound, k, S, lslot);
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(meta_empty + 8 * m);
+    }
+
+    // what is left in the buffers goes into the lists
+    __syncwarp();
+    const unsigned left0 = __ballot_sync(kFull, (lane & 3) == 0 && st.cnt()[wrow + g] > 0);
+    const unsigned left1 = __ballot_sync(kFull, (lane & 3) == 0 && st.cnt()[wrow + g + 8] > 0);
+    if (left0 | left1) {
+      tc_flush_rows(left0, left1, st, cand_s, cand_i, stage, wrow, wb, a.part_s,
+                    a.part_i, a.bound, k, S, lslot);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 
 template <typename Kernel>
 cudaError_t launch(Kernel kernel, size_t smem, int bt, const int* qw, const float* qsc,
                    const int* xw, const float* xsc, const float* bias, int B, int N, int D, int k,
-                   int rows_per_split, int splits, int vec, float* part_s, int* part_i,
-                   cudaStream_t st) {
+                   int rows_per_split, int splits, float* part_s, int* part_i, cudaStream_t st) {
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((B + bt - 1) / bt, splits);
-  kernel<<<grid, kThreads, smem, st>>>(qw, qsc, xw, xsc, bias, B, N, D, k, rows_per_split, vec,
-                                       part_s, part_i);
+  kernel<<<grid, kThreads, smem, st>>>(qw, qsc, xw, xsc, bias, B, N, D, k, rows_per_split, part_s,
+                                       part_i);
   return cudaGetLastError();
 }
 
 // layout 0: __dp4a column warps (K5), tm (query rows) in {1, 2, 4, 8}, corpus tile 256;
-// layout 1: tensor cores (K6), tm in {2, 4, 8, 16} = query tile / 8, corpus tile 128;
-// layout 2: tensor cores with the query tile resident (K7), tm as layout 1.
-// smem_only: return the shared memory the launch needs (bytes) in *smem and
-// launch nothing. vec: stage 16-byte pieces (layouts 1 and 2; needs D % 16
-// == 0 and 16-byte aligned qw, xw).
+// layout 1: mma.sync (K6/K7 on shapes TMA cannot take), tm in {2, 4, 8, 16} =
+// query tile / 8, corpus tile 128. smem_only: return the shared memory the
+// launch needs (bytes) in *smem and launch nothing.
 cudaError_t dispatch(int layout, int tm, bool smem_only, size_t* smem, const int* qw,
                      const float* qsc, const int* xw, const float* xsc, const float* bias, int B,
-                     int N, int D, int k, int rows_per_split, int splits, int vec, float* part_s,
+                     int N, int D, int k, int rows_per_split, int splits, float* part_s,
                      int* part_i, cudaStream_t st) {
 #define CG_DP4A(TM)                                                                          \
   {                                                                                          \
@@ -520,16 +968,16 @@ cudaError_t dispatch(int layout, int tm, bool smem_only, size_t* smem, const int
     if (smem_only) return cudaSuccess;                                                       \
     if (rows_per_split % Dp4aLayout<TM>::TN != 0) return cudaErrorInvalidValue;              \
     return launch(int8_dp4a_pass1<TM>, *smem, TM, qw, qsc, xw, xsc, bias, B, N, D, k,        \
-                  rows_per_split, splits, vec, part_s, part_i, st);                          \
+                  rows_per_split, splits, part_s, part_i, st);                               \
   }
-#define CG_MMA(WM, MT, RES)                                                                  \
+#define CG_MMA(WM, MT)                                                                       \
   {                                                                                          \
-    using L = MmaLayout<WM, MT, RES>;                                                        \
-    *smem = L::smem(k, D);                                                                   \
+    using L = MmaLayout<WM, MT>;                                                             \
+    *smem = L::smem(k);                                                                      \
     if (smem_only) return cudaSuccess;                                                       \
     if (rows_per_split % L::TN != 0) return cudaErrorInvalidValue;                           \
-    return launch(int8_mma_pass1<WM, MT, RES>, *smem, L::BT, qw, qsc, xw, xsc, bias, B, N, D, \
-                  k, rows_per_split, splits, vec, part_s, part_i, st);                       \
+    return launch(int8_mma_pass1<WM, MT>, *smem, L::BT, qw, qsc, xw, xsc, bias, B, N, D, k,  \
+                  rows_per_split, splits, part_s, part_i, st);                               \
   }
   if (layout == 0) {
     switch (tm) {
@@ -540,17 +988,10 @@ cudaError_t dispatch(int layout, int tm, bool smem_only, size_t* smem, const int
     }
   } else if (layout == 1) {
     switch (tm) {
-      case 2: CG_MMA(1, 1, false)
-      case 4: CG_MMA(1, 2, false)
-      case 8: CG_MMA(2, 2, false)
-      case 16: CG_MMA(4, 2, false)
-    }
-  } else if (layout == 2) {
-    switch (tm) {
-      case 2: CG_MMA(1, 1, true)
-      case 4: CG_MMA(1, 2, true)
-      case 8: CG_MMA(2, 2, true)
-      case 16: CG_MMA(4, 2, true)
+      case 2: CG_MMA(1, 1)
+      case 4: CG_MMA(1, 2)
+      case 8: CG_MMA(2, 2)
+      case 16: CG_MMA(4, 2)
     }
   }
 #undef CG_DP4A
@@ -559,42 +1000,108 @@ cudaError_t dispatch(int layout, int tm, bool smem_only, size_t* smem, const int
   return cudaErrorInvalidValue;
 }
 
+// cuTensorMapEncodeTiled, from the driver through the runtime (no -lcuda)
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// rows x D int8 (row stride D bytes, D % 16 == 0, 16-byte aligned) as a TMA
+// map of boxes of 128 bytes of depth x box_rows rows, 128-byte swizzle,
+// zeros outside the matrix
+bool encode_rows(CUtensorMap* map, const void* ptr, int rows, int D, int box_rows) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)D, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)D};
+  const cuuint32_t box[2] = {(cuuint32_t)kBoxD, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(ptr), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// n f32 (16-byte aligned) as a 1-D TMA map of boxes of `box` entries,
+// zeros past n
+bool encode_vector(CUtensorMap* map, const float* ptr, int n, int box) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[1] = {(cuuint64_t)n};
+  const cuuint64_t strides[1] = {(cuuint64_t)n * sizeof(float)};  // not read at rank 1
+  const cuuint32_t boxes[1] = {(cuuint32_t)box};
+  const cuuint32_t elem[1] = {1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, const_cast<float*>(ptr), dims, strides, boxes,
+            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+
 }  // namespace
 
 extern "C" {
 
-// Shared memory (bytes) that pass 1 needs for a layout (0 __dp4a column
-// warps, 1 tensor cores, 2 tensor cores with the query tile resident),
-// tm, k and depth D; 0 for an unknown layout or tm.
+// Shared memory (bytes) that pass 1 of layout 0 (__dp4a column warps) or 1
+// (mma.sync) needs for tm, k and depth D; 0 for an unknown layout or tm.
 long long int8_topk_pass1_smem(int layout, int tm, int k, int D) {
   size_t smem = 0;
   dispatch(layout, tm, true, &smem, nullptr, nullptr, nullptr, nullptr, nullptr, 0, 0, D, k, 0,
-           0, 0, nullptr, nullptr, nullptr);
+           0, nullptr, nullptr, nullptr);
   return (long long)smem;
 }
 
-// Scratch entries (per scores and per ids) that int8_topk needs.
-long long int8_topk_work_entries(int B, int k, int splits, int group) {
-  return merge_work_entries(B, k, splits, group);
+// Scratch entries (per scores and per ids) that int8_topk or int8_topk_tc
+// needs for `lists` list slots per query row (int8_topk: the splits).
+long long int8_topk_work_entries(int B, int k, int lists, int group) {
+  return merge_work_entries(B, k, lists, group);
+}
+
+// Candidate buffer entries (per scores and per ids) of int8_topk_tc: a
+// kBufCap-entry buffer for each of a block's kTcSlots rows.
+long long int8_topk_tc_cand_entries(int B, int query_tile, int splits) {
+  if (query_tile < 1) return 0;
+  return (long long)((B + query_tile - 1) / query_tile) * splits * kTcSlots * kBufCap;
+}
+
+// Shared memory (bytes) of int8_tc_pass1 for a query tile of query_tile
+// (64 or 128) rows, a resident or streamed query tile, `stages` ring
+// stages and depth D; 0 for a tile it does not take.
+long long int8_topk_tc_smem(int query_tile, int resident, int stages, int D) {
+  if ((query_tile != kWgM && query_tile != 2 * kWgM) || stages < 1 || D < 1) return 0;
+  return (long long)TcLayout(query_tile, resident, stages, D).smem;
 }
 
 // qv [B, D] int8, qs [B] f32, xv [N, D] int8, xs [N] f32, bias [N] f32, all
 // contiguous on the device of `stream`, qv and xv 4-byte aligned with
 // D % 4 == 0. Writes out_s [B, k] f32 and out_i [B, k] i32. Pass 1 runs
-// `layout` with tile size `tm` over `splits` ranges of `rows_per_split`
-// corpus rows (a multiple of the layout's corpus tile); vec = 1 stages
-// 16-byte pieces (D % 16 == 0, qv and xv 16-byte aligned); work_s / work_i
-// hold int8_topk_work_entries(B, k, splits, group) entries each. Returns
-// the CUDA error code of the launches (0 = success).
+// `layout` (0 __dp4a, 1 mma.sync) with tile size `tm` over `splits` ranges
+// of `rows_per_split` corpus rows (a multiple of the layout's corpus tile);
+// work_s / work_i hold int8_topk_work_entries(B, k, splits, group) entries
+// each. Returns the CUDA error code of the launches (0 = success).
 int int8_topk(const void* qv, const float* qs, const void* xv, const float* xs, const float* bias,
-              int B, int N, int D, int k, int layout, int tm, int vec, int splits,
-              int rows_per_split, int group, float* out_s, int* out_i, float* work_s, int* work_i,
-              void* stream) {
-  const size_t align = vec ? 15 : 3;
-  if (B < 1 || N < 1 || D < 4 || D % (vec ? 16 : 4) != 0 || k < 1 || k > 1024 || splits < 1 ||
-      group < 2 || rows_per_split < 1 || (long long)splits * rows_per_split < N ||
-      (long long)(splits - 1) * rows_per_split >= N || (reinterpret_cast<size_t>(qv) & align) != 0 ||
-      (reinterpret_cast<size_t>(xv) & align) != 0) {
+              int B, int N, int D, int k, int layout, int tm, int splits, int rows_per_split,
+              int group, float* out_s, int* out_i, float* work_s, int* work_i, void* stream) {
+  if (B < 1 || N < 1 || D < 4 || D % 4 != 0 || k < 1 || k > 1024 || splits < 1 || group < 2 ||
+      rows_per_split < 1 || (long long)splits * rows_per_split < N ||
+      (long long)(splits - 1) * rows_per_split >= N || (reinterpret_cast<size_t>(qv) & 3) != 0 ||
+      (reinterpret_cast<size_t>(xv) & 3) != 0) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -603,7 +1110,62 @@ int int8_topk(const void* qv, const float* qs, const void* xv, const float* xs, 
   size_t smem = 0;
   cudaError_t err = dispatch(layout, tm, false, &smem, static_cast<const int*>(qv), qs,
                              static_cast<const int*>(xv), xs, bias, B, N, D, k, rows_per_split,
-                             splits, vec, part_s, part_i, st);
+                             splits, part_s, part_i, st);
+  if (err != cudaSuccess) return (int)err;
+  if (splits == 1) return 0;
+  return (int)merge_splits(B, k, splits, group, out_s, out_i, work_s, work_i, st);
+}
+
+// K6/K7: int8_tc_pass1 over grid (ceil(B / query_tile), splits), then pass
+// 2. Inputs as int8_topk's, with D % 16 == 0 and qv, xv, xs and bias
+// 16-byte aligned (TMA's strides and addresses). query_tile: 64 or 128; the
+// query tile is resident (resident = 1) or streams with the corpus through
+// the ring of `stages`; rows_per_split a multiple of 128; smem must equal
+// int8_topk_tc_smem(...). work_s / work_i hold int8_topk_work_entries(B,
+// k, splits, group) entries each and bound B * splits, set to NEG_INF
+// (-1e30); cand_s / cand_i hold int8_topk_tc_cand_entries(B, query_tile,
+// splits) entries each (the candidate buffers, no initial value). Returns
+// the CUDA error code of the launches (0 = success).
+int int8_topk_tc(const void* qv, const float* qs, const void* xv, const float* xs,
+                 const float* bias, int B, int N, int D, int k, int query_tile, int resident,
+                 int stages, int splits, int rows_per_split, long long smem, int group,
+                 float* out_s, int* out_i, float* work_s, int* work_i, float* bound, float* cand_s,
+                 int* cand_i, void* stream) {
+  if (B < 1 || N < 1 || D < 16 || D % 16 != 0 || k < 1 || k > 1024 || splits < 1 || group < 2 ||
+      stages < 2 || rows_per_split < 1 || rows_per_split % kWgN != 0 ||
+      (long long)splits * rows_per_split < N || (long long)(splits - 1) * rows_per_split >= N ||
+      (reinterpret_cast<size_t>(qv) & 15) != 0 || (reinterpret_cast<size_t>(xv) & 15) != 0 ||
+      (reinterpret_cast<size_t>(xs) & 15) != 0 || (reinterpret_cast<size_t>(bias) & 15) != 0 ||
+      smem != int8_topk_tc_smem(query_tile, resident, stages, D) || smem > 232448) {
+    return (int)cudaErrorInvalidValue;
+  }
+  CUtensorMap qmap, xmap, smap, bmap;
+  if (!encode_rows(&qmap, qv, B, D, query_tile) || !encode_rows(&xmap, xv, N, D, kWgN) ||
+      !encode_vector(&smap, xs, N, kWgN) || !encode_vector(&bmap, bias, N, kWgN)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  TcArgs a;
+  a.L = TcLayout(query_tile, resident, stages, D);
+  a.qsc = qs;
+  a.part_s = splits == 1 ? out_s : work_s;
+  a.part_i = splits == 1 ? out_i : work_i;
+  a.bound = bound;
+  a.cand_s = cand_s;
+  a.cand_i = cand_i;
+  a.B = B;
+  a.N = N;
+  a.k = k;
+  a.rows_per_split = rows_per_split;
+  a.qt = query_tile;
+  a.resident = resident;
+  a.stages = stages;
+  cudaError_t err = cudaFuncSetAttribute(int8_tc_pass1, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int8_tc_pass1<<<dim3((B + query_tile - 1) / query_tile, splits), kTcThreads, (size_t)smem, st>>>(
+      qmap, xmap, smap, bmap, a);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   if (splits == 1) return 0;
   return (int)merge_splits(B, k, splits, group, out_s, out_i, work_s, work_i, st);

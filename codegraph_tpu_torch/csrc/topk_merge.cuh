@@ -1,7 +1,9 @@
 // The exact top-k merge shared by the port's scan kernels (flat_topk.cu,
 // int8_topk.cu): per-row sorted lists in shared memory fed by a warp ballot
-// against the row's k-th entry, and a second pass that merges the per-split
-// lists of a query row in levels.
+// against the row's k-th entry (K1, K5); per-row lists in device memory fed
+// from candidate buffers, with a bound shared by the corpus splits (K2-K4,
+// K6, K7); and a second pass that merges the per-split lists of a query row
+// in levels.
 //
 // Order: a candidate (s1, i1) beats (s2, i2) when s1 > s2, or s1 == s2 and
 // i1 < i2 (the lower row id wins a tie). Lists start as (NEG_INF, -1), so a
@@ -222,6 +224,173 @@ cudaError_t merge_splits(int B, int k, int splits, int group, float* out_s, int*
     S = S_out;
   }
   return cudaSuccess;
+}
+
+// ---------------------------------------------------------------------------
+// The lists in device memory (K2-K4 rows_pass1, K6/K7 int8_tc_pass1): a query
+// row's list is its split's slot of the [B, S, k] scratch, fed from a
+// kCap-entry candidate buffer in shared memory by flush_row, and the splits
+// of a row share a lower bound of its k-th score (share_bound).
+// ---------------------------------------------------------------------------
+
+constexpr int kCap = 32;  // candidate buffer entries per query row
+
+// Entries of the sorted buffer (bs, bi)[0, n) that beat (s, id)
+__device__ __forceinline__ int count_beating(const float* bs, const int* bi, int n, float s, int id) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (beats(bs[mid], bi[mid], s, id)) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  return lo;
+}
+
+// Merge a query row's n <= Cap buffered candidates (bs, bi; each beats the
+// list's k-th entry) into its sorted list (ls, li) of k entries in device
+// memory, run by the 16 lanes of the row's half-warp (hmask). The buffer is
+// sorted by rank; then the list is walked from its end in rounds of 64
+// positions: an entry at p moves to p + (buffer entries that beat it), the
+// buffer entries ranked [c(p-1), c(p)) land at rank + p, and the walk stops
+// below the first position no buffer entry beats. It starts at the list's
+// live length *len plus n: the positions past it stay (NEG_INF, -1). The
+// new k-th entry goes to (*ts, *ti).
+template <int Cap>
+__device__ __forceinline__ void flush_row_inline(float* bs, int* bi, int n, float* ls, int* li,
+                                                int k, int* len, float* ts, int* ti,
+                                                unsigned hmask, int l16) {
+  __syncwarp(hmask);
+  constexpr int E = (Cap + 15) / 16;  // buffer entries a lane ranks
+  float es[E];
+  int ei[E], rk[E];
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    const int idx = l16 + 16 * e;
+    rk[e] = -1;
+    if (idx < n) {
+      es[e] = bs[idx];
+      ei[e] = bi[idx];
+      int r = 0;
+      for (int f = 0; f < n; ++f) r += beats(bs[f], bi[f], es[e], ei[e]);
+      rk[e] = r;
+    }
+  }
+  __syncwarp(hmask);
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    if (rk[e] >= 0) {
+      bs[rk[e]] = es[e];
+      bi[rk[e]] = ei[e];
+    }
+  }
+  __syncwarp(hmask);
+
+  // positions past len + n hold (NEG_INF, -1) before and after
+  const int top = min(k, *len + n);
+  __syncwarp(hmask);
+  if (l16 == 0) *len = top;
+  for (int hi = top; hi > 0;) {
+    const int lo = max(0, hi - 64);
+    float ps[4];
+    int pi[4], cp[4], cq[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int p = lo + l16 + 16 * u;
+      cp[u] = n;
+      if (p < hi) {
+        ps[u] = __ldcg(ls + p);
+        pi[u] = __ldcg(li + p);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      if (lo + l16 + 16 * u < hi) cp[u] = count_beating(bs, bi, n, ps[u], pi[u]);
+    }
+    int below = 0;  // c(lo - 1)
+    if (l16 == 0 && lo > 0) below = count_beating(bs, bi, n, __ldcg(ls + lo - 1), __ldcg(li + lo - 1));
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int up = __shfl_up_sync(hmask, cp[u], 1, 16);
+      const int last = __shfl_sync(hmask, cp[u > 0 ? u - 1 : 0], 15, 16);
+      cq[u] = l16 > 0 ? up : (u > 0 ? last : below);
+    }
+    below = __shfl_sync(hmask, below, 0, 16);
+    __syncwarp(hmask);  // every read of this round is done
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int p = lo + l16 + 16 * u;
+      if (p >= hi) continue;
+      const int c = cp[u];
+      if (c > 0 && p + c < k) {
+        __stcg(ls + p + c, ps[u]);
+        __stcg(li + p + c, pi[u]);
+        if (p + c == k - 1) {
+          *ts = ps[u];
+          *ti = pi[u];
+        }
+      }
+      for (int t = cq[u]; t < c && t + p < k; ++t) {
+        __stcg(ls + t + p, bs[t]);
+        __stcg(li + t + p, bi[t]);
+        if (t + p == k - 1) {
+          *ts = bs[t];
+          *ti = bi[t];
+        }
+      }
+    }
+    __syncwarp(hmask);
+    if (below == 0) break;
+    hi = lo;
+  }
+}
+
+// The bound that corpus splits share for one query row (a half-warp's
+// row): each split publishes the j-th score of its list, j = ceil(k / S),
+// in bound[split]; the smallest published score t has at least j * S >= k
+// rows scoring t or more, so the row's global k-th score is at least t and
+// a score below t can be in no list that pass 2 keeps. A published score
+// only rises and a 4-byte store is read whole, so a stale read is a lower
+// bound too: the splits need neither atomics nor order. The bounds are
+// read and written relaxed at GPU scope, since other blocks write them
+// while this one runs. The new bound goes to *lb.
+__device__ __forceinline__ void st_relaxed(float* p, float v) {
+  asm volatile("st.relaxed.gpu.f32 [%0], %1;\n" ::"l"(p), "f"(v) : "memory");
+}
+__device__ __forceinline__ float ld_relaxed(const float* p) {
+  float v;
+  asm volatile("ld.relaxed.gpu.f32 %0, [%1];\n" : "=f"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ __forceinline__ void share_bound_inline(const float* ls, int k, float* bound, int split,
+                                                  int S, float* lb, unsigned hmask, int l16) {
+  const int j = (k + S - 1) / S;
+  if (l16 == 0) st_relaxed(bound + split, __ldcg(ls + j - 1));
+  float m = 3.0e38f;
+  for (int s = l16; s < S; s += 64) {  // four loads in flight a lane
+    float v[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) v[u] = s + 16 * u < S ? ld_relaxed(bound + s + 16 * u) : 3.0e38f;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) m = fminf(m, v[u]);
+  }
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1) m = fminf(m, __shfl_xor_sync(hmask, m, off, 16));
+  if (l16 == 0) *lb = m;
+  __syncwarp(hmask);
+}
+
+// The out-of-line copies, for call sites where few registers are live (an
+// inline copy, where a kernel holds its sums in registers across a flush).
+__device__ __noinline__ void flush_row(float* bs, int* bi, int n, float* ls, int* li, int k,
+                                       int* len, float* ts, int* ti, unsigned hmask, int l16) {
+  flush_row_inline<kCap>(bs, bi, n, ls, li, k, len, ts, ti, hmask, l16);
+}
+__device__ __noinline__ void share_bound(const float* ls, int k, float* bound, int split, int S,
+                                         float* lb, unsigned hmask, int l16) {
+  share_bound_inline(ls, k, bound, split, S, lb, hmask, l16);
 }
 
 }  // namespace

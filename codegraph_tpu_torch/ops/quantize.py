@@ -12,11 +12,14 @@ top candidates (`rescore_topk`).
   and `rescore_topk` are plain PyTorch, with the reference's op order.
   `streaming_topk_int8` is what the kernels are held to.
 * `streaming_topk_int8_cuda` (K5, small batches, `__dp4a`),
-  `streaming_topk_int8_cuda_qmajor` (K6, large batches, tensor cores) and
-  `streaming_topk_int8_cuda_qres` (K7, K6 with each block's query tile
-  resident in shared memory) launch the hand-written kernels in
-  `csrc/int8_topk.cu` on CUDA tensors and run `streaming_topk_int8` on CPU
-  tensors. On a CUDA tensor they launch or raise; nothing falls back.
+  `streaming_topk_int8_cuda_qmajor` (K6, large batches, `wgmma` fed by
+  TMA) and `streaming_topk_int8_cuda_qres` (K7, which runs K6's schedule:
+  its resident query tile is that schedule's design) launch the
+  hand-written kernels in `csrc/int8_topk.cu` on CUDA tensors and run
+  `streaming_topk_int8` on CPU tensors. K6 and K7 send a shape TMA cannot
+  take (`tma_shape`) to `streaming_topk_int8_cuda_sync` (`mma.sync`). On
+  a CUDA tensor they launch or raise; nothing falls back. `tc_plan` is
+  the host-side plan of K6/K7.
 
 The int8 dot product must be exact. `torch.mm` of two int8 tensors returns
 int8 and wraps, so the plain version widens first: to int32 on the CPU; on
@@ -28,6 +31,7 @@ from __future__ import annotations
 
 import ctypes
 import threading
+from dataclasses import dataclass
 from typing import Tuple
 
 import torch
@@ -35,28 +39,53 @@ import torch
 from codegraph_tpu_torch.ops.topk import (
     K1_LAYOUT,
     K2_LAYOUT,
-    K3_LAYOUT,
     MAX_K,
     MERGE_GROUP,
     NEG_INF,
+    ROW_CAP,
+    SMEM_PER_BLOCK,
     _on_cpu,
+    _outputs,
     _plan,
     _sort_desc,
     k1_tm,
     merge_topk,
     query_tile,
     row_warps_tm,
+    work_entries,
 )
 
 INT8_MAX = 127.0
 DEFAULT_TILE_N = 2048
-#: K6/K7 (tensor cores) take query tiles of 8 * tm rows, tm in MMA_TMS:
-#: the largest whose lists, staging tiles and score tile fit
-#: MMA_SMEM_BYTES, all the shared memory a block may have on an H100: one
-#: block per SM with a larger tile beat two with smaller ones on most
-#: shapes at 10M x 768 (tools/int8_tile_budget.py, PERF.md)
+#: the mma.sync kernel (K6/K7 on shapes TMA cannot take) takes query tiles
+#: of 8 * tm rows, tm in MMA_TMS: the largest whose lists, staging tiles
+#: and score tile fit MMA_SMEM_BYTES, all the shared memory a block may
+#: have on an H100
 MMA_TMS = (16, 8, 4, 2)
 MMA_SMEM_BYTES = 227 * 1024
+#: K6/K7 on wgmma (csrc/int8_topk.cu `int8_tc_pass1`, whose `TcLayout`
+#: `tc_smem` mirrors): a consumer warpgroup's product is TC_WG_ROWS query
+#: rows x TC_TILE_N corpus rows, a ring stage TC_TILE_N corpus rows x
+#: TC_BOX_DEPTH bytes of depth; a batch of at most TC_WG_ROWS takes a
+#: 64-row query tile (one consumer), larger batches 128-row tiles (two);
+#: the query tile stays resident with the most of TC_STAGES ring stages
+#: that fit a block's shared memory, or streams with the corpus through
+#: the most that fit; at most one block per SM (TC_SMS on an H100), so
+#: that every corpus split of a query row runs at once and publishes its
+#: part of the shared bound from the start. A tile's corpus scales and
+#: bias come through TC_META_SLOTS slots of their own. Each of a block's
+#: TC_SLOTS rows has a candidate buffer of TC_BUF_CAP entries in device
+#: memory (room for one tile beyond ROW_CAP), staged through TC_HALF_WARPS
+#: areas of shared memory when it is flushed
+TC_WG_ROWS = 64
+TC_TILE_N = 128
+TC_BOX_DEPTH = 128
+TC_STAGES = (6, 5, 4, 3)
+TC_SMS = 132
+TC_META_SLOTS = 4
+TC_SLOTS = 2 * TC_WG_ROWS
+TC_BUF_CAP = ROW_CAP + TC_TILE_N
+TC_HALF_WARPS = 16
 #: the largest D whose int8 dot products an f32 matmul sums exactly
 #: (|q . x| <= D * 127^2 < 2^24)
 F32_EXACT_MAX_D = (2**24 - 1) // (127 * 127)
@@ -164,8 +193,15 @@ def _lib():
 
         lib = cuda_build.load("int8_topk")
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.int8_topk.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, p, p, p, p, p]
+        lib.int8_topk.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, i, p, p, p, p, p]
         lib.int8_topk.restype = i
+        lib.int8_topk_tc.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, i, ll, i,
+                                     p, p, p, p, p, p, p, p]
+        lib.int8_topk_tc.restype = i
+        lib.int8_topk_tc_cand_entries.argtypes = [i, i, i]
+        lib.int8_topk_tc_cand_entries.restype = ll
+        lib.int8_topk_tc_smem.argtypes = [i, i, i, i]
+        lib.int8_topk_tc_smem.restype = ll
         lib.int8_topk_pass1_smem.argtypes = [i, i, i, i]
         lib.int8_topk_pass1_smem.restype = ll
         lib.int8_topk_work_entries.argtypes = [i, i, i, i]
@@ -199,32 +235,113 @@ def _check(qv, qs, xv, xs, bias, k: int) -> None:
         raise ValueError("corpus too large for 32-bit row ids")
 
 
-def _vec16(qv: torch.Tensor, xv: torch.Tensor) -> int:
-    """1 when the tensor-core layouts may stage 16-byte pieces: D % 16 == 0
-    and both row matrices 16-byte aligned."""
-    return int(qv.shape[1] % 16 == 0 and qv.data_ptr() % 16 == 0 and xv.data_ptr() % 16 == 0)
+def tma_shape(qv: torch.Tensor, xv: torch.Tensor, xs: torch.Tensor,
+              bias: torch.Tensor) -> bool:
+    """The shape rule of K6/K7: TMA reads rows whose byte stride is a
+    multiple of 16 from 16-byte aligned addresses (the rows qv and xv, and
+    the corpus scales xs and bias), so `int8_tc_pass1` takes D % 16 == 0
+    with all four 16-byte aligned; every other shape goes to the mma.sync
+    kernel (`streaming_topk_int8_cuda_sync`)."""
+    return qv.shape[1] % 16 == 0 and all(t.data_ptr() % 16 == 0 for t in (qv, xv, xs, bias))
+
+
+def tc_smem(query_tile: int, resident: bool, stages: int, D: int) -> int:
+    """Shared memory (bytes) of one `int8_tc_pass1` block: a 1 KB alignment
+    margin, the ring (a corpus box of TC_TILE_N rows x TC_BOX_DEPTH bytes a
+    stage, and the query box when the query tile streams), the resident
+    query tile, TC_META_SLOTS slots for a tile's corpus scales and bias,
+    the flush staging areas (TC_BUF_CAP entries a half-warp), five 4-byte
+    states for each of TC_SLOTS rows, and the barriers. It does not depend
+    on k."""
+    chunks = -(-D // TC_BOX_DEPTH)
+    stage = TC_TILE_N * TC_BOX_DEPTH + (0 if resident else query_tile * TC_BOX_DEPTH)
+    query = chunks * query_tile * TC_BOX_DEPTH if resident else 0
+    return (1024 + stages * stage + query + TC_META_SLOTS * 2 * TC_TILE_N * 4
+            + TC_HALF_WARPS * TC_BUF_CAP * 8 + TC_SLOTS * 5 * 4
+            + (2 * stages + 1 + 2 * TC_META_SLOTS) * 8)
+
+
+@dataclass(frozen=True)
+class TcPlan:
+    """What the K6/K7 wrapper hands to `int8_topk_tc`."""
+    query_tile: int
+    resident: bool
+    stages: int
+    splits: int
+    rows_per_split: int
+    grid_x: int         # query-tile blocks
+    smem: int           # bytes per block
+    work_entries: int   # scratch entries per scores and per ids
+    bound_entries: int  # the bounds the splits share, [B, splits] f32
+    cand_entries: int   # candidate buffer entries per scores and per ids
+
+
+def tc_plan(B: int, N: int, D: int, k: int, group: int = MERGE_GROUP,
+            sms: int = TC_SMS) -> TcPlan:
+    """The launch of K6/K7 for B queries over N corpus rows of depth D on a
+    card of `sms` SMs: a 64-row query tile for a batch of at most 64, else
+    128 rows; the resident query tile with the most ring stages that fit
+    (else a streamed one), the same shared memory for every k; as many
+    splits as keep all blocks in one wave of one block per SM, whole
+    corpus tiles per split."""
+    qt = TC_WG_ROWS if B <= TC_WG_ROWS else 2 * TC_WG_ROWS
+    resident, stages = next(((res, n) for res in (True, False) for n in TC_STAGES
+                             if tc_smem(qt, res, n, D) <= SMEM_PER_BLOCK), (False, TC_STAGES[-1]))
+    b_tiles = -(-B // qt)
+    n_tiles = -(-N // TC_TILE_N)
+    splits = max(1, min(n_tiles, sms // b_tiles))
+    rows = -(-n_tiles // splits) * TC_TILE_N
+    splits = -(-N // rows)
+    return TcPlan(qt, resident, stages, splits, rows, b_tiles, tc_smem(qt, resident, stages, D),
+                  work_entries(B, k, splits, group), B * splits,
+                  b_tiles * splits * TC_SLOTS * TC_BUF_CAP)
 
 
 def _launch(qv, qs, xv, xs, bias, k: int, layout: int, tm: int):
+    """K5 (layout 0, __dp4a) or the mma.sync kernel (layout 1)."""
     lib = _lib()
     B, D = qv.shape
     N = xv.shape[0]
     splits, rows = _plan(B, N, layout, query_tile(layout, tm))
-    dev = qv.device
-    out_s = torch.empty((B, k), dtype=torch.float32, device=dev)
-    out_i = torch.empty((B, k), dtype=torch.int32, device=dev)
-    n_work = max(1, lib.int8_topk_work_entries(B, k, splits, MERGE_GROUP))
-    work_s = torch.empty((n_work,), dtype=torch.float32, device=dev)
-    work_i = torch.empty((n_work,), dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    out_s, out_i, work_s, work_i = _outputs(
+        B, k, lib.int8_topk_work_entries(B, k, splits, MERGE_GROUP), qv.device)
+    stream = torch.cuda.current_stream(qv.device).cuda_stream
     err = lib.int8_topk(
         qv.data_ptr(), qs.data_ptr(), xv.data_ptr(), xs.data_ptr(), bias.data_ptr(),
-        B, N, D, k, layout, tm, _vec16(qv, xv), splits, rows, MERGE_GROUP,
+        B, N, D, k, layout, tm, splits, rows, MERGE_GROUP,
         out_s.data_ptr(), out_i.data_ptr(), work_s.data_ptr(), work_i.data_ptr(), stream,
     )
     if err != 0:
         raise RuntimeError(f"int8_topk kernel launch failed: CUDA error {err} "
                            f"(B={B}, N={N}, D={D}, k={k}, layout={layout}, tm={tm})")
+    return out_s, out_i
+
+
+def _launch_tc(qv, qs, xv, xs, bias, k: int):
+    """K6/K7: `int8_tc_pass1` as `tc_plan` lays it out, then pass 2."""
+    lib = _lib()
+    B, D = qv.shape
+    N = xv.shape[0]
+    plan = tc_plan(B, N, D, k, sms=torch.cuda.get_device_properties(qv.device).multi_processor_count)
+    if lib.int8_topk_tc_smem(plan.query_tile, int(plan.resident), plan.stages, D) != plan.smem \
+            or lib.int8_topk_work_entries(B, k, plan.splits, MERGE_GROUP) != plan.work_entries or \
+            lib.int8_topk_tc_cand_entries(B, plan.query_tile, plan.splits) != plan.cand_entries:
+        raise RuntimeError("ops/quantize.py tc_plan disagrees with csrc/int8_topk.cu")
+    out_s, out_i, work_s, work_i = _outputs(B, k, plan.work_entries, qv.device)
+    bound = torch.full((plan.bound_entries,), NEG_INF, dtype=torch.float32, device=qv.device)
+    cand_s = torch.empty((plan.cand_entries,), dtype=torch.float32, device=qv.device)
+    cand_i = torch.empty((plan.cand_entries,), dtype=torch.int32, device=qv.device)
+    stream = torch.cuda.current_stream(qv.device).cuda_stream
+    err = lib.int8_topk_tc(
+        qv.data_ptr(), qs.data_ptr(), xv.data_ptr(), xs.data_ptr(), bias.data_ptr(),
+        B, N, D, k, plan.query_tile, int(plan.resident), plan.stages,
+        plan.splits, plan.rows_per_split, plan.smem, MERGE_GROUP,
+        out_s.data_ptr(), out_i.data_ptr(), work_s.data_ptr(), work_i.data_ptr(),
+        bound.data_ptr(), cand_s.data_ptr(), cand_i.data_ptr(), stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"int8_topk_tc kernel launch failed: CUDA error {err} "
+                           f"(B={B}, N={N}, D={D}, k={k}, {plan})")
     return out_s, out_i
 
 
@@ -246,14 +363,20 @@ def streaming_topk_int8_cuda(qv, qs, xv, xs, bias, k: int, tile_n: int = DEFAULT
 def streaming_topk_int8_cuda_qmajor(qv, qs, xv, xs, bias, k: int,
                                     tile_n: int = DEFAULT_TILE_N):
     """K6: exact int8 top-k for large query batches on the tensor cores
-    (16- to 128-row query tiles, so each corpus tile read serves many
-    queries). Same contract as `streaming_topk_int8_cuda`."""
+    (`wgmma` s8 with TMA-fed operands; 128-row query tiles, or a 64-row
+    tile for a batch of at most 64; the top-k lists in device memory behind
+    a per-row threshold and candidate buffer, so every k takes the same
+    tile). Shape rule (`tma_shape`): D % 16 == 0 with qv and xv 16-byte
+    aligned and xs and bias 16-byte aligned runs `int8_tc_pass1`; any other
+    shape runs the mma.sync kernel
+    and counts in `streaming_topk_int8_cuda_sync.launches`. Same contract
+    as `streaming_topk_int8_cuda`."""
     if _on_cpu(qv, qs, xv, xs, bias):
         return streaming_topk_int8(qv, qs, xv, xs, bias, k, tile_n)
     _check(qv, qs, xv, xs, bias, k)
-    B, D = qv.shape
-    tm = row_warps_tm(_lib().int8_topk_pass1_smem, K2_LAYOUT, B, k, D, MMA_TMS, MMA_SMEM_BYTES)
-    out = _launch(qv, qs, xv, xs, bias, k, K2_LAYOUT, tm)
+    if not tma_shape(qv, xv, xs, bias):
+        return streaming_topk_int8_cuda_sync(qv, qs, xv, xs, bias, k, tile_n)
+    out = _launch_tc(qv, qs, xv, xs, bias, k)
     with _count_lock:
         streaming_topk_int8_cuda_qmajor.launches += 1
     return out
@@ -261,23 +384,43 @@ def streaming_topk_int8_cuda_qmajor(qv, qs, xv, xs, bias, k: int,
 
 def streaming_topk_int8_cuda_qres(qv, qs, xv, xs, bias, k: int,
                                   tile_n: int = DEFAULT_TILE_N):
-    """K7: K6 with each block's query tile resident in shared memory for
-    its whole corpus split, so that only the corpus streams. Same contract
-    as `streaming_topk_int8_cuda`."""
+    """K7: exact int8 top-k with each block's query tile resident while the
+    corpus streams past it. That is K6's schedule on Hopper, so K7 runs
+    it, with the same shape rule, and counts its own launches. Same
+    contract as `streaming_topk_int8_cuda`."""
+    if _on_cpu(qv, qs, xv, xs, bias):
+        return streaming_topk_int8(qv, qs, xv, xs, bias, k, tile_n)
+    _check(qv, qs, xv, xs, bias, k)
+    if not tma_shape(qv, xv, xs, bias):
+        return streaming_topk_int8_cuda_sync(qv, qs, xv, xs, bias, k, tile_n)
+    out = _launch_tc(qv, qs, xv, xs, bias, k)
+    with _count_lock:
+        streaming_topk_int8_cuda_qres.launches += 1
+    return out
+
+
+def streaming_topk_int8_cuda_sync(qv, qs, xv, xs, bias, k: int,
+                                  tile_n: int = DEFAULT_TILE_N):
+    """K6/K7 for the shapes TMA cannot take (D % 16 != 0, or rows not
+    16-byte aligned): `mma.sync` m16n8k32 s8 on rows staged as 32-bit
+    words (D % 4 == 0), query tiles of 16 to 128 rows (`row_warps_tm`),
+    lists in shared memory. It takes any shape K5 takes. Same contract as
+    `streaming_topk_int8_cuda`."""
     if _on_cpu(qv, qs, xv, xs, bias):
         return streaming_topk_int8(qv, qs, xv, xs, bias, k, tile_n)
     _check(qv, qs, xv, xs, bias, k)
     B, D = qv.shape
-    tm = row_warps_tm(_lib().int8_topk_pass1_smem, K3_LAYOUT, B, k, D, MMA_TMS, MMA_SMEM_BYTES)
-    out = _launch(qv, qs, xv, xs, bias, k, K3_LAYOUT, tm)
+    tm = row_warps_tm(_lib().int8_topk_pass1_smem, K2_LAYOUT, B, k, D, MMA_TMS, MMA_SMEM_BYTES)
+    out = _launch(qv, qs, xv, xs, bias, k, K2_LAYOUT, tm)
     with _count_lock:
-        streaming_topk_int8_cuda_qres.launches += 1
+        streaming_topk_int8_cuda_sync.launches += 1
     return out
 
 
 streaming_topk_int8_cuda.launches = 0
 streaming_topk_int8_cuda_qmajor.launches = 0
 streaming_topk_int8_cuda_qres.launches = 0
+streaming_topk_int8_cuda_sync.launches = 0
 
 
 __all__ = [
@@ -292,4 +435,7 @@ __all__ = [
     "streaming_topk_int8_cuda",
     "streaming_topk_int8_cuda_qmajor",
     "streaming_topk_int8_cuda_qres",
+    "streaming_topk_int8_cuda_sync",
+    "tc_plan",
+    "tma_shape",
 ]

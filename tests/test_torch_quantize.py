@@ -137,16 +137,19 @@ def test_streaming_topk_int8_ragged_n(rng, N, tile_n):
     ("K5", 1, 10), ("K5", 8, 100), ("K5", 5, 300),
     ("K6", 32, 10), ("K6", 64, 100),
     ("K7", 32, 10), ("K7", 48, 100),
+    ("K6 sync", 32, 10), ("K6 sync", 40, 300),
 ])
 def test_int8_wrappers_match_jax_pallas(rng, kernel, B, k):
-    """K5/K6/K7 wrappers (plain path on CPU tensors) vs the Pallas kernels
-    in interpret mode, with tombstones and a zero row."""
+    """K5/K6/K7 wrappers and the mma.sync one that K6/K7 hand the shapes
+    TMA cannot take (plain path on CPU tensors) vs the Pallas kernels in
+    interpret mode, with tombstones and a zero row."""
     N, D = 1024, 64
     case = _int8_case(rng, B, N, D)
     jfn, tfn, tile_b = {
         "K5": (jq.streaming_topk_int8_pallas, tq.streaming_topk_int8_cuda, 8),
         "K6": (jq.streaming_topk_int8_qmajor, tq.streaming_topk_int8_cuda_qmajor, 16),
         "K7": (jq.streaming_topk_int8_qres, tq.streaming_topk_int8_cuda_qres, 16),
+        "K6 sync": (jq.streaming_topk_int8_qmajor, tq.streaming_topk_int8_cuda_sync, 16),
     }[kernel]
     qv, qs = case[0], case[1]
     b_pad = -(-B // tile_b) * tile_b  # the Pallas kernels take whole query tiles
@@ -229,25 +232,138 @@ def cuda_device():
 
 @pytest.mark.cuda
 def test_int8_kernels_match_plain_on_card(cuda_device):
+    """Each kernel equals the plain version bit for bit on its scores, with
+    ids equal outside ties: K5, K6 and K7 on both sides of the 64- and
+    128-row query tiles, and the mma.sync kernel at a D that TMA cannot
+    take."""
     rng = np.random.default_rng(1)
-    case = _int8_case(rng, 70, 5000, 768)
-    tc = [t.to(cuda_device) for t in _t(*case)]
-    for fn, B in ((tq.streaming_topk_int8_cuda, 3), (tq.streaming_topk_int8_cuda_qmajor, 70),
-                  (tq.streaming_topk_int8_cuda_qres, 70)):
-        sub = [tc[0][:B].contiguous(), tc[1][:B].contiguous(), *tc[2:]]
-        for k in (1, 100, 300):
-            ks, ki = fn(*sub, k)
-            ps, pi = tq.streaming_topk_int8(*sub, k)
-            np.testing.assert_array_equal(ks.cpu().numpy(), ps.cpu().numpy())
-            _assert_int8_equiv(ks.cpu(), ki.cpu(), ps.cpu(), pi.cpu(),
-                               [case[0][:B], case[1][:B], *case[2:]])
+    for D, runs in ((768, ((tq.streaming_topk_int8_cuda, 3), (tq.streaming_topk_int8_cuda_qmajor, 64),
+                           (tq.streaming_topk_int8_cuda_qmajor, 70),
+                           (tq.streaming_topk_int8_cuda_qmajor, 129),
+                           (tq.streaming_topk_int8_cuda_qres, 70),
+                           (tq.streaming_topk_int8_cuda_qres, 129))),
+                    (100, ((tq.streaming_topk_int8_cuda_qmajor, 70),))):
+        case = _int8_case(rng, 129, 5000, D)
+        tc = [t.to(cuda_device) for t in _t(*case)]
+        for fn, B in runs:
+            sub = [tc[0][:B].contiguous(), tc[1][:B].contiguous(), *tc[2:]]
+            for k in (1, 100, 300):
+                ks, ki = fn(*sub, k)
+                ps, pi = tq.streaming_topk_int8(*sub, k)
+                np.testing.assert_array_equal(ks.cpu().numpy(), ps.cpu().numpy())
+                _assert_int8_equiv(ks.cpu(), ki.cpu(), ps.cpu(), pi.cpu(),
+                                   [case[0][:B], case[1][:B], *case[2:]])
 
 
-@pytest.mark.parametrize("D,offset,want", [(64, 0, 1), (36, 0, 0), (64, 4, 0), (768, 0, 1)])
-def test_tensor_core_staging_width(D, offset, want):
-    """K6/K7 stage 16-byte pieces only where D % 16 == 0 and both row
-    matrices are 16-byte aligned, and 32-bit words otherwise."""
+@pytest.mark.parametrize("D,offset,xs_offset,want", [
+    (64, 0, 0, True), (36, 0, 0, False), (64, 4, 0, False), (768, 0, 0, True),
+    (100, 0, 0, False), (784, 0, 0, True), (768, 8, 0, False), (16, 0, 0, True),
+    (768, 0, 1, False), (768, 0, 2, False), (768, 0, 4, True),
+])
+def test_tensor_core_staging_width(D, offset, xs_offset, want):
+    """K6/K7 run on TMA-fed wgmma only where D % 16 == 0 and both row
+    matrices and the corpus scales and bias are 16-byte aligned (TMA's
+    stride and address rule); every other shape goes
+    to the mma.sync kernel, which stages 32-bit words."""
     xv = torch.zeros(100 * D + 16, dtype=torch.int8)[offset: offset + 100 * D].view(100, D)
     qv = torch.zeros((3, D), dtype=torch.int8)
+    xs = torch.zeros(104)[xs_offset: xs_offset + 100]
+    bias = torch.zeros(100)
     assert xv.data_ptr() % 16 == offset % 16 and qv.data_ptr() % 16 == 0
-    assert tq._vec16(qv, xv) == want
+    assert xs.data_ptr() % 16 == 4 * xs_offset % 16 and bias.data_ptr() % 16 == 0
+    assert tq.tma_shape(qv, xv, xs, bias) is want
+
+
+@pytest.mark.parametrize("B,tile", [
+    (1, 64), (32, 64), (33, 64), (63, 64), (64, 64), (65, 128), (128, 128), (129, 128),
+    (255, 128), (256, 128), (1000, 128), (1024, 128),
+])
+def test_tc_plan_tile_by_batch(B, tile):
+    """A batch of at most 64 takes one 64-row query tile (one consumer
+    warpgroup), larger batches 128-row tiles (two); every query row is in a
+    block and no block holds padding only; at D=768 the query tile stays
+    resident beside 6 ring stages."""
+    plan = tq.tc_plan(B, 10_000_000, 768, 100)
+    assert plan.query_tile == tile
+    assert plan.grid_x == -(-B // tile) and (plan.grid_x - 1) * tile < B
+    assert plan.resident and plan.stages == 6
+
+
+@pytest.mark.parametrize("D", [16, 64, 768, 784, 1024, 1152, 1536, 4096, 16384])
+@pytest.mark.parametrize("B", [64, 1024])
+def test_tc_plan_smem_fits_and_ignores_k(B, D):
+    """For k = 1..1024 a block's shared memory is the same and within the
+    232,448 bytes a block may have on an H100; the query tile stays
+    resident with the most ring stages that fit (at D <= 1,152 with 128
+    rows, 2,304 with 64), else it streams with the corpus through the most
+    that fit."""
+    plans = [tq.tc_plan(B, 1_000_000, D, k) for k in (1, 2, 100, 300, 1023, 1024)]
+    assert len({(p.smem, p.resident, p.stages, p.query_tile) for p in plans}) == 1
+    plan = plans[0]
+    assert plan.smem <= tq.SMEM_PER_BLOCK
+    assert plan.smem == tq.tc_smem(plan.query_tile, plan.resident, plan.stages, D)
+    fits = {(res, n): tq.tc_smem(plan.query_tile, res, n, D) <= tq.SMEM_PER_BLOCK
+            for res in (True, False) for n in tq.TC_STAGES}
+    assert (plan.resident, plan.stages) == next(key for key in fits if fits[key])
+    assert plan.resident == (D <= (1152 if plan.query_tile == 128 else 2304))
+    assert plan.stages >= 3
+
+
+@pytest.mark.parametrize("B,N", [(33, 1), (64, 200), (70, 100003), (256, 131072),
+                                 (1000, 1_000_000), (1024, 10_000_000), (3000, 5120),
+                                 (64, 10_000_000)])
+def test_tc_plan_covers_corpus(B, N):
+    """Whole corpus tiles per split, every row covered, no empty split, and
+    one wave of at most one block per SM (TC_SMS) unless the query tiles
+    alone exceed it; the card's SM count sets the wave."""
+    for sms in (tq.TC_SMS, 114):
+        plan = tq.tc_plan(B, N, 768, 30, sms=sms)
+        assert plan.rows_per_split % tq.TC_TILE_N == 0
+        assert plan.splits * plan.rows_per_split >= N
+        assert (plan.splits - 1) * plan.rows_per_split < N
+        n_tiles = -(-N // tq.TC_TILE_N)
+        assert plan.splits * plan.grid_x <= max(plan.grid_x, sms)
+        assert plan.splits >= min(n_tiles, sms // plan.grid_x) // 2
+
+
+@pytest.mark.parametrize("B,N,k", [(33, 1, 1), (64, 300, 30), (1024, 10_000_000, 300),
+                                   (70, 5000, 1024), (129, 200, 10)])
+def test_tc_plan_scratch_entries(B, N, k):
+    """The scratch holds the per-split lists [B, S, k] and the first merge
+    level (one split writes straight to the output), the bounds [B, S],
+    and a candidate buffer of TC_BUF_CAP entries for each of a block's 128
+    rows."""
+    plan = tq.tc_plan(B, N, 768, k)
+    S, G = plan.splits, tq.MERGE_GROUP
+    want = 0 if S == 1 else B * k * (S + -(-S // G))
+    assert plan.work_entries == want
+    assert S == 1 or plan.work_entries >= B * S * k
+    assert plan.bound_entries == B * S
+    assert plan.cand_entries == plan.grid_x * plan.splits * 128 * (tq.ROW_CAP + 128)
+
+
+def _variants_tool():
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(__file__)), "tools",
+                        "int8_topk_variants.py")
+    spec = importlib.util.spec_from_file_location("int8_topk_variants", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("name", list(_variants_tool().VARIANTS))
+def test_int8_variant_tool_anchors_in_source(name):
+    """Every text change of tools/int8_topk_variants.py still applies to
+    csrc/int8_topk.cu or csrc/topk_merge.cuh, and every ops/quantize.py
+    constant it sets exists."""
+    from codegraph_tpu_torch.ops import cuda_build
+
+    srcs = [(cuda_build.CSRC_DIR / f).read_text() for f in ("int8_topk.cu", "topk_merge.cuh")]
+    subs, consts, _ = _variants_tool().VARIANTS[name]
+    for anchor, _ in subs:
+        assert any(anchor in src for src in srcs)
+    for const in consts:
+        assert hasattr(tq, const)

@@ -417,14 +417,15 @@ def _variants_tool():
 @pytest.mark.parametrize("name", list(_variants_tool().VARIANTS))
 def test_variant_tool_anchors_in_source(name):
     """Every text change of tools/flat_topk_variants.py still applies to
-    csrc/flat_topk.cu, and every ops/topk.py constant it sets exists."""
+    csrc/flat_topk.cu or csrc/topk_merge.cuh, and every ops/topk.py
+    constant it sets exists."""
     from codegraph_tpu_torch.ops import cuda_build
 
     tool = _variants_tool()
-    src = (cuda_build.CSRC_DIR / "flat_topk.cu").read_text()
+    srcs = [(cuda_build.CSRC_DIR / f).read_text() for f in tool.SOURCES]
     subs, consts, _ = tool.VARIANTS[name]
     for anchor, _ in subs:
-        assert anchor in src
+        assert any(anchor in src for src in srcs)
     for const in consts:
         assert hasattr(ttopk, const)
 

@@ -4,8 +4,8 @@ against variants of their design, on one NVIDIA GPU.
 
     python3 tools/flat_topk_variants.py [--rows 1000000]
 
-Each variant is the committed source with its text changes and
-ops/topk.py constants (below), built with the same nvcc flags into
+Each variant is the committed csrc/flat_topk.cu and csrc/topk_merge.cuh
+with its text changes and ops/topk.py constants (below), built with the same nvcc flags into
 codegraph_tpu_torch/_build/variants/ (one nvcc each, in parallel) and
 loaded in place of the shipped library. On a 1% tombstoned f32 corpus of
 unit rows at D=768 made on the card from a seed, every variant runs K2 at
@@ -66,6 +66,7 @@ VARIANTS = {
           "__launch_bounds__(kThreads, QT == 32 ? 4 : 2)\n    rows_pass1")],
         {"TARGET_BLOCKS": {**topk.TARGET_BLOCKS, topk.K2_LAYOUT: 4 * 132}}, True),
 }
+SOURCES = ("flat_topk.cu", "topk_merge.cuh")  # a variant's copies; the .cu includes its header copy
 SHAPES = (("K2", 32, 30), ("K2", 32, 300), ("K2", 64, 30), ("K2", 64, 300), ("K2", 1024, 30),
           ("K2", 1024, 300), ("K2", 256, 300), ("K4", 1024, 30), ("K4", 1024, 300))
 
@@ -74,16 +75,18 @@ def build(i: int, name: str, out: dict) -> None:
     subs = VARIANTS[name][0]
     d = cuda_build.BUILD_DIR / "variants" / str(i)
     d.mkdir(parents=True, exist_ok=True)
-    src = (cuda_build.CSRC_DIR / "flat_topk.cu").read_text()
+    srcs = {f: (cuda_build.CSRC_DIR / f).read_text() for f in SOURCES}
     for a, b in subs:
-        if a not in src:
+        hit = [f for f in SOURCES if a in srcs[f]]
+        if not hit:
             out[name] = f"anchor not found: {a!r}"
             return
-        src = src.replace(a, b)
-    (d / "flat_topk.cu").write_text(src)
+        srcs[hit[0]] = srcs[hit[0]].replace(a, b)
+    for f, text in srcs.items():
+        (d / f).write_text(text)
     so = d / "libflat_topk.so"
-    r = subprocess.run([cuda_build.find_nvcc(), *cuda_build.NVCC_FLAGS,
-                        f"-I{cuda_build.CSRC_DIR}", "-o", str(so), str(d / "flat_topk.cu")],
+    r = subprocess.run([cuda_build.find_nvcc(), *cuda_build.NVCC_FLAGS, "-o", str(so),
+                        str(d / "flat_topk.cu")],
                        capture_output=True, text=True, timeout=cuda_build.BUILD_TIMEOUT_S)
     if r.returncode:
         out[name] = r.stderr[-2000:]
