@@ -26,12 +26,16 @@ Phases, each printing one JSON object per line as it ends:
      ragged N, 1% tombstones, an
      extra_bias filter, k above the live count, duplicate rows (exact
      ties), batches on both sides of 32. K4: K2's cases on xt = x.T. K8:
-     synthetic IVF-PQ cells, m in {8, 16, 96}, ksub in {16, 256}, nprobe in
-     {1, 8, 64, nlist}, k from 1 to 20,000 (above the live probed slots,
-     above pass 2's shared memory, a list in device memory), 1% tombstones,
-     duplicate slots (exact ties), batches on both sides of 256; and the
-     compiled spill placement against the Python loop on overflowing cells.
-     Fails on any id mismatch outside ties.
+     synthetic IVF-PQ cells filled to random depths (the fills passed as
+     extents, and once not), m in {6, 16, 96}, ksub in {16, 256}, nprobe in
+     {1, 8, 32, 64, nlist}, k from 1 to 20,000 (above the live probed
+     slots, above pass 2's shared memory: a pairwise merge in device
+     memory), 1% tombstones, duplicate slots (exact ties), one cell probed
+     by every query of a batch of up to 600, and extents outside [0, cap]
+     (clipped); the shared-memory plan against index/ivfpq.py; and the
+     compiled spill
+     placement against the Python loop on overflowing cells. Fails on any
+     id mismatch outside ties.
   2  the main path: CodeGraph.open(<copy of codegraph_tpu/>, device="cuda")
      with the hash provider at D=768, .index(), .search() for 5 queries
      (checked against the same snapshot searched on the CPU), then 64
@@ -68,8 +72,11 @@ Phases, each printing one JSON object per line as it ends:
   7  real size of the IVF-PQ tier: IVFPQIndex(768, nlist 4096, nprobe 64,
      m 96, refine "int8_device") over 10,000,000 rows of a clustered
      mixture made on the card, 1% tombstoned; build seconds by stage and
-     card memory; K8 at B=1, 8, 256, 1024 and k=40, 300 against its plain
-     version, the batch-shared route (library_ms) and its bound;
+     card memory; K8 at B=1, 8, 256, 1024 and k=40, 300 (and B=1 k=1920,
+     phase 6's filtered fetch), with the cells' fills as extents and over
+     their whole cap, against its plain version, the batch-shared route
+     (library_ms) and its bound, with the time of the coarse stage and ADC
+     table, the lookup floor and the code bytes it reads;
      IVFPQIndex.search end to end at B=1 and 1024 and its recall@10
      against an exact f32 scan.
 
@@ -252,7 +259,8 @@ def ptxas_summary(log: str) -> list:
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", ln)
         if m:
-            k = re.search(r"(topk_pass1|rows_pass1|int8_dp4a_pass1|int8_mma_pass1|int8_tc_pass1|adc_pass1|"
+            k = re.search(r"(topk_pass1|rows_pass1|int8_dp4a_pass1|int8_mma_pass1|int8_tc_pass1|adc_qmajor|"
+                          r"merge_pairs_global|"
                           r"topk_merge)"
                           r"(I\w*?EE)?",
                           m.group(1))
@@ -424,6 +432,25 @@ def ivfpq_state(torch, g, nlist, m, ksub, D, cap, dup=False):
     return centroids, codes, ids, bias, books
 
 
+def synthetic_ivfpq_cells(torch, g, nlist=4096, m=96, ksub=256, cap=4992, D=768):
+    """Synthetic IVF-PQ cells at phase 7's shape (its list_cap), for the K8
+    tools: each cell filled to a uniform depth in [cap / 4, 3 cap / 4]
+    (about 10M rows at the defaults), random codes and codebooks, 1% of the
+    rows tombstoned. (centroids, codes, ids, bias, books, fill)."""
+    dev = torch.device("cuda")
+    centroids = _unit(torch, torch.randn(nlist, D, generator=g, device=dev))
+    books = 0.1 * torch.randn(m, ksub, D // m, generator=g, device=dev)
+    codes = torch.randint(0, ksub, (nlist, m, cap), generator=g, device=dev, dtype=torch.uint8)
+    fill = torch.randint(cap // 4, 3 * cap // 4 + 1, (nlist,), generator=g, device=dev)
+    used = torch.arange(cap, device=dev)[None, :] < fill[:, None]
+    ids = torch.full((nlist, cap), -1, dtype=torch.int32, device=dev)
+    ids[used] = torch.randperm(int(used.sum()), generator=g, device=dev).to(torch.int32)
+    bias = torch.where(used, 0.0, NEG_INF).float()
+    dead = torch.rand(nlist, cap, generator=g, device=dev) < 0.01
+    bias[dead & used] = NEG_INF
+    return centroids, codes, ids, bias, books, fill.to(torch.int32).contiguous()
+
+
 def adc_judge(torch, q, centroids, codes, ids, bias, books):
     """True scores of row ids for query b: the coarse dot plus the ADC of
     the row's codes plus its bias, in f64 (the kernel's function)."""
@@ -444,39 +471,74 @@ def adc_judge(torch, q, centroids, codes, ids, bias, books):
 
 
 def phase1_k8(torch, mods, errs) -> list:
-    """K8 against its plain version on synthetic cells."""
+    """K8 against its plain version on synthetic cells, with the cells'
+    fills as extents (and once without); the shared-memory plan against
+    its Python counterpart."""
     ivfpq = mods["ivfpq"]
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(8)
+    lib = ivfpq._lib()
     cases = []
-    # (nlist, m, ksub, D, cap, [(nprobe, B, k), ...])
+    smem = [(lib.ivfpq_qmajor_smem(m, ks, npb, t), ivfpq.qmajor_smem(m, ks, npb, t))
+            for m, ks, npb, t in ((96, 256, 64, 1), (96, 256, 4096, 0), (6, 16, 1, 1))]
+    smem.append((lib.ivfpq_merge_max_k(), ivfpq.MERGE_MAX_K))
+    # (the plan check counts as a case without mismatches: it fails the
+    # phase on the spot)
+    cases.append({"kernel": "K8", "check": "shared-memory plan vs the .cu", "pairs": smem,
+                  "id_mismatches": 0, "mismatches_outside_ties": 0})
+    require(all(a == b for a, b in smem), f"phase 1: K8 plan disagrees with the .cu: {smem}")
+    # (nlist, m, ksub, D, cap, hot, [(nprobe, B, k), ...]); hot: every query
+    # near centroid 0, so that one cell is probed by all of them
     states = (
-        (256, 96, 256, 768, 512, [(1, 1, 1), (1, 300, 10), (1, 1, 1920), (8, 7, 10), (8, 300, 40),
-                                  (8, 7, 300), (64, 1, 40), (64, 7, 300), (64, 300, 40),
-                                  (64, 1, 1920), (64, 2, 5000), (64, 2, 20000), (256, 1, 10),
-                                  (256, 300, 1920)]),
-        (64, 16, 16, 768, 256, [(1, 1, 1), (8, 260, 40), (64, 1, 300), (64, 260, 10)]),
-        (32, 8, 256, 64, 128, [(8, 3, 10), (32, 257, 1920), (32, 3, 40)]),
+        (256, 96, 256, 768, 512, False,
+         [(1, 1, 1), (1, 600, 10), (1, 1, 1920), (8, 7, 10), (8, 600, 40), (8, 7, 300),
+          (64, 1, 40), (64, 7, 300), (64, 300, 40), (64, 1, 1920), (64, 2, 5000),
+          (64, 2, 20000), (256, 1, 10), (256, 300, 1920)]),
+        (256, 96, 256, 768, 512, True, [(8, 600, 40), (8, 300, 300), (64, 40, 1), (1, 600, 300)]),
+        (64, 16, 16, 768, 256, False, [(1, 1, 1), (8, 520, 40), (64, 1, 300), (64, 260, 10)]),
+        (32, 6, 256, 48, 128, False, [(8, 3, 10), (32, 600, 300), (32, 3, 40), (1, 513, 1)]),
     )
-    for nlist, m, ksub, D, cap, shapes in states:
+    for si, (nlist, m, ksub, D, cap, hot, shapes) in enumerate(states):
         state = ivfpq_state(torch, g, nlist, m, ksub, D, cap, dup=True)
         centroids, codes, ids, bias, books = state
-        qs = _unit(torch, torch.randn(300, D, generator=g, device=dev))
+        fill = (ids >= 0).sum(1).to(torch.int32).contiguous()
+        qs = _unit(torch, torch.randn(600, D, generator=g, device=dev))
+        if hot:
+            qs = _unit(torch, centroids[0] + 0.02 * qs)
         qs[1] = centroids[0]  # probes cell 0 first: its duplicate slots tie
         judge = adc_judge(torch, qs, *state)
         for nprobe, B, k in shapes:
             q = qs[:B].contiguous()
-            s_k, i_k = ivfpq.ivfpq_search_cuda(q, centroids, codes, ids, bias, books, k, nprobe)
-            torch.cuda.synchronize()
             s_p, i_p = ivfpq.ivfpq_search(q, centroids, codes, ids, bias, books, k, nprobe)
-            err, n_diff, bad = check_topk(torch, None, None, None, s_k, i_k, s_p, i_p, judge=judge)
-            errs["K8"] = max(errs["K8"], err)
-            live = int((s_p > NEG_INF / 2).sum(dim=1).min())
-            cases.append({"kernel": "K8", "nlist": nlist, "m": m, "ksub": ksub, "cap": cap,
-                          "nprobe": nprobe, "B": B, "k": k, "min_live_results": live,
-                          "splits": ivfpq.adc_plan(B, nprobe, cap, k)[0],
-                          "max_abs_err": err, "id_mismatches": n_diff,
-                          "mismatches_outside_ties": bad})
+            for ext in ((fill, None) if si == 0 else (fill,)):
+                s_k, i_k = ivfpq.ivfpq_search_cuda(q, centroids, codes, ids, bias, books, k,
+                                                   nprobe, extents=ext)
+                torch.cuda.synchronize()
+                err, n_diff, bad = check_topk(torch, None, None, None, s_k, i_k, s_p, i_p,
+                                              judge=judge)
+                errs["K8"] = max(errs["K8"], err)
+                live = int((s_p > NEG_INF / 2).sum(dim=1).min())
+                cases.append({"kernel": "K8", "nlist": nlist, "m": m, "ksub": ksub, "cap": cap,
+                              "hot_cell": hot, "nprobe": nprobe, "B": B, "k": k,
+                              "extents": ext is not None, "min_live_results": live,
+                              "max_abs_err": err, "id_mismatches": n_diff,
+                              "mismatches_outside_ties": bad})
+    # extents outside [0, cap] are clipped: negative on emptied cells, past
+    # cap on the others, the same result as the plain version
+    centroids, codes, ids, bias, books = ivfpq_state(torch, g, 64, 16, 256, 128, 256)
+    ids[:8], bias[:8] = -1, NEG_INF
+    fill = (ids >= 0).sum(1).to(torch.int32)
+    ext = torch.where(fill == 0, -9, fill + 10_000).to(torch.int32).contiguous()
+    q = _unit(torch, torch.randn(520, 128, generator=g, device=dev))
+    q[:4] = centroids[:4]  # probe the emptied cells first
+    s_p, i_p = ivfpq.ivfpq_search(q, centroids, codes, ids, bias, books, 40, 16)
+    s_k, i_k = ivfpq.ivfpq_search_cuda(q, centroids, codes, ids, bias, books, 40, 16, extents=ext)
+    torch.cuda.synchronize()
+    err, n_diff, bad = check_topk(torch, None, None, None, s_k, i_k, s_p, i_p,
+                                  judge=adc_judge(torch, q, centroids, codes, ids, bias, books))
+    errs["K8"] = max(errs["K8"], err)
+    cases.append({"kernel": "K8", "check": "extents outside [0, cap]", "B": 520, "k": 40,
+                  "max_abs_err": err, "id_mismatches": n_diff, "mismatches_outside_ties": bad})
     return cases
 
 
@@ -1143,7 +1205,8 @@ def phase6(torch, mods, errs) -> dict:
         k_refine = max(k, min(k * index.refine_factor, index.list_cap * index.nprobe))
         main_shapes = {}
         for B, kk in ((1, k_refine), (64, k_refine), (1, fetch_k)):
-            s_k, i_k = ivfpq.ivfpq_search_cuda(qn[:B].contiguous(), *state, kk, index.nprobe)
+            s_k, i_k = ivfpq.ivfpq_search_cuda(qn[:B].contiguous(), *state, kk, index.nprobe,
+                                               extents=index._extents())
             s_p, i_p = ivfpq.ivfpq_search(qn[:B], *state, kk, index.nprobe)
             e, n_d, b_d = check_topk(torch, None, None, None, s_k, i_k, s_p, i_p,
                                      judge=adc_judge(torch, qn[:B], *state))
@@ -1331,17 +1394,28 @@ def phase7(torch, mods, errs) -> list:
     centroids, codes, ids, bias = idx.arrays()
     state = (centroids, codes, ids, bias, idx._books)
     fill = torch.as_tensor(idx._fill[:nlist], device="cuda")
+    ext = idx._extents()
+    # the lookup floor: conflict-free lookups at 32 per SM and clock, at the
+    # card's top SM clock
+    sm_ghz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.split()[0]) / 1e3
     rows_out = []
     def queries(B, r=0):  # batch r of B queries from the same mixture
         return _unit(torch, mixture_chunk(torch, centers, N + (r + 1) * 1_000_003 + B, B,
                                           SEED + 3, SPREAD))
 
-    for B, k in ((1, 40), (1, 300), (8, 40), (8, 300), (256, 40), (256, 300), (1024, 40),
-                 (1024, 300)):
+    # (1, 1920): the filtered fetch of phase 6 (its k_fetch at a 3% filter)
+    for B, k in ((1, 40), (1, 300), (1, 1920), (8, 40), (8, 300), (256, 40), (256, 300),
+                 (1024, 40), (1024, 300)):
         batches = [queries(B, r) for r in range(7)]
-        outs = []
-        ms = _time_ms(torch, lambda qb: ivfpq.ivfpq_search_cuda(qb, *state, k, nprobe), batches,
-                      outs)
+        outs, outs_cap = [], []
+        ms = _time_ms(torch, lambda qb: ivfpq.ivfpq_search_cuda(qb, *state, k, nprobe, extents=ext),
+                      batches, outs)
+        # the same scan over every cell's whole cap (no extents): what the
+        # extents save
+        ms_cap = _time_ms(torch, lambda qb: ivfpq.ivfpq_search_cuda(qb, *state, k, nprobe),
+                          batches, outs_cap)
         coarse_ms = _time_ms(torch, lambda qb: ivfpq.adc_inputs(qb, centroids, idx._books, nprobe),
                              batches)
         plain_ms = _time_ms(torch, lambda qb: ivfpq.ivfpq_search(qb, *state, k, nprobe),
@@ -1353,12 +1427,13 @@ def phase7(torch, mods, errs) -> list:
                                             codes, ids, bias, centroids, idx._books, k)
         lib_ms = _time_ms(torch, shared, batches[:1])
         err, n_diff, bad, sampled = 0.0, 0, 0, 0
-        for qb, (s_k, i_k) in zip(batches, outs):
+        for r, (qb, (s_k, i_k)) in enumerate(zip(batches, outs)):
             qs = qb[: min(B, 4)]
             s_p, i_p = ivfpq.ivfpq_search(qs, *state, k, nprobe)
-            e, d, b_ = check_topk(torch, None, None, None, s_k[: len(qs)], i_k[: len(qs)], s_p, i_p,
-                                  judge=adc_judge(torch, qs, *state))
-            err, n_diff, bad, sampled = max(err, e), n_diff + d, bad + b_, sampled + len(qs)
+            for s_r, i_r in [(s_k, i_k)] + ([outs_cap[0]] if r == 0 else []):
+                e, d, b_ = check_topk(torch, None, None, None, s_r[: len(qs)], i_r[: len(qs)],
+                                      s_p, i_p, judge=adc_judge(torch, qs, *state))
+                err, n_diff, bad, sampled = max(err, e), n_diff + d, bad + b_, sampled + len(qs)
         errs["K8"] = max(errs["K8"], err)
         # bound: the probed cells' occupied slots read once (codes, ids,
         # bias), the table, probes and outputs; operations: the coarse
@@ -1366,12 +1441,18 @@ def phase7(torch, mods, errs) -> list:
         probe = ivf_mod.coarse_probe(batches[0], centroids, nprobe)[1]
         slots = float(fill[probe].sum())
         union = float(fill[torch.unique(probe)].sum())
+        # code bytes the kernel reads: every probed extent (rounded to 8),
+        # once a query; the union's, which a read once a batch would take
+        code_bytes = {"read": float(((ext.long()[probe] + 7) // 8 * 8).sum()) * m,
+                      "union": union * m}
         nbytes = (union * (m + 8) + nlist * D * 4 + B * D * 4 + B * m * 256 * 4
                   + B * nprobe * 8 + B * k * 8)
         ops = 2.0 * B * nlist * D + 2.0 * B * D * 256 + slots * m
         bound, bound_by = _bound(nbytes, ops, "float32")
         row = {"phase": 7, "kernel": "K8", "dtype": "uint8 codes", "N": N, "D": D, "B": B, "k": k,
-               "ms": ms, "coarse_and_table_ms": coarse_ms, "plain_ms": plain_ms,
+               "ms": ms, "ms_whole_cap": ms_cap, "coarse_and_table_ms": coarse_ms,
+               "lookup_floor_ms": slots * m / (32 * 132 * sm_ghz * 1e9) * 1e3,
+               "lookup_floor_sm_ghz": sm_ghz, "code_bytes": code_bytes, "plain_ms": plain_ms,
                "library_ms": lib_ms, "library": "ivfpq_batch_search (batch-shared decode)",
                "bound_ms": bound, "bound_by": bound_by, "share_of_bound": bound / ms,
                "probed_slots": slots, "union_slots": union, "max_abs_err": err,

@@ -14,13 +14,15 @@ Codes live subspace-major as [nlist, m, cap] uint8 (cap a multiple of
   stage.
 * `ivfpq_search_cuda` (K8, the counterpart of `ivfpq_search_pallas`)
   runs the coarse product, top-nprobe and ADC table as PyTorch calls and
-  then the hand-written kernel in `csrc/ivfpq_adc.cu` on CUDA tensors;
-  on CPU tensors it runs `ivfpq_search`. Nothing falls back.
+  then the hand-written kernel in `csrc/ivfpq_adc.cu` on CUDA tensors,
+  over each cell's live extent only. On CPU tensors it runs
+  `ivfpq_search`. Nothing falls back.
 * `ivfpq_batch_search` (the counterpart of `ivfpq_batch_search_kernel`)
   decodes each unique probed cell once and scores the whole batch.
 
 Routing in `IVFPQIndex.search`: a CUDA index runs K8 for every batch
-size (the reference's accelerator route); a CPU index sends batches of
+size (the reference's accelerator route), with its cells' fills as the
+extents; a CPU index sends batches of
 `batch_share_threshold` (256) or more to `search_batch` and the rest to
 `ivfpq_search`, as the reference does on the CPU.
 """
@@ -99,31 +101,55 @@ def ivfpq_search(
     return adc_topk(table, probe_ids, probe_s, code_lists, id_lists, bias_lists, k)
 
 
-#: csrc/ivfpq_adc.cu: 256 threads of 8 slots per tile; pass 1 aims at two
-#: blocks per SM of an H100; a block may use 227 KB of shared memory, and
-#: pass 2 (topk_merge.cuh: 4 warps x 3 lists of k) takes k up to MERGE_MAX_K
+#: csrc/ivfpq_adc.cu: a block (adc_qmajor) scans steps of 256 threads x 8
+#: slots with one list a half-warp (16 a block) and at most two blocks an SM
+#: (__launch_bounds__(256, 2)). An H100 has 132 SMs of 228 KB shared memory,
+#: 1 KB of it reserved a block; a block may use 227 KB. Pass 2
+#: (topk_merge.cuh: 4 warps x 3 lists of k) merges k up to MERGE_MAX_K in
+#: shared memory, larger k pairwise in device memory.
 ADC_TILE = 2048
-ADC_TARGET_BLOCKS = 2 * 132
+ADC_LISTS = 16
+ADC_CAP = 32  # candidate buffer entries (topk_merge.cuh kCap)
+SM_COUNT = 132
+SM_SMEM = 233_472
+BLOCK_SMEM_RESERVED = 1024
 SMEM_LIMIT = 232_448
+QMAJOR_MAX_BLOCKS = 2
 MERGE_MAX_K = SMEM_LIMIT // (4 * 3 * 8)
 
 
-def adc_plan(B: int, nprobe: int, cap: int, k: int) -> Tuple[int, int]:
-    """(splits, slots_per_split) of each query's nprobe * cap slots:
-    enough (query, split) blocks to fill the card, each split a whole
-    number of tiles; one split when k is too large for pass 2."""
+def qmajor_smem(m: int, ksub: int, nprobe: int, table_in_smem: int) -> int:
+    """Shared memory (bytes) of a K8 block (`qmajor_smem` in the .cu): the
+    staged table, the probes' prefix and cells, 16 candidate
+    buffers and list states."""
+    return ((m * ksub * 4 if table_in_smem else 0) + (2 * nprobe + 1) * 4
+            + ADC_LISTS * ADC_CAP * 8 + ADC_LISTS * 3 * 4)
+
+
+def blocks_per_sm(smem: int, max_blocks: int) -> int:
+    """Blocks of `smem` bytes that an SM holds at once, at most max_blocks."""
+    return min(max_blocks, SM_SMEM // (smem + BLOCK_SMEM_RESERVED))
+
+
+def adc_plan(B: int, nprobe: int, cap: int, k: int, blocks: int = QMAJOR_MAX_BLOCKS) -> int:
+    """Splits a query of K8's (query, split) grid: enough blocks for one
+    wave at `blocks` an SM, at most one per 2048-slot tile
+    of the query's capacity (the kernel divides the live slots among them);
+    one split when k is above pass 2's shared memory."""
+    if k > MERGE_MAX_K:
+        return 1
     n_tiles = -(-nprobe * cap // ADC_TILE)
-    splits = 1 if k > MERGE_MAX_K else max(1, min(n_tiles, -(-ADC_TARGET_BLOCKS // B)))
-    per = -(-n_tiles // splits) * ADC_TILE
-    return -(-nprobe * cap // per), per
+    return max(1, min(n_tiles, blocks * SM_COUNT // B))
 
 
-def adc_smem_plan(smem, m: int, ksub: int, k: int) -> Tuple[int, int]:
-    """(table_in_smem, list_in_smem): stage the table when it fits beside
-    the queue, then the list when it fits too. `smem(m, ksub, k, t, l)`
-    is the kernel's shared-memory size."""
-    table = int(smem(m, ksub, k, 1, 0) <= SMEM_LIMIT)
-    return table, int(smem(m, ksub, k, table, 1) <= SMEM_LIMIT)
+def adc_qmajor_plan(B: int, nprobe: int, m: int, ksub: int, cap: int,
+                    k: int) -> Tuple[int, int, int]:
+    """(splits, table_in_smem, blocks an SM) of a K8 launch: the table is
+    staged when the block still fits; the lists never take shared
+    memory, so the blocks an SM are the same at every k."""
+    table = int(qmajor_smem(m, ksub, nprobe, 1) <= SMEM_LIMIT)
+    blocks = blocks_per_sm(qmajor_smem(m, ksub, nprobe, table), QMAJOR_MAX_BLOCKS)
+    return adc_plan(B, nprobe, cap, k, blocks), table, blocks
 
 
 _lib_handle = None
@@ -137,18 +163,20 @@ def _lib():
 
         lib = cuda_build.load("ivfpq_adc")
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.ivfpq_adc.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, ll, i, i, i,
-                                  p, p, p, p, p]
-        lib.ivfpq_adc.restype = i
-        lib.ivfpq_adc_smem.argtypes = [i, i, i, i, i]
-        lib.ivfpq_adc_smem.restype = ll
+        lib.ivfpq_adc_qmajor.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i,
+                                         p, p, p, p, p, p]
+        lib.ivfpq_adc_qmajor.restype = i
+        lib.ivfpq_qmajor_smem.argtypes = [i, i, i, i]
+        lib.ivfpq_qmajor_smem.restype = ll
         lib.ivfpq_adc_work_entries.argtypes = [i, i, i, i]
         lib.ivfpq_adc_work_entries.restype = ll
+        lib.ivfpq_merge_max_k.argtypes = []
+        lib.ivfpq_merge_max_k.restype = i
         _lib_handle = lib
     return _lib_handle
 
 
-def _check_adc(code_lists, id_lists, bias_lists, books, k: int) -> None:
+def _check_adc(code_lists, id_lists, bias_lists, books, k: int, extents=None) -> None:
     nlist, m, cap = code_lists.shape
     ksub = books.shape[1]
     if code_lists.dtype != torch.uint8 or id_lists.dtype != torch.int32 \
@@ -166,6 +194,10 @@ def _check_adc(code_lists, id_lists, bias_lists, books, k: int) -> None:
     if any(t.data_ptr() % 16 for t in (code_lists, id_lists, bias_lists)):
         raise ValueError("the kernel reads codes, ids and biases in 8- and 16-byte pieces: "
                          "they must be 16-byte aligned")
+    if extents is not None and (extents.dtype != torch.int32 or extents.shape != (nlist,)
+                                or not extents.is_contiguous()):
+        raise ValueError(f"extents must be a contiguous [nlist={nlist}] int32 tensor, got "
+                         f"{extents.dtype} {tuple(extents.shape)}")
     if k < 1:
         raise ValueError(f"k={k} must be positive")
 
@@ -173,39 +205,45 @@ def _check_adc(code_lists, id_lists, bias_lists, books, k: int) -> None:
 def ivfpq_search_cuda(
     q: torch.Tensor, centroids: torch.Tensor, code_lists: torch.Tensor,
     id_lists: torch.Tensor, bias_lists: torch.Tensor, books: torch.Tensor,
-    k: int, nprobe: int,
+    k: int, nprobe: int, extents: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K8: the ADC scan of `ivfpq_search` as a CUDA kernel, exact top-k
-    for any k. CPU tensors run `ivfpq_search`."""
+    for any k. extents [nlist] i32: the live slots of each cell, a prefix
+    (its fill; cap when not given): the kernel scans no slot past it, and
+    every such slot is padding, so the result is the same. CPU tensors run
+    `ivfpq_search`, which scans every slot and takes no extents."""
     tensors = (q, centroids, code_lists, id_lists, bias_lists, books)
+    if extents is not None:
+        tensors += (extents,)
     if _on_cpu(*tensors):
         return ivfpq_search(q, centroids, code_lists, id_lists, bias_lists, books, k, nprobe)
-    _check_adc(code_lists, id_lists, bias_lists, books, k)
+    _check_adc(code_lists, id_lists, bias_lists, books, k, extents)
     lib = _lib()
     B = q.shape[0]
-    _, m, cap = code_lists.shape
+    nlist, m, cap = code_lists.shape
     ksub = books.shape[1]
     probe_s, probe_ids, table = adc_inputs(q.float(), centroids, books, nprobe)
     probe_s = probe_s.contiguous()
-    probe_ids = probe_ids.to(torch.int32).contiguous()
     table = table.contiguous()
-    splits, per = adc_plan(B, nprobe, cap, k)
-    t_smem, l_smem = adc_smem_plan(lib.ivfpq_adc_smem, m, ksub, k)
+    if extents is None:
+        extents = torch.full((nlist,), cap, dtype=torch.int32, device=q.device)
     out_s = torch.empty((B, k), dtype=torch.float32, device=q.device)
     out_i = torch.empty((B, k), dtype=torch.int32, device=q.device)
-    n_work = max(1, lib.ivfpq_adc_work_entries(B, k, splits, MERGE_GROUP))
+    bound = torch.empty((B,), dtype=torch.int32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    probe_ids = probe_ids.to(torch.int32).contiguous()
+    splits, t_smem, _ = adc_qmajor_plan(B, nprobe, m, ksub, cap, k)
+    n_work = max(1, lib.ivfpq_adc_work_entries(B, k, splits * ADC_LISTS, MERGE_GROUP))
     work_s = torch.empty((n_work,), dtype=torch.float32, device=q.device)
     work_i = torch.empty((n_work,), dtype=torch.int32, device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = lib.ivfpq_adc(
+    err = lib.ivfpq_adc_qmajor(
         table.data_ptr(), probe_ids.data_ptr(), probe_s.data_ptr(), code_lists.data_ptr(),
-        id_lists.data_ptr(), bias_lists.data_ptr(), B, nprobe, m, ksub, cap, k, splits, per,
-        t_smem, l_smem, MERGE_GROUP, out_s.data_ptr(), out_i.data_ptr(), work_s.data_ptr(),
-        work_i.data_ptr(), stream)
+        id_lists.data_ptr(), bias_lists.data_ptr(), extents.data_ptr(), B, nprobe, m, ksub,
+        cap, k, splits, t_smem, MERGE_GROUP, out_s.data_ptr(), out_i.data_ptr(),
+        work_s.data_ptr(), work_i.data_ptr(), bound.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"ivfpq_adc kernel launch failed: CUDA error {err} (B={B}, "
-                           f"nprobe={nprobe}, m={m}, ksub={ksub}, cap={cap}, k={k}, "
-                           f"splits={splits})")
+                           f"nprobe={nprobe}, m={m}, ksub={ksub}, cap={cap}, k={k})")
     with _count_lock:
         ivfpq_search_cuda.launches += 1
     return out_s, out_i
@@ -379,6 +417,7 @@ class IVFPQIndex(IVFIndex):
         # True once _dev_reserve preallocated the bank: adds then write in
         # place at offset n_rows
         self._dev_prealloc = False
+        self._ext: Optional[torch.Tensor] = None  # K8's extents; None: stale
 
     # -- build -------------------------------------------------------------
 
@@ -476,6 +515,21 @@ class IVFPQIndex(IVFIndex):
         """vals [n, m] codes into [nlist, m, cap] at (cell, :, pos)."""
         self._x[cells, :, pos] = vals
 
+    def add(self, vectors) -> np.ndarray:
+        rows = super().add(vectors)
+        self._ext = None
+        return rows
+
+    def _extents(self) -> torch.Tensor:
+        """[nlist] int32 on the index's device: the live slots of each cell,
+        a prefix (its fill, clipped to list_cap; `_fill` may be longer than
+        nlist, see index/ivf.py). Every slot at or past it holds id -1 and
+        bias NEG_INF. Made again after add and load_arrays."""
+        if self._ext is None:
+            fill = np.minimum(self._fill[: self.nlist], self.list_cap).astype(np.int32)
+            self._ext = torch.as_tensor(fill, device=self.device)
+        return self._ext
+
     # -- query -------------------------------------------------------------
 
     def _maybe_rotate(self, q: torch.Tensor) -> torch.Tensor:
@@ -504,9 +558,12 @@ class IVFPQIndex(IVFIndex):
         q = self._maybe_rotate(q)
         np_eff = min(nprobe or self.nprobe, self.nlist)
         k_fetch, use_refine = self._fetch_k(k, np_eff, extra_bias)
-        scan = ivfpq_search_cuda if on_card else ivfpq_search
-        s, i = scan(q, self._centroids, self._x, self._ids, self._bias, self._books,
-                    k_fetch, np_eff)
+        state = (q, self._centroids, self._x, self._ids, self._bias, self._books, k_fetch,
+                 np_eff)
+        if on_card:
+            s, i = ivfpq_search_cuda(*state, extents=self._extents())
+        else:
+            s, i = ivfpq_search(*state)
         return self._finish(q, s, i, k, k_fetch, use_refine, extra_bias)
 
     def search_batch(self, queries, k: int, nprobe: Optional[int] = None, tile_u: int = 16,
@@ -587,6 +644,7 @@ class IVFPQIndex(IVFIndex):
         host store for refine "int8"/"f32" and to the device bank for
         "int8_device"."""
         self._adopt(centroids, id_lists, bias_lists, fill, list_cap, n_rows, n_live)
+        self._ext = None
         codes = _as_tensor(code_lists)
         if codes.dim() != 3 or codes.shape[1] != self.m:
             raise ValueError(f"codes {tuple(codes.shape)} are not [nlist, m={self.m}, cap]")

@@ -135,6 +135,14 @@ def test_ivfpq_search_matches_jax_kernels(state, m, nbits, nprobe, k):
     ws, wi = tivfpq.ivfpq_search_cuda(torch.from_numpy(q), *(torch.from_numpy(a.copy())
                                                              for a in args), k, nprobe)
     assert torch.equal(ws, ts) and torch.equal(wi, ti)
+    # the wrapper takes the cells' fills as extents; on CPU tensors it runs
+    # the plain scan, which reads every slot and ignores them (the kernel's
+    # use of them is checked on the card, and the invariant that makes them
+    # safe by test_k8_extents_after_add_delete_and_load)
+    es, ei = tivfpq.ivfpq_search_cuda(torch.from_numpy(q), *(torch.from_numpy(a.copy())
+                                                             for a in args), k, nprobe,
+                                      extents=t._extents())
+    assert torch.equal(es, ts) and torch.equal(ei, ti)
     if k == 500:
         assert (ti[:, -1] == -1).all() and (ts[:, -1] <= -1e29).all()
 
@@ -318,25 +326,94 @@ def test_device_bank_preallocated_matches_append(state):
 
 
 @pytest.mark.parametrize("B,nprobe,cap,k,want", [
-    (1, 64, 4992, 40, (156, 2048)),     # one query fills the card: one tile a block
-    (8, 64, 4992, 40, (32, 10240)),
-    (1024, 64, 4992, 300, (1, 319488)),  # many queries: one split each
-    (1, 64, 4992, 1920, (156, 2048)),   # a filtered fetch above 1,024
-    (1, 64, 4992, 5000, (1, 319488)),   # k above pass 2's shared memory: one split
-    (3, 1, 128, 10, (1, 2048)),
+    (1, 64, 4992, 40, 156),     # one query fills the card: one split a 2048-slot tile
+    (8, 64, 4992, 40, 33),      # one wave: 8 x 33 blocks at two an SM
+    (1024, 64, 4992, 300, 1),   # many queries: one split each
+    (1, 64, 4992, 1920, 156),   # a filtered fetch above 1,024
+    (1, 64, 4992, 5000, 1),     # k above pass 2's shared memory: one split
+    (3, 1, 128, 10, 1),
 ])
 def test_k8_plan_covers_every_slot(B, nprobe, cap, k, want):
-    splits, per = tivfpq.adc_plan(B, nprobe, cap, k)
-    assert (splits, per) == want
-    assert per % tivfpq.ADC_TILE == 0 and splits * per >= nprobe * cap > (splits - 1) * per
+    """The query-major plan, and the kernel's division of a query's live
+    slots (adc_qmajor: ranges of ceil(total / 8 / splits) groups of 8)
+    covers every live slot once, for any total up to the capacity."""
+    splits = tivfpq.adc_plan(B, nprobe, cap, k)
+    assert splits == want
+    assert B * splits <= tivfpq.QMAJOR_MAX_BLOCKS * tivfpq.SM_COUNT or splits == 1
     assert splits == 1 or k <= tivfpq.MERGE_MAX_K
+    rng = np.random.default_rng(B + k)
+    for total in {0, 8, nprobe * cap, *(8 * rng.integers(0, nprobe * cap // 8, 5))}:
+        per = -(-(total // 8) // splits) * 8
+        covered = [(min(total, s * per), min(total, min(total, s * per) + per))
+                   for s in range(splits)]
+        assert covered[0][0] == 0 and covered[-1][1] == total
+        assert all(a[1] == b[0] for a, b in zip(covered, covered[1:]))
 
 
 def test_k8_shared_memory_plan():
-    smem = lambda m, ksub, k, t, l: 16400 + t * m * ksub * 4 + l * k * 8  # the kernel's sizes
-    assert tivfpq.adc_smem_plan(smem, 96, 256, 40) == (1, 1)
-    assert tivfpq.adc_smem_plan(smem, 96, 256, 20000) == (1, 0)  # the list lives in device memory
-    assert tivfpq.adc_smem_plan(smem, 384, 256, 40) == (0, 1)   # a table too large to stage
+    """The query-major block stages the table when it fits and never holds
+    a list, so its shared memory (and two blocks an SM) does not depend on
+    k; a table too large to stage is read from device memory."""
+    for k in (40, 126, 127, 300, 1920, 20000):
+        splits, table, blocks = tivfpq.adc_qmajor_plan(1, 64, 96, 256, 4992, k)
+        assert (table, blocks) == (1, 2) and splits == (156 if k <= tivfpq.MERGE_MAX_K else 1)
+    assert tivfpq.adc_qmajor_plan(1, 64, 384, 256, 4992, 40)[1:] == (0, 2)
+    assert tivfpq.qmajor_smem(96, 256, 64, 1) == 96 * 256 * 4 + 129 * 4 + 16 * 32 * 8 + 16 * 12
+
+
+@pytest.mark.parametrize("k", [40, 126, 127, 300, 1920])
+def test_k8_blocks_per_sm_fit_at_every_k(k):
+    """The planned blocks fit an SM at once at every k: two blocks at the
+    phase-7 shape, the splits of one query in one wave; the lists and the
+    candidate buffers take no shared memory that grows with k."""
+    splits, table, blocks = tivfpq.adc_qmajor_plan(1, 64, 96, 256, 4992, k)
+    smem = tivfpq.qmajor_smem(96, 256, 64, table)
+    assert blocks == 2 and blocks * (smem + tivfpq.BLOCK_SMEM_RESERVED) <= tivfpq.SM_SMEM
+    assert 1 * splits <= blocks * tivfpq.SM_COUNT
+
+
+def _assert_extent_invariant(t):
+    ext = t._extents().numpy()
+    _, _, ids, bias = (a.numpy() for a in t.arrays())
+    assert ext.shape == (t.nlist,) and ext.dtype == np.int32
+    assert (ext <= t.list_cap).all()
+    past = np.arange(t.list_cap)[None, :] >= ext[:, None]
+    assert (ids[past] == -1).all() and (bias[past] <= -1e29).all()
+    assert (ids[~past] >= 0).all()  # live or tombstoned: the rows stay below the fill
+    assert int(ext.sum()) == int((ids >= 0).sum())
+
+
+def test_k8_extents_after_add_delete_and_load(state):
+    """The extents K8 scans up to are each cell's fill: every slot past it
+    is padding (id -1, bias NEG_INF), after adds (with a cell growth),
+    deletes (a tombstone keeps its slot), and a JAX index's arrays."""
+    x, centers = state
+    j = _trained(x)
+    t = _carried(j)
+    _assert_extent_invariant(t)
+    np.testing.assert_array_equal(t._extents().numpy(), np.minimum(j._fill[: j.nlist], j.list_cap))
+    cap0 = t.list_cap
+    rng = np.random.default_rng(8)
+    extra, _ = _clustered(rng, 2000, centers=centers[:2])
+    t.add(extra)
+    assert t.list_cap > cap0
+    _assert_extent_invariant(t)
+    t.delete(rng.choice(t.n_rows, 100, replace=False))
+    _assert_extent_invariant(t)
+
+
+def test_k8_extents_with_fill_longer_than_nlist(state):
+    """`_fill` may be longer than nlist (the indexer's nlist shrink): the
+    extents take its first nlist entries."""
+    x, _ = state
+    j = _trained(x)
+    t = TPQ(D, nlist=j.nlist, nprobe=j.nprobe, m=j.m, device="cpu")
+    c, codes, ids, bias = (np.asarray(a) for a in j.arrays())
+    fill = np.concatenate([j._fill[: j.nlist], np.full(48, 3, np.int64)])
+    t.load_arrays(c, codes, ids, bias, fill, j.list_cap, j.n_rows, j.n_live,
+                  books=np.asarray(j._books))
+    assert t._extents().shape == (j.nlist,)
+    _assert_extent_invariant(t)
 
 
 @pytest.fixture
@@ -348,16 +425,65 @@ def cuda_device():
 
 @pytest.mark.cuda
 def test_k8_matches_plain_on_card(cuda_device, state):
+    """With and without extents: k = 1, 300 and above pass 2's shared
+    memory, nprobe 1 and 6, a cell probed by every query of a batch of
+    more than 32."""
     x, _ = state
     t = _carried(_trained(x))
     args = [a.to(cuda_device) for a in t.arrays()] + [t._books.to(cuda_device)]
     c, codes, ids, bias, books = args
-    q = torch.from_numpy(_unit(x[:300])).to(cuda_device)
-    for B, k in ((1, 10), (7, 40), (300, 300), (2, 1920)):
-        ks, ki = tivfpq.ivfpq_search_cuda(q[:B], c, codes, ids, bias, books, k, 6)
-        ps, pi = tivfpq.ivfpq_search(q[:B], c, codes, ids, bias, books, k, 6)
-        assert_topk_equiv(ks.cpu(), ki.cpu(), ps.cpu(), pi.cpu(), None, None, None,
-                          true=_adc_judge(t, x[:B]))
+    ext = t._extents().to(cuda_device)
+    rng = np.random.default_rng(6)
+    qn = np.concatenate([x[:300], np.repeat(x[:1], 300, 0)
+                         + 0.01 * rng.standard_normal((300, D)).astype(np.float32)])
+    q = torch.from_numpy(_unit(qn)).to(cuda_device)
+    true = _adc_judge(t, qn)
+    for B, k, nprobe in ((1, 10, 6), (7, 40, 6), (300, 300, 6), (2, 1920, 6), (2, 5000, 6),
+                         (600, 1, 6), (600, 40, 1), (520, 300, 6)):
+        ps, pi = tivfpq.ivfpq_search(q[:B], c, codes, ids, bias, books, k, nprobe)
+        for extents in (ext, None):
+            ks, ki = tivfpq.ivfpq_search_cuda(q[:B], c, codes, ids, bias, books, k, nprobe,
+                                              extents=extents)
+            assert_topk_equiv(ks.cpu(), ki.cpu(), ps.cpu(), pi.cpu(), None, None, None,
+                              true=true[:B])
+
+
+def _variants_tool():
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(__file__)), "tools",
+                        "ivfpq_adc_variants.py")
+    spec = importlib.util.spec_from_file_location("ivfpq_adc_variants", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("name", list(_variants_tool().VARIANTS))
+def test_k8_variant_tool_anchors_in_source(name):
+    """Every text change of tools/ivfpq_adc_variants.py still applies to
+    csrc/ivfpq_adc.cu, every index/ivfpq.py constant it sets exists, and
+    every call keyword is one the wrapper takes."""
+    from codegraph_tpu_torch.ops import cuda_build
+
+    src = (cuda_build.CSRC_DIR / "ivfpq_adc.cu").read_text()
+    subs, consts, call, _ = _variants_tool().VARIANTS[name]
+    for anchor, _ in subs:
+        assert anchor in src
+    for const in consts:
+        assert hasattr(tivfpq, const)
+    assert set(call) <= {"extents"}
+
+
+def test_k8_profile_anchors_in_source():
+    """The clock64 stamps of tools/ivfpq_adc_variants.py --profile each
+    apply once to csrc/ivfpq_adc.cu."""
+    from codegraph_tpu_torch.ops import cuda_build
+
+    src = (cuda_build.CSRC_DIR / "ivfpq_adc.cu").read_text()
+    for anchor, _ in _variants_tool().PROFILE:
+        assert src.count(anchor) == 1, anchor
 
 
 @pytest.mark.parametrize("bad,err", [

@@ -3,13 +3,22 @@
 checkout of the repo (for example the parent commit unpacked with `git
 archive`), in turns, on one NVIDIA GPU.
 
-    python3 tools/kernel_vs_checkout.py OTHER_DIR [--kernel K2|K6]
+    python3 tools/kernel_vs_checkout.py OTHER_DIR [--kernel K2|K6|K8]
                                         [--rows N] [--shapes B:k,B:k,...]
 
 K2 (`streaming_topk_cuda_qmajor`, csrc/flat_topk.cu) runs on a 1%
 tombstoned f32 corpus of unit rows at D=768, 1,000,000 rows by default;
 K6 (`streaming_topk_int8_cuda_qmajor`, csrc/int8_topk.cu) on the same
-rows quantized to int8, 10,000,000 by default. Each turn is a process of
+rows quantized to int8, 10,000,000 by default; K8 (`ivfpq_search_cuda`,
+csrc/ivfpq_adc.cu) on synthetic IVF-PQ cells at chip_smoke.py's phase-7
+shape (chip_smoke.synthetic_ivfpq_cells: nlist 4096, m 96, cap 4992,
+~10M rows, 1% tombstoned; --rows is ignored), nprobe 64, with
+the cells' fills as extents where the checkout's wrapper takes them, and
+its first batch's scores saved so that the turns are compared bit for bit
+(ids may differ only where scores tie); then the same cells loaded into an
+IVFPQIndex (refine "none") and its search timed end to end at B=1 and 1024,
+k=10 (median of 7 calls, host clock; the call returns host arrays). Each
+turn is a process of
 its own that imports `codegraph_tpu_torch` from one checkout (which
 builds its kernels there at first use), makes the corpus on the card
 from a seed, and times every B:k shape: the median ms over 7 batches
@@ -22,14 +31,75 @@ times; exits 1 if a turn failed or disagreed.
 import argparse
 import json
 import os
+import shutil
+import statistics
 import subprocess
 import sys
+import tempfile
+import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 DEFAULTS = {"K2": (1_000_000, "32:30,64:30,64:300,1024:30"),
-            "K6": (10_000_000, "64:100,64:300,256:100,256:300,1024:100,1024:300")}
+            "K6": (10_000_000, "64:100,64:300,256:100,256:300,1024:100,1024:300"),
+            "K8": (10_000_000, "1:40,1:300,8:40,8:300,256:40,256:300,1024:40,1024:300")}
+
+
+def worker_k8(root: str, shapes, save: str) -> dict:
+    """One K8 turn: the checkout at `root` on synthetic cells; the first
+    batch's results of each shape go to `save` (a .pt file)."""
+    import inspect
+
+    import torch
+
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+
+    sys.path.remove(ROOT)
+    sys.path.insert(0, os.path.abspath(root))
+    from codegraph_tpu_torch.index import ivfpq
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(2026)
+    *state, fill = cs.synthetic_ivfpq_cells(torch, g)
+    kw = {"extents": fill} if "extents" in inspect.signature(ivfpq.ivfpq_search_cuda).parameters \
+        else {}
+    out = {"root": root, "module": ivfpq.__file__, "extents": bool(kw), "ms": {},
+           "mismatches_outside_ties": 0}
+    first = {}
+    for B, k in shapes:
+        gq = torch.Generator(device="cuda").manual_seed(B * 100_003 + k)
+        qs = [cs._unit(torch, torch.randn(B, 768, generator=gq, device="cuda")) for _ in range(7)]
+        fn = lambda qb: ivfpq.ivfpq_search_cuda(qb, *state, k, 64, **kw)  # noqa: E731
+        s_k, i_k = fn(qs[0])
+        first[f"{B}:{k}"] = (s_k.cpu(), i_k.cpu())
+        q2 = qs[0][:2].contiguous()
+        s_p, i_p = ivfpq.ivfpq_search(q2, *state, k, 64)
+        out["mismatches_outside_ties"] += cs.check_topk(
+            torch, None, None, None, s_k[:2], i_k[:2], s_p, i_p,
+            judge=cs.adc_judge(torch, q2, *state))[2]
+        out["ms"][f"{B}:{k}"] = cs._time_ms(torch, fn, qs)
+    torch.save(first, save)
+    from codegraph_tpu_torch.index.ivfpq import IVFPQIndex
+
+    centroids, codes, ids, bias, books = state
+    idx = IVFPQIndex(768, nlist=4096, nprobe=64, m=96, device="cuda")
+    n_rows = int((ids >= 0).sum())
+    idx.load_arrays(centroids, codes, ids, bias, fill.cpu().numpy(), codes.shape[2], n_rows,
+                    n_rows - int(((ids >= 0) & (bias < cs.NEG_INF / 2)).sum()), books=books)
+    out["search_ms"] = {}
+    for B in (1, 1024):
+        gq = torch.Generator(device="cuda").manual_seed(B)
+        qs = [cs._unit(torch, torch.randn(B, 768, generator=gq, device="cuda")) for _ in range(8)]
+        idx.search(qs[0], 10)  # warm
+        times = []
+        for qb in qs[1:]:
+            t0 = time.perf_counter()
+            idx.search(qb, 10)
+            times.append((time.perf_counter() - t0) * 1e3)
+        out["search_ms"][str(B)] = statistics.median(times)
+    return out
 
 
 def worker(root: str, kernel: str, rows: int, shapes) -> dict:
@@ -89,12 +159,15 @@ def main() -> int:
     ap.add_argument("--rows", type=int)
     ap.add_argument("--shapes")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
+    ap.add_argument("--save", help=argparse.SUPPRESS)
     args = ap.parse_args()
     args.rows = args.rows or DEFAULTS[args.kernel][0]
     args.shapes = args.shapes or DEFAULTS[args.kernel][1]
     shapes = [tuple(int(v) for v in s.split(":")) for s in args.shapes.split(",")]
     if args.worker:
-        print(json.dumps(worker(args.worker, args.kernel, args.rows, shapes)), flush=True)
+        res = (worker_k8(args.worker, shapes, args.save) if args.kernel == "K8"
+               else worker(args.worker, args.kernel, args.rows, shapes))
+        print(json.dumps(res), flush=True)
         return 0
     import torch
 
@@ -107,11 +180,13 @@ def main() -> int:
     print(cs.nvidia_smi_line(), flush=True)
     turns = {"other": [], "this": []}
     ok = True
-    for name in ("other", "this", "this", "other"):
+    tmp = tempfile.mkdtemp(prefix="kernel_vs_checkout_")
+    for t, name in enumerate(("other", "this", "this", "other")):
         root = args.other if name == "other" else ROOT
         proc = subprocess.run([sys.executable, os.path.abspath(__file__), args.other,
                                "--kernel", args.kernel, "--rows", str(args.rows),
-                               "--shapes", args.shapes, "--worker", root],
+                               "--shapes", args.shapes, "--worker", root,
+                               "--save", os.path.join(tmp, f"{t}_{name}.pt")],
                               capture_output=True, text=True)
         if proc.returncode:
             print(f"turn {name} failed:\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}",
@@ -121,10 +196,25 @@ def main() -> int:
         ok = ok and res["mismatches_outside_ties"] == 0
         turns[name].append(res)
         print(json.dumps({"turn": name, **res}), flush=True)
+    saved = ({n: torch.load(os.path.join(tmp, f"{t}_{n}.pt"))
+              for t, n in ((0, "other"), (1, "this"))} if args.kernel == "K8" else {})
+    shutil.rmtree(tmp, ignore_errors=True)
     for key in turns["this"][0]["ms"]:
-        print(json.dumps({"kernel": args.kernel, "N": args.rows, "D": 768, "B:k": key,
-                          "other_ms": [t["ms"][key] for t in turns["other"]],
-                          "this_ms": [t["ms"][key] for t in turns["this"]]}), flush=True)
+        row = {"kernel": args.kernel, "N": args.rows, "D": 768, "B:k": key,
+               "other_ms": [t["ms"][key] for t in turns["other"]],
+               "this_ms": [t["ms"][key] for t in turns["this"]]}
+        if saved:  # the first batch of both checkouts, bit for bit
+            (s_o, i_o), (s_t, i_t) = saved["other"][key], saved["this"][key]
+            row["scores_equal"] = bool(torch.equal(s_o, s_t))
+            row["ids_differ"] = int((i_o != i_t).sum())
+            row["ids_differ_where_scores_differ"] = int(((i_o != i_t) & (s_o != s_t)).sum())
+            ok = ok and row["scores_equal"]
+        print(json.dumps(row), flush=True)
+    if args.kernel == "K8":
+        for B in turns["this"][0]["search_ms"]:
+            print(json.dumps({"IVFPQIndex.search": {"B": int(B), "k": 10},
+                              "other_ms": [t["search_ms"][B] for t in turns["other"]],
+                              "this_ms": [t["search_ms"][B] for t in turns["this"]]}), flush=True)
     return 0 if ok else 1
 
 
