@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phases 0,1     # build + kernel checks only
     python3 chip_smoke.py --phases 0,4,5   # the int8 tier only
     python3 chip_smoke.py --phases 0,1,6,7 # the IVF tiers (K8) only
+    python3 chip_smoke.py --phases 0,8     # the default configuration only
 
 Phases, each printing one JSON object per line as it ends:
 
@@ -79,6 +80,20 @@ Phases, each printing one JSON object per line as it ends:
      table, the lookup floor and the code bytes it reads;
      IVFPQIndex.search end to end at B=1 and 1024 and its recall@10
      against an exact f32 scan.
+  8  the default configuration: CodeGraph.open(<copy of codegraph_tpu/>,
+     CodeGraphConfig() with only data_dir set, device="cuda"), which must
+     resolve to the pipeline [ensemble, hash] with the encoder of
+     checkpoints/encoder_r3_512.npz and its BPE-16k tokenizer on the card;
+     .index() (stage seconds, the encoder's host tokenization apart from
+     its forward, texts/s, tokens/s; the hash member must embed nothing
+     and no provider fail), 5 searches (K1) and 64 QueryService queries
+     (K2; no other kernel may launch), checked as in phase 2; the encoder
+     against the JAX package's golden embeddings (tests/data/
+     encoder_r3_golden.npz) and against its CPU path, within 2e-3, and one
+     forward timed at B=1 x 64 and 256 x 192 tokens; the same snapshot
+     loaded on the CPU: hybrid hits with the card's query vectors (1e-5)
+     and with each side's own (2e-3), and one semantic_code_search tool
+     call with the default feature reranker (2e-3).
 
 Then the card's name and power limit, one JSON line with every kernel's
 numbers, and last {"ok": true, "device": {...}}. Any failed check exits
@@ -1134,12 +1149,13 @@ def _narrow_filter(cg, proj, max_frac=0.03):
     raise CheckFailed("phase 6: no path prefix keeps <= 3% of the rows")
 
 
-def _hits_vs(got, ref) -> dict:
-    """Hybrid hits position by position: a swap is a tie within SCORE_TOL."""
+def _hits_vs(got, ref, tol=SCORE_TOL) -> dict:
+    """Hybrid hits position by position: a swap is a tie within tol."""
     require(len(got) == len(ref) > 0, f"{len(got)} vs {len(ref)} hits")
+    require(all(math.isfinite(h.score) for h in got), "non-finite hybrid score")
     err = max(abs(a.score - b.score) for a, b in zip(got, ref))
     return {"max_abs_err": err, "id_mismatches": sum(a.node_id != b.node_id for a, b in zip(got, ref)),
-            "mismatches_outside_ties": int(err > SCORE_TOL)}
+            "mismatches_outside_ties": int(err > tol)}
 
 
 def phase6(torch, mods, errs) -> dict:
@@ -1510,6 +1526,256 @@ def phase7(torch, mods, errs) -> list:
 
 
 # ---------------------------------------------------------------------------
+# the default configuration: the ensemble provider (r3 encoder) on the card
+# ---------------------------------------------------------------------------
+
+#: the JAX package's encoder embeddings of 32 fixed texts (tools/encoder_golden.py)
+GOLDEN = os.path.join(ROOT, "tests", "data", "encoder_r3_golden.npz")
+ENCODER_CKPT = "encoder_r3_512.npz"
+# the encoder's bf16 tolerance against the JAX package and between two
+# devices (tests/test_torch_encoder.py BF16_TOL at the shipped width); the
+# hybrid scores and tool results of two devices' query vectors get the same
+ENC_TOL = 2e-3
+ENCODER_ROUTE = ("torch.mm/torch.bmm of bf16 operands with out_dtype=torch.float32 "
+                 "(tensor cores, f32 sums), f32 bias/GELU/norms/softmax")
+
+
+def _tool_close(got, ref, tol) -> dict:
+    """Two semantic_code_search outputs: counts equal, scores position by
+    position within tol (a swap of two nodes is a tie within tol)."""
+    require("error" not in got and "error" not in ref, f"tool error: {got} / {ref}")
+    require(got["count"] == ref["count"] > 0, f"{got['count']} vs {ref['count']} tool results")
+    err = max(abs(a["score"] - b["score"]) for a, b in zip(got["results"], ref["results"]))
+    return {"count": got["count"], "max_abs_err": err,
+            "id_mismatches": sum(a["node_id"] != b["node_id"]
+                                 for a, b in zip(got["results"], ref["results"])),
+            "mismatches_outside_ties": int(err > tol)}
+
+
+def _encoder_forward_ms(torch, enc, B, L, reps=20):
+    """Median ms of one encoder forward at [B, L] (CUDA events) on seeded
+    random token ids, every position live."""
+    from codegraph_tpu_torch.models.encoder import encode
+
+    g = torch.Generator(device="cuda").manual_seed(8)
+    ids = torch.randint(0, enc.cfg.vocab_size, (B, L), generator=g, device="cuda")
+    mask = torch.ones((B, L), dtype=torch.bool, device="cuda")
+    return _time_ms(torch, lambda _: encode(enc.params, ids, mask, enc.cfg), [None] * reps)
+
+
+def phase8(torch, mods, errs) -> dict:
+    """The default configuration through the entry points: CodeGraphConfig()
+    with only data_dir set, so the ensemble provider (the r3 encoder on the
+    card + the hash half), a flat f32 index, hybrid search (K1), QueryService
+    (K2), the feature reranker and the semantic_code_search tool."""
+    from codegraph_tpu_torch.api import CodeGraph
+    from codegraph_tpu_torch.core.config import CodeGraphConfig
+    from codegraph_tpu_torch.index.flat import FlatIndex
+    from codegraph_tpu_torch.mcp.tools import GraphToolExecutor
+    from codegraph_tpu_torch.models.bpe import BPETokenizer
+    from codegraph_tpu_torch.models.providers import EncoderProvider, HybridEmbeddingPipeline
+    from codegraph_tpu_torch.search.reranker import make_reranker_pipeline
+    from codegraph_tpu_torch.search.service import QueryService
+
+    require(os.path.exists(GOLDEN), f"no golden embeddings at {GOLDEN}")
+    tmp = tempfile.mkdtemp(prefix="cg_smoke_default_")
+    svc = None
+    try:
+        proj = _project_copy(tmp)
+        cfg = CodeGraphConfig()
+        cfg.data_dir = os.path.join(tmp, "data")
+
+        reset_launches(mods)
+        t0 = time.perf_counter()
+        cg = CodeGraph.open(proj, config=cfg, device="cuda")
+        t_open = time.perf_counter() - t0
+        prov = cg.indexer.provider
+        require(isinstance(prov, HybridEmbeddingPipeline)
+                and [p.name for p in prov.providers] == ["ensemble", "hash"],
+                f"phase 8: the default provider is {getattr(prov, 'name', prov)!r}")
+        ens, hsh = prov.providers
+        enc = ens.encoder
+        require(os.path.basename(enc.checkpoint or "") == ENCODER_CKPT,
+                f"phase 8: the encoder came from {enc.checkpoint!r}")
+        require(isinstance(enc.tokenizer, BPETokenizer) and enc.tokenizer.vocab_size == 16644,
+                f"phase 8: the encoder's tokenizer is {type(enc.tokenizer).__name__}")
+        require({v.device.type for v in enc.params.values()} == {"cuda"},
+                "phase 8: encoder parameters are not all on the card")
+        require(isinstance(cg.indexer.index, FlatIndex) and cg.indexer.index.dim == 768,
+                "phase 8: the default index is not a flat 768-d index")
+
+        t0 = time.perf_counter()
+        stats = cg.index()
+        t_index = time.perf_counter() - t0
+        counters = enc.counters.to_dict()
+        index_texts = enc.metrics.texts
+
+        hits, search_s = [], []
+        for qt in QUERIES:
+            t0 = time.perf_counter()
+            hits.append(cg.search(qt, limit=10))
+            search_s.append(time.perf_counter() - t0)
+        # the encoder's share of a B=1 search: the same queries' embedding alone
+        embed_s = []
+        for qt in QUERIES:
+            t0 = time.perf_counter()
+            prov.embed_texts([f"{qt} again"])
+            embed_s.append(time.perf_counter() - t0)
+        index = cg.indexer.index
+        texts = [f"{QUERIES[i % 5]} variant {i}" for i in range(64)]
+        embs = prov.embed_texts(texts)
+        k = 30
+        t0 = time.perf_counter()
+        svc = QueryService.auto(index, k=k)
+        futures = [svc.submit(e) for e in embs]
+        batched = [f.result(timeout=120) for f in futures]
+        svc.close()
+        svc_stats = svc.stats
+        svc = None
+        t_service = time.perf_counter() - t0
+        # the main path ends here; later launches only check results
+        launches = read_launches(mods)
+
+        # the service (K2) against single queries (K1), and each kernel
+        # against its plain version, on the encoder's embeddings
+        singles = [index.search(e[None, :], k) for e in embs]
+        x, bias = index.arrays()
+        qn = torch.nn.functional.normalize(torch.as_tensor(embs, device="cuda"), dim=1)
+        s_b = torch.as_tensor(np.stack([b[0] for b in batched]), device="cuda")
+        i_b = torch.as_tensor(np.stack([b[1] for b in batched]), device="cuda")
+        s_1 = torch.as_tensor(np.stack([s[0][0] for s in singles]), device="cuda")
+        i_1 = torch.as_tensor(np.stack([s[1][0] for s in singles]), device="cuda")
+        err_svc, diff_svc, bad_svc = check_topk(torch, qn, x, bias, s_b, i_b, s_1, i_1)
+        errs["K2"] = max(errs["K2"], err_svc)
+        topk = mods["topk"]
+        main_shapes = {}
+        for name, fn, B in (("K1", topk.streaming_topk_cuda, 1),
+                            ("K2", topk.streaming_topk_cuda_qmajor, 64)):
+            s_k, i_k = fn(qn[:B].contiguous(), x, bias, k)
+            s_p, i_p = topk.streaming_topk(qn[:B], x, bias, k)
+            e, n_d, b_d = check_topk(torch, qn[:B], x, bias, s_k, i_k, s_p, i_p)
+            errs[name] = max(errs[name], e)
+            main_shapes[name] = {"N": int(x.shape[0]), "B": B, "k": k, "max_abs_err": e,
+                                 "id_mismatches": n_d, "mismatches_outside_ties": b_d}
+
+        # the encoder against the JAX package's golden embeddings and
+        # against this port's CPU path on the same texts
+        gold = np.load(GOLDEN)
+        gtexts = [str(t) for t in gold["texts"]]
+        card_enc = enc.embed_texts(gtexts)
+        card_ens = ens.embed_texts(gtexts)
+        cpu_enc = EncoderProvider(batch_size=32, checkpoint=enc.checkpoint, device="cpu")
+        cpu_vecs = cpu_enc.embed_texts(gtexts)
+        encoder_errs = {
+            "vs_jax_golden": float(np.abs(card_enc - gold["encoder"]).max()),
+            "ensemble_vs_jax_golden": float(np.abs(card_ens - gold["ensemble"]).max()),
+            "vs_cpu_path": float(np.abs(card_enc - cpu_vecs).max()),
+            "cpu_path_vs_jax_golden": float(np.abs(cpu_vecs - gold["encoder"]).max()),
+            "texts": len(gtexts),
+        }
+        forward_ms = {"B=1 L=64": _encoder_forward_ms(torch, enc, 1, 64),
+                      "B=256 L=192": _encoder_forward_ms(torch, enc, 256, 192)}
+
+        # the same snapshot on the CPU: the card's query vectors on both
+        # sides (the index stage alone differs), then each side's own text path
+        t0 = time.perf_counter()
+        cpu = CodeGraph(cfg, device="cpu")
+        require(len(cpu.indexer.index) == len(index), "phase 8: CPU snapshot load")
+        qvecs = prov.embed_texts(QUERIES)
+        same_vec, own_text = [], []
+        boundary_ties = 0
+        for qt, qv, got in zip(QUERIES, qvecs, hits):
+            s_g, i_g = index.search(qv[None, :], 30)
+            s_c, i_c = cpu.indexer.index.search(qv[None, :], 30)
+            if set(i_g[0].tolist()) != set(i_c[0].tolist()):
+                boundary_ties += 1  # a tie at the prefetch boundary let another chunk in
+            else:
+                same_vec.append(_hits_vs(cg.indexer.search.search_embedding(qv, 10, text_query=qt),
+                                         cpu.indexer.search.search_embedding(qv, 10, text_query=qt)))
+            own_text.append(_hits_vs(got, cpu.search(qt, limit=10), ENC_TOL))
+        tool_args = {"query": QUERIES[2], "limit": 10}
+        tools = GraphToolExecutor(cg.graph, cg.indexer.search,
+                                  make_reranker_pipeline(prov, cfg.search),
+                                  rerank_default=cfg.search.rerank)
+        cpu_tools = GraphToolExecutor(cpu.graph, cpu.indexer.search,
+                                      make_reranker_pipeline(cpu.indexer.provider, cfg.search),
+                                      rerank_default=cfg.search.rerank)
+        t1 = time.perf_counter()
+        tool_out = tools.execute("semantic_code_search", tool_args)
+        t_tool = time.perf_counter() - t1
+        tool = _tool_close(tool_out, cpu_tools.execute("semantic_code_search", tool_args), ENC_TOL)
+        tool["seconds"] = round(t_tool, 4)
+        t_cpu = time.perf_counter() - t0
+
+        def worst(rows, key):
+            return max((r[key] for r in rows), default=0)
+
+        out = {
+            "phase": 8, "gpu": nvidia_smi_line(), "files": stats.files_total,
+            "nodes": stats.nodes, "chunks": stats.chunks, "edges": stats.edges_total,
+            "edges_semantic": stats.edges_resolved_semantic,
+            "open_seconds": round(t_open, 3), "index_seconds": round(t_index, 3),
+            "stage_seconds": {k_: round(v, 3) for k_, v in stats.stage_seconds.items()},
+            "encoder": {**counters, "index_texts": index_texts,
+                        "texts_per_s": counters["texts"] / max(
+                            counters["tokenize_seconds"] + counters["forward_seconds"], 1e-9),
+                        "tokens_per_s_forward": counters["tokens"] / max(
+                            counters["forward_seconds"], 1e-9),
+                        "route": ENCODER_ROUTE},
+            "providers": {p.name: {"texts": p.metrics.texts, "failures": p.metrics.failures}
+                          for p in (ens, enc, hsh)},
+            "search_seconds_5": round(sum(search_s), 3),
+            "search_ms_each": [round(t * 1e3, 3) for t in search_s],
+            "query_embed_ms_each": [round(t * 1e3, 3) for t in embed_s],
+            "search_perf": cg.indexer.search.monitor.report(),
+            "service_seconds_64": round(t_service, 3),
+            "service_batches": svc_stats.batches, "service_max_batch": svc_stats.max_batch_seen,
+            "launches": launches,
+            "service_vs_single": {"max_abs_err": err_svc, "id_mismatches": diff_svc,
+                                  "mismatches_outside_ties": bad_svc},
+            "kernel_vs_plain_main_shapes": main_shapes,
+            "encoder_max_abs_err": encoder_errs, "encoder_forward_ms": forward_ms,
+            "hybrid_same_vectors_vs_cpu": {
+                "max_abs_err": worst(same_vec, "max_abs_err"),
+                "id_mismatches": sum(r["id_mismatches"] for r in same_vec),
+                "mismatches_outside_ties": sum(r["mismatches_outside_ties"] for r in same_vec),
+                "queries_with_prefetch_boundary_ties": boundary_ties},
+            "hybrid_own_text_vs_cpu": {
+                "max_abs_err": worst(own_text, "max_abs_err"),
+                "id_mismatches": sum(r["id_mismatches"] for r in own_text),
+                "mismatches_outside_ties": sum(r["mismatches_outside_ties"] for r in own_text)},
+            "tool_vs_cpu": tool, "cpu_side_seconds": round(t_cpu, 3),
+            "top1": [h[0].name if h else None for h in hits],
+        }
+        emit(out)
+        require(stats.nodes > 0 and stats.chunks > 0 and stats.edges_total > 0, "empty index")
+        require(hsh.metrics.texts == 0, f"phase 8: the hash member embedded {hsh.metrics.texts} texts")
+        require(all(p.metrics.failures == 0 for p in (ens, enc, hsh)),
+                "phase 8: a provider recorded a failure")
+        require(index_texts >= stats.chunks and len(index) == stats.chunks,
+                f"phase 8: the encoder embedded {index_texts} texts for {stats.chunks} chunks")
+        require(bad_svc == 0, "phase 8: service results disagree with single queries")
+        require(all(v["mismatches_outside_ties"] == 0 for v in main_shapes.values()),
+                "phase 8: a kernel disagrees with its plain version at the main path's shapes")
+        require(launches["K1"] > 0 and launches["K2"] > 0,
+                f"phase 8: the default path did not launch K1 and K2: {launches}")
+        require(all(launches[n] == 0 for n in launches if n not in ("K1", "K2")),
+                f"phase 8: the default path launched another kernel: {launches}")
+        require(all(v <= ENC_TOL for k_, v in encoder_errs.items() if k_ != "texts"),
+                f"phase 8: the encoder is off its references: {encoder_errs}")
+        require(out["hybrid_same_vectors_vs_cpu"]["mismatches_outside_ties"] == 0
+                and out["hybrid_own_text_vs_cpu"]["mismatches_outside_ties"] == 0,
+                "phase 8: CUDA hybrid results disagree with the CPU snapshot")
+        require(tool["mismatches_outside_ties"] == 0,
+                "phase 8: the semantic_code_search tool disagrees with the CPU snapshot")
+        return out
+    finally:
+        if svc is not None:
+            svc.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
 
 
 def _on_alarm(signum, frame):
@@ -1518,7 +1784,7 @@ def _on_alarm(signum, frame):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7",
+    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7,8",
                     help="comma-separated phases to run (default: all)")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",") if p.strip()}
@@ -1566,6 +1832,7 @@ def main(argv=None) -> int:
         p5 = run(5, phase5, mods, errs, empty=[])
         p6 = run(6, phase6, mods, errs)
         p7 = run(7, phase7, mods, errs, empty=[])
+        p8 = run(8, phase8, mods, errs)
     except (CheckFailed, TimeoutError) as exc:
         print(f"chip_smoke FAILED: {exc}", file=sys.stderr, flush=True)
         return 1
@@ -1574,15 +1841,17 @@ def main(argv=None) -> int:
         faulthandler.cancel_dump_traceback_later()
 
     # each kernel at one shape of its real-size phase; launches from its
-    # tier's main path (K3, K4 and K7 are public ops that no index calls;
-    # K6s runs only at a D that is not a multiple of 16)
+    # tier's main path, for K1 and K2 the default configuration's (phase 8)
+    # when it ran (K3, K4 and K7 are public ops that no index calls; K6s
+    # runs only at a D that is not a multiple of 16)
     shapes = {"K1": (p3, "float32", 1, 30), "K2": (p3, "float32", 1024, 30),
               "K3": (p3, "float32", 1024, 100), "K4": (p3, "float32", 1024, 30),
               "K5": (p5, "int8", 1, 100), "K6": (p5, "int8", 1024, 100),
               "K7": (p5, "int8", 1024, 100), "K6s": (p5, "int8", 1024, 100),
               "K8": (p7, "uint8 codes", 1, 40)}
-    paths = {"K1": p2, "K2": p2, "K3": p2, "K4": p2, "K5": p4, "K6": p4, "K7": p4, "K6s": p4,
-             "K8": p6["ivfpq"] if p6 else None}
+    flat_path = p8 or p2
+    paths = {"K1": flat_path, "K2": flat_path, "K3": flat_path, "K4": flat_path, "K5": p4,
+             "K6": p4, "K7": p4, "K6s": p4, "K8": p6["ivfpq"] if p6 else None}
     kernels = []
     for name, (_, fn_name, source, replaces) in KERNELS.items():
         rows, dtype, B, k = shapes[name]
@@ -1592,6 +1861,9 @@ def main(argv=None) -> int:
         kernels.append({
             "name": f"{name} {fn_name}", "route": "cuda", "source": source, "replaces": replaces,
             "launches": path["launches"][name] if path else None,
+            "launches_by_phase": {str(n): p["launches"][name] for n, p in
+                                  ((2, p2), (4, p4), (6, p6["ivfpq"] if p6 else None), (8, p8))
+                                  if p},
             "max_abs_err": errs[name],
             "ms": row.get("ms"), "plain_ms": row.get("plain_ms"),
             "bound_ms": row.get("bound_ms"), "bound_by": row.get("bound_by"),

@@ -1,13 +1,19 @@
 """High-level facade: one object that owns the whole stack.
 
 Port of `codegraph_tpu/api.py` (`open`, `index`, `update_file`, `search`,
-`stats`; the RAG, insights and MCP layers are not ported yet):
+`graph`, `stats`; `ask`, `insights` and `serve` wait for ROADMAP items 18
+and 19):
 
     from codegraph_tpu_torch.api import CodeGraph
 
     cg = CodeGraph.open("/path/to/repo")          # device="cuda" by default
     cg.index()
     hits = cg.search("where is the config loaded")
+    deps = cg.graph.transitive_dependencies("load_config")
+
+The default configuration embeds with the `ensemble` provider: the shipped
+encoder checkpoint on the same device as the index, plus the lexical hash
+half.
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ import torch
 
 from codegraph_tpu_torch.core.config import CodeGraphConfig, load_config
 from codegraph_tpu_torch.core.types import SearchResult
+from codegraph_tpu_torch.graph.queries import GraphQueries
 from codegraph_tpu_torch.index.flat import resolve_device
 from codegraph_tpu_torch.indexer.indexer import IndexStats, ProjectIndexer
 from codegraph_tpu_torch.utils.tuning import DEFAULT_HBM_BUDGET, apply_plan, plan_index
@@ -81,6 +88,10 @@ class CodeGraph:
 
     def search(self, query: str, limit: int = 10) -> List[SearchResult]:
         return self.indexer.search.search_text(query, limit)
+
+    @property
+    def graph(self) -> GraphQueries:
+        return GraphQueries(self.indexer.store)
 
     def stats(self) -> Dict[str, Any]:
         return {

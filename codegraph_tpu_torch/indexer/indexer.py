@@ -104,7 +104,7 @@ class ProjectIndexer:
     ):
         self.config = config or CodeGraphConfig()
         self.device = device
-        self.provider = provider or create_provider(self.config)
+        self.provider = provider or create_provider(self.config, device=device)
         self.store = store or GraphStore()
         self.index = index if index is not None else _make_index(
             self.config, getattr(self.provider, "dimension", None), device)

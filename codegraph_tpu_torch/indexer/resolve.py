@@ -1,4 +1,7 @@
-"""Copy of `codegraph_tpu/indexer/resolve.py` for the PyTorch port.
+"""Copy of `codegraph_tpu/indexer/resolve.py` for the PyTorch port. One
+difference: the semantic pass skips only a provider that reports itself
+unavailable; any other error of the embedding (an encoder on the card)
+propagates, where the reference logs it and drops every semantic edge.
 
 Edge resolution: symbol names -> node ids.
 
@@ -44,6 +47,7 @@ import sys
 from collections import defaultdict
 from typing import Dict, List, Optional, Sequence, Set, Tuple
 
+from codegraph_tpu_torch.core.errors import ProviderUnavailable
 from codegraph_tpu_torch.core.types import (
     CodeEdge, CodeNode, EdgeType, Language, NodeType)
 
@@ -609,7 +613,10 @@ class EdgeResolver:
         try:
             target_embs = self.provider.embed_texts(list(presel.keys()))
             symbol_embs = self.provider.embed_texts(embed_names)
-        except Exception as exc:
+        except ProviderUnavailable as exc:
+            # only a provider that reports itself unavailable (HTTP) is
+            # skipped; an encoder's error propagates (the reference skips
+            # every exception, which would drop all semantic edges quietly)
             logger.warning("semantic match embedding failed: %s", exc)
             return 0
         sym_idx = {name: i for i, name in enumerate(embed_names)}
