@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phases 0,4,5   # the int8 tier only
     python3 chip_smoke.py --phases 0,1,6,7 # the IVF tiers (K8) only
     python3 chip_smoke.py --phases 0,8     # the default configuration only
+    python3 chip_smoke.py --phases 0,9     # the served path (MCP server, agents, CLI) only
 
 Phases, each printing one JSON object per line as it ends:
 
@@ -94,6 +95,22 @@ Phases, each printing one JSON object per line as it ends:
      loaded on the CPU: hybrid hits with the card's query vectors (1e-5)
      and with each side's own (2e-3), and one semantic_code_search tool
      call with the default feature reranker (2e-3).
+  9  the served path: the default configuration through the port's CLI as
+     subprocesses on the card (`python -m codegraph_tpu_torch.cli index`,
+     then `start stdio` fed initialize, tools/list, a semantic_code_search
+     call, an agentic_context call and prompts/get: every stdout line must
+     be JSON), then the same snapshot in this process through
+     CodeGraph.open(device="cuda") and the server build the CLI shares:
+     stdio (resources, prompts, a progress token, the 8 direct tools, the 4
+     agentic pipelines), streamable HTTP (a session, JSON and SSE calls, two
+     calls at once, an unknown session, DELETE, /metrics) and one ReAct
+     agent whose LLM is a scripted OpenAI-compatible endpoint on localhost.
+     Every reply must be free of errors; K1 must launch at least once a
+     semantic search and no other kernel; the CLI's replies must equal this
+     process's (1e-5), the card's the same snapshot's served from the CPU
+     (2e-3, no mismatch outside ties), the concurrent calls the serial ones.
+     Prints tools/call ms over stdio and HTTP beside CodeGraph.search, the
+     agentic ms without and with the agent, and the CLI's seconds.
 
 Then the card's name and power limit, one JSON line with every kernel's
 numbers, and last {"ok": true, "device": {...}}. Any failed check exits
@@ -1541,15 +1558,20 @@ ENCODER_ROUTE = ("torch.mm/torch.bmm of bf16 operands with out_dtype=torch.float
 
 
 def _tool_close(got, ref, tol) -> dict:
-    """Two semantic_code_search outputs: counts equal, scores position by
-    position within tol (a swap of two nodes is a tie within tol)."""
+    """Two semantic_code_search outputs, position by position: counts equal,
+    scores within tol; where the ids differ, the scores of that position and
+    a neighbour tie within tol (a swap), else it is a mismatch outside ties."""
     require("error" not in got and "error" not in ref, f"tool error: {got} / {ref}")
     require(got["count"] == ref["count"] > 0, f"{got['count']} vs {ref['count']} tool results")
-    err = max(abs(a["score"] - b["score"]) for a, b in zip(got["results"], ref["results"]))
-    return {"count": got["count"], "max_abs_err": err,
-            "id_mismatches": sum(a["node_id"] != b["node_id"]
-                                 for a, b in zip(got["results"], ref["results"])),
-            "mismatches_outside_ties": int(err > tol)}
+    a, b = got["results"], ref["results"]
+    require(all(math.isfinite(r["score"]) for r in a), "non-finite tool score")
+    err = max(abs(x["score"] - y["score"]) for x, y in zip(a, b))
+    scores = [r["score"] for r in b]
+    differ = [i for i, (x, y) in enumerate(zip(a, b)) if x["node_id"] != y["node_id"]]
+    outside = sum(not any(abs(scores[n] - scores[i]) <= tol
+                          for n in (i - 1, i + 1) if 0 <= n < len(scores)) for i in differ)
+    return {"count": got["count"], "max_abs_err": err, "id_mismatches": len(differ),
+            "mismatches_outside_ties": outside + int(err > tol)}
 
 
 def _encoder_forward_ms(torch, enc, B, L, reps=20):
@@ -1776,6 +1798,437 @@ def phase8(torch, mods, errs) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 9: the served path (MCP server, agents, CLI)
+# ---------------------------------------------------------------------------
+
+# every semantic search below asks a query no earlier call asked, so that
+# each reaches the index (no tool or search cache hit) and launches K1
+CLI_QUERY = "load the graph snapshot from disk"
+FAKE_LLM_QUERY = "where are tool calls dispatched to the graph executor"
+FAKE_LLM_ANSWER = "Tool calls go through GraphToolExecutor.execute, which dispatches to GraphQueries."
+
+
+def _rpc(method, params=None, mid=1):
+    msg = {"jsonrpc": "2.0", "method": method}
+    if mid is not None:
+        msg["id"] = mid
+    if params is not None:
+        msg["params"] = params
+    return msg
+
+
+def _call(name, args, mid, token=None):
+    params = {"name": name, "arguments": args}
+    if token is not None:
+        params["_meta"] = {"progressToken": token}
+    return _rpc("tools/call", params, mid)
+
+
+def _payload(reply, what) -> dict:
+    """The tool result of a tools/call reply; fails on a JSON-RPC error, on
+    isError, and on an `error` key in the result or in any of its evidence."""
+    require(reply is not None and "error" not in reply, f"phase 9: {what}: {reply}")
+    result = reply["result"]
+    require(result.get("isError") is False, f"phase 9: {what}: isError {result}")
+    payload = json.loads(result["content"][0]["text"])
+    require("error" not in payload, f"phase 9: {what}: {payload.get('error')}")
+    for ev in payload.get("evidence", []):
+        require("error" not in ev["result"], f"phase 9: {what}: {ev['tool']}: {ev['result']}")
+    return payload
+
+
+def _payload_close(got, ref, tol) -> dict:
+    """Two tool payloads: search hits as `_tool_close`; an agentic result's
+    evidence item by item (the graph tools it seeds with the top hit only
+    where the top hits agree); anything else exactly."""
+    if "results" in got:
+        return _tool_close(got, ref, tol)
+    if "evidence" in got:
+        require([e["tool"] for e in got["evidence"]] == [e["tool"] for e in ref["evidence"]]
+                and got["agent"] == ref["agent"], "phase 9: agentic evidence differs")
+        out = {"max_abs_err": 0.0, "id_mismatches": 0, "mismatches_outside_ties": 0}
+        same_top = True
+        for eg, er in zip(got["evidence"], ref["evidence"]):
+            if "results" in eg["result"]:
+                r = _tool_close(eg["result"], er["result"], tol)
+                same_top = eg["result"]["results"][0]["node_id"] == er["result"]["results"][0]["node_id"]
+                for key in out:
+                    out[key] = max(out[key], r[key]) if key == "max_abs_err" else out[key] + r[key]
+            elif same_top:
+                out["mismatches_outside_ties"] += int(eg != er)
+        return out
+    return {"max_abs_err": 0.0, "id_mismatches": 0, "mismatches_outside_ties": int(got != ref)}
+
+
+def _fake_llm():
+    """A scripted OpenAI-compatible chat endpoint on localhost: the first
+    turn of a conversation asks for one semantic_code_search call, the turn
+    after a tool result answers. Streamed (SSE) or JSON, as asked."""
+    import threading
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    seen = []
+
+    class Handler(BaseHTTPRequestHandler):
+        protocol_version = "HTTP/1.1"
+        # headers and body leave in two writes: without TCP_NODELAY each
+        # reply would wait out the client's delayed ACK (~40 ms)
+        disable_nagle_algorithm = True
+
+        def do_POST(self):
+            body = json.loads(self.rfile.read(int(self.headers["Content-Length"])))
+            seen.append(body)
+            answered = body["messages"][-1]["content"].startswith("[tool result for")
+            call = {"index": 0, "id": "call_1", "type": "function",
+                    "function": {"name": "semantic_code_search",
+                                 "arguments": json.dumps({"query": FAKE_LLM_QUERY, "limit": 5})}}
+            if body.get("stream"):
+                if answered:
+                    half = len(FAKE_LLM_ANSWER) // 2
+                    chunks = [{"choices": [{"delta": {"content": FAKE_LLM_ANSWER[:half]}}]},
+                              {"choices": [{"delta": {"content": FAKE_LLM_ANSWER[half:]}}]},
+                              {"choices": [{"delta": {}, "finish_reason": "stop"}]}]
+                else:
+                    chunks = [{"choices": [{"delta": {"tool_calls": [call]},
+                                            "finish_reason": "tool_calls"}]}]
+                raw = "".join(f"data: {json.dumps(c)}\n\n" for c in chunks) + "data: [DONE]\n\n"
+                ctype = "text/event-stream"
+            else:
+                msg = ({"role": "assistant", "content": FAKE_LLM_ANSWER} if answered else
+                       {"role": "assistant", "content": None, "tool_calls": [call]})
+                raw = json.dumps({"choices": [{"message": msg, "finish_reason":
+                                               "stop" if answered else "tool_calls"}]})
+                ctype = "application/json"
+            data = raw.encode()
+            self.send_response(200)
+            self.send_header("Content-Type", ctype)
+            self.send_header("Content-Length", str(len(data)))
+            self.end_headers()
+            self.wfile.write(data)
+
+        def log_message(self, *args):
+            pass
+
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    return httpd, f"http://127.0.0.1:{httpd.server_address[1]}/v1", seen
+
+
+def _http(port, method, body=None, headers=None, path="/mcp"):
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    try:
+        data = json.dumps(body).encode() if body is not None else None
+        conn.request(method, path, body=data,
+                     headers={"Content-Type": "application/json", **(headers or {})})
+        resp = conn.getresponse()
+        return resp.status, dict(resp.getheaders()), resp.read()
+    finally:
+        conn.close()
+
+
+def _stdio(server, msgs) -> list:
+    import io
+
+    out = io.StringIO()
+    server.serve_stdio(io.StringIO("".join(json.dumps(m) + "\n" for m in msgs)), out)
+    return [json.loads(line) for line in out.getvalue().splitlines()]
+
+
+def phase9(torch, mods, errs) -> dict:
+    """The served path: the port's CLI (`index`, then `start stdio` fed five
+    JSON-RPC lines) as subprocesses on the card, then the MCP server of the
+    same snapshot in this process over stdio and HTTP (sessions, SSE, two
+    calls at once, DELETE, /metrics), the no-LLM agentic pipelines and one
+    ReAct agent driven by a scripted LLM on localhost; checked against the
+    CLI's replies, against the same snapshot served from the CPU, and
+    concurrent calls against serial ones."""
+    import copy
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    from codegraph_tpu_torch.api import CodeGraph
+    from codegraph_tpu_torch.core.config import CodeGraphConfig
+    from codegraph_tpu_torch.mcp.server import make_server
+
+    tmp = tempfile.mkdtemp(prefix="cg_smoke_served_")
+    httpd = fake = None
+    try:
+        proj = _project_copy(tmp)
+        data = os.path.join(tmp, "data")
+        toml = os.path.join(tmp, "config.toml")
+        with open(toml, "w") as f:
+            f.write(f'data_dir = "{data}"\n')
+        env = {**os.environ, "PYTHONPATH": ROOT}
+        cli = [sys.executable, "-m", "codegraph_tpu_torch.cli", "--device", "cuda", "--config", toml]
+
+        # 1. the CLI on the card: index, then start stdio with five lines
+        t0 = time.perf_counter()
+        proc = subprocess.run(cli + ["index", proj], capture_output=True, text=True,
+                              timeout=300, env=env, cwd=ROOT)
+        t_cli_index = time.perf_counter() - t0
+        require(proc.returncode == 0, f"phase 9: cli index exited {proc.returncode}: "
+                                      f"{proc.stderr[-3000:]}")
+        cli_stats = json.loads(proc.stdout)
+        cli_msgs = [_rpc("initialize", {}, 1), _rpc("tools/list", mid=2),
+                    _call("semantic_code_search", {"query": CLI_QUERY, "limit": 10}, 3),
+                    _call("agentic_context", {"query": CLI_QUERY}, 4),
+                    _rpc("prompts/get", {"name": "code_search",
+                                         "arguments": {"query": CLI_QUERY}}, 5)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cli + ["start", "stdio"],
+                              input="".join(json.dumps(m) + "\n" for m in cli_msgs),
+                              capture_output=True, text=True, timeout=300, env=env, cwd=ROOT)
+        t_cli_start = time.perf_counter() - t0
+        require(proc.returncode == 0, f"phase 9: cli start stdio exited {proc.returncode}: "
+                                      f"{proc.stderr[-3000:]}")
+        cli_replies = []
+        for line in proc.stdout.splitlines():
+            try:
+                cli_replies.append(json.loads(line))
+            except ValueError:
+                raise CheckFailed(f"phase 9: a stdout line of start stdio is not JSON: {line!r}")
+        require([r.get("id") for r in cli_replies] == [1, 2, 3, 4, 5],
+                f"phase 9: start stdio replied {[r.get('id') for r in cli_replies]}")
+        require(all("error" not in r for r in cli_replies), "phase 9: a CLI reply is an error")
+        cli_search = _payload(cli_replies[2], "cli semantic_code_search")
+        cli_agentic = _payload(cli_replies[3], "cli agentic_context")
+
+        # 2. the same snapshot in this process, served as the CLI serves it
+        cfg = CodeGraphConfig()
+        cfg.data_dir = data
+        cg = CodeGraph.open(proj, config=cfg, device="cuda")
+        index = cg.indexer.index
+        require(len(index) == cli_stats["chunks"] > 0, "phase 9: the CLI's snapshot did not load")
+        server = make_server(cg.indexer, cfg)
+        fake, fake_url, fake_seen = _fake_llm()
+        lcfg = copy.deepcopy(cfg)
+        lcfg.llm.provider, lcfg.llm.base_url, lcfg.llm.model = "openai_compatible", fake_url, "scripted"
+        llm_server = make_server(cg.indexer, lcfg)
+        hub = cg.graph.hub_nodes(3)["hubs"][0]["name"]
+        src_file = sorted(cg.indexer.store.file_metadata)[0]
+        direct = [
+            ("get_transitive_dependencies", {"node": hub, "max_depth": 3}),
+            ("detect_circular_dependencies", {}),
+            ("trace_call_chain", {"source": hub, "max_depth": 4}),
+            ("calculate_coupling_metrics", {"node": hub}),
+            ("get_hub_nodes", {"limit": 10}),
+            ("get_reverse_dependencies", {"node": hub}),
+            ("find_nodes_by_name", {"name": "search", "limit": 10}),
+            ("find_complexity_hotspots", {"limit": 10}),
+        ]
+        agentic = [(name, f"{name} over the served snapshot") for name in
+                   ("agentic_context", "agentic_impact", "agentic_architecture", "agentic_quality")]
+        # the queries of the semantic searches asked below (tools, pipelines,
+        # CodeGraph.search, the agent), and the searches that missed the
+        # hybrid search's cache: each of those runs the index's top-k
+        asked = {CLI_QUERY, FAKE_LLM_QUERY, "progress of a tools/call"}
+        asked |= {q for name, q in agentic if name in ("agentic_context", "agentic_impact")}
+        misses0 = cg.indexer.search.cache.misses
+
+        reset_launches(mods)
+        # 2a. stdio: the CLI's lines, resources, prompts, a call with a
+        # progress token, every direct tool and the four agentic pipelines
+        session = cli_msgs + [
+            _rpc("ping", mid=6), _rpc("resources/list", mid=7),
+            _rpc("resources/read", {"uri": f"codegraph://file/{src_file}"}, 8),
+            _rpc("prompts/list", mid=9),
+            _call("semantic_code_search", {"query": "progress of a tools/call", "limit": 10},
+                  10, token="p10"),
+        ] + [_call(t, a, 20 + i) for i, (t, a) in enumerate(direct)] + [
+            _call(n, {"query": q}, 30 + i) for i, (n, q) in enumerate(agentic)]
+        t0 = time.perf_counter()
+        replies = _stdio(server, session)
+        t_stdio_session = time.perf_counter() - t0
+        by_id = {r["id"]: r for r in replies if "id" in r}
+        notes = [r for r in replies if "id" not in r]
+        require(sorted(by_id) == sorted(m["id"] for m in session),
+                f"phase 9: stdio replied to {sorted(by_id)}")
+        require(all("error" not in r for r in by_id.values()), "phase 9: a stdio reply is an error")
+        require([n["params"]["progress"] for n in notes
+                 if n.get("method") == "notifications/progress"] == [10, 100],
+                f"phase 9: progress notifications {notes}")
+        served = {mid: _payload(r, f"stdio id {mid}") for mid, r in by_id.items()
+                  if "content" in r["result"]}
+        require(len(served) == 3 + len(direct) + len(agentic), "phase 9: tool replies missing")
+        require(by_id[8]["result"]["contents"][0]["text"], "phase 9: resources/read is empty")
+
+        # 2b. timed: one tools/call over stdio, the same through
+        # CodeGraph.search, an agentic pipeline (each a new query)
+        timed = {"stdio": [], "search": [], "agentic_pipeline": []}
+        for i in range(5):
+            asked |= {f"timed stdio query {i} about edges", f"timed library query {i} about edges",
+                      f"timed agentic query {i}"}
+            t0 = time.perf_counter()
+            r = _stdio(server, [_call("semantic_code_search",
+                                      {"query": f"timed stdio query {i} about edges", "limit": 10},
+                                      100 + i)])
+            timed["stdio"].append((time.perf_counter() - t0) * 1e3)
+            _payload(r[-1], "timed stdio call")
+            t0 = time.perf_counter()
+            hits = cg.search(f"timed library query {i} about edges", limit=10)
+            timed["search"].append((time.perf_counter() - t0) * 1e3)
+            require(hits and all(math.isfinite(h.score) for h in hits), "phase 9: CodeGraph.search")
+            t0 = time.perf_counter()
+            _payload(server.handle_message(_call("agentic_context",
+                                                 {"query": f"timed agentic query {i}"}, 200 + i)),
+                     "timed agentic_context")
+            timed["agentic_pipeline"].append((time.perf_counter() - t0) * 1e3)
+
+        # 2c. HTTP: a session, JSON and SSE calls, two calls at once
+        httpd = server.make_http_server("127.0.0.1", 0)
+        port = httpd.server_address[1]
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        status, headers, body = _http(port, "POST", _rpc("initialize", {}))
+        sid = headers.get("Mcp-Session-Id", "")
+        require(status == 200 and len(sid) == 32, f"phase 9: initialize over HTTP: {status}")
+        hs = {"Mcp-Session-Id": sid}
+        status, headers, body = _http(port, "POST", _call(
+            "semantic_code_search", {"query": "JSON over streamable HTTP", "limit": 10}, 2), hs)
+        require(status == 200 and headers["Content-Type"] == "application/json",
+                f"phase 9: JSON tools/call {status}")
+        http_json = _payload(json.loads(body), "HTTP JSON tools/call")
+        status, headers, body = _http(port, "POST", _call(
+            "semantic_code_search", {"query": "server-sent events over HTTP", "limit": 10}, 3,
+            token="s3"), {**hs, "Accept": "application/json, text/event-stream"})
+        require(status == 200 and headers["Content-Type"] == "text/event-stream",
+                f"phase 9: SSE tools/call {status}")
+        events = [json.loads(block.split("data: ", 1)[1])
+                  for block in body.decode().split("\n\n") if block.strip()]
+        require([e["params"]["progress"] for e in events[:-1]] == [10, 100]
+                and events[-1].get("id") == 3, f"phase 9: SSE events {events}")
+        _payload(events[-1], "HTTP SSE tools/call")
+        asked |= {"JSON over streamable HTTP", "server-sent events over HTTP"}
+        conc_msgs = [_call("semantic_code_search", {"query": q, "limit": 10}, 40 + i)
+                     for i, q in enumerate(("two calls at once: the first",
+                                            "two calls at once: the second"))]
+        with ThreadPoolExecutor(2) as pool:
+            conc = list(pool.map(lambda m: _http(port, "POST", m, hs), conc_msgs))
+        concurrent = [_payload(json.loads(c[2]), "concurrent tools/call") for c in conc]
+        server.tools.invalidate()
+        cg.indexer.search.cache.invalidate()
+        serial = [_payload(json.loads(_http(port, "POST", m, hs)[2]), "serial tools/call")
+                  for m in conc_msgs]
+        asked |= {m["params"]["arguments"]["query"] for m in conc_msgs}
+        timed["http"] = []
+        for i in range(5):
+            asked.add(f"timed http query {i} about nodes")
+            t0 = time.perf_counter()
+            status, _, body = _http(port, "POST", _call(
+                "semantic_code_search", {"query": f"timed http query {i} about nodes",
+                                         "limit": 10}, 300 + i), hs)
+            timed["http"].append((time.perf_counter() - t0) * 1e3)
+            _payload(json.loads(body), "timed HTTP call")
+        status_unknown = _http(port, "POST", _rpc("ping"), {"Mcp-Session-Id": "0" * 32})[0]
+        status_get = _http(port, "GET")[0]
+        status_delete = _http(port, "DELETE", headers=hs)[0]
+        status_after = _http(port, "POST", _rpc("ping"), hs)[0]
+        status_metrics, _, metrics = _http(port, "GET", path="/metrics")
+        samples = dict(line.rsplit(" ", 1) for line in metrics.decode().splitlines()
+                       if line and not line.startswith("#"))
+
+        # 2d. the ReAct agent, its LLM a scripted endpoint on localhost (the
+        # time inside the LLM's calls is kept apart from the agent's own)
+        llm_ms = []
+        llm_stream = llm_server.llm.chat_stream
+
+        def timed_stream(*args, **kwargs):
+            t1 = time.perf_counter()
+            resp = llm_stream(*args, **kwargs)
+            llm_ms.append((time.perf_counter() - t1) * 1e3)
+            return resp
+
+        llm_server.llm.chat_stream = timed_stream
+        notes = []
+        t0 = time.perf_counter()
+        reply = llm_server.handle_message(_call(
+            "agentic_context", {"query": "how does the server dispatch a tool call"}, 50,
+            token="a50"), notify=notes.append)
+        t_react = (time.perf_counter() - t0) * 1e3
+        react = _payload(reply, "ReAct agentic_context")
+        # the main path ends here; later launches only check results
+        launches = read_launches(mods)
+        n_search = cg.indexer.search.cache.misses - misses0
+        streamed = "".join(n["params"]["data"] for n in notes
+                           if n.get("method") == "notifications/message")
+
+        # 3. checks: the CLI process against this one, the CPU snapshot
+        in_proc = {mid: served[mid] for mid in (3, 4)}
+        cli_vs_card = [_payload_close(cli_search, in_proc[3], SCORE_TOL),
+                       _payload_close(cli_agentic, in_proc[4], SCORE_TOL)]
+        conc_vs_serial = [_payload_close(c, s, SCORE_TOL) for c, s in zip(concurrent, serial)]
+        cpu = CodeGraph(cfg, device="cpu")
+        require(len(cpu.indexer.index) == len(index), "phase 9: CPU snapshot load")
+        cpu_server = make_server(cpu.indexer, cfg)
+        cpu_replies = _stdio(cpu_server, session)
+        cpu_by_id = {r["id"]: r for r in cpu_replies if "id" in r}
+        card_vs_cpu = {}
+        for mid, payload in served.items():
+            card_vs_cpu[mid] = _payload_close(payload, _payload(cpu_by_id[mid], f"CPU id {mid}"),
+                                              ENC_TOL)
+        plain = {mid: by_id[mid] == cpu_by_id[mid] for mid in (1, 2, 5, 6, 7, 8, 9)}
+
+        def total(rows, key):
+            vals = [r[key] for r in rows]
+            return max(vals) if key == "max_abs_err" else sum(vals)
+
+        keys = ("max_abs_err", "id_mismatches", "mismatches_outside_ties")
+        out = {
+            "phase": 9, "gpu": nvidia_smi_line(), "chunks": cli_stats["chunks"],
+            "cli_index_seconds": round(t_cli_index, 3), "cli_start_seconds": round(t_cli_start, 3),
+            "stdio_session_seconds": round(t_stdio_session, 3), "stdio_session_calls": len(session),
+            "tools_call_ms": {k: {"median": round(statistics.median(v), 3),
+                                  "each": [round(x, 3) for x in v]} for k, v in timed.items()},
+            "react_agent_ms": round(t_react, 3), "react_llm_ms": [round(x, 3) for x in llm_ms],
+            "fake_llm_requests": len(fake_seen),
+            "launches": launches, "uncached_searches": n_search, "distinct_queries": len(asked),
+            "http_status": {"unknown_session": status_unknown, "get": status_get,
+                            "delete": status_delete, "after_delete": status_after,
+                            "metrics": status_metrics},
+            "metrics_samples": len(samples),
+            "cli_vs_card": {k: total(cli_vs_card, k) for k in keys},
+            "concurrent_vs_serial": {k: total(conc_vs_serial, k) for k in keys},
+            "card_vs_cpu": {k: total(list(card_vs_cpu.values()), k) for k in keys},
+            "plain_replies_equal_cpu": plain,
+            "react": {"agent": react["agent"], "turns": react["turns"],
+                      "evidence": [e["tool"] for e in react["evidence"]],
+                      "streamed_chars": len(streamed)},
+            "http_json_count": http_json["count"],
+        }
+        emit(out)
+        require(launches["K1"] >= n_search >= len(asked),
+                f"phase 9: {launches['K1']} K1 launches for {n_search} uncached searches "
+                f"of {len(asked)} queries")
+        require(all(v == 0 for k_, v in launches.items() if k_ != "K1"),
+                f"phase 9: the served path launched another kernel: {launches}")
+        require(react["agent"] == "react" and react["evidence"]
+                and react["evidence"][0]["tool"] == "semantic_code_search"
+                and react["answer"] == FAKE_LLM_ANSWER and streamed == FAKE_LLM_ANSWER
+                and len(fake_seen) == 2, f"phase 9: the ReAct agent did not run: {out['react']}")
+        require(out["cli_vs_card"]["mismatches_outside_ties"] == 0
+                and out["cli_vs_card"]["max_abs_err"] <= SCORE_TOL,
+                f"phase 9: the CLI's replies differ from the card's: {out['cli_vs_card']}")
+        require(out["concurrent_vs_serial"]["mismatches_outside_ties"] == 0,
+                f"phase 9: concurrent replies differ from serial: {out['concurrent_vs_serial']}")
+        require(out["card_vs_cpu"]["mismatches_outside_ties"] == 0,
+                f"phase 9: the card's replies differ from the CPU snapshot's: {out['card_vs_cpu']}")
+        require(all(plain.values()), f"phase 9: protocol replies differ from the CPU's: {plain}")
+        require((status_unknown, status_get, status_delete, status_after, status_metrics)
+                == (404, 405, 204, 404, 200), f"phase 9: HTTP statuses {out['http_status']}")
+        require(float(samples.get("codegraph_index_rows", -1)) == len(index)
+                and 'codegraph_tool_calls_total{tool="semantic_code_search"}' in samples,
+                "phase 9: /metrics lacks the index or tool samples")
+        return out
+    finally:
+        for srv in (httpd, fake):
+            if srv is not None:
+                srv.shutdown()
+                srv.server_close()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
 
 
 def _on_alarm(signum, frame):
@@ -1784,7 +2237,7 @@ def _on_alarm(signum, frame):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7,8",
+    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9",
                     help="comma-separated phases to run (default: all)")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",") if p.strip()}
@@ -1833,6 +2286,7 @@ def main(argv=None) -> int:
         p6 = run(6, phase6, mods, errs)
         p7 = run(7, phase7, mods, errs, empty=[])
         p8 = run(8, phase8, mods, errs)
+        p9 = run(9, phase9, mods, errs)
     except (CheckFailed, TimeoutError) as exc:
         print(f"chip_smoke FAILED: {exc}", file=sys.stderr, flush=True)
         return 1
@@ -1842,15 +2296,16 @@ def main(argv=None) -> int:
 
     # each kernel at one shape of its real-size phase; launches from its
     # tier's main path, for K1 and K2 the default configuration's (phase 8)
-    # when it ran (K3, K4 and K7 are public ops that no index calls; K6s
-    # runs only at a D that is not a multiple of 16)
+    # when it ran, else for K1 the served path's (phase 9) (K3, K4 and K7
+    # are public ops that no index calls; K6s runs only at a D that is not a
+    # multiple of 16)
     shapes = {"K1": (p3, "float32", 1, 30), "K2": (p3, "float32", 1024, 30),
               "K3": (p3, "float32", 1024, 100), "K4": (p3, "float32", 1024, 30),
               "K5": (p5, "int8", 1, 100), "K6": (p5, "int8", 1024, 100),
               "K7": (p5, "int8", 1024, 100), "K6s": (p5, "int8", 1024, 100),
               "K8": (p7, "uint8 codes", 1, 40)}
     flat_path = p8 or p2
-    paths = {"K1": flat_path, "K2": flat_path, "K3": flat_path, "K4": flat_path, "K5": p4,
+    paths = {"K1": p8 or p9 or p2, "K2": flat_path, "K3": flat_path, "K4": flat_path, "K5": p4,
              "K6": p4, "K7": p4, "K6s": p4, "K8": p6["ivfpq"] if p6 else None}
     kernels = []
     for name, (_, fn_name, source, replaces) in KERNELS.items():
@@ -1862,7 +2317,8 @@ def main(argv=None) -> int:
             "name": f"{name} {fn_name}", "route": "cuda", "source": source, "replaces": replaces,
             "launches": path["launches"][name] if path else None,
             "launches_by_phase": {str(n): p["launches"][name] for n, p in
-                                  ((2, p2), (4, p4), (6, p6["ivfpq"] if p6 else None), (8, p8))
+                                  ((2, p2), (4, p4), (6, p6["ivfpq"] if p6 else None), (8, p8),
+                                   (9, p9))
                                   if p},
             "max_abs_err": errs[name],
             "ms": row.get("ms"), "plain_ms": row.get("plain_ms"),

@@ -1,8 +1,7 @@
 """High-level facade: one object that owns the whole stack.
 
 Port of `codegraph_tpu/api.py` (`open`, `index`, `update_file`, `search`,
-`graph`, `stats`; `ask`, `insights` and `serve` wait for ROADMAP items 18
-and 19):
+`graph`, `stats`, `serve`; `ask` and `insights` wait for ROADMAP item 19):
 
     from codegraph_tpu_torch.api import CodeGraph
 
@@ -100,6 +99,20 @@ class CodeGraph:
             "cache": self.indexer.search.cache.stats(),
             "search_perf": self.indexer.search.monitor.report(),
         }
+
+    # -- serving -----------------------------------------------------------
+
+    def serve(self, transport: str = "stdio") -> None:
+        from codegraph_tpu_torch.mcp.server import make_server
+
+        # one build with the CLI (`cli._make_server`): the JAX package
+        # builds the server twice, and the two builds diverged twice
+        server = make_server(self.indexer, self.config)
+        if transport == "http":
+            server.serve_http(self.config.server.http_host,
+                              self.config.server.http_port)
+        else:
+            server.serve_stdio()
 
 
 __all__ = ["CodeGraph", "index_memory_budget"]
