@@ -7,6 +7,7 @@
     python3 chip_smoke.py --phases 0,1,6,7 # the IVF tiers (K8) only
     python3 chip_smoke.py --phases 0,8     # the default configuration only
     python3 chip_smoke.py --phases 0,9     # the served path (MCP server, agents, CLI) only
+    python3 chip_smoke.py --phases 0,10    # the rest of the serving surface only
 
 Phases, each printing one JSON object per line as it ends:
 
@@ -111,6 +112,25 @@ Phases, each printing one JSON object per line as it ends:
      (2e-3, no mismatch outside ties), the concurrent calls the serial ones.
      Prints tools/call ms over stdio and HTTP beside CodeGraph.search, the
      agentic ms without and with the agent, and the CLI's seconds.
+  10 the rest of the serving surface: phase 8's project and CodeGraphConfig()
+     with search.reranker = "cross_encoder" (checkpoints/cross_encoder_r3.npz
+     whole: 4 x 384, 8 heads, 256 tokens, BPE-16k) served through
+     make_server: a warm-up and 5 semantic_code_search tools/calls at limit
+     20 (stage 1 re-embeds the candidates on the card, stage 2 scores 20
+     pairs), each with its stages' ms; the same candidates reranked on the
+     CPU; the cross-encoder against the JAX package's golden scores
+     (tests/data/cross_encoder_r3_golden.npz) and its CPU path, and its
+     forward at 20 x 256 and 1 x 256 against its bf16 bound; CodeGraph.ask
+     without an LLM and with the scripted localhost LLM, and
+     CodeGraph.insights, against the CPU snapshot; an IndexRouter over the
+     default backend (768) and the hash provider at 256 (tool calls by
+     `model`, raw vectors by width, an unknown model); SegmentedIndex at
+     1,000,000 x 768 f32 fed through WriterHandle in jobs of the default
+     seal threshold (ten segments; the writer reports the reference's row
+     drift on every job after the first), 1% deleted, searched at B=1 (K1)
+     and B=64 (K2) before and after one compact() against one FlatIndex over
+     the same rows. Every reply free of errors; K1 at least once a search
+     that missed the hybrid cache, and once per non-empty segment.
 
 Then the card's name and power limit, one JSON line with every kernel's
 numbers, and last {"ok": true, "device": {...}}. Any failed check exits
@@ -1557,21 +1577,28 @@ ENCODER_ROUTE = ("torch.mm/torch.bmm of bf16 operands with out_dtype=torch.float
                  "(tensor cores, f32 sums), f32 bias/GELU/norms/softmax")
 
 
-def _tool_close(got, ref, tol) -> dict:
-    """Two semantic_code_search outputs, position by position: counts equal,
-    scores within tol; where the ids differ, the scores of that position and
-    a neighbour tie within tol (a swap), else it is a mismatch outside ties."""
-    require("error" not in got and "error" not in ref, f"tool error: {got} / {ref}")
-    require(got["count"] == ref["count"] > 0, f"{got['count']} vs {ref['count']} tool results")
-    a, b = got["results"], ref["results"]
-    require(all(math.isfinite(r["score"]) for r in a), "non-finite tool score")
-    err = max(abs(x["score"] - y["score"]) for x, y in zip(a, b))
-    scores = [r["score"] for r in b]
-    differ = [i for i, (x, y) in enumerate(zip(a, b)) if x["node_id"] != y["node_id"]]
+def _ranked_close(a, b, tol) -> dict:
+    """Two ranked lists of (id, score), position by position: scores within
+    tol; where the ids differ, the scores of that position and a neighbour
+    tie within tol (a swap), else it is a mismatch outside ties."""
+    require(len(a) == len(b), f"{len(a)} vs {len(b)} ranked results")
+    require(all(math.isfinite(s) for _, s in a), "non-finite score")
+    err = max((abs(x[1] - y[1]) for x, y in zip(a, b)), default=0.0)
+    scores = [s for _, s in b]
+    differ = [i for i, (x, y) in enumerate(zip(a, b)) if x[0] != y[0]]
     outside = sum(not any(abs(scores[n] - scores[i]) <= tol
                           for n in (i - 1, i + 1) if 0 <= n < len(scores)) for i in differ)
-    return {"count": got["count"], "max_abs_err": err, "id_mismatches": len(differ),
+    return {"max_abs_err": err, "id_mismatches": len(differ),
             "mismatches_outside_ties": outside + int(err > tol)}
+
+
+def _tool_close(got, ref, tol) -> dict:
+    """Two semantic_code_search outputs: counts equal, hits as `_ranked_close`."""
+    require("error" not in got and "error" not in ref, f"tool error: {got} / {ref}")
+    require(got["count"] == ref["count"] > 0, f"{got['count']} vs {ref['count']} tool results")
+    return {"count": got["count"], **_ranked_close(
+        [(r["node_id"], r["score"]) for r in got["results"]],
+        [(r["node_id"], r["score"]) for r in ref["results"]], tol)}
 
 
 def _encoder_forward_ms(torch, enc, B, L, reps=20):
@@ -1806,6 +1833,7 @@ def phase8(torch, mods, errs) -> dict:
 CLI_QUERY = "load the graph snapshot from disk"
 FAKE_LLM_QUERY = "where are tool calls dispatched to the graph executor"
 FAKE_LLM_ANSWER = "Tool calls go through GraphToolExecutor.execute, which dispatches to GraphQueries."
+FAKE_ASK_ANSWER = "The evidence points at the cited files; see the sources."
 
 
 def _rpc(method, params=None, mid=1):
@@ -1878,6 +1906,17 @@ def _fake_llm():
         def do_POST(self):
             body = json.loads(self.rfile.read(int(self.headers["Content-Length"])))
             seen.append(body)
+            if "tools" not in body and body["messages"][0]["content"].startswith("Question: "):
+                # a RAG completion (CodeGraph.ask, phase 10): plain JSON text
+                data = json.dumps({"choices": [{"message": {
+                    "role": "assistant", "content": FAKE_ASK_ANSWER},
+                    "finish_reason": "stop"}]}).encode()
+                self.send_response(200)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
+                return
             answered = body["messages"][-1]["content"].startswith("[tool result for")
             call = {"index": 0, "id": "call_1", "type": "function",
                     "function": {"name": "semantic_code_search",
@@ -2229,6 +2268,564 @@ def phase9(torch, mods, errs) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 10: the rest of the serving surface (cross-encoder reranker,
+# CodeGraph.ask/insights, the router, the segmented index)
+# ---------------------------------------------------------------------------
+
+CE_GOLDEN = os.path.join(ROOT, "tests", "data", "cross_encoder_r3_golden.npz")
+CE_CKPT = "cross_encoder_r3.npz"
+# the cross-encoder's bf16 tolerance against the JAX package and between two
+# devices (tests/test_torch_cross_encoder.py CE_TOL and CE_MEAN_TOL): its CLS
+# vectors are not normalized (|x| < 4, where a bf16 step is up to 2^-6)
+CE_TOL = 6.25e-2
+CE_MEAN_TOL = 5e-3
+CE_QUERIES = [f"rerank query {i}: how are search results scored and ordered" for i in range(5)]
+ASK_QUESTIONS = ["how does the server dispatch a tool call?",
+                 "where is the graph snapshot loaded from disk",
+                 "explain the reranker pipeline"]
+INSIGHT_TOPICS = ["hybrid search scoring", "graph snapshot archive"]
+SEG_N, SEG_D, SEG_JOB, SEG_K = 1_000_000, 768, 100_000, 30
+
+
+def _ce_flops(cfg, n, L) -> float:
+    """bf16 operations of one cross-encoder forward over n pairs of L tokens:
+    per layer the QKV, output and MLP products (2 L H (3H + H + 2 r H)) and
+    attention's two products (4 L^2 H), times the layers and the pairs."""
+    H, r = cfg.hidden, cfg.mlp_ratio
+    return float(n) * cfg.n_layers * (2.0 * L * H * (4 * H + 2 * r * H) + 4.0 * L * L * H)
+
+
+def _ce_bytes(ce, n, L) -> float:
+    """Bytes a forward must move: every parameter but the token table once,
+    the n x L gathered token rows, the ids and mask, the n scores."""
+    params = sum(v.numel() * v.element_size() for k, v in ce.params.items() if k != "tok_emb")
+    return params + n * L * ce.cfg.hidden * 4 + n * L * 5 + n * 4
+
+
+def _hits_of(results):
+    """SearchResults as (id, score) pairs for `_ranked_close`."""
+    return [(r.node_id, r.score) for r in results]
+
+
+def _sources_close(got, ref, conf, tol) -> dict:
+    """Two ask() source lists, (id, score) each. The generator keeps a hit
+    whose score reaches its confidence threshold, and lists the top hits
+    when none does (confidence 0): a source on one side only must tie that
+    threshold within tol (a threshold tie); the sources on both sides are
+    held as `_ranked_close`. conf is the two sides' confidences."""
+    from codegraph_tpu_torch.rag.generator import GenerationConfig
+
+    floor = GenerationConfig().min_confidence_threshold
+    g_ids, r_ids = {i for i, _ in got}, {i for i, _ in ref}
+    if (conf[0] == 0.0) != (conf[1] == 0.0):
+        # one side selected nothing: every source the other selected is a tie
+        picked = got if conf[0] else ref
+        one_sided = list(picked)
+        got, ref = [], []
+    else:
+        one_sided = [x for x in got if x[0] not in r_ids] + [x for x in ref if x[0] not in g_ids]
+        got, ref = [x for x in got if x[0] in r_ids], [x for x in ref if x[0] in g_ids]
+    out = _ranked_close(got, ref, tol)
+    out["threshold_ties"] = len(one_sided)
+    out["mismatches_outside_ties"] += sum(abs(s - floor) > tol for _, s in one_sided)
+    return out
+
+
+def _phase10_cross_encoder(torch, mods, cg, cpu, cfg) -> dict:
+    """semantic_code_search with reranker="cross_encoder" through make_server
+    on the card: stage 1 re-embeds the candidates with the provider, stage 2
+    scores them with the r3 cross-encoder; held to the golden file and to the
+    same candidates reranked on the CPU."""
+    import copy
+
+    from codegraph_tpu_torch.mcp.server import make_server
+    from codegraph_tpu_torch.models.bpe import BPETokenizer
+    from codegraph_tpu_torch.models.cross_encoder import CrossEncoder
+    from codegraph_tpu_torch.search.reranker import make_reranker_pipeline
+
+    server = make_server(cg.indexer, cfg)
+    pipe = server.tools.reranker
+    ce = pipe.cross_encoder
+    require(isinstance(ce, CrossEncoder) and ce.device.type == "cuda",
+            f"phase 10: the served reranker has no cross-encoder on the card: {ce!r}")
+    c = ce.cfg
+    require((c.hidden, c.n_layers, c.n_heads, c.max_len, c.pooling) == (384, 4, 8, 256, "cls"),
+            f"phase 10: the cross-encoder is {c}")
+    require(isinstance(ce.tokenizer, BPETokenizer) and ce.tokenizer.vocab_size == 16644,
+            f"phase 10: the cross-encoder's tokenizer is {type(ce.tokenizer).__name__}")
+    require({v.device.type for v in ce.params.values()} == {"cuda"},
+            "phase 10: cross-encoder parameters are not all on the card")
+    require(type(pipe.stage1).__name__ == "EmbeddingReranker",
+            f"phase 10: stage 1 is {type(pipe.stage1).__name__}")
+
+    stage_ms = {"stage1": [], "stage2": []}
+    stage1, stage2 = pipe.stage1.rerank, ce.rerank_batch
+
+    def timed(name, fn):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            stage_ms[name].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return call
+
+    pipe.stage1.rerank = timed("stage1", stage1)
+    ce.rerank_batch = timed("stage2", stage2)
+    misses0 = cg.indexer.search.cache.misses
+    # a warm-up call (the process's first cross-encoder forward), then the
+    # timed ones, each a new query at the stage-2 width of 20 pairs
+    reset_launches(mods)
+    _payload(server.handle_message(_call("semantic_code_search",
+                                         {"query": "warm up the cross-encoder", "limit": 20}, 1)),
+             "warm-up cross-encoder call")
+    call_ms, replies = [], []
+    for i, q in enumerate(CE_QUERIES):
+        t0 = time.perf_counter()
+        reply = server.handle_message(_call("semantic_code_search", {"query": q, "limit": 20},
+                                            10 + i))
+        call_ms.append((time.perf_counter() - t0) * 1e3)
+        replies.append(_payload(reply, f"cross-encoder tools/call {i}"))
+    launches = read_launches(mods)
+    n_search = cg.indexer.search.cache.misses - misses0
+    pipe.stage1.rerank, ce.rerank_batch = stage1, stage2
+    require(all(r["count"] == 20 for r in replies), "phase 10: a rerank returned fewer than 20")
+
+    # the same candidates reranked by the card's pipeline and by the CPU's
+    cpu_pipe = make_reranker_pipeline(cpu.indexer.provider, cfg.search, device="cpu")
+    cpu_ce = cpu_pipe.cross_encoder
+    rerank_vs_cpu, served_vs_direct, tols = [], [], []
+    for q, reply in zip(CE_QUERIES, replies):
+        cands = cg.indexer.search.search_text(q, 20, filters=server.tools._auto_filters(q))
+        card = pipe.rerank(q, copy.deepcopy(cands))
+        served_vs_direct.append([r["node_id"] for r in reply["results"]]
+                                == [r.node_id for r in card])
+        stage1_out = pipe.stage1.rerank(q, copy.deepcopy(cands), 20)
+        base = np.array([r.score for r in stage1_out])
+        ce_s = ce.score_pairs(q, [f"{r.name} {r.snippet}" for r in stage1_out])
+        # a min-max normalized blend: each side's gap over its span, times its weight
+        tol = (0.7 * 3 * ENC_TOL / max(float(base.max() - base.min()), 1e-9)
+               + 0.3 * 3 * CE_TOL / max(float(ce_s.max() - ce_s.min()), 1e-9))
+        tols.append(tol)
+        rerank_vs_cpu.append(_ranked_close(_hits_of(card),
+                                           _hits_of(cpu_pipe.rerank(q, copy.deepcopy(cands))), tol))
+
+    gold = np.load(CE_GOLDEN)
+    framed = [ce._encode_pairs(str(q), [str(d)]) for q, d in zip(gold["queries"], gold["docs"])]
+    framing_equal = all(np.array_equal(f[0][0], gold["ids"][r]) and
+                        np.array_equal(f[1][0], gold["mask"][r]) for r, f in enumerate(framed))
+    card_cls = ce.cls_vectors(gold["ids"], gold["mask"]).cpu().numpy()
+    card_scores = ce.score_framed(gold["ids"], gold["mask"]).cpu().numpy()
+    cpu_cls = cpu_ce.cls_vectors(gold["ids"], gold["mask"]).numpy()
+    cpu_scores = cpu_ce.score_framed(gold["ids"], gold["mask"]).numpy()
+    ce_errs = {
+        "cls_vs_jax_golden": float(np.abs(card_cls - gold["cls"]).max()),
+        "cls_mean_vs_jax_golden": float(np.abs(card_cls - gold["cls"]).mean()),
+        "scores_vs_jax_golden": float(np.abs(card_scores - gold["scores"]).max()),
+        "cls_vs_cpu_path": float(np.abs(card_cls - cpu_cls).max()),
+        "cls_mean_vs_cpu_path": float(np.abs(card_cls - cpu_cls).mean()),
+        "scores_vs_cpu_path": float(np.abs(card_scores - cpu_scores).max()),
+        "cpu_scores_vs_jax_golden": float(np.abs(cpu_scores - gold["scores"]).max()),
+        "pairs": int(gold["ids"].shape[0]),
+    }
+
+    forward = {}
+    g = torch.Generator(device="cuda").manual_seed(10)
+    for n in (20, 1):
+        L = c.max_len
+        ids = torch.randint(0, c.vocab_size, (n, L), generator=g, device="cuda")
+        mask = torch.ones((n, L), dtype=torch.bool, device="cuda")
+        ms = _time_ms(torch, lambda _: ce.score_framed(ids, mask), [None] * 20)
+        bound, bound_by = _bound(_ce_bytes(ce, n, L), _ce_flops(c, n, L), "bfloat16")
+        forward[f"{n}x{L}"] = {"ms": ms, "gflop": _ce_flops(c, n, L) / 1e9, "bound_ms": bound,
+                               "bound_by": bound_by, "share_of_bound": bound / ms}
+    total = {k: max((r[k] for r in rerank_vs_cpu), default=0) if k == "max_abs_err" else
+             sum(r[k] for r in rerank_vs_cpu) for k in rerank_vs_cpu[0]}
+    out = {"checkpoint": os.path.basename(_shipped_ce_checkpoint()),
+           "tools_call_ms": {"median": statistics.median(call_ms), "each": call_ms},
+           "stage1_ms": {"median": statistics.median(stage_ms["stage1"][1:]),
+                         "each": stage_ms["stage1"][1:]},
+           "stage2_ms": {"median": statistics.median(stage_ms["stage2"][1:]),
+                         "each": stage_ms["stage2"][1:]},
+           "forward": forward, "max_abs_err": ce_errs, "golden_framing_equal": framing_equal,
+           "rerank_vs_cpu_same_candidates": total, "blend_tol_max": max(tols),
+           "served_equals_direct": served_vs_direct,
+           "launches": launches, "uncached_searches": n_search}
+    require(framing_equal, "phase 10: the cross-encoder frames pairs unlike the JAX package")
+    require(all(ce_errs[k] <= CE_TOL for k in ce_errs if not k.startswith("cls_mean") and k != "pairs")
+            and ce_errs["cls_mean_vs_jax_golden"] <= CE_MEAN_TOL
+            and ce_errs["cls_mean_vs_cpu_path"] <= CE_MEAN_TOL,
+            f"phase 10: the cross-encoder is off its references: {ce_errs}")
+    require(total["mismatches_outside_ties"] == 0,
+            f"phase 10: the card's rerank differs from the CPU's: {total}")
+    require(all(served_vs_direct), "phase 10: the served rerank differs from the pipeline's")
+    require(launches["K1"] >= n_search >= len(CE_QUERIES) + 1,
+            f"phase 10: {launches['K1']} K1 launches for {n_search} uncached rerank searches")
+    require(all(v == 0 for k_, v in launches.items() if k_ != "K1"),
+            f"phase 10: the rerank path launched another kernel: {launches}")
+    return out
+
+
+def _shipped_ce_checkpoint():
+    from codegraph_tpu_torch.models.cross_encoder import default_cross_encoder_checkpoint
+
+    path = default_cross_encoder_checkpoint()
+    require(path is not None and os.path.basename(path) == CE_CKPT,
+            f"phase 10: the shipped cross-encoder checkpoint is {path!r}")
+    return path
+
+
+def _phase10_ask(torch, mods, cg, cpu, cfg) -> dict:
+    """CodeGraph.ask without an LLM and with the scripted one on localhost,
+    and CodeGraph.insights, on the card, held to the CPU snapshot."""
+    import copy
+
+    from codegraph_tpu_torch.api import CodeGraph
+    from codegraph_tpu_torch.rag.generator import GenerationConfig
+
+    conf_floor = GenerationConfig().min_confidence_threshold
+    fake = None
+    try:
+        fake, fake_url, fake_seen = _fake_llm()
+        lcfg = copy.deepcopy(cfg)
+        lcfg.llm.provider, lcfg.llm.base_url, lcfg.llm.model = "openai_compatible", fake_url, "scripted"
+        llm_card = CodeGraph(lcfg, device="cuda")
+        llm_cpu = CodeGraph(lcfg, device="cpu")
+        runs = {}
+
+        def capture(graph):
+            """ask() builds its RAGSystem on first use; keep each RAGAnswer."""
+            answers = []
+            rag = graph._rag
+            inner = rag.process_query
+
+            def wrapped(q):
+                a = inner(q)
+                answers.append(a)
+                return a
+            rag.process_query = wrapped
+            return answers
+
+        misses0 = cg.indexer.search.cache.misses + llm_card.indexer.search.cache.misses
+        reset_launches(mods)
+        for name, graph in (("no_llm", cg), ("scripted_llm", llm_card)):
+            graph.ask("warm up the RAG path")
+            answers = capture(graph)
+            t_each = []
+            replies = []
+            for q in ASK_QUESTIONS:
+                t0 = time.perf_counter()
+                replies.append(graph.ask(q))
+                t_each.append((time.perf_counter() - t0) * 1e3)
+            runs[name] = {"replies": replies, "answers": answers, "ms": t_each}
+        t0 = time.perf_counter()
+        insights = [cg.insights(t) for t in INSIGHT_TOPICS]
+        t_insights = (time.perf_counter() - t0) * 1e3 / len(INSIGHT_TOPICS)
+        launches = read_launches(mods)
+        n_search = (cg.indexer.search.cache.misses + llm_card.indexer.search.cache.misses
+                    - misses0)
+
+        checks = {}
+        for name, graph in (("no_llm", cpu), ("scripted_llm", llm_cpu)):
+            graph.ask("warm up the RAG path")
+            answers = capture(graph)
+            mine = runs[name]
+            rows = []
+            for q, reply, ans in zip(ASK_QUESTIONS, mine["replies"], mine["answers"]):
+                ref = graph.ask(q)
+                ref_ans = answers[-1]
+                both_fresh = not ans.degraded and not ref_ans.degraded
+                conf = [ans.response.confidence, ref_ans.response.confidence]
+                # sources' scores are rounded to four places: 1e-4 more
+                tol = ENC_TOL + 1e-4
+                sources = _sources_close(
+                    [(x["node_id"], x["score"]) for x in reply["sources"]],
+                    [(x["node_id"], x["score"]) for x in ref["sources"]], conf, tol)
+                # the answer is a function of the sources in their order and of
+                # the confidence against its threshold: compared where both agree
+                same_inputs = ([x["node_id"] for x in reply["sources"]]
+                               == [x["node_id"] for x in ref["sources"]]
+                               and not min(conf) < conf_floor <= max(conf))
+                rows.append({
+                    "sources": sources,
+                    "confidence": conf,
+                    "query_type_equal": reply["query_type"] == ref["query_type"],
+                    "degraded": [ans.degraded, ref_ans.degraded],
+                    "used_llm": [ans.response.used_llm, ref_ans.response.used_llm],
+                    "answer_equal": ((reply["answer"] == ref["answer"])
+                                     if both_fresh and same_inputs else None),
+                    "answer_is_llm": reply["answer"] == FAKE_ASK_ANSWER})
+            checks[name] = rows
+        insights_cpu = [cpu.insights(t) for t in INSIGHT_TOPICS]
+        insight_rows = []
+        for topic, got, ref in zip(INSIGHT_TOPICS, insights, insights_cpu):
+            # the relevant-code insight lists the top hits: a swap is a tie of
+            # the two hits' scores; the rest follows from the top hit
+            hits = _hits_vs(cg.search(topic, 5), cpu.search(topic, 5), ENC_TOL)
+            same_top = cg.search(topic, 5)[0].node_id == cpu.search(topic, 5)[0].node_id
+            kinds_equal = [i["kind"] for i in got] == [i["kind"] for i in ref] or not same_top
+            rest_equal = (not same_top) or [i for i in got if i["kind"] != "relevant_code"] == \
+                [i for i in ref if i["kind"] != "relevant_code"]
+            insight_rows.append({"equal": got == ref, "kinds": [i["kind"] for i in got],
+                                 "hits_vs_cpu": hits, "same_top": same_top,
+                                 "kinds_equal": kinds_equal, "rest_equal": rest_equal})
+
+        def stages(name):
+            return {k: statistics.median(a.stage_ms[k] for a in runs[name]["answers"])
+                    for k in runs[name]["answers"][0].stage_ms}
+
+        out = {"ask_ms": {n: {"median": statistics.median(r["ms"]), "each": r["ms"]}
+                          for n, r in runs.items()},
+               "ask_stage_ms": {n: stages(n) for n in runs},
+               "insights_ms": t_insights, "ask_vs_cpu": checks, "insights_vs_cpu": insight_rows,
+               "fake_llm_requests": len(fake_seen), "launches": launches,
+               "uncached_searches": n_search}
+        for name, rows in checks.items():
+            for r in rows:
+                require(r["sources"]["mismatches_outside_ties"] == 0 and r["query_type_equal"],
+                        f"phase 10: ask ({name}) differs from the CPU snapshot: {r}")
+                require(r["answer_equal"] in (True, None),
+                        f"phase 10: ask ({name}) answers differ from the CPU's: {r}")
+                require(not r["degraded"][0], f"phase 10: a warm ask on the card degraded: {r}")
+        require(any(r["answer_is_llm"] for r in checks["scripted_llm"])
+                and all(not r["answer_is_llm"] for r in checks["no_llm"]),
+                f"phase 10: the scripted LLM did not answer an ask: {checks}")
+        require(all(r["hits_vs_cpu"]["mismatches_outside_ties"] == 0 and r["kinds_equal"]
+                    and r["rest_equal"] and r["kinds"] for r in insight_rows),
+                f"phase 10: insights differ from the CPU snapshot: {insight_rows}")
+        require(launches["K1"] >= n_search > 0,
+                f"phase 10: {launches['K1']} K1 launches for {n_search} uncached ask searches")
+        require(all(v == 0 for k_, v in launches.items() if k_ != "K1"),
+                f"phase 10: ask/insights launched another kernel: {launches}")
+        return out
+    finally:
+        if fake is not None:
+            fake.shutdown()
+            fake.server_close()
+
+
+def _phase10_router(torch, mods, cg, tmp, proj) -> dict:
+    """An IndexRouter over two backends of different widths of one project:
+    the default (ensemble + hash, 768) and the hash provider at 256."""
+    from codegraph_tpu_torch.api import CodeGraph
+    from codegraph_tpu_torch.mcp.tools import GraphToolExecutor
+    from codegraph_tpu_torch.search.router import IndexRouter, RoutingError
+
+    hcfg = _hash_config(tmp, "data_hash256")
+    hcfg.embedding.dimension = 256
+    hcfg.embedding.fallbacks = []
+    narrow = CodeGraph.open(proj, config=hcfg, device="cuda")
+    narrow.index()
+    backends = {"default": cg, "hash256": narrow}
+    router = IndexRouter()
+    for name, graph in backends.items():
+        router.register(name, graph.indexer.provider, graph.indexer.search,
+                        default=(name == "default"))
+    tools = GraphToolExecutor(cg.graph, cg.indexer.search, router=router)
+    require(router.dimensions() == {"default": 768, "hash256": 256},
+            f"phase 10: router widths {router.dimensions()}")
+    routes = {}
+    for i, name in enumerate(backends):
+        q = f"routed query {i} about graph edges"
+        misses = {n: g.indexer.search.cache.misses for n, g in backends.items()}
+        reset_launches(mods)
+        got = tools.execute("semantic_code_search", {"query": q, "limit": 10, "model": name})
+        launches = read_launches(mods)
+        hit = {n: g.indexer.search.cache.misses - misses[n] for n, g in backends.items()}
+        graph = backends[name]
+        own = GraphToolExecutor(graph.graph, graph.indexer.search).execute(
+            "semantic_code_search", {"query": q, "limit": 10})
+        routes[f"tool:{name}"] = {"launches": launches, "searched": hit,
+                                  "vs_own": _tool_close(got, own, SCORE_TOL)}
+    rng = np.random.default_rng(10)
+    for dim, name in ((768, "default"), (256, "hash256")):
+        v = rng.standard_normal(dim).astype(np.float32)
+        reset_launches(mods)
+        s, r = router.search_vector(v, 10)
+        launches = read_launches(mods)
+        s_own, r_own = backends[name].indexer.index.search(v[None, :], 10)
+        routes[f"vector:{dim}"] = {"launches": launches, "backend": router.resolve(dimension=dim),
+                                   "equal": bool(np.array_equal(r, r_own)
+                                                 and np.array_equal(s, s_own))}
+    unknown = tools.execute("semantic_code_search", {"query": "x", "model": "nope"})
+    try:
+        router.resolve(model="nope")
+        raised = False
+    except RoutingError:
+        raised = True
+    out = {"backends": router.stats(), "routes": routes, "unknown_model_raises": raised,
+           "unknown_model_tool_error": unknown.get("error", "")[:80],
+           "launches": {k: sum(r["launches"][k] for r in routes.values()) for k in KERNELS}}
+    for name in backends:
+        r = routes[f"tool:{name}"]
+        require(r["searched"][name] == 1 and sum(r["searched"].values()) == 1,
+                f"phase 10: the model {name!r} did not land on its own backend: {r}")
+        require(r["launches"]["K1"] >= 1 and r["vs_own"]["mismatches_outside_ties"] == 0,
+                f"phase 10: the route to {name!r} differs from the backend's own search: {r}")
+    for dim, name in ((768, "default"), (256, "hash256")):
+        r = routes[f"vector:{dim}"]
+        require(r["backend"] == name and r["equal"] and r["launches"]["K1"] == 1,
+                f"phase 10: a {dim}-wide vector did not land on {name!r}: {r}")
+    require(raised and unknown.get("error", "").startswith("RoutingError"),
+            "phase 10: an unknown model did not raise RoutingError")
+    return out
+
+
+def _phase10_segments(torch, mods) -> dict:
+    """SegmentedIndex at 1M x 768 f32 fed through WriterHandle in jobs of the
+    default seal threshold (100,000 rows: ten segments), 1% deleted, searched
+    at B=1 and 64 before and after one compact(), against one FlatIndex over
+    the same rows on the card."""
+    from codegraph_tpu_torch.core.types import CodeChunk
+    from codegraph_tpu_torch.graph.store import GraphStore
+    from codegraph_tpu_torch.index import FlatIndex, SegmentedIndex
+    from codegraph_tpu_torch.indexer.writer import WriterHandle
+
+    dev = torch.device("cuda")
+    seg = SegmentedIndex(SEG_D, device="cuda")
+    require(seg.seal_threshold == SEG_JOB, f"phase 10: seal_threshold {seg.seal_threshold}")
+    flat = FlatIndex(SEG_D, device="cuda")
+    flat.reserve(SEG_N)
+    store = GraphStore()
+    g = torch.Generator(device=dev).manual_seed(2026)
+    t0 = time.perf_counter()
+    writer = WriterHandle(store, seg)
+    for j in range(SEG_N // SEG_JOB):
+        x = torch.randn(SEG_JOB, SEG_D, generator=g, device=dev)
+        chunks = [CodeChunk.make(f"segment-node-{j}", f"row {j * SEG_JOB + i}", i, SEG_JOB)
+                  for i in range(SEG_JOB)]
+        writer.enqueue_chunk_embeddings(chunks, x)
+        flat.add(x)
+    errors = writer.flush()
+    writer.close()
+    torch.cuda.synchronize()
+    t_feed = time.perf_counter() - t0
+    stride = SegmentedIndex.SEGMENT_STRIDE
+
+    def global_rows(r):
+        r = np.asarray(r, np.int64)
+        return np.where(r >= 0, (r // SEG_JOB) * stride + r % SEG_JOB, -1)
+
+    dead = torch.randperm(SEG_N, generator=g, device=dev)[: SEG_N // 100].cpu().numpy()
+    seg.delete(global_rows(dead))
+    flat.delete(dead)
+    x_flat, bias_flat = flat.arrays()
+
+    def search_and_check(tag, to_flat_rows):
+        """B=1 (K1) and B=64 (K2): the segmented index's global rows, mapped
+        back to the flat index's rows, held to the flat index's top-k."""
+        rows = []
+        for B in (1, 64):
+            q = torch.randn(B, SEG_D, generator=g, device=dev)
+            q_host = q.cpu().numpy()
+            reset_launches(mods)
+            t1 = time.perf_counter()
+            s_g, i_g = seg.search(q_host, SEG_K)
+            ms = (time.perf_counter() - t1) * 1e3
+            launches = read_launches(mods)
+            s_f, i_f = flat.search(q, SEG_K)
+            qn = torch.nn.functional.normalize(q.float(), dim=1)
+            err, n_diff, bad = check_topk(
+                torch, qn, x_flat, bias_flat, torch.as_tensor(s_g, device=dev),
+                torch.as_tensor(to_flat_rows(i_g), device=dev).int(),
+                torch.as_tensor(s_f, device=dev), torch.as_tensor(i_f, device=dev).int())
+            rows.append({"when": tag, "B": B, "k": SEG_K, "ms": ms, "launches": launches,
+                         "segments_searched": sum(len(s) > 0 for s in seg._segments),
+                         "max_abs_err": err, "id_mismatches": n_diff,
+                         "mismatches_outside_ties": bad})
+        return rows
+
+    def flat_of_global(gl):
+        gl = np.asarray(gl, np.int64)
+        return np.where(gl >= 0, (gl // stride) * SEG_JOB + gl % stride, -1)
+
+    searches = search_and_check("ten segments", flat_of_global)
+    sealed_before = sum(s.sealed for s in seg.stats())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    remap = seg.compact()
+    torch.cuda.synchronize()
+    t_compact = time.perf_counter() - t0
+    # the merged segment's rows (segment 0 after compaction) -> flat rows
+    old = np.fromiter(remap.keys(), np.int64, len(remap))
+    new = np.fromiter(remap.values(), np.int64, len(remap))
+    flat_of_merged = np.full(len(remap), -1, np.int64)
+    flat_of_merged[new] = flat_of_global(old)
+
+    def flat_of_compacted(r):
+        r = np.asarray(r, np.int64)
+        require(bool((r < stride).all()), "phase 10: a hit outside the merged segment")
+        return np.where(r >= 0, flat_of_merged[np.maximum(r, 0)], -1)
+
+    searches += search_and_check("after compact", flat_of_compacted)
+    out = {"rows": SEG_N, "dim": SEG_D, "seal_threshold": seg.seal_threshold,
+           "feed_seconds": t_feed, "compact_seconds": t_compact,
+           "writer_errors": len(errors), "writer_errors_all_row_drift":
+               all("row drift" in e for e in errors),
+           "store_chunks": store.stats()["chunks"], "sealed_before_compact": sealed_before,
+           "segments_after_compact": [(s.rows, s.live, s.sealed) for s in seg.stats()],
+           "remap_rows": len(remap), "searches": searches,
+           "launches": {k: sum(r["launches"][k] for r in searches) for k in KERNELS}}
+    require(len(errors) == SEG_N // SEG_JOB - 1 and out["writer_errors_all_row_drift"],
+            f"phase 10: the writer reported {errors[:2]}... ({len(errors)}); expected the "
+            "reference's row drift on every job after the first segment")
+    require(sealed_before == SEG_N // SEG_JOB and len(seg) == SEG_N - SEG_N // 100
+            and store.stats()["chunks"] == SEG_N and len(remap) == SEG_N - SEG_N // 100,
+            f"phase 10: segment bookkeeping {out['segments_after_compact']}")
+    for r in searches:
+        kernel = "K1" if r["B"] < 32 else "K2"
+        require(r["launches"][kernel] == r["segments_searched"]
+                and all(v == 0 for k_, v in r["launches"].items() if k_ != kernel),
+                f"phase 10: segmented search launches {r}")
+        require(r["mismatches_outside_ties"] == 0 and r["max_abs_err"] <= SCORE_TOL,
+                f"phase 10: SegmentedIndex differs from FlatIndex: {r}")
+    require([r["segments_searched"] for r in searches] == [10, 10, 1, 1],
+            f"phase 10: segments searched {[r['segments_searched'] for r in searches]}")
+    del seg, flat, x_flat, bias_flat
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase10(torch, mods, errs) -> dict:
+    """The rest of the serving surface on the card: the cross-encoder
+    reranker through make_server, CodeGraph.ask/insights, an IndexRouter
+    over two backends, and SegmentedIndex at 1M x 768 against FlatIndex."""
+    from codegraph_tpu_torch.api import CodeGraph
+    from codegraph_tpu_torch.core.config import CodeGraphConfig
+
+    require(os.path.exists(CE_GOLDEN), f"no golden cross-encoder scores at {CE_GOLDEN}")
+    _shipped_ce_checkpoint()
+    tmp = tempfile.mkdtemp(prefix="cg_smoke_serving_")
+    try:
+        proj = _project_copy(tmp)
+        cfg = CodeGraphConfig()
+        cfg.data_dir = os.path.join(tmp, "data")
+        cfg.search.reranker = "cross_encoder"
+        require(cfg.search.rerank, "phase 10: rerank is off by default")
+        t0 = time.perf_counter()
+        cg = CodeGraph.open(proj, config=cfg, device="cuda")
+        stats = cg.index()
+        t_index = time.perf_counter() - t0
+        cpu = CodeGraph(cfg, device="cpu")
+        require(len(cpu.indexer.index) == len(cg.indexer.index) == stats.chunks > 0,
+                "phase 10: CPU snapshot load")
+        parts = {}
+        for name, fn, args in (("cross_encoder", _phase10_cross_encoder, (cg, cpu, cfg)),
+                               ("ask", _phase10_ask, (cg, cpu, cfg)),
+                               ("router", _phase10_router, (cg, tmp, proj)),
+                               ("segments", _phase10_segments, ())):
+            t1 = time.perf_counter()
+            parts[name] = fn(torch, mods, *args)
+            parts[name]["seconds"] = round(time.perf_counter() - t1, 3)
+        out = {"phase": 10, "gpu": nvidia_smi_line(), "chunks": stats.chunks,
+               "index_seconds": round(t_index, 3), **parts,
+               "launches": {k: sum(p["launches"][k] for p in parts.values()) for k in KERNELS}}
+        emit(out)
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
 
 
 def _on_alarm(signum, frame):
@@ -2237,7 +2834,7 @@ def _on_alarm(signum, frame):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9",
+    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,10",
                     help="comma-separated phases to run (default: all)")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",") if p.strip()}
@@ -2287,6 +2884,7 @@ def main(argv=None) -> int:
         p7 = run(7, phase7, mods, errs, empty=[])
         p8 = run(8, phase8, mods, errs)
         p9 = run(9, phase9, mods, errs)
+        p10 = run(10, phase10, mods, errs)
     except (CheckFailed, TimeoutError) as exc:
         print(f"chip_smoke FAILED: {exc}", file=sys.stderr, flush=True)
         return 1
@@ -2318,7 +2916,7 @@ def main(argv=None) -> int:
             "launches": path["launches"][name] if path else None,
             "launches_by_phase": {str(n): p["launches"][name] for n, p in
                                   ((2, p2), (4, p4), (6, p6["ivfpq"] if p6 else None), (8, p8),
-                                   (9, p9))
+                                   (9, p9), (10, p10))
                                   if p},
             "max_abs_err": errs[name],
             "ms": row.get("ms"), "plain_ms": row.get("plain_ms"),

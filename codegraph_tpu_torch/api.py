@@ -1,13 +1,13 @@
 """High-level facade: one object that owns the whole stack.
 
-Port of `codegraph_tpu/api.py` (`open`, `index`, `update_file`, `search`,
-`graph`, `stats`, `serve`; `ask` and `insights` wait for ROADMAP item 19):
+Port of `codegraph_tpu/api.py`:
 
     from codegraph_tpu_torch.api import CodeGraph
 
     cg = CodeGraph.open("/path/to/repo")          # device="cuda" by default
     cg.index()
     hits = cg.search("where is the config loaded")
+    answer = cg.ask("how does indexing work?")
     deps = cg.graph.transitive_dependencies("load_config")
 
 The default configuration embeds with the `ensemble` provider: the shipped
@@ -46,6 +46,7 @@ class CodeGraph:
         self.config = config
         self.device = resolve_device(device)
         self.indexer = ProjectIndexer(config, device=self.device)
+        self._rag = None
         data_dir = config.resolved_data_dir()
         if (data_dir / "store_meta.json").exists():
             self.indexer.load(str(data_dir))
@@ -88,9 +89,34 @@ class CodeGraph:
     def search(self, query: str, limit: int = 10) -> List[SearchResult]:
         return self.indexer.search.search_text(query, limit)
 
+    def ask(self, question: str) -> Dict[str, Any]:
+        """RAG answer with sources (no LLM unless configured)."""
+        if self._rag is None:
+            from codegraph_tpu_torch.mcp.llm import create_llm
+            from codegraph_tpu_torch.rag.system import RAGSystem
+
+            llm = create_llm(self.config)
+            self._rag = RAGSystem(
+                self.indexer.search, self.indexer.store,
+                llm=llm if llm.is_available() else None,
+            )
+        answer = self._rag.process_query(question)
+        return {
+            "answer": answer.response.answer,
+            "sources": answer.response.sources,
+            "query_type": answer.query_type,
+            "latency_ms": round(answer.latency_ms, 1),
+        }
+
     @property
     def graph(self) -> GraphQueries:
         return GraphQueries(self.indexer.store)
+
+    def insights(self, topic: str) -> List[Dict[str, Any]]:
+        from codegraph_tpu_torch.rag.insights import InsightsGenerator
+
+        gen = InsightsGenerator(self.indexer.search, self.graph)
+        return [i.to_dict() for i in gen.generate(topic)]
 
     def stats(self) -> Dict[str, Any]:
         return {

@@ -545,13 +545,14 @@ class MCPServer:
 
 def make_server(indexer, config: CodeGraphConfig) -> MCPServer:
     """The MCP server over a ProjectIndexer: its graph, hybrid search and
-    provider (for the reranker), on whatever device the indexer runs."""
+    provider (for the reranker), on whatever device the indexer runs (the
+    cross-encoder reranker too)."""
     from codegraph_tpu_torch.graph.queries import GraphQueries
     from codegraph_tpu_torch.search.reranker import make_reranker_pipeline
 
     tools = GraphToolExecutor(
         GraphQueries(indexer.store), indexer.search,
-        make_reranker_pipeline(indexer.provider, config.search),
+        make_reranker_pipeline(indexer.provider, config.search, device=indexer.device),
         rerank_default=config.search.rerank,
     )
     return MCPServer(tools, config)

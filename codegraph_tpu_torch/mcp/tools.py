@@ -1,7 +1,4 @@
-"""Copy of `codegraph_tpu/mcp/tools.py` for the PyTorch port; a `router`
-(multi-model routing, `search/router.py`) raises NotImplementedError until
-ROADMAP item 19 ports it, so the `model` tool parameter is ignored, as it is
-in the JAX package with its default router=None.
+"""Copy of `codegraph_tpu/mcp/tools.py` for the PyTorch port.
 
 Agent-facing graph tools: the 8-tool executor + JSON schemas.
 
@@ -194,10 +191,6 @@ class GraphToolExecutor:
         rerank_default: what an omitted `rerank` tool param means —
         wired from SearchConfig.rerank (True since r5: the feature
         reranker measured net-positive at ~zero latency)."""
-        if router is not None:
-            raise NotImplementedError(
-                "a router for the `model` tool parameter (search/router.py) is "
-                "not ported yet: ROADMAP item 19")
         self.queries = queries
         self.search = hybrid_search
         self.reranker = reranker

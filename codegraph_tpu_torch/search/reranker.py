@@ -1,6 +1,8 @@
 """Copy of `codegraph_tpu/search/reranker.py` for the PyTorch port;
-`reranker="cross_encoder"` (the r3 cross-encoder, `models/cross_encoder.py`)
-raises NotImplementedError until ROADMAP item 9 ports it.
+`make_reranker_pipeline` takes the device that `reranker="cross_encoder"`
+(the r3 cross-encoder, `models/cross_encoder.py`) runs on, and raises where
+the shipped checkpoint is missing (the JAX package then builds a
+random-init scorer).
 
 Multi-stage reranking pipeline.
 
@@ -280,18 +282,30 @@ class RerankerPipeline:
 
 
 def make_reranker_pipeline(provider, search_cfg, llm=None,
-                           degree_fn=None) -> RerankerPipeline:
+                           degree_fn=None, device="cuda") -> RerankerPipeline:
     """The ONE serving construction path for the rerank pipeline
     (CLI `codegraph start`, the library API, service hosts). Duplicated
     builds have twice diverged — one dropped the cross_encoder wiring
     entirely, another constructed it without the shipped checkpoint
-    (a random-init scorer blending noise into every ranking)."""
+    (a random-init scorer blending noise into every ranking).
+
+    `device` is where the cross-encoder runs (give the provider's, so that
+    stage 1's re-embedding and stage 2 share it); without the shipped
+    checkpoint `reranker="cross_encoder"` raises."""
     cross_encoder = None
     stage2_override = None
     if getattr(search_cfg, "reranker", None) == "cross_encoder":
-        raise NotImplementedError(
-            "reranker 'cross_encoder' (models/cross_encoder.py) is not ported "
-            "yet: ROADMAP item 9; use reranker 'feature' (the default)")
+        from codegraph_tpu_torch.models.cross_encoder import (
+            CrossEncoder,
+            default_cross_encoder_checkpoint,
+        )
+
+        checkpoint = default_cross_encoder_checkpoint()
+        if checkpoint is None:
+            raise FileNotFoundError(
+                "reranker 'cross_encoder' needs the shipped checkpoint "
+                "checkpoints/cross_encoder_r3.npz, which is missing")
+        cross_encoder = CrossEncoder(checkpoint=checkpoint, device=device)
     elif getattr(search_cfg, "reranker", None) == "feature":
         stage2_override = FeatureReranker(degree_fn=degree_fn)
     return RerankerPipeline(

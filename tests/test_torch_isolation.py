@@ -56,6 +56,28 @@ def test_every_module_imports_without_jax():
     assert int(proc.stdout.split()[-1]) >= 40
 
 
+# the modules of the serving surface's last slice: each imports alone
+SERVING_MODULES = [
+    "models.cross_encoder", "search.reranker", "rag", "rag.retriever", "rag.ranker",
+    "rag.generator", "rag.system", "rag.insights", "search.router", "index.segments",
+    "indexer.writer", "graph.consistency", "core.versioning", "parser.diff", "parser.semantic",
+    "version", "api",
+]
+
+
+@pytest.mark.parametrize("module", SERVING_MODULES)
+def test_serving_module_imports_alone_without_jax(module):
+    code = BLOCKED_IMPORT.split("import codegraph_tpu_torch\n")[0] + (
+        f"import codegraph_tpu_torch.{module}\n"
+        "leaked = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'codegraph_tpu') and sys.modules[m] is not None)\n"
+        "assert not leaked, leaked\n")
+    proc = _run(["-c", code], cwd=REPO)
+    assert proc.returncode == 0, proc.stderr
+    assert os.path.exists(os.path.join(PKG, *module.split("."))) or os.path.exists(
+        os.path.join(PKG, *module.split(".")) + ".py")
+
+
 def test_no_import_line_names_jax_or_the_jax_package():
     pattern = re.compile(r"^\s*(import|from)\s+(jax|codegraph_tpu)([.\s]|$)")
     files = [os.path.join(d, f) for d, _, fs in os.walk(PKG) for f in fs if f.endswith(".py")]

@@ -236,16 +236,24 @@ def test_adjacency_boost_matches_jax(rng, B, K, n, deg):
 
 
 def _cross_encoder_reranker(cg):
+    from codegraph_tpu_torch.models.cross_encoder import CrossEncoder
     from codegraph_tpu_torch.search.reranker import make_reranker_pipeline
 
     cg.config.search.reranker = "cross_encoder"
-    make_reranker_pipeline(cg.indexer.provider, cg.config.search)
+    pipeline = make_reranker_pipeline(cg.indexer.provider, cg.config.search,
+                                      device=cg.indexer.device)
+    assert isinstance(pipeline.cross_encoder, CrossEncoder)
+    assert pipeline.cross_encoder.device == cg.indexer.device
 
 
 def _tools_with_a_router(cg):
     from codegraph_tpu_torch.mcp.tools import GraphToolExecutor
+    from codegraph_tpu_torch.search.router import IndexRouter
 
-    GraphToolExecutor(cg.graph, cg.indexer.search, router=object())
+    router = IndexRouter()
+    router.register("default", cg.indexer.provider, cg.indexer.search)
+    tools = GraphToolExecutor(cg.graph, cg.indexer.search, router=router)
+    assert tools.router is router
 
 
 @pytest.mark.parametrize("build,item", [
@@ -253,12 +261,13 @@ def _tools_with_a_router(cg):
     (_tools_with_a_router, "ROADMAP item 19"),
 ])
 def test_unported_configurations_raise(tmp_path, build, item):
-    """What this port does not run yet raises NotImplementedError naming its
-    ROADMAP item (the providers `ensemble` and `encoder` and the HTTP ones,
-    which raised here before, are ported: tests/test_torch_providers.py)."""
+    """The two configurations that raised NotImplementedError naming their
+    ROADMAP item until this slice ported them (the cross-encoder reranker,
+    item 9; the tools' router, item 19) now build on the CPU and raise
+    nothing; `tests/test_torch_cross_encoder.py` and
+    `tests/test_torch_router.py` hold them to the JAX package."""
     cg = TCodeGraph.open(str(tmp_path), config=_cfg(TConfig, tmp_path / "d"), device="cpu")
-    with pytest.raises(NotImplementedError, match=item):
-        build(cg)
+    build(cg)
 
 
 @pytest.mark.parametrize("override,tier", [

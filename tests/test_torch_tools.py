@@ -17,6 +17,7 @@ import shutil
 
 import numpy as np
 import pytest
+import torch
 
 from codegraph_tpu.api import CodeGraph as JCodeGraph
 from codegraph_tpu.core.config import CodeGraphConfig as JConfig
@@ -242,11 +243,21 @@ def test_llm_reranker_and_pipelines_equal(reply):
         assert len(b) == (10 if tp.stage3 else 20)
 
 
-def test_cross_encoder_reranker_raises_naming_its_item():
+def test_cross_encoder_reranker_raises_naming_its_item(monkeypatch):
+    """Ported (ROADMAP item 9): the pipeline raises only where the port
+    refuses, naming what is missing: the shipped checkpoint, or the GPU of
+    the default device."""
+    from codegraph_tpu_torch.models import cross_encoder as tce
+
     cfg = TConfig().search
     cfg.reranker = "cross_encoder"
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        trr.make_reranker_pipeline(None, cfg)
+    assert trr.make_reranker_pipeline(None, cfg, device="cpu").cross_encoder is not None
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            trr.make_reranker_pipeline(None, cfg)
+    monkeypatch.setattr(tce, "default_cross_encoder_checkpoint", lambda: None)
+    with pytest.raises(FileNotFoundError, match="cross_encoder_r3.npz"):
+        trr.make_reranker_pipeline(None, cfg, device="cpu")
 
 
 @pytest.mark.parametrize("query", [
@@ -286,5 +297,18 @@ def test_debug_logger_writes_the_same_records(tmp_path, monkeypatch):
 
 
 def test_tools_with_a_router_raise_naming_its_item(snap):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 19"):
-        TTools(snap["t"].graph, snap["t"].indexer.search, router=object())
+    """Ported (ROADMAP item 19): a router is taken, and a `model` it does
+    not serve is a structured RoutingError naming the model, as in the JAX
+    package (tests/test_torch_router.py routes the known ones)."""
+    from codegraph_tpu.search.router import IndexRouter as JRouter
+    from codegraph_tpu_torch.search.router import IndexRouter as TRouter
+
+    outs = []
+    for Tools, Router, cg in ((JTools, JRouter, snap["j"]), (TTools, TRouter, snap["t"])):
+        router = Router()
+        router.register("hash768", cg.indexer.provider, cg.indexer.search)
+        tools = Tools(cg.graph, cg.indexer.search, router=router)
+        outs.append(tools.execute("semantic_code_search",
+                                  {"query": "CSR adjacency", "model": "other-index"}))
+    assert outs[1] == outs[0]
+    assert outs[1]["error"].startswith("RoutingError") and "other-index" in outs[1]["error"]
