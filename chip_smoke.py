@@ -8,6 +8,8 @@
     python3 chip_smoke.py --phases 0,8     # the default configuration only
     python3 chip_smoke.py --phases 0,9     # the served path (MCP server, agents, CLI) only
     python3 chip_smoke.py --phases 0,10    # the rest of the serving surface only
+    python3 chip_smoke.py --phases 0,11    # encoder and cross-encoder training only
+    python3 chip_smoke.py --phases 0,12    # the shared-memory hand-off only
 
 Phases, each printing one JSON object per line as it ends:
 
@@ -95,7 +97,13 @@ Phases, each printing one JSON object per line as it ends:
      forward timed at B=1 x 64 and 256 x 192 tokens; the same snapshot
      loaded on the CPU: hybrid hits with the card's query vectors (1e-5)
      and with each side's own (2e-3), and one semantic_code_search tool
-     call with the default feature reranker (2e-3).
+     call with the default feature reranker (2e-3). Where each side embeds
+     the query itself, a search whose two sides kept other candidates at a
+     cut (the 3 x limit chunk prefetch or the top-limit nodes), every one of
+     them within 2e-3 of its side's last kept score, is counted as a cut
+     tie and not held position by position (the graph boost is normalised
+     over the candidates, so one other chunk moves every score); phases 9
+     and 10 count such searches the same way.
   9  the served path: the default configuration through the port's CLI as
      subprocesses on the card (`python -m codegraph_tpu_torch.cli index`,
      then `start stdio` fed initialize, tools/list, a semantic_code_search
@@ -109,7 +117,8 @@ Phases, each printing one JSON object per line as it ends:
      Every reply must be free of errors; K1 must launch at least once a
      semantic search and no other kernel; the CLI's replies must equal this
      process's (1e-5), the card's the same snapshot's served from the CPU
-     (2e-3, no mismatch outside ties), the concurrent calls the serial ones.
+     (2e-3, no mismatch outside ties or cut ties), the concurrent calls the
+     serial ones.
      Prints tools/call ms over stdio and HTTP beside CodeGraph.search, the
      agentic ms without and with the agent, and the CLI's seconds.
   10 the rest of the serving surface: phase 8's project and CodeGraphConfig()
@@ -131,6 +140,35 @@ Phases, each printing one JSON object per line as it ends:
      and B=64 (K2) before and after one compact() against one FlatIndex over
      the same rows. Every reply free of errors; K1 at least once a search
      that missed the hybrid cache, and once per non-empty segment.
+  11 training at full width: pairs of a docstring and its function's or
+     class's source from the repo's codegraph_tpu/ (read with ast),
+     tokenized with checkpoints/bpe_code_16k.json. The r3 encoder
+     (checkpoints/encoder_r3_512.npz, 6 x 512, 16 heads, L=192) from f32
+     master weights: one step at B=8 on the card against the port's CPU
+     path (loss, accuracy, grad_norm, each gradient's relative L2, the
+     updated parameters); then the r3 trainer's settings (B=256, L=192,
+     remat, lr 5e-4 const) for 20 steps over 8 fixed batches, run as
+     MLLifecycle.train_model's train_fn: median step ms (CUDA events),
+     pairs/s, tokens/s, the share of the bf16 bound (6 operations per
+     weight per token and attention's 12 L H, at 989 TFLOP/s), peak memory
+     with remat and without, every loss finite and the last 4 steps' mean
+     below the first 4's; save_train_state/restore_train_state continuing
+     bit-equal; the registered EncoderProvider embedding within 2e-3 of
+     encode with the trained weights. The r3 cross-encoder
+     (checkpoints/cross_encoder_r3.npz, 4 x 384, L=256) listwise: one step
+     at 2 x 8 against the CPU path, 10 steps at 48 queries x 8 candidates.
+  12 the shared-memory hand-off at real size: a FlatIndex f32, an
+     Int8FlatIndex with its bf16 rescore copy and an IVFPQIndex (nlist
+     1024, nprobe 32, m 96, host int8 refine), each 1,000,000 x 768 made on
+     the card, 1% tombstoned, published in turn into a segment under TMPDIR
+     (or the checkout's _build/ when TMPDIR lacks the room); a second
+     process (`--shm-child`, started with subprocess, its own CUDA context)
+     attaches it through ShmServedIndex and searches at B=1 and 64 (IVF-PQ:
+     B=1), its results equal to the publisher's bit for bit; the publisher
+     deletes 1% more rows and republishes, the child must see the new
+     generation within check_every (1 s) and answer like the new state.
+     Prints attach, publish and reload seconds and the child's own K1/K2,
+     K5/K6 and K8 launches, which must be above zero.
 
 Then the card's name and power limit, one JSON line with every kernel's
 numbers, and last {"ok": true, "device": {...}}. Any failed check exits
@@ -754,6 +792,21 @@ def yardstick(torch, q, x, bias, k, chunk=131072):
     return v, torch.gather(torch.cat(ii, 1), 1, p).int()
 
 
+def yardstick_tc(torch, q, x, bias, k, chunk=131072):
+    """The same function for bf16 q and x on the tensor cores: chunked
+    torch.mm(q, x.T, out_dtype=torch.float32) (bf16 products, f32 sums) +
+    torch.topk (library calls; used only here)."""
+    ss, ii = [], []
+    for base in range(0, x.shape[0], chunk):
+        s = torch.mm(q, x[base: base + chunk].T, out_dtype=torch.float32) + bias[base: base + chunk]
+        v, i = torch.topk(s, min(k, s.shape[1]), dim=1)
+        ss.append(v)
+        ii.append(i + base)
+    s = torch.cat(ss, 1)
+    v, p = torch.topk(s, k, dim=1)
+    return v, torch.gather(torch.cat(ii, 1), 1, p).int()
+
+
 def _bound(nbytes: float, ops: float, dtype_name: str):
     """(bound ms, what sets it): bytes over the memory rate or operations
     over the peak rate of the type, whichever is larger."""
@@ -804,6 +857,13 @@ def phase3(torch, topk, errs) -> list:
             ]
             ms = _time_ms(torch, lambda qb: fn(qb, x, bias, k), batches)
             lib_ms = _time_ms(torch, lambda qb: yardstick(torch, qb, x, bias, k), batches[:3])
+            extra = {}
+            if dtype_name == "bfloat16":
+                # the f32 yardstick casts the bf16 rows to f32; the fair library
+                # call for a bf16 corpus is the tensor-core product
+                extra["library_f32_ms"] = lib_ms
+                lib_ms = _time_ms(torch, lambda qb: yardstick_tc(torch, qb, x, bias, k),
+                                  batches[:3])
             if (B, k) not in plain_cache:  # K2, K3 and K4 share their plain version
                 plain_cache[(B, k)] = _time_ms(
                     torch, lambda qb: topk.streaming_topk(qb, x, bias, k), batches[:2])
@@ -813,13 +873,18 @@ def phase3(torch, topk, errs) -> list:
             s_k, i_k = fn(qs, x, bias, k)
             s_y, i_y = yardstick(torch, qs, x, bias, k)
             err, n_diff, bad = check_topk(torch, qs, x, bias, s_k, i_k, s_y, i_y)
+            if dtype_name == "bfloat16":
+                s_t, i_t = yardstick_tc(torch, qs, x, bias, k)
+                extra["library_mismatches_outside_ties"] = check_topk(
+                    torch, qs, x, bias, s_t, i_t, s_y, i_y)[2]
+                bad += extra["library_mismatches_outside_ties"]
             errs[name] = max(errs[name], err)
             bound, bound_by = _bound(N * D * elt + N * 4 + B * D * elt + B * k * 8,
                                      2.0 * B * N * D, dtype_name)
             row = {"phase": 3, "kernel": name, "dtype": dtype_name, "N": N, "D": D,
                    "B": B, "k": k, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                    "bound_ms": bound, "bound_by": bound_by,
-                   "share_of_bound": bound / ms, "max_abs_err": err,
+                   **extra, "share_of_bound": bound / ms, "max_abs_err": err,
                    "id_mismatches": n_diff, "mismatches_outside_ties": bad,
                    "index_build_seconds": round(build_s, 3)}
             emit(row)
@@ -1601,6 +1666,64 @@ def _tool_close(got, ref, tol) -> dict:
         [(r["node_id"], r["score"]) for r in ref["results"]], tol)}
 
 
+def _cut_tie(searches, query, limit, filters=(None, None), tol=ENC_TOL) -> str:
+    """How the card's and the CPU's HybridSearch (`searches`) chose their
+    candidates for `query`, each side embedding it as it serves it and
+    applying its own `filters`: "same" when both kept the same chunk rows
+    at the vector prefetch and the same nodes at the top-`limit` cut;
+    "tie" when they differ at a cut and every row or node that one side
+    alone kept scores within tol of that side's last kept score, so that
+    the two encoders' roundings decided it; "differ" otherwise.
+
+    A node's hybrid score depends on the whole candidate set (the graph
+    boost is normalised by its maximum), so one chunk let in at the
+    prefetch cut moves every score of that search."""
+    kept = []
+    for search, flt in zip(searches, filters):
+        lim = min(limit or search.config.default_limit, search.config.max_limit)
+        q = search.provider.embed_texts([query])[0]
+        prefetch = max(lim * search.config.prefetch_multiplier, lim)
+        s, r = search._vector_search(q, prefetch, None if flt is None or flt.empty else flt)
+        rows = {i: v for i, v in zip(r[0].tolist(), s[0].tolist()) if i >= 0}
+        hits = search.search_embedding(q, lim, text_query=query, filters=flt)
+        kept.append((rows, {h.node_id: h.score for h in hits}))
+    for stage in (0, 1):
+        a, b = kept[0][stage], kept[1][stage]
+        if a.keys() == b.keys():
+            continue
+        for own, other in ((a, b), (b, a)):
+            last = min(own.values())
+            if any(own[x] - last > tol for x in own.keys() - other.keys()):
+                return "differ"
+        return "tie"
+    return "same"
+
+
+def _log_searches(search) -> list:
+    """The (query, limit, filters) of every search_text call on the
+    HybridSearch `search` from now on, in a list the caller may clear."""
+    calls = []
+    inner = search.search_text
+
+    def logged(query, limit=0, filters=None):
+        calls.append((query, limit, filters))
+        return inner(query, limit, filters)
+
+    search.search_text = logged
+    return calls
+
+
+def _unless_cut_tie(r, searches, query, limit, filters=(None, None), tol=ENC_TOL) -> dict:
+    """r, a comparison of one search on the card and on the CPU, as it
+    stands, unless it holds a mismatch and `_cut_tie` finds the two sides'
+    candidates differ by a tie at a cut: then that search is counted in
+    `cut_ties` and its mismatches are not held."""
+    r = {**r, "cut_ties": 0}
+    if r["mismatches_outside_ties"] and _cut_tie(searches, query, limit, filters, tol) == "tie":
+        r["cut_ties"], r["mismatches_outside_ties"] = 1, 0
+    return r
+
+
 def _encoder_forward_ms(torch, enc, B, L, reps=20):
     """Median ms of one encoder forward at [B, L] (CUDA events) on seeded
     random token ids, every position live."""
@@ -1609,7 +1732,8 @@ def _encoder_forward_ms(torch, enc, B, L, reps=20):
     g = torch.Generator(device="cuda").manual_seed(8)
     ids = torch.randint(0, enc.cfg.vocab_size, (B, L), generator=g, device="cuda")
     mask = torch.ones((B, L), dtype=torch.bool, device="cuda")
-    return _time_ms(torch, lambda _: encode(enc.params, ids, mask, enc.cfg), [None] * reps)
+    with torch.inference_mode():  # as the providers run it
+        return _time_ms(torch, lambda _: encode(enc.params, ids, mask, enc.cfg), [None] * reps)
 
 
 def phase8(torch, mods, errs) -> dict:
@@ -1727,6 +1851,7 @@ def phase8(torch, mods, errs) -> dict:
 
         # the same snapshot on the CPU: the card's query vectors on both
         # sides (the index stage alone differs), then each side's own text path
+        # (a search whose candidates differ by a tie at a cut is counted: _cut_tie)
         t0 = time.perf_counter()
         cpu = CodeGraph(cfg, device="cpu")
         require(len(cpu.indexer.index) == len(index), "phase 8: CPU snapshot load")
@@ -1741,7 +1866,8 @@ def phase8(torch, mods, errs) -> dict:
             else:
                 same_vec.append(_hits_vs(cg.indexer.search.search_embedding(qv, 10, text_query=qt),
                                          cpu.indexer.search.search_embedding(qv, 10, text_query=qt)))
-            own_text.append(_hits_vs(got, cpu.search(qt, limit=10), ENC_TOL))
+            own_text.append(_unless_cut_tie(_hits_vs(got, cpu.search(qt, limit=10), ENC_TOL),
+                                            (cg.indexer.search, cpu.indexer.search), qt, 10))
         tool_args = {"query": QUERIES[2], "limit": 10}
         tools = GraphToolExecutor(cg.graph, cg.indexer.search,
                                   make_reranker_pipeline(prov, cfg.search),
@@ -1752,7 +1878,10 @@ def phase8(torch, mods, errs) -> dict:
         t1 = time.perf_counter()
         tool_out = tools.execute("semantic_code_search", tool_args)
         t_tool = time.perf_counter() - t1
-        tool = _tool_close(tool_out, cpu_tools.execute("semantic_code_search", tool_args), ENC_TOL)
+        tool = _unless_cut_tie(
+            _tool_close(tool_out, cpu_tools.execute("semantic_code_search", tool_args), ENC_TOL),
+            (cg.indexer.search, cpu.indexer.search), tool_args["query"], tool_args["limit"],
+            (tools._auto_filters(tool_args["query"]), cpu_tools._auto_filters(tool_args["query"])))
         tool["seconds"] = round(t_tool, 4)
         t_cpu = time.perf_counter() - t0
 
@@ -1792,7 +1921,8 @@ def phase8(torch, mods, errs) -> dict:
             "hybrid_own_text_vs_cpu": {
                 "max_abs_err": worst(own_text, "max_abs_err"),
                 "id_mismatches": sum(r["id_mismatches"] for r in own_text),
-                "mismatches_outside_ties": sum(r["mismatches_outside_ties"] for r in own_text)},
+                "mismatches_outside_ties": sum(r["mismatches_outside_ties"] for r in own_text),
+                "cut_ties": sum(r["cut_ties"] for r in own_text)},
             "tool_vs_cpu": tool, "cpu_side_seconds": round(t_cpu, 3),
             "top1": [h[0].name if h else None for h in hits],
         }
@@ -1865,27 +1995,37 @@ def _payload(reply, what) -> dict:
     return payload
 
 
-def _payload_close(got, ref, tol) -> dict:
+def _payload_close(got, ref, tol, cut_tie=None, params=None) -> dict:
     """Two tool payloads: search hits as `_tool_close`; an agentic result's
     evidence item by item (the graph tools it seeds with the top hit only
-    where the top hits agree); anything else exactly."""
+    where the top hits agree); anything else exactly. With `cut_tie` (a
+    search's params -> whether the two sides' candidates differ by a tie at
+    a cut, `_cut_tie`), a search that differs so counts in `cut_ties` and
+    its mismatches are not held; `params` are a search payload's own."""
+    def search(g, r, p):
+        out = {**_tool_close(g, r, tol), "cut_ties": 0}
+        if cut_tie is not None and out["mismatches_outside_ties"] and cut_tie(p):
+            out["cut_ties"], out["mismatches_outside_ties"] = 1, 0
+        return out
+
     if "results" in got:
-        return _tool_close(got, ref, tol)
+        return search(got, ref, params)
+    out = {"max_abs_err": 0.0, "id_mismatches": 0, "mismatches_outside_ties": 0, "cut_ties": 0}
     if "evidence" in got:
         require([e["tool"] for e in got["evidence"]] == [e["tool"] for e in ref["evidence"]]
                 and got["agent"] == ref["agent"], "phase 9: agentic evidence differs")
-        out = {"max_abs_err": 0.0, "id_mismatches": 0, "mismatches_outside_ties": 0}
         same_top = True
         for eg, er in zip(got["evidence"], ref["evidence"]):
             if "results" in eg["result"]:
-                r = _tool_close(eg["result"], er["result"], tol)
+                r = search(eg["result"], er["result"], eg["params"])
                 same_top = eg["result"]["results"][0]["node_id"] == er["result"]["results"][0]["node_id"]
                 for key in out:
                     out[key] = max(out[key], r[key]) if key == "max_abs_err" else out[key] + r[key]
             elif same_top:
                 out["mismatches_outside_ties"] += int(eg != er)
         return out
-    return {"max_abs_err": 0.0, "id_mismatches": 0, "mismatches_outside_ties": int(got != ref)}
+    out["mismatches_outside_ties"] = int(got != ref)
+    return out
 
 
 def _fake_llm():
@@ -1981,7 +2121,8 @@ def phase9(torch, mods, errs) -> dict:
     same snapshot in this process over stdio and HTTP (sessions, SSE, two
     calls at once, DELETE, /metrics), the no-LLM agentic pipelines and one
     ReAct agent driven by a scripted LLM on localhost; checked against the
-    CLI's replies, against the same snapshot served from the CPU, and
+    CLI's replies, against the same snapshot served from the CPU (a search
+    whose candidates differ by a tie at a cut counted: `_cut_tie`), and
     concurrent calls against serial ones."""
     import copy
     import threading
@@ -2202,17 +2343,26 @@ def phase9(torch, mods, errs) -> dict:
         cpu_server = make_server(cpu.indexer, cfg)
         cpu_replies = _stdio(cpu_server, session)
         cpu_by_id = {r["id"]: r for r in cpu_replies if "id" in r}
+        args = {m["id"]: m["params"]["arguments"] for m in session if m["method"] == "tools/call"}
+
+        def cut_tie(p):
+            # each side's search as its server runs it: its own query
+            # vector, the tools' soft filters of the query
+            q = p["query"]
+            return _cut_tie((cg.indexer.search, cpu.indexer.search), q, int(p.get("limit", 10)),
+                            (server.tools._auto_filters(q), cpu_server.tools._auto_filters(q))) == "tie"
+
         card_vs_cpu = {}
         for mid, payload in served.items():
             card_vs_cpu[mid] = _payload_close(payload, _payload(cpu_by_id[mid], f"CPU id {mid}"),
-                                              ENC_TOL)
+                                              ENC_TOL, cut_tie, args[mid])
         plain = {mid: by_id[mid] == cpu_by_id[mid] for mid in (1, 2, 5, 6, 7, 8, 9)}
 
         def total(rows, key):
             vals = [r[key] for r in rows]
             return max(vals) if key == "max_abs_err" else sum(vals)
 
-        keys = ("max_abs_err", "id_mismatches", "mismatches_outside_ties")
+        keys = ("max_abs_err", "id_mismatches", "mismatches_outside_ties", "cut_ties")
         out = {
             "phase": 9, "gpu": nvidia_smi_line(), "chunks": cli_stats["chunks"],
             "cli_index_seconds": round(t_cli_index, 3), "cli_start_seconds": round(t_cli_start, 3),
@@ -2525,12 +2675,15 @@ def _phase10_ask(torch, mods, cg, cpu, cfg) -> dict:
                     - misses0)
 
         checks = {}
+        card_of = {"no_llm": cg, "scripted_llm": llm_card}
         for name, graph in (("no_llm", cpu), ("scripted_llm", llm_cpu)):
             graph.ask("warm up the RAG path")
             answers = capture(graph)
+            searched = _log_searches(graph.indexer.search)
             mine = runs[name]
             rows = []
             for q, reply, ans in zip(ASK_QUESTIONS, mine["replies"], mine["answers"]):
+                searched.clear()
                 ref = graph.ask(q)
                 ref_ans = answers[-1]
                 both_fresh = not ans.degraded and not ref_ans.degraded
@@ -2540,6 +2693,13 @@ def _phase10_ask(torch, mods, cg, cpu, cfg) -> dict:
                 sources = _sources_close(
                     [(x["node_id"], x["score"]) for x in reply["sources"]],
                     [(x["node_id"], x["score"]) for x in ref["sources"]], conf, tol)
+                # the retrieval's searches, as the CPU side asked them
+                verdicts = {_cut_tie((card_of[name].indexer.search, graph.indexer.search),
+                                     sq, lim, (flt, flt)) for sq, lim, flt in searched
+                            } if sources["mismatches_outside_ties"] else set()
+                sources["cut_ties"] = int("tie" in verdicts and "differ" not in verdicts)
+                if sources["cut_ties"]:
+                    sources["mismatches_outside_ties"] = 0
                 # the answer is a function of the sources in their order and of
                 # the confidence against its threshold: compared where both agree
                 same_inputs = ([x["node_id"] for x in reply["sources"]]
@@ -2560,7 +2720,8 @@ def _phase10_ask(torch, mods, cg, cpu, cfg) -> dict:
         for topic, got, ref in zip(INSIGHT_TOPICS, insights, insights_cpu):
             # the relevant-code insight lists the top hits: a swap is a tie of
             # the two hits' scores; the rest follows from the top hit
-            hits = _hits_vs(cg.search(topic, 5), cpu.search(topic, 5), ENC_TOL)
+            hits = _unless_cut_tie(_hits_vs(cg.search(topic, 5), cpu.search(topic, 5), ENC_TOL),
+                                   (cg.indexer.search, cpu.indexer.search), topic, 5)
             same_top = cg.search(topic, 5)[0].node_id == cpu.search(topic, 5)[0].node_id
             kinds_equal = [i["kind"] for i in got] == [i["kind"] for i in ref] or not same_top
             rest_equal = (not same_top) or [i for i in got if i["kind"] != "relevant_code"] == \
@@ -2826,6 +2987,569 @@ def phase10(torch, mods, errs) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 11: training at full width
+# ---------------------------------------------------------------------------
+
+# the r3 trainer's settings (benchmarks/train_encoder_r3.py): B=256 pairs of
+# L=192 tokens, remat, lr 5e-4 const; 20 steps over 8 fixed batches
+TRAIN_B, TRAIN_STEPS, TRAIN_BATCHES, TRAIN_LR = 256, 20, 8, 5e-4
+# the cross-encoder trainer's (benchmarks/train_cross_encoder_r3.py): 48
+# queries x 8 candidates, listwise
+CE_TRAIN_QUERIES, CE_TRAIN_GROUP, CE_TRAIN_STEPS = 48, 8, 10
+# card against the CPU path at bf16, as tests/test_torch_training.py states
+# the port against JAX: loss and grad_norm within one bf16 step of their
+# value, each gradient within 2e-2 (relative L2), each parameter within
+# 2.5 lr of the step's
+TRAIN_GRAD_REL = 2e-2
+TRAIN_PARAM_LR = 2.5
+
+
+def _doc_code_pairs() -> list:
+    """(docstring, source) of every documented function and class of the
+    repo's codegraph_tpu/ sources (read as text with ast), in file order."""
+    import ast
+
+    src = os.path.join(ROOT, "codegraph_tpu")
+    require(os.path.isdir(src), f"no JAX package source at {src} to train on")
+    pairs = []
+    for d, dirs, files in os.walk(src):
+        dirs.sort()
+        for f in sorted(files):
+            if not f.endswith(".py"):
+                continue
+            text = open(os.path.join(d, f), encoding="utf-8").read()
+            for node in ast.walk(ast.parse(text)):
+                if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+                    doc = ast.get_docstring(node)
+                    if doc and len(doc) >= 16:
+                        pairs.append((doc, ast.get_source_segment(text, node)))
+    return pairs
+
+
+def _bf16_step(x: float) -> float:
+    return 2.0 ** (math.floor(math.log2(abs(x))) - 7) if x else 0.0
+
+
+def _raw_grads(torch, opt_state, grad_norm, clip):
+    """One step's raw gradients from the first moments it left (mu = 0.1 g'
+    after one step from zero, g' = g * min(1, clip / |g|))."""
+    scale = max(1.0, float(grad_norm) / clip) / 0.1
+    return {k: v.float() * scale for k, v in opt_state["mu"].items()}
+
+
+def _step_gaps(torch, card, cpu, lr) -> dict:
+    """Card against CPU after one step from the same state: metric gaps,
+    the worst gradient's relative L2 and the worst parameter gap in lr."""
+    (p_c, s_c, m_c), (p_h, s_h, m_h) = card, cpu
+    gaps = {k: abs(float(m_c[k]) - float(m_h[k])) for k in m_c}
+    out = {"loss": float(m_c["loss"]), "loss_cpu": float(m_h["loss"]), "gaps": gaps,
+           "param_gap_lr": max(float((p_c[k].cpu() - p_h[k]).abs().max()) for k in p_h) / lr}
+    require(gaps["loss"] <= _bf16_step(float(m_h["loss"])), f"phase 11: loss gap {gaps}")
+    require(out["param_gap_lr"] <= TRAIN_PARAM_LR, f"phase 11: parameters {out['param_gap_lr']} lr apart")
+    if "grad_norm" in m_c:  # the encoder's step reports it (the cross-encoder's does not)
+        require(gaps["grad_norm"] <= _bf16_step(float(m_h["grad_norm"])), f"phase 11: grad_norm {gaps}")
+        g_c = _raw_grads(torch, s_c, m_c["grad_norm"], 1.0)
+        g_h = _raw_grads(torch, s_h, m_h["grad_norm"], 1.0)
+        rel = {k: float((g_c[k].cpu() - g_h[k]).norm() / g_h[k].norm().clamp(min=1e-30))
+               for k in g_h}
+        worst = max(rel, key=rel.get)
+        out["grad_rel_l2_max"], out["grad_rel_l2_worst"] = rel[worst], worst
+        require(rel[worst] <= TRAIN_GRAD_REL, f"phase 11: gradient of {worst} {rel[worst]} apart")
+    return out
+
+
+def _train_flops(cfg, B, L) -> float:
+    """One InfoNCE step's matmul operations (forward and backward, anchors
+    and positives): 6 per weight per token over 12 H^2 weights a layer, and
+    attention's 12 L H per token a layer. Remat's second forward is not
+    counted: the bound is the work the step needs."""
+    H, n = cfg.hidden, cfg.n_layers
+    tokens = 2 * B * L
+    return tokens * n * (6 * 12 * H * H + 12 * L * H)
+
+
+def _event_ms(torch, fn, reps):
+    """[ms] of fn() reps times, each between two CUDA events; results kept."""
+    outs, events = [], []
+    for _ in range(reps):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        outs.append(fn())
+        e1.record()
+        events.append((e0, e1))
+    torch.cuda.synchronize()
+    return [a.elapsed_time(b) for a, b in events], outs
+
+
+def _profile_step(torch, fn) -> dict:
+    """Device time of one fn() by kind of kernel (torch.profiler): the
+    tensor-core and f32 products (cuBLAS's gemm and nvjet kernels) and the
+    rest, the eight costliest kernels, and the device's idle share of the
+    wall time under the profiler; None where the trace shows no device
+    time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        us = getattr(e, "self_cuda_time_total", 0.0) if us is None else us
+        kernels[e.key] = kernels.get(e.key, 0.0) + us / 1e3
+    busy = sum(kernels.values())
+    if busy <= 0:
+        return None
+    gemm = sum(v for k_, v in kernels.items()
+               if any(w in k_.lower() for w in ("gemm", "nvjet", "xmma", "cutlass", "sm90_")))
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+    return {"wall_ms": wall_ms, "device_ms": busy, "gemm_ms": gemm, "other_ms": busy - gemm,
+            "idle_share": max(0.0, 1.0 - busy / wall_ms), "kernels": len(kernels),
+            "top": [[k_[:80], v] for k_, v in top]}
+
+
+def _phase11_encoder(torch, tt, pairs, tmp) -> dict:
+    import dataclasses
+
+    from codegraph_tpu_torch.ml.pipeline import MLLifecycle
+    from codegraph_tpu_torch.models.encoder import encode
+    from codegraph_tpu_torch.models.providers import EncoderProvider, save_encoder_checkpoint
+
+    ckpt = os.path.join(ROOT, "checkpoints", ENCODER_CKPT)
+    base = EncoderProvider(checkpoint=ckpt, device="cuda")
+    cfg, tok = dataclasses.replace(base.cfg, remat=True), base.tokenizer
+    L = cfg.max_len
+    require((cfg.hidden, cfg.n_layers, cfg.n_heads, L) == (512, 6, 16, 192),
+            f"phase 11: the r3 encoder is {cfg}")
+    master = {k: v.float() for k, v in base.params.items()}  # f32 master weights
+    del base
+    rng = np.random.default_rng(11)
+    batches = []
+    for _ in range(TRAIN_BATCHES):
+        pick = rng.choice(len(pairs), TRAIN_B, replace=False)
+        a_ids, a_mask = tok.encode_batch([pairs[i][0] for i in pick], max_len=L)
+        p_ids, p_mask = tok.encode_batch([pairs[i][1] for i in pick], max_len=L)
+        batches.append({k: torch.from_numpy(v).cuda() for k, v in
+                        (("anchor_ids", a_ids), ("anchor_mask", a_mask),
+                         ("positive_ids", p_ids), ("positive_mask", p_mask))})
+    tcfg = tt.TrainConfig(learning_rate=TRAIN_LR, temperature=0.05)
+    opt = tt.make_optimizer(tcfg)
+
+    # 1. one step at B=8 on the card and on the CPU path, same state and batch
+    small = {k: v[:8] for k, v in batches[0].items()}
+    card = tt.train_step(master, opt.init(master), small, cfg, tcfg, opt)
+    cpu_params = {k: v.cpu() for k, v in master.items()}
+    t0 = time.perf_counter()
+    cpu = tt.train_step(cpu_params, opt.init(cpu_params), {k: v.cpu() for k, v in small.items()},
+                        cfg, tcfg, opt)
+    one_step = {"B": 8, "cpu_seconds": round(time.perf_counter() - t0, 3),
+                **_step_gaps(torch, card, cpu, TRAIN_LR)}
+    del card, cpu, cpu_params
+
+    # 2. + 4. the r3 trainer's settings through MLLifecycle.train_model
+    life = MLLifecycle(device="cuda")
+    run = {}
+
+    def train_fn():
+        params, state = master, opt.init(master)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        metrics = []
+
+        def one(i):
+            nonlocal params, state
+            params, state, m = tt.train_step(params, state, batches[i % TRAIN_BATCHES], cfg,
+                                              tcfg, opt)
+            return m
+
+        it = iter(range(TRAIN_STEPS))
+        ms, metrics = _event_ms(torch, lambda: one(next(it)), TRAIN_STEPS)
+        run.update(ms=ms, peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   losses=[float(m["loss"]) for m in metrics],
+                   accuracy=[float(m["accuracy"]) for m in metrics],
+                   params=params, state=state)
+        path = os.path.join(tmp, "encoder_retrained.npz")
+        save_encoder_checkpoint(path, params, cfg=cfg,
+                                tokenizer_file=os.path.join(ROOT, "checkpoints", "bpe_code_16k.json"))
+        # the tokenizer resolves next to the checkpoint
+        shutil.copy(os.path.join(ROOT, "checkpoints", "bpe_code_16k.json"), tmp)
+        return path
+
+    life.train_model("r3-retrained", train_fn)
+    losses = run["losses"]
+    require(all(math.isfinite(x) for x in losses), f"phase 11: a loss is not finite: {losses}")
+    first, last = sum(losses[:4]) / 4, sum(losses[-4:]) / 4
+    require(last < first, f"phase 11: the loss did not fall ({first} -> {last})")
+    step_ms = statistics.median(run["ms"])
+    flops = _train_flops(cfg, TRAIN_B, L)
+    bound_ms = flops / PEAK_FLOPS["bfloat16"] * 1e3
+    live = sum(int(b["anchor_mask"].sum() + b["positive_mask"].sum()) for b in batches) / TRAIN_BATCHES
+
+    # peak memory of one step without remat (from the trained state)
+    plain_cfg = dataclasses.replace(cfg, remat=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms_plain, _ = _event_ms(torch, lambda: tt.train_step(run["params"], run["state"], batches[0],
+                                                        plain_cfg, tcfg, opt), 2)
+    peak_plain = torch.cuda.max_memory_allocated() / 1e9
+
+    # where one step's time goes on the card
+    profile = _profile_step(torch, lambda: tt.train_step(run["params"], run["state"], batches[0],
+                                                         cfg, tcfg, opt))
+
+    # save/restore: the next step is bit-equal to the uninterrupted one
+    state_path = os.path.join(tmp, "train_state.pt")
+    tt.save_train_state(state_path, run["params"], run["state"], TRAIN_STEPS)
+    p_ref, s_ref, m_ref = tt.train_step(run["params"], run["state"], batches[0], cfg, tcfg, opt)
+    p_got, s_got, n_got = tt.restore_train_state(state_path, template=run["params"])
+    p_got, s_got, m_got = tt.train_step(p_got, s_got, batches[0], cfg, tcfg, opt)
+    bit_equal = (n_got == TRAIN_STEPS and all(torch.equal(p_got[k], p_ref[k]) for k in p_ref)
+                 and all(torch.equal(s_got["nu"][k], s_ref["nu"][k]) for k in p_ref)
+                 and all(torch.equal(m_got[k], m_ref[k]) for k in m_ref))
+    require(bit_equal, "phase 11: the restored train state does not continue bit-equal")
+
+    # the registered provider embeds with the trained weights
+    prov = life.models["r3-retrained"]
+    require(isinstance(prov, EncoderProvider) and prov.device.type == "cuda"
+            and prov.tokenizer.vocab_size == tok.vocab_size,
+            "phase 11: train_model did not register the retrained encoder on the card")
+    texts = [d for d, _ in pairs[:32]]
+    got = torch.from_numpy(prov.embed_texts(texts))
+    want = torch.zeros_like(got)
+    with torch.inference_mode():
+        for sel, ids, mask in prov._batches(texts):
+            want[sel] = encode(run["params"], torch.from_numpy(ids).cuda(),
+                               torch.from_numpy(mask).cuda(), cfg).cpu()
+    provider_err = float((got - want).abs().max())
+    require(provider_err <= ENC_TOL, f"phase 11: the registered provider is {provider_err} off")
+    return {"config": {"hidden": cfg.hidden, "layers": cfg.n_layers, "heads": cfg.n_heads,
+                       "L": L, "vocab": cfg.vocab_size, "B": TRAIN_B, "lr": TRAIN_LR,
+                       "remat": True, "pairs": len(pairs), "batches": TRAIN_BATCHES},
+            "one_step_card_vs_cpu": one_step,
+            "step_ms_median": step_ms, "step_ms": run["ms"],
+            "pairs_per_s": TRAIN_B / step_ms * 1e3,
+            "tokens_per_s": 2 * TRAIN_B * L / step_ms * 1e3,
+            "live_tokens_per_s": live / step_ms * 1e3,
+            "tflop_per_step": flops / 1e12, "bound_ms": bound_ms, "bound_by": "operations",
+            "share_of_bound": bound_ms / step_ms,
+            "profile": profile,
+            "peak_gb_remat": run["peak_gb"], "peak_gb_no_remat": peak_plain,
+            "step_ms_no_remat": statistics.median(ms_plain),
+            "losses": losses, "accuracy": run["accuracy"],
+            "loss_first4": first, "loss_last4": last, "restore_bit_equal": bit_equal,
+            "provider_max_abs_err": provider_err}
+
+
+def _ce_batch(torch, ce, pairs, first, n_queries, rng):
+    """n_queries groups of CE_TRAIN_GROUP candidates: a docstring against its own
+    code (first, label 1) and CE_TRAIN_GROUP - 1 others."""
+    ids, mask, labels = [], [], []
+    for qi in range(first, first + n_queries):
+        others = [j for j in rng.choice(len(pairs), CE_TRAIN_GROUP + 2, replace=False) if j != qi]
+        docs = [pairs[qi][1]] + [pairs[j][1] for j in others[:CE_TRAIN_GROUP - 1]]
+        i, m = ce._encode_pairs(pairs[qi][0], docs)
+        ids.append(i)
+        mask.append(m)
+        labels.append(np.eye(1, CE_TRAIN_GROUP, 0, dtype=np.int32)[0])
+    return {"pair_ids": torch.from_numpy(np.concatenate(ids)).cuda(),
+            "pair_mask": torch.from_numpy(np.concatenate(mask)).cuda(),
+            "labels": torch.from_numpy(np.concatenate(labels)).cuda()}
+
+
+def _phase11_cross_encoder(torch, tt, pairs) -> dict:
+    from codegraph_tpu_torch.models.cross_encoder import CrossEncoder
+
+    ce = CrossEncoder(checkpoint=_shipped_ce_checkpoint(), device="cuda")
+    cfg = ce.cfg
+    require((cfg.hidden, cfg.n_layers, cfg.n_heads, cfg.max_len) == (384, 4, 8, 256),
+            f"phase 11: the r3 cross-encoder is {cfg}")
+    params = {k: v.float() for k, v in ce.params.items()}
+    head = {k: v.float() for k, v in ce.head.items()}
+    tcfg = tt.TrainConfig(learning_rate=TRAIN_LR, temperature=0.05)
+    step, opt = tt.make_cross_encoder_train_step(cfg, tcfg, group_size=CE_TRAIN_GROUP)
+    rng = np.random.default_rng(12)
+    # one step at 2 x 8 on the card and on the CPU path
+    small = _ce_batch(torch, ce, pairs, 0, 2, rng)
+    state = ((params, head), opt.init((params, head)))
+    (pc, sc), mc = step(state, small)
+    cpu_ph = ({k: v.cpu() for k, v in params.items()}, {k: v.cpu() for k, v in head.items()})
+    (ph, sh), mh = step((cpu_ph, opt.init(cpu_ph)), {k: v.cpu() for k, v in small.items()})
+    one_step = _step_gaps(torch, ({**pc[0], **{"head." + k: v for k, v in pc[1].items()}}, sc, mc),
+                          ({**ph[0], **{"head." + k: v for k, v in ph[1].items()}}, sh, mh),
+                          TRAIN_LR)
+    # 10 steps at 48 x 8 pairs of 256 tokens
+    batch = _ce_batch(torch, ce, pairs, 2, CE_TRAIN_QUERIES, rng)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms, metrics = [], []
+
+    def one():
+        nonlocal state
+        state, m = step(state, batch)
+        return m
+
+    ms, metrics = _event_ms(torch, one, CE_TRAIN_STEPS)
+    profile = _profile_step(torch, one)
+    losses = [float(m["loss"]) for m in metrics]
+    require(all(math.isfinite(x) for x in losses), f"phase 11: a cross-encoder loss is {losses}")
+    n, L, H = CE_TRAIN_QUERIES * CE_TRAIN_GROUP, cfg.max_len, cfg.hidden
+    flops = n * L * cfg.n_layers * (6 * 12 * H * H + 12 * L * H)
+    step_ms = statistics.median(ms)
+    bound_ms = flops / PEAK_FLOPS["bfloat16"] * 1e3
+    return {"config": {"hidden": H, "layers": cfg.n_layers, "heads": cfg.n_heads, "L": L,
+                       "queries": CE_TRAIN_QUERIES, "group": CE_TRAIN_GROUP},
+            "one_step_card_vs_cpu": {"pairs": 2 * CE_TRAIN_GROUP, **one_step},
+            "step_ms_median": step_ms, "step_ms": ms, "pairs_per_s": n / step_ms * 1e3,
+            "tokens_per_s": n * L / step_ms * 1e3, "tflop_per_step": flops / 1e12,
+            "bound_ms": bound_ms, "bound_by": "operations", "share_of_bound": bound_ms / step_ms,
+            "profile": profile,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "losses": losses,
+            "accuracy": [float(m["accuracy"]) for m in metrics]}
+
+
+def phase11(torch, mods, errs) -> dict:
+    """Encoder and cross-encoder training on the card at full width."""
+    from codegraph_tpu_torch.models import training as tt
+
+    pairs = _doc_code_pairs()
+    require(len(pairs) >= TRAIN_B + CE_TRAIN_QUERIES + 2, f"phase 11: {len(pairs)} pairs")
+    tmp = tempfile.mkdtemp(prefix="cg_smoke_train_")
+    try:
+        reset_launches(mods)
+        t0 = time.perf_counter()
+        enc = _phase11_encoder(torch, tt, pairs, tmp)
+        enc["seconds"] = round(time.perf_counter() - t0, 3)
+        t0 = time.perf_counter()
+        ce = _phase11_cross_encoder(torch, tt, pairs)
+        ce["seconds"] = round(time.perf_counter() - t0, 3)
+        out = {"phase": 11, "gpu": nvidia_smi_line(), "encoder": enc, "cross_encoder": ce,
+               "launches": read_launches(mods)}
+        emit(out)
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the shared-memory hand-off at real size
+# ---------------------------------------------------------------------------
+
+SHM_N, SHM_D, SHM_K = 1_000_000, 768, 10
+SHM_CHECK_EVERY = 1.0  # the attaching process polls the generation this often
+SHM_POLL_SLACK = 0.1   # its loop's own sleep and one generation read
+
+
+def _shm_dir(need: int) -> tuple:
+    """A directory with `need` bytes free: TMPDIR, else the checkout's
+    build directory (gitignored). -> (path, free bytes)."""
+    for base in (tempfile.gettempdir(), os.path.join(ROOT, "codegraph_tpu_torch", "_build")):
+        os.makedirs(base, exist_ok=True)
+        free = shutil.disk_usage(base).free
+        if free >= need:
+            return tempfile.mkdtemp(prefix="cg_smoke_shm_", dir=base), free
+    raise CheckFailed(f"phase 12: no directory with {need} bytes free for the segments")
+
+
+def shm_child(seg_dir: str) -> int:
+    """The attaching process of phase 12 (`chip_smoke.py --shm-child DIR`):
+    JSON commands on stdin, one JSON reply a line on stdout. It attaches
+    each segment through ShmServedIndex on its own CUDA context, searches
+    queries from DIR and writes the results there, and reports its own
+    kernels' launch counts."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from codegraph_tpu_torch.index import ivf, ivfpq
+    from codegraph_tpu_torch.ops import quantize, topk
+    from codegraph_tpu_torch.search.service import ShmServedIndex
+
+    mods = {"topk": topk, "quantize": quantize, "ivfpq": ivfpq, "ivf": ivf}
+    served = {}
+    for line in sys.stdin:
+        cmd = json.loads(line)
+        op, name = cmd["op"], cmd.get("name")
+        if op == "exit":
+            break
+        t0 = time.perf_counter()
+        if op == "attach":
+            served[name] = ShmServedIndex(cmd["path"], check_every=SHM_CHECK_EVERY, device="cuda")
+            torch.cuda.synchronize()
+            reply = {"attach_seconds": time.perf_counter() - t0, "n": len(served[name]),
+                     "generation": served[name].generation}
+        elif op == "search":
+            q = np.load(os.path.join(seg_dir, cmd["queries"]))
+            reset_launches(mods)
+            s, i = served[name].search(q, cmd["k"])
+            torch.cuda.synchronize()
+            np.savez(os.path.join(seg_dir, cmd["out"]), s=s, i=i)
+            reply = {"seconds": time.perf_counter() - t0, "launches": read_launches(mods)}
+        elif op == "await_reload":
+            reply = {"reloaded": False}
+            while time.time() - cmd["published_at"] < cmd["timeout"]:
+                t_call = time.time()
+                if served[name].maybe_reload():
+                    torch.cuda.synchronize()
+                    reply = {"reloaded": True, "detected_after_s": t_call - cmd["published_at"],
+                             "reload_seconds": time.time() - t_call, "n": len(served[name]),
+                             "generation": served[name].generation}
+                    break
+                time.sleep(0.01)
+        else:
+            reply = {"error": f"unknown op {op!r}"}
+        print(json.dumps(reply), flush=True)
+    for s in served.values():
+        s.close()
+    return 0
+
+
+def _shm_indexes(torch):
+    """The three published indexes at 1M x 768, made on the card from seeded
+    generators, 1% tombstoned; and the rows that the republish deletes."""
+    from codegraph_tpu_torch.index.flat import FlatIndex
+    from codegraph_tpu_torch.index.int8_flat import Int8FlatIndex
+    from codegraph_tpu_torch.index.ivfpq import IVFPQIndex
+
+    dev = torch.device("cuda")
+    N, D, CHUNK = SHM_N, SHM_D, 131072
+    g = torch.Generator(device=dev).manual_seed(1212)
+    centers = _unit(torch, torch.randn(4096, D, generator=g, device=dev))
+    flat = FlatIndex(D, device="cuda")
+    int8 = Int8FlatIndex(D, rescore_dtype="bfloat16", device="cuda")
+    pq = IVFPQIndex(D, nlist=1024, nprobe=32, m=96, refine="int8", device="cuda")
+    pq.train(mixture_chunk(torch, centers, N, pq.train_sample, 1213, 1.0 / math.sqrt(D)))
+    flat.reserve(N)
+    int8.reserve(N)
+    pq.reserve(N)
+    for base in range(0, N, CHUNK):
+        rows = mixture_chunk(torch, centers, base, min(CHUNK, N - base), 1212, 1.0 / math.sqrt(D))
+        for idx in (flat, int8, pq):
+            idx.add(rows)
+    perm = torch.randperm(N, generator=g, device=dev).cpu().numpy()
+    dead, more = perm[: N // 100], perm[N // 100: N // 50]
+    for idx in (flat, int8, pq):
+        idx.delete(dead)
+    torch.cuda.synchronize()
+    return {"flat": flat, "int8": int8, "ivfpq": pq}, more, centers
+
+
+def phase12(torch, mods, errs) -> dict:
+    """Publish three indexes at 1M x 768 into segments; a second process
+    attaches each through ShmServedIndex on its own CUDA context and
+    searches (K1/K2, K5/K6, K8); a delete + republish must reach it within
+    check_every, and every result must equal the publisher's own."""
+    from codegraph_tpu_torch.index.snapshot import publish_index_shm
+
+    t0 = time.perf_counter()
+    idxs, more, centers = _shm_indexes(torch)
+    build_s = time.perf_counter() - t0
+    # one segment at a time, the f32 one the largest: its rows and the
+    # publish's growth slack (0.5)
+    need = int(1.6 * SHM_N * SHM_D * 4)
+    seg_dir, free = _shm_dir(need)
+    emit({"phase": 12, "segments_dir": seg_dir, "free_bytes": free, "need_bytes": need,
+          "build_seconds": round(build_s, 3)})
+    shapes = {"flat": (1, 64), "int8": (1, 64), "ivfpq": (1,)}
+    g = torch.Generator(device="cuda").manual_seed(1214)
+    qfiles = {}
+    for B in (1, 64):
+        q = _unit(torch, mixture_chunk(torch, centers, 2 * SHM_N + B, B, 1215, 1.0 / math.sqrt(SHM_D)))
+        qfiles[B] = f"q{B}.npy"
+        np.save(os.path.join(seg_dir, qfiles[B]), q.cpu().numpy())
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    child = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--shm-child", seg_dir],
+                             stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True, env=env,
+                             cwd=ROOT)
+    stores = {}
+
+    def ask(**cmd):
+        child.stdin.write(json.dumps(cmd) + "\n")
+        child.stdin.flush()
+        line = child.stdout.readline()
+        require(bool(line), f"phase 12: the attaching process ended ({child.poll()})")
+        reply = json.loads(line)
+        require("error" not in reply, f"phase 12: {reply}")
+        return reply
+
+    def compare(name, tag) -> dict:
+        """The child's searches against the publisher's own index."""
+        out = {"launches": {}}
+        for B in shapes[name]:
+            q = np.load(os.path.join(seg_dir, qfiles[B]))
+            r = ask(op="search", name=name, queries=qfiles[B], k=SHM_K, out=f"{name}_{tag}_{B}.npz")
+            got = np.load(os.path.join(seg_dir, f"{name}_{tag}_{B}.npz"))
+            s, i = idxs[name].search(q, SHM_K)
+            equal = bool(np.array_equal(got["s"], s) and np.array_equal(got["i"], i))
+            require(equal, f"phase 12: {name} B={B} ({tag}) differs from the publisher's")
+            out[f"B{B}"] = {"equal": equal, "child_seconds": r["seconds"]}
+            for k_, v in r["launches"].items():
+                out["launches"][k_] = out["launches"].get(k_, 0) + v
+        return out
+
+    try:
+        parts = {}
+        for name, idx in idxs.items():
+            path = os.path.join(seg_dir, f"{name}.shm")
+            t0 = time.perf_counter()
+            stores[name] = publish_index_shm(idx, path)
+            pub_s = time.perf_counter() - t0
+            a = ask(op="attach", name=name, path=path)
+            require(a["n"] == len(idx), f"phase 12: {name} attached {a['n']} of {len(idx)} rows")
+            before = compare(name, "before")
+            # the publisher deletes 1% more rows and republishes in place
+            idx.delete(more)
+            t0 = time.perf_counter()
+            stores[name].close()
+            stores[name] = publish_index_shm(idx, path)
+            published_at = time.time()
+            repub_s = time.perf_counter() - t0
+            r = ask(op="await_reload", name=name, published_at=published_at,
+                    timeout=SHM_CHECK_EVERY + 30.0)
+            require(r["reloaded"] and r["n"] == len(idx), f"phase 12: {name} did not reload: {r}")
+            require(r["detected_after_s"] <= SHM_CHECK_EVERY + SHM_POLL_SLACK,
+                    f"phase 12: {name} reload seen {r['detected_after_s']} s after the republish")
+            after = compare(name, "after")
+            launches = {k_: before["launches"].get(k_, 0) + after["launches"].get(k_, 0)
+                        for k_ in KERNELS}
+            want = {"flat": ("K1", "K2"), "int8": ("K5", "K6"), "ivfpq": ("K8",)}[name]
+            require(all(launches[k_] > 0 for k_ in want),
+                    f"phase 12: {name} launched {launches} in the attaching process")
+            parts[name] = {"segment_bytes": os.path.getsize(path), "publish_seconds": pub_s,
+                           "republish_seconds": repub_s, "attach_seconds": a["attach_seconds"],
+                           "reload_detected_after_s": r["detected_after_s"],
+                           "reload_seconds": r["reload_seconds"], "rows": len(idx),
+                           "before": {k_: v for k_, v in before.items() if k_ != "launches"},
+                           "after": {k_: v for k_, v in after.items() if k_ != "launches"},
+                           "launches": launches}
+            emit({"phase": 12, "index": name, **parts[name]})
+            stores[name].close()
+            os.unlink(path)
+        child.stdin.write(json.dumps({"op": "exit"}) + "\n")
+        child.stdin.flush()
+        require(child.wait(timeout=60) == 0, "phase 12: the attaching process failed")
+        out = {"phase": 12, "gpu": nvidia_smi_line(), "segments_dir": seg_dir,
+               "check_every": SHM_CHECK_EVERY, **parts,
+               "launches": {k_: sum(p["launches"][k_] for p in parts.values()) for k_ in KERNELS}}
+        emit(out)
+        return out
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+        for s in stores.values():
+            s.close()
+        shutil.rmtree(seg_dir, ignore_errors=True)
+        del idxs
+        torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 
 
 def _on_alarm(signum, frame):
@@ -2834,9 +3558,13 @@ def _on_alarm(signum, frame):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,10",
+    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,10,11,12",
                     help="comma-separated phases to run (default: all)")
+    ap.add_argument("--shm-child", metavar="DIR",
+                    help="run as phase 12's attaching process (started by phase 12)")
     args = ap.parse_args(argv)
+    if args.shm_child:
+        return shm_child(args.shm_child)
     phases = {int(p) for p in args.phases.split(",") if p.strip()}
 
     import torch
@@ -2885,6 +3613,8 @@ def main(argv=None) -> int:
         p8 = run(8, phase8, mods, errs)
         p9 = run(9, phase9, mods, errs)
         p10 = run(10, phase10, mods, errs)
+        run(11, phase11, mods, errs)
+        p12 = run(12, phase12, mods, errs)
     except (CheckFailed, TimeoutError) as exc:
         print(f"chip_smoke FAILED: {exc}", file=sys.stderr, flush=True)
         return 1
@@ -2916,7 +3646,7 @@ def main(argv=None) -> int:
             "launches": path["launches"][name] if path else None,
             "launches_by_phase": {str(n): p["launches"][name] for n, p in
                                   ((2, p2), (4, p4), (6, p6["ivfpq"] if p6 else None), (8, p8),
-                                   (9, p9), (10, p10))
+                                   (9, p9), (10, p10), (12, p12))
                                   if p},
             "max_abs_err": errs[name],
             "ms": row.get("ms"), "plain_ms": row.get("plain_ms"),

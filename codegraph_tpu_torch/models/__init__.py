@@ -1,6 +1,7 @@
 """Model family: the text encoder (PyTorch) and the host-side embedding
-providers, with the JAX package's exports (`encoder_param_shardings`, the
-sharded encode, waits for ROADMAP item 15)."""
+providers, with the JAX package's exports but `encoder_param_shardings`
+(the sharded encode and sharded training wait for ROADMAP item 15). The
+encoder trains on one device through models/training.py."""
 
 from codegraph_tpu_torch.models.encoder import (
     EncoderConfig,

@@ -171,8 +171,9 @@ class CrossEncoder:
     def cls_vectors(self, ids, mask) -> torch.Tensor:
         """[n, hidden] f32 CLS representations of framed pairs, on the
         scorer's device (one forward)."""
-        return encode(self.params, torch.as_tensor(ids).to(self.device),
-                      torch.as_tensor(mask).to(self.device), self.cfg, normalize=False)
+        with torch.inference_mode():
+            return encode(self.params, torch.as_tensor(ids).to(self.device),
+                          torch.as_tensor(mask).to(self.device), self.cfg, normalize=False)
 
     def score_framed(self, ids, mask) -> torch.Tensor:
         """[n] f32 scores of framed pairs on the scorer's device:

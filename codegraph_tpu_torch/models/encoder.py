@@ -16,10 +16,17 @@ tree under their own names and the per-layer leaves as "layers.<name>";
 `encoder_params_from_jax` carries a JAX parameter tree (numpy arrays, as
 `load_encoder_checkpoint_ex` returns it) across with each array's dtype.
 
+The forward is differentiable (models/training.py trains through it;
+serving callers run it under `torch.inference_mode()`), and `cfg.remat`
+recomputes each layer's activations in the backward pass
+(`torch.utils.checkpoint`, the JAX package's `jax.checkpoint` per layer).
+The bf16 tensor-core products on a CUDA device have no autograd formula
+in PyTorch, so `_mm` carries its own backward (`_TensorCoreMM`), the JAX
+transpose rule of a bf16 x bf16 -> f32 product.
+
 Not ported: the routed mixture of experts (`moe_top_k > 0`, ROADMAP item
-16; the dense-dispatch MoE is here), the sharded encode (`mesh`, `dp_axis`,
-`sp_axis`, `ep_axis`, `encoder_param_shardings`; item 15) and `remat`
-(training, item 12).
+16; the dense-dispatch MoE is here) and the sharded encode (`mesh`,
+`dp_axis`, `sp_axis`, `ep_axis`, `encoder_param_shardings`; item 15).
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 Params = Dict[str, torch.Tensor]
 
@@ -49,6 +57,7 @@ class EncoderConfig:
     pooling: str = "mean"        # mean | cls | max
     n_experts: int = 0           # >0 switches the MLP to a mixture of experts
     moe_top_k: int = 0           # 0: dense dispatch; >0: routed (not ported)
+    remat: bool = False          # recompute layer activations in the backward
     norm_style: str = "pre"      # pre (native) | post (BERT-family imports)
     attn_bias: bool = False      # qkv/output projection biases (BERT has them)
     act: str = "gelu_tanh"       # gelu_tanh (native) | gelu_exact (BERT erf)
@@ -148,6 +157,70 @@ def encoder_params_to_jax(params: Params) -> Dict:
     return tree
 
 
+def _tc_mm(a: torch.Tensor, b: torch.Tensor, acc=None) -> torch.Tensor:
+    """The tensor-core product of two CUDA operands of one 16-bit dtype,
+    summed in f32 with an f32 result: [M, K] @ [K, N], or batched; added
+    to the f32 `acc` when given (in the product's epilogue)."""
+    if acc is None:
+        if a.dim() == 2:
+            return torch.mm(a, b, out_dtype=torch.float32)
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    if a.dim() == 2:
+        return torch.addmm(acc, a, b, out_dtype=torch.float32)
+    return torch.baddbmm(acc, a, b, out_dtype=torch.float32)
+
+
+def split_bf16(t: torch.Tensor):
+    """An f32 tensor as three bf16 tensors (hi, mid, lo) with hi + mid +
+    lo == t: each takes the next 8 significant bits of what the ones
+    before it left (every subtraction is exact in f32), so the three hold
+    all 24 bits of t except at the extremes of the f32 range."""
+    hi = t.to(torch.bfloat16)
+    rest = t - hi
+    mid = rest.to(torch.bfloat16)
+    rest.sub_(mid)
+    return hi, mid, rest.to(torch.bfloat16)
+
+
+def pieces_mm(pieces, w: torch.Tensor, pieces_left: bool = True, mm=_tc_mm) -> torch.Tensor:
+    """f @ w (or w @ f, pieces_left False) for an f32 f given as its
+    `split_bf16` pieces and a bf16 w: the f32 product of f with w's values
+    summed in f32, as three tensor-core products, the smallest piece first,
+    each added to the last in f32 (a piece times a bf16 value is exact in
+    f32)."""
+    out = None
+    for piece in reversed(pieces):
+        out = mm(piece, w, out) if pieces_left else mm(w, piece, out)
+    return out
+
+
+class _TensorCoreMM(torch.autograd.Function):
+    """`_tc_mm` with the JAX transpose rule of a bf16 x bf16 -> f32
+    product (`_dot_general_transpose_lhs`): each operand's gradient is the
+    f32 cotangent times the other bf16 operand, summed in f32, rounded to
+    the operand's dtype (the `w.to(x.dtype)` cast then carries a weight's
+    gradient to its f32 master copy). PyTorch registers no backward for
+    the `out_dtype` products; the f32 cotangent goes to the tensor cores
+    in three bf16 pieces (`split_bf16`), not as one f32 product, which the
+    card runs on its f32 cores at a fifteenth of the bf16 rate."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return _tc_mm(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        pieces = split_bf16(g)  # once for both gradients
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = pieces_mm(pieces, b.transpose(-2, -1)).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            gb = pieces_mm(pieces, a.transpose(-2, -1), pieces_left=False).to(b.dtype)
+        return ga, gb
+
+
 def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a @ b summed in f32, for operands of one dtype: [M, K] @ [K, N], or
     [G, M, K] @ [G, K, N] batched.
@@ -156,17 +229,20 @@ def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     cores with f32 accumulation and an f32 result (`out_dtype`), which is
     the JAX einsum's `preferred_element_type=f32`: the logits are not
     rounded before the softmax, nor the MLP's up-projection before its
-    bias. Elsewhere the bf16-valued operands are multiplied in f32 (the
+    bias; a bf16 product that needs a gradient goes through
+    `_TensorCoreMM` (an f16 one has no backward and raises there).
+    Elsewhere the bf16-valued operands are multiplied in f32 (the
     products of two bf16 numbers are exact in f32, so this is the same
-    function). f32 operands take the plain f32 product; the process's
-    TF32 flag is left as it is (off, so that the f32 index tiers stay
-    exact)."""
+    function, and autograd differentiates it). f32 operands take the plain
+    f32 product; the process's TF32 flag is left as it is (off, so that
+    the f32 index tiers stay exact)."""
     if a.dtype == torch.float32:
         return torch.matmul(a, b)
     if a.is_cuda:
-        if a.dim() == 2:
-            return torch.mm(a, b, out_dtype=torch.float32)
-        return torch.bmm(a, b, out_dtype=torch.float32)
+        if a.dtype == torch.bfloat16 and torch.is_grad_enabled() and (
+                a.requires_grad or b.requires_grad):
+            return _TensorCoreMM.apply(a, b)
+        return _tc_mm(a, b)
     return torch.matmul(a.float(), b.float())
 
 
@@ -222,19 +298,20 @@ def _moe_mlp(x, gate, w_up_e, b_up_e, w_down_e, b_down_e):
     return torch.einsum("ble,belh->blh", probs.float(), y).to(dt)
 
 
-@torch.no_grad()
 def encode(params: Params, token_ids: torch.Tensor, mask: torch.Tensor,
            cfg: EncoderConfig, normalize: bool = True) -> torch.Tensor:
     """Forward pass: [B, L] int tokens + [B, L] bool mask -> [B, H] f32,
     pooled per cfg.pooling (masked mean by default), then L2-normalized
-    unless `normalize` is False."""
+    unless `normalize` is False. Differentiable in the parameters; with
+    cfg.remat and autograd recording, each layer's activations are
+    recomputed in the backward pass instead of kept."""
     if cfg.n_experts > 0 and cfg.moe_top_k > 0:
         raise NotImplementedError(
             "the routed mixture of experts (moe_top_k > 0) is not ported yet: "
             "ROADMAP item 16; use moe_top_k=0 (dense dispatch)")
     B, L = token_ids.shape
     dt = cfg.dtype
-    x = (params["tok_emb"][token_ids.long()] + params["pos_emb"][:L][None]).to(dt)
+    x = (F.embedding(token_ids.long(), params["tok_emb"]) + params["pos_emb"][:L][None]).to(dt)
     x = _layer_norm(x, params["ln_in_scale"], params["ln_in_bias"], cfg.eps)
 
     attn_bias = torch.where(mask[:, None, None, :], 0.0, -1e30).float()
@@ -247,21 +324,27 @@ def encode(params: Params, token_ids: torch.Tensor, mask: torch.Tensor,
         return _mlp(h, lp["w_up"], lp["b_up"], lp["w_down"], lp["b_down"],
                     approx=approx)
 
-    names = [k[len(LAYER_PREFIX):] for k in params if k.startswith(LAYER_PREFIX)]
-    for i in range(cfg.n_layers):
-        lp = {n: params[LAYER_PREFIX + n][i] for n in names}
+    def layer(x, lp):
         b_qkv, b_o = lp.get("b_qkv"), lp.get("b_o")
         if cfg.norm_style == "post":
             # BERT-family residual order: LN AFTER each residual add
             x = x + _attention(x, lp["wqkv"], lp["wo"], attn_bias, cfg,
                                b_qkv=b_qkv, b_o=b_o)
             x = _layer_norm(x, lp["ln1_scale"], lp["ln1_bias"], cfg.eps)
-            x = _layer_norm(x + ffn(x, lp), lp["ln2_scale"], lp["ln2_bias"], cfg.eps)
-            continue
+            return _layer_norm(x + ffn(x, lp), lp["ln2_scale"], lp["ln2_bias"], cfg.eps)
         h = _layer_norm(x, lp["ln1_scale"], lp["ln1_bias"], cfg.eps)
         x = x + _attention(h, lp["wqkv"], lp["wo"], attn_bias, cfg, b_qkv=b_qkv, b_o=b_o)
         h = _layer_norm(x, lp["ln2_scale"], lp["ln2_bias"], cfg.eps)
-        x = x + ffn(h, lp)
+        return x + ffn(h, lp)
+
+    remat = cfg.remat and torch.is_grad_enabled()
+    names = [k[len(LAYER_PREFIX):] for k in params if k.startswith(LAYER_PREFIX)]
+    for i in range(cfg.n_layers):
+        lp = {n: params[LAYER_PREFIX + n][i] for n in names}
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(layer, x, lp, use_reentrant=False)
+        else:
+            x = layer(x, lp)
     if cfg.norm_style != "post":
         # the final norm belongs to the pre-LN architecture only: BERT-family
         # (post) models end with each layer's own LayerNorm
@@ -287,4 +370,6 @@ __all__ = [
     "encoder_params_from_jax",
     "encoder_params_to_jax",
     "encode",
+    "split_bf16",
+    "pieces_mm",
 ]

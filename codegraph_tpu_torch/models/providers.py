@@ -285,8 +285,9 @@ class EncoderProvider(EmbeddingProvider):
         t1 = time.perf_counter()
         out = torch.zeros((len(texts), self.dimension), device=self.device)
         for sel, ids, mask in batches:
-            emb = encode(self.params, torch.from_numpy(ids).to(self.device),
-                         torch.from_numpy(mask).to(self.device), self.cfg)
+            with torch.inference_mode():
+                emb = encode(self.params, torch.from_numpy(ids).to(self.device),
+                             torch.from_numpy(mask).to(self.device), self.cfg)
             out[torch.as_tensor(sel, device=self.device)] = emb
             c.tokens += int(mask.sum())
             c.padded_tokens += mask.size

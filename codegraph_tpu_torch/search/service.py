@@ -1,6 +1,6 @@
-"""Copy of `codegraph_tpu/search/service.py` for the PyTorch port, without
-`ShmServedIndex` (the shared-memory attach waits for ROADMAP item 8);
-`close()` joins the collector thread and shuts the flush pool.
+"""Copy of `codegraph_tpu/search/service.py` for the PyTorch port;
+`close()` joins the collector thread and shuts the flush pool, and
+`ShmServedIndex` uploads each snapshot to the device it is given.
 
 Batching query service: concurrent queries -> device-sized batches.
 
@@ -15,6 +15,7 @@ take query *batches* everywhere. Callers get concurrent futures.
 
 from __future__ import annotations
 
+import os
 import threading
 import time
 from concurrent.futures import Future, ThreadPoolExecutor
@@ -312,4 +313,106 @@ class QueryService:
             self._pool.shutdown(wait=True)
 
 
-__all__ = ["QueryService", "ServiceOverloaded", "ServiceStats"]
+class ShmServedIndex:
+    """Hot-reloadable index over a shared-memory segment.
+
+    The production serving loop: a daemon re-indexes and republishes
+    the index into the segment (index/snapshot.py publish_index_shm,
+    seqlock + monotonic generation); every server process wraps the
+    segment in a ShmServedIndex, which polls the generation at most
+    every `check_every` seconds and swaps in the new arrays before the
+    next search. The reference gets the same freshness from re-querying
+    SurrealDB on every call (surrealdb_storage.rs) — here a reload is one
+    seqlock snapshot read + device upload, and searches between reloads
+    touch nothing but device memory.
+
+    Recreated segments (a republish that outgrew capacity makes a new
+    file) are detected by inode change, so generation comparisons never
+    cross file lifetimes. A failed reload (ShmError/OSError: the
+    publisher is mid-recreate) keeps the current snapshot and retries at
+    the next poll. During a reload the old and the new device copies are
+    both held; the old one is dropped right after the swap. Thread-safe;
+    compose with QueryService for batch collection. `device`: "cuda"
+    (default) or "cpu"; CUDA without a GPU raises.
+    """
+
+    def __init__(self, path: str, check_every: float = 1.0, device="cuda"):
+        from codegraph_tpu_torch.index.flat import resolve_device
+
+        self.path = path
+        self.check_every = float(check_every)
+        self.device = resolve_device(device)
+        self._lock = threading.Lock()
+        self._idx = None
+        self._store = None
+        self._ident: Optional[Tuple[int, int]] = None  # (inode, generation)
+        self._last_check = 0.0
+        self.reloads = 0
+        self._reload()
+
+    def _identity(self) -> Optional[Tuple[int, int]]:
+        try:
+            st = os.stat(self.path)
+        except OSError:
+            return None
+        if self._store is not None and self._ident is not None \
+                and st.st_ino == self._ident[0]:
+            return (st.st_ino, self._store.segment.generation)
+        return (st.st_ino, -1)  # new file: force reload to learn gen
+
+    def _reload(self) -> None:
+        from codegraph_tpu_torch.index.snapshot import attach_index_shm
+
+        idx, store = attach_index_shm(self.path, copy=True, device=self.device)
+        old = self._store
+        # the swap drops the old index: its device copy is freed with its
+        # last reference (a search still running on it holds one)
+        self._idx, self._store = idx, store
+        self._ident = (os.stat(self.path).st_ino, store.segment.generation)
+        self.reloads += 1
+        if old is not None:
+            old.close()
+
+    def maybe_reload(self) -> bool:
+        """Check the segment generation (rate-limited); reload on change.
+        Returns True when a reload happened."""
+        from codegraph_tpu_torch.core.shm import ShmError
+
+        now = time.monotonic()
+        with self._lock:
+            if self._idx is not None and \
+                    now - self._last_check < self.check_every:
+                return False
+            self._last_check = now
+            ident = self._identity()
+            if ident is not None and ident != self._ident:
+                try:
+                    self._reload()
+                except (ShmError, OSError):
+                    # mid-recreate (publisher rebuilding/unlinking the
+                    # segment between our stat and attach): keep serving
+                    # the current snapshot, retry next poll
+                    return False
+                return True
+        return False
+
+    def search(self, queries: np.ndarray, k: int = 10, **kw):
+        self.maybe_reload()
+        return self._idx.search(queries, k, **kw)
+
+    @property
+    def generation(self) -> int:
+        return self._ident[1] if self._ident else -1
+
+    def __len__(self) -> int:
+        return len(self._idx) if self._idx is not None else 0
+
+    def close(self) -> None:
+        with self._lock:
+            if self._store is not None:
+                self._store.close()
+                self._store = None
+
+
+__all__ = ["QueryService", "ServiceOverloaded", "ServiceStats",
+           "ShmServedIndex"]

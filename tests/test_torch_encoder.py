@@ -100,11 +100,11 @@ def small_inputs(cfg, B=5, L=24, seed=1):
 
 def same_fields(jcfg, tcfg) -> bool:
     """The two EncoderConfigs agree on every field the port has (it drops
-    `remat` and the routed MoE's `moe_capacity`; dtypes are compared apart)."""
+    the routed MoE's `moe_capacity`; dtypes are compared apart)."""
     want = {k: v for k, v in dataclasses.asdict(jcfg).items()
-            if k not in ("remat", "moe_capacity", "dtype")}
+            if k not in ("moe_capacity", "dtype")}
     got = {k: v for k, v in dataclasses.asdict(tcfg).items() if k != "dtype"}
-    return got == want and jcfg.moe_capacity == 2.0 and not jcfg.remat
+    return got == want and jcfg.moe_capacity == 2.0
 
 
 def both(variant, dtype_name):

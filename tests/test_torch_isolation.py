@@ -65,7 +65,14 @@ SERVING_MODULES = [
 ]
 
 
-@pytest.mark.parametrize("module", SERVING_MODULES)
+# the modules of the training and shared-memory slice
+TRAINING_SHM_MODULES = [
+    "core.shm", "index.snapshot", "search.service", "models.training", "models.encoder", "ml",
+    "ml.drift", "ml.ab_testing", "ml.features", "ml.pipeline",
+]
+
+
+@pytest.mark.parametrize("module", SERVING_MODULES + TRAINING_SHM_MODULES)
 def test_serving_module_imports_alone_without_jax(module):
     code = BLOCKED_IMPORT.split("import codegraph_tpu_torch\n")[0] + (
         f"import codegraph_tpu_torch.{module}\n"
@@ -93,6 +100,16 @@ def test_chip_smoke_parses_and_imports_no_jax():
     mods |= {n.module.split(".")[0] for n in ast.walk(tree)
              if isinstance(n, ast.ImportFrom) and n.module}
     assert not mods & {"jax", "jaxlib", "codegraph_tpu"}
+
+
+def test_chip_smoke_binds_each_top_level_name_once():
+    """Phases share one module namespace: a constant or helper bound twice
+    silently replaces an earlier phase's."""
+    tree = ast.parse(open(os.path.join(REPO, "chip_smoke.py")).read())
+    names = [n.name for n in tree.body if isinstance(n, (ast.FunctionDef, ast.ClassDef))]
+    names += [x.id for n in tree.body if isinstance(n, ast.Assign) for t in n.targets
+              for x in ast.walk(t) if isinstance(x, ast.Name)]
+    assert sorted(k for k in set(names) if names.count(k) > 1) == []
 
 
 def test_chip_smoke_refuses_without_gpu_or_repo(tmp_path):
