@@ -10,6 +10,7 @@
     python3 chip_smoke.py --phases 0,10    # the rest of the serving surface only
     python3 chip_smoke.py --phases 0,11    # encoder and cross-encoder training only
     python3 chip_smoke.py --phases 0,12    # the shared-memory hand-off only
+    python3 chip_smoke.py --phases 0,13,14 # the parallel/ slice (an 8-shard mesh on one card)
 
 Phases, each printing one JSON object per line as it ends:
 
@@ -169,6 +170,34 @@ Phases, each printing one JSON object per line as it ends:
      generation within check_every (1 s) and answer like the new state.
      Prints attach, publish and reload seconds and the child's own K1/K2,
      K5/K6 and K8 launches, which must be above zero.
+  13 the sharded indexes (parallel/) at BASELINE config 5's size on an
+     8-shard mesh of one card ([cuda:0] * 8; it shows results and the
+     merge's cost, not scaling): ShardedFlatIndex of 10,000,000 x 768 f32
+     (rows made on the card from a seeded generator, 1% tombstoned) at B=1,
+     8 (K1 per shard) and 1024 (K2 per shard), k=10 and 100, each search
+     launching its kernel once per shard, held to a chunked matmul + topk
+     oracle over the shard tensors in place (ids equal outside ties), timed
+     beside the sharded scan alone and one FlatIndex over the same tensors;
+     sharded_topk_2d and sharded_topk_hier on (2, 4) meshes over the same
+     rows; ShardedInt8Index at 10,000,000 x 768 (K5 at B=1, 8, K6 at 256;
+     the shards' candidates against the plain scan, the host rescore against
+     exact dots); ShardedIVFIndex at 1,000,000 x 768 (no kernel; scores
+     against the stored rows, recall@10); ShardedIVFPQIndex at 10,000,000 x
+     768 with the device int8 refine (K8 per shard at B=1, 8, 1024; K8 per
+     shard against its plain version; recall@10 against an exact scan);
+     HybridSearch over a ShardedFlatIndex of the repo's own sources against
+     the same project's FlatIndex search (1e-5).
+  14 the encoder across a mesh at the r3 encoder's width (checkpoints/
+     encoder_r3_512.npz, 6 x 512, B=256, L=192, on [cuda:0] * n): in f32,
+     sp_ring_encode on (dp, sp) = (2, 4), pp_encode with pp = 2 and 3 and
+     (pp, tp) = (2, 2), and encode on (dp, sp, tp) = (2, 2, 2), each within
+     1e-4 of encode without a mesh; the bf16 forward on the mesh within 2e-3
+     of its own; one bf16 training step (remat) from
+     make_sharded_train_step on (dp, sp, tp) = (2, 2, 2) and a routed-MoE
+     encoder at the same width (4 experts, top-2, capacity 2.0, seeded) on
+     (dp, ep, tp) = (2, 2, 2), each against the one-device step's loss and
+     grad norm (one bf16 step); make_sharded_topk_moe on ep = 4 against
+     topk_moe_dense at capacity 8.0 (1e-4). Prints each one's ms.
 
 Then the card's name and power limit, one JSON line with every kernel's
 numbers, and last {"ok": true, "device": {...}}. Any failed check exits
@@ -3552,13 +3581,604 @@ def phase12(torch, mods, errs) -> dict:
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# the parallel/ slice: the sharded indexes at BASELINE config 5's size, and
+# the encoder across a mesh, all on one card (a mesh of [cuda:0] * n)
+# ---------------------------------------------------------------------------
+
+SHARDS = 8
+SHARD_N, SHARD_D = 10_000_000, 768
+SHARD_IVF_N = 1_000_000
+SHARD_REPS = 5
+SHARD_SEED = 5150
+
+
+def _mesh(torch, shape, axes):
+    """A mesh of n shards on card 0 (the explicit one-card mesh)."""
+    from codegraph_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(shape, axes, devices=[torch.device("cuda", 0)] * int(np.prod(shape)))
+
+
+def _counted(mods, fn):
+    """(fn(), {kernel: launches during it} for the kernels that launched)."""
+    before = read_launches(mods)
+    out = fn()
+    after = read_launches(mods)
+    return out, {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
+def _uncounted(mods, fn):
+    """fn() with the kernels' launch counts left as they were: launches made
+    to compare with another route or a plain version are not the main
+    path's."""
+    saved = read_launches(mods)
+    try:
+        return fn()
+    finally:
+        for name, n in saved.items():
+            wrapper(mods, name).launches = n
+
+
+def _require_per_shard(delta, kernel, n, what):
+    require(delta == {kernel: n}, f"phase 13: {what} launched {delta}, not {kernel} x {n}")
+
+
+def _sharded_oracle(torch, q, xs, bs, k):
+    """The exact top-k over the shards' rows read in place: chunked
+    torch.matmul + torch.topk per shard (library calls; used only here),
+    then torch.topk over the shards' candidates."""
+    ss, ii, off = [], [], 0
+    for x, b in zip(xs, bs):
+        s, i = yardstick(torch, q, x, b, k)
+        ss.append(s)
+        ii.append(i.long() + off)
+        off += x.shape[0]
+    v, p = torch.topk(torch.cat(ss, 1), k, dim=1)
+    return v, torch.gather(torch.cat(ii, 1), 1, p).int()
+
+
+def _host_result(torch, s_np, i_np):
+    return torch.as_tensor(s_np, device="cuda"), torch.as_tensor(i_np, device="cuda").int()
+
+
+def _phase13_flat(torch, mods, mesh8) -> list:
+    from codegraph_tpu_torch.index.flat import FlatIndex
+    from codegraph_tpu_torch.parallel import sharded_search as ss
+
+    N, D = SHARD_N, SHARD_D
+    g = torch.Generator(device="cuda").manual_seed(SHARD_SEED)
+    t0 = time.perf_counter()
+    rows = torch.randn(N, D, generator=g, device="cuda")
+    idx = ss.ShardedFlatIndex(D, mesh8, tile_n=1024)
+    idx.build(rows)
+    del rows
+    dead = torch.randperm(N, generator=g, device="cuda")[: N // 100].cpu().numpy()
+    idx.delete(dead)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    x_full, b_full = idx._x.full, idx._bias.full
+    require(all(s.data_ptr() == x_full[i * idx.capacity // SHARDS].data_ptr()
+                for i, s in enumerate(idx.x_shards)), "phase 13: a shard is not a view")
+    # one FlatIndex over the same rows (the same tensors, no copy): the
+    # unsharded search the merge is measured against
+    single = FlatIndex.from_arrays(x_full, b_full, idx.n_rows, idx.n_live, device="cuda")
+    require(single._x.data_ptr() == x_full.data_ptr(), "phase 13: the FlatIndex copied the rows")
+    out = []
+    for B, k in ((1, 10), (1, 100), (8, 10), (8, 100), (1024, 10), (1024, 100)):
+        kernel = "K2" if B >= 32 else "K1"
+        batches = [_unit(torch, torch.randn(B, D, generator=g, device="cuda"))
+                   for _ in range(SHARD_REPS)]
+        (s_np, i_np), delta = _counted(mods, lambda: idx.search(batches[0], k))
+        _require_per_shard(delta, kernel, SHARDS, f"ShardedFlatIndex.search B={B}")
+        ms = _time_ms(torch, lambda qb: idx.search(qb, k), batches)
+        scan_ms = _time_ms(torch, lambda qb: ss.sharded_topk(qb, idx.x_shards, idx.bias_shards,
+                                                             k, mesh8), batches)
+        single_ms = _uncounted(mods, lambda: _time_ms(torch, lambda qb: single.search(qb, k),
+                                                      batches))
+        qn = ss._normalize_rows(batches[0])
+        s_ref, i_ref = _sharded_oracle(torch, qn, idx.x_shards, idx.bias_shards, k)
+        err, n_diff, bad = check_topk(torch, qn, x_full, b_full, *_host_result(torch, s_np, i_np),
+                                      s_ref, i_ref)
+        nbytes = N * D * 4 + N * 4 + B * D * 4 + B * k * 8
+        bound, bound_by = _bound(nbytes, 2.0 * B * N * D, "float32")
+        row = {"phase": 13, "index": "ShardedFlatIndex", "dtype": "float32", "N": N, "D": D,
+               "shards": SHARDS, "B": B, "k": k, "kernel": kernel, "launches_per_search": delta,
+               "ms": ms, "scan_ms": scan_ms, "unsharded_flat_ms": single_ms,
+               "merge_overhead_ms": ms - single_ms, "bound_ms": bound, "bound_by": bound_by,
+               "max_abs_err": err, "id_mismatches": n_diff, "mismatches_outside_ties": bad,
+               "build_seconds": round(build_s, 3)}
+        emit(row)
+        out.append(row)
+        require(bad == 0, f"phase 13: ShardedFlatIndex B={B} k={k}: {bad} mismatches outside ties")
+
+    # the same rows on a (2, 4) query x data mesh and a (2, 4) dcn x ici mesh
+    qb = _unit(torch, torch.randn(64, D, generator=g, device="cuda"))
+    s_ref, i_ref = _sharded_oracle(torch, qb, idx.x_shards, idx.bias_shards, 10)
+    for name, fn, shape, axes in (("sharded_topk_2d", ss.sharded_topk_2d, (2, 4), ("q", "data")),
+                                  ("sharded_topk_hier", ss.sharded_topk_hier, (2, 4),
+                                   ("dcn", "ici"))):
+        mesh = _mesh(torch, shape, axes)
+        (s, i), delta = _counted(mods, lambda: fn(qb, x_full, b_full, 10, mesh))
+        _require_per_shard(delta, "K2", SHARDS, name)
+        ms = _time_ms(torch, lambda q: fn(q, x_full, b_full, 10, mesh), [qb] * SHARD_REPS)
+        err, n_diff, bad = check_topk(torch, qb, x_full, b_full, s, i, s_ref, i_ref)
+        row = {"phase": 13, "fn": name, "mesh": dict(zip(axes, shape)), "N": N, "D": D, "B": 64,
+               "k": 10, "launches_per_search": delta, "ms": ms, "max_abs_err": err,
+               "id_mismatches": n_diff, "mismatches_outside_ties": bad}
+        emit(row)
+        out.append(row)
+        require(bad == 0, f"phase 13: {name}: {bad} mismatches outside ties")
+    del idx, single, x_full, b_full
+    torch.cuda.empty_cache()
+    return out
+
+
+def _phase13_int8(torch, mods, mesh8) -> list:
+    from codegraph_tpu_torch.ops import quantize as q8
+    from codegraph_tpu_torch.parallel import sharded_search as ss
+
+    N, D = SHARD_N, SHARD_D
+    g = torch.Generator(device="cuda").manual_seed(SHARD_SEED + 1)
+    t0 = time.perf_counter()
+    rows = torch.randn(N, D, generator=g, device="cuda")
+    idx = ss.ShardedInt8Index(D, mesh8, rescore_k=100)
+    idx.build(rows)
+    del rows
+    dead = torch.randperm(N, generator=g, device="cuda")[: N // 100].cpu().numpy()
+    idx.delete(dead)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    qv_full, qs_full, b_full = idx._qv.full, idx._qs.full, idx._bias.full
+    host = idx._host_f32
+    out = []
+    for B, k in ((1, 10), (8, 10), (256, 10)):
+        kernel = "K6" if B >= 32 else "K5"
+        batches = [_unit(torch, torch.randn(B, D, generator=g, device="cuda"))
+                   for _ in range(SHARD_REPS)]
+        (s_np, i_np), delta = _counted(mods, lambda: idx.search(batches[0], k))
+        _require_per_shard(delta, kernel, SHARDS, f"ShardedInt8Index.search B={B}")
+        ms = _time_ms(torch, lambda qb: idx.search(qb, k), batches)
+        # the scan alone (the shards' candidates and their merge) against one
+        # launch of the same kernel over every row
+        cand = idx.rescore_k
+        quant = [q8.quantize_rows(qb) for qb in batches]
+        scan_ms = _time_ms(torch, lambda qq: ss.sharded_topk_int8(
+            qq[0], qq[1], idx._qv.shards, idx._qs.shards, idx._bias.shards, cand, mesh8), quant)
+        one = q8.streaming_topk_int8_cuda_qmajor if B >= 32 else q8.streaming_topk_int8_cuda
+        single_ms = _uncounted(mods, lambda: _time_ms(
+            torch, lambda qq: one(qq[0], qq[1], qv_full, qs_full, b_full, cand), quant))
+        # the kernels' candidates against their plain version, shard by shard
+        qv, qs = quant[0]
+        s_k, i_k = _uncounted(mods, lambda: ss.sharded_topk_int8(
+            qv, qs, idx._qv.shards, idx._qs.shards, idx._bias.shards, cand, mesh8))
+        t1 = time.perf_counter()
+        parts = []
+        for s_, (v, sc, b) in enumerate(zip(idx._qv.shards, idx._qs.shards, idx._bias.shards)):
+            sp, ip = q8.streaming_topk_int8(qv, qs, v, sc, b, cand)
+            parts.append((sp, ss._global_ids(ip, s_ * v.shape[0])))
+        s_p, i_p = ss.merge_shards(torch.stack([p[0] for p in parts]),
+                                   torch.stack([p[1] for p in parts]), cand)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t1) * 1e3
+        err, n_diff, bad = check_topk(torch, None, None, None, s_k, i_k, s_p, i_p,
+                                      judge=int8_judge(qv, qs, qv_full, qs_full, b_full))
+        # the rescored result: exact f32 dots of the host copy, sorted, live
+        qn = ss._normalize_rows(batches[0]).cpu().numpy()
+        exact = np.einsum("bd,bkd->bk", qn.astype(np.float64),
+                          host[np.maximum(i_np, 0)].astype(np.float64))
+        live = ~np.isin(i_np, dead) & (i_np >= 0)
+        rescore_err = float(np.abs(exact - s_np).max())
+        ok = bool(live.all() and rescore_err <= SCORE_TOL and (np.diff(s_np, axis=1) <= 0).all())
+        nbytes = N * D + N * 8 + B * D + B * cand * 8
+        bound, bound_by = _bound(nbytes, 2.0 * B * N * D, "int8")
+        row = {"phase": 13, "index": "ShardedInt8Index", "dtype": "int8", "N": N, "D": D,
+               "shards": SHARDS, "B": B, "k": k, "rescore_k": cand, "kernel": kernel,
+               "launches_per_search": delta, "ms": ms, "scan_ms": scan_ms,
+               "unsharded_scan_ms": single_ms, "scan_merge_overhead_ms": scan_ms - single_ms,
+               "scan_bound_ms": bound, "scan_bound_by": bound_by, "plain_scan_ms": plain_ms,
+               "max_abs_err": err, "id_mismatches": n_diff, "mismatches_outside_ties": bad,
+               "rescore_max_abs_err": rescore_err, "results_ok": ok,
+               "build_seconds": round(build_s, 3)}
+        emit(row)
+        out.append(row)
+        require(bad == 0 and ok, f"phase 13: ShardedInt8Index B={B}: {bad} mismatches, ok={ok}")
+    del idx, qv_full, qs_full, b_full, host
+    torch.cuda.empty_cache()
+    return out
+
+
+def _recall_at_10(torch, qr, centers, n, seed, spread, live, got):
+    """recall@10 of `got` against an exact f32 scan of the (re-made) mixture rows."""
+    best_s = torch.full((qr.shape[0], 10), -float("inf"), device="cuda")
+    best_i = torch.zeros((qr.shape[0], 10), dtype=torch.long, device="cuda")
+    for base in range(0, n, 524_288):
+        m = min(524_288, n - base)
+        s = qr @ _unit(torch, mixture_chunk(torch, centers, base, m, seed, spread)).T
+        s[:, ~live[base: base + m]] = -float("inf")
+        v, i = torch.topk(torch.cat([best_s, s], 1), 10, dim=1)
+        best_i = torch.gather(torch.cat([best_i, torch.arange(base, base + m, device="cuda")
+                                         .expand(qr.shape[0], -1)], 1), 1, i)
+        best_s = v
+    return float(np.mean([len(set(a) & set(b)) / 10.0
+                          for a, b in zip(got.tolist(), best_i.cpu().tolist())]))
+
+
+def _phase13_ivf(torch, mods, mesh8) -> list:
+    from codegraph_tpu_torch.parallel.sharded_ivf import ShardedIVFIndex
+    from codegraph_tpu_torch.ops.similarity import l2_normalize
+    from codegraph_tpu_torch.parallel.sharded_ivfpq import (ShardedIVFPQIndex, _local_parts,
+                                                            sharded_ivfpq_search)
+    from codegraph_tpu_torch.parallel.sharded_search import _gather_merge
+
+    ivfpq = mods["ivfpq"]
+    D, SEED = SHARD_D, 2027
+    SPREAD = 1.0 / math.sqrt(D)
+    gc = torch.Generator(device="cuda").manual_seed(SEED)
+    centers = _unit(torch, torch.randn(16_384, D, generator=gc, device="cuda"))
+    out = []
+
+    def queries(B, r, n):
+        return _unit(torch, mixture_chunk(torch, centers, n + (r + 1) * 1_000_003 + B, B,
+                                          SEED + 3, 1.0 / math.sqrt(D)))
+
+    # ShardedIVFIndex at 1M x 768 (bf16 cells; the reference's defaults)
+    N = SHARD_IVF_N
+    t0 = time.perf_counter()
+    ivf = ShardedIVFIndex(D, mesh8)
+    ivf._base.reserve(N)
+    ivf.train(mixture_chunk(torch, centers, N, ivf._base.train_sample, SEED + 1, SPREAD))
+    for base in range(0, N, 524_288):
+        ivf.add(mixture_chunk(torch, centers, base, min(524_288, N - base), SEED, SPREAD))
+    g = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    dead = torch.randperm(N, generator=g, device="cuda")[: N // 100]
+    ivf.delete(dead.cpu().numpy())
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    live = torch.ones(N, dtype=torch.bool, device="cuda")
+    live[dead] = False
+    base_idx = ivf._base
+    _, x_lists, _, _ = base_idx.arrays()
+    loc = torch.as_tensor(base_idx._row_loc[:N], device="cuda")
+    for B in (1, 8, 64):
+        batches = [queries(B, r, N) for r in range(SHARD_REPS)]
+        (s_np, i_np), delta = _counted(mods, lambda: ivf.search(batches[0], 10))
+        require(not delta, f"phase 13: ShardedIVFIndex launched {delta} (it has no kernel)")
+        ms = _time_ms(torch, lambda qb: ivf.search(qb, 10), batches)
+        # each score is the dot of the stored (bf16) row it names
+        s, i = _host_result(torch, s_np, i_np)
+        rows = x_lists[loc[i.long(), 0], loc[i.long(), 1]].float()
+        err = float((torch.einsum("bd,bkd->bk", batches[0], rows) - s).abs().max())
+        ok = bool((i >= 0).all() and live[i.long()].all()) and err <= SCORE_TOL
+        row = {"phase": 13, "index": "ShardedIVFIndex", "dtype": "bfloat16", "N": N, "D": D,
+               "shards": SHARDS, "nlist": base_idx.nlist, "nprobe_per_shard": ivf.nprobe,
+               "B": B, "k": 10, "launches_per_search": delta, "ms": ms,
+               "score_vs_stored_rows_max_abs": err, "results_ok": ok,
+               "build_seconds": round(build_s, 3)}
+        if B == 64:
+            row["recall_at_10"] = _recall_at_10(torch, batches[0], centers, N, SEED, SPREAD, live,
+                                                torch.as_tensor(i_np))
+        emit(row)
+        out.append(row)
+        require(ok, f"phase 13: ShardedIVFIndex B={B}: scores off the stored rows by {err}")
+    del ivf, base_idx, x_lists, loc
+    torch.cuda.empty_cache()
+
+    # ShardedIVFPQIndex at 10M x 768 with the device refine (K8 per shard)
+    N = SHARD_N
+    t0 = time.perf_counter()
+    pq = ShardedIVFPQIndex(D, mesh8, nlist=4096, nprobe=64, m=96, refine="int8_device")
+    pq._base.reserve(N)
+    pq.train(mixture_chunk(torch, centers, N, pq._base.train_sample, SEED + 1, SPREAD))
+    for base in range(0, N, 524_288):
+        pq.add(mixture_chunk(torch, centers, base, min(524_288, N - base), SEED, SPREAD))
+    dead = torch.randperm(N, generator=g, device="cuda")[: N // 100]
+    pq.delete(dead.cpu().numpy())
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    live = torch.ones(N, dtype=torch.bool, device="cuda")
+    live[dead] = False
+    pq._place()
+    base = pq._base
+    np_eff = min(pq.nprobe, base.nlist // SHARDS)
+    k_fetch = max(10, min(10 * base.refine_factor, base.list_cap * np_eff))
+    bank, scales = base._dev_bank()
+
+    def int8_exact(qn, rows):
+        """Exact scores of int8 bank rows [B, c] for qn [B, D]: the integer
+        rows times their scale, dotted in f64 (in query chunks)."""
+        return torch.cat([torch.einsum("bd,bcd->bc", qn[b0: b0 + 128].double(),
+                                       bank[rows[b0: b0 + 128]].double())
+                          * scales[rows[b0: b0 + 128], 0].double()
+                          for b0 in range(0, qn.shape[0], 128)])
+
+    for B in (1, 8, 1024):
+        batches = [queries(B, r, N) for r in range(SHARD_REPS)]
+        (s_np, i_np), delta = _counted(mods, lambda: pq.search(batches[0], 10))
+        _require_per_shard(delta, "K8", SHARDS, f"ShardedIVFPQIndex.search B={B}")
+        ms = _time_ms(torch, lambda qb: pq.search(qb, 10), batches)
+        ok = bool((i_np >= 0).all() and live[torch.as_tensor(i_np, device="cuda").long()].all()
+                  and np.isfinite(s_np).all())
+        # the range-sharded refine and its psum against an oracle: every
+        # shard's K8 candidates, scored exactly from the whole bank in f64,
+        # the top 10 by a stable sort (a tie to the earlier candidate)
+        qn = l2_normalize(base._queries(batches[0]))
+        parts = _uncounted(mods, lambda: _local_parts(qn, *pq._cells, pq._books, k_fetch, np_eff,
+                                                      mesh8, pq.axis, pq._ext))
+        cand = torch.cat([i.to("cuda") for _, i in parts], 1).long()    # shard-major
+        exact = torch.where(cand >= 0, int8_exact(qn, cand.clamp(min=0)), -math.inf)
+        s_ref, pos = torch.sort(exact, dim=1, descending=True, stable=True)
+        s_ref, i_ref = s_ref[:, :10].float(), torch.gather(cand, 1, pos[:, :10]).int()
+        err, n_diff, bad = check_topk(
+            torch, None, None, None, *_host_result(torch, s_np, i_np), s_ref, i_ref,
+            judge=lambda b, rows: int8_exact(qn[b: b + 1], rows[None])[0])
+        row = {"phase": 13, "index": "ShardedIVFPQIndex", "refine": "int8_device", "N": N, "D": D,
+               "shards": SHARDS, "nlist": base.nlist, "nprobe_per_shard": pq.nprobe, "m": 96,
+               "B": B, "k": 10, "k_fetch_per_shard": k_fetch, "launches_per_search": delta,
+               "ms": ms, "results_ok": ok, "refine_vs_exact_max_abs_err": err,
+               "refine_id_mismatches": n_diff, "refine_mismatches_outside_ties": bad,
+               "build_seconds": round(build_s, 3)}
+        emit(row)
+        out.append(row)
+        require(ok, f"phase 13: ShardedIVFPQIndex B={B} returned dead or missing rows")
+        require(bad == 0, f"phase 13: ShardedIVFPQIndex B={B}: the refine disagrees with the "
+                          f"exact int8 rescore of the shards' candidates ({bad})")
+    # K8 per shard against its plain version, merged the same way: at B=8,
+    # and at B=1024 (the main path's batch) on 16 of its queries, whose
+    # results depend on no other query
+    full = base.arrays()
+    for B, sample in ((8, None), (1024, torch.linspace(0, 1023, 16).long().cuda())):
+        qs = queries(B, 99, N)
+        s_k, i_k = _uncounted(mods, lambda: sharded_ivfpq_search(
+            qs, *pq._cells, pq._books, k_fetch, np_eff, mesh8, extents=pq._ext))
+        qp = qs if sample is None else qs[sample]
+        if sample is not None:
+            s_k, i_k = s_k[sample], i_k[sample]
+        parts = [ivfpq.ivfpq_search(qp, c, cl, il, bl, pq._books, k_fetch, np_eff)
+                 for c, cl, il, bl in zip(*pq._cells)]
+        s_p, i_p = _gather_merge(parts, k_fetch, mesh8.first_device)
+        err, n_diff, bad = check_topk(torch, None, None, None, s_k, i_k, s_p, i_p,
+                                      judge=adc_judge(torch, qp, *full, pq._books))
+        row = {"phase": 13, "index": "ShardedIVFPQIndex", "check": "K8 per shard vs plain",
+               "B": B, "rows_compared": qp.shape[0], "k": k_fetch, "max_abs_err": err,
+               "id_mismatches": n_diff, "mismatches_outside_ties": bad}
+        emit(row)
+        out.append(row)
+        require(bad == 0, f"phase 13: K8 per shard disagrees with its plain version at B={B} "
+                          f"({bad})")
+    # recall@10 against an exact f32 scan, at the refine factor of the main
+    # path (4) and at larger ones: what the PQ ranking of k_fetch candidates
+    # a shard costs
+    qr = queries(256, 50, N)
+    recalls = {}
+    for rf in (4, 16, 64):
+        base.refine_factor = rf
+        _, got = pq.search(qr, 10)
+        recalls[rf] = _recall_at_10(torch, qr, centers, N, SEED, SPREAD, live,
+                                    torch.as_tensor(got))
+    base.refine_factor = 4
+    row = {"phase": 13, "index": "ShardedIVFPQIndex", "check": "recall@10 by refine_factor",
+           "recall_queries": 256, "nprobe_per_shard": pq.nprobe,
+           "recall_at_10": {str(rf): r for rf, r in recalls.items()}}
+    emit(row)
+    out.append(row)
+    require(recalls[4] > 0.45, f"phase 13: ShardedIVFPQIndex recall@10 {recalls[4]}")
+    del pq, base, full, bank, scales
+    torch.cuda.empty_cache()
+    return out
+
+
+def _phase13_hybrid(torch, mods, mesh8) -> dict:
+    from codegraph_tpu_torch.api import CodeGraph
+    from codegraph_tpu_torch.parallel.sharded_search import ShardedFlatIndex
+    from codegraph_tpu_torch.search.hybrid import HybridSearch
+
+    tmp = tempfile.mkdtemp(prefix="cg_smoke13_")
+    try:
+        proj = _project_copy(tmp)
+        cfg = _hash_config(tmp, "data")
+        cg = CodeGraph.open(proj, config=cfg, device="cuda")
+        cg.index()
+        ix = cg.indexer
+        flat = ix.index
+        x, bias = flat.arrays()
+        sharded = ShardedFlatIndex(x.shape[1], mesh8, tile_n=1024)
+        sharded.build(x[: flat.n_rows])
+        dead = (bias[: flat.n_rows] <= NEG_INF / 2).nonzero().flatten().cpu().numpy()
+        sharded.delete(dead)
+        hs = HybridSearch(ix.store, sharded, ix.provider, ix.bm25, cfg.search)
+        require(hs._index_filter_ok, "phase 13: HybridSearch does not pass filters to the index")
+        mismatches, err, launches = 0, 0.0, []
+        for query in QUERIES:
+            got, delta = _counted(mods, lambda: hs.search_text(query, limit=10))
+            want = _uncounted(mods, lambda: cg.search(query, limit=10))
+            launches.append(delta)
+            _require_per_shard(delta, "K1", SHARDS, "HybridSearch over ShardedFlatIndex")
+            require(len(got) == len(want) > 0, f"phase 13: hybrid hits {len(got)} vs {len(want)}")
+            for n, (a, b) in enumerate(zip(got, want)):
+                err = max(err, abs(a.score - b.score))
+                if a.node_id != b.node_id and not any(
+                        abs(want[m].score - b.score) <= SCORE_TOL
+                        for m in (n - 1, n + 1) if 0 <= m < len(want)):
+                    mismatches += 1
+        out = {"phase": 13, "hybrid": "HybridSearch over ShardedFlatIndex", "shards": SHARDS,
+               "rows": flat.n_rows, "queries": len(QUERIES), "launches": launches,
+               "max_abs_err": err, "mismatches_outside_ties": mismatches}
+        emit(out)
+        require(mismatches == 0 and err <= SCORE_TOL,
+                f"phase 13: sharded hybrid hits differ from the FlatIndex's ({mismatches}, {err})")
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase13(torch, mods, errs) -> dict:
+    mesh8 = _mesh(torch, (SHARDS,), ("data",))
+    reset_launches(mods)
+    flat = _phase13_flat(torch, mods, mesh8)
+    int8 = _phase13_int8(torch, mods, mesh8)
+    ivf = _phase13_ivf(torch, mods, mesh8)
+    hybrid = _phase13_hybrid(torch, mods, mesh8)
+    launches = read_launches(mods)
+    for rows in (flat, int8):
+        for r in rows:
+            if "kernel" in r:
+                errs[r["kernel"]] = max(errs[r["kernel"]], r["max_abs_err"])
+    errs["K8"] = max([errs["K8"]] + [r["max_abs_err"] for r in ivf
+                                     if r.get("check") == "K8 per shard vs plain"])
+    require(all(launches[k] > 0 for k in ("K1", "K2", "K5", "K6", "K8")),
+            f"phase 13: a kernel of the sharded paths never launched: {launches}")
+    return {"launches": launches, "rows": flat + int8 + ivf, "hybrid": hybrid}
+
+
+# -- phase 14: the encoder across a mesh -------------------------------------
+
+PAR_B, PAR_TOL = 256, 1e-4
+
+
+def _max_gap(a, b) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+def phase14(torch, mods, errs) -> dict:
+    import dataclasses
+    import importlib
+
+    from codegraph_tpu_torch.models import training as tt
+    from codegraph_tpu_torch.models.encoder import encode, init_encoder_params
+    from codegraph_tpu_torch.models.providers import EncoderProvider
+    from codegraph_tpu_torch.parallel import moe
+    from codegraph_tpu_torch.parallel.pipeline import pp_encode
+
+    ring = importlib.import_module("codegraph_tpu_torch.parallel.ring_attention")
+    reset_launches(mods)
+    base = EncoderProvider(checkpoint=os.path.join(ROOT, "checkpoints", ENCODER_CKPT), device="cuda")
+    cfg, tok = base.cfg, base.tokenizer
+    L = cfg.max_len
+    require((cfg.hidden, cfg.n_layers, cfg.n_heads, L) == (512, 6, 16, 192),
+            f"phase 14: the r3 encoder is {cfg}")
+    master = {k: v.float() for k, v in base.params.items()}
+    del base
+    pairs = _doc_code_pairs()
+    pick = np.random.default_rng(14).choice(len(pairs), PAR_B, replace=False)
+    a_ids, a_mask = tok.encode_batch([pairs[i][0] for i in pick], max_len=L)
+    p_ids, p_mask = tok.encode_batch([pairs[i][1] for i in pick], max_len=L)
+    ids, mask = torch.from_numpy(p_ids).cuda(), torch.from_numpy(p_mask).cuda()
+    batch = {"anchor_ids": torch.from_numpy(a_ids).cuda(), "anchor_mask": torch.from_numpy(a_mask).cuda(),
+             "positive_ids": ids, "positive_mask": mask}
+    out = {"phase": 14, "config": {"hidden": cfg.hidden, "layers": cfg.n_layers,
+                                   "heads": cfg.n_heads, "B": PAR_B, "L": L}}
+
+    # 1. forwards in f32 (TF32 off) against encode without a mesh
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    fwd = {}
+    with torch.inference_mode():
+        runs = {
+            "encode": lambda: encode(master, ids, mask, cfg32),
+            "sp_ring_encode (dp, sp) = (2, 4)": lambda: ring.sp_ring_encode(
+                master, ids, mask, cfg32, _mesh(torch, (2, 4), ("dp", "sp")), sp_axis="sp",
+                dp_axis="dp"),
+            "pp_encode pp = 2": lambda: pp_encode(master, ids, mask, cfg32,
+                                                  _mesh(torch, (2,), ("pp",)), n_micro=4),
+            "pp_encode pp = 3": lambda: pp_encode(master, ids, mask, cfg32,
+                                                  _mesh(torch, (3,), ("pp",)), n_micro=4),
+            "pp_encode (pp, tp) = (2, 2)": lambda: pp_encode(
+                master, ids, mask, cfg32, _mesh(torch, (2, 2), ("pp", "tp")), n_micro=4,
+                tp_axis="tp"),
+            "encode (dp, sp, tp) = (2, 2, 2)": lambda: encode(
+                master, ids, mask, cfg32, mesh=_mesh(torch, (2, 2, 2), ("dp", "sp", "tp")),
+                dp_axis="dp", sp_axis="sp"),
+        }
+        ref = runs["encode"]()
+        for name, fn in runs.items():
+            ms, got = _event_ms(torch, fn, 3)
+            gap = _max_gap(got[-1], ref)
+            fwd[name] = {"ms": statistics.median(ms), "max_abs_vs_encode": gap}
+            require(got[-1].shape == ref.shape and bool(torch.isfinite(got[-1]).all()),
+                    f"phase 14: {name} gave {tuple(got[-1].shape)}")
+            require(gap <= PAR_TOL, f"phase 14: {name} is {gap} from encode")
+        # the card's bf16 forward on the mesh against its own unsharded one
+        bf16 = {k: v.to(torch.bfloat16) for k, v in master.items()}
+        ms1, r1 = _event_ms(torch, lambda: encode(bf16, ids, mask, cfg), 3)
+        ms2, r2 = _event_ms(torch, lambda: encode(
+            bf16, ids, mask, cfg, mesh=_mesh(torch, (2, 2, 2), ("dp", "sp", "tp")), dp_axis="dp",
+            sp_axis="sp"), 3)
+        fwd["bf16 encode"] = {"ms": statistics.median(ms1)}
+        fwd["bf16 encode (dp, sp, tp) = (2, 2, 2)"] = {"ms": statistics.median(ms2),
+                                                        "max_abs_vs_encode": _max_gap(r2[-1], r1[-1])}
+        require(fwd["bf16 encode (dp, sp, tp) = (2, 2, 2)"]["max_abs_vs_encode"] <= ENC_TOL,
+                f"phase 14: the bf16 forward on the mesh is {fwd} from encode")
+    out["forward"] = fwd
+
+    # 2. one training step (bf16, remat) on (dp, sp, tp) = (2, 2, 2) against one device
+    tcfg = tt.TrainConfig(learning_rate=TRAIN_LR, temperature=0.05)
+    rcfg = dataclasses.replace(cfg, remat=True)
+    steps = {}
+    plain_step, _ = tt.make_sharded_train_step(None, rcfg, tcfg, device="cuda")
+    mesh_step, _ = tt.make_sharded_train_step(_mesh(torch, (2, 2, 2), ("dp", "sp", "tp")), rcfg,
+                                              tcfg, sp_axis="sp")
+    opt = tt.make_optimizer(tcfg)
+    for name, step in (("one device", plain_step), ("(dp, sp, tp) = (2, 2, 2)", mesh_step)):
+        step(master, opt.init(master), batch)  # warm
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms, res = _event_ms(torch, lambda: step(master, opt.init(master), batch), 3)
+        m = res[-1][2]
+        steps[name] = {"ms": statistics.median(ms), "loss": float(m["loss"]),
+                       "grad_norm": float(m["grad_norm"]),
+                       "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del res
+    a, b = steps["one device"], steps["(dp, sp, tp) = (2, 2, 2)"]
+    require(math.isfinite(b["loss"]) and abs(a["loss"] - b["loss"]) <= _bf16_step(a["loss"])
+            and abs(a["grad_norm"] - b["grad_norm"]) <= _bf16_step(a["grad_norm"]),
+            f"phase 14: the sharded step differs from one device's: {steps}")
+
+    # 3. a routed-MoE encoder at the r3 width, one step on (dp, ep, tp) = (2, 2, 2)
+    mcfg = dataclasses.replace(rcfg, n_experts=4, moe_top_k=2, moe_capacity=2.0)
+    mparams = {k: v.cuda() for k, v in
+               init_encoder_params(mcfg, torch.Generator().manual_seed(14)).items()}
+    plain_moe, _ = tt.make_sharded_train_step(None, mcfg, tcfg, device="cuda")
+    mesh_moe, _ = tt.make_sharded_train_step(_mesh(torch, (2, 2, 2), ("dp", "ep", "tp")), mcfg,
+                                             tcfg, ep_axis="ep")
+    for name, step in (("MoE one device", plain_moe), ("MoE (dp, ep, tp) = (2, 2, 2)", mesh_moe)):
+        step(mparams, opt.init(mparams), batch)  # warm
+        ms, res = _event_ms(torch, lambda: step(mparams, opt.init(mparams), batch), 2)
+        m = res[-1][2]
+        steps[name] = {"ms": statistics.median(ms), "loss": float(m["loss"]),
+                       "grad_norm": float(m["grad_norm"])}
+        del res
+    a, b = steps["MoE one device"], steps["MoE (dp, ep, tp) = (2, 2, 2)"]
+    require(math.isfinite(b["loss"]) and abs(a["loss"] - b["loss"]) <= _bf16_step(a["loss"])
+            and abs(a["grad_norm"] - b["grad_norm"]) <= _bf16_step(a["grad_norm"]),
+            f"phase 14: the routed-MoE step on the mesh differs from one device's: {steps}")
+    out["train_steps"] = steps
+
+    # 4. the all-to-all MoE layer, ep = 4, against the dense oracle
+    T, E = 4096, 8
+    p = {k: v.cuda() for k, v in moe.init_moe_params(torch.Generator().manual_seed(4), cfg.hidden,
+                                                     cfg.mlp_hidden, E).items()}
+    x = torch.randn(T, cfg.hidden, generator=torch.Generator().manual_seed(5)).cuda()
+    fwd_moe = moe.make_sharded_topk_moe(_mesh(torch, (4,), ("ep",)), "ep", k=2, capacity_factor=8.0)
+    with torch.inference_mode():
+        ms_a2a, r_a2a = _event_ms(torch, lambda: fwd_moe(x, p), 3)
+        ms_dense, r_dense = _event_ms(torch, lambda: moe.topk_moe_dense(x, p, k=2), 3)
+    gap = _max_gap(r_a2a[-1], r_dense[-1])
+    out["moe_all_to_all"] = {"T": T, "H": cfg.hidden, "F": cfg.mlp_hidden, "E": E, "k": 2, "ep": 4,
+                             "capacity": 8.0, "ms": statistics.median(ms_a2a),
+                             "dense_ms": statistics.median(ms_dense), "max_abs_vs_dense": gap}
+    require(gap <= PAR_TOL, f"phase 14: the ep=4 all-to-all MoE is {gap} from the dense oracle")
+    out["launches"] = read_launches(mods)
+    emit(out)
+    return out
+
+
 def _on_alarm(signum, frame):
     raise TimeoutError(f"chip_smoke watchdog: {WATCHDOG_S}s exceeded")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,10,11,12",
+    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,10,11,12,13,14",
                     help="comma-separated phases to run (default: all)")
     ap.add_argument("--shm-child", metavar="DIR",
                     help="run as phase 12's attaching process (started by phase 12)")
@@ -3615,6 +4235,8 @@ def main(argv=None) -> int:
         p10 = run(10, phase10, mods, errs)
         run(11, phase11, mods, errs)
         p12 = run(12, phase12, mods, errs)
+        p13 = run(13, phase13, mods, errs)
+        p14 = run(14, phase14, mods, errs)
     except (CheckFailed, TimeoutError) as exc:
         print(f"chip_smoke FAILED: {exc}", file=sys.stderr, flush=True)
         return 1
@@ -3646,7 +4268,7 @@ def main(argv=None) -> int:
             "launches": path["launches"][name] if path else None,
             "launches_by_phase": {str(n): p["launches"][name] for n, p in
                                   ((2, p2), (4, p4), (6, p6["ivfpq"] if p6 else None), (8, p8),
-                                   (9, p9), (10, p10), (12, p12))
+                                   (9, p9), (10, p10), (12, p12), (13, p13), (14, p14))
                                   if p},
             "max_abs_err": errs[name],
             "ms": row.get("ms"), "plain_ms": row.get("plain_ms"),

@@ -1,11 +1,11 @@
 """Model family: the text encoder (PyTorch) and the host-side embedding
-providers, with the JAX package's exports but `encoder_param_shardings`
-(the sharded encode and sharded training wait for ROADMAP item 15). The
-encoder trains on one device through models/training.py."""
+providers, with the JAX package's exports. The encoder runs and trains on
+one device or across a mesh (`parallel/`, models/training.py)."""
 
 from codegraph_tpu_torch.models.encoder import (
     EncoderConfig,
     init_encoder_params,
+    encoder_param_shardings,
     encode,
 )
 from codegraph_tpu_torch.models.tokenizer import ByteTokenizer
@@ -21,6 +21,7 @@ from codegraph_tpu_torch.models.providers import (
 __all__ = [
     "EncoderConfig",
     "init_encoder_params",
+    "encoder_param_shardings",
     "encode",
     "ByteTokenizer",
     "hash_embed_texts",

@@ -24,16 +24,20 @@ The bf16 tensor-core products on a CUDA device have no autograd formula
 in PyTorch, so `_mm` carries its own backward (`_TensorCoreMM`), the JAX
 transpose rule of a bf16 x bf16 -> f32 product.
 
-Not ported: the routed mixture of experts (`moe_top_k > 0`, ROADMAP item
-16; the dense-dispatch MoE is here) and the sharded encode (`mesh`,
-`dp_axis`, `sp_axis`, `ep_axis`, `encoder_param_shardings`; item 15).
+The mixture of experts runs dense (`moe_top_k == 0`: every expert on every
+token) or routed (`_moe_mlp_routed`: top-k experts per token into
+capacity-bounded buffers, a group per batch row). With a `mesh`, `encode`
+runs across the mesh's devices (`parallel/sharded_encode.py`: the batch
+over dp, the sequence over sp, heads and MLP columns over "tp", experts
+over ep) and computes what it computes without one;
+`encoder_param_shardings` gives each parameter's layout.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -56,7 +60,9 @@ class EncoderConfig:
     max_len: int = 512
     pooling: str = "mean"        # mean | cls | max
     n_experts: int = 0           # >0 switches the MLP to a mixture of experts
-    moe_top_k: int = 0           # 0: dense dispatch; >0: routed (not ported)
+    moe_top_k: int = 0           # 0: dense dispatch; >0: top-k routed dispatch
+    moe_capacity: float = 2.0    # routed only: expert buffer slots per group
+                                 # = ceil(moe_capacity * k * L / E)
     remat: bool = False          # recompute layer activations in the backward
     norm_style: str = "pre"      # pre (native) | post (BERT-family imports)
     attn_bias: bool = False      # qkv/output projection biases (BERT has them)
@@ -155,6 +161,52 @@ def encoder_params_to_jax(params: Params) -> Dict:
         else:
             tree[key] = arr
     return tree
+
+
+def encoder_param_shardings(cfg: EncoderConfig) -> Dict[str, Tuple]:
+    """Each parameter's layout on a mesh, keyed like the parameters: a tuple
+    with one mesh axis name (or None: not sharded) per dimension, the JAX
+    package's PartitionSpecs. tp: column-parallel wqkv/w_up (output
+    features, i.e. heads), row-parallel wo/w_down (input features); ep: the
+    expert dimension of the per-expert MLP weights. Embeddings and norms
+    replicate. (The sharded encode splits wqkv's columns per projection, so
+    that a tp shard holds whole heads of q, k and v.)"""
+    layers: Dict[str, Tuple] = {
+        "ln1_scale": (None, None),
+        "ln1_bias": (None, None),
+        "wqkv": (None, None, "tp"),
+        "wo": (None, "tp", None),
+        "ln2_scale": (None, None),
+        "ln2_bias": (None, None),
+    }
+    if cfg.attn_bias:
+        layers["b_qkv"] = (None, "tp")
+        layers["b_o"] = (None, None)
+    if cfg.n_experts > 0:
+        layers.update({
+            "gate": (None, None, None),
+            "w_up_e": (None, "ep", None, "tp"),
+            "b_up_e": (None, "ep", "tp"),
+            "w_down_e": (None, "ep", "tp", None),
+            "b_down_e": (None, "ep", None),
+        })
+    else:
+        layers.update({
+            "w_up": (None, None, "tp"),
+            "b_up": (None, "tp"),
+            "w_down": (None, "tp", None),
+            "b_down": (None, None),
+        })
+    specs: Dict[str, Tuple] = {
+        "tok_emb": (None, None),
+        "pos_emb": (None, None),
+        "ln_in_scale": (None,),
+        "ln_in_bias": (None,),
+        "ln_out_scale": (None,),
+        "ln_out_bias": (None,),
+    }
+    specs.update({LAYER_PREFIX + k: v for k, v in layers.items()})
+    return specs
 
 
 def _tc_mm(a: torch.Tensor, b: torch.Tensor, acc=None) -> torch.Tensor:
@@ -298,17 +350,109 @@ def _moe_mlp(x, gate, w_up_e, b_up_e, w_down_e, b_down_e):
     return torch.einsum("ble,belh->blh", probs.float(), y).to(dt)
 
 
+def route_rows(x: torch.Tensor, gate: torch.Tensor, top_k: int, capacity_factor: float):
+    """The routing of the routed MoE, a group per batch row of x [B, L, H]:
+    each row sends its L tokens' top-k experts (a tie to the lower expert,
+    as `lax.top_k`) into per-expert buffers of C = ceil(capacity_factor * k
+    * L / E) slots, in arrival order over (L, k); tokens past capacity drop.
+    Returns (combine [B, L, E, C] f32: each kept slot's gate weight, 0
+    elsewhere; C)."""
+    from codegraph_tpu_torch.parallel.moe import _dispatch_indices, topk_experts
+
+    L = x.shape[1]
+    E = gate.shape[-1]
+    scores = torch.einsum("blh,he->ble", x.float(), gate.float())
+    top_s, top_e = topk_experts(scores, top_k)                   # [B, L, k]
+    w = torch.softmax(top_s, dim=-1)
+    C = max(1, math.ceil(capacity_factor * top_k * L / E))
+    oe = F.one_hot(top_e, E)                                     # [B, L, k, E]
+    pos, keep = _dispatch_indices(top_e, top_k, E, C)            # per row
+    oc = F.one_hot(torch.where(keep, pos, 0), C).float()         # [B, L, k, C]
+    wk = torch.where(keep, w, 0.0)
+    combine = torch.einsum("blke,blkc,blk->blec", oe.float(), oc, wk)
+    return combine, C
+
+
+def dispatch_rows(x: torch.Tensor, combine: torch.Tensor) -> torch.Tensor:
+    """The experts' buffers [E, B*C, H] in x's dtype: slot (e, b, c) holds
+    the token routed there, zeros where none is (a dropped slot's weight is
+    exactly 0, and a softmax weight never is)."""
+    B, L, E, C = combine.shape
+    buf = torch.einsum("blec,blh->bech", (combine > 0).float(), x.float())
+    return buf.transpose(0, 1).reshape(E, B * C, -1).to(x.dtype)
+
+
+def routed_experts(buf, w_up_e, b_up_e, w_down_e) -> torch.Tensor:
+    """[E, N, H] buffers through their experts' MLP up to w_down (f32; the
+    caller adds b_down_e): products in the buffers' dtype summed in f32,
+    tanh GELU."""
+    dt = buf.dtype
+    h = _mm(buf, w_up_e.to(dt))
+    h = F.gelu(h + b_up_e[:, None, :], approximate="tanh").to(dt)
+    return _mm(h, w_down_e.to(dt))
+
+
+def combine_rows(y: torch.Tensor, combine: torch.Tensor, dtype) -> torch.Tensor:
+    """y [E, B*C, H] (f32) back to token order, each token's slots weighted."""
+    B, L, E, C = combine.shape
+    y = y.reshape(E, B, C, -1).transpose(0, 1)                     # [B, E, C, H]
+    return torch.einsum("blec,bech->blh", combine, y).to(dtype)
+
+
+def _moe_mlp_routed(x, gate, w_up_e, b_up_e, w_down_e, b_down_e, top_k: int,
+                    capacity_factor: float):
+    """GShard-style top-k routed MoE (JAX's `_moe_mlp_routed`): a group per
+    batch row routes into per-expert buffers; dispatch and combine are
+    one-hot einsums, as in the reference."""
+    combine, _ = route_rows(x, gate, top_k, capacity_factor)
+    buf = dispatch_rows(x, combine)
+    y = routed_experts(buf, w_up_e, b_up_e, w_down_e) + b_down_e[:, None, :]
+    return combine_rows(y, combine, x.dtype)
+
+
+def pool(x: torch.Tensor, mask: torch.Tensor, params: Params, cfg: EncoderConfig,
+         normalize: bool) -> torch.Tensor:
+    """The layers' output [B, L, H] -> [B, H] f32: the final norm (pre-LN
+    only), cfg.pooling, then L2 normalisation unless `normalize` is False."""
+    if cfg.norm_style != "post":
+        # the final norm belongs to the pre-LN architecture only: BERT-family
+        # (post) models end with each layer's own LayerNorm
+        x = _layer_norm(x, params["ln_out_scale"], params["ln_out_bias"], cfg.eps)
+    xf = x.float()
+    mf = mask.float()[:, :, None]
+    if cfg.pooling == "cls":
+        pooled = xf[:, 0, :]
+    elif cfg.pooling == "max":
+        pooled = torch.where(mf > 0, xf, -1e30).amax(dim=1)
+    else:  # mean
+        pooled = (xf * mf).sum(dim=1) / mf.sum(dim=1).clamp(min=1.0)
+    if normalize:
+        sq = pooled.square().sum(dim=-1, keepdim=True)
+        pooled = pooled * torch.rsqrt(sq.clamp(min=1e-12))
+    return pooled
+
+
 def encode(params: Params, token_ids: torch.Tensor, mask: torch.Tensor,
-           cfg: EncoderConfig, normalize: bool = True) -> torch.Tensor:
+           cfg: EncoderConfig, normalize: bool = True, mesh=None,
+           dp_axis: Optional[str] = None, sp_axis: Optional[str] = None,
+           ep_axis: Optional[str] = None) -> torch.Tensor:
     """Forward pass: [B, L] int tokens + [B, L] bool mask -> [B, H] f32,
     pooled per cfg.pooling (masked mean by default), then L2-normalized
     unless `normalize` is False. Differentiable in the parameters; with
     cfg.remat and autograd recording, each layer's activations are
-    recomputed in the backward pass instead of kept."""
-    if cfg.n_experts > 0 and cfg.moe_top_k > 0:
-        raise NotImplementedError(
-            "the routed mixture of experts (moe_top_k > 0) is not ported yet: "
-            "ROADMAP item 16; use moe_top_k=0 (dense dispatch)")
+    recomputed in the backward pass instead of kept.
+
+    With a `mesh` (`parallel/mesh.py`) the forward runs across its devices
+    (`parallel/sharded_encode.py`): the batch over `dp_axis`, the sequence
+    over `sp_axis` between attention blocks (attention gathers k/v), heads
+    and MLP columns over the mesh's "tp" axis, experts over `ep_axis`; the
+    result lives on the mesh's first device. Without a mesh the axis names
+    mean nothing."""
+    if mesh is not None:
+        from codegraph_tpu_torch.parallel.sharded_encode import encode_on_mesh
+
+        return encode_on_mesh(params, token_ids, mask, cfg, normalize, mesh,
+                              dp_axis=dp_axis, sp_axis=sp_axis, ep_axis=ep_axis)
     B, L = token_ids.shape
     dt = cfg.dtype
     x = (F.embedding(token_ids.long(), params["tok_emb"]) + params["pos_emb"][:L][None]).to(dt)
@@ -318,6 +462,9 @@ def encode(params: Params, token_ids: torch.Tensor, mask: torch.Tensor,
     approx = cfg.act != "gelu_exact"
 
     def ffn(h, lp):
+        if cfg.n_experts > 0 and cfg.moe_top_k > 0:
+            return _moe_mlp_routed(h, lp["gate"], lp["w_up_e"], lp["b_up_e"], lp["w_down_e"],
+                                   lp["b_down_e"], cfg.moe_top_k, cfg.moe_capacity)
         if cfg.n_experts > 0:
             return _moe_mlp(h, lp["gate"], lp["w_up_e"], lp["b_up_e"],
                             lp["w_down_e"], lp["b_down_e"])
@@ -345,28 +492,13 @@ def encode(params: Params, token_ids: torch.Tensor, mask: torch.Tensor,
             x = torch.utils.checkpoint.checkpoint(layer, x, lp, use_reentrant=False)
         else:
             x = layer(x, lp)
-    if cfg.norm_style != "post":
-        # the final norm belongs to the pre-LN architecture only: BERT-family
-        # (post) models end with each layer's own LayerNorm
-        x = _layer_norm(x, params["ln_out_scale"], params["ln_out_bias"], cfg.eps)
-
-    xf = x.float()
-    mf = mask.float()[:, :, None]
-    if cfg.pooling == "cls":
-        pooled = xf[:, 0, :]
-    elif cfg.pooling == "max":
-        pooled = torch.where(mf > 0, xf, -1e30).amax(dim=1)
-    else:  # mean
-        pooled = (xf * mf).sum(dim=1) / mf.sum(dim=1).clamp(min=1.0)
-    if normalize:
-        sq = pooled.square().sum(dim=-1, keepdim=True)
-        pooled = pooled * torch.rsqrt(sq.clamp(min=1e-12))
-    return pooled
+    return pool(x, mask, params, cfg, normalize)
 
 
 __all__ = [
     "EncoderConfig",
     "init_encoder_params",
+    "encoder_param_shardings",
     "encoder_params_from_jax",
     "encoder_params_to_jax",
     "encode",

@@ -26,11 +26,17 @@ The optimizer state is {"count": int, "mu": <params' structure>, "nu":
 across. Steps return new parameter tensors and leave their inputs as they
 were.
 
-Deliberate differences (ROADMAP section 3): `make_sharded_train_step`
-takes no mesh (a mesh raises, ROADMAP item 15; the routed mixture of
-experts raises, item 16); the train state is saved
-with `torch.save` to one file, not with orbax to a directory, and the
-port reads no orbax checkpoint.
+With a mesh (`parallel/mesh.py`), `make_sharded_train_step` runs the step
+across its devices: the encoder's forward is `encode(..., mesh=...)` (the
+batch over dp, the sequence over sp, heads and MLP columns over "tp",
+experts over ep; `parallel/sharded_encode.py`) and the loss is taken over
+the global batch. The master parameters and the optimizer state live on
+the mesh's first device; each forward takes the shards from them, and
+their gradients flow back by autograd.
+
+Deliberate difference (ROADMAP section 3): the train state is saved with
+`torch.save` to one file, not with orbax to a directory, and the port reads
+no orbax checkpoint.
 """
 
 from __future__ import annotations
@@ -174,21 +180,6 @@ def make_optimizer(tcfg: TrainConfig) -> AdamW:
 # -- losses --------------------------------------------------------------
 
 
-def _no_mesh(mesh) -> None:
-    """Without a mesh the axis names mean nothing, as in the JAX package."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "sharded training (a mesh, and dp/sp/ep axes on it) is not ported yet: "
-            "ROADMAP item 15; the port trains on one device")
-
-
-def _check_cfg(cfg: EncoderConfig) -> None:
-    if cfg.n_experts > 0 and cfg.moe_top_k > 0:
-        raise NotImplementedError(
-            "the routed mixture of experts (moe_top_k > 0) is not ported yet: "
-            "ROADMAP item 16; use moe_top_k=0 (dense dispatch)")
-
-
 def _softmax_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """optax.softmax_cross_entropy_with_integer_labels over the last axis."""
     logits = logits - logits.amax(dim=-1, keepdim=True).detach()
@@ -203,10 +194,11 @@ def info_nce_loss(
     """Symmetric InfoNCE over in-batch negatives.
 
     batch: anchor_ids/anchor_mask/positive_ids/positive_mask, all [B, L]
-    tensors on the parameters' device."""
-    _no_mesh(mesh)
-    za = encode(params, batch["anchor_ids"], batch["anchor_mask"], cfg)
-    zp = encode(params, batch["positive_ids"], batch["positive_mask"], cfg)
+    tensors on the parameters' device. With a mesh the encoder runs across
+    it and the logits are over the global batch."""
+    kw = dict(mesh=mesh, dp_axis=dp_axis, sp_axis=sp_axis, ep_axis=ep_axis)
+    za = encode(params, batch["anchor_ids"], batch["anchor_mask"], cfg, **kw)
+    zp = encode(params, batch["positive_ids"], batch["positive_mask"], cfg, **kw)
     logits = (za @ zp.T) / temperature  # [B, B]
     labels = torch.arange(za.shape[0], device=za.device)
     loss_a = _softmax_ce(logits, labels)
@@ -242,10 +234,10 @@ def train_step(
 ):
     """One step -> (params, opt_state, metrics {loss, accuracy,
     grad_norm} as 0-dim tensors on the parameters' device)."""
-    _no_mesh(mesh)
     batch = _batch_on(batch, _device_of(params))
     _, metrics, grads = _value_and_grad(
-        lambda p: info_nce_loss(p, batch, cfg, tcfg.temperature), params)
+        lambda p: info_nce_loss(p, batch, cfg, tcfg.temperature, mesh, dp_axis, sp_axis,
+                                ep_axis), params)
     with torch.no_grad():
         updates, opt_state = optimizer.update(grads, opt_state, params)
         params = apply_updates(params, updates)
@@ -261,18 +253,35 @@ def make_sharded_train_step(
     dp_axis: str = "dp",
     sp_axis: Optional[str] = None,
     ep_axis: Optional[str] = None,
-    device="cuda",
+    device=None,
 ):
-    """The JAX package compiles the step over a (dp, tp[, sp|ep]) mesh;
-    the port runs it on one device, so `mesh` must be None (the axis
-    names then mean nothing). Returns (step_fn, init_fn):
-    init_fn(generator) draws f32 parameters on `device` and the optimizer
-    state; step_fn(params, opt_state, batch) runs one step."""
+    """The training step over a (dp, tp[, sp|ep]) mesh, or on one device
+    without one. Returns (step_fn, init_fn): init_fn(generator) draws f32
+    parameters and the optimizer state on the mesh's first device (without
+    a mesh: on `device`, default "cuda"); step_fn(params, opt_state, batch)
+    runs one global step, the batch split over `dp_axis` and, with sp_axis,
+    the activations sequence-sharded between attention blocks; an axis
+    named that the mesh lacks raises (as the JAX package's batch sharding
+    does). The master parameters and the optimizer state stay on the
+    mesh's first device; each forward takes the shards of the mesh's "tp"
+    and "ep" axes (where it has them) as views there, or copies on the
+    shards' other devices, and their gradients flow back to the master copy
+    (`parallel/sharded_encode.py`; JAX instead places each parameter once
+    by `encoder_param_shardings`). Without a mesh the axis names mean
+    nothing."""
     from codegraph_tpu_torch.index.flat import resolve_device
 
-    _no_mesh(mesh)
-    _check_cfg(cfg)
-    dev = resolve_device(device)
+    if mesh is not None:
+        for name in (dp_axis, sp_axis, ep_axis):
+            if name is not None and name not in mesh.axis_names:
+                raise ValueError(f"no mesh axis {name!r} in {mesh.axis_names}")
+        if device is not None and torch.device(device) != mesh.first_device:
+            raise ValueError(f"device={device!r} is not the mesh's first device "
+                             f"{mesh.first_device}")
+        dev = mesh.first_device
+    else:
+        dp_axis = sp_axis = ep_axis = None
+        dev = resolve_device("cuda" if device is None else device)
     optimizer = make_optimizer(tcfg)
 
     def init_fn(generator: torch.Generator):
@@ -280,7 +289,8 @@ def make_sharded_train_step(
         return params, optimizer.init(params)
 
     def step_fn(params, opt_state, batch):
-        return train_step(params, opt_state, batch, cfg, tcfg, optimizer)
+        return train_step(params, opt_state, batch, cfg, tcfg, optimizer, mesh=mesh,
+                          dp_axis=dp_axis, sp_axis=sp_axis, ep_axis=ep_axis)
 
     return step_fn, init_fn
 
@@ -323,7 +333,6 @@ def make_cross_encoder_train_step(cfg: EncoderConfig, tcfg: TrainConfig,
     optimizer.init((params, head)). group_size > 0 trains listwise over
     groups of G consecutive candidates per query (see
     cross_encoder_loss)."""
-    _check_cfg(cfg)
     optimizer = make_optimizer(tcfg)
 
     def step(state, batch):

@@ -321,6 +321,43 @@ def _port_proc(args, env_vars=None, **kw):
     return [sys.executable, "-c", BLOCK_JAX, *args], env
 
 
+def _boost_inputs(data_dir, replies) -> str:
+    """Both packages' boost inputs for every hit of the search replies (a
+    failure's diagnostic): the hit's row and its boost neighbours with their
+    weights, from each package's `padded_adjacency` of the snapshot."""
+    from codegraph_tpu.graph.store import GraphStore as JStore
+    from codegraph_tpu_torch.graph.store import GraphStore as TStore
+
+    lines = []
+    for name, store in (("jax", JStore.load(data_dir)), ("port", TStore.load(data_dir))):
+        nbr, wgt, _, _ = store.csr().padded_adjacency(max_deg=32)
+        for reply in replies:
+            for hit in reply:
+                row = store.node_rows.get(hit["node_id"], -1)
+                live = [(store.node_by_row(int(n)).name, float(w))
+                        for n, w in zip(nbr[row], wgt[row]) if row >= 0 and n >= 0]
+                lines.append(f"{name} {hit['name']} row={row} graph_boost={hit.get('graph_boost')} "
+                             f"neighbours={sorted(live)}")
+    return "\n".join(lines)
+
+
+def _replies_close_or_explain(a, b, data_dir):
+    """`_replies_close`, and on a mismatch the boost inputs of every search
+    hit on both sides in the failure's message."""
+    try:
+        _replies_close(a, b)
+    except AssertionError as exc:
+        hits = []
+        for x, y in zip(a, b):
+            for m in (x, y):
+                content = (m.get("result") or {}).get("content")
+                if content:
+                    payload = json.loads(content[0]["text"])
+                    hits.append(payload.get("results", []))
+        raise AssertionError(f"{exc}\nboth sides' hits:\n{json.dumps(hits, indent=1)}\n"
+                             f"{_boost_inputs(data_dir, hits)}") from exc
+
+
 def test_start_stdio_subprocess_equal(env):
     """`start stdio` of the port as a process that cannot import JAX: every
     stdout line is a JSON-RPC message, and the replies equal the JAX CLI's."""
@@ -333,7 +370,7 @@ def test_start_stdio_subprocess_equal(env):
     a = [json.loads(ln) for ln in oj.splitlines()]
     b = [json.loads(ln) for ln in proc.stdout.splitlines()]  # every line parses
     assert len(b) == 7
-    _replies_close(a, b)
+    _replies_close_or_explain(a, b, str(env["root"] / "jdata"))
     assert json.loads(b[5]["result"]["content"][0]["text"])["agent"] == "pipeline"
 
 
@@ -371,7 +408,7 @@ def test_start_http_subprocess_equal(env):
     cfg = jconfig.load_config(env["jcfg"])
     server = jcli._make_server(cfg)
     want = [server.handle_message(m) for m in STDIO[:1] + STDIO[2:]]
-    _replies_close(want, got)
+    _replies_close_or_explain(want, got, str(env["root"] / "jdata"))
 
 
 def test_start_http_in_process_equal(env, monkeypatch):

@@ -99,12 +99,10 @@ def small_inputs(cfg, B=5, L=24, seed=1):
 
 
 def same_fields(jcfg, tcfg) -> bool:
-    """The two EncoderConfigs agree on every field the port has (it drops
-    the routed MoE's `moe_capacity`; dtypes are compared apart)."""
-    want = {k: v for k, v in dataclasses.asdict(jcfg).items()
-            if k not in ("moe_capacity", "dtype")}
+    """The two EncoderConfigs agree on every field (dtypes are compared apart)."""
+    want = {k: v for k, v in dataclasses.asdict(jcfg).items() if k != "dtype"}
     got = {k: v for k, v in dataclasses.asdict(tcfg).items() if k != "dtype"}
-    return got == want and jcfg.moe_capacity == 2.0
+    return got == want
 
 
 def both(variant, dtype_name):
@@ -208,14 +206,6 @@ def test_init_has_the_jax_layout(variant):
     assert all(v.dtype == torch.float32 for v in got.values())
     again = init_encoder_params(tcfg, torch.Generator().manual_seed(0))
     assert all(torch.equal(got[k], again[k]) for k in got)
-
-
-def test_routed_moe_raises_naming_its_item():
-    tcfg = TConfig(**SMALL, n_experts=4, moe_top_k=2, dtype=torch.float32)
-    params = init_encoder_params(tcfg, torch.Generator().manual_seed(0))
-    ids = torch.zeros((1, 8), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 16"):
-        tencode(params, ids, torch.ones((1, 8), dtype=torch.bool), tcfg)
 
 
 # -- the shipped r3 checkpoint -------------------------------------------------

@@ -72,7 +72,15 @@ TRAINING_SHM_MODULES = [
 ]
 
 
-@pytest.mark.parametrize("module", SERVING_MODULES + TRAINING_SHM_MODULES)
+# the multi-device slice: the mesh, the sharded indexes, the encoder across a mesh
+PARALLEL_MODULES = [
+    "parallel", "parallel.mesh", "parallel.sharded_search", "parallel.sharded_ivf",
+    "parallel.sharded_ivfpq", "parallel.moe", "parallel.ring_attention", "parallel.pipeline",
+    "parallel.sharded_encode",
+]
+
+
+@pytest.mark.parametrize("module", SERVING_MODULES + TRAINING_SHM_MODULES + PARALLEL_MODULES)
 def test_serving_module_imports_alone_without_jax(module):
     code = BLOCKED_IMPORT.split("import codegraph_tpu_torch\n")[0] + (
         f"import codegraph_tpu_torch.{module}\n"

@@ -23,9 +23,10 @@ same batch. Tolerances:
 Also: the dense MoE trains, remat gives the same steps bit for bit, the
 cross-encoder loss and step (pointwise and listwise at group size 4), the
 JAX train state carried across mid-run, save/restore continuing bit-equal,
-trained weights read by the JAX package, the refusals (a mesh, item 15;
-the routed MoE, item 16), and the three-piece bf16 split that the card's
-backward of a tensor-core product uses.
+trained weights read by the JAX package, and the three-piece bf16 split
+that the card's backward of a tensor-core product uses. The sharded step
+and the routed MoE are held to JAX in test_torch_sharded_training and
+test_torch_moe.
 """
 
 import dataclasses
@@ -361,26 +362,6 @@ def test_trained_weights_load_in_jax(tmp_path):
         got = encode(p, torch.from_numpy(b["anchor_ids"]), torch.from_numpy(b["anchor_mask"]),
                      tcfg).numpy()
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
-
-
-def test_mesh_raises_naming_item_15():
-    _, tcfg = configs("f32")
-    ttc = tt.TrainConfig()
-    with pytest.raises(NotImplementedError, match="item 15"):
-        tt.make_sharded_train_step(object(), tcfg, ttc, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 15"):
-        tt.make_sharded_train_step(object(), tcfg, ttc, sp_axis="sp", device="cpu")
-    p, s = tt.make_sharded_train_step(None, tcfg, ttc, device="cpu")[1](torch.Generator())
-    with pytest.raises(NotImplementedError, match="item 15"):
-        tt.train_step(p, s, pair_batch(0), tcfg, ttc, tt.make_optimizer(ttc), mesh=object())
-
-
-def test_routed_moe_raises_naming_item_16():
-    _, tcfg = configs("f32", n_experts=4, moe_top_k=2)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        tt.make_sharded_train_step(None, tcfg, tt.TrainConfig(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 16"):
-        tt.make_cross_encoder_train_step(tcfg, tt.TrainConfig())
 
 
 def test_cuda_without_gpu_raises():
