@@ -11,19 +11,29 @@
     python3 chip_smoke.py --phases 0,11    # encoder and cross-encoder training only
     python3 chip_smoke.py --phases 0,12    # the shared-memory hand-off only
     python3 chip_smoke.py --phases 0,13,14 # the parallel/ slice (an 8-shard mesh on one card)
+    python3 chip_smoke.py --phases 0,1,3   # the kernels, checked and timed at real size
+    python3 chip_smoke.py --phases 0,15    # the bf16 main path (K2tc) only
 
 Phases, each printing one JSON object per line as it ends:
 
   0  card name and power limit, torch and nvcc versions; builds the CUDA
-     sources from csrc/ (flat_topk.cu, int8_topk.cu, ivfpq_adc.cu and the
-     host helper ivf_spill.cu, one nvcc each, in parallel) and prints the
+     sources from csrc/ (flat_topk.cu, flat_topk_tc.cu, int8_topk.cu,
+     ivfpq_adc.cu and the host helper ivf_spill.cu, one nvcc each, in
+     parallel) and prints the
      build seconds and the ptxas line (registers, spills) of every kernel
      instance.
   1  every kernel against its plain PyTorch version on the card. K1, K2
      and K3: f32 and bf16 corpora up to 131,072 x 768, k in {1, 10, 30,
      100, 300, 1024}, K2-K4 at B = 20, 31 and 32 (a 32-row query tile), 33,
      40 and 64 (a 64-row tile) and 70, 96, 256 and 1000 (partial 128-row
-     tiles). K5, K6 and K7: int8 corpora of the same sizes, k in {1, 10,
+     tiles); over bf16 rows with bf16 queries K2 and K3 run K2tc (the
+     tensor cores), held as well at B in {32, 33, 64, 65, 96, 128, 129,
+     255, 256, 1000} x every k at D = 768, at D in {8, 64, 200, 1024, 1536}
+     (depths not a multiple of 64, resident and streamed query tiles), K3
+     at 64, 129 and 256, every call counted as a K2tc launch; each bf16
+     K2/K3 case runs again with the same queries widened to f32, which must
+     launch K2 or K3 (rows_pass1 over bf16 rows) and not K2tc. K5,
+     K6 and K7: int8 corpora of the same sizes, k in {1, 10,
      100, 300}, with an all-zero row (scale 0) and rows of +-127 everywhere
      (an int8 wrap would show), K6 at B = 33, 64 (the 64-row tile), 65,
      96, 128, 129, 255, 256 and 1000 (128-row tiles), K7 at 64, 96, 129
@@ -52,9 +62,13 @@ Phases, each printing one JSON object per line as it ends:
      the card from a seeded generator, 1% tombstoned; K1 at B=1 and 8,
      k=30 and 300; K2 (f32) at B=32 and 64 (QueryService's bucket), k=30
      and 300; K2, K3 and K4 (f32; K4 on xt = x.T) at B=256 and 1024, k=30,
-     100 and 300; K2 (bf16) at B=256 and 1024, k=30 and 300: median kernel
-     ms over 7 batches (CUDA events), the plain version's ms, a chunked
-     matmul + topk yardstick (library_ms, checked against), and the bound.
+     100 and 300; K2tc (bf16 queries, through K2's wrapper) at B=64, 256
+     and 1024, k=30, 100 and 300, and through K3's at B=1024, k=100; K2
+     with f32 queries over the bf16 rows (rows_pass1) at B=1024, k=30:
+     median kernel ms over 7 batches (CUDA events), the plain version's ms,
+     a chunked matmul + topk yardstick (library_ms, checked against; for
+     bf16 queries the tensor-core torch.mm(out_dtype=f32), beside the f32
+     one), and the bound.
   4  the int8 main path: phase 2 with index.dtype = "int8" (Int8FlatIndex,
      bf16 rescore copy): 5 searches (K5) and 64 concurrent queries through
      QueryService (K6), checked against the same snapshot searched on the
@@ -198,6 +212,11 @@ Phases, each printing one JSON object per line as it ends:
      (dp, ep, tp) = (2, 2, 2), each against the one-device step's loss and
      grad norm (one bf16 step); make_sharded_topk_moe on ep = 4 against
      topk_moe_dense at capacity 8.0 (1e-4). Prints each one's ms.
+  15 the bf16 main path: phase 2 with index.dtype = "bfloat16" (the flat
+     tier the planner picks from 200k rows): 5 searches (K1 over bf16
+     rows) and 64 concurrent QueryService queries (K2tc), checked as in
+     phase 2; K1 and K2tc must launch and no other kernel. It runs right
+     after phase 2.
 
 Then the card's name and power limit, one JSON line with every kernel's
 numbers, and last {"ok": true, "device": {...}}. Any failed check exits
@@ -237,12 +256,21 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
 # exactly in f32, so both dtypes are held to the same bound.
 SCORE_TOL = 1e-5
 
+#: K2tc's cases in phase 1: depths (not a multiple of 64; both query-tile
+#: routes), batches on both sides of its 64- and 128-row query tiles, k
+TC_D = (768, 8, 64, 200, 1024, 1536)
+TC_B = (32, 33, 64, 65, 96, 128, 129, 255, 256, 1000)
+TC_K = (1, 10, 30, 100, 300, 1024)
+TC_B_OTHER = (33, 64, 65, 129, 1000)
+TC_K_OTHER = (1, 30, 300, 1024)
+
 #: the sources under codegraph_tpu_torch/csrc/, built in phase 0
-SOURCES = ("flat_topk", "int8_topk", "ivfpq_adc", "ivf_spill")
+SOURCES = ("flat_topk", "flat_topk_tc", "int8_topk", "ivfpq_adc", "ivf_spill")
 
 
 # name -> (wrapper module, wrapper, source, line of the TPU kernel's pallas_call)
 FLAT_CU = "codegraph_tpu_torch/csrc/flat_topk.cu"
+FLAT_TC_CU = "codegraph_tpu_torch/csrc/flat_topk_tc.cu"
 INT8_CU = "codegraph_tpu_torch/csrc/int8_topk.cu"
 IVFPQ_CU = "codegraph_tpu_torch/csrc/ivfpq_adc.cu"
 KERNELS = {
@@ -250,6 +278,8 @@ KERNELS = {
     "K2": ("topk", "streaming_topk_cuda_qmajor", FLAT_CU, "codegraph_tpu/ops/topk.py:456"),
     "K3": ("topk", "streaming_topk_cuda_qres", FLAT_CU, "codegraph_tpu/ops/topk.py:561"),
     "K4": ("topk", "streaming_topk_cuda_qmajor_xt", FLAT_CU, "codegraph_tpu/ops/topk.py:664"),
+    # K2 and K3 over bf16 queries and bf16 rows (wgmma bf16 on the tensor cores)
+    "K2tc": ("topk", "streaming_topk_cuda_tc", FLAT_TC_CU, "codegraph_tpu/ops/topk.py:456"),
     "K5": ("quantize", "streaming_topk_int8_cuda", INT8_CU, "codegraph_tpu/ops/quantize.py:182"),
     "K6": ("quantize", "streaming_topk_int8_cuda_qmajor", INT8_CU,
            "codegraph_tpu/ops/quantize.py:287"),
@@ -378,7 +408,8 @@ def ptxas_summary(log: str) -> list:
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", ln)
         if m:
-            k = re.search(r"(topk_pass1|rows_pass1|int8_dp4a_pass1|int8_mma_pass1|int8_tc_pass1|adc_qmajor|"
+            k = re.search(r"(topk_pass1|rows_pass1|bf16_tc_pass1|int8_dp4a_pass1|int8_mma_pass1|"
+                          r"int8_tc_pass1|adc_qmajor|"
                           r"merge_pairs_global|"
                           r"topk_merge)"
                           r"(I\w*?EE)?",
@@ -451,6 +482,8 @@ def phase1(torch, mods, errs) -> dict:
                 if dtype == torch.int8:
                     kernel = {"K1": "K5", "K2": "K6", "K3": "K7"}[kernel]
                 fn = kernels[kernel]
+                # bf16 queries over bf16 rows: K2 and K3 run the tensor-core kernel
+                name = "K2tc" if dtype == torch.bfloat16 and kernel in ("K2", "K3") else kernel
                 q = _unit(torch, torch.randn(B, D, generator=g, device=dev))
                 if dtype == torch.int8:
                     qv, qs = quantize.quantize_rows(q)
@@ -469,21 +502,36 @@ def phase1(torch, mods, errs) -> dict:
                     args = (q, x, bias)
                     plain = topk.streaming_topk
                     judge = dot_judge(q, x, bias)
+                # (kernel that must launch, its label, inputs, judge)
+                runs = [(name, kernel if name == kernel else f"{name} (via {kernel})", args, judge)]
+                if name == "K2tc":  # the same rows under f32 queries stay on rows_pass1
+                    qf = q.float()
+                    runs.append((kernel, f"{kernel} (f32 q over bf16 rows)", (qf, x, bias),
+                                 dot_judge(qf, x, bias)))
                 for k in ks:
-                    s_k, i_k = fn(*args, k)
-                    torch.cuda.synchronize()
-                    s_p, i_p = plain(*args, k)
-                    err, n_diff, bad = check_topk(torch, None, None, None, s_k, i_k, s_p, i_p,
-                                                  judge=judge)
-                    if dtype == torch.int8:  # same f32 operations in the same order
-                        bad += int(((s_k != s_p) & (s_p > NEG_INF / 2)).sum())
-                    errs[kernel] = max(errs[kernel], err)
-                    cases.append({
-                        "kernel": kernel, "dtype": str(dtype)[6:], "N": N, "B": B,
-                        "k": k, "dup": dup, "filter": filt, "live": live or N,
-                        "max_abs_err": err, "id_mismatches": n_diff,
-                        "mismatches_outside_ties": bad})
+                    for ran, label, run_args, run_judge in runs:
+                        if name == "K2tc":  # the route the inputs set, and no other
+                            routes = (ran, "K2tc" if ran == kernel else kernel)
+                            before = [wrapper(mods, r).launches for r in routes]
+                        s_k, i_k = fn(*run_args, k)
+                        torch.cuda.synchronize()
+                        if name == "K2tc":
+                            after = [wrapper(mods, r).launches for r in routes]
+                            require(after == [before[0] + 1, before[1]],
+                                    f"phase 1: {label} B={B} k={k} did not launch {ran} alone")
+                        s_p, i_p = plain(*run_args, k)
+                        err, n_diff, bad = check_topk(torch, None, None, None, s_k, i_k, s_p, i_p,
+                                                      judge=run_judge)
+                        if dtype == torch.int8:  # same f32 operations in the same order
+                            bad += int(((s_k != s_p) & (s_p > NEG_INF / 2)).sum())
+                        errs[ran] = max(errs[ran], err)
+                        cases.append({
+                            "kernel": label, "dtype": str(dtype)[6:], "N": N, "B": B,
+                            "k": k, "dup": dup, "filter": filt, "live": live or N,
+                            "max_abs_err": err, "id_mismatches": n_diff,
+                            "mismatches_outside_ties": bad})
     cases += phase1_unaligned(torch, mods, errs, g)
+    cases += phase1_tc(torch, mods, errs)
     cases += phase1_k8(torch, mods, errs)
     spill = phase1_spill(mods)
     n_bad = sum(c["mismatches_outside_ties"] for c in cases)
@@ -525,6 +573,76 @@ def phase1_unaligned(torch, mods, errs, g) -> list:
                           "mismatches_outside_ties": bad})
     require(quantize.streaming_topk_int8_cuda_sync.launches - before == len(cases),
             "phase 1: K6/K7 at D % 16 != 0 did not run the mma.sync kernel")
+    return cases
+
+
+def phase1_tc(torch, mods, errs) -> list:
+    """K2tc (K2 and K3 over bf16 queries and bf16 rows, through their
+    wrappers) against the plain version: every batch of TC_B and k of
+    TC_K at D = 768, the 64- and 128-row query tiles on both sides; at the
+    other depths of TC_D (not a multiple of 64; resident and streamed query
+    tiles) a ragged N with duplicate rows and a filter, and a corpus of 200
+    rows with 150 live (k above the live count), at TC_B_OTHER x TC_K_OTHER;
+    K3 at 64, 129 and 256. Each call must launch K2tc, and f32 queries over
+    the same bf16 rows must launch K2 (rows_pass1) and not K2tc."""
+    topk = mods["topk"]
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(15)
+    tc = topk.streaming_topk_cuda_tc
+    cases = []
+    for D in TC_D:
+        corpora = ((131072, False, False, None), (100003, True, True, None), (200, False, False, 150))
+        shapes = [("K2", B, k) for B in TC_B for k in TC_K] + \
+            [("K3", B, k) for B in (64, 129, 256) for k in (10, 300)]
+        if D != 768:
+            corpora = corpora[1:]
+            shapes = [("K2", B, k) for B in TC_B_OTHER for k in TC_K_OTHER] + \
+                [("K3", B, 300) for B in (64, 129, 256)]
+        for N, dup, filt, live in corpora:
+            x = _unit(torch, torch.randn(N, D, generator=g, device=dev)).to(torch.bfloat16)
+            if dup:  # exact ties: rows 1000..1999 repeat rows 0..999
+                x[1000:2000] = x[0:1000]
+            bias = torch.zeros(N, device=dev)
+            bias[torch.randperm(N, generator=g, device=dev)[: max(1, N // 100)]] = NEG_INF
+            if live is not None:
+                bias[live:] = NEG_INF
+            if filt:  # extra_bias: a filter excluding ~10% of rows
+                bias = bias + torch.where(torch.rand(N, generator=g, device=dev) < 0.1, NEG_INF, 0.0)
+            for kernel, B, k in shapes:
+                q = _unit(torch, torch.randn(B, D, generator=g, device=dev)).to(torch.bfloat16)
+                if dup:
+                    q[0] = x[5]  # its own duplicate pair tops the list
+                before = tc.launches
+                s_k, i_k = wrapper(mods, kernel)(q, x, bias, k)
+                torch.cuda.synchronize()
+                require(tc.launches == before + 1,
+                        f"phase 1: bf16 {kernel} B={B} D={D} did not launch K2tc")
+                s_p, i_p = topk.streaming_topk(q, x, bias, k)
+                err, n_diff, bad = check_topk(torch, None, None, None, s_k, i_k, s_p, i_p,
+                                              judge=dot_judge(q, x, bias))
+                errs["K2tc"] = max(errs["K2tc"], err)
+                cases.append({"kernel": f"K2tc (via {kernel})", "dtype": "bfloat16", "N": N,
+                              "D": D, "B": B, "k": k, "dup": dup, "filter": filt,
+                              "live": live or N, "max_abs_err": err, "id_mismatches": n_diff,
+                              "mismatches_outside_ties": bad})
+    # f32 queries over bf16 rows stay on rows_pass1 (a bf16 product would round them)
+    k2 = topk.streaming_topk_cuda_qmajor
+    x = _unit(torch, torch.randn(20011, 768, generator=g, device=dev)).to(torch.bfloat16)
+    bias = torch.zeros(x.shape[0], device=dev)
+    bias[torch.randperm(x.shape[0], generator=g, device=dev)[:200]] = NEG_INF
+    before = (k2.launches, tc.launches)
+    q = _unit(torch, torch.randn(96, 768, generator=g, device=dev))
+    s_k, i_k = k2(q, x, bias, 30)
+    torch.cuda.synchronize()
+    require((k2.launches, tc.launches) == (before[0] + 1, before[1]),
+            "phase 1: f32 queries over bf16 rows did not run K2 (rows_pass1) alone")
+    s_p, i_p = topk.streaming_topk(q, x, bias, 30)
+    err, n_diff, bad = check_topk(torch, None, None, None, s_k, i_k, s_p, i_p,
+                                  judge=dot_judge(q, x, bias))
+    errs["K2"] = max(errs["K2"], err)
+    cases.append({"kernel": "K2 (f32 q over bf16 rows)", "dtype": "bfloat16", "N": x.shape[0],
+                  "D": 768, "B": 96, "k": 30, "max_abs_err": err, "id_mismatches": n_diff,
+                  "mismatches_outside_ties": bad})
     return cases
 
 
@@ -688,7 +806,9 @@ QUERIES = [
 ]
 
 
-def phase2(torch, mods, errs) -> dict:
+def phase2(torch, mods, errs, dtype="float32", phase=2) -> dict:
+    """The main path over a flat index of `dtype`: K1 for the 5 searches,
+    K2 for the service's batches (K2tc, the tensor cores, over bf16 rows)."""
     from codegraph_tpu_torch.api import CodeGraph
     from codegraph_tpu_torch.core.config import CodeGraphConfig
     from codegraph_tpu_torch.search.service import QueryService
@@ -704,6 +824,8 @@ def phase2(torch, mods, errs) -> dict:
         cfg.embedding.provider = "hash"
         cfg.embedding.dimension = 768
         cfg.data_dir = os.path.join(tmp, "data")
+        cfg.index.dtype = dtype
+        batched_kernel = "K2tc" if dtype == "bfloat16" else "K2"
 
         topk = mods["topk"]
         reset_launches(mods)
@@ -732,20 +854,22 @@ def phase2(torch, mods, errs) -> dict:
         launches = read_launches(mods)
         singles = [index.search(e[None, :], k) for e in embs]
 
-        # batched (K2) vs single (K1) results on the same index
+        # batched (K2) vs single (K1) results on the same index; the queries
+        # as the index scores them (a bf16 index: bf16 queries)
         x, bias = index.arrays()
-        qn = torch.nn.functional.normalize(torch.as_tensor(embs, device="cuda"), dim=1)
+        require(x.dtype == getattr(torch, dtype), f"phase {phase}: the index holds {x.dtype} rows")
+        qn = torch.nn.functional.normalize(torch.as_tensor(embs, device="cuda"), dim=1).to(x.dtype)
         s_b = torch.as_tensor(np.stack([b[0] for b in batched]), device="cuda")
         i_b = torch.as_tensor(np.stack([b[1] for b in batched]), device="cuda")
         s_1 = torch.as_tensor(np.stack([s[0][0] for s in singles]), device="cuda")
         i_1 = torch.as_tensor(np.stack([s[1][0] for s in singles]), device="cuda")
         err_svc, diff_svc, bad_svc = check_topk(torch, qn, x, bias, s_b, i_b, s_1, i_1)
-        errs["K2"] = max(errs["K2"], err_svc)
+        errs[batched_kernel] = max(errs[batched_kernel], err_svc)
 
         # each kernel against its plain version at the main path's shapes
         main_shapes = {}
         for name, fn, B in (("K1", topk.streaming_topk_cuda, 1),
-                            ("K2", topk.streaming_topk_cuda_qmajor, 64)):
+                            (batched_kernel, topk.streaming_topk_cuda_qmajor, 64)):
             s_k, i_k = fn(qn[:B].contiguous(), x, bias, k)
             s_p, i_p = topk.streaming_topk(qn[:B], x, bias, k)
             e, n_d, b_d = check_topk(torch, qn[:B], x, bias, s_k, i_k, s_p, i_p)
@@ -755,9 +879,10 @@ def phase2(torch, mods, errs) -> dict:
 
         # the same snapshot searched on the CPU (plain versions) as reference
         cpu = CodeGraph(cfg, device="cpu")
-        hybrid = _hybrid_vs_cpu(torch, cg, cpu, hits, k, lambda q: dot_judge(q, x, bias))
+        hybrid = _hybrid_vs_cpu(torch, cg, cpu, hits, k,
+                                lambda q: dot_judge(q.to(x.dtype), x, bias))
         out = {
-            "phase": 2, "files": stats.files_total, "nodes": stats.nodes,
+            "phase": phase, "index_dtype": dtype, "files": stats.files_total, "nodes": stats.nodes,
             "chunks": stats.chunks, "edges": stats.edges_total,
             "index_rows": index.n_rows, "index_capacity": index.capacity,
             "index_seconds": round(t_index, 3),
@@ -775,18 +900,28 @@ def phase2(torch, mods, errs) -> dict:
         }
         emit(out)
         require(stats.nodes > 0 and stats.chunks > 0 and stats.edges_total > 0, "empty index")
-        require(bad_svc == 0, "phase 2: service results disagree with single queries")
+        require(bad_svc == 0, f"phase {phase}: service results disagree with single queries")
         require(all(v["mismatches_outside_ties"] == 0 for v in main_shapes.values()),
-                "phase 2: a kernel disagrees with its plain version at the main path's shapes")
+                f"phase {phase}: a kernel disagrees with its plain version at the main path's shapes")
         require(hybrid["mismatches_outside_ties"] == 0,
-                "phase 2: CUDA hybrid results disagree with the CPU path")
-        require(launches["K1"] > 0 and launches["K2"] > 0,
-                f"phase 2: main path did not launch both kernels: {launches}")
+                f"phase {phase}: CUDA hybrid results disagree with the CPU path")
+        require(launches["K1"] > 0 and launches[batched_kernel] > 0,
+                f"phase {phase}: main path did not launch K1 and {batched_kernel}: {launches}")
+        require(all(v == 0 for k_, v in launches.items() if k_ not in ("K1", batched_kernel)),
+                f"phase {phase}: main path launched another kernel than K1 and "
+                f"{batched_kernel}: {launches}")
         return out
     finally:
         if svc is not None:
             svc.close()
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase15(torch, mods, errs) -> dict:
+    """The bf16 main path: phase 2 with index.dtype = "bfloat16" (the flat
+    tier the planner picks from 200k rows), so QueryService's batches run
+    K2tc through FlatIndex.search."""
+    return phase2(torch, mods, errs, dtype="bfloat16", phase=15)
 
 
 def _time_ms(torch, fn, batches, outs=None):
@@ -865,51 +1000,60 @@ def phase3(torch, topk, errs) -> list:
         x, bias = idx.arrays()
         x, bias = x[:N], bias[:N]  # capacity padding is dead rows; time the live corpus
         elt = x.element_size()
-        shapes = [("K1", 1, 30), ("K1", 1, 300), ("K1", 8, 30), ("K1", 8, 300)]
+        # (kernel, wrapper, B, k): queries of the index's dtype, but for the
+        # last bf16 row, whose f32 queries keep K2 on rows_pass1
+        shapes = [("K1", "K1", B, k) for B in (1, 8) for k in (30, 300)]
         xt = None
         if dtype_name == "float32":
-            shapes += [("K2", B, k) for B in (32, 64) for k in (30, 300)]
-            shapes += [(name, B, k) for name in ("K2", "K3", "K4") for B in (256, 1024)
+            shapes += [("K2", "K2", B, k) for B in (32, 64) for k in (30, 300)]
+            shapes += [(name, name, B, k) for name in ("K2", "K3", "K4") for B in (256, 1024)
                        for k in (30, 100, 300)]
             xt = x.T.contiguous()  # K4's corpus: the same rows as xt [D, N]
         else:
-            shapes += [("K2", 256, 30), ("K2", 256, 300), ("K2", 1024, 30), ("K2", 1024, 300)]
+            shapes += [("K2tc", "K2", B, k) for B in (64, 256, 1024) for k in (30, 100, 300)]
+            shapes += [("K2tc", "K3", 1024, 100), ("K2", "K2", 1024, 30)]
         flat = {"K1": topk.streaming_topk_cuda, "K2": topk.streaming_topk_cuda_qmajor,
                 "K3": topk.streaming_topk_cuda_qres,
                 "K4": lambda q_, x_, b_, k_: topk.streaming_topk_cuda_qmajor_xt(q_, xt, b_, k_)}
         plain_cache = {}
-        for name, B, k in shapes:
-            fn = flat[name]
+        for name, via, B, k in shapes:
+            fn = flat[via]
+            q_dtype = torch.float32 if name == "K2" else idx.dtype
             batches = [
-                _unit(torch, torch.randn(B, D, generator=g, device=dev)).to(idx.dtype)
+                _unit(torch, torch.randn(B, D, generator=g, device=dev)).to(q_dtype)
                 for _ in range(7)
             ]
+            counted = getattr(topk, KERNELS[name][1])  # the wrapper that counts the route
+            launched = counted.launches
             ms = _time_ms(torch, lambda qb: fn(qb, x, bias, k), batches)
+            require(counted.launches == launched + len(batches) + 1,
+                    f"phase 3: {via} {dtype_name} B={B} k={k} did not run {name}")
             lib_ms = _time_ms(torch, lambda qb: yardstick(torch, qb, x, bias, k), batches[:3])
-            extra = {}
-            if dtype_name == "bfloat16":
+            extra = {"via": via, "q_dtype": str(q_dtype)[6:]}
+            if dtype_name == "bfloat16" and q_dtype == torch.bfloat16:
                 # the f32 yardstick casts the bf16 rows to f32; the fair library
                 # call for a bf16 corpus is the tensor-core product
                 extra["library_f32_ms"] = lib_ms
                 lib_ms = _time_ms(torch, lambda qb: yardstick_tc(torch, qb, x, bias, k),
                                   batches[:3])
-            if (B, k) not in plain_cache:  # K2, K3 and K4 share their plain version
-                plain_cache[(B, k)] = _time_ms(
+            if (B, k, q_dtype) not in plain_cache:  # K2, K3 and K4 share their plain version
+                plain_cache[(B, k, q_dtype)] = _time_ms(
                     torch, lambda qb: topk.streaming_topk(qb, x, bias, k), batches[:2])
-            plain_ms = plain_cache[(B, k)]
+            plain_ms = plain_cache[(B, k, q_dtype)]
             # correctness on a sample of the first batch against the yardstick
             qs = batches[0][: min(B, 16)].contiguous()
             s_k, i_k = fn(qs, x, bias, k)
             s_y, i_y = yardstick(torch, qs, x, bias, k)
             err, n_diff, bad = check_topk(torch, qs, x, bias, s_k, i_k, s_y, i_y)
-            if dtype_name == "bfloat16":
+            if "library_f32_ms" in extra:
                 s_t, i_t = yardstick_tc(torch, qs, x, bias, k)
                 extra["library_mismatches_outside_ties"] = check_topk(
                     torch, qs, x, bias, s_t, i_t, s_y, i_y)[2]
                 bad += extra["library_mismatches_outside_ties"]
             errs[name] = max(errs[name], err)
-            bound, bound_by = _bound(N * D * elt + N * 4 + B * D * elt + B * k * 8,
-                                     2.0 * B * N * D, dtype_name)
+            # f32 queries: products of an f32 and a bf16 value, on the f32 pipe
+            bound, bound_by = _bound(N * D * elt + N * 4 + B * D * qs.element_size() + B * k * 8,
+                                     2.0 * B * N * D, str(q_dtype)[6:])
             row = {"phase": 3, "kernel": name, "dtype": dtype_name, "N": N, "D": D,
                    "B": B, "k": k, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                    "bound_ms": bound, "bound_by": bound_by,
@@ -4178,7 +4322,7 @@ def _on_alarm(signum, frame):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,10,11,12,13,14",
+    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,10,11,12,13,14,15",
                     help="comma-separated phases to run (default: all)")
     ap.add_argument("--shm-child", metavar="DIR",
                     help="run as phase 12's attaching process (started by phase 12)")
@@ -4225,6 +4369,7 @@ def main(argv=None) -> int:
         p0 = run(0, phase0)
         run(1, phase1, mods, errs)
         p2 = run(2, phase2, mods, errs)
+        p15 = run(15, phase15, mods, errs)
         p3 = run(3, phase3, topk, errs, empty=[])
         p4 = run(4, phase4, mods, errs)
         p5 = run(5, phase5, mods, errs, empty=[])
@@ -4246,29 +4391,32 @@ def main(argv=None) -> int:
 
     # each kernel at one shape of its real-size phase; launches from its
     # tier's main path, for K1 and K2 the default configuration's (phase 8)
-    # when it ran, else for K1 the served path's (phase 9) (K3, K4 and K7
-    # are public ops that no index calls; K6s runs only at a D that is not a
-    # multiple of 16)
+    # when it ran, else for K1 the served path's (phase 9), for K2tc the bf16
+    # main path's (phase 15) (K3, K4 and K7 are public ops that no index
+    # calls; K6s runs only at a D that is not a multiple of 16)
     shapes = {"K1": (p3, "float32", 1, 30), "K2": (p3, "float32", 1024, 30),
               "K3": (p3, "float32", 1024, 100), "K4": (p3, "float32", 1024, 30),
+              "K2tc": (p3, "bfloat16", 1024, 30),
               "K5": (p5, "int8", 1, 100), "K6": (p5, "int8", 1024, 100),
               "K7": (p5, "int8", 1024, 100), "K6s": (p5, "int8", 1024, 100),
               "K8": (p7, "uint8 codes", 1, 40)}
     flat_path = p8 or p2
-    paths = {"K1": p8 or p9 or p2, "K2": flat_path, "K3": flat_path, "K4": flat_path, "K5": p4,
+    paths = {"K1": p8 or p9 or p2, "K2": flat_path, "K3": flat_path, "K4": flat_path,
+             "K2tc": p15, "K5": p4,
              "K6": p4, "K7": p4, "K6s": p4, "K8": p6["ivfpq"] if p6 else None}
     kernels = []
     for name, (_, fn_name, source, replaces) in KERNELS.items():
         rows, dtype, B, k = shapes[name]
         row = next((r for r in rows if r.get("kernel") == name and r["dtype"] == dtype
-                    and r["B"] == B and r["k"] == k), {})
+                    and r["B"] == B and r["k"] == k and r.get("via", name) in (name, "K2")), {})
         path = paths[name]
         kernels.append({
             "name": f"{name} {fn_name}", "route": "cuda", "source": source, "replaces": replaces,
             "launches": path["launches"][name] if path else None,
             "launches_by_phase": {str(n): p["launches"][name] for n, p in
                                   ((2, p2), (4, p4), (6, p6["ivfpq"] if p6 else None), (8, p8),
-                                   (9, p9), (10, p10), (12, p12), (13, p13), (14, p14))
+                                   (9, p9), (10, p10), (12, p12), (13, p13), (14, p14),
+                                   (15, p15))
                                   if p},
             "max_abs_err": errs[name],
             "ms": row.get("ms"), "plain_ms": row.get("plain_ms"),

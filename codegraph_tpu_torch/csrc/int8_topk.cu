@@ -63,13 +63,7 @@
 //     within microseconds of each other, and every split of a row runs at
 //     once, so the shared bound holds from the first tiles.
 
-#include <cuda.h>
-#include <cuda_runtime.h>
-
-#include <cstddef>
-#include <cstdint>
-
-#include "topk_merge.cuh"
+#include "hopper_tc.cuh"
 
 namespace {
 
@@ -450,59 +444,10 @@ __global__ void __launch_bounds__(kThreads)
 // K6, K7: wgmma s8 fed by TMA, warp specialised (int8_tc_pass1).
 // ---------------------------------------------------------------------------
 
-constexpr int kTcConsumers = 2;                      // consumer warpgroups
-constexpr int kTcThreads = 128 * kTcConsumers + 32;  // and one producer warp
-constexpr int kBoxD = 128;   // depth of a TMA box and of a ring stage, bytes (the swizzle span)
-constexpr int kWgM = 64;     // query rows of a consumer's wgmma
-constexpr int kWgN = 128;    // corpus rows of a consumer's wgmma and of a ring stage
-constexpr int kTcSlots = kTcConsumers * kWgM;  // per-row states of a block
-// A row's candidate buffer (device memory) holds what one tile can add to
-// a buffer that is not full (kCap): it is flushed after a tile, never
-// during one, so the epilogue needs no capacity check.
-constexpr int kBufCap = kCap + kWgN;
-constexpr int kHalfWarps = 2 * 4 * kTcConsumers;  // consumer half-warps (flush staging areas)
-// A tile's corpus scales and bias arrive by TMA in a ring of their own
-// (kMetaSlots slots), freed after the tile's epilogue.
-constexpr int kMetaSlots = 4;
-constexpr int kMetaSlotBytes = 2 * kWgN * sizeof(float);
-
-// Shared memory of int8_tc_pass1 for a query tile of qt rows
-// (ops/quantize.py `tc_smem` mirrors it), from a 1024-byte aligned base:
-// the ring (each stage a corpus box of 128 rows x 128 bytes and, when the
-// query tile streams, its box of qt x 128), the
-// resident query tile (one box of qt x 128 per 128 bytes of depth), the
-// ring of tiles' scales and bias, a staging area for each consumer
-// half-warp's flush (kBufCap entries), the per-row states and the
-// barriers. Every box starts on a multiple of 1024
-// bytes, as the 128-byte swizzle needs.
-struct TcLayout {
-  int chunks, corpus_bytes, stage_bytes, ring_bytes, query_bytes;
-  size_t meta_off, flush_off, state_off, bar_off, smem;
-  TcLayout() = default;
-  __host__ __device__ TcLayout(int qt, int resident, int stages, int D) {
-    chunks = (D + kBoxD - 1) / kBoxD;
-    corpus_bytes = kWgN * kBoxD;
-    stage_bytes = corpus_bytes + (resident ? 0 : qt * kBoxD);
-    ring_bytes = stages * stage_bytes;
-    query_bytes = resident ? chunks * qt * kBoxD : 0;
-    meta_off = (size_t)ring_bytes + query_bytes;
-    flush_off = meta_off + (size_t)kMetaSlots * kMetaSlotBytes;
-    state_off = flush_off + (size_t)kHalfWarps * kBufCap * (sizeof(float) + sizeof(int));
-    bar_off = state_off + (size_t)kTcSlots * 5 * sizeof(int);
-    smem = 1024 + bar_off + (size_t)(2 * stages + 1 + 2 * kMetaSlots) * sizeof(uint64_t);
-  }
-};
-
-// The per-row states, at state_off of the aligned base: one pointer, so
-// that they take two registers, not ten.
-struct TcState {
-  float* p;
-  __device__ float* thr_s() const { return p; }  // the row's list's k-th entry
-  __device__ int* thr_i() const { return reinterpret_cast<int*>(p + kTcSlots); }
-  __device__ int* cnt() const { return reinterpret_cast<int*>(p + 2 * kTcSlots); }  // buffered
-  __device__ int* len() const { return reinterpret_cast<int*>(p + 3 * kTcSlots); }  // listed
-  __device__ float* bnd() const { return p + 4 * kTcSlots; }  // the bound the splits share
-};
+constexpr int kBoxD = kBoxBytes;  // depth of a box in int8 elements: its bytes
+constexpr int kMetaSlotBytes = 2 * kWgN * sizeof(float);  // a tile's corpus scales and bias
+// the block's shared memory (ops/topk.py `tc_smem` mirrors it)
+using TcLayout = TcLayoutOf<kBoxD, kMetaSlotBytes>;
 
 struct TcArgs {
   TcLayout L;  // read from the parameters: no registers
@@ -515,81 +460,6 @@ struct TcArgs {
   int B, N, k, rows_per_split;
   int qt, resident, stages;
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-// until the phase of parity `parity` of the barrier has completed; a wait
-// that lasts ~2^34 cycles (about 10 s) traps, so that a fault in the
-// schedule ends the launch with an error instead of holding the card
-__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  if (mbar_try_wait(bar, parity)) return;
-  const long long t0 = clock64();
-  while (!mbar_try_wait(bar, parity)) {
-    if (clock64() - t0 > (1ll << 34)) __trap();
-  }
-}
-// a box of the tensor map at (c0 bytes of depth, row c1) into shared memory
-// at dst; its bytes complete on the barrier
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
-                                         int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-// a box of a 1-D tensor map at element c0
-__device__ __forceinline__ void tma_load_1d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0) {
-  asm volatile(
-      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0)
-      : "memory");
-}
-// wgmma descriptor of a K-major tile in shared memory with the 128-byte
-// swizzle: rows of 128 bytes, 8-row atoms 1024 bytes apart (SBO); a k32
-// step within the atom adds 32 bytes to the start address
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
-         ((uint64_t)1 << 62);
-}
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// keep the compiler from moving accesses of the sums across a wgmma fence or wait
-__device__ __forceinline__ void fence_operands(int (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(d[i])::"memory");
-}
 
 // d[64] += A (64 x 32 s8, K-major, descriptor da) * B (128 x 32 s8, K-major,
 // descriptor db)^T in int32; scale_d = 0 overwrites d instead.
@@ -1000,60 +870,6 @@ cudaError_t dispatch(int layout, int tm, bool smem_only, size_t* smem, const int
   return cudaErrorInvalidValue;
 }
 
-// cuTensorMapEncodeTiled, from the driver through the runtime (no -lcuda)
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
-    fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
-}
-
-// rows x D int8 (row stride D bytes, D % 16 == 0, 16-byte aligned) as a TMA
-// map of boxes of 128 bytes of depth x box_rows rows, 128-byte swizzle,
-// zeros outside the matrix
-bool encode_rows(CUtensorMap* map, const void* ptr, int rows, int D, int box_rows) {
-  EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)D, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)D};
-  const cuuint32_t box[2] = {(cuuint32_t)kBoxD, (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(ptr), dims, strides, box, elem,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-// n f32 (16-byte aligned) as a 1-D TMA map of boxes of `box` entries,
-// zeros past n
-bool encode_vector(CUtensorMap* map, const float* ptr, int n, int box) {
-  EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[1] = {(cuuint64_t)n};
-  const cuuint64_t strides[1] = {(cuuint64_t)n * sizeof(float)};  // not read at rank 1
-  const cuuint32_t boxes[1] = {(cuuint32_t)box};
-  const cuuint32_t elem[1] = {1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, const_cast<float*>(ptr), dims, strides, boxes,
-            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-            CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-
 }  // namespace
 
 extern "C" {
@@ -1140,7 +956,8 @@ int int8_topk_tc(const void* qv, const float* qs, const void* xv, const float* x
     return (int)cudaErrorInvalidValue;
   }
   CUtensorMap qmap, xmap, smap, bmap;
-  if (!encode_rows(&qmap, qv, B, D, query_tile) || !encode_rows(&xmap, xv, N, D, kWgN) ||
+  if (!encode_rows(&qmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, qv, B, D, query_tile) ||
+      !encode_rows(&xmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, xv, N, D, kWgN) ||
       !encode_vector(&smap, xs, N, kWgN) || !encode_vector(&bmap, bias, N, kWgN)) {
     return (int)cudaErrorInvalidValue;
   }

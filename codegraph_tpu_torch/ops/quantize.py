@@ -30,8 +30,8 @@ D * 127^2 < 2^24 (D <= 1040), and to f64 above that.
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
-from dataclasses import dataclass
 from typing import Tuple
 
 import torch
@@ -42,8 +42,12 @@ from codegraph_tpu_torch.ops.topk import (
     MAX_K,
     MERGE_GROUP,
     NEG_INF,
-    ROW_CAP,
+    ROW_CAP,  # ROW_CAP, SMEM_PER_BLOCK and TC_*: the shared plan's, for tc_plan's callers
     SMEM_PER_BLOCK,
+    TC_BUF_CAP,
+    TC_SMS,
+    TC_STAGES,
+    TC_TILE_N,
     _on_cpu,
     _outputs,
     _plan,
@@ -52,8 +56,9 @@ from codegraph_tpu_torch.ops.topk import (
     merge_topk,
     query_tile,
     row_warps_tm,
-    work_entries,
 )
+from codegraph_tpu_torch.ops.topk import tc_plan as topk_tc_plan
+from codegraph_tpu_torch.ops.topk import tc_smem as topk_tc_smem
 
 INT8_MAX = 127.0
 DEFAULT_TILE_N = 2048
@@ -63,29 +68,6 @@ DEFAULT_TILE_N = 2048
 #: have on an H100
 MMA_TMS = (16, 8, 4, 2)
 MMA_SMEM_BYTES = 227 * 1024
-#: K6/K7 on wgmma (csrc/int8_topk.cu `int8_tc_pass1`, whose `TcLayout`
-#: `tc_smem` mirrors): a consumer warpgroup's product is TC_WG_ROWS query
-#: rows x TC_TILE_N corpus rows, a ring stage TC_TILE_N corpus rows x
-#: TC_BOX_DEPTH bytes of depth; a batch of at most TC_WG_ROWS takes a
-#: 64-row query tile (one consumer), larger batches 128-row tiles (two);
-#: the query tile stays resident with the most of TC_STAGES ring stages
-#: that fit a block's shared memory, or streams with the corpus through
-#: the most that fit; at most one block per SM (TC_SMS on an H100), so
-#: that every corpus split of a query row runs at once and publishes its
-#: part of the shared bound from the start. A tile's corpus scales and
-#: bias come through TC_META_SLOTS slots of their own. Each of a block's
-#: TC_SLOTS rows has a candidate buffer of TC_BUF_CAP entries in device
-#: memory (room for one tile beyond ROW_CAP), staged through TC_HALF_WARPS
-#: areas of shared memory when it is flushed
-TC_WG_ROWS = 64
-TC_TILE_N = 128
-TC_BOX_DEPTH = 128
-TC_STAGES = (6, 5, 4, 3)
-TC_SMS = 132
-TC_META_SLOTS = 4
-TC_SLOTS = 2 * TC_WG_ROWS
-TC_BUF_CAP = ROW_CAP + TC_TILE_N
-TC_HALF_WARPS = 16
 #: the largest D whose int8 dot products an f32 matmul sums exactly
 #: (|q . x| <= D * 127^2 < 2^24)
 F32_EXACT_MAX_D = (2**24 - 1) // (127 * 127)
@@ -245,56 +227,11 @@ def tma_shape(qv: torch.Tensor, xv: torch.Tensor, xs: torch.Tensor,
     return qv.shape[1] % 16 == 0 and all(t.data_ptr() % 16 == 0 for t in (qv, xv, xs, bias))
 
 
-def tc_smem(query_tile: int, resident: bool, stages: int, D: int) -> int:
-    """Shared memory (bytes) of one `int8_tc_pass1` block: a 1 KB alignment
-    margin, the ring (a corpus box of TC_TILE_N rows x TC_BOX_DEPTH bytes a
-    stage, and the query box when the query tile streams), the resident
-    query tile, TC_META_SLOTS slots for a tile's corpus scales and bias,
-    the flush staging areas (TC_BUF_CAP entries a half-warp), five 4-byte
-    states for each of TC_SLOTS rows, and the barriers. It does not depend
-    on k."""
-    chunks = -(-D // TC_BOX_DEPTH)
-    stage = TC_TILE_N * TC_BOX_DEPTH + (0 if resident else query_tile * TC_BOX_DEPTH)
-    query = chunks * query_tile * TC_BOX_DEPTH if resident else 0
-    return (1024 + stages * stage + query + TC_META_SLOTS * 2 * TC_TILE_N * 4
-            + TC_HALF_WARPS * TC_BUF_CAP * 8 + TC_SLOTS * 5 * 4
-            + (2 * stages + 1 + 2 * TC_META_SLOTS) * 8)
-
-
-@dataclass(frozen=True)
-class TcPlan:
-    """What the K6/K7 wrapper hands to `int8_topk_tc`."""
-    query_tile: int
-    resident: bool
-    stages: int
-    splits: int
-    rows_per_split: int
-    grid_x: int         # query-tile blocks
-    smem: int           # bytes per block
-    work_entries: int   # scratch entries per scores and per ids
-    bound_entries: int  # the bounds the splits share, [B, splits] f32
-    cand_entries: int   # candidate buffer entries per scores and per ids
-
-
-def tc_plan(B: int, N: int, D: int, k: int, group: int = MERGE_GROUP,
-            sms: int = TC_SMS) -> TcPlan:
-    """The launch of K6/K7 for B queries over N corpus rows of depth D on a
-    card of `sms` SMs: a 64-row query tile for a batch of at most 64, else
-    128 rows; the resident query tile with the most ring stages that fit
-    (else a streamed one), the same shared memory for every k; as many
-    splits as keep all blocks in one wave of one block per SM, whole
-    corpus tiles per split."""
-    qt = TC_WG_ROWS if B <= TC_WG_ROWS else 2 * TC_WG_ROWS
-    resident, stages = next(((res, n) for res in (True, False) for n in TC_STAGES
-                             if tc_smem(qt, res, n, D) <= SMEM_PER_BLOCK), (False, TC_STAGES[-1]))
-    b_tiles = -(-B // qt)
-    n_tiles = -(-N // TC_TILE_N)
-    splits = max(1, min(n_tiles, sms // b_tiles))
-    rows = -(-n_tiles // splits) * TC_TILE_N
-    splits = -(-N // rows)
-    return TcPlan(qt, resident, stages, splits, rows, b_tiles, tc_smem(qt, resident, stages, D),
-                  work_entries(B, k, splits, group), B * splits,
-                  b_tiles * splits * TC_SLOTS * TC_BUF_CAP)
+#: K6/K7 on wgmma (csrc/int8_topk.cu `int8_tc_pass1`) share K2tc's block
+#: design, constants and plan (ops/topk.py): int8 operands (1 byte an
+#: element) and a corpus scale beside each row's bias (8 meta bytes a row)
+tc_smem = functools.partial(topk_tc_smem, elt=1, meta=8)
+tc_plan = functools.partial(topk_tc_plan, elt=1, meta=8)
 
 
 def _launch(qv, qs, xv, xs, bias, k: int, layout: int, tm: int):

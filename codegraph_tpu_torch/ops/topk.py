@@ -18,6 +18,10 @@ sorted descending.
   hand-written kernels in `csrc/flat_topk.cu` on CUDA tensors, and run
   `streaming_topk` on CPU tensors. On a CUDA tensor they launch or raise;
   nothing falls back. `row_plan` is the host-side plan of K2-K4.
+* K2 and K3 over bf16 queries and bf16 rows run on the tensor cores
+  instead (`streaming_topk_cuda_tc`, "K2tc": `wgmma` bf16 fed by TMA in
+  `csrc/flat_topk_tc.cu`, counted in its own launches); `uses_tensor_cores`
+  is that route, set by the inputs, and `tc_plan` its host-side plan.
 
 Order and sentinels, shared by every version: a higher score wins; on
 equal scores the lower row id wins. The running top-k starts as
@@ -67,6 +71,33 @@ ROW_DEPTH = 16
 ROW_STAGES = 3
 ROW_CAP = 32
 SMEM_PER_BLOCK = 232_448
+
+#: The tensor-core scan kernels, K2tc (K2/K3 over bf16 queries and bf16
+#: rows, csrc/flat_topk_tc.cu `bf16_tc_pass1`) and K6/K7 (int8,
+#: csrc/int8_topk.cu `int8_tc_pass1`), share one block design, whose
+#: `TcLayoutOf` (csrc/hopper_tc.cuh) `tc_smem` mirrors: a consumer
+#: warpgroup's product is TC_WG_ROWS query rows x TC_TILE_N corpus rows; a
+#: ring stage is a corpus box of TC_TILE_N rows x TC_BOX_BYTES (the swizzle
+#: span) of depth; a batch of at most TC_WG_ROWS takes a 64-row query tile
+#: (one consumer), larger batches 128-row tiles (two); the query tile stays
+#: resident with the most of TC_STAGES ring stages that fit a block's
+#: shared memory, or streams with the corpus through the most that fit; at
+#: most one block per SM (TC_SMS on an H100) and one wave, so that every
+#: corpus split of a query row runs at once and publishes its part of the
+#: shared bound from the start. A tile's bias (and int8 corpus scales)
+#: come through TC_META_SLOTS slots of their own. Each of a block's
+#: TC_SLOTS rows has a candidate buffer of TC_BUF_CAP entries in device
+#: memory (room for one tile beyond ROW_CAP), staged through TC_HALF_WARPS
+#: areas of shared memory when it is flushed
+TC_WG_ROWS = 64
+TC_TILE_N = 128
+TC_BOX_BYTES = 128
+TC_STAGES = (6, 5, 4, 3)
+TC_SMS = 132
+TC_META_SLOTS = 4
+TC_SLOTS = 2 * TC_WG_ROWS
+TC_BUF_CAP = ROW_CAP + TC_TILE_N
+TC_HALF_WARPS = 16
 
 
 def _sort_desc(s: torch.Tensor, i: torch.Tensor, k: int):
@@ -127,7 +158,28 @@ def streaming_topk(
 # ---------------------------------------------------------------------------
 
 _lib_handle = None
+_tc_lib_handle = None
 _count_lock = threading.Lock()
+
+
+def _tc_lib():
+    global _tc_lib_handle
+    if _tc_lib_handle is None:
+        from codegraph_tpu_torch.ops import cuda_build
+
+        lib = cuda_build.load("flat_topk_tc")
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.flat_topk_tc.argtypes = [p, p, p, i, i, i, i, i, i, i, i, i, ll, i,
+                                     p, p, p, p, p, p, p, p]
+        lib.flat_topk_tc.restype = i
+        lib.flat_topk_tc_smem.argtypes = [i, i, i, i]
+        lib.flat_topk_tc_smem.restype = ll
+        lib.flat_topk_tc_work_entries.argtypes = [i, i, i, i]
+        lib.flat_topk_tc_work_entries.restype = ll
+        lib.flat_topk_tc_cand_entries.argtypes = [i, i, i]
+        lib.flat_topk_tc_cand_entries.restype = ll
+        _tc_lib_handle = lib
+    return _tc_lib_handle
 
 
 def _lib():
@@ -255,6 +307,77 @@ def row_plan(layout: int, B: int, N: int, k: int, elt: int,
                    B * splits)
 
 
+def uses_tensor_cores(q_dtype: torch.dtype, x_dtype: torch.dtype, layout: int) -> bool:
+    """The pass-1 route of K2, K3 and K4 on a card, set by the inputs: bf16
+    queries over bf16 rows in K2's or K3's layout run on the tensor cores
+    (`streaming_topk_cuda_tc`), where bf16 products are exact in f32 as in
+    the TPU kernel's dot. f32 queries over bf16 rows (`ShardedFlatIndex`,
+    as the JAX sharded scan hands them) stay on `rows_pass1`, since a bf16
+    product would round the query; so do f32 rows and K4 over any xt. A
+    contract, not a fallback: each route launches its kernel or raises."""
+    return (q_dtype == torch.bfloat16 and x_dtype == torch.bfloat16
+            and layout in (K2_LAYOUT, K3_LAYOUT))
+
+
+def tc_smem(query_tile: int, resident: bool, stages: int, D: int, elt: int = 2,
+            meta: int = 4) -> int:
+    """Shared memory (bytes) of one tensor-core block whose operands take
+    `elt` bytes an element and whose tiles bring `meta` bytes a corpus row
+    through the meta slots (K2tc: bf16 and its bias, the defaults; K6/K7:
+    int8 and its scale and bias, 1 and 8): a 1 KB alignment margin, the
+    ring (a corpus box of TC_TILE_N rows x TC_BOX_BYTES a stage, and the
+    query box of query_tile x TC_BOX_BYTES when the query tile streams),
+    the resident query tile (a box per TC_BOX_BYTES of depth), TC_META_SLOTS
+    meta slots, the flush staging areas (TC_BUF_CAP entries a half-warp),
+    five 4-byte states for each of TC_SLOTS rows, and the barriers. It
+    does not depend on k."""
+    chunks = -(-D * elt // TC_BOX_BYTES)
+    stage = TC_TILE_N * TC_BOX_BYTES + (0 if resident else query_tile * TC_BOX_BYTES)
+    query = chunks * query_tile * TC_BOX_BYTES if resident else 0
+    return (1024 + stages * stage + query + TC_META_SLOTS * meta * TC_TILE_N
+            + TC_HALF_WARPS * TC_BUF_CAP * 8 + TC_SLOTS * 5 * 4
+            + (2 * stages + 1 + 2 * TC_META_SLOTS) * 8)
+
+
+@dataclass(frozen=True)
+class TcPlan:
+    """What a tensor-core wrapper hands to its kernel: K2tc to
+    `flat_topk_tc`, K6/K7 to `int8_topk_tc` (`ops/quantize.py`)."""
+    query_tile: int
+    resident: bool
+    stages: int
+    splits: int
+    rows_per_split: int
+    grid_x: int         # query-tile blocks
+    smem: int           # bytes per block
+    work_entries: int   # scratch entries per scores and per ids
+    bound_entries: int  # the bounds the splits share, [B, splits] f32
+    cand_entries: int   # candidate buffer entries per scores and per ids
+
+
+def tc_plan(B: int, N: int, D: int, k: int, elt: int = 2, meta: int = 4,
+            group: int = MERGE_GROUP, sms: int = TC_SMS) -> TcPlan:
+    """The launch of a tensor-core kernel (`elt` and `meta` as in `tc_smem`;
+    the defaults are K2tc's) for B queries over N corpus rows of depth D on
+    a card of `sms` SMs: a 64-row query tile for a batch of at most 64,
+    else 128 rows; the resident query tile with the most ring stages that
+    fit (else a streamed one), the same shared memory for every k; as many
+    splits as keep all blocks in one wave of one block per SM, whole
+    corpus tiles per split."""
+    qt = TC_WG_ROWS if B <= TC_WG_ROWS else 2 * TC_WG_ROWS
+    smem = lambda res, n: tc_smem(qt, res, n, D, elt, meta)  # noqa: E731
+    resident, stages = next(((res, n) for res in (True, False) for n in TC_STAGES
+                             if smem(res, n) <= SMEM_PER_BLOCK), (False, TC_STAGES[-1]))
+    b_tiles = -(-B // qt)
+    n_tiles = -(-N // TC_TILE_N)
+    splits = max(1, min(n_tiles, sms // b_tiles))
+    rows = -(-n_tiles // splits) * TC_TILE_N
+    splits = -(-N // rows)
+    return TcPlan(qt, resident, stages, splits, rows, b_tiles, smem(resident, stages),
+                  work_entries(B, k, splits, group), B * splits,
+                  b_tiles * splits * TC_SLOTS * TC_BUF_CAP)
+
+
 def _outputs(B: int, k: int, n_work: int, dev):
     return (torch.empty((B, k), dtype=torch.float32, device=dev),
             torch.empty((B, k), dtype=torch.int32, device=dev),
@@ -315,6 +438,39 @@ def _launch_rows(q, x, bias, k: int, layout: int):
     return out_s, out_i
 
 
+def _launch_tc(q, x, bias, k: int):
+    """K2tc: `bf16_tc_pass1` as `tc_plan` lays it out, then pass 2. q and x
+    stay bf16: the tensor cores multiply them as the TPU kernel's dot."""
+    lib = _tc_lib()
+    B, D = q.shape
+    N = x.shape[0]
+    plan = tc_plan(B, N, D, k, sms=torch.cuda.get_device_properties(q.device).multi_processor_count)
+    if lib.flat_topk_tc_smem(plan.query_tile, int(plan.resident), plan.stages, D) != plan.smem \
+            or lib.flat_topk_tc_work_entries(B, k, plan.splits, MERGE_GROUP) != plan.work_entries \
+            or lib.flat_topk_tc_cand_entries(B, plan.query_tile, plan.splits) != plan.cand_entries:
+        raise RuntimeError("ops/topk.py tc_plan disagrees with csrc/flat_topk_tc.cu")
+    # TMA reads q and bias from 16-byte aligned addresses (x: `_check`)
+    if q.data_ptr() % 16:
+        q = q.clone()
+    if bias.data_ptr() % 16:
+        bias = bias.clone()
+    out_s, out_i, work_s, work_i = _outputs(B, k, plan.work_entries, q.device)
+    bound = torch.full((plan.bound_entries,), NEG_INF, dtype=torch.float32, device=q.device)
+    cand_s = torch.empty((plan.cand_entries,), dtype=torch.float32, device=q.device)
+    cand_i = torch.empty((plan.cand_entries,), dtype=torch.int32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.flat_topk_tc(
+        q.data_ptr(), x.data_ptr(), bias.data_ptr(), B, N, D, k, plan.query_tile,
+        int(plan.resident), plan.stages, plan.splits, plan.rows_per_split, plan.smem, MERGE_GROUP,
+        out_s.data_ptr(), out_i.data_ptr(), work_s.data_ptr(), work_i.data_ptr(),
+        bound.data_ptr(), cand_s.data_ptr(), cand_i.data_ptr(), stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"flat_topk_tc kernel launch failed: CUDA error {err} "
+                           f"(B={B}, N={N}, D={D}, k={k}, {plan})")
+    return out_s, out_i
+
+
 def k1_tm(B: int) -> int:
     """K1's query rows per block: B rounded up to 1, 2, 4 or 8."""
     return next(tm for tm in (1, 2, 4, 8) if tm >= min(B, 8))
@@ -364,11 +520,14 @@ def streaming_topk_cuda_qmajor(
     """K2: exact top-k for large query batches (128-row query tiles for
     every k, so each corpus tile read serves 128 queries, or 32- or 64-row
     tiles for a batch that fits one; the top-k lists live in device memory
-    behind a per-row threshold and candidate buffer). Same contract as
-    `streaming_topk_cuda`."""
+    behind a per-row threshold and candidate buffer). bf16 queries over
+    bf16 rows run `streaming_topk_cuda_tc` (`uses_tensor_cores`) and count
+    in its launches. Same contract as `streaming_topk_cuda`."""
     if _on_cpu(q, x, bias):
         return streaming_topk(q, x, bias, k, tile_n)
     _check(q, x, bias, k)
+    if uses_tensor_cores(q.dtype, x.dtype, K2_LAYOUT):
+        return streaming_topk_cuda_tc(q, x, bias, k, tile_n)
     out = _launch_rows(q, x, bias, k, K2_LAYOUT)
     with _count_lock:
         streaming_topk_cuda_qmajor.launches += 1
@@ -383,13 +542,41 @@ def streaming_topk_cuda_qres(
     K2's schedule, whose query tiles of a corpus split read each corpus
     slice from the 50 MB L2 within a few microseconds of each other (a
     thread block cluster sharing each slice ran about twice as slow on an
-    H100: PERF.md). Same contract as `streaming_topk_cuda`."""
+    H100: PERF.md). bf16 queries over bf16 rows run
+    `streaming_topk_cuda_tc`, as K2's do. Same contract as
+    `streaming_topk_cuda`."""
     if _on_cpu(q, x, bias):
         return streaming_topk(q, x, bias, k, tile_n)
     _check(q, x, bias, k)
+    if uses_tensor_cores(q.dtype, x.dtype, K3_LAYOUT):
+        return streaming_topk_cuda_tc(q, x, bias, k, tile_n)
     out = _launch_rows(q, x, bias, k, K3_LAYOUT)
     with _count_lock:
         streaming_topk_cuda_qres.launches += 1
+    return out
+
+
+def streaming_topk_cuda_tc(
+    q: torch.Tensor, x: torch.Tensor, bias: torch.Tensor, k: int,
+    tile_n: int = DEFAULT_TILE_N,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2 and K3 over bf16 queries and bf16 rows ("K2tc"): `wgmma` bf16 on
+    the tensor cores with TMA-fed operands (64- or 128-row query tiles,
+    resident where they fit, else streamed with the corpus; the top-k
+    lists in device memory behind a per-row threshold and candidate
+    buffer, so every k takes the same tile). CPU tensors run
+    `streaming_topk`; CUDA tensors launch the kernel, which takes bf16 q
+    and x only (D a multiple of 8), or raise. Returns (scores [B, k] f32,
+    ids [B, k] int32)."""
+    if _on_cpu(q, x, bias):
+        return streaming_topk(q, x, bias, k, tile_n)
+    _check(q, x, bias, k)
+    if not uses_tensor_cores(q.dtype, x.dtype, K2_LAYOUT):
+        raise ValueError(f"the tensor-core kernel takes bf16 queries over bf16 rows, got q "
+                         f"{q.dtype} over x {x.dtype}")
+    out = _launch_tc(q, x, bias, k)
+    with _count_lock:
+        streaming_topk_cuda_tc.launches += 1
     return out
 
 
@@ -436,6 +623,7 @@ streaming_topk_cuda.launches = 0
 streaming_topk_cuda_qmajor.launches = 0
 streaming_topk_cuda_qres.launches = 0
 streaming_topk_cuda_qmajor_xt.launches = 0
+streaming_topk_cuda_tc.launches = 0
 
 
 __all__ = [
@@ -449,4 +637,7 @@ __all__ = [
     "streaming_topk_cuda_qmajor",
     "streaming_topk_cuda_qres",
     "streaming_topk_cuda_qmajor_xt",
+    "streaming_topk_cuda_tc",
+    "tc_plan",
+    "uses_tensor_cores",
 ]

@@ -357,13 +357,14 @@ def _variants_tool():
 @pytest.mark.parametrize("name", list(_variants_tool().VARIANTS))
 def test_int8_variant_tool_anchors_in_source(name):
     """Every text change of tools/int8_topk_variants.py still applies to
-    csrc/int8_topk.cu or csrc/topk_merge.cuh, and every ops/quantize.py
-    constant it sets exists."""
+    csrc/int8_topk.cu or csrc/topk_merge.cuh, and every constant it sets
+    exists in ops/topk.py, whose tensor-core plan K6/K7 share."""
     from codegraph_tpu_torch.ops import cuda_build
+    from codegraph_tpu_torch.ops import topk as ttopk
 
     srcs = [(cuda_build.CSRC_DIR / f).read_text() for f in ("int8_topk.cu", "topk_merge.cuh")]
     subs, consts, _ = _variants_tool().VARIANTS[name]
     for anchor, _ in subs:
         assert any(anchor in src for src in srcs)
     for const in consts:
-        assert hasattr(tq, const)
+        assert hasattr(ttopk, const)

@@ -2,12 +2,12 @@
 """Time the row-tile kernels K2 and K4 (csrc/flat_topk.cu `rows_pass1`)
 against variants of their design, on one NVIDIA GPU.
 
-    python3 tools/flat_topk_variants.py [--rows 1000000]
+    python3 tools/flat_topk_variants.py [--rows 1000000] [--only NAME,NAME]
 
 Each variant is the committed csrc/flat_topk.cu and csrc/topk_merge.cuh
-with its text changes and ops/topk.py constants (below), built with the same nvcc flags into
-codegraph_tpu_torch/_build/variants/ (one nvcc each, in parallel) and
-loaded in place of the shipped library. On a 1% tombstoned f32 corpus of
+with its text changes and ops/topk.py constants (below), built and loaded
+in place of the shipped library by tools/variant_harness.py (into
+codegraph_tpu_torch/_build/variants/). On a 1% tombstoned f32 corpus of
 unit rows at D=768 made on the card from a seed, every variant runs K2 at
 B=32 and 64 (k=30, 300), B=1024 (k=30, 300) and B=256 (k=300) and K4 at B=1024
 (k=30, 300): median ms over 3 batches (CUDA events), all variants in
@@ -20,12 +20,9 @@ fails, or a checked variant disagrees.
 """
 
 import argparse
-import ctypes
 import json
 import os
-import subprocess
 import sys
-import threading
 
 import torch
 
@@ -33,7 +30,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 import chip_smoke as cs  # noqa: E402
-from codegraph_tpu_torch.ops import cuda_build, topk  # noqa: E402
+from codegraph_tpu_torch.ops import topk  # noqa: E402
+from tools import variant_harness as vh  # noqa: E402
 
 OFFER = "    float sc[MI][8];\n#pragma unroll\n    for (int j = 0; j < 8; ++j) {"
 ISSUE_NEXT = "      issue_next();  // into the slot computed last step, now free"
@@ -71,50 +69,16 @@ SHAPES = (("K2", 32, 30), ("K2", 32, 300), ("K2", 64, 30), ("K2", 64, 300), ("K2
           ("K2", 1024, 300), ("K2", 256, 300), ("K4", 1024, 30), ("K4", 1024, 300))
 
 
-def build(i: int, name: str, out: dict) -> None:
-    subs = VARIANTS[name][0]
-    d = cuda_build.BUILD_DIR / "variants" / str(i)
-    d.mkdir(parents=True, exist_ok=True)
-    srcs = {f: (cuda_build.CSRC_DIR / f).read_text() for f in SOURCES}
-    for a, b in subs:
-        hit = [f for f in SOURCES if a in srcs[f]]
-        if not hit:
-            out[name] = f"anchor not found: {a!r}"
-            return
-        srcs[hit[0]] = srcs[hit[0]].replace(a, b)
-    for f, text in srcs.items():
-        (d / f).write_text(text)
-    so = d / "libflat_topk.so"
-    r = subprocess.run([cuda_build.find_nvcc(), *cuda_build.NVCC_FLAGS, "-o", str(so),
-                        str(d / "flat_topk.cu")],
-                       capture_output=True, text=True, timeout=cuda_build.BUILD_TIMEOUT_S)
-    if r.returncode:
-        out[name] = r.stderr[-2000:]
-        return
-    out[name] = [ln for ln in cs.ptxas_summary(r.stdout + r.stderr)
-                 if ln.startswith(("rows_pass1IfLb0ELi128E", "rows_pass1IfLb1ELi128E",
-                                     "rows_pass1IfLb0ELi32E"))]
-    out[name + "/so"] = str(so)
-
-
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=1_000_000)
+    ap.add_argument("--only", default="", help="comma-separated variant names (default: all)")
     args = ap.parse_args()
-    if not torch.cuda.is_available():
-        print("needs a CUDA GPU", file=sys.stderr)
+    if not vh.start():
         return 2
-    torch.backends.cuda.matmul.allow_tf32 = False
-    print(cs.nvidia_smi_line(), flush=True)
-    built: dict = {}
-    threads = [threading.Thread(target=build, args=(i, n, built)) for i, n in enumerate(VARIANTS)]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join()
-    names = [n for n in VARIANTS if n + "/so" in built]
-    for n in VARIANTS:
-        print(json.dumps({"variant": n, "ptxas": built.get(n)}), flush=True)
+    chosen = vh.chosen(VARIANTS, args.only)
+    built = vh.build_all(chosen, VARIANTS, SOURCES, ("rows_pass1IfLb0ELi128E", "rows_pass1IfLb1ELi128E",
+                                                     "rows_pass1IfLb0ELi32E"), "variants")
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(2024)
@@ -128,38 +92,22 @@ def main() -> int:
     qs = {B: [cs._unit(torch, torch.randn(B, D, generator=g, device=dev)) for _ in range(3)]
           for B in {b for _, b, _ in SHAPES}}
     ref = {(B, k): cs.yardstick(torch, qs[B][0], x, bias, k) for _, B, k in SHAPES}
-    saved = {a: getattr(topk, a)
-             for a in ("ROW_STAGES", "ROW_DEPTH", "ROW_CAP", "ROW_SMALL_QUERY_TILES",
-                       "TARGET_BLOCKS")}
-    ms = {n: {} for n in names}
-    bad = {n: 0 for n in names}
-    for n in names + names[::-1]:
-        cuda_build._loaded["flat_topk"] = ctypes.CDLL(built[n + "/so"])
-        topk._lib_handle = None
-        for a, v in {**saved, **VARIANTS[n][1]}.items():
-            setattr(topk, a, v)
+    ms = {n: {} for n in built}
+    bad = {n: 0 for n in built}
+
+    def run(n):
         for kern, B, k in SHAPES:
             key = f"{kern} B={B} k={k}"
             ms[n].setdefault(key, []).append(cs._time_ms(torch, lambda qb: fns[kern](qb, k), qs[B]))
             if VARIANTS[n][2]:
                 s_k, i_k = fns[kern](qs[B][0], k)
                 bad[n] += cs.check_topk(torch, qs[B][0], x, bias, s_k, i_k, *ref[(B, k)])[2]
-    cuda_build._loaded.pop("flat_topk", None)
-    topk._lib_handle = None
-    for a, v in saved.items():
-        setattr(topk, a, v)
-    for n in names:
-        print(json.dumps({"variant": n, "ms": ms[n],
-                          "mismatches_outside_ties": bad[n] if VARIANTS[n][2] else "not checked"}),
-              flush=True)
+
+    vh.in_turns(built, "flat_topk", topk, run, {n: VARIANTS[n][1] for n in built})
     for _, B, k in sorted({(0, b, k) for _, b, k in SHAPES}):
         lib = cs._time_ms(torch, lambda qb: cs.yardstick(torch, qb, x, bias, k), qs[B])
         print(json.dumps({"library": f"B={B} k={k}", "ms": lib}), flush=True)
-    if len(names) < len(VARIANTS):
-        print(f"not timed (no anchor or no build): {sorted(set(VARIANTS) - set(names))}",
-              file=sys.stderr, flush=True)
-        return 1
-    return 0 if all(v == 0 for n, v in bad.items() if VARIANTS[n][2]) else 1
+    return vh.report(chosen, built, ms, bad, {n: VARIANTS[n][2] for n in built})
 
 
 if __name__ == "__main__":

@@ -5,9 +5,9 @@
     python3 tools/int8_topk_variants.py [--rows 10000000] [--only NAME,NAME]
 
 Each variant is the committed csrc/int8_topk.cu and csrc/topk_merge.cuh with
-its text changes and ops/quantize.py constants (below), built with the same
-nvcc flags into codegraph_tpu_torch/_build/variants_int8/ (one nvcc each, in
-parallel) and loaded in place of the shipped library. On a 1% tombstoned
+its text changes and the tensor-core constants of ops/topk.py (below),
+built and loaded in place of the shipped library by tools/variant_harness.py
+(into codegraph_tpu_torch/_build/variants_int8/). On a 1% tombstoned
 int8 corpus of unit rows at D=768 made on the card from a seed, every
 variant runs K6 at B=64, 256 and 1024, k=100 and 300: median ms over 3
 batches (CUDA events), all variants in turns, forward then backward.
@@ -19,12 +19,8 @@ change no longer applies, a build fails, or a checked variant disagrees.
 """
 
 import argparse
-import ctypes
-import json
 import os
-import subprocess
 import sys
-import threading
 
 import torch
 
@@ -32,7 +28,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 import chip_smoke as cs  # noqa: E402
-from codegraph_tpu_torch.ops import cuda_build, quantize  # noqa: E402
+from codegraph_tpu_torch.ops import quantize, topk  # noqa: E402
+from tools import variant_harness as vh  # noqa: E402
 
 EPILOGUE = "      // The epilogue. acc[4j + 2h + e]"
 OFFER = "      if (rounds) {"
@@ -64,50 +61,15 @@ SHAPES = ((64, 100), (64, 300), (256, 100), (256, 300), (1024, 100), (1024, 300)
 SOURCES = ("int8_topk.cu", "topk_merge.cuh")
 
 
-def build(i: int, name: str, out: dict) -> None:
-    d = cuda_build.BUILD_DIR / "variants_int8" / str(i)
-    d.mkdir(parents=True, exist_ok=True)
-    srcs = {f: (cuda_build.CSRC_DIR / f).read_text() for f in SOURCES}
-    for a, b in VARIANTS[name][0]:
-        hit = [f for f in SOURCES if a in srcs[f]]
-        if not hit:
-            out[name] = f"anchor not found: {a!r}"
-            return
-        srcs[hit[0]] = srcs[hit[0]].replace(a, b)
-    for f, text in srcs.items():
-        (d / f).write_text(text)
-    so = d / "libint8_topk.so"
-    r = subprocess.run([cuda_build.find_nvcc(), *cuda_build.NVCC_FLAGS, "-o", str(so),
-                        str(d / "int8_topk.cu")],
-                       capture_output=True, text=True, timeout=cuda_build.BUILD_TIMEOUT_S)
-    if r.returncode:
-        out[name] = r.stderr[-2000:]
-        return
-    out[name] = [ln for ln in cs.ptxas_summary(r.stdout + r.stderr)
-                 if ln.startswith("int8_tc_pass1")]
-    out[name + "/so"] = str(so)
-
-
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=10_000_000)
     ap.add_argument("--only", default="", help="comma-separated variant names (default: all)")
     args = ap.parse_args()
-    if not torch.cuda.is_available():
-        print("needs a CUDA GPU", file=sys.stderr)
+    if not vh.start():
         return 2
-    torch.backends.cuda.matmul.allow_tf32 = False
-    print(cs.nvidia_smi_line(), flush=True)
-    chosen = [n for n in VARIANTS if not args.only or n in args.only.split(",")]
-    built: dict = {}
-    threads = [threading.Thread(target=build, args=(i, n, built)) for i, n in enumerate(chosen)]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join()
-    names = [n for n in chosen if n + "/so" in built]
-    for n in chosen:
-        print(json.dumps({"variant": n, "ptxas": built.get(n)}), flush=True)
+    chosen = vh.chosen(VARIANTS, args.only)
+    built = vh.build_all(chosen, VARIANTS, SOURCES, ("int8_tc_pass1",), "variants_int8")
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(2025)
@@ -126,16 +88,11 @@ def main() -> int:
     for B, k in SHAPES:
         qv, qsc = (t[:4].contiguous() for t in qs[B][0])
         ref[(B, k)] = quantize.streaming_topk_int8(qv, qsc, xv, xs, bias, k, tile_n=1 << 20)
-    saved = {a: getattr(quantize, a)
-             for a in ("TC_STAGES", "ROW_CAP", "TC_BUF_CAP")}
-    ms = {n: {} for n in names}
-    bad = {n: 0 for n in names}
+    ms = {n: {} for n in built}
+    bad = {n: 0 for n in built}
     k6 = quantize.streaming_topk_int8_cuda_qmajor
-    for n in names + names[::-1]:
-        cuda_build._loaded["int8_topk"] = ctypes.CDLL(built[n + "/so"])
-        quantize._lib_handle = None
-        for a, v in {**saved, **VARIANTS[n][1]}.items():
-            setattr(quantize, a, v)
+
+    def run(n):
         for B, k in SHAPES:
             ms[n].setdefault(f"B={B} k={k}", []).append(
                 cs._time_ms(torch, lambda b: k6(b[0], b[1], xv, xs, bias, k), qs[B]))
@@ -145,19 +102,10 @@ def main() -> int:
                 e = cs.check_topk(torch, None, None, None, s_k[:4], i_k[:4], *ref[(B, k)],
                                   judge=cs.int8_judge(*args4))
                 bad[n] += e[2] + int(((s_k[:4] != ref[(B, k)][0]) & (ref[(B, k)][0] > cs.NEG_INF / 2)).sum())
-    cuda_build._loaded.pop("int8_topk", None)
-    quantize._lib_handle = None
-    for a, v in saved.items():
-        setattr(quantize, a, v)
-    for n in names:
-        print(json.dumps({"variant": n, "ms": ms[n],
-                          "mismatches_outside_ties": bad[n] if VARIANTS[n][2] else "not checked"}),
-              flush=True)
-    if len(names) < len(chosen):
-        print(f"not timed (no anchor or no build): {sorted(set(chosen) - set(names))}",
-              file=sys.stderr, flush=True)
-        return 1
-    return 0 if all(v == 0 for n, v in bad.items() if VARIANTS[n][2]) else 1
+
+    # K6's plan reads the tensor-core constants from ops/topk.py
+    vh.in_turns(built, "int8_topk", quantize, run, {n: VARIANTS[n][1] for n in built}, module=topk)
+    return vh.report(chosen, built, ms, bad, {n: VARIANTS[n][2] for n in built})
 
 
 if __name__ == "__main__":

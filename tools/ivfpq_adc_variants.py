@@ -6,10 +6,10 @@ design, on one NVIDIA GPU.
     python3 tools/ivfpq_adc_variants.py --profile [--shapes B:k,...]
 
 A variant is the committed csrc/ivfpq_adc.cu with text changes and
-index/ivfpq.py constants (built with the same nvcc flags into
-codegraph_tpu_torch/_build/variants_adc/, one nvcc each, in parallel, and
-loaded in place of the shipped library), or the shipped library called with
-other arguments (no extents). The cells are
+index/ivfpq.py constants, or called with other arguments (no extents),
+each built and loaded in place of the shipped library by
+tools/variant_harness.py (into codegraph_tpu_torch/_build/variants_adc/).
+The cells are
 synthetic at the phase-7 shape of chip_smoke.py, made on the card from a
 seed: nlist 4096, m 96, ksub 256, cap 4992, D 768, each cell filled to a
 uniform depth in [1220, 3660] (about 10M rows), 1% of the rows tombstoned.
@@ -32,9 +32,7 @@ import argparse
 import ctypes
 import json
 import os
-import subprocess
 import sys
-import threading
 
 import torch
 
@@ -44,6 +42,7 @@ sys.path.insert(0, ROOT)
 import chip_smoke as cs  # noqa: E402
 from codegraph_tpu_torch.index import ivfpq  # noqa: E402
 from codegraph_tpu_torch.ops import cuda_build  # noqa: E402
+from tools import variant_harness as vh  # noqa: E402
 
 QM_OFFER = "bool v = s >= lb && beats(s, id, ts, ti);"
 QM_UNROLL = "#pragma unroll 4\n        for (int j = 0; j < m; ++j) {"
@@ -88,46 +87,19 @@ VARIANTS = {
           "const uint8_t* cp = codes + (size_t)cell * m * cap + (col & ~255);")], {}, {}, False),
 }
 SHAPES = "1:40,1:300,1:1920,1:5000,8:40,8:300,64:40,256:40,256:300,1024:40,1024:300"
-SOURCE = "ivfpq_adc.cu"
-
-
-def build(i: int, name: str, out: dict, subs=None, tail: str = "") -> None:
-    subs = VARIANTS[name][0] if subs is None else subs
-    if not subs:  # built before the threads start
-        out[name + "/so"] = str(cuda_build.build("ivfpq_adc"))
-        out[name] = "shipped library"
-        return
-    d = cuda_build.BUILD_DIR / "variants_adc" / str(i)
-    d.mkdir(parents=True, exist_ok=True)
-    src = (cuda_build.CSRC_DIR / SOURCE).read_text()
-    for a, b in subs:
-        if a not in src:
-            out[name] = f"anchor not found: {a!r}"
-            return
-        src = src.replace(a, b)
-    (d / SOURCE).write_text(src + tail)
-    for h in cuda_build.CSRC_DIR.glob("*.cuh"):
-        (d / h.name).write_text(h.read_text())
-    so = d / "libivfpq_adc.so"
-    r = subprocess.run([cuda_build.find_nvcc(), *cuda_build.NVCC_FLAGS, "-o", str(so),
-                        str(d / SOURCE)],
-                       capture_output=True, text=True, timeout=cuda_build.BUILD_TIMEOUT_S)
-    if r.returncode:
-        out[name] = r.stderr[-2000:]
-        return
-    out[name] = [ln for ln in cs.ptxas_summary(r.stdout + r.stderr) if "adc_" in ln]
-    out[name + "/so"] = str(so)
+SOURCES = ("ivfpq_adc.cu",)
+ENTRIES = ("adc_",)  # the kernels whose ptxas lines it prints
 
 
 def profile(shapes) -> int:
     """The --profile run: cycles a block by phase."""
-    out: dict = {}
-    build(99, "profile", out, PROFILE, PROFILE_API)
-    if "profile/so" not in out:
-        print(json.dumps({"profile": out.get("profile")}), flush=True)
+    ptxas, so = vh.build_one(cuda_build.BUILD_DIR / "variants_adc" / "profile", PROFILE, SOURCES,
+                             ENTRIES, PROFILE_API)
+    if so is None:
+        print(json.dumps({"profile": ptxas}), flush=True)
         return 1
-    print(json.dumps({"profile ptxas": out["profile"]}), flush=True)
-    lib = ctypes.CDLL(out["profile/so"])
+    print(json.dumps({"profile ptxas": ptxas}), flush=True)
+    lib = ctypes.CDLL(so)
     lib.prof_read.argtypes = [ctypes.c_void_p]
     cuda_build._loaded["ivfpq_adc"] = lib
     ivfpq._lib_handle = None
@@ -159,25 +131,13 @@ def main() -> int:
     ap.add_argument("--shapes", default=SHAPES)
     ap.add_argument("--profile", action="store_true", help="cycles a block by phase instead")
     args = ap.parse_args()
-    if not torch.cuda.is_available():
-        print("needs a CUDA GPU", file=sys.stderr)
+    if not vh.start():
         return 2
-    torch.backends.cuda.matmul.allow_tf32 = False
-    print(cs.nvidia_smi_line(), flush=True)
-    if args.profile:
-        return profile([tuple(int(v) for v in s.split(":")) for s in args.shapes.split(",")])
-    chosen = [n for n in VARIANTS if not args.only or n in args.only.split(",")]
     shapes = [tuple(int(v) for v in s.split(":")) for s in args.shapes.split(",")]
-    built: dict = {}
-    cuda_build.build("ivfpq_adc")
-    threads = [threading.Thread(target=build, args=(i, n, built)) for i, n in enumerate(chosen)]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join()
-    names = [n for n in chosen if n + "/so" in built]
-    for n in chosen:
-        print(json.dumps({"variant": n, "ptxas": built.get(n)}), flush=True)
+    if args.profile:
+        return profile(shapes)
+    chosen = vh.chosen(VARIANTS, args.only)
+    built = vh.build_all(chosen, VARIANTS, SOURCES, ENTRIES, "variants_adc")
 
     g = torch.Generator(device="cuda").manual_seed(2026)
     *state, fill = cs.synthetic_ivfpq_cells(torch, g)
@@ -185,14 +145,10 @@ def main() -> int:
     qs = {B: [cs._unit(torch, torch.randn(B, 768, generator=g, device="cuda")) for _ in range(3)]
           for B in {b for b, _ in shapes}}
     ref = {(B, k): ivfpq.ivfpq_search(qs[B][0][:2], *state, k, nprobe) for B, k in shapes}
-    saved = {a: getattr(ivfpq, a) for a in {c for v in VARIANTS.values() for c in v[1]}}
-    ms = {n: {} for n in names}
-    bad = {n: 0 for n in names}
-    for n in names + names[::-1]:
-        cuda_build._loaded["ivfpq_adc"] = ctypes.CDLL(built[n + "/so"])
-        ivfpq._lib_handle = None
-        for a, v in {**saved, **VARIANTS[n][1]}.items():
-            setattr(ivfpq, a, v)
+    ms = {n: {} for n in built}
+    bad = {n: 0 for n in built}
+
+    def run(n):
         kw = {"extents": fill, **VARIANTS[n][2]}
         for B, k in shapes:
             fn = lambda qb: ivfpq.ivfpq_search_cuda(qb, *state, k, nprobe, **kw)  # noqa: E731
@@ -203,23 +159,13 @@ def main() -> int:
                 e = cs.check_topk(torch, None, None, None, s_k[:2], i_k[:2], s_r, i_r,
                                   judge=cs.adc_judge(torch, qs[B][0][:2], *state))
                 bad[n] += e[2]
-    cuda_build._loaded.pop("ivfpq_adc", None)
-    ivfpq._lib_handle = None
-    for a, v in saved.items():
-        setattr(ivfpq, a, v)
+
+    vh.in_turns(built, "ivfpq_adc", ivfpq, run, {n: VARIANTS[n][1] for n in built})
     for B in sorted({b for b, _ in shapes}):  # the wrapper's PyTorch stages alone
         coarse = cs._time_ms(torch, lambda qb: ivfpq.adc_inputs(qb, state[0], state[4], nprobe),
                              qs[B])
         print(json.dumps({"B": B, "coarse_and_table_ms": coarse}), flush=True)
-    for n in names:
-        print(json.dumps({"variant": n, "ms": ms[n],
-                          "mismatches_outside_ties": bad[n] if VARIANTS[n][3] else "not checked"}),
-              flush=True)
-    if len(names) < len(chosen):
-        print(f"not timed (no anchor or no build): {sorted(set(chosen) - set(names))}",
-              file=sys.stderr, flush=True)
-        return 1
-    return 0 if all(v == 0 for n, v in bad.items() if VARIANTS[n][3]) else 1
+    return vh.report(chosen, built, ms, bad, {n: VARIANTS[n][3] for n in built})
 
 
 if __name__ == "__main__":
