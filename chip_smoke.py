@@ -12,27 +12,36 @@
     python3 chip_smoke.py --phases 0,12    # the shared-memory hand-off only
     python3 chip_smoke.py --phases 0,13,14 # the parallel/ slice (an 8-shard mesh on one card)
     python3 chip_smoke.py --phases 0,1,3   # the kernels, checked and timed at real size
-    python3 chip_smoke.py --phases 0,15    # the bf16 main path (K2tc) only
+    python3 chip_smoke.py --phases 0,15    # the bf16 main path (K1tc, K2tc) only
+    python3 chip_smoke.py --phases 0,16    # the card's pytest cases (tests/test_torch_card.py)
 
 Phases, each printing one JSON object per line as it ends:
 
   0  card name and power limit, torch and nvcc versions; builds the CUDA
-     sources from csrc/ (flat_topk.cu, flat_topk_tc.cu, int8_topk.cu,
-     ivfpq_adc.cu and the host helper ivf_spill.cu, one nvcc each, in
-     parallel) and prints the
+     sources from csrc/ (flat_topk.cu, flat_topk_tc.cu, flat_topk_k1tc.cu,
+     int8_topk.cu, ivfpq_adc.cu and the host helper ivf_spill.cu, one nvcc
+     each, in parallel) and prints the
      build seconds and the ptxas line (registers, spills) of every kernel
      instance.
   1  every kernel against its plain PyTorch version on the card. K1, K2
      and K3: f32 and bf16 corpora up to 131,072 x 768, k in {1, 10, 30,
      100, 300, 1024}, K2-K4 at B = 20, 31 and 32 (a 32-row query tile), 33,
      40 and 64 (a 64-row tile) and 70, 96, 256 and 1000 (partial 128-row
-     tiles); over bf16 rows with bf16 queries K2 and K3 run K2tc (the
-     tensor cores), held as well at B in {32, 33, 64, 65, 96, 128, 129,
-     255, 256, 1000} x every k at D = 768, at D in {8, 64, 200, 1024, 1536}
-     (depths not a multiple of 64, resident and streamed query tiles), K3
-     at 64, 129 and 256, every call counted as a K2tc launch; each bf16
-     K2/K3 case runs again with the same queries widened to f32, which must
-     launch K2 or K3 (rows_pass1 over bf16 rows) and not K2tc. K5,
+     tiles); over bf16 rows K1 runs K1tc and K2 and K3 run K2tc with bf16
+     queries and K2tc3 with f32 ones (the tensor cores; f32 queries as
+     three bf16 pieces), each bf16 case run again with the same queries
+     widened to f32; K2tc and K2tc3 are held as well at B in {32, 33, 64,
+     65, 96, 128, 129, 255, 256, 1000} x every k at D = 768, at D in {8,
+     64, 200, 1024, 1536} (depths not a multiple of 64, resident and
+     streamed query tiles), K3 at 64, 129 and 256, and K1tc with both
+     query dtypes at B in {1, 2, 5, 8, 9, 16, 17, 24, 31, 32, 40} x every
+     k at D = 768 and at the other depths, over a 131,072-row corpus, a
+     ragged N with duplicate rows (ties inside and across tiles) and a
+     filter, and 200 rows with 150 live; each call must launch its route
+     once and no other kernel. K1tc and K2tc3 under f32 queries over
+     one-hot bf16 rows (each score one query element, whatever the order
+     of the sums) at D = 768 and 200: scores equal to the plain version's
+     bit for bit, so a kernel that dropped a piece would fail. K5,
      K6 and K7: int8 corpora of the same sizes, k in {1, 10,
      100, 300}, with an all-zero row (scale 0) and rows of +-127 everywhere
      (an int8 wrap would show), K6 at B = 33, 64 (the 64-row tile), 65,
@@ -59,16 +68,19 @@ Phases, each printing one JSON object per line as it ends:
      queries). Prints the counts and the kernels' launch counters, which
      must both be above zero.
   3  real size: FlatIndex of 1,000,000 x 768 rows, f32 then bf16, made on
-     the card from a seeded generator, 1% tombstoned; K1 at B=1 and 8,
-     k=30 and 300; K2 (f32) at B=32 and 64 (QueryService's bucket), k=30
-     and 300; K2, K3 and K4 (f32; K4 on xt = x.T) at B=256 and 1024, k=30,
-     100 and 300; K2tc (bf16 queries, through K2's wrapper) at B=64, 256
-     and 1024, k=30, 100 and 300, and through K3's at B=1024, k=100; K2
-     with f32 queries over the bf16 rows (rows_pass1) at B=1024, k=30:
-     median kernel ms over 7 batches (CUDA events), the plain version's ms,
-     a chunked matmul + topk yardstick (library_ms, checked against; for
-     bf16 queries the tensor-core torch.mm(out_dtype=f32), beside the f32
-     one), and the bound.
+     the card from a seeded generator, 1% tombstoned; K1 (f32) and K1tc
+     (bf16 rows, bf16 and f32 queries) at B=1 and 8, k=30 and 300; K2
+     (f32) at B=32 and 64 (QueryService's bucket), k=30 and 300; K2, K3 and
+     K4 (f32; K4 on xt = x.T) at B=256 and 1024, k=30, 100 and 300; K2tc
+     (bf16 queries, through K2's wrapper) at B=64, 256 and 1024, k=30, 100
+     and 300, and through K3's at B=1024, k=100; K2tc3 (f32 queries over
+     the bf16 rows) at B=64, 256 and 1024, k=30 and 300: median kernel ms
+     over 7 batches (CUDA events), the plain version's ms, a chunked
+     matmul + topk yardstick (library_ms, checked against; for bf16
+     queries the tensor-core torch.mm(out_dtype=f32), beside the f32 one),
+     the bound (f32 queries over bf16 rows: three bf16 tensor-core
+     products, or the bytes) and, for K2tc and K2tc3, the bytes their
+     blocks read by the plan.
   4  the int8 main path: phase 2 with index.dtype = "int8" (Int8FlatIndex,
      bf16 rescore copy): 5 searches (K5) and 64 concurrent queries through
      QueryService (K6), checked against the same snapshot searched on the
@@ -199,8 +211,12 @@ Phases, each printing one JSON object per line as it ends:
      against the stored rows, recall@10); ShardedIVFPQIndex at 10,000,000 x
      768 with the device int8 refine (K8 per shard at B=1, 8, 1024; K8 per
      shard against its plain version; recall@10 against an exact scan);
-     HybridSearch over a ShardedFlatIndex of the repo's own sources against
-     the same project's FlatIndex search (1e-5).
+     ShardedFlatIndex of 10,000,000 x 768 bf16 (15.4 GB; f32 queries) at
+     B=1, 8 (K1tc, three pieces, per shard) and 1024 (K2tc3 per shard),
+     k=10 and 100, held to the same oracle and timed beside one scan of the
+     route over the unsharded rows; HybridSearch over a ShardedFlatIndex of
+     the repo's own sources against the same project's FlatIndex search
+     (1e-5).
   14 the encoder across a mesh at the r3 encoder's width (checkpoints/
      encoder_r3_512.npz, 6 x 512, B=256, L=192, on [cuda:0] * n): in f32,
      sp_ring_encode on (dp, sp) = (2, 4), pp_encode with pp = 2 and 3 and
@@ -213,10 +229,14 @@ Phases, each printing one JSON object per line as it ends:
      grad norm (one bf16 step); make_sharded_topk_moe on ep = 4 against
      topk_moe_dense at capacity 8.0 (1e-4). Prints each one's ms.
   15 the bf16 main path: phase 2 with index.dtype = "bfloat16" (the flat
-     tier the planner picks from 200k rows): 5 searches (K1 over bf16
-     rows) and 64 concurrent QueryService queries (K2tc), checked as in
-     phase 2; K1 and K2tc must launch and no other kernel. It runs right
-     after phase 2.
+     tier the planner picks from 200k rows): 5 searches (K1tc) and 64
+     concurrent QueryService queries (K2tc), checked as in phase 2; K1tc
+     and K2tc must launch and no other kernel. It runs right after phase 2.
+  16 the card's pytest cases: `python -m pytest --noconftest -p
+     no:cacheprovider -q tests/test_torch_card.py` in a subprocess (the
+     conftest imports JAX, which the card's machine lacks); every
+     collected case must pass and none skip. Prints the pass count on a
+     line of its own. It runs right after phase 1.
 
 Then the card's name and power limit, one JSON line with every kernel's
 numbers, and last {"ok": true, "device": {...}}. Any failed check exits
@@ -264,13 +284,21 @@ TC_K = (1, 10, 30, 100, 300, 1024)
 TC_B_OTHER = (33, 64, 65, 129, 1000)
 TC_K_OTHER = (1, 30, 300, 1024)
 
+#: K1tc's cases in phase 1: batches on both sides of its 8-row query
+#: tiles and of one block's 32, k up to MAX_K, depths as K2tc's
+K1TC_B = (1, 2, 5, 8, 9, 16, 17, 24, 31, 32, 40)
+K1TC_K = (1, 10, 30, 100, 300, 1024)
+K1TC_B_OTHER = (1, 8, 9, 31)
+K1TC_K_OTHER = (1, 30, 300, 1024)
+
 #: the sources under codegraph_tpu_torch/csrc/, built in phase 0
-SOURCES = ("flat_topk", "flat_topk_tc", "int8_topk", "ivfpq_adc", "ivf_spill")
+SOURCES = ("flat_topk", "flat_topk_tc", "flat_topk_k1tc", "int8_topk", "ivfpq_adc", "ivf_spill")
 
 
 # name -> (wrapper module, wrapper, source, line of the TPU kernel's pallas_call)
 FLAT_CU = "codegraph_tpu_torch/csrc/flat_topk.cu"
 FLAT_TC_CU = "codegraph_tpu_torch/csrc/flat_topk_tc.cu"
+FLAT_K1TC_CU = "codegraph_tpu_torch/csrc/flat_topk_k1tc.cu"
 INT8_CU = "codegraph_tpu_torch/csrc/int8_topk.cu"
 IVFPQ_CU = "codegraph_tpu_torch/csrc/ivfpq_adc.cu"
 KERNELS = {
@@ -278,8 +306,12 @@ KERNELS = {
     "K2": ("topk", "streaming_topk_cuda_qmajor", FLAT_CU, "codegraph_tpu/ops/topk.py:456"),
     "K3": ("topk", "streaming_topk_cuda_qres", FLAT_CU, "codegraph_tpu/ops/topk.py:561"),
     "K4": ("topk", "streaming_topk_cuda_qmajor_xt", FLAT_CU, "codegraph_tpu/ops/topk.py:664"),
+    # K1 over bf16 rows, bf16 or f32 queries (wgmma, the corpus as the 64-row operand)
+    "K1tc": ("topk", "streaming_topk_cuda_k1tc", FLAT_K1TC_CU, "codegraph_tpu/ops/topk.py:347"),
     # K2 and K3 over bf16 queries and bf16 rows (wgmma bf16 on the tensor cores)
     "K2tc": ("topk", "streaming_topk_cuda_tc", FLAT_TC_CU, "codegraph_tpu/ops/topk.py:456"),
+    # the same over f32 queries, each as three bf16 pieces
+    "K2tc3": ("topk", "streaming_topk_cuda_tc3", FLAT_TC_CU, "codegraph_tpu/ops/topk.py:456"),
     "K5": ("quantize", "streaming_topk_int8_cuda", INT8_CU, "codegraph_tpu/ops/quantize.py:182"),
     "K6": ("quantize", "streaming_topk_int8_cuda_qmajor", INT8_CU,
            "codegraph_tpu/ops/quantize.py:287"),
@@ -408,7 +440,8 @@ def ptxas_summary(log: str) -> list:
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", ln)
         if m:
-            k = re.search(r"(topk_pass1|rows_pass1|bf16_tc_pass1|int8_dp4a_pass1|int8_mma_pass1|"
+            k = re.search(r"(topk_pass1|rows_pass1|bf16_tc_pass1|bf16_k1_pass1|int8_dp4a_pass1|"
+                          r"int8_mma_pass1|"
                           r"int8_tc_pass1|adc_qmajor|"
                           r"merge_pairs_global|"
                           r"topk_merge)"
@@ -482,8 +515,9 @@ def phase1(torch, mods, errs) -> dict:
                 if dtype == torch.int8:
                     kernel = {"K1": "K5", "K2": "K6", "K3": "K7"}[kernel]
                 fn = kernels[kernel]
-                # bf16 queries over bf16 rows: K2 and K3 run the tensor-core kernel
-                name = "K2tc" if dtype == torch.bfloat16 and kernel in ("K2", "K3") else kernel
+                # over bf16 rows K1 runs K1tc, K2 and K3 K2tc (bf16 queries)
+                name = {"K1": "K1tc", "K2": "K2tc", "K3": "K2tc"}.get(kernel, kernel) \
+                    if dtype == torch.bfloat16 else kernel
                 q = _unit(torch, torch.randn(B, D, generator=g, device=dev))
                 if dtype == torch.int8:
                     qv, qs = quantize.quantize_rows(q)
@@ -504,21 +538,18 @@ def phase1(torch, mods, errs) -> dict:
                     judge = dot_judge(q, x, bias)
                 # (kernel that must launch, its label, inputs, judge)
                 runs = [(name, kernel if name == kernel else f"{name} (via {kernel})", args, judge)]
-                if name == "K2tc":  # the same rows under f32 queries stay on rows_pass1
+                if name in ("K1tc", "K2tc"):  # the same rows under f32 queries: three pieces
                     qf = q.float()
-                    runs.append((kernel, f"{kernel} (f32 q over bf16 rows)", (qf, x, bias),
+                    ran = "K1tc" if name == "K1tc" else "K2tc3"
+                    runs.append((ran, f"{ran} (via {kernel}, f32 q)", (qf, x, bias),
                                  dot_judge(qf, x, bias)))
                 for k in ks:
                     for ran, label, run_args, run_judge in runs:
-                        if name == "K2tc":  # the route the inputs set, and no other
-                            routes = (ran, "K2tc" if ran == kernel else kernel)
-                            before = [wrapper(mods, r).launches for r in routes]
-                        s_k, i_k = fn(*run_args, k)
+                        # the route the inputs set, and no other
+                        (s_k, i_k), delta = _counted(mods, lambda: fn(*run_args, k))
                         torch.cuda.synchronize()
-                        if name == "K2tc":
-                            after = [wrapper(mods, r).launches for r in routes]
-                            require(after == [before[0] + 1, before[1]],
-                                    f"phase 1: {label} B={B} k={k} did not launch {ran} alone")
+                        require(delta == {ran: 1},
+                                f"phase 1: {label} B={B} k={k} launched {delta}, not {ran} once")
                         s_p, i_p = plain(*run_args, k)
                         err, n_diff, bad = check_topk(torch, None, None, None, s_k, i_k, s_p, i_p,
                                                       judge=run_judge)
@@ -532,6 +563,8 @@ def phase1(torch, mods, errs) -> dict:
                             "mismatches_outside_ties": bad})
     cases += phase1_unaligned(torch, mods, errs, g)
     cases += phase1_tc(torch, mods, errs)
+    cases += phase1_k1tc(torch, mods, errs)
+    cases += phase1_pieces_exact(torch, mods, errs)
     cases += phase1_k8(torch, mods, errs)
     spill = phase1_spill(mods)
     n_bad = sum(c["mismatches_outside_ties"] for c in cases)
@@ -576,73 +609,135 @@ def phase1_unaligned(torch, mods, errs, g) -> list:
     return cases
 
 
-def phase1_tc(torch, mods, errs) -> list:
-    """K2tc (K2 and K3 over bf16 queries and bf16 rows, through their
-    wrappers) against the plain version: every batch of TC_B and k of
-    TC_K at D = 768, the 64- and 128-row query tiles on both sides; at the
-    other depths of TC_D (not a multiple of 64; resident and streamed query
-    tiles) a ragged N with duplicate rows and a filter, and a corpus of 200
-    rows with 150 live (k above the live count), at TC_B_OTHER x TC_K_OTHER;
-    K3 at 64, 129 and 256. Each call must launch K2tc, and f32 queries over
-    the same bf16 rows must launch K2 (rows_pass1) and not K2tc."""
+def _tc_corpus(torch, g, dev, N, D, dup, filt, live):
+    """Unit bf16 rows on the card with 1% tombstones; dup: rows 1000..1999
+    repeat rows 0..999 (exact ties); filt: an extra_bias filter excluding
+    ~10% of rows; live: rows from `live` on are dead (k above the live
+    count)."""
+    x = _unit(torch, torch.randn(N, D, generator=g, device=dev)).to(torch.bfloat16)
+    if dup:
+        x[1000:2000] = x[0:1000]
+    bias = torch.zeros(N, device=dev)
+    bias[torch.randperm(N, generator=g, device=dev)[: max(1, N // 100)]] = NEG_INF
+    if live is not None:
+        bias[live:] = NEG_INF
+    if filt:
+        bias = bias + torch.where(torch.rand(N, generator=g, device=dev) < 0.1, NEG_INF, 0.0)
+    return x, bias
+
+
+def _tc_cases(torch, mods, errs, g, shapes_of, routes) -> list:
+    """The tensor-core routes' case families over bf16 rows: for each depth
+    of TC_D (not a multiple of 64; resident and streamed query tiles), a
+    131,072-row corpus (at D = 768 only), a ragged N with duplicate rows
+    and a filter, and 200 rows with 150 live (k above the live count);
+    for each (kernel, B, k) of shapes_of(D), unit queries (query 0 a
+    duplicated row where there are ties) in each query dtype of `routes`
+    ({dtype: kernel that must launch, alone}), against the plain version."""
     topk = mods["topk"]
     dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(15)
-    tc = topk.streaming_topk_cuda_tc
     cases = []
     for D in TC_D:
         corpora = ((131072, False, False, None), (100003, True, True, None), (200, False, False, 150))
-        shapes = [("K2", B, k) for B in TC_B for k in TC_K] + \
-            [("K3", B, k) for B in (64, 129, 256) for k in (10, 300)]
-        if D != 768:
-            corpora = corpora[1:]
-            shapes = [("K2", B, k) for B in TC_B_OTHER for k in TC_K_OTHER] + \
-                [("K3", B, 300) for B in (64, 129, 256)]
-        for N, dup, filt, live in corpora:
-            x = _unit(torch, torch.randn(N, D, generator=g, device=dev)).to(torch.bfloat16)
-            if dup:  # exact ties: rows 1000..1999 repeat rows 0..999
-                x[1000:2000] = x[0:1000]
-            bias = torch.zeros(N, device=dev)
-            bias[torch.randperm(N, generator=g, device=dev)[: max(1, N // 100)]] = NEG_INF
-            if live is not None:
-                bias[live:] = NEG_INF
-            if filt:  # extra_bias: a filter excluding ~10% of rows
-                bias = bias + torch.where(torch.rand(N, generator=g, device=dev) < 0.1, NEG_INF, 0.0)
-            for kernel, B, k in shapes:
-                q = _unit(torch, torch.randn(B, D, generator=g, device=dev)).to(torch.bfloat16)
+        for N, dup, filt, live in (corpora if D == 768 else corpora[1:]):
+            x, bias = _tc_corpus(torch, g, dev, N, D, dup, filt, live)
+            for kernel, B, k in shapes_of(D):
+                q = _unit(torch, torch.randn(B, D, generator=g, device=dev))
                 if dup:
-                    q[0] = x[5]  # its own duplicate pair tops the list
-                before = tc.launches
-                s_k, i_k = wrapper(mods, kernel)(q, x, bias, k)
+                    q[0] = x[5].float()  # its own duplicate pair tops the list
+                for q_dtype, ran in routes.items():
+                    qd = q.to(q_dtype)
+                    (s_k, i_k), delta = _counted(mods, lambda: wrapper(mods, kernel)(qd, x, bias, k))
+                    torch.cuda.synchronize()
+                    require(delta == {ran: 1}, f"phase 1: {kernel} over bf16 rows with "
+                            f"{q_dtype} queries, B={B} D={D} k={k}, launched {delta}, not {ran}")
+                    s_p, i_p = topk.streaming_topk(qd, x, bias, k)
+                    err, n_diff, bad = check_topk(torch, None, None, None, s_k, i_k, s_p, i_p,
+                                                  judge=dot_judge(qd, x, bias))
+                    errs[ran] = max(errs[ran], err)
+                    cases.append({"kernel": f"{ran} (via {kernel})", "dtype": "bfloat16",
+                                  "q_dtype": str(q_dtype)[6:], "N": N, "D": D, "B": B, "k": k,
+                                  "dup": dup, "filter": filt, "live": live or N,
+                                  "max_abs_err": err, "id_mismatches": n_diff,
+                                  "mismatches_outside_ties": bad})
+    return cases
+
+
+def phase1_tc(torch, mods, errs) -> list:
+    """K2 and K3 over bf16 rows, through their wrappers, on the tensor
+    cores: bf16 queries launch K2tc and f32 queries K2tc3 (three pieces),
+    each alone, held to the plain version at every batch of TC_B and k of
+    TC_K at D = 768 (the 64- and 128-row query tiles on both sides) and
+    at TC_B_OTHER x TC_K_OTHER at the other depths; K3 at 64, 129 and
+    256."""
+    g = torch.Generator(device="cuda").manual_seed(15)
+
+    def shapes_of(D):
+        if D == 768:
+            return [("K2", B, k) for B in TC_B for k in TC_K] + \
+                [("K3", B, k) for B in (64, 129, 256) for k in (10, 300)]
+        return [("K2", B, k) for B in TC_B_OTHER for k in TC_K_OTHER] + \
+            [("K3", B, 300) for B in (64, 129, 256)]
+
+    return _tc_cases(torch, mods, errs, g, shapes_of,
+                     {torch.bfloat16: "K2tc", torch.float32: "K2tc3"})
+
+
+def phase1_k1tc(torch, mods, errs) -> list:
+    """K1 over bf16 rows through its wrapper: bf16 and f32 queries launch
+    K1tc (one piece or three), held to the plain version at every batch of
+    K1TC_B (8-row query tiles, one block's 32, a second tile) and k of
+    K1TC_K at D = 768, and at K1TC_B_OTHER x K1TC_K_OTHER at the other
+    depths (resident and streamed query tiles)."""
+    g = torch.Generator(device="cuda").manual_seed(16)
+
+    def shapes_of(D):
+        if D == 768:
+            return [("K1", B, k) for B in K1TC_B for k in K1TC_K]
+        return [("K1", B, k) for B in K1TC_B_OTHER for k in K1TC_K_OTHER]
+
+    return _tc_cases(torch, mods, errs, g, shapes_of,
+                     {torch.bfloat16: "K1tc", torch.float32: "K1tc"})
+
+
+def phase1_pieces_exact(torch, mods, errs) -> list:
+    """The three-piece routes use every piece of an f32 query: over one-hot
+    bf16 rows (row n is e_(n % D), so rows n and n + D tie exactly) each
+    score is the one element q[n % D] (+ a zero bias) whatever the order
+    of the sums, so K1tc (B = 1, 8, 9, 31) and K2tc3 (K2 at B = 33, 64,
+    65, 129 and K3 at 129) must equal the plain version bit for bit. The
+    queries carry 24 significant bits, so nearly every `lo` piece is
+    nonzero and a kernel that dropped one would miss by 1e-7 to 1e-6."""
+    topk = mods["topk"]
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(18)
+    cases = []
+    for D, N in ((768, 3 * 768 + 5), (200, 1003)):
+        x = torch.zeros(N, D, device=dev)
+        x[torch.arange(N, device=dev), torch.arange(N, device=dev) % D] = 1.0
+        x = x.to(torch.bfloat16)
+        bias = torch.zeros(N, device=dev)
+        bias[torch.randperm(N, generator=g, device=dev)[: N // 100]] = NEG_INF
+        q = _unit(torch, torch.randn(129, D, generator=g, device=dev))
+        lo_share = float((topk.split_bf16(q)[2] != 0).float().mean())
+        require(lo_share > 0.9, f"phase 1: only {lo_share} of the lo pieces are nonzero")
+        for kernel, ran, B in (("K1", "K1tc", 1), ("K1", "K1tc", 8), ("K1", "K1tc", 9),
+                               ("K1", "K1tc", 31), ("K2", "K2tc3", 33), ("K2", "K2tc3", 64),
+                               ("K2", "K2tc3", 65), ("K2", "K2tc3", 129), ("K3", "K2tc3", 129)):
+            qb = q[:B].contiguous()
+            for k in (1, 30, 300, 1024):
+                (s_k, i_k), delta = _counted(mods, lambda: wrapper(mods, kernel)(qb, x, bias, k))
                 torch.cuda.synchronize()
-                require(tc.launches == before + 1,
-                        f"phase 1: bf16 {kernel} B={B} D={D} did not launch K2tc")
-                s_p, i_p = topk.streaming_topk(q, x, bias, k)
-                err, n_diff, bad = check_topk(torch, None, None, None, s_k, i_k, s_p, i_p,
-                                              judge=dot_judge(q, x, bias))
-                errs["K2tc"] = max(errs["K2tc"], err)
-                cases.append({"kernel": f"K2tc (via {kernel})", "dtype": "bfloat16", "N": N,
-                              "D": D, "B": B, "k": k, "dup": dup, "filter": filt,
-                              "live": live or N, "max_abs_err": err, "id_mismatches": n_diff,
-                              "mismatches_outside_ties": bad})
-    # f32 queries over bf16 rows stay on rows_pass1 (a bf16 product would round them)
-    k2 = topk.streaming_topk_cuda_qmajor
-    x = _unit(torch, torch.randn(20011, 768, generator=g, device=dev)).to(torch.bfloat16)
-    bias = torch.zeros(x.shape[0], device=dev)
-    bias[torch.randperm(x.shape[0], generator=g, device=dev)[:200]] = NEG_INF
-    before = (k2.launches, tc.launches)
-    q = _unit(torch, torch.randn(96, 768, generator=g, device=dev))
-    s_k, i_k = k2(q, x, bias, 30)
-    torch.cuda.synchronize()
-    require((k2.launches, tc.launches) == (before[0] + 1, before[1]),
-            "phase 1: f32 queries over bf16 rows did not run K2 (rows_pass1) alone")
-    s_p, i_p = topk.streaming_topk(q, x, bias, 30)
-    err, n_diff, bad = check_topk(torch, None, None, None, s_k, i_k, s_p, i_p,
-                                  judge=dot_judge(q, x, bias))
-    errs["K2"] = max(errs["K2"], err)
-    cases.append({"kernel": "K2 (f32 q over bf16 rows)", "dtype": "bfloat16", "N": x.shape[0],
-                  "D": 768, "B": 96, "k": 30, "max_abs_err": err, "id_mismatches": n_diff,
-                  "mismatches_outside_ties": bad})
+                require(delta == {ran: 1}, f"phase 1: {kernel} over one-hot bf16 rows with f32 "
+                        f"queries, B={B} D={D} k={k}, launched {delta}, not {ran}")
+                s_p, i_p = topk.streaming_topk(qb, x, bias, k)
+                err, n_diff, bad = check_topk(torch, None, None, None, s_k, i_k, s_p, i_p, tol=0.0,
+                                              judge=dot_judge(qb, x, bias))
+                errs[ran] = max(errs[ran], err)
+                cases.append({"kernel": f"{ran} (via {kernel}, one-hot rows, exact)",
+                              "dtype": "bfloat16", "q_dtype": "float32", "N": N, "D": D, "B": B,
+                              "k": k, "lo_nonzero": lo_share, "max_abs_err": err,
+                              "id_mismatches": n_diff, "mismatches_outside_ties": bad})
     return cases
 
 
@@ -808,7 +903,8 @@ QUERIES = [
 
 def phase2(torch, mods, errs, dtype="float32", phase=2) -> dict:
     """The main path over a flat index of `dtype`: K1 for the 5 searches,
-    K2 for the service's batches (K2tc, the tensor cores, over bf16 rows)."""
+    K2 for the service's batches (over bf16 rows the tensor cores: K1tc
+    and K2tc)."""
     from codegraph_tpu_torch.api import CodeGraph
     from codegraph_tpu_torch.core.config import CodeGraphConfig
     from codegraph_tpu_torch.search.service import QueryService
@@ -825,7 +921,7 @@ def phase2(torch, mods, errs, dtype="float32", phase=2) -> dict:
         cfg.embedding.dimension = 768
         cfg.data_dir = os.path.join(tmp, "data")
         cfg.index.dtype = dtype
-        batched_kernel = "K2tc" if dtype == "bfloat16" else "K2"
+        single_kernel, batched_kernel = ("K1tc", "K2tc") if dtype == "bfloat16" else ("K1", "K2")
 
         topk = mods["topk"]
         reset_launches(mods)
@@ -868,7 +964,7 @@ def phase2(torch, mods, errs, dtype="float32", phase=2) -> dict:
 
         # each kernel against its plain version at the main path's shapes
         main_shapes = {}
-        for name, fn, B in (("K1", topk.streaming_topk_cuda, 1),
+        for name, fn, B in ((single_kernel, topk.streaming_topk_cuda, 1),
                             (batched_kernel, topk.streaming_topk_cuda_qmajor, 64)):
             s_k, i_k = fn(qn[:B].contiguous(), x, bias, k)
             s_p, i_p = topk.streaming_topk(qn[:B], x, bias, k)
@@ -905,10 +1001,11 @@ def phase2(torch, mods, errs, dtype="float32", phase=2) -> dict:
                 f"phase {phase}: a kernel disagrees with its plain version at the main path's shapes")
         require(hybrid["mismatches_outside_ties"] == 0,
                 f"phase {phase}: CUDA hybrid results disagree with the CPU path")
-        require(launches["K1"] > 0 and launches[batched_kernel] > 0,
-                f"phase {phase}: main path did not launch K1 and {batched_kernel}: {launches}")
-        require(all(v == 0 for k_, v in launches.items() if k_ not in ("K1", batched_kernel)),
-                f"phase {phase}: main path launched another kernel than K1 and "
+        require(launches[single_kernel] > 0 and launches[batched_kernel] > 0,
+                f"phase {phase}: main path did not launch {single_kernel} and {batched_kernel}: "
+                f"{launches}")
+        require(all(v == 0 for k_, v in launches.items() if k_ not in (single_kernel, batched_kernel)),
+                f"phase {phase}: main path launched another kernel than {single_kernel} and "
                 f"{batched_kernel}: {launches}")
         return out
     finally:
@@ -919,9 +1016,37 @@ def phase2(torch, mods, errs, dtype="float32", phase=2) -> dict:
 
 def phase15(torch, mods, errs) -> dict:
     """The bf16 main path: phase 2 with index.dtype = "bfloat16" (the flat
-    tier the planner picks from 200k rows), so QueryService's batches run
-    K2tc through FlatIndex.search."""
+    tier the planner picks from 200k rows), so the searches run K1tc and
+    QueryService's batches K2tc through FlatIndex.search."""
     return phase2(torch, mods, errs, dtype="bfloat16", phase=15)
+
+
+CARD_TESTS = "tests/test_torch_card.py"
+
+
+def phase16(torch, mods, errs) -> dict:
+    """The card's pytest cases (tests/test_torch_card.py, which imports no
+    JAX) in a subprocess on this card, without the conftest (it imports
+    JAX): every collected case must pass, none may skip."""
+    cmd = [sys.executable, "-m", "pytest", "--noconftest", "-p", "no:cacheprovider", "-q",
+           CARD_TESTS]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    tail = proc.stdout.strip().splitlines()[-1] if proc.stdout.strip() else ""
+    counts = {word: int(n) for n, word in re.findall(r"(\d+) (passed|failed|skipped|errors?|"
+                                                     r"xfailed|xpassed|deselected)", tail)}
+    out = {"phase": 16, "command": " ".join(cmd[1:]), "rc": proc.returncode, "summary": tail,
+           "counts": counts, "seconds": round(seconds, 3)}
+    emit(out)
+    print(f"card tests passed: {counts.get('passed', 0)}", flush=True)
+    if proc.returncode != 0 or set(counts) != {"passed"}:
+        print(proc.stdout[-6000:], file=sys.stderr)
+        print(proc.stderr[-3000:], file=sys.stderr)
+    require(proc.returncode == 0, f"phase 16: the card tests failed (rc {proc.returncode}): {tail}")
+    require(counts.get("passed", 0) > 0, f"phase 16: no card test ran: {tail}")
+    require(set(counts) == {"passed"}, f"phase 16: card tests skipped or failed: {tail}")
+    return out
 
 
 def _time_ms(torch, fn, batches, outs=None):
@@ -1000,25 +1125,27 @@ def phase3(torch, topk, errs) -> list:
         x, bias = idx.arrays()
         x, bias = x[:N], bias[:N]  # capacity padding is dead rows; time the live corpus
         elt = x.element_size()
-        # (kernel, wrapper, B, k): queries of the index's dtype, but for the
-        # last bf16 row, whose f32 queries keep K2 on rows_pass1
-        shapes = [("K1", "K1", B, k) for B in (1, 8) for k in (30, 300)]
+        # (kernel, wrapper, B, k, query dtype)
+        f32, bf16 = torch.float32, torch.bfloat16
         xt = None
         if dtype_name == "float32":
-            shapes += [("K2", "K2", B, k) for B in (32, 64) for k in (30, 300)]
-            shapes += [(name, name, B, k) for name in ("K2", "K3", "K4") for B in (256, 1024)
+            shapes = [("K1", "K1", B, k, f32) for B in (1, 8) for k in (30, 300)]
+            shapes += [("K2", "K2", B, k, f32) for B in (32, 64) for k in (30, 300)]
+            shapes += [(name, name, B, k, f32) for name in ("K2", "K3", "K4") for B in (256, 1024)
                        for k in (30, 100, 300)]
             xt = x.T.contiguous()  # K4's corpus: the same rows as xt [D, N]
-        else:
-            shapes += [("K2tc", "K2", B, k) for B in (64, 256, 1024) for k in (30, 100, 300)]
-            shapes += [("K2tc", "K3", 1024, 100), ("K2", "K2", 1024, 30)]
+        else:  # bf16 queries (FlatIndex's) and f32 queries (ShardedFlatIndex's, three pieces)
+            shapes = [("K1tc", "K1", B, k, qd) for qd in (bf16, f32) for B in (1, 8)
+                      for k in (30, 300)]
+            shapes += [("K2tc", "K2", B, k, bf16) for B in (64, 256, 1024) for k in (30, 100, 300)]
+            shapes += [("K2tc", "K3", 1024, 100, bf16)]
+            shapes += [("K2tc3", "K2", B, k, f32) for B in (64, 256, 1024) for k in (30, 300)]
         flat = {"K1": topk.streaming_topk_cuda, "K2": topk.streaming_topk_cuda_qmajor,
                 "K3": topk.streaming_topk_cuda_qres,
                 "K4": lambda q_, x_, b_, k_: topk.streaming_topk_cuda_qmajor_xt(q_, xt, b_, k_)}
         plain_cache = {}
-        for name, via, B, k in shapes:
+        for name, via, B, k, q_dtype in shapes:
             fn = flat[via]
-            q_dtype = torch.float32 if name == "K2" else idx.dtype
             batches = [
                 _unit(torch, torch.randn(B, D, generator=g, device=dev)).to(q_dtype)
                 for _ in range(7)
@@ -1051,9 +1178,20 @@ def phase3(torch, topk, errs) -> list:
                     torch, qs, x, bias, s_t, i_t, s_y, i_y)[2]
                 bad += extra["library_mismatches_outside_ties"]
             errs[name] = max(errs[name], err)
-            # f32 queries: products of an f32 and a bf16 value, on the f32 pipe
+            # f32 rows: f32 FMAs. bf16 rows: bf16 tensor-core products, three
+            # for an f32 query, whose exact f32 x bf16 products take its
+            # three bf16 pieces (the least work for them on this card)
+            pieces = 3 if dtype_name == "bfloat16" and q_dtype == f32 else 1
             bound, bound_by = _bound(N * D * elt + N * 4 + B * D * qs.element_size() + B * k * 8,
-                                     2.0 * B * N * D, str(q_dtype)[6:])
+                                     pieces * 2.0 * B * N * D, dtype_name)
+            if pieces == 3:
+                extra["bound_note"] = ("f32 queries over bf16 rows: three bf16 tensor-core "
+                                       "products a score (hi + mid + lo == q, each exact in "
+                                       "f32), or the bytes")
+            if name in ("K2tc", "K2tc3"):  # bytes the blocks read, from L2 or HBM
+                plan = topk.tc_plan(B, N, D, k, sms=torch.cuda.get_device_properties(0)
+                                    .multi_processor_count, pieces=pieces)
+                extra["l2_bytes"] = topk.tc_l2_bytes(plan, N, D, pieces=pieces)
             row = {"phase": 3, "kernel": name, "dtype": dtype_name, "N": N, "D": D,
                    "B": B, "k": k, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                    "bound_ms": bound, "bound_by": bound_by,
@@ -3858,6 +3996,61 @@ def _phase13_flat(torch, mods, mesh8) -> list:
     return out
 
 
+def _phase13_flat_bf16(torch, mods, mesh8) -> list:
+    """ShardedFlatIndex over bf16 rows at the f32 case's size: the sharded
+    scan hands each shard f32 queries, so B = 1 and 8 launch K1tc and B =
+    1024 K2tc3 on every shard, each query as three bf16 pieces. Each result
+    is held to the oracle over the same rows (the f32 queries against the
+    rows widened to f32), and timed beside one scan of the same route over
+    the unsharded rows."""
+    from codegraph_tpu_torch.parallel import sharded_search as ss
+
+    topk = mods["topk"]
+    N, D = SHARD_N, SHARD_D
+    g = torch.Generator(device="cuda").manual_seed(SHARD_SEED + 2)
+    t0 = time.perf_counter()
+    rows = torch.randn(N, D, generator=g, device="cuda")
+    idx = ss.ShardedFlatIndex(D, mesh8, dtype="bfloat16", tile_n=1024)
+    idx.build(rows)
+    del rows
+    dead = torch.randperm(N, generator=g, device="cuda")[: N // 100].cpu().numpy()
+    idx.delete(dead)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    x_full, b_full = idx._x.full, idx._bias.full
+    require(x_full.dtype == torch.bfloat16, f"phase 13: the bf16 index holds {x_full.dtype} rows")
+    out = []
+    for B, k in ((1, 10), (1, 100), (8, 10), (8, 100), (1024, 10), (1024, 100)):
+        kernel = "K2tc3" if B >= 32 else "K1tc"
+        batches = [_unit(torch, torch.randn(B, D, generator=g, device="cuda"))
+                   for _ in range(SHARD_REPS)]
+        (s_np, i_np), delta = _counted(mods, lambda: idx.search(batches[0], k))
+        _require_per_shard(delta, kernel, SHARDS, f"bf16 ShardedFlatIndex.search B={B}")
+        ms = _time_ms(torch, lambda qb: idx.search(qb, k), batches)
+        scan = topk.streaming_topk_cuda_qmajor if B >= 32 else topk.streaming_topk_cuda
+        single_ms = _uncounted(mods, lambda: _time_ms(
+            torch, lambda qb: scan(ss._normalize_rows(qb), x_full, b_full, k), batches))
+        qn = ss._normalize_rows(batches[0])
+        s_ref, i_ref = _sharded_oracle(torch, qn, idx.x_shards, idx.bias_shards, k)
+        err, n_diff, bad = check_topk(torch, qn, x_full, b_full, *_host_result(torch, s_np, i_np),
+                                      s_ref, i_ref)
+        nbytes = N * D * 2 + N * 4 + B * D * 4 + B * k * 8
+        bound, bound_by = _bound(nbytes, 3 * 2.0 * B * N * D, "bfloat16")
+        row = {"phase": 13, "index": "ShardedFlatIndex", "dtype": "bfloat16", "q_dtype": "float32",
+               "N": N, "D": D, "shards": SHARDS, "B": B, "k": k, "kernel": kernel,
+               "launches_per_search": delta, "ms": ms, "unsharded_scan_ms": single_ms,
+               "merge_overhead_ms": ms - single_ms, "bound_ms": bound, "bound_by": bound_by,
+               "max_abs_err": err, "id_mismatches": n_diff, "mismatches_outside_ties": bad,
+               "build_seconds": round(build_s, 3)}
+        emit(row)
+        out.append(row)
+        require(bad == 0, f"phase 13: bf16 ShardedFlatIndex B={B} k={k}: {bad} mismatches "
+                          "outside ties")
+    del idx, x_full, b_full
+    torch.cuda.empty_cache()
+    return out
+
+
 def _phase13_int8(torch, mods, mesh8) -> list:
     from codegraph_tpu_torch.ops import quantize as q8
     from codegraph_tpu_torch.parallel import sharded_search as ss
@@ -4160,6 +4353,7 @@ def phase13(torch, mods, errs) -> dict:
     mesh8 = _mesh(torch, (SHARDS,), ("data",))
     reset_launches(mods)
     flat = _phase13_flat(torch, mods, mesh8)
+    flat += _phase13_flat_bf16(torch, mods, mesh8)
     int8 = _phase13_int8(torch, mods, mesh8)
     ivf = _phase13_ivf(torch, mods, mesh8)
     hybrid = _phase13_hybrid(torch, mods, mesh8)
@@ -4170,7 +4364,7 @@ def phase13(torch, mods, errs) -> dict:
                 errs[r["kernel"]] = max(errs[r["kernel"]], r["max_abs_err"])
     errs["K8"] = max([errs["K8"]] + [r["max_abs_err"] for r in ivf
                                      if r.get("check") == "K8 per shard vs plain"])
-    require(all(launches[k] > 0 for k in ("K1", "K2", "K5", "K6", "K8")),
+    require(all(launches[k] > 0 for k in ("K1", "K2", "K1tc", "K2tc3", "K5", "K6", "K8")),
             f"phase 13: a kernel of the sharded paths never launched: {launches}")
     return {"launches": launches, "rows": flat + int8 + ivf, "hybrid": hybrid}
 
@@ -4322,7 +4516,7 @@ def _on_alarm(signum, frame):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,10,11,12,13,14,15",
+    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16",
                     help="comma-separated phases to run (default: all)")
     ap.add_argument("--shm-child", metavar="DIR",
                     help="run as phase 12's attaching process (started by phase 12)")
@@ -4368,6 +4562,7 @@ def main(argv=None) -> int:
     try:
         p0 = run(0, phase0)
         run(1, phase1, mods, errs)
+        run(16, phase16, mods, errs)
         p2 = run(2, phase2, mods, errs)
         p15 = run(15, phase15, mods, errs)
         p3 = run(3, phase3, topk, errs, empty=[])
@@ -4389,26 +4584,31 @@ def main(argv=None) -> int:
         signal.alarm(0)
         faulthandler.cancel_dump_traceback_later()
 
-    # each kernel at one shape of its real-size phase; launches from its
+    # each kernel at one shape of its real-size phase (rows, their dtype,
+    # B, k, the queries' dtype where two are timed); launches from its
     # tier's main path, for K1 and K2 the default configuration's (phase 8)
-    # when it ran, else for K1 the served path's (phase 9), for K2tc the bf16
-    # main path's (phase 15) (K3, K4 and K7 are public ops that no index
-    # calls; K6s runs only at a D that is not a multiple of 16)
-    shapes = {"K1": (p3, "float32", 1, 30), "K2": (p3, "float32", 1024, 30),
-              "K3": (p3, "float32", 1024, 100), "K4": (p3, "float32", 1024, 30),
-              "K2tc": (p3, "bfloat16", 1024, 30),
-              "K5": (p5, "int8", 1, 100), "K6": (p5, "int8", 1024, 100),
-              "K7": (p5, "int8", 1024, 100), "K6s": (p5, "int8", 1024, 100),
-              "K8": (p7, "uint8 codes", 1, 40)}
+    # when it ran, else for K1 the served path's (phase 9), for K1tc and
+    # K2tc the bf16 main path's (phase 15), for K2tc3 the sharded bf16
+    # index's (phase 13) (K3, K4 and K7 are public ops that no index calls;
+    # K6s runs only at a D that is not a multiple of 16)
+    shapes = {"K1": (p3, "float32", 1, 30, None), "K2": (p3, "float32", 1024, 30, None),
+              "K3": (p3, "float32", 1024, 100, None), "K4": (p3, "float32", 1024, 30, None),
+              "K1tc": (p3, "bfloat16", 1, 30, "bfloat16"),
+              "K2tc": (p3, "bfloat16", 1024, 30, None),
+              "K2tc3": (p3, "bfloat16", 1024, 30, None),
+              "K5": (p5, "int8", 1, 100, None), "K6": (p5, "int8", 1024, 100, None),
+              "K7": (p5, "int8", 1024, 100, None), "K6s": (p5, "int8", 1024, 100, None),
+              "K8": (p7, "uint8 codes", 1, 40, None)}
     flat_path = p8 or p2
     paths = {"K1": p8 or p9 or p2, "K2": flat_path, "K3": flat_path, "K4": flat_path,
-             "K2tc": p15, "K5": p4,
+             "K1tc": p15, "K2tc": p15, "K2tc3": p13, "K5": p4,
              "K6": p4, "K7": p4, "K6s": p4, "K8": p6["ivfpq"] if p6 else None}
     kernels = []
     for name, (_, fn_name, source, replaces) in KERNELS.items():
-        rows, dtype, B, k = shapes[name]
+        rows, dtype, B, k, q_dtype = shapes[name]
         row = next((r for r in rows if r.get("kernel") == name and r["dtype"] == dtype
-                    and r["B"] == B and r["k"] == k and r.get("via", name) in (name, "K2")), {})
+                    and r["B"] == B and r["k"] == k and r.get("via", name) in (name, "K1", "K2")
+                    and q_dtype in (None, r.get("q_dtype"))), {})
         path = paths[name]
         kernels.append({
             "name": f"{name} {fn_name}", "route": "cuda", "source": source, "replaces": replaces,

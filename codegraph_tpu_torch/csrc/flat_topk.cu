@@ -6,9 +6,11 @@
 //   K2  streaming_topk_pallas_qmajor    / _flat_topk_qmajor_kernel     (batches >= 32)
 //   K3  streaming_topk_pallas_qres      / _flat_topk_qres_kernel       (query-resident)
 //   K4  streaming_topk_pallas_qmajor_xt / _flat_topk_qmajor_xt_kernel  (corpus as xt [D, N])
+// over f32 rows, and K4 over bf16 xt. Over bf16 rows K1 runs on the tensor
+// cores in flat_topk_k1tc.cu, K2 and K3 in flat_topk_tc.cu.
 //
 // Two pass-1 kernels, one pass 2:
-//   * topk_pass1 (K1, "column warps"): up to 8 query rows per block; the 8
+//   * topk_pass1 (K1 over f32 rows, "column warps"): up to 8 query rows per block; the 8
 //     warps split a 256-row corpus tile, so a single query does no work for
 //     padding rows. Each row's sorted top-k list lives in shared memory and
 //     takes a score only if it beats the list's k-th entry (the threshold
@@ -94,16 +96,6 @@ __device__ __forceinline__ void unpack(const uint4& v, float* out, float) {
   out[1] = __uint_as_float(v.y);
   out[2] = __uint_as_float(v.z);
   out[3] = __uint_as_float(v.w);
-}
-
-__device__ __forceinline__ void unpack(const uint4& v, float* out, __nv_bfloat16) {
-  const unsigned w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
-    out[2 * i] = f.x;
-    out[2 * i + 1] = f.y;
-  }
 }
 
 // K1 pass 1: block (query tile, split) -> top-k of the split's rows per
@@ -319,14 +311,9 @@ __device__ __forceinline__ unsigned smem_u32(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
-// 16- or 8-byte asynchronous copy global -> shared; bytes = 0 zero-fills
+// 16-byte asynchronous copy global -> shared; bytes = 0 zero-fills
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async8(void* dst, const void* src, int bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
                "r"(bytes)
                : "memory");
 }
@@ -348,18 +335,8 @@ __device__ __forceinline__ void load_xfrag(const XT* xs, int c, int tx, int j0, 
       xf[2][jj] = v.z;
       xf[3][jj] = v.w;
     }
-  } else if constexpr (!TRANS) {
-#pragma unroll
-    for (int jj = 0; jj < J; ++jj) {
-      const uint2 u = *reinterpret_cast<const uint2*>(xs + (tx + 16 * (j0 + jj)) * XLD + c);
-      const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-      const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-      xf[0][jj] = a.x;
-      xf[1][jj] = a.y;
-      xf[2][jj] = b.x;
-      xf[3][jj] = b.y;
-    }
   } else {
+    static_assert(TRANS, "bf16 rows along the depth run on the tensor cores (flat_topk_tc.cu)");
 #pragma unroll
     for (int d = 0; d < 4; ++d)
 #pragma unroll
@@ -473,12 +450,7 @@ __global__ void __launch_bounds__(kThreads, 2)
       for (int v = 0; v < XPT; ++v) {
         const int p = tid + v * kThreads, r = p / PPR, c = (p % PPR) * 4;
         const bool ok = n0 + r < n_end && d0 + c < D;
-        const XT* src = ok ? x + (size_t)(n0 + r) * D + d0 + c : x;
-        if constexpr (sizeof(XT) == 4) {
-          cp_async16(xs + r * XLD + c, src, ok ? 16 : 0);
-        } else {
-          cp_async8(xs + r * XLD + c, src, ok ? 8 : 0);
-        }
+        cp_async16(xs + r * XLD + c, ok ? x + (size_t)(n0 + r) * D + d0 + c : x, ok ? 16 : 0);
       }
     } else if (vec) {
       constexpr int EPC = 16 / sizeof(XT);  // elements per piece
@@ -635,7 +607,9 @@ cudaError_t launch_rows(const float* q, int ldq, const void* x, const float* bia
 }
 
 // layout 1: K2 over x [N, D]; 2: K3, which runs K2's schedule; 3: K4 over
-// xt [D, N]; query tiles of query_tile (32, 64 or 128) rows
+// xt [D, N]; query tiles of query_tile (32, 64 or 128) rows. bf16 rows
+// take only layout 3: K2 and K3 over bf16 rows run on the tensor cores
+// (flat_topk_tc.cu).
 template <typename XT>
 cudaError_t dispatch_rows(int layout, int query_tile, const float* q, int ldq, const void* x,
                           const float* bias, int B, int N, int D, int k, int rows_per_split,
@@ -644,12 +618,20 @@ cudaError_t dispatch_rows(int layout, int query_tile, const float* q, int ldq, c
 #define CG_ROWS(TRANS, QT)                                                                    \
   launch_rows<XT, TRANS, QT>(q, ldq, x, bias, B, N, D, k, rows_per_split, splits, grid_x, vec, \
                              smem, part_s, part_i, bound, st)
-  const bool trans = layout == 3;
-  if (layout < 1 || layout > 3) return cudaErrorInvalidValue;
-  switch (query_tile) {
-    case 32: return trans ? CG_ROWS(true, 32) : CG_ROWS(false, 32);
-    case 64: return trans ? CG_ROWS(true, 64) : CG_ROWS(false, 64);
-    case 128: return trans ? CG_ROWS(true, 128) : CG_ROWS(false, 128);
+  if (layout == 3) {
+    switch (query_tile) {
+      case 32: return CG_ROWS(true, 32);
+      case 64: return CG_ROWS(true, 64);
+      case 128: return CG_ROWS(true, 128);
+    }
+  } else if constexpr (sizeof(XT) == 4) {
+    if (layout == 1 || layout == 2) {
+      switch (query_tile) {
+        case 32: return CG_ROWS(false, 32);
+        case 64: return CG_ROWS(false, 64);
+        case 128: return CG_ROWS(false, 128);
+      }
+    }
   }
   return cudaErrorInvalidValue;
 #undef CG_ROWS
@@ -663,7 +645,7 @@ long long rows_smem_t(bool trans) {
 
 long long rows_smem(int layout, int x_bf16, int query_tile) {
   const bool trans = layout == 3;
-  if (layout < 1 || layout > 3) return 0;
+  if (layout < 1 || layout > 3 || (x_bf16 && !trans)) return 0;
   switch (query_tile) {
     case 32: return x_bf16 ? rows_smem_t<__nv_bfloat16, 32>(trans) : rows_smem_t<float, 32>(trans);
     case 64: return x_bf16 ? rows_smem_t<__nv_bfloat16, 64>(trans) : rows_smem_t<float, 64>(trans);
@@ -679,7 +661,7 @@ extern "C" {
 
 // Shared memory (bytes) of the row-tile pass 1 for layout 1 (K2), 2 (K3)
 // or 3 (K4), the corpus type and the query tile (32, 64 or 128); 0 for an
-// unknown layout or tile.
+// unknown layout or tile, and for bf16 rows in layout 1 or 2.
 long long flat_topk_rows_smem(int layout, int x_bf16, int query_tile) {
   return rows_smem(layout, x_bf16, query_tile);
 }
@@ -689,19 +671,19 @@ long long flat_topk_work_entries(int B, int k, int splits, int group) {
   return merge_work_entries(B, k, splits, group);
 }
 
-// Inputs shared by both entries: q [B, ldq] f32, x [N, D] f32 (x_bf16 = 0)
-// or bf16 (x_bf16 = 1), or for layout 3 xt [D, N], bias [N] f32, all
+// Inputs shared by both entries: q [B, ldq] f32, x [N, D] f32, or for
+// layout 3 xt [D, N] f32 (x_bf16 = 0) or bf16 (x_bf16 = 1), bias [N] f32, all
 // contiguous on the device of `stream`. Pass 1 runs over `splits` ranges
 // of `rows_per_split` corpus rows (a multiple of the layout's corpus
 // tile); work_s / work_i hold flat_topk_work_entries(B, k, splits, group)
 // entries each; out_s [B, k] f32 and out_i [B, k] i32. Each returns the
 // CUDA error code of its launches (0 = success).
 
-// K1: column warps with tm query rows per block; ldq == D, D % 8 == 0 and
-// x 16-byte aligned.
-int flat_topk(const float* q, const void* x, int x_bf16, const float* bias, int B, int N, int D, int k,
-              int tm, int splits, int rows_per_split, int group, float* out_s, int* out_i,
-              float* work_s, int* work_i, void* stream) {
+// K1 over f32 rows: column warps with tm query rows per block; ldq == D,
+// D % 8 == 0 and x 16-byte aligned.
+int flat_topk(const float* q, const float* x, const float* bias, int B, int N, int D, int k, int tm,
+              int splits, int rows_per_split, int group, float* out_s, int* out_i, float* work_s,
+              int* work_i, void* stream) {
   if (B < 1 || N < 1 || D < 1 || k < 1 || k > 1024 || splits < 1 || group < 2 ||
       rows_per_split < 1 || (long long)splits * rows_per_split < N ||
       (long long)(splits - 1) * rows_per_split >= N || D % 8 != 0 ||
@@ -712,10 +694,7 @@ int flat_topk(const float* q, const void* x, int x_bf16, const float* bias, int 
   float* part_s = splits == 1 ? out_s : work_s;
   int* part_i = splits == 1 ? out_i : work_i;
   cudaError_t err =
-      x_bf16 ? dispatch_col<__nv_bfloat16>(tm, q, x, bias, B, N, D, k, rows_per_split, splits, part_s,
-                                           part_i, st)
-             : dispatch_col<float>(tm, q, x, bias, B, N, D, k, rows_per_split, splits, part_s,
-                                   part_i, st);
+      dispatch_col<float>(tm, q, x, bias, B, N, D, k, rows_per_split, splits, part_s, part_i, st);
   if (err != cudaSuccess) return (int)err;
   if (splits == 1) return 0;
   return (int)merge_splits(B, k, splits, group, out_s, out_i, work_s, work_i, st);
@@ -723,8 +702,8 @@ int flat_topk(const float* q, const void* x, int x_bf16, const float* bias, int 
 
 // K2/K3/K4: row tiles (layout 1, 2 or 3) over grid_x = ceil(B / query_tile)
 // query tiles of query_tile (32, 64 or 128) rows; q is [B, ldq] (ldq % 4 == 0,
-// 16-byte aligned, zero past D); for layouts 1 and 2, D % 8 == 0 and x
-// 16-byte aligned; for layout 3, vec = 1 reads xt in 16-byte pieces (N %
+// 16-byte aligned, zero past D); for layouts 1 and 2, f32 rows, D % 8 == 0
+// and x 16-byte aligned; for layout 3, vec = 1 reads xt in 16-byte pieces (N %
 // (16 / element size) == 0, 16-byte aligned), else an element at a time.
 // smem must equal flat_topk_rows_smem(layout, x_bf16, query_tile); bound
 // holds B * splits f32 set to NEG_INF (-1e30).

@@ -1,24 +1,27 @@
-// Exact streaming top-k over a device-resident bf16 corpus for bf16
-// queries on Hopper's tensor cores: scores = q . x^T + bias, the products
-// of bf16 values exact in f32 and summed in f32, then the k best rows per
-// query, sorted descending (a tie goes to the lower row id; (NEG_INF, -1)
-// for rows past the live count).
+// Exact streaming top-k over a device-resident bf16 corpus on Hopper's
+// tensor cores: scores = q . x^T + bias, then the k best rows per query,
+// sorted descending (a tie goes to the lower row id; (NEG_INF, -1) for rows
+// past the live count). bf16 queries multiply the rows as they are (one
+// piece: a product of bf16 values is exact in f32, summed in f32); an f32
+// query multiplies them as its three bf16 pieces hi + mid + lo == q
+// (ops/bf16_split.py `split_bf16`), three products into one f32
+// accumulator, so its scores are those of the f32 query.
 //
-// Replaces, over bf16 rows and bf16 queries, two Pallas kernels of
-// codegraph_tpu/ops/topk.py:
+// Replaces, over bf16 rows, two Pallas kernels of codegraph_tpu/ops/topk.py:
 //   K2  streaming_topk_pallas_qmajor / _flat_topk_qmajor_kernel  (:456)
 //   K3  streaming_topk_pallas_qres   / _flat_topk_qres_kernel    (:561)
-// Both compute dot_general(q_bf16, x_bf16, preferred_element_type=f32) +
-// bias; K3 runs K2's schedule here, as it does in flat_topk.cu. f32
-// queries, f32 rows and K4 (xt [D, N]) stay on flat_topk.cu's rows_pass1:
-// a bf16 product would round an f32 query. One pass-1 kernel,
-// bf16_tc_pass1, and the pass 2 of topk_merge.cuh.
+// Both compute dot_general(q, x_bf16, preferred_element_type=f32) + bias;
+// K3 runs K2's schedule here, as it does in flat_topk.cu. f32 rows and K4
+// (xt [D, N]) stay on flat_topk.cu's rows_pass1. One pass-1 kernel,
+// bf16_tc_pass1<PIECES>, and the pass 2 of topk_merge.cuh.
 //
 // What bounds it on the H100:
-//   * 2*B*N*D bf16 operations: 1.57 TFLOP at B = 1024 over 1M x 768, 1.59
-//     ms at the data sheet's 989 TFLOP/s for dense bf16 tensor cores;
+//   * 2*B*N*D bf16 operations a piece: 1.57 TFLOP at B = 1024 over 1M x
+//     768, 1.59 ms at the data sheet's 989 TFLOP/s for dense bf16 tensor
+//     cores, 4.77 ms for an f32 query's three pieces;
 //   * or the corpus bytes, read once a call: N*D*2 + 4N, 1.54 GB at 1M x
-//     768, 0.46 ms at 3.35 TB/s, which bound it at B <= ~295.
+//     768, 0.46 ms at 3.35 TB/s, which bound it at B <= ~295 (one piece)
+//     or ~98 (three).
 //   Beside the products, each of the B*N scores costs one add and one
 //   compare in the epilogue, and each score that may enter a top-k list
 //   an offer and, every 32 of a row, a merge into the list in device
@@ -35,10 +38,11 @@
 //   * Shared memory is what the bf16 tile changes: a 128-row query tile
 //     is 192 KB at D = 768, which leaves no room for a ring. So the query
 //     tile stays resident only where it fits beside at least 3 stages (a
-//     64-row tile up to D = 1,216, a 128-row tile up to D = 576), and
-//     otherwise its box streams with each corpus box through the ring
-//     (32 KB a stage at 128 rows, 6 stages); the query boxes of a split's
-//     blocks are read from L2.
+//     64-row tile up to D = 1,216, a 128-row tile up to D = 576; three
+//     pieces to a third of those depths), and otherwise its box streams
+//     with each corpus box through the ring (32 KB a stage at 128 rows, 6
+//     stages; 64 KB with three pieces, 3 stages); the query boxes of a
+//     split's blocks are read from L2.
 //   * Two consumer warpgroups take the two 64-row halves of the query tile
 //     against each stage (a batch of <= 64: one warpgroup, a 64-row tile).
 //     Each waits on the full barriers on its own and releases a stage
@@ -131,150 +135,6 @@ __device__ __forceinline__ void round_sums(const float (&acc)[64], int r, float&
   }
 }
 
-// The flush (sort_buffer, merge_sorted) is a second implementation beside
-// topk_merge.cuh's flush_row_inline, which K6/K7 (int8_topk.cu) still use.
-// It stays here, not in the shared header, until K6 has been timed on it
-// (ROADMAP, queue 2); then one of the two goes.
-//
-// Sort a half-warp's n buffered candidates (bs, bi, in shared memory) by the
-// shared order. Each lane ranks its entries l16, l16 + 16, ... (E of them)
-// in one pass over the buffer, each entry read once for all of them, then
-// writes each to its rank. flush_row_inline's own ranking walks the buffer
-// once per entry, a dependent shared-memory load a step: ~30 cycles a
-// compare, up to 8 x 128 steps on a list's first tile.
-template <int E>
-__device__ __forceinline__ void sort_buffer_e(float* bs, int* bi, int n, unsigned hmask, int l16) {
-  __syncwarp(hmask);
-  float es[E];
-  int ei[E], rk[E];
-#pragma unroll
-  for (int e = 0; e < E; ++e) {
-    const int idx = l16 + 16 * e;
-    es[e] = idx < n ? bs[idx] : kNegInf;
-    ei[e] = idx < n ? bi[idx] : -1;
-    rk[e] = 0;
-  }
-#pragma unroll 4
-  for (int f = 0; f < n; ++f) {
-    const float s = bs[f];
-    const int i = bi[f];
-#pragma unroll
-    for (int e = 0; e < E; ++e) rk[e] += beats(s, i, es[e], ei[e]);
-  }
-  __syncwarp(hmask);
-#pragma unroll
-  for (int e = 0; e < E; ++e) {
-    if (l16 + 16 * e < n) {
-      bs[rk[e]] = es[e];
-      bi[rk[e]] = ei[e];
-    }
-  }
-}
-// the usual flush (33 to 48 entries) ranks 3 entries a lane, a first
-// tile's up to kBufCap
-__device__ __forceinline__ void sort_buffer(float* bs, int* bi, int n, unsigned hmask, int l16) {
-  if (n <= 48) {
-    sort_buffer_e<3>(bs, bi, n, hmask, l16);
-  } else {
-    sort_buffer_e<(kBufCap + 15) / 16>(bs, bi, n, hmask, l16);
-  }
-}
-
-// Merge a half-warp's n sorted candidates (bs, bi in shared memory; each
-// beats the list's k-th entry) into its row's sorted list (ls, li) of k
-// entries in device memory, and move the list's k-th entry to (*ts, *ti).
-// The walk of topk_merge.cuh flush_row_inline: from the list's live end
-// (*len + n, at most k) down in rounds of 64 positions, an entry at p moves
-// to p + c(p), c(p) the buffer entries that beat it, the buffer entries
-// ranked [c(p - 1), c(p)) land at rank + p, and the walk stops below the
-// first position no buffer entry beats. Two changes cut a round's latency
-// (a walk of k = 300 takes 5 rounds): the next round's entries are loaded
-// during this one (a round writes only at or above its first position),
-// and a lane's five counts (its four entries and, lane 0, the entry below
-// the round) are branch-free binary searches run in step.
-__device__ __forceinline__ void merge_sorted(const float* bs, const int* bi, int n, float* ls,
-                                             int* li, int k, int* len, float* ts, int* ti,
-                                             unsigned hmask, int l16) {
-  const int top = min(k, *len + n);
-  __syncwarp(hmask);
-  if (l16 == 0) *len = top;
-  // [0, 4): this lane's entries lo + l16 + 16u of a round; [4]: entry lo - 1 (lane 0)
-  float cs[5] = {0.f, 0.f, 0.f, 0.f, 0.f}, ns[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
-  int ci[5] = {0, 0, 0, 0, 0}, ni[5] = {0, 0, 0, 0, 0};
-  auto load = [&](int lo, int hi, float (&s)[5], int (&i)[5]) {
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int p = lo + l16 + 16 * u;
-      if (p < hi) {
-        s[u] = __ldcg(ls + p);
-        i[u] = __ldcg(li + p);
-      }
-    }
-    if (l16 == 0 && lo > 0) {
-      s[4] = __ldcg(ls + lo - 1);
-      i[4] = __ldcg(li + lo - 1);
-    }
-  };
-  int hi = top, lo = max(0, top - 64);
-  load(lo, hi, cs, ci);
-  while (hi > 0) {
-    const int nlo = max(0, lo - 64);
-    if (lo > 0) load(nlo, lo, ns, ni);  // the next round's entries, in flight during this one
-    int b[5] = {0, 0, 0, 0, 0};
-    for (int m = n; m > 1;) {
-      const int h = m >> 1;
-#pragma unroll
-      for (int j = 0; j < 5; ++j) b[j] += beats(bs[b[j] + h], bi[b[j] + h], cs[j], ci[j]) ? h : 0;
-      m -= h;
-    }
-    int cp[4], cq[4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      cp[u] = lo + l16 + 16 * u < hi ? b[u] + beats(bs[b[u]], bi[b[u]], cs[u], ci[u]) : n;
-    }
-    int below = l16 == 0 && lo > 0 ? b[4] + beats(bs[b[4]], bi[b[4]], cs[4], ci[4]) : 0;  // c(lo - 1)
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int up = __shfl_up_sync(hmask, cp[u], 1, 16);
-      const int last = __shfl_sync(hmask, cp[u > 0 ? u - 1 : 0], 15, 16);
-      cq[u] = l16 > 0 ? up : (u > 0 ? last : below);
-    }
-    below = __shfl_sync(hmask, below, 0, 16);
-    __syncwarp(hmask);
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int p = lo + l16 + 16 * u;
-      if (p >= hi) continue;
-      const int c = cp[u];
-      if (c > 0 && p + c < k) {
-        __stcg(ls + p + c, cs[u]);
-        __stcg(li + p + c, ci[u]);
-        if (p + c == k - 1) {
-          *ts = cs[u];
-          *ti = ci[u];
-        }
-      }
-      for (int t = cq[u]; t < c && t + p < k; ++t) {
-        __stcg(ls + t + p, bs[t]);
-        __stcg(li + t + p, bi[t]);
-        if (t + p == k - 1) {
-          *ts = bs[t];
-          *ti = bi[t];
-        }
-      }
-    }
-    __syncwarp(hmask);
-    if (below == 0) break;
-    hi = lo;
-    lo = nlo;
-#pragma unroll
-    for (int j = 0; j < 5; ++j) {
-      cs[j] = ns[j];
-      ci[j] = ni[j];
-    }
-  }
-}
-
 // Flush the rows of a warp whose bits are set in full0 (rows g of its quads)
 // and full1 (rows g + 8) from their candidate buffers into their lists, two
 // at a time (one a half-warp), through the half-warp's staging area in
@@ -332,10 +192,18 @@ __device__ __noinline__ void tc_flush_rows(unsigned full0, unsigned full1, TcSta
 // int8_tc_pass1. Consumer w computes query rows 64w .. 64w + 63 of the tile
 // against each 128-row corpus stage; a 64-row tile has one consumer.
 // qmap / xmap: q [B, D] and x [N, D] bf16 as boxes of 64 depths x qt / 128
-// rows; bmap: bias [N] as boxes of 128.
+// rows; bmap: bias [N] as boxes of 128. PIECES = 3: an f32 query as its
+// bf16 pieces hi (qmap), mid (qmap_mid) and lo (qmap_lo), hi + mid + lo ==
+// q exactly; each corpus box meets the three query boxes of its depth, three
+// wgmma chains into the one f32 accumulator, so the sums are those of the
+// f32 query's products (each piece times a bf16 value is exact in f32).
+template <int PIECES>
 __global__ void __launch_bounds__(kTcThreads, 1)
     bf16_tc_pass1(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap xmap,
-                  const __grid_constant__ CUtensorMap bmap, const TcArgs a) {
+                  const __grid_constant__ CUtensorMap bmap, const TcArgs a,
+                  const __grid_constant__ CUtensorMap qmap_mid,
+                  const __grid_constant__ CUtensorMap qmap_lo) {
+  static_assert(PIECES == 1 || PIECES == 3, "a bf16 query, or an f32 query's three pieces");
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const TcLayout& L = a.L;
   unsigned char* sp = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
@@ -376,6 +244,10 @@ __global__ void __launch_bounds__(kTcThreads, 1)
         mbar_expect_tx(q_bar, L.query_bytes);
         for (int c = 0; c < L.chunks; ++c) {
           tma_load(qtile + c * a.qt * kBoxBytes, &qmap, q_bar, c * kBoxD, b0);
+          if constexpr (PIECES == 3) {  // each piece's boxes chunks boxes after the last's
+            tma_load(qtile + (L.chunks + c) * a.qt * kBoxBytes, &qmap_mid, q_bar, c * kBoxD, b0);
+            tma_load(qtile + (2 * L.chunks + c) * a.qt * kBoxBytes, &qmap_lo, q_bar, c * kBoxD, b0);
+          }
         }
       }
       int slot = 0;
@@ -390,7 +262,15 @@ __global__ void __launch_bounds__(kTcThreads, 1)
           mbar_expect_tx(full_bar + 8 * slot, L.stage_bytes);
           const uint32_t st = ring + slot * L.stage_bytes;
           tma_load(st, &xmap, full_bar + 8 * slot, c * kBoxD, n0);
-          if (!a.resident) tma_load(st + L.corpus_bytes, &qmap, full_bar + 8 * slot, c * kBoxD, b0);
+          if (!a.resident) {
+            tma_load(st + L.corpus_bytes, &qmap, full_bar + 8 * slot, c * kBoxD, b0);
+            if constexpr (PIECES == 3) {  // each piece's box one box after the last's
+              tma_load(st + L.corpus_bytes + a.qt * kBoxBytes, &qmap_mid, full_bar + 8 * slot,
+                       c * kBoxD, b0);
+              tma_load(st + L.corpus_bytes + 2 * a.qt * kBoxBytes, &qmap_lo, full_bar + 8 * slot,
+                       c * kBoxD, b0);
+            }
+          }
           if (++slot == a.stages) {
             slot = 0;
             phase ^= 1;
@@ -453,9 +333,23 @@ __global__ void __launch_bounds__(kTcThreads, 1)
                             wg * kWgM * kBoxBytes;
         const uint64_t da = smem_desc(qa), db = smem_desc(stage);
         wgmma_fence();
+        if constexpr (PIECES == 1) {
 #pragma unroll
-        for (int kk = 0; kk < kBoxBytes / 32; ++kk) {
-          wgmma_m64n128k16_bf16(acc, da + 2 * kk, db + 2 * kk, (c | kk) != 0);
+          for (int kk = 0; kk < kBoxBytes / 32; ++kk) {
+            wgmma_m64n128k16_bf16(acc, da + 2 * kk, db + 2 * kk, (c | kk) != 0);
+          }
+        } else {
+          // a piece's boxes follow the one before: chunks boxes further on
+          // when resident, one box when streamed
+          const uint64_t dp = (a.resident ? L.chunks * a.qt * kBoxBytes : a.qt * kBoxBytes) >> 4;
+#pragma unroll
+          for (int kk = 0; kk < kBoxBytes / 32; ++kk) {
+#pragma unroll
+            for (int p = PIECES - 1; p >= 0; --p) {  // the smallest piece first
+              wgmma_m64n128k16_bf16(acc, da + p * dp + 2 * kk, db + 2 * kk,
+                                    (c | kk) != 0 || p != PIECES - 1);
+            }
+          }
         }
         wgmma_commit();
         if (prev >= 0) {
@@ -586,27 +480,33 @@ long long flat_topk_tc_cand_entries(int B, int query_tile, int splits) {
 }
 
 // Shared memory (bytes) of bf16_tc_pass1 for a query tile of query_tile
-// (64 or 128) rows, a resident or streamed query tile, `stages` ring
-// stages and depth D; 0 for a tile it does not take.
-long long flat_topk_tc_smem(int query_tile, int resident, int stages, int D) {
-  if ((query_tile != kWgM && query_tile != 2 * kWgM) || stages < 1 || D < 1) return 0;
-  return (long long)TcLayout(query_tile, resident, stages, D).smem;
+// (64 or 128) rows in `pieces` (1: bf16 queries; 3: f32 queries as bf16
+// pieces) parts, a resident or streamed query tile, `stages` ring stages
+// and depth D; 0 for a tile it does not take.
+long long flat_topk_tc_smem(int query_tile, int resident, int stages, int D, int pieces) {
+  if ((query_tile != kWgM && query_tile != 2 * kWgM) || stages < 1 || D < 1 ||
+      (pieces != 1 && pieces != 3)) {
+    return 0;
+  }
+  return (long long)TcLayout(query_tile, resident, stages, D, pieces).smem;
 }
 
 // K2/K3 over bf16 rows: bf16_tc_pass1 over grid (ceil(B / query_tile),
-// splits), then pass 2. q [B, D] bf16, x [N, D] bf16, bias [N] f32, all
+// splits), then pass 2. q [pieces, B, D] bf16 (pieces = 1: bf16 queries;
+// 3: an f32 query's split_bf16 pieces hi, mid, lo), x [N, D] bf16, bias
+// [N] f32, all
 // contiguous on the device of `stream` and 16-byte aligned, D % 8 == 0
 // (TMA's strides and addresses). query_tile: 64 or 128; the query tile is
 // resident (resident = 1) or streams with the corpus through the ring of
 // `stages`; rows_per_split a multiple of 128; smem must equal
-// flat_topk_tc_smem(...). out_s [B, k] f32 and out_i [B, k] i32; work_s /
+// flat_topk_tc_smem(..., pieces). out_s [B, k] f32 and out_i [B, k] i32; work_s /
 // work_i hold flat_topk_tc_work_entries(B, k, splits, group) entries each
 // and bound B * splits, set to NEG_INF (-1e30); cand_s / cand_i hold
 // flat_topk_tc_cand_entries(B, query_tile, splits) entries each (no
 // initial value). Returns the CUDA error code of the launches (0 =
 // success).
-int flat_topk_tc(const void* q, const void* x, const float* bias, int B, int N, int D, int k,
-                 int query_tile, int resident, int stages, int splits, int rows_per_split,
+int flat_topk_tc(const void* q, int pieces, const void* x, const float* bias, int B, int N, int D,
+                 int k, int query_tile, int resident, int stages, int splits, int rows_per_split,
                  long long smem, int group, float* out_s, int* out_i, float* work_s, int* work_i,
                  float* bound, float* cand_s, int* cand_i, void* stream) {
   if (B < 1 || N < 1 || D < 8 || D % 8 != 0 || k < 1 || k > 1024 || splits < 1 || group < 2 ||
@@ -614,18 +514,25 @@ int flat_topk_tc(const void* q, const void* x, const float* bias, int B, int N, 
       (long long)splits * rows_per_split < N || (long long)(splits - 1) * rows_per_split >= N ||
       (reinterpret_cast<size_t>(q) & 15) != 0 || (reinterpret_cast<size_t>(x) & 15) != 0 ||
       (reinterpret_cast<size_t>(bias) & 15) != 0 ||
-      smem != flat_topk_tc_smem(query_tile, resident, stages, D) || smem > 232448) {
+      smem != flat_topk_tc_smem(query_tile, resident, stages, D, pieces) || smem > 232448) {
     return (int)cudaErrorInvalidValue;
   }
-  CUtensorMap qmap, xmap, bmap;
-  if (!encode_rows(&qmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, q, B, D, query_tile) ||
-      !encode_rows(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, N, D, kWgN) ||
+  // one map a piece, each B rows (zeros past B), piece p at p * B * D
+  CUtensorMap qmaps[3], xmap, bmap;
+  for (int p = 0; p < pieces; ++p) {
+    const void* qp = static_cast<const unsigned short*>(q) + (size_t)p * B * D;
+    if (!encode_rows(&qmaps[p], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, qp, B, D, query_tile)) {
+      return (int)cudaErrorInvalidValue;
+    }
+  }
+  for (int p = pieces; p < 3; ++p) qmaps[p] = qmaps[0];  // not read
+  if (!encode_rows(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, N, D, kWgN) ||
       !encode_vector(&bmap, bias, N, kWgN)) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   TcArgs a;
-  a.L = TcLayout(query_tile, resident, stages, D);
+  a.L = TcLayout(query_tile, resident, stages, D, pieces);
   a.part_s = splits == 1 ? out_s : work_s;
   a.part_i = splits == 1 ? out_i : work_i;
   a.bound = bound;
@@ -638,11 +545,11 @@ int flat_topk_tc(const void* q, const void* x, const float* bias, int B, int N, 
   a.qt = query_tile;
   a.resident = resident;
   a.stages = stages;
-  cudaError_t err = cudaFuncSetAttribute(bf16_tc_pass1, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+  auto kern = pieces == 1 ? bf16_tc_pass1<1> : bf16_tc_pass1<3>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  bf16_tc_pass1<<<dim3((B + query_tile - 1) / query_tile, splits), kTcThreads, (size_t)smem, st>>>(
-      qmap, xmap, bmap, a);
+  kern<<<dim3((B + query_tile - 1) / query_tile, splits), kTcThreads, (size_t)smem, st>>>(
+      qmaps[0], xmap, bmap, a, qmaps[1], qmaps[2]);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   if (splits == 1) return 0;

@@ -1,11 +1,14 @@
-// The Hopper pieces of the port's tensor-core scan kernels, int8_topk.cu's
+// The Hopper pieces of the port's tensor-core scan kernels: int8_topk.cu's
 // int8_tc_pass1 (K6, K7) and flat_topk_tc.cu's bf16_tc_pass1 (K2tc), which
-// share one block design: a producer warp that brings boxes by TMA behind
+// share one block design (a producer warp that brings boxes by TMA behind
 // mbarrier full/empty pairs, and two consumer warpgroups, each a 64-row
 // half of the query tile against 128 corpus rows a wgmma, with per-row
-// candidate buffers in device memory. Here: the block's shape, its
+// candidate buffers in device memory), and flat_topk_k1tc.cu's
+// bf16_k1_pass1 (K1 over bf16 rows), which takes the same producer and
+// ring with the corpus as the 64-row operand. Here: the block's shape, its
 // shared-memory layout and per-row states, the mbarrier, TMA and wgmma
-// helpers, and the host-side encoding of the TMA tensor maps (through the
+// helpers, the flush of a sorted candidate buffer into a list in device
+// memory, and the host-side encoding of the TMA tensor maps (through the
 // runtime: no -lcuda).
 //
 // Each including source gets its own copy (everything is in an anonymous
@@ -38,26 +41,27 @@ constexpr int kHalfWarps = 2 * 4 * kTcConsumers;  // consumer half-warps (flush 
 // a ring of its own (kMetaSlots slots), freed after the tile's epilogue.
 constexpr int kMetaSlots = 4;
 
-// Shared memory of a block for a query tile of qt rows, boxes of BoxD
+// Shared memory of a block for a query tile of qt rows in `pieces` parts
+// (an f32 query as three bf16 pieces: flat_topk_tc.cu), boxes of BoxD
 // elements of depth (kBoxBytes) and MetaSlotBytes a meta slot (ops/topk.py
 // `tc_smem` mirrors it), from a 1024-byte aligned base: the ring (each
 // stage a corpus box of 128 rows x 128 bytes and, when the query tile
-// streams, its box of qt x 128 bytes), the resident query tile (one box of
-// qt x 128 bytes per BoxD of depth), the ring of tiles' metadata, a
-// staging area for each consumer half-warp's flush (kBufCap entries), the
-// per-row states and the barriers. Every box starts on a multiple of 1024
-// bytes, as the 128-byte swizzle needs.
+// streams, its pieces' boxes of qt x 128 bytes each), the resident query
+// tile (one box of qt x 128 bytes per piece and BoxD of depth), the ring
+// of tiles' metadata, a staging area for each consumer half-warp's flush
+// (kBufCap entries), the per-row states and the barriers. Every box starts
+// on a multiple of 1024 bytes, as the 128-byte swizzle needs.
 template <int BoxD, int MetaSlotBytes>
 struct TcLayoutOf {
   int chunks, corpus_bytes, stage_bytes, ring_bytes, query_bytes;
   size_t meta_off, flush_off, state_off, bar_off, smem;
   TcLayoutOf() = default;
-  __host__ __device__ TcLayoutOf(int qt, int resident, int stages, int D) {
+  __host__ __device__ TcLayoutOf(int qt, int resident, int stages, int D, int pieces = 1) {
     chunks = (D + BoxD - 1) / BoxD;
     corpus_bytes = kWgN * kBoxBytes;
-    stage_bytes = corpus_bytes + (resident ? 0 : qt * kBoxBytes);
+    stage_bytes = corpus_bytes + (resident ? 0 : pieces * qt * kBoxBytes);
     ring_bytes = stages * stage_bytes;
-    query_bytes = resident ? chunks * qt * kBoxBytes : 0;
+    query_bytes = resident ? pieces * chunks * qt * kBoxBytes : 0;
     meta_off = (size_t)ring_bytes + query_bytes;
     flush_off = meta_off + (size_t)kMetaSlots * MetaSlotBytes;
     state_off = flush_off + (size_t)kHalfWarps * kBufCap * (sizeof(float) + sizeof(int));
@@ -156,6 +160,151 @@ __device__ __forceinline__ void fence_operands(int (&d)[64]) {
 __device__ __forceinline__ void fence_operands(float (&d)[64]) {
 #pragma unroll
   for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// The flush of a candidate buffer in shared memory into a list in device
+// memory (sort_buffer, merge_sorted), which flat_topk_tc.cu's K2tc and
+// flat_topk_k1tc.cu's K1 over bf16 rows share: a second implementation
+// beside topk_merge.cuh's flush_row_inline, which K6/K7 (int8_topk.cu)
+// still use, until K6 has been timed on it; then one of the two goes.
+//
+// Sort a half-warp's n buffered candidates (bs, bi, in shared memory) by the
+// shared order. Each lane ranks its entries l16, l16 + 16, ... (E of them)
+// in one pass over the buffer, each entry read once for all of them, then
+// writes each to its rank. flush_row_inline's own ranking walks the buffer
+// once per entry, a dependent shared-memory load a step: ~30 cycles a
+// compare, up to 8 x 128 steps on a list's first tile.
+template <int E>
+__device__ __forceinline__ void sort_buffer_e(float* bs, int* bi, int n, unsigned hmask, int l16) {
+  __syncwarp(hmask);
+  float es[E];
+  int ei[E], rk[E];
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    const int idx = l16 + 16 * e;
+    es[e] = idx < n ? bs[idx] : kNegInf;
+    ei[e] = idx < n ? bi[idx] : -1;
+    rk[e] = 0;
+  }
+#pragma unroll 4
+  for (int f = 0; f < n; ++f) {
+    const float s = bs[f];
+    const int i = bi[f];
+#pragma unroll
+    for (int e = 0; e < E; ++e) rk[e] += beats(s, i, es[e], ei[e]);
+  }
+  __syncwarp(hmask);
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    if (l16 + 16 * e < n) {
+      bs[rk[e]] = es[e];
+      bi[rk[e]] = ei[e];
+    }
+  }
+}
+// the usual flush (33 to 48 entries) ranks 3 entries a lane, a first
+// tile's up to kBufCap
+__device__ __forceinline__ void sort_buffer(float* bs, int* bi, int n, unsigned hmask, int l16) {
+  if (n <= 48) {
+    sort_buffer_e<3>(bs, bi, n, hmask, l16);
+  } else {
+    sort_buffer_e<(kBufCap + 15) / 16>(bs, bi, n, hmask, l16);
+  }
+}
+
+// Merge a half-warp's n sorted candidates (bs, bi in shared memory; each
+// beats the list's k-th entry) into its row's sorted list (ls, li) of k
+// entries in device memory, and move the list's k-th entry to (*ts, *ti).
+// The walk of topk_merge.cuh flush_row_inline: from the list's live end
+// (*len + n, at most k) down in rounds of 64 positions, an entry at p moves
+// to p + c(p), c(p) the buffer entries that beat it, the buffer entries
+// ranked [c(p - 1), c(p)) land at rank + p, and the walk stops below the
+// first position no buffer entry beats. Two changes cut a round's latency
+// (a walk of k = 300 takes 5 rounds): the next round's entries are loaded
+// during this one (a round writes only at or above its first position),
+// and a lane's five counts (its four entries and, lane 0, the entry below
+// the round) are branch-free binary searches run in step.
+__device__ __forceinline__ void merge_sorted(const float* bs, const int* bi, int n, float* ls,
+                                             int* li, int k, int* len, float* ts, int* ti,
+                                             unsigned hmask, int l16) {
+  const int top = min(k, *len + n);
+  __syncwarp(hmask);
+  if (l16 == 0) *len = top;
+  // [0, 4): this lane's entries lo + l16 + 16u of a round; [4]: entry lo - 1 (lane 0)
+  float cs[5] = {0.f, 0.f, 0.f, 0.f, 0.f}, ns[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
+  int ci[5] = {0, 0, 0, 0, 0}, ni[5] = {0, 0, 0, 0, 0};
+  auto load = [&](int lo, int hi, float (&s)[5], int (&i)[5]) {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int p = lo + l16 + 16 * u;
+      if (p < hi) {
+        s[u] = __ldcg(ls + p);
+        i[u] = __ldcg(li + p);
+      }
+    }
+    if (l16 == 0 && lo > 0) {
+      s[4] = __ldcg(ls + lo - 1);
+      i[4] = __ldcg(li + lo - 1);
+    }
+  };
+  int hi = top, lo = max(0, top - 64);
+  load(lo, hi, cs, ci);
+  while (hi > 0) {
+    const int nlo = max(0, lo - 64);
+    if (lo > 0) load(nlo, lo, ns, ni);  // the next round's entries, in flight during this one
+    int b[5] = {0, 0, 0, 0, 0};
+    for (int m = n; m > 1;) {
+      const int h = m >> 1;
+#pragma unroll
+      for (int j = 0; j < 5; ++j) b[j] += beats(bs[b[j] + h], bi[b[j] + h], cs[j], ci[j]) ? h : 0;
+      m -= h;
+    }
+    int cp[4], cq[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      cp[u] = lo + l16 + 16 * u < hi ? b[u] + beats(bs[b[u]], bi[b[u]], cs[u], ci[u]) : n;
+    }
+    int below = l16 == 0 && lo > 0 ? b[4] + beats(bs[b[4]], bi[b[4]], cs[4], ci[4]) : 0;  // c(lo - 1)
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int up = __shfl_up_sync(hmask, cp[u], 1, 16);
+      const int last = __shfl_sync(hmask, cp[u > 0 ? u - 1 : 0], 15, 16);
+      cq[u] = l16 > 0 ? up : (u > 0 ? last : below);
+    }
+    below = __shfl_sync(hmask, below, 0, 16);
+    __syncwarp(hmask);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int p = lo + l16 + 16 * u;
+      if (p >= hi) continue;
+      const int c = cp[u];
+      if (c > 0 && p + c < k) {
+        __stcg(ls + p + c, cs[u]);
+        __stcg(li + p + c, ci[u]);
+        if (p + c == k - 1) {
+          *ts = cs[u];
+          *ti = ci[u];
+        }
+      }
+      for (int t = cq[u]; t < c && t + p < k; ++t) {
+        __stcg(ls + t + p, bs[t]);
+        __stcg(li + t + p, bi[t]);
+        if (t + p == k - 1) {
+          *ts = bs[t];
+          *ti = bi[t];
+        }
+      }
+    }
+    __syncwarp(hmask);
+    if (below == 0) break;
+    hi = lo;
+    lo = nlo;
+#pragma unroll
+    for (int j = 0; j < 5; ++j) {
+      cs[j] = ns[j];
+      ci[j] = ni[j];
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------

@@ -44,6 +44,8 @@ import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
+from codegraph_tpu_torch.ops.bf16_split import split_bf16
+
 Params = Dict[str, torch.Tensor]
 
 #: per-layer leaves, stored under "layers.<name>" with leading dim n_layers
@@ -220,18 +222,6 @@ def _tc_mm(a: torch.Tensor, b: torch.Tensor, acc=None) -> torch.Tensor:
     if a.dim() == 2:
         return torch.addmm(acc, a, b, out_dtype=torch.float32)
     return torch.baddbmm(acc, a, b, out_dtype=torch.float32)
-
-
-def split_bf16(t: torch.Tensor):
-    """An f32 tensor as three bf16 tensors (hi, mid, lo) with hi + mid +
-    lo == t: each takes the next 8 significant bits of what the ones
-    before it left (every subtraction is exact in f32), so the three hold
-    all 24 bits of t except at the extremes of the f32 range."""
-    hi = t.to(torch.bfloat16)
-    rest = t - hi
-    mid = rest.to(torch.bfloat16)
-    rest.sub_(mid)
-    return hi, mid, rest.to(torch.bfloat16)
 
 
 def pieces_mm(pieces, w: torch.Tensor, pieces_left: bool = True, mm=_tc_mm) -> torch.Tensor:

@@ -18,10 +18,15 @@ sorted descending.
   hand-written kernels in `csrc/flat_topk.cu` on CUDA tensors, and run
   `streaming_topk` on CPU tensors. On a CUDA tensor they launch or raise;
   nothing falls back. `row_plan` is the host-side plan of K2-K4.
-* K2 and K3 over bf16 queries and bf16 rows run on the tensor cores
-  instead (`streaming_topk_cuda_tc`, "K2tc": `wgmma` bf16 fed by TMA in
-  `csrc/flat_topk_tc.cu`, counted in its own launches); `uses_tensor_cores`
-  is that route, set by the inputs, and `tc_plan` its host-side plan.
+* Over bf16 rows K1, K2 and K3 run on the tensor cores instead, for bf16
+  and f32 queries alike (`uses_tensor_cores`, a route set by the inputs):
+  K1 as `streaming_topk_cuda_k1tc` ("K1tc": `wgmma` with the corpus as the
+  64-row operand, `csrc/flat_topk_k1tc.cu`, planned by `k1tc_plan`), K2
+  and K3 as `streaming_topk_cuda_tc` over bf16 queries ("K2tc": `wgmma`
+  bf16 fed by TMA in `csrc/flat_topk_tc.cu`, planned by `tc_plan`) and as
+  `streaming_topk_cuda_tc3` over f32 queries ("K2tc3": the same kernel
+  with the query in three bf16 pieces, `ops/bf16_split.py`), each counted
+  in its own launches.
 
 Order and sentinels, shared by every version: a higher score wins; on
 equal scores the lower row id wins. The running top-k starts as
@@ -37,6 +42,8 @@ from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import torch
+
+from codegraph_tpu_torch.ops.bf16_split import split_bf16
 
 NEG_INF = -1e30
 
@@ -99,6 +106,23 @@ TC_SLOTS = 2 * TC_WG_ROWS
 TC_BUF_CAP = ROW_CAP + TC_TILE_N
 TC_HALF_WARPS = 16
 
+#: K1tc (K1 over bf16 rows, csrc/flat_topk_k1tc.cu `bf16_k1_pass1`, whose
+#: `K1Layout` `k1tc_smem` mirrors): a query tile of the batch rounded up to
+#: 8 rows, at most the largest of K1TC_QUERY_TILES (the columns of its
+#: `wgmma`); a ring stage is a corpus box of TC_TILE_N rows x TC_BOX_BYTES
+#: of depth (64 rows for each of the two consumer warpgroups), with the
+#: query tile's boxes beside it when the tile streams; the query tile stays
+#: resident with the most of K1TC_STAGES ring stages that fit, else it
+#: streams through the most that fit; each query of the tile has a
+#: candidate buffer of TC_BUF_CAP entries in shared memory; one block per
+#: SM and one wave
+K1TC_QUERY_TILES = (8, 16, 24, 32)
+K1TC_STAGES = (8, 6, 4, 3)
+
+#: the bf16 pieces of a query of each dtype on the tensor cores: a bf16
+#: query as it is, an f32 query as `split_bf16`'s hi + mid + lo
+QUERY_PIECES = {torch.bfloat16: 1, torch.float32: 3}
+
 
 def _sort_desc(s: torch.Tensor, i: torch.Tensor, k: int):
     """Top-k of (s, i) per row under the shared order. The inputs are laid
@@ -159,7 +183,26 @@ def streaming_topk(
 
 _lib_handle = None
 _tc_lib_handle = None
+_k1tc_lib_handle = None
 _count_lock = threading.Lock()
+
+
+def _k1tc_lib():
+    global _k1tc_lib_handle
+    if _k1tc_lib_handle is None:
+        from codegraph_tpu_torch.ops import cuda_build
+
+        lib = cuda_build.load("flat_topk_k1tc")
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.flat_topk_k1tc.argtypes = [p, i, p, p, i, i, i, i, i, i, i, i, i, ll, i,
+                                       p, p, p, p, p, p]
+        lib.flat_topk_k1tc.restype = i
+        lib.flat_topk_k1tc_smem.argtypes = [i, i, i, i, i]
+        lib.flat_topk_k1tc_smem.restype = ll
+        lib.flat_topk_k1tc_work_entries.argtypes = [i, i, i, i]
+        lib.flat_topk_k1tc_work_entries.restype = ll
+        _k1tc_lib_handle = lib
+    return _k1tc_lib_handle
 
 
 def _tc_lib():
@@ -169,10 +212,10 @@ def _tc_lib():
 
         lib = cuda_build.load("flat_topk_tc")
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.flat_topk_tc.argtypes = [p, p, p, i, i, i, i, i, i, i, i, i, ll, i,
+        lib.flat_topk_tc.argtypes = [p, i, p, p, i, i, i, i, i, i, i, i, i, ll, i,
                                      p, p, p, p, p, p, p, p]
         lib.flat_topk_tc.restype = i
-        lib.flat_topk_tc_smem.argtypes = [i, i, i, i]
+        lib.flat_topk_tc_smem.argtypes = [i, i, i, i, i]
         lib.flat_topk_tc_smem.restype = ll
         lib.flat_topk_tc_work_entries.argtypes = [i, i, i, i]
         lib.flat_topk_tc_work_entries.restype = ll
@@ -189,7 +232,7 @@ def _lib():
 
         lib = cuda_build.load("flat_topk")
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.flat_topk.argtypes = [p, p, i, p, i, i, i, i, i, i, i, i, p, p, p, p, p]
+        lib.flat_topk.argtypes = [p, p, p, i, i, i, i, i, i, i, i, p, p, p, p, p]
         lib.flat_topk.restype = i
         lib.flat_topk_rows.argtypes = [p, i, p, i, p, i, i, i, i, i, i, i, i, i, i, ll, i,
                                        p, p, p, p, p, p]
@@ -308,32 +351,35 @@ def row_plan(layout: int, B: int, N: int, k: int, elt: int,
 
 
 def uses_tensor_cores(q_dtype: torch.dtype, x_dtype: torch.dtype, layout: int) -> bool:
-    """The pass-1 route of K2, K3 and K4 on a card, set by the inputs: bf16
-    queries over bf16 rows in K2's or K3's layout run on the tensor cores
-    (`streaming_topk_cuda_tc`), where bf16 products are exact in f32 as in
-    the TPU kernel's dot. f32 queries over bf16 rows (`ShardedFlatIndex`,
-    as the JAX sharded scan hands them) stay on `rows_pass1`, since a bf16
-    product would round the query; so do f32 rows and K4 over any xt. A
-    contract, not a fallback: each route launches its kernel or raises."""
-    return (q_dtype == torch.bfloat16 and x_dtype == torch.bfloat16
-            and layout in (K2_LAYOUT, K3_LAYOUT))
+    """The pass-1 route of K1-K4 on a card, set by the inputs: bf16 rows in
+    K1's, K2's or K3's layout run on the tensor cores for bf16 and f32
+    queries (K1tc, and K2tc or K2tc3): a bf16 query multiplies the rows as
+    they are, where bf16 products are exact in f32 as in the TPU kernel's
+    dot, and an f32 query (`ShardedFlatIndex`, as the JAX sharded scan
+    hands them) as its three bf16 pieces (`QUERY_PIECES`), whose products
+    are exact too. f32 rows stay on `topk_pass1` (K1) and `rows_pass1`
+    (K2, K3), and K4 over any xt on `rows_pass1`. A contract, not a
+    fallback: each route launches its kernel or raises."""
+    return (x_dtype == torch.bfloat16 and q_dtype in QUERY_PIECES
+            and layout in (K1_LAYOUT, K2_LAYOUT, K3_LAYOUT))
 
 
 def tc_smem(query_tile: int, resident: bool, stages: int, D: int, elt: int = 2,
-            meta: int = 4) -> int:
+            meta: int = 4, pieces: int = 1) -> int:
     """Shared memory (bytes) of one tensor-core block whose operands take
     `elt` bytes an element and whose tiles bring `meta` bytes a corpus row
     through the meta slots (K2tc: bf16 and its bias, the defaults; K6/K7:
-    int8 and its scale and bias, 1 and 8): a 1 KB alignment margin, the
-    ring (a corpus box of TC_TILE_N rows x TC_BOX_BYTES a stage, and the
-    query box of query_tile x TC_BOX_BYTES when the query tile streams),
-    the resident query tile (a box per TC_BOX_BYTES of depth), TC_META_SLOTS
+    int8 and its scale and bias, 1 and 8), with the query in `pieces`
+    parts (K2tc3: 3): a 1 KB alignment margin, the ring (a corpus box of
+    TC_TILE_N rows x TC_BOX_BYTES a stage, and the query pieces' boxes of
+    query_tile x TC_BOX_BYTES when the query tile streams), the resident
+    query tile (a box per piece and TC_BOX_BYTES of depth), TC_META_SLOTS
     meta slots, the flush staging areas (TC_BUF_CAP entries a half-warp),
     five 4-byte states for each of TC_SLOTS rows, and the barriers. It
     does not depend on k."""
     chunks = -(-D * elt // TC_BOX_BYTES)
-    stage = TC_TILE_N * TC_BOX_BYTES + (0 if resident else query_tile * TC_BOX_BYTES)
-    query = chunks * query_tile * TC_BOX_BYTES if resident else 0
+    stage = TC_TILE_N * TC_BOX_BYTES + (0 if resident else pieces * query_tile * TC_BOX_BYTES)
+    query = pieces * chunks * query_tile * TC_BOX_BYTES if resident else 0
     return (1024 + stages * stage + query + TC_META_SLOTS * meta * TC_TILE_N
             + TC_HALF_WARPS * TC_BUF_CAP * 8 + TC_SLOTS * 5 * 4
             + (2 * stages + 1 + 2 * TC_META_SLOTS) * 8)
@@ -355,27 +401,104 @@ class TcPlan:
     cand_entries: int   # candidate buffer entries per scores and per ids
 
 
+def _one_wave(b_tiles: int, N: int, blocks: int) -> Tuple[int, int]:
+    """(splits, rows_per_split) of a tensor-core kernel: as many corpus
+    splits of whole TC_TILE_N-row tiles as keep b_tiles query tiles x
+    splits within `blocks` (one wave), and no empty split."""
+    n_tiles = -(-N // TC_TILE_N)
+    splits = max(1, min(n_tiles, blocks // b_tiles))
+    rows = -(-n_tiles // splits) * TC_TILE_N
+    return -(-N // rows), rows
+
+
 def tc_plan(B: int, N: int, D: int, k: int, elt: int = 2, meta: int = 4,
-            group: int = MERGE_GROUP, sms: int = TC_SMS) -> TcPlan:
-    """The launch of a tensor-core kernel (`elt` and `meta` as in `tc_smem`;
-    the defaults are K2tc's) for B queries over N corpus rows of depth D on
-    a card of `sms` SMs: a 64-row query tile for a batch of at most 64,
-    else 128 rows; the resident query tile with the most ring stages that
-    fit (else a streamed one), the same shared memory for every k; as many
-    splits as keep all blocks in one wave of one block per SM, whole
-    corpus tiles per split."""
+            group: int = MERGE_GROUP, sms: int = TC_SMS, pieces: int = 1) -> TcPlan:
+    """The launch of a tensor-core kernel (`elt`, `meta` and `pieces` as in
+    `tc_smem`; the defaults are K2tc's) for B queries over N corpus rows of
+    depth D on a card of `sms` SMs: a 64-row query tile for a batch of at
+    most 64, else 128 rows; the resident query tile with the most ring
+    stages that fit (else a streamed one), the same shared memory for every
+    k; as many splits as keep all blocks in one wave of one block per SM,
+    whole corpus tiles per split."""
     qt = TC_WG_ROWS if B <= TC_WG_ROWS else 2 * TC_WG_ROWS
-    smem = lambda res, n: tc_smem(qt, res, n, D, elt, meta)  # noqa: E731
+    smem = lambda res, n: tc_smem(qt, res, n, D, elt, meta, pieces)  # noqa: E731
     resident, stages = next(((res, n) for res in (True, False) for n in TC_STAGES
                              if smem(res, n) <= SMEM_PER_BLOCK), (False, TC_STAGES[-1]))
     b_tiles = -(-B // qt)
-    n_tiles = -(-N // TC_TILE_N)
-    splits = max(1, min(n_tiles, sms // b_tiles))
-    rows = -(-n_tiles // splits) * TC_TILE_N
-    splits = -(-N // rows)
+    splits, rows = _one_wave(b_tiles, N, sms)
     return TcPlan(qt, resident, stages, splits, rows, b_tiles, smem(resident, stages),
                   work_entries(B, k, splits, group), B * splits,
                   b_tiles * splits * TC_SLOTS * TC_BUF_CAP)
+
+
+def tc_l2_bytes(plan: TcPlan, N: int, D: int, elt: int = 2, pieces: int = 1) -> int:
+    """Bytes a tensor-core launch's blocks read (from L2 or HBM) by its plan:
+    each block the ring's stages over its split's corpus tiles (a corpus
+    box and, when the query tile streams, its pieces' boxes a stage) and,
+    when resident, its query tile once."""
+    chunks = -(-D * elt // TC_BOX_BYTES)
+    stage = TC_TILE_N * TC_BOX_BYTES + (0 if plan.resident else
+                                        pieces * plan.query_tile * TC_BOX_BYTES)
+    tiles = -(-N // TC_TILE_N)
+    query = pieces * chunks * plan.query_tile * TC_BOX_BYTES if plan.resident else 0
+    return plan.grid_x * (tiles * chunks * stage + plan.splits * query)
+
+
+def k1tc_query_tile(B: int) -> int:
+    """K1tc's query rows a block: B rounded up to a multiple of 8, at most
+    the largest of K1TC_QUERY_TILES."""
+    return next((t for t in K1TC_QUERY_TILES if B <= t), K1TC_QUERY_TILES[-1])
+
+
+def k1tc_smem(query_tile: int, pieces: int, resident: bool, stages: int, D: int) -> int:
+    """Shared memory (bytes) of one K1tc block (csrc/flat_topk_k1tc.cu
+    `K1Layout`): a 1 KB alignment margin, the ring (a corpus box of
+    TC_TILE_N rows x TC_BOX_BYTES a stage, and the query pieces' boxes of
+    query_tile x TC_BOX_BYTES when the query tile streams), the resident
+    query tile (a box per piece and TC_BOX_BYTES of depth), TC_META_SLOTS
+    bias slots of TC_TILE_N f32, a candidate buffer of TC_BUF_CAP entries
+    and five 4-byte states for each query of the tile, and the barriers.
+    It does not depend on k."""
+    chunks = -(-D * 2 // TC_BOX_BYTES)
+    box = query_tile * TC_BOX_BYTES
+    stage = TC_TILE_N * TC_BOX_BYTES + (0 if resident else pieces * box)
+    query = pieces * chunks * box if resident else 0
+    return (1024 + stages * stage + query + TC_META_SLOTS * 4 * TC_TILE_N
+            + query_tile * TC_BUF_CAP * 8 + query_tile * 5 * 4
+            + (2 * stages + 1 + 2 * TC_META_SLOTS) * 8)
+
+
+@dataclass(frozen=True)
+class K1Plan:
+    """What the K1tc wrapper hands to `flat_topk_k1tc`."""
+    query_tile: int
+    pieces: int
+    resident: bool
+    stages: int
+    splits: int
+    rows_per_split: int
+    grid_x: int         # query-tile blocks
+    smem: int           # bytes per block
+    work_entries: int   # scratch entries per scores and per ids
+    bound_entries: int  # the bounds the splits share, [B, splits] f32
+
+
+def k1tc_plan(B: int, N: int, D: int, k: int, pieces: int = 1, group: int = MERGE_GROUP,
+              sms: int = TC_SMS) -> K1Plan:
+    """The launch of K1tc for B queries of `pieces` bf16 parts over N bf16
+    rows of depth D on a card of `sms` SMs: the query tile from B
+    (`k1tc_query_tile`); the resident query tile with the most ring stages
+    that fit, else a streamed one, the same shared memory for every k; as
+    many splits as keep all blocks in one wave of one block per SM, whole
+    corpus tiles per split."""
+    qt = k1tc_query_tile(B)
+    smem = lambda res, n: k1tc_smem(qt, pieces, res, n, D)  # noqa: E731
+    resident, stages = next(((res, n) for res in (True, False) for n in K1TC_STAGES
+                             if smem(res, n) <= SMEM_PER_BLOCK), (False, K1TC_STAGES[-1]))
+    b_tiles = -(-B // qt)
+    splits, rows = _one_wave(b_tiles, N, sms)
+    return K1Plan(qt, pieces, resident, stages, splits, rows, b_tiles, smem(resident, stages),
+                  work_entries(B, k, splits, group), B * splits)
 
 
 def _outputs(B: int, k: int, n_work: int, dev):
@@ -386,7 +509,7 @@ def _outputs(B: int, k: int, n_work: int, dev):
 
 
 def _launch_col(q, x, bias, k: int, tm: int):
-    """K1: column warps, tm query rows per block."""
+    """K1 over f32 rows: column warps, tm query rows per block."""
     lib = _lib()
     B, D = q.shape
     N = x.shape[0]
@@ -395,8 +518,7 @@ def _launch_col(q, x, bias, k: int, tm: int):
     out_s, out_i, work_s, work_i = _outputs(B, k, work_entries(B, k, splits), q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.flat_topk(
-        q.data_ptr(), x.data_ptr(), int(x.dtype == torch.bfloat16), bias.data_ptr(),
-        B, N, D, k, tm, splits, rows, MERGE_GROUP,
+        q.data_ptr(), x.data_ptr(), bias.data_ptr(), B, N, D, k, tm, splits, rows, MERGE_GROUP,
         out_s.data_ptr(), out_i.data_ptr(), work_s.data_ptr(), work_i.data_ptr(), stream,
     )
     if err != 0:
@@ -438,21 +560,64 @@ def _launch_rows(q, x, bias, k: int, layout: int):
     return out_s, out_i
 
 
+def _query_pieces(q: torch.Tensor) -> torch.Tensor:
+    """q [B, D] as its bf16 pieces [pieces, B, D], contiguous and 16-byte
+    aligned for TMA: a bf16 q as it is, an f32 q as `split_bf16`'s hi, mid
+    and lo (hi + mid + lo == q), an elementwise pass over the batch."""
+    if q.dtype == torch.bfloat16:
+        return q[None] if q.data_ptr() % 16 == 0 else q[None].clone()
+    return torch.stack(split_bf16(q.float()))
+
+
+def _launch_k1tc(q, x, bias, k: int):
+    """K1tc: `bf16_k1_pass1` as `k1tc_plan` lays it out, then pass 2; the
+    rows stay bf16 and the query goes to the tensor cores in its bf16
+    pieces."""
+    lib = _k1tc_lib()
+    B, D = q.shape
+    N = x.shape[0]
+    pieces = QUERY_PIECES[q.dtype]
+    plan = k1tc_plan(B, N, D, k, pieces,
+                     sms=torch.cuda.get_device_properties(q.device).multi_processor_count)
+    if lib.flat_topk_k1tc_smem(plan.query_tile, pieces, int(plan.resident), plan.stages, D) \
+            != plan.smem or \
+            lib.flat_topk_k1tc_work_entries(B, k, plan.splits, MERGE_GROUP) != plan.work_entries:
+        raise RuntimeError("ops/topk.py k1tc_plan disagrees with csrc/flat_topk_k1tc.cu")
+    qp = _query_pieces(q)
+    if bias.data_ptr() % 16:  # TMA reads bias from 16-byte aligned addresses (x: `_check`)
+        bias = bias.clone()
+    out_s, out_i, work_s, work_i = _outputs(B, k, plan.work_entries, q.device)
+    bound = torch.full((plan.bound_entries,), NEG_INF, dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.flat_topk_k1tc(
+        qp.data_ptr(), pieces, x.data_ptr(), bias.data_ptr(), B, N, D, k, plan.query_tile,
+        int(plan.resident), plan.stages, plan.splits, plan.rows_per_split, plan.smem, MERGE_GROUP,
+        out_s.data_ptr(), out_i.data_ptr(), work_s.data_ptr(), work_i.data_ptr(),
+        bound.data_ptr(), stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"flat_topk_k1tc kernel launch failed: CUDA error {err} "
+                           f"(B={B}, N={N}, D={D}, k={k}, {plan})")
+    return out_s, out_i
+
+
 def _launch_tc(q, x, bias, k: int):
-    """K2tc: `bf16_tc_pass1` as `tc_plan` lays it out, then pass 2. q and x
-    stay bf16: the tensor cores multiply them as the TPU kernel's dot."""
+    """K2tc (bf16 q) and K2tc3 (f32 q): `bf16_tc_pass1` as `tc_plan` lays
+    it out, then pass 2. x stays bf16 and q goes in its bf16 pieces: the
+    tensor cores multiply them as the TPU kernel's dot."""
     lib = _tc_lib()
     B, D = q.shape
     N = x.shape[0]
-    plan = tc_plan(B, N, D, k, sms=torch.cuda.get_device_properties(q.device).multi_processor_count)
-    if lib.flat_topk_tc_smem(plan.query_tile, int(plan.resident), plan.stages, D) != plan.smem \
+    pieces = QUERY_PIECES[q.dtype]
+    plan = tc_plan(B, N, D, k, sms=torch.cuda.get_device_properties(q.device).multi_processor_count,
+                   pieces=pieces)
+    if lib.flat_topk_tc_smem(plan.query_tile, int(plan.resident), plan.stages, D, pieces) \
+            != plan.smem \
             or lib.flat_topk_tc_work_entries(B, k, plan.splits, MERGE_GROUP) != plan.work_entries \
             or lib.flat_topk_tc_cand_entries(B, plan.query_tile, plan.splits) != plan.cand_entries:
         raise RuntimeError("ops/topk.py tc_plan disagrees with csrc/flat_topk_tc.cu")
-    # TMA reads q and bias from 16-byte aligned addresses (x: `_check`)
-    if q.data_ptr() % 16:
-        q = q.clone()
-    if bias.data_ptr() % 16:
+    qp = _query_pieces(q)
+    if bias.data_ptr() % 16:  # TMA reads bias from 16-byte aligned addresses (x: `_check`)
         bias = bias.clone()
     out_s, out_i, work_s, work_i = _outputs(B, k, plan.work_entries, q.device)
     bound = torch.full((plan.bound_entries,), NEG_INF, dtype=torch.float32, device=q.device)
@@ -460,7 +625,7 @@ def _launch_tc(q, x, bias, k: int):
     cand_i = torch.empty((plan.cand_entries,), dtype=torch.int32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.flat_topk_tc(
-        q.data_ptr(), x.data_ptr(), bias.data_ptr(), B, N, D, k, plan.query_tile,
+        qp.data_ptr(), pieces, x.data_ptr(), bias.data_ptr(), B, N, D, k, plan.query_tile,
         int(plan.resident), plan.stages, plan.splits, plan.rows_per_split, plan.smem, MERGE_GROUP,
         out_s.data_ptr(), out_i.data_ptr(), work_s.data_ptr(), work_i.data_ptr(),
         bound.data_ptr(), cand_s.data_ptr(), cand_i.data_ptr(), stream,
@@ -503,10 +668,14 @@ def streaming_topk_cuda(
     """K1: exact top-k for small query batches (query tiles of up to 8
     rows, corpus split across blocks). CPU tensors run `streaming_topk`
     (tile_n is its tile); CUDA tensors launch the kernel, which needs D a
-    multiple of 8. Returns (scores [B, k] f32, ids [B, k] int32)."""
+    multiple of 8. bf16 rows run `streaming_topk_cuda_k1tc` (the tensor
+    cores, `uses_tensor_cores`) and count in its launches. Returns (scores
+    [B, k] f32, ids [B, k] int32)."""
     if _on_cpu(q, x, bias):
         return streaming_topk(q, x, bias, k, tile_n)
     _check(q, x, bias, k)
+    if uses_tensor_cores(q.dtype, x.dtype, K1_LAYOUT):
+        return streaming_topk_cuda_k1tc(q, x, bias, k, tile_n)
     out = _launch_col(q, x, bias, k, k1_tm(q.shape[0]))
     with _count_lock:
         streaming_topk_cuda.launches += 1
@@ -520,14 +689,16 @@ def streaming_topk_cuda_qmajor(
     """K2: exact top-k for large query batches (128-row query tiles for
     every k, so each corpus tile read serves 128 queries, or 32- or 64-row
     tiles for a batch that fits one; the top-k lists live in device memory
-    behind a per-row threshold and candidate buffer). bf16 queries over
-    bf16 rows run `streaming_topk_cuda_tc` (`uses_tensor_cores`) and count
-    in its launches. Same contract as `streaming_topk_cuda`."""
+    behind a per-row threshold and candidate buffer). bf16 rows run on the
+    tensor cores (`uses_tensor_cores`): bf16 queries as
+    `streaming_topk_cuda_tc`, f32 queries as `streaming_topk_cuda_tc3`,
+    each counting in its own launches. Same contract as
+    `streaming_topk_cuda`."""
     if _on_cpu(q, x, bias):
         return streaming_topk(q, x, bias, k, tile_n)
     _check(q, x, bias, k)
     if uses_tensor_cores(q.dtype, x.dtype, K2_LAYOUT):
-        return streaming_topk_cuda_tc(q, x, bias, k, tile_n)
+        return _tc_route(q)(q, x, bias, k, tile_n)
     out = _launch_rows(q, x, bias, k, K2_LAYOUT)
     with _count_lock:
         streaming_topk_cuda_qmajor.launches += 1
@@ -542,17 +713,33 @@ def streaming_topk_cuda_qres(
     K2's schedule, whose query tiles of a corpus split read each corpus
     slice from the 50 MB L2 within a few microseconds of each other (a
     thread block cluster sharing each slice ran about twice as slow on an
-    H100: PERF.md). bf16 queries over bf16 rows run
-    `streaming_topk_cuda_tc`, as K2's do. Same contract as
-    `streaming_topk_cuda`."""
+    H100: PERF.md). bf16 rows run on the tensor cores, as K2's do. Same
+    contract as `streaming_topk_cuda`."""
     if _on_cpu(q, x, bias):
         return streaming_topk(q, x, bias, k, tile_n)
     _check(q, x, bias, k)
     if uses_tensor_cores(q.dtype, x.dtype, K3_LAYOUT):
-        return streaming_topk_cuda_tc(q, x, bias, k, tile_n)
+        return _tc_route(q)(q, x, bias, k, tile_n)
     out = _launch_rows(q, x, bias, k, K3_LAYOUT)
     with _count_lock:
         streaming_topk_cuda_qres.launches += 1
+    return out
+
+
+def _tensor_core_scan(q, x, bias, k, tile_n, q_dtype, launch, counted):
+    """A tensor-core wrapper's body: the plain version on CPU tensors; on
+    CUDA tensors its kernel over bf16 rows and `q_dtype` queries (or a
+    raise), counted in `counted.launches`."""
+    if _on_cpu(q, x, bias):
+        return streaming_topk(q, x, bias, k, tile_n)
+    _check(q, x, bias, k)
+    if x.dtype != torch.bfloat16 or q.dtype not in q_dtype:
+        names = " or ".join("bf16" if d == torch.bfloat16 else "f32" for d in q_dtype)
+        raise ValueError(f"the tensor-core kernel takes {names} queries over bf16 rows, got q "
+                         f"{q.dtype} over x {x.dtype}")
+    out = launch(q, x, bias, k)
+    with _count_lock:
+        counted.launches += 1
     return out
 
 
@@ -568,16 +755,42 @@ def streaming_topk_cuda_tc(
     `streaming_topk`; CUDA tensors launch the kernel, which takes bf16 q
     and x only (D a multiple of 8), or raise. Returns (scores [B, k] f32,
     ids [B, k] int32)."""
-    if _on_cpu(q, x, bias):
-        return streaming_topk(q, x, bias, k, tile_n)
-    _check(q, x, bias, k)
-    if not uses_tensor_cores(q.dtype, x.dtype, K2_LAYOUT):
-        raise ValueError(f"the tensor-core kernel takes bf16 queries over bf16 rows, got q "
-                         f"{q.dtype} over x {x.dtype}")
-    out = _launch_tc(q, x, bias, k)
-    with _count_lock:
-        streaming_topk_cuda_tc.launches += 1
-    return out
+    return _tensor_core_scan(q, x, bias, k, tile_n, (torch.bfloat16,), _launch_tc,
+                             streaming_topk_cuda_tc)
+
+
+def streaming_topk_cuda_tc3(
+    q: torch.Tensor, x: torch.Tensor, bias: torch.Tensor, k: int,
+    tile_n: int = DEFAULT_TILE_N,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2 and K3 over f32 queries and bf16 rows ("K2tc3"): K2tc's kernel
+    with each f32 query as its three bf16 pieces hi + mid + lo == q
+    (`split_bf16`), three products into one f32 accumulator, so the
+    scores are the f32 query's. CPU tensors run `streaming_topk`; CUDA
+    tensors launch the kernel, which takes f32 q over bf16 x only (D a
+    multiple of 8), or raise."""
+    return _tensor_core_scan(q, x, bias, k, tile_n, (torch.float32,), _launch_tc,
+                             streaming_topk_cuda_tc3)
+
+
+def streaming_topk_cuda_k1tc(
+    q: torch.Tensor, x: torch.Tensor, bias: torch.Tensor, k: int,
+    tile_n: int = DEFAULT_TILE_N,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1 over bf16 rows ("K1tc"): `wgmma` on the tensor cores with the
+    corpus box as the 64-row operand and up to 32 queries as the other,
+    fed by TMA; bf16 queries as they are, f32 queries as their three bf16
+    pieces; per-query candidate buffers in shared memory behind the
+    list's k-th entry and the bound the corpus splits share. CPU tensors
+    run `streaming_topk`; CUDA tensors launch the kernel, which takes bf16
+    or f32 q over bf16 x (D a multiple of 8), or raise."""
+    return _tensor_core_scan(q, x, bias, k, tile_n, (torch.bfloat16, torch.float32),
+                             _launch_k1tc, streaming_topk_cuda_k1tc)
+
+
+def _tc_route(q: torch.Tensor):
+    """K2's and K3's wrapper over bf16 rows for q's dtype."""
+    return streaming_topk_cuda_tc if q.dtype == torch.bfloat16 else streaming_topk_cuda_tc3
 
 
 def _check_xt(q: torch.Tensor, xt: torch.Tensor, bias: torch.Tensor, k: int) -> None:
@@ -624,6 +837,8 @@ streaming_topk_cuda_qmajor.launches = 0
 streaming_topk_cuda_qres.launches = 0
 streaming_topk_cuda_qmajor_xt.launches = 0
 streaming_topk_cuda_tc.launches = 0
+streaming_topk_cuda_tc3.launches = 0
+streaming_topk_cuda_k1tc.launches = 0
 
 
 __all__ = [
@@ -638,6 +853,9 @@ __all__ = [
     "streaming_topk_cuda_qres",
     "streaming_topk_cuda_qmajor_xt",
     "streaming_topk_cuda_tc",
+    "streaming_topk_cuda_tc3",
+    "streaming_topk_cuda_k1tc",
+    "k1tc_plan",
     "tc_plan",
     "uses_tensor_cores",
 ]

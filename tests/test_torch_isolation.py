@@ -101,6 +101,30 @@ def test_no_import_line_names_jax_or_the_jax_package():
     assert not hits
 
 
+CARD_TESTS = os.path.join(REPO, "tests", "test_torch_card.py")
+
+
+def test_card_tests_import_only_torch_numpy_pytest_and_the_port():
+    """The card's machine has no JAX: tests/test_torch_card.py runs there
+    under --noconftest, so it may import torch, numpy, pytest and the port,
+    and nothing else (no `tests.*` helper, which would bring JAX along)."""
+    tree = ast.parse(open(CARD_TESTS).read())
+    mods = {a.name.split(".")[0] for n in ast.walk(tree) if isinstance(n, ast.Import)
+            for a in n.names}
+    mods |= {(n.module or "").split(".")[0] if n.level == 0 else "." for n in ast.walk(tree)
+             if isinstance(n, ast.ImportFrom)}
+    assert mods <= {"torch", "numpy", "pytest", "codegraph_tpu_torch"}, mods
+    code = BLOCKED_IMPORT.split("import codegraph_tpu_torch\n")[0] + (
+        "import importlib.util\n"
+        f"spec = importlib.util.spec_from_file_location('card_tests', {CARD_TESTS!r})\n"
+        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "leaked = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'codegraph_tpu') and sys.modules[m] is not None)\n"
+        "assert not leaked, leaked\n")
+    proc = _run(["-c", code], cwd=REPO)
+    assert proc.returncode == 0, proc.stderr
+
+
 def test_chip_smoke_parses_and_imports_no_jax():
     tree = ast.parse(open(os.path.join(REPO, "chip_smoke.py")).read())
     mods = {a.name.split(".")[0] for n in ast.walk(tree) if isinstance(n, ast.Import)

@@ -13,8 +13,8 @@ package on the CPU.
   differ in at most 1 of 1,000 entries (argmin ties in f32: the residual is
   computed in another order), the placements not at all.
 * The port's own training reaches the JAX package's recall@10 within 0.05.
-K8 itself runs only on a card: `test_k8_matches_plain_on_card` (skips here)
-and `chip_smoke.py` hold it to `ivfpq_search`.
+K8 itself runs only on a card: `tests/test_torch_card.py` (skips here) and
+`chip_smoke.py` hold it to `ivfpq_search`.
 """
 
 import jax.numpy as jnp
@@ -414,38 +414,6 @@ def test_k8_extents_with_fill_longer_than_nlist(state):
                   books=np.asarray(j._books))
     assert t._extents().shape == (j.nlist,)
     _assert_extent_invariant(t)
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA GPU: the K8 kernel has no CPU mode")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-def test_k8_matches_plain_on_card(cuda_device, state):
-    """With and without extents: k = 1, 300 and above pass 2's shared
-    memory, nprobe 1 and 6, a cell probed by every query of a batch of
-    more than 32."""
-    x, _ = state
-    t = _carried(_trained(x))
-    args = [a.to(cuda_device) for a in t.arrays()] + [t._books.to(cuda_device)]
-    c, codes, ids, bias, books = args
-    ext = t._extents().to(cuda_device)
-    rng = np.random.default_rng(6)
-    qn = np.concatenate([x[:300], np.repeat(x[:1], 300, 0)
-                         + 0.01 * rng.standard_normal((300, D)).astype(np.float32)])
-    q = torch.from_numpy(_unit(qn)).to(cuda_device)
-    true = _adc_judge(t, qn)
-    for B, k, nprobe in ((1, 10, 6), (7, 40, 6), (300, 300, 6), (2, 1920, 6), (2, 5000, 6),
-                         (600, 1, 6), (600, 40, 1), (520, 300, 6)):
-        ps, pi = tivfpq.ivfpq_search(q[:B], c, codes, ids, bias, books, k, nprobe)
-        for extents in (ext, None):
-            ks, ki = tivfpq.ivfpq_search_cuda(q[:B], c, codes, ids, bias, books, k, nprobe,
-                                              extents=extents)
-            assert_topk_equiv(ks.cpu(), ki.cpu(), ps.cpu(), pi.cpu(), None, None, None,
-                              true=true[:B])
 
 
 def _variants_tool():

@@ -6,7 +6,7 @@ JAX side runs as its own tests run it on the CPU: the XLA
 `streaming_topk_int8` and the Pallas kernels K5/K6/K7 in interpret mode.
 The port's K5/K6/K7 wrappers get CPU tensors here, so they run their plain
 version; the CUDA kernel itself is held to it on the card (`chip_smoke.py`,
-and `test_int8_kernels_match_plain_on_card` below where a GPU is present).
+and `tests/test_torch_card.py` where a GPU is present).
 
 Tolerances:
 * quantize_rows / dequantize_rows / int8_scores: equal element for element
@@ -221,38 +221,6 @@ def test_int8_kernel_input_checks(bad, err):
     bias = torch.zeros(100)
     with pytest.raises(ValueError, match=err):
         tq._check(qv, qs, xv, xs, bias, bad.get("k", 10))
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA GPU: the K5/K6/K7 kernel has no CPU mode")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-def test_int8_kernels_match_plain_on_card(cuda_device):
-    """Each kernel equals the plain version bit for bit on its scores, with
-    ids equal outside ties: K5, K6 and K7 on both sides of the 64- and
-    128-row query tiles, and the mma.sync kernel at a D that TMA cannot
-    take."""
-    rng = np.random.default_rng(1)
-    for D, runs in ((768, ((tq.streaming_topk_int8_cuda, 3), (tq.streaming_topk_int8_cuda_qmajor, 64),
-                           (tq.streaming_topk_int8_cuda_qmajor, 70),
-                           (tq.streaming_topk_int8_cuda_qmajor, 129),
-                           (tq.streaming_topk_int8_cuda_qres, 70),
-                           (tq.streaming_topk_int8_cuda_qres, 129))),
-                    (100, ((tq.streaming_topk_int8_cuda_qmajor, 70),))):
-        case = _int8_case(rng, 129, 5000, D)
-        tc = [t.to(cuda_device) for t in _t(*case)]
-        for fn, B in runs:
-            sub = [tc[0][:B].contiguous(), tc[1][:B].contiguous(), *tc[2:]]
-            for k in (1, 100, 300):
-                ks, ki = fn(*sub, k)
-                ps, pi = tq.streaming_topk_int8(*sub, k)
-                np.testing.assert_array_equal(ks.cpu().numpy(), ps.cpu().numpy())
-                _assert_int8_equiv(ks.cpu(), ki.cpu(), ps.cpu(), pi.cpu(),
-                                   [case[0][:B], case[1][:B], *case[2:]])
 
 
 @pytest.mark.parametrize("D,offset,xs_offset,want", [

@@ -5,7 +5,7 @@ JAX side runs as its own tests run it on the CPU: the XLA `streaming_topk`,
 `exact_topk`, and the Pallas kernels K1/K2 in interpret mode. The port's
 K1/K2 wrappers get CPU tensors here, so they run their plain version; the
 CUDA kernels themselves are held to it on the card (`chip_smoke.py`, and
-`test_kernels_match_plain_on_card` below where a GPU is present).
+`tests/test_torch_card.py` where a GPU is present).
 
 Tolerances: f32 scores within 1e-5 absolute, because the two packages sum
 the dot products in another order (unit-norm rows give scores in [-1, 1]).
@@ -270,11 +270,7 @@ def test_combine_bias_matches_jax(rng):
     assert combine_bias(torch.from_numpy(base), None, 32) is not None
 
 
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA GPU: the CUDA kernels have no CPU mode")
-    return torch.device("cuda")
+
 
 
 @pytest.mark.parametrize("B,k,want", [(1024, 30, 16), (1024, 300, 4), (64, 30, 8),
@@ -381,28 +377,6 @@ def test_tensor_core_tile_choice(B, k, want):
                            tq.MMA_SMEM_BYTES) == want
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_kernels_match_plain_on_card(cuda_device, dtype):
-    rng = np.random.default_rng(1)
-    q, x, bias = _case(rng, 70, 5000, 768, dead_frac=0.01)
-    td = getattr(torch, dtype)
-    tq, tx, tb = (t.to(cuda_device) for t in _t(q, x, bias))
-    tq, tx = tq.to(td), tx.to(td)
-    xt = tx.T.contiguous()
-    k4 = lambda q_, x_, b_, k_: ttopk.streaming_topk_cuda_qmajor_xt(q_, xt, b_, k_)
-    for fn, B in ((ttopk.streaming_topk_cuda, 3), (ttopk.streaming_topk_cuda_qmajor, 70),
-                  (ttopk.streaming_topk_cuda_qres, 70), (k4, 70),
-                  (ttopk.streaming_topk_cuda_qmajor, 40), (ttopk.streaming_topk_cuda_qres, 64),
-                  (k4, 33), (ttopk.streaming_topk_cuda_qmajor, 20),
-                  (k4, 32)):  # 128-, 64- and 32-row query tiles
-        for k in (1, 30, 300, 1024):
-            ks, ki = fn(tq[:B].contiguous(), tx, tb, k)
-            ps, pi = ttopk.streaming_topk(tq[:B], tx, tb, k)
-            assert_topk_equiv(ks.cpu(), ki.cpu(), ps.cpu(), pi.cpu(),
-                              tq[:B].float().cpu().numpy(), tx.float().cpu().numpy(), bias)
-
-
 def _variants_tool():
     import importlib.util
 
@@ -426,6 +400,22 @@ def test_variant_tool_anchors_in_source(name):
     subs, consts, _ = tool.VARIANTS[name]
     for anchor, _ in subs:
         assert any(anchor in src for src in srcs)
+    for const in consts:
+        assert hasattr(ttopk, const)
+
+
+@pytest.mark.parametrize("name", list(_variants_tool().K1_VARIANTS))
+def test_k1_variant_tool_anchors_in_source(name):
+    """Every text change of tools/flat_topk_variants.py's K1_VARIANTS still
+    applies to csrc/flat_topk_k1tc.cu or its headers, once, and every
+    ops/topk.py constant it sets exists."""
+    from codegraph_tpu_torch.ops import cuda_build
+
+    tool = _variants_tool()
+    srcs = [(cuda_build.CSRC_DIR / f).read_text() for f in tool.K1_SOURCES]
+    subs, consts, _ = tool.K1_VARIANTS[name]
+    for anchor, _ in subs:
+        assert [src.count(anchor) for src in srcs if anchor in src][:1] == [1]
     for const in consts:
         assert hasattr(ttopk, const)
 
@@ -504,16 +494,3 @@ def test_k4_plan_matches_k2():
         ttopk._plan(1024, 1_000_000, ttopk.K2_LAYOUT, 128)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_k4_matches_plain_on_card(cuda_device, dtype):
-    rng = np.random.default_rng(2)
-    q, x, bias = _case(rng, 70, 5003, 768, dead_frac=0.01)
-    td = getattr(torch, dtype)
-    tq, txt, tb = (t.to(cuda_device) for t in _t(q, np.ascontiguousarray(x.T), bias))
-    tq, txt = tq.to(td), txt.to(td)
-    for k in (1, 30, 300):
-        ks, ki = ttopk.streaming_topk_cuda_qmajor_xt(tq, txt, tb, k)
-        ps, pi = ttopk.streaming_topk(tq, txt.T, tb, k)
-        assert_topk_equiv(ks.cpu(), ki.cpu(), ps.cpu(), pi.cpu(), tq.float().cpu().numpy(),
-                          txt.float().cpu().numpy().T, bias)

@@ -1,14 +1,15 @@
-"""K2 and K3 over bf16 queries and bf16 rows on the tensor cores ("K2tc",
-`codegraph_tpu_torch/csrc/flat_topk_tc.cu`): the route, the host plan, and
-the wrappers held to the JAX package's Pallas kernels.
+"""K1, K2 and K3 over bf16 rows on the tensor cores ("K1tc",
+`codegraph_tpu_torch/csrc/flat_topk_k1tc.cu`; "K2tc" over bf16 queries and
+"K2tc3" over f32 queries, `csrc/flat_topk_tc.cu`): the route, the host
+plan of K2tc, and the wrappers held to the JAX package's Pallas kernels.
 
 The route and the plan are host code and are tested here as they are. The
 wrappers get CPU tensors here, so they run their plain version; inputs are
 made with numpy from a seed and handed to both packages, and the Pallas
 kernels K2/K3 run in interpret mode, as the JAX package's tests run them.
-The CUDA kernel itself is held to the plain version on the card
-(`chip_smoke.py` phase 1, and `test_tc_kernel_matches_plain_on_card` below
-where a GPU is present).
+The CUDA kernels themselves are held to the plain version on the card
+(`chip_smoke.py` phase 1, and `tests/test_torch_card.py` where a GPU is
+present).
 
 Tolerance: bf16 queries and rows multiply exactly in f32, so the scores of
 the two packages differ only by the order of the f32 sums: 1e-5 absolute on
@@ -25,66 +26,105 @@ from codegraph_tpu.ops import topk as jtopk
 from codegraph_tpu_torch.ops import topk as ttopk
 from tests.test_torch_topk import _case, _t, assert_topk_equiv
 
-K2, K3, K4 = ttopk.K2_LAYOUT, ttopk.K3_LAYOUT, ttopk.K4_LAYOUT
+K1, K2, K3, K4 = ttopk.K1_LAYOUT, ttopk.K2_LAYOUT, ttopk.K3_LAYOUT, ttopk.K4_LAYOUT
 BF16, F32 = torch.bfloat16, torch.float32
 
 
 @pytest.mark.parametrize("q_dtype,x_dtype,layout,want", [
     (BF16, BF16, K2, True), (BF16, BF16, K3, True), (BF16, BF16, K4, False),
-    (F32, BF16, K2, False), (F32, BF16, K3, False), (F32, BF16, K4, False),
+    (F32, BF16, K2, True), (F32, BF16, K3, True), (F32, BF16, K4, False),
     (BF16, F32, K2, False), (BF16, F32, K3, False), (BF16, F32, K4, False),
     (F32, F32, K2, False), (F32, F32, K3, False), (F32, F32, K4, False),
+    (BF16, BF16, K1, True), (F32, BF16, K1, True), (BF16, F32, K1, False), (F32, F32, K1, False),
 ])
 def test_route_is_set_by_the_inputs(q_dtype, x_dtype, layout, want):
-    """bf16 queries over bf16 rows in K2's or K3's layout take the tensor
-    cores; f32 queries over bf16 rows (the sharded scan's), f32 rows and
-    K4 over any xt stay on rows_pass1."""
+    """bf16 rows in K1's, K2's or K3's layout take the tensor cores, under
+    bf16 queries and under f32 queries (the sharded scan's, as three bf16
+    pieces); f32 rows and K4 over any xt stay on topk_pass1 and
+    rows_pass1."""
     assert ttopk.uses_tensor_cores(q_dtype, x_dtype, layout) is want
+
+
+COUNTED = ("streaming_topk_cuda", "streaming_topk_cuda_qmajor", "streaming_topk_cuda_qres",
+           "streaming_topk_cuda_qmajor_xt", "streaming_topk_cuda_tc", "streaming_topk_cuda_tc3",
+           "streaming_topk_cuda_k1tc")
 
 
 @pytest.fixture
 def card_routes(monkeypatch):
     """The wrappers as they run on a card, with each launch recorded
-    instead of made: (route, layout) of every launch."""
+    instead of made: (route, layout, query dtype) of every launch, the
+    tensor-core routes with their query pieces."""
     seen = []
 
     def rows(q, x, bias, k, layout):
         seen.append(("rows_pass1", layout, q.dtype))
         return ttopk.streaming_topk(q, x.T if layout == K4 else x, bias, k)
 
+    def col(q, x, bias, k, tm):
+        seen.append(("topk_pass1", K1, q.dtype))
+        return ttopk.streaming_topk(q, x, bias, k)
+
     def tc(q, x, bias, k):
-        seen.append(("tensor cores", None, q.dtype))
+        seen.append((f"tensor cores x{ttopk.QUERY_PIECES[q.dtype]}", None, q.dtype))
+        return ttopk.streaming_topk(q, x, bias, k)
+
+    def k1tc(q, x, bias, k):
+        seen.append((f"K1 tensor cores x{ttopk.QUERY_PIECES[q.dtype]}", K1, q.dtype))
         return ttopk.streaming_topk(q, x, bias, k)
 
     monkeypatch.setattr(ttopk, "_on_cpu", lambda *tensors: False)
     monkeypatch.setattr(ttopk, "_launch_rows", rows)
+    monkeypatch.setattr(ttopk, "_launch_col", col)
     monkeypatch.setattr(ttopk, "_launch_tc", tc)
-    for fn in (ttopk.streaming_topk_cuda_qmajor, ttopk.streaming_topk_cuda_qres,
-               ttopk.streaming_topk_cuda_qmajor_xt, ttopk.streaming_topk_cuda_tc):
-        monkeypatch.setattr(fn, "launches", 0)
+    monkeypatch.setattr(ttopk, "_launch_k1tc", k1tc)
+    for name in COUNTED:
+        monkeypatch.setattr(getattr(ttopk, name), "launches", 0)
     return seen
+
+
+def _launches():
+    return {name: getattr(ttopk, name).launches for name in COUNTED if getattr(ttopk, name).launches}
 
 
 @pytest.mark.parametrize("q_dtype,x_dtype", [(BF16, BF16), (F32, BF16), (BF16, F32), (F32, F32)])
 def test_wrappers_launch_their_route_and_count_it(rng, card_routes, q_dtype, x_dtype):
-    """K2 and K3 send bf16 over bf16 to the tensor-core wrapper, which
-    counts the launch in its own counter (K2's and K3's stay as they were);
-    every other input launches rows_pass1 and counts in K2's or K3's; K4
-    always launches rows_pass1."""
+    """Over bf16 rows K2 and K3 send bf16 queries to K2tc and f32 queries
+    to K2tc3 (three pieces), each counting the launch in its own counter
+    (K2's and K3's stay as they were); f32 rows launch rows_pass1 and
+    count in K2's or K3's; K4 always launches rows_pass1."""
     q, x, bias = _case(rng, 40, 300, 64)
     tq, tx, tb = _t(q, x, bias)
     tq, tx = tq.to(q_dtype), tx.to(x_dtype)
-    tc = q_dtype == x_dtype == BF16
+    tc = x_dtype == BF16
+    pieces = ttopk.QUERY_PIECES[q_dtype]
     ttopk.streaming_topk_cuda_qmajor(tq, tx, tb, 10)
     ttopk.streaming_topk_cuda_qres(tq, tx, tb, 10)
     ttopk.streaming_topk_cuda_qmajor_xt(tq, tx.T.contiguous(), tb, 10)
-    want = ([("tensor cores", None, q_dtype)] * 2 if tc else
+    want = ([(f"tensor cores x{pieces}", None, q_dtype)] * 2 if tc else
             [("rows_pass1", K2, q_dtype), ("rows_pass1", K3, q_dtype)])
     assert card_routes == want + [("rows_pass1", K4, q_dtype)]
-    assert ttopk.streaming_topk_cuda_tc.launches == (2 if tc else 0)
-    assert ttopk.streaming_topk_cuda_qmajor.launches == ttopk.streaming_topk_cuda_qres.launches \
-        == (0 if tc else 1)
-    assert ttopk.streaming_topk_cuda_qmajor_xt.launches == 1
+    tc_name = "streaming_topk_cuda_tc" if pieces == 1 else "streaming_topk_cuda_tc3"
+    assert _launches() == ({tc_name: 2, "streaming_topk_cuda_qmajor_xt": 1} if tc else
+                           {"streaming_topk_cuda_qmajor": 1, "streaming_topk_cuda_qres": 1,
+                            "streaming_topk_cuda_qmajor_xt": 1})
+
+
+@pytest.mark.parametrize("q_dtype,x_dtype", [(BF16, BF16), (F32, BF16), (BF16, F32), (F32, F32)])
+def test_k1_launches_its_route_and_counts_it(rng, card_routes, q_dtype, x_dtype):
+    """K1 sends bf16 rows to K1tc under both query dtypes (one piece or
+    three), counted in K1tc's launches; f32 rows launch topk_pass1 and
+    count in K1's."""
+    q, x, bias = _case(rng, 8, 300, 64)
+    tq, tx, tb = _t(q, x, bias)
+    tq, tx = tq.to(q_dtype), tx.to(x_dtype)
+    ttopk.streaming_topk_cuda(tq, tx, tb, 10)
+    if x_dtype == BF16:
+        assert card_routes == [(f"K1 tensor cores x{ttopk.QUERY_PIECES[q_dtype]}", K1, q_dtype)]
+        assert _launches() == {"streaming_topk_cuda_k1tc": 1}
+    else:
+        assert card_routes == [("topk_pass1", K1, q_dtype)]
+        assert _launches() == {"streaming_topk_cuda": 1}
 
 
 @pytest.mark.parametrize("q_dtype,x_dtype", [(F32, BF16), (BF16, F32), (F32, F32)])
@@ -96,6 +136,22 @@ def test_tc_wrapper_refuses_other_inputs(rng, card_routes, q_dtype, x_dtype):
     with pytest.raises(ValueError, match="bf16 queries over bf16 rows"):
         ttopk.streaming_topk_cuda_tc(tq.to(q_dtype), tx.to(x_dtype), tb, 10)
     assert card_routes == [] and ttopk.streaming_topk_cuda_tc.launches == 0
+
+
+@pytest.mark.parametrize("name,q_dtype,x_dtype,match", [
+    ("streaming_topk_cuda_tc3", BF16, BF16, "f32 queries over bf16 rows"),
+    ("streaming_topk_cuda_tc3", F32, F32, "f32 queries over bf16 rows"),
+    ("streaming_topk_cuda_k1tc", BF16, F32, "bf16 or f32 queries over bf16 rows"),
+    ("streaming_topk_cuda_k1tc", F32, F32, "bf16 or f32 queries over bf16 rows"),
+])
+def test_new_tc_wrappers_refuse_other_inputs(rng, card_routes, name, q_dtype, x_dtype, match):
+    """K2tc3 launches f32 over bf16, K1tc bf16 or f32 over bf16, or they
+    raise: neither falls back."""
+    q, x, bias = _case(rng, 8, 300, 64)
+    tq, tx, tb = _t(q, x, bias)
+    with pytest.raises(ValueError, match=match):
+        getattr(ttopk, name)(tq.to(q_dtype), tx.to(x_dtype), tb, 10)
+    assert card_routes == [] and _launches() == {}
 
 
 def test_tc_smem_is_the_layout_sum():
@@ -188,36 +244,6 @@ def test_bf16_wrappers_match_jax_pallas(rng, kernel, B, k):
     live = int((bias > ttopk.NEG_INF / 2).sum())
     if k > live:
         assert (ti[:, live:] == -1).all() and (ts[:, live:] == ttopk.NEG_INF).all()
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA GPU: the CUDA kernels have no CPU mode")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-def test_tc_kernel_matches_plain_on_card(cuda_device):
-    """The tensor-core kernel against its plain version at both query
-    tiles, a ragged N, a depth that is not a multiple of 64, and k from 1 to
-    1024; f32 queries over the same rows run rows_pass1."""
-    rng = np.random.default_rng(15)
-    for D in (768, 200):
-        q, x, bias = _case(rng, 129, 5003, D, dead_frac=0.01)
-        tq, tx, tb = (t.to(cuda_device) for t in _t(q, x, bias))
-        tq, tx = tq.to(BF16), tx.to(BF16)
-        for B in (33, 64, 65, 129):
-            for k in (1, 30, 300, 1024):
-                before = ttopk.streaming_topk_cuda_tc.launches
-                ks, ki = ttopk.streaming_topk_cuda_qmajor(tq[:B].contiguous(), tx, tb, k)
-                assert ttopk.streaming_topk_cuda_tc.launches == before + 1
-                ps, pi = ttopk.streaming_topk(tq[:B], tx, tb, k)
-                assert_topk_equiv(ks.cpu(), ki.cpu(), ps.cpu(), pi.cpu(),
-                                  tq[:B].float().cpu().numpy(), tx.float().cpu().numpy(), bias)
-    before = ttopk.streaming_topk_cuda_tc.launches
-    ttopk.streaming_topk_cuda_qmajor(tq.float(), tx, tb, 30)
-    assert ttopk.streaming_topk_cuda_tc.launches == before
 
 
 def _variants_tool():

@@ -433,30 +433,6 @@ def test_optimizer_updates_match_optax(rng):
                                                               rel=1e-6)
 
 
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA GPU: the tensor-core products have no CPU route")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-def test_tensor_core_backward_matches_cpu(cuda_device):
-    """A bf16 step on the card against the CPU route on the same weights."""
-    _, tcfg = configs("bf16")
-    ttc = tt.TrainConfig(learning_rate=LR)
-    tree = numpy_params(configs("bf16")[0])
-    out = {}
-    for dev in (CPU, cuda_device):
-        p = {k: v.to(dev) for k, v in encoder_params_from_jax(tree).items()}
-        _, _, grads = tt._value_and_grad(
-            lambda q: tt.info_nce_loss(q, tt._batch_on(pair_batch(0), dev), tcfg, 0.05), p)
-        out[dev.type] = {k: g.cpu() for k, g in grads.items()}
-    for k, g in out["cpu"].items():
-        rel = float((out["cuda"][k] - g).norm() / g.norm().clamp(min=1e-12))
-        assert rel < 2e-2, (k, rel)
-
-
 def _grads_both(dtype_name, **kw):
     jcfg, tcfg = configs(dtype_name, **kw)
     tree, b = numpy_params(jcfg), pair_batch(0)

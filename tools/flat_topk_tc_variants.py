@@ -3,15 +3,17 @@
 csrc/flat_topk_tc.cu `bf16_tc_pass1`) against variants of its design, on
 one NVIDIA GPU.
 
-    python3 tools/flat_topk_tc_variants.py [--rows 1000000] [--only NAME,NAME]
+    python3 tools/flat_topk_tc_variants.py [--rows 1000000] [--only NAME,NAME] [--f32-queries]
 
 Each variant is the committed csrc/flat_topk_tc.cu and csrc/topk_merge.cuh
 with its text changes and ops/topk.py constants (below), built and loaded
 in place of the shipped library by tools/variant_harness.py (into
 codegraph_tpu_torch/_build/variants_tc/). On a 1% tombstoned
 bf16 corpus of unit rows at D=768 made on the card from a seed, every
-variant runs K2tc at B=64, 256 and 1024, k=30 and 300: median ms over 3
-batches (CUDA events), all variants in turns, forward then backward.
+variant runs K2tc at B=64, 256 and 1024, k=30 and 300 (with --f32-queries
+K2tc3: the same queries in f32, three bf16 pieces each, through
+`streaming_topk_cuda_tc3`): median ms over 3 batches (CUDA events), all
+variants in turns, forward then backward.
 Variants marked `timing only` give wrong top-k on purpose (they skip the
 epilogue, the offer or the merge into the lists); the others are checked
 against the plain version on four rows of one batch. Prints the card, each
@@ -247,6 +249,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=1_000_000)
     ap.add_argument("--only", default="", help="comma-separated variant names (default: all)")
+    ap.add_argument("--f32-queries", action="store_true",
+                    help="time K2tc3 (f32 queries as three bf16 pieces) instead of K2tc")
     args = ap.parse_args()
     if not vh.start():
         return 2
@@ -262,14 +266,15 @@ def main() -> int:
         x[base: base + n] = cs._unit(torch, torch.randn(n, D, generator=g, device=dev))
     bias = torch.zeros(N, device=dev)
     bias[torch.randperm(N, generator=g, device=dev)[: N // 100]] = cs.NEG_INF
-    qs = {B: [cs._unit(torch, torch.randn(B, D, generator=g, device=dev)).to(torch.bfloat16)
+    q_dtype = torch.float32 if args.f32_queries else torch.bfloat16
+    qs = {B: [cs._unit(torch, torch.randn(B, D, generator=g, device=dev)).to(q_dtype)
               for _ in range(3)] for B in {b for b, _ in SHAPES}}
     ref = {(B, k): topk.streaming_topk(qs[B][0][:4], x, bias, k, tile_n=1 << 17)
            for B, k in SHAPES}
     ms = {n: {} for n in built}
     prof = {n: {} for n in built}
     bad = {n: 0 for n in built}
-    k2tc = topk.streaming_topk_cuda_tc
+    k2tc = topk.streaming_topk_cuda_tc3 if args.f32_queries else topk.streaming_topk_cuda_tc
 
     def run(n):
         profiled = n.startswith("profile")

@@ -3,11 +3,13 @@
 checkout of the repo (for example the parent commit unpacked with `git
 archive`), in turns, on one NVIDIA GPU.
 
-    python3 tools/kernel_vs_checkout.py OTHER_DIR [--kernel K2|K6|K8]
+    python3 tools/kernel_vs_checkout.py OTHER_DIR [--kernel K2|K2tc|K6|K8]
                                         [--rows N] [--shapes B:k,B:k,...]
 
 K2 (`streaming_topk_cuda_qmajor`, csrc/flat_topk.cu) runs on a 1%
 tombstoned f32 corpus of unit rows at D=768, 1,000,000 rows by default;
+K2tc (the same wrapper over the same rows and queries rounded to bf16: the
+tensor cores, csrc/flat_topk_tc.cu) likewise;
 K6 (`streaming_topk_int8_cuda_qmajor`, csrc/int8_topk.cu) on the same
 rows quantized to int8, 10,000,000 by default; K8 (`ivfpq_search_cuda`,
 csrc/ivfpq_adc.cu) on synthetic IVF-PQ cells at chip_smoke.py's phase-7
@@ -42,6 +44,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 DEFAULTS = {"K2": (1_000_000, "32:30,64:30,64:300,1024:30"),
+            "K2tc": (1_000_000, "64:30,64:300,256:30,256:100,256:300,1024:30,1024:300"),
             "K6": (10_000_000, "64:100,64:300,256:100,256:300,1024:100,1024:300"),
             "K8": (10_000_000, "1:40,1:300,8:40,8:300,256:40,256:300,1024:40,1024:300")}
 
@@ -119,8 +122,10 @@ def worker(root: str, kernel: str, rows: int, shapes) -> dict:
     N, D = rows, 768
     bias = torch.zeros(N, device=dev)
     bias[torch.randperm(N, generator=g, device=dev)[: N // 100]] = cs.NEG_INF
-    if kernel == "K2":
-        x = cs._unit(torch, torch.randn(N, D, generator=g, device=dev))
+    flat = kernel in ("K2", "K2tc")
+    dtype = torch.bfloat16 if kernel == "K2tc" else torch.float32
+    if flat:
+        x = cs._unit(torch, torch.randn(N, D, generator=g, device=dev)).to(dtype)
         fn = lambda qb, k: topk.streaming_topk_cuda_qmajor(qb, x, bias, k)  # noqa: E731
         module = topk.__file__
     else:
@@ -136,7 +141,8 @@ def worker(root: str, kernel: str, rows: int, shapes) -> dict:
     out = {"root": root, "module": module, "ms": {}, "mismatches_outside_ties": 0}
     for B, k in shapes:
         qs = [cs._unit(torch, torch.randn(B, D, generator=g, device=dev)) for _ in range(7)]
-        if kernel == "K2":
+        if flat:
+            qs = [q.to(dtype) for q in qs]
             s_k, i_k = fn(qs[0], k)
             s_y, i_y = cs.yardstick(torch, qs[0], x, bias, k)
             out["mismatches_outside_ties"] += cs.check_topk(torch, qs[0], x, bias, s_k, i_k,

@@ -36,13 +36,15 @@ def chosen(variants: dict, only: str) -> list:
     return [n for n in variants if not only or n in only.split(",")]
 
 
-def build_one(d, subs, sources, entries, tail: str = ""):
-    """Build sources[0] with `subs` applied (and `tail` appended) into
-    directory d: (ptxas lines of the kernels whose names hold one of
-    `entries`, library path), or (the error, None)."""
+def build_one(d, subs, sources, entries, tail: str = "", csrc=None):
+    """Build sources[0] of csrc (default: this checkout's csrc/) with `subs`
+    applied (and `tail` appended) into directory d: (ptxas lines of the
+    kernels whose names hold one of `entries`, library path), or (the
+    error, None)."""
+    csrc = cuda_build.CSRC_DIR if csrc is None else csrc
     d.mkdir(parents=True, exist_ok=True)
-    srcs = {f: (cuda_build.CSRC_DIR / f).read_text() for f in sources}
-    for h in cuda_build.CSRC_DIR.glob("*.cuh"):
+    srcs = {f: (csrc / f).read_text() for f in sources}
+    for h in csrc.glob("*.cuh"):
         srcs.setdefault(h.name, h.read_text())
     for a, b in subs:
         hit = [f for f in sources if a in srcs[f]]
@@ -62,15 +64,15 @@ def build_one(d, subs, sources, entries, tail: str = ""):
             if any(e in ln.split(":")[0] for e in entries)], str(so)
 
 
-def build_all(names, variants: dict, sources, entries, subdir: str) -> dict:
-    """Build every named variant under _build/<subdir>/<i>/ at once and print
-    its ptxas lines (or its error); returns name -> library path of those
-    that built."""
+def build_all(names, variants: dict, sources, entries, subdir: str, csrc=None) -> dict:
+    """Build every named variant (of csrc's sources, default this
+    checkout's) under _build/<subdir>/<i>/ at once and print its ptxas lines
+    (or its error); returns name -> library path of those that built."""
     out: dict = {}
 
     def one(i, n):
         out[n] = build_one(cuda_build.BUILD_DIR / subdir / str(i), variants[n][0], sources,
-                           entries)
+                           entries, csrc=csrc)
 
     threads = [threading.Thread(target=one, args=(i, n)) for i, n in enumerate(names)]
     for t in threads:
