@@ -11,7 +11,7 @@
     python3 chip_smoke.py --phases 0,11    # encoder and cross-encoder training only
     python3 chip_smoke.py --phases 0,12    # the shared-memory hand-off only
     python3 chip_smoke.py --phases 0,13,14 # the parallel/ slice (an 8-shard mesh on one card)
-    python3 chip_smoke.py --phases 0,1,3   # the kernels, checked and timed at real size
+    python3 chip_smoke.py --phases 0,1,3   # the kernels, checked and timed at real size (K4tc too)
     python3 chip_smoke.py --phases 0,15    # the bf16 main path (K1tc, K2tc) only
     python3 chip_smoke.py --phases 0,16    # the card's pytest cases (tests/test_torch_card.py)
 
@@ -38,7 +38,7 @@ Phases, each printing one JSON object per line as it ends:
      k at D = 768 and at the other depths, over a 131,072-row corpus, a
      ragged N with duplicate rows (ties inside and across tiles) and a
      filter, and 200 rows with 150 live; each call must launch its route
-     once and no other kernel. K1tc and K2tc3 under f32 queries over
+     once and no other kernel. K1tc, K2tc3 and K4tc3 under f32 queries over
      one-hot bf16 rows (each score one query element, whatever the order
      of the sums) at D = 768 and 200: scores equal to the plain version's
      bit for bit, so a kernel that dropped a piece would fail. K5,
@@ -50,7 +50,13 @@ Phases, each printing one JSON object per line as it ends:
      K6s), its scores equal to the plain version's bit for bit. Both: a
      ragged N, 1% tombstones, an
      extra_bias filter, k above the live count, duplicate rows (exact
-     ties), batches on both sides of 32. K4: K2's cases on xt = x.T. K8:
+     ties), batches on both sides of 32. K4: K2's cases on xt = x.T; over
+     a bf16 xt with N % 8 == 0 (and 100,008 columns with duplicate rows
+     and a filter) K4tc with bf16 queries and K4tc3 with f32 ones, over
+     100,003 columns rows_pass1 with both; K4tc and K4tc3 are held as well
+     at B in {33, 64, 65, 129, 1000} x k in {1, 30, 300, 1024} over xt of
+     depths 36 (q padded to 40), 200 and 1536, and K4tc3 over one-hot rows
+     bit for bit. K8:
      synthetic IVF-PQ cells filled to random depths (the fills passed as
      extents, and once not), m in {6, 16, 96}, ksub in {16, 256}, nprobe in
      {1, 8, 32, 64, nlist}, k from 1 to 20,000 (above the live probed
@@ -74,13 +80,17 @@ Phases, each printing one JSON object per line as it ends:
      K4 (f32; K4 on xt = x.T) at B=256 and 1024, k=30, 100 and 300; K2tc
      (bf16 queries, through K2's wrapper) at B=64, 256 and 1024, k=30, 100
      and 300, and through K3's at B=1024, k=100; K2tc3 (f32 queries over
-     the bf16 rows) at B=64, 256 and 1024, k=30 and 300: median kernel ms
-     over 7 batches (CUDA events), the plain version's ms, a chunked
-     matmul + topk yardstick (library_ms, checked against; for bf16
-     queries the tensor-core torch.mm(out_dtype=f32), beside the f32 one),
-     the bound (f32 queries over bf16 rows: three bf16 tensor-core
-     products, or the bytes) and, for K2tc and K2tc3, the bytes their
-     blocks read by the plan.
+     the bf16 rows) at B=64, 256 and 1024, k=30 and 300; K4tc and K4tc3
+     (K4 over xt = x.T of the bf16 rows, bf16 and f32 queries) at the same
+     shapes, and K4tc at B=1024, k=100, each beside rows_pass1 over the
+     same bf16 xt (rows_pass1_ms: K4's route for a bf16 xt until K4tc):
+     median kernel ms over 7 batches (CUDA events), the plain version's
+     ms, a chunked matmul + topk yardstick (library_ms, checked against;
+     for bf16 queries the tensor-core torch.mm(out_dtype=f32), beside the
+     f32 one; for K4tc and K4tc3 on xt's chunks), the bound (f32 queries
+     over bf16 rows: three bf16 tensor-core products, or the bytes) and,
+     for K2tc, K2tc3, K4tc and K4tc3, the bytes their blocks read by the
+     plan.
   4  the int8 main path: phase 2 with index.dtype = "int8" (Int8FlatIndex,
      bf16 rescore copy): 5 searches (K5) and 64 concurrent queries through
      QueryService (K6), checked against the same snapshot searched on the
@@ -291,6 +301,12 @@ K1TC_K = (1, 10, 30, 100, 300, 1024)
 K1TC_B_OTHER = (1, 8, 9, 31)
 K1TC_K_OTHER = (1, 30, 300, 1024)
 
+#: K4tc's and K4tc3's own family in phase 1 (beside K4's cases at D =
+#: 768): xt depths not a multiple of 8 (q padded) or of 64, resident and
+#: streamed query tiles; the corpus of duplicate rows has N % 8 == 0
+K4TC_D = (36, 200, 1536)
+K4TC_RAGGED = 100008
+
 #: the sources under codegraph_tpu_torch/csrc/, built in phase 0
 SOURCES = ("flat_topk", "flat_topk_tc", "flat_topk_k1tc", "int8_topk", "ivfpq_adc", "ivf_spill")
 
@@ -312,6 +328,10 @@ KERNELS = {
     "K2tc": ("topk", "streaming_topk_cuda_tc", FLAT_TC_CU, "codegraph_tpu/ops/topk.py:456"),
     # the same over f32 queries, each as three bf16 pieces
     "K2tc3": ("topk", "streaming_topk_cuda_tc3", FLAT_TC_CU, "codegraph_tpu/ops/topk.py:456"),
+    # K4 over a bf16 xt that TMA can read, bf16 queries (K2tc's kernel, xt MN-major)
+    "K4tc": ("topk", "streaming_topk_cuda_tc_xt", FLAT_TC_CU, "codegraph_tpu/ops/topk.py:664"),
+    # the same over f32 queries, each as three bf16 pieces
+    "K4tc3": ("topk", "streaming_topk_cuda_tc3_xt", FLAT_TC_CU, "codegraph_tpu/ops/topk.py:664"),
     "K5": ("quantize", "streaming_topk_int8_cuda", INT8_CU, "codegraph_tpu/ops/quantize.py:182"),
     "K6": ("quantize", "streaming_topk_int8_cuda_qmajor", INT8_CU,
            "codegraph_tpu/ops/quantize.py:287"),
@@ -473,8 +493,11 @@ def phase1(torch, mods, errs) -> dict:
             "K7": quantize.streaming_topk_int8_cuda_qres}
     # (N, duplicate rows, filter, live rows)
     corpora = ((131072, False, False, None), (100003, True, True, None), (200, False, False, 150))
+    # a bf16 xt with N % 8 == 0 but not a multiple of 128, with duplicate
+    # rows: K4tc's ragged N (100,003 takes rows_pass1); K4 alone runs on it
+    k4_only = (K4TC_RAGGED, True, True, None)
     for dtype in (torch.float32, torch.bfloat16, torch.int8):
-        for N, dup, filt, live in corpora:
+        for N, dup, filt, live in corpora + ((k4_only,) if dtype == torch.bfloat16 else ()):
             x = _unit(torch, torch.randn(N, D, generator=g, device=dev))
             bias = torch.zeros(N, device=dev)
             dead = torch.randperm(N, generator=g, device=dev)[: max(1, N // 100)]
@@ -511,13 +534,19 @@ def phase1(torch, mods, errs) -> dict:
             else:  # both sides of K6/K7's 64- and 128-row query tiles
                 layouts += (("K2", 33), ("K2", 64), ("K2", 65), ("K2", 128), ("K2", 129),
                             ("K2", 255), ("K2", 1000), ("K3", 64), ("K3", 129))
+            if (N, dup, filt, live) == k4_only:
+                layouts = tuple(lay for lay in layouts if lay[0] == "K4")
             for kernel, B in layouts:
                 if dtype == torch.int8:
                     kernel = {"K1": "K5", "K2": "K6", "K3": "K7"}[kernel]
                 fn = kernels[kernel]
-                # over bf16 rows K1 runs K1tc, K2 and K3 K2tc (bf16 queries)
+                # over bf16 rows K1 runs K1tc, K2 and K3 K2tc (bf16 queries),
+                # K4 K4tc where TMA can read xt (else rows_pass1)
                 name = {"K1": "K1tc", "K2": "K2tc", "K3": "K2tc"}.get(kernel, kernel) \
                     if dtype == torch.bfloat16 else kernel
+                if dtype == torch.bfloat16 and kernel == "K4" and \
+                        topk.xt_tma_readable(N, xt.data_ptr()):
+                    name = "K4tc"
                 q = _unit(torch, torch.randn(B, D, generator=g, device=dev))
                 if dtype == torch.int8:
                     qv, qs = quantize.quantize_rows(q)
@@ -538,9 +567,9 @@ def phase1(torch, mods, errs) -> dict:
                     judge = dot_judge(q, x, bias)
                 # (kernel that must launch, its label, inputs, judge)
                 runs = [(name, kernel if name == kernel else f"{name} (via {kernel})", args, judge)]
-                if name in ("K1tc", "K2tc"):  # the same rows under f32 queries: three pieces
+                if dtype == torch.bfloat16:  # the same rows under f32 queries: three pieces
                     qf = q.float()
-                    ran = "K1tc" if name == "K1tc" else "K2tc3"
+                    ran = {"K1tc": "K1tc", "K2tc": "K2tc3", "K4tc": "K4tc3", "K4": "K4"}[name]
                     runs.append((ran, f"{ran} (via {kernel}, f32 q)", (qf, x, bias),
                                  dot_judge(qf, x, bias)))
                 for k in ks:
@@ -564,6 +593,7 @@ def phase1(torch, mods, errs) -> dict:
     cases += phase1_unaligned(torch, mods, errs, g)
     cases += phase1_tc(torch, mods, errs)
     cases += phase1_k1tc(torch, mods, errs)
+    cases += phase1_k4tc(torch, mods, errs)
     cases += phase1_pieces_exact(torch, mods, errs)
     cases += phase1_k8(torch, mods, errs)
     spill = phase1_spill(mods)
@@ -626,28 +656,32 @@ def _tc_corpus(torch, g, dev, N, D, dup, filt, live):
     return x, bias
 
 
-def _tc_cases(torch, mods, errs, g, shapes_of, routes) -> list:
+def _tc_cases(torch, mods, errs, g, shapes_of, routes, depths=TC_D, ragged=100003) -> list:
     """The tensor-core routes' case families over bf16 rows: for each depth
-    of TC_D (not a multiple of 64; resident and streamed query tiles), a
-    131,072-row corpus (at D = 768 only), a ragged N with duplicate rows
-    and a filter, and 200 rows with 150 live (k above the live count);
-    for each (kernel, B, k) of shapes_of(D), unit queries (query 0 a
-    duplicated row where there are ties) in each query dtype of `routes`
-    ({dtype: kernel that must launch, alone}), against the plain version."""
+    of `depths` (TC_D: not a multiple of 64; resident and streamed query
+    tiles), a 131,072-row corpus (at D = 768 only), a ragged N (`ragged`)
+    with duplicate rows and a filter, and 200 rows with 150 live (k above
+    the live count); for each (kernel, B, k) of shapes_of(D), unit queries
+    (query 0 a duplicated row where there are ties) in each query dtype of
+    `routes` ({dtype: kernel that must launch, alone}), against the plain
+    version. Kernel K4 gets the rows as xt = x.T."""
     topk = mods["topk"]
     dev = torch.device("cuda")
     cases = []
-    for D in TC_D:
-        corpora = ((131072, False, False, None), (100003, True, True, None), (200, False, False, 150))
+    for D in depths:
+        corpora = ((131072, False, False, None), (ragged, True, True, None), (200, False, False, 150))
         for N, dup, filt, live in (corpora if D == 768 else corpora[1:]):
             x, bias = _tc_corpus(torch, g, dev, N, D, dup, filt, live)
+            xt = x.T.contiguous() if any(s[0] == "K4" for s in shapes_of(D)) else None
             for kernel, B, k in shapes_of(D):
                 q = _unit(torch, torch.randn(B, D, generator=g, device=dev))
                 if dup:
                     q[0] = x[5].float()  # its own duplicate pair tops the list
+                corpus = xt if kernel == "K4" else x
                 for q_dtype, ran in routes.items():
                     qd = q.to(q_dtype)
-                    (s_k, i_k), delta = _counted(mods, lambda: wrapper(mods, kernel)(qd, x, bias, k))
+                    (s_k, i_k), delta = _counted(mods,
+                                                 lambda: wrapper(mods, kernel)(qd, corpus, bias, k))
                     torch.cuda.synchronize()
                     require(delta == {ran: 1}, f"phase 1: {kernel} over bf16 rows with "
                             f"{q_dtype} queries, B={B} D={D} k={k}, launched {delta}, not {ran}")
@@ -700,6 +734,24 @@ def phase1_k1tc(torch, mods, errs) -> list:
                      {torch.bfloat16: "K1tc", torch.float32: "K1tc"})
 
 
+def phase1_k4tc(torch, mods, errs) -> list:
+    """K4 over a bf16 xt through its wrapper, on the tensor cores: bf16
+    queries launch K4tc and f32 queries K4tc3, each alone, held to the
+    plain version at TC_B_OTHER x TC_K_OTHER over xt of the depths of
+    K4TC_D (36: q padded to 40, xt's depths past 36 read as zeros; not a
+    multiple of 64; resident and streamed query tiles), with K4TC_RAGGED
+    columns (duplicate rows, a filter) and 200 (150 live). K4's cases at D
+    = 768 are phase 1's own."""
+    g = torch.Generator(device="cuda").manual_seed(19)
+
+    def shapes_of(D):
+        return [("K4", B, k) for B in TC_B_OTHER for k in TC_K_OTHER]
+
+    return _tc_cases(torch, mods, errs, g, shapes_of,
+                     {torch.bfloat16: "K4tc", torch.float32: "K4tc3"}, depths=K4TC_D,
+                     ragged=K4TC_RAGGED)
+
+
 def phase1_pieces_exact(torch, mods, errs) -> list:
     """The three-piece routes use every piece of an f32 query: over one-hot
     bf16 rows (row n is e_(n % D), so rows n and n + D tie exactly) each
@@ -707,7 +759,9 @@ def phase1_pieces_exact(torch, mods, errs) -> list:
     of the sums, so K1tc (B = 1, 8, 9, 31) and K2tc3 (K2 at B = 33, 64,
     65, 129 and K3 at 129) must equal the plain version bit for bit. The
     queries carry 24 significant bits, so nearly every `lo` piece is
-    nonzero and a kernel that dropped one would miss by 1e-7 to 1e-6."""
+    nonzero and a kernel that dropped one would miss by 1e-7 to 1e-6.
+    K4tc3 (K4 at B = 33, 65, 129) takes the first rows of a multiple of 8
+    as xt, which TMA reads."""
     topk = mods["topk"]
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(18)
@@ -721,21 +775,28 @@ def phase1_pieces_exact(torch, mods, errs) -> list:
         q = _unit(torch, torch.randn(129, D, generator=g, device=dev))
         lo_share = float((topk.split_bf16(q)[2] != 0).float().mean())
         require(lo_share > 0.9, f"phase 1: only {lo_share} of the lo pieces are nonzero")
+        n8 = N - N % 8
+        x8, bias8 = x[:n8], bias[:n8]
+        xt8 = x8.T.contiguous()
         for kernel, ran, B in (("K1", "K1tc", 1), ("K1", "K1tc", 8), ("K1", "K1tc", 9),
                                ("K1", "K1tc", 31), ("K2", "K2tc3", 33), ("K2", "K2tc3", 64),
-                               ("K2", "K2tc3", 65), ("K2", "K2tc3", 129), ("K3", "K2tc3", 129)):
+                               ("K2", "K2tc3", 65), ("K2", "K2tc3", 129), ("K3", "K2tc3", 129),
+                               ("K4", "K4tc3", 33), ("K4", "K4tc3", 65), ("K4", "K4tc3", 129)):
             qb = q[:B].contiguous()
+            rows, corpus, b_ = (x8, xt8, bias8) if kernel == "K4" else (x, x, bias)
             for k in (1, 30, 300, 1024):
-                (s_k, i_k), delta = _counted(mods, lambda: wrapper(mods, kernel)(qb, x, bias, k))
+                (s_k, i_k), delta = _counted(mods,
+                                             lambda: wrapper(mods, kernel)(qb, corpus, b_, k))
                 torch.cuda.synchronize()
                 require(delta == {ran: 1}, f"phase 1: {kernel} over one-hot bf16 rows with f32 "
                         f"queries, B={B} D={D} k={k}, launched {delta}, not {ran}")
-                s_p, i_p = topk.streaming_topk(qb, x, bias, k)
+                s_p, i_p = topk.streaming_topk(qb, rows, b_, k)
                 err, n_diff, bad = check_topk(torch, None, None, None, s_k, i_k, s_p, i_p, tol=0.0,
-                                              judge=dot_judge(qb, x, bias))
+                                              judge=dot_judge(qb, rows, b_))
                 errs[ran] = max(errs[ran], err)
                 cases.append({"kernel": f"{ran} (via {kernel}, one-hot rows, exact)",
-                              "dtype": "bfloat16", "q_dtype": "float32", "N": N, "D": D, "B": B,
+                              "dtype": "bfloat16", "q_dtype": "float32", "N": rows.shape[0],
+                              "D": D, "B": B,
                               "k": k, "lo_nonzero": lo_share, "max_abs_err": err,
                               "id_mismatches": n_diff, "mismatches_outside_ties": bad})
     return cases
@@ -1067,12 +1128,16 @@ def _time_ms(torch, fn, batches, outs=None):
     return statistics.median(times)
 
 
-def yardstick(torch, q, x, bias, k, chunk=131072):
-    """Chunked torch.matmul + torch.topk (library calls; used only here)."""
+def yardstick(torch, q, x, bias, k, chunk=131072, xt=False):
+    """Chunked torch.matmul + torch.topk (library calls; used only here);
+    xt: x is the corpus as xt [D, N], read in chunks of its columns."""
     ss, ii = [], []
     qf = q.float()
-    for base in range(0, x.shape[0], chunk):
-        s = qf @ x[base: base + chunk].float().T + bias[base: base + chunk]
+    for base in range(0, x.shape[1] if xt else x.shape[0], chunk):
+        if xt:
+            s = qf @ x[:, base: base + chunk].float() + bias[base: base + chunk]
+        else:
+            s = qf @ x[base: base + chunk].float().T + bias[base: base + chunk]
         v, i = torch.topk(s, min(k, s.shape[1]), dim=1)
         ss.append(v)
         ii.append(i + base)
@@ -1088,6 +1153,21 @@ def yardstick_tc(torch, q, x, bias, k, chunk=131072):
     ss, ii = [], []
     for base in range(0, x.shape[0], chunk):
         s = torch.mm(q, x[base: base + chunk].T, out_dtype=torch.float32) + bias[base: base + chunk]
+        v, i = torch.topk(s, min(k, s.shape[1]), dim=1)
+        ss.append(v)
+        ii.append(i + base)
+    s = torch.cat(ss, 1)
+    v, p = torch.topk(s, k, dim=1)
+    return v, torch.gather(torch.cat(ii, 1), 1, p).int()
+
+
+def yardstick_tc_xt(torch, q, xt, bias, k, chunk=131072):
+    """yardstick_tc on the layout K4 reads, xt [D, N]: chunked torch.mm(q,
+    xt[:, base:base + chunk], out_dtype=torch.float32) + torch.topk
+    (library calls; used only here)."""
+    ss, ii = [], []
+    for base in range(0, xt.shape[1], chunk):
+        s = torch.mm(q, xt[:, base: base + chunk], out_dtype=torch.float32) + bias[base: base + chunk]
         v, i = torch.topk(s, min(k, s.shape[1]), dim=1)
         ss.append(v)
         ii.append(i + base)
@@ -1140,6 +1220,11 @@ def phase3(torch, topk, errs) -> list:
             shapes += [("K2tc", "K2", B, k, bf16) for B in (64, 256, 1024) for k in (30, 100, 300)]
             shapes += [("K2tc", "K3", 1024, 100, bf16)]
             shapes += [("K2tc3", "K2", B, k, f32) for B in (64, 256, 1024) for k in (30, 300)]
+            # K4 over the same rows as a bf16 xt [D, N]: K4tc and K4tc3
+            shapes += [("K4tc", "K4", B, k, bf16) for B in (64, 256, 1024) for k in (30, 300)]
+            shapes += [("K4tc", "K4", 1024, 100, bf16)]
+            shapes += [("K4tc3", "K4", B, k, f32) for B in (64, 256, 1024) for k in (30, 300)]
+            xt = x.T.contiguous()
         flat = {"K1": topk.streaming_topk_cuda, "K2": topk.streaming_topk_cuda_qmajor,
                 "K3": topk.streaming_topk_cuda_qres,
                 "K4": lambda q_, x_, b_, k_: topk.streaming_topk_cuda_qmajor_xt(q_, xt, b_, k_)}
@@ -1155,14 +1240,22 @@ def phase3(torch, topk, errs) -> list:
             ms = _time_ms(torch, lambda qb: fn(qb, x, bias, k), batches)
             require(counted.launches == launched + len(batches) + 1,
                     f"phase 3: {via} {dtype_name} B={B} k={k} did not run {name}")
-            lib_ms = _time_ms(torch, lambda qb: yardstick(torch, qb, x, bias, k), batches[:3])
+            # K4tc/K4tc3: the library calls on the layout they read, xt
+            on_xt = name in ("K4tc", "K4tc3")
+            lib_ms = _time_ms(torch, lambda qb: yardstick(torch, qb, xt, bias, k, xt=True) if on_xt
+                              else yardstick(torch, qb, x, bias, k), batches[:3])
             extra = {"via": via, "q_dtype": str(q_dtype)[6:]}
+            tc_yardstick = (lambda qb: yardstick_tc_xt(torch, qb, xt, bias, k)) if on_xt else \
+                (lambda qb: yardstick_tc(torch, qb, x, bias, k))
             if dtype_name == "bfloat16" and q_dtype == torch.bfloat16:
                 # the f32 yardstick casts the bf16 rows to f32; the fair library
                 # call for a bf16 corpus is the tensor-core product
                 extra["library_f32_ms"] = lib_ms
-                lib_ms = _time_ms(torch, lambda qb: yardstick_tc(torch, qb, x, bias, k),
-                                  batches[:3])
+                lib_ms = _time_ms(torch, tc_yardstick, batches[:3])
+            if on_xt:  # K4's route for a bf16 xt before K4tc, on the same xt
+                extra["rows_pass1_ms"] = _time_ms(
+                    torch, lambda qb: topk._launch_rows(qb, xt, bias, k, topk.K4_LAYOUT),
+                    batches[:3])
             if (B, k, q_dtype) not in plain_cache:  # K2, K3 and K4 share their plain version
                 plain_cache[(B, k, q_dtype)] = _time_ms(
                     torch, lambda qb: topk.streaming_topk(qb, x, bias, k), batches[:2])
@@ -1173,7 +1266,7 @@ def phase3(torch, topk, errs) -> list:
             s_y, i_y = yardstick(torch, qs, x, bias, k)
             err, n_diff, bad = check_topk(torch, qs, x, bias, s_k, i_k, s_y, i_y)
             if "library_f32_ms" in extra:
-                s_t, i_t = yardstick_tc(torch, qs, x, bias, k)
+                s_t, i_t = tc_yardstick(qs)
                 extra["library_mismatches_outside_ties"] = check_topk(
                     torch, qs, x, bias, s_t, i_t, s_y, i_y)[2]
                 bad += extra["library_mismatches_outside_ties"]
@@ -1188,7 +1281,7 @@ def phase3(torch, topk, errs) -> list:
                 extra["bound_note"] = ("f32 queries over bf16 rows: three bf16 tensor-core "
                                        "products a score (hi + mid + lo == q, each exact in "
                                        "f32), or the bytes")
-            if name in ("K2tc", "K2tc3"):  # bytes the blocks read, from L2 or HBM
+            if name in ("K2tc", "K2tc3", "K4tc", "K4tc3"):  # bytes the blocks read, from L2 or HBM
                 plan = topk.tc_plan(B, N, D, k, sms=torch.cuda.get_device_properties(0)
                                     .multi_processor_count, pieces=pieces)
                 extra["l2_bytes"] = topk.tc_l2_bytes(plan, N, D, pieces=pieces)
@@ -4589,25 +4682,29 @@ def main(argv=None) -> int:
     # tier's main path, for K1 and K2 the default configuration's (phase 8)
     # when it ran, else for K1 the served path's (phase 9), for K1tc and
     # K2tc the bf16 main path's (phase 15), for K2tc3 the sharded bf16
-    # index's (phase 13) (K3, K4 and K7 are public ops that no index calls;
-    # K6s runs only at a D that is not a multiple of 16)
+    # index's (phase 13) (K3, K4, K4tc, K4tc3 and K7 are public ops that
+    # no index calls: 0 launches on every path; K6s runs only at a D that
+    # is not a multiple of 16)
     shapes = {"K1": (p3, "float32", 1, 30, None), "K2": (p3, "float32", 1024, 30, None),
               "K3": (p3, "float32", 1024, 100, None), "K4": (p3, "float32", 1024, 30, None),
               "K1tc": (p3, "bfloat16", 1, 30, "bfloat16"),
               "K2tc": (p3, "bfloat16", 1024, 30, None),
               "K2tc3": (p3, "bfloat16", 1024, 30, None),
+              "K4tc": (p3, "bfloat16", 1024, 30, None),
+              "K4tc3": (p3, "bfloat16", 1024, 30, None),
               "K5": (p5, "int8", 1, 100, None), "K6": (p5, "int8", 1024, 100, None),
               "K7": (p5, "int8", 1024, 100, None), "K6s": (p5, "int8", 1024, 100, None),
               "K8": (p7, "uint8 codes", 1, 40, None)}
     flat_path = p8 or p2
     paths = {"K1": p8 or p9 or p2, "K2": flat_path, "K3": flat_path, "K4": flat_path,
-             "K1tc": p15, "K2tc": p15, "K2tc3": p13, "K5": p4,
+             "K1tc": p15, "K2tc": p15, "K2tc3": p13, "K4tc": p15, "K4tc3": p13, "K5": p4,
              "K6": p4, "K7": p4, "K6s": p4, "K8": p6["ivfpq"] if p6 else None}
     kernels = []
     for name, (_, fn_name, source, replaces) in KERNELS.items():
         rows, dtype, B, k, q_dtype = shapes[name]
         row = next((r for r in rows if r.get("kernel") == name and r["dtype"] == dtype
-                    and r["B"] == B and r["k"] == k and r.get("via", name) in (name, "K1", "K2")
+                    and r["B"] == B and r["k"] == k
+                    and r.get("via", name) in (name, "K1", "K2", "K4")
                     and q_dtype in (None, r.get("q_dtype"))), {})
         path = paths[name]
         kernels.append({

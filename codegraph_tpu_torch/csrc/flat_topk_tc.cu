@@ -7,13 +7,17 @@
 // (ops/bf16_split.py `split_bf16`), three products into one f32
 // accumulator, so its scores are those of the f32 query.
 //
-// Replaces, over bf16 rows, two Pallas kernels of codegraph_tpu/ops/topk.py:
-//   K2  streaming_topk_pallas_qmajor / _flat_topk_qmajor_kernel  (:456)
-//   K3  streaming_topk_pallas_qres   / _flat_topk_qres_kernel    (:561)
-// Both compute dot_general(q, x_bf16, preferred_element_type=f32) + bias;
-// K3 runs K2's schedule here, as it does in flat_topk.cu. f32 rows and K4
-// (xt [D, N]) stay on flat_topk.cu's rows_pass1. One pass-1 kernel,
-// bf16_tc_pass1<PIECES>, and the pass 2 of topk_merge.cuh.
+// Replaces, over bf16 rows, three Pallas kernels of codegraph_tpu/ops/topk.py:
+//   K2  streaming_topk_pallas_qmajor    / _flat_topk_qmajor_kernel     (:456)
+//   K3  streaming_topk_pallas_qres      / _flat_topk_qres_kernel       (:561)
+//   K4  streaming_topk_pallas_qmajor_xt / _flat_topk_qmajor_xt_kernel  (:664)
+// All compute dot_general(q, x_bf16, preferred_element_type=f32) + bias;
+// K3 runs K2's schedule here, as it does in flat_topk.cu, and K4 runs it
+// over the corpus stored as xt [D, N] ("K4tc", XT = true: the corpus boxes
+// MN-major, see below). f32 rows, and a bf16 xt that TMA cannot read (N %
+// 8 != 0, or a base not 16-byte aligned), stay on flat_topk.cu's
+// rows_pass1. One pass-1 kernel, bf16_tc_pass1<PIECES, XT>, and the pass 2
+// of topk_merge.cuh.
 //
 // What bounds it on the H100:
 //   * 2*B*N*D bf16 operations a piece: 1.57 TFLOP at B = 1024 over 1M x
@@ -68,12 +72,24 @@
 //     from L2 within microseconds of each other, so the corpus comes from
 //     HBM about once a call, and every split of a row runs at once, so the
 //     shared bound holds from the first tiles.
+//   * xt [D, N] (XT): N is the contiguous dimension, and the 128-byte
+//     swizzle caps a box's inner extent at 64 bf16, so a stage's 128 corpus
+//     rows x 64 of depth are two boxes of 64 columns x 64 depths (8 KB
+//     each, 16 KB a stage as for rows: the layout is the same). wgmma reads
+//     them as an MN-major B operand (imm-trans-b = 1): `smem_desc_mn`, the
+//     second box one LBO further, and a k16 step 16 rows of depth (2 KB)
+//     on, where a K-major box steps 32 bytes. TMA needs N % 8 == 0 (rows of
+//     xt a multiple of 16 bytes) and zero-fills past N and D.
 
 #include "hopper_tc.cuh"
 
 namespace {
 
 constexpr int kBoxD = kBoxBytes / 2;  // depth of a box in bf16 elements
+// xt's boxes: kXtBoxN corpus columns (the swizzle span) x kBoxD depths,
+// two a stage
+constexpr int kXtBoxN = kBoxBytes / 2;
+constexpr int kXtBoxBytes = kBoxD * kBoxBytes;
 constexpr int kMetaSlotBytes = kWgN * sizeof(float);  // a tile's bias
 // the block's shared memory (ops/topk.py `tc_smem` mirrors it)
 using TcLayout = TcLayoutOf<kBoxD, kMetaSlotBytes>;
@@ -90,8 +106,10 @@ struct TcArgs {
 };
 
 // d[64] += A (64 x 16 bf16, K-major, descriptor da) * B (128 x 16 bf16,
-// K-major, descriptor db)^T in f32; scale_d = 0 overwrites d instead.
-// Neither operand is negated (scale-a = scale-b = 1) or transposed.
+// descriptor db)^T in f32; scale_d = 0 overwrites d instead. Neither
+// operand is negated (scale-a = scale-b = 1); A is K-major, B K-major
+// (TRANS_B = 0: x's rows) or MN-major (TRANS_B = 1: xt's).
+template <int TRANS_B>
 __device__ __forceinline__ void wgmma_m64n128k16_bf16(float (&d)[64], uint64_t da, uint64_t db,
                                                       int scale_d) {
   asm volatile(
@@ -105,7 +123,7 @@ __device__ __forceinline__ void wgmma_m64n128k16_bf16(float (&d)[64], uint64_t d
       "%40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, "
       "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
@@ -114,7 +132,7 @@ __device__ __forceinline__ void wgmma_m64n128k16_bf16(float (&d)[64], uint64_t d
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B));
 }
 
 // This lane's sums of round r = 2j + e (query rows g and g + 8, corpus row
@@ -192,12 +210,14 @@ __device__ __noinline__ void tc_flush_rows(unsigned full0, unsigned full1, TcSta
 // int8_tc_pass1. Consumer w computes query rows 64w .. 64w + 63 of the tile
 // against each 128-row corpus stage; a 64-row tile has one consumer.
 // qmap / xmap: q [B, D] and x [N, D] bf16 as boxes of 64 depths x qt / 128
-// rows; bmap: bias [N] as boxes of 128. PIECES = 3: an f32 query as its
-// bf16 pieces hi (qmap), mid (qmap_mid) and lo (qmap_lo), hi + mid + lo ==
-// q exactly; each corpus box meets the three query boxes of its depth, three
-// wgmma chains into the one f32 accumulator, so the sums are those of the
-// f32 query's products (each piece times a bf16 value is exact in f32).
-template <int PIECES>
+// rows (XT, K4 over a bf16 xt: xmap is xt [D, N] as boxes of 64 columns x
+// 64 depths, two a stage); bmap: bias [N] as boxes of 128. PIECES = 3: an
+// f32 query as its bf16 pieces hi (qmap), mid (qmap_mid) and lo (qmap_lo),
+// hi + mid + lo == q exactly; each corpus box meets the three query boxes
+// of its depth, three wgmma chains into the one f32 accumulator, so the
+// sums are those of the f32 query's products (each piece times a bf16
+// value is exact in f32).
+template <int PIECES, bool XT>
 __global__ void __launch_bounds__(kTcThreads, 1)
     bf16_tc_pass1(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap xmap,
                   const __grid_constant__ CUtensorMap bmap, const TcArgs a,
@@ -261,7 +281,12 @@ __global__ void __launch_bounds__(kTcThreads, 1)
           mbar_wait(empty_bar + 8 * slot, phase ^ 1);
           mbar_expect_tx(full_bar + 8 * slot, L.stage_bytes);
           const uint32_t st = ring + slot * L.stage_bytes;
-          tma_load(st, &xmap, full_bar + 8 * slot, c * kBoxD, n0);
+          if constexpr (XT) {  // columns n0 .. n0 + 127 at depths c * kBoxD ..
+            tma_load(st, &xmap, full_bar + 8 * slot, n0, c * kBoxD);
+            tma_load(st + kXtBoxBytes, &xmap, full_bar + 8 * slot, n0 + kXtBoxN, c * kBoxD);
+          } else {
+            tma_load(st, &xmap, full_bar + 8 * slot, c * kBoxD, n0);
+          }
           if (!a.resident) {
             tma_load(st + L.corpus_bytes, &qmap, full_bar + 8 * slot, c * kBoxD, b0);
             if constexpr (PIECES == 3) {  // each piece's box one box after the last's
@@ -331,12 +356,16 @@ __global__ void __launch_bounds__(kTcThreads, 1)
         const uint32_t stage = ring + slot * L.stage_bytes;
         const uint32_t qa = (a.resident ? qtile + c * a.qt * kBoxBytes : stage + L.corpus_bytes) +
                             wg * kWgM * kBoxBytes;
-        const uint64_t da = smem_desc(qa), db = smem_desc(stage);
+        const uint64_t da = smem_desc(qa);
+        const uint64_t db = XT ? smem_desc_mn(stage, kXtBoxBytes) : smem_desc(stage);
+        // a k16 step of the corpus operand: 16 depths of 128 bytes (XT) or
+        // 32 bytes of a row, in the descriptor's 16-byte units
+        constexpr int kStepB = XT ? 16 * kBoxBytes / 16 : 2;
         wgmma_fence();
         if constexpr (PIECES == 1) {
 #pragma unroll
           for (int kk = 0; kk < kBoxBytes / 32; ++kk) {
-            wgmma_m64n128k16_bf16(acc, da + 2 * kk, db + 2 * kk, (c | kk) != 0);
+            wgmma_m64n128k16_bf16<XT>(acc, da + 2 * kk, db + kStepB * kk, (c | kk) != 0);
           }
         } else {
           // a piece's boxes follow the one before: chunks boxes further on
@@ -346,8 +375,8 @@ __global__ void __launch_bounds__(kTcThreads, 1)
           for (int kk = 0; kk < kBoxBytes / 32; ++kk) {
 #pragma unroll
             for (int p = PIECES - 1; p >= 0; --p) {  // the smallest piece first
-              wgmma_m64n128k16_bf16(acc, da + p * dp + 2 * kk, db + 2 * kk,
-                                    (c | kk) != 0 || p != PIECES - 1);
+              wgmma_m64n128k16_bf16<XT>(acc, da + p * dp + 2 * kk, db + kStepB * kk,
+                                        (c | kk) != 0 || p != PIECES - 1);
             }
           }
         }
@@ -491,12 +520,14 @@ long long flat_topk_tc_smem(int query_tile, int resident, int stages, int D, int
   return (long long)TcLayout(query_tile, resident, stages, D, pieces).smem;
 }
 
-// K2/K3 over bf16 rows: bf16_tc_pass1 over grid (ceil(B / query_tile),
-// splits), then pass 2. q [pieces, B, D] bf16 (pieces = 1: bf16 queries;
-// 3: an f32 query's split_bf16 pieces hi, mid, lo), x [N, D] bf16, bias
-// [N] f32, all
-// contiguous on the device of `stream` and 16-byte aligned, D % 8 == 0
-// (TMA's strides and addresses). query_tile: 64 or 128; the query tile is
+// K2/K3 over bf16 rows and K4 over a bf16 xt: bf16_tc_pass1 over grid
+// (ceil(B / query_tile), splits), then pass 2. q [pieces, B, D] bf16
+// (pieces = 1: bf16 queries; 3: an f32 query's split_bf16 pieces hi, mid,
+// lo); xt_depth = 0: x [N, D] bf16 rows; xt_depth > 0: x is xt [xt_depth,
+// N] bf16 (K4), N % 8 == 0, and q's D is xt_depth rounded up to a multiple
+// of 8 (zero columns past xt_depth); bias [N] f32; all contiguous on the
+// device of `stream` and 16-byte aligned, D % 8 == 0 (TMA's strides and
+// addresses). query_tile: 64 or 128; the query tile is
 // resident (resident = 1) or streams with the corpus through the ring of
 // `stages`; rows_per_split a multiple of 128; smem must equal
 // flat_topk_tc_smem(..., pieces). out_s [B, k] f32 and out_i [B, k] i32; work_s /
@@ -505,11 +536,13 @@ long long flat_topk_tc_smem(int query_tile, int resident, int stages, int D, int
 // flat_topk_tc_cand_entries(B, query_tile, splits) entries each (no
 // initial value). Returns the CUDA error code of the launches (0 =
 // success).
-int flat_topk_tc(const void* q, int pieces, const void* x, const float* bias, int B, int N, int D,
-                 int k, int query_tile, int resident, int stages, int splits, int rows_per_split,
-                 long long smem, int group, float* out_s, int* out_i, float* work_s, int* work_i,
-                 float* bound, float* cand_s, int* cand_i, void* stream) {
+int flat_topk_tc(const void* q, int pieces, const void* x, int xt_depth, const float* bias, int B,
+                 int N, int D, int k, int query_tile, int resident, int stages, int splits,
+                 int rows_per_split, long long smem, int group, float* out_s, int* out_i,
+                 float* work_s, int* work_i, float* bound, float* cand_s, int* cand_i,
+                 void* stream) {
   if (B < 1 || N < 1 || D < 8 || D % 8 != 0 || k < 1 || k > 1024 || splits < 1 || group < 2 ||
+      (xt_depth != 0 && (xt_depth < 0 || xt_depth > D || D - xt_depth >= 8 || N % 8 != 0)) ||
       stages < 2 || rows_per_split < 1 || rows_per_split % kWgN != 0 ||
       (long long)splits * rows_per_split < N || (long long)(splits - 1) * rows_per_split >= N ||
       (reinterpret_cast<size_t>(q) & 15) != 0 || (reinterpret_cast<size_t>(x) & 15) != 0 ||
@@ -526,8 +559,13 @@ int flat_topk_tc(const void* q, int pieces, const void* x, const float* bias, in
     }
   }
   for (int p = pieces; p < 3; ++p) qmaps[p] = qmaps[0];  // not read
-  if (!encode_rows(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, N, D, kWgN) ||
-      !encode_vector(&bmap, bias, N, kWgN)) {
+  // xt [xt_depth, N]: xt_depth rows of N columns, boxes of 64 columns x
+  // kBoxD depths
+  const bool built = xt_depth ? encode_rows(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x,
+                                            xt_depth, N, kBoxD)
+                              : encode_rows(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, N, D,
+                                            kWgN);
+  if (!built || !encode_vector(&bmap, bias, N, kWgN)) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -545,7 +583,8 @@ int flat_topk_tc(const void* q, int pieces, const void* x, const float* bias, in
   a.qt = query_tile;
   a.resident = resident;
   a.stages = stages;
-  auto kern = pieces == 1 ? bf16_tc_pass1<1> : bf16_tc_pass1<3>;
+  auto kern = xt_depth ? (pieces == 1 ? bf16_tc_pass1<1, true> : bf16_tc_pass1<3, true>)
+                       : (pieces == 1 ? bf16_tc_pass1<1, false> : bf16_tc_pass1<3, false>);
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   kern<<<dim3((B + query_tile - 1) / query_tile, splits), kTcThreads, (size_t)smem, st>>>(

@@ -9,7 +9,8 @@
 // shared-memory layout and per-row states, the mbarrier, TMA and wgmma
 // helpers, the flush of a sorted candidate buffer into a list in device
 // memory, and the host-side encoding of the TMA tensor maps (through the
-// runtime: no -lcuda).
+// runtime: no -lcuda). flat_topk_tc.cu's K4tc reads its corpus operand
+// MN-major (xt [D, N]: `smem_desc_mn`).
 //
 // Each including source gets its own copy (everything is in an anonymous
 // namespace); the files share the design, not a symbol.
@@ -140,6 +141,15 @@ __device__ __forceinline__ void tma_load_1d(uint32_t dst, const CUtensorMap* map
 __device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
          ((uint64_t)1 << 62);
+}
+// wgmma descriptor of an MN-major tile with the 128-byte swizzle (a box of
+// a corpus stored as xt [D, N]: rows of 128 bytes, 64 corpus columns, one
+// row a depth): 8-row atoms of depth 1024 bytes apart (SBO), the next 64
+// columns `lbo` bytes further (LBO); a wgmma's k16 step moves 16 rows of
+// depth, 2048 bytes
+__device__ __forceinline__ uint64_t smem_desc_mn(uint32_t addr, uint32_t lbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
 }
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");

@@ -26,7 +26,10 @@ sorted descending.
   bf16 fed by TMA in `csrc/flat_topk_tc.cu`, planned by `tc_plan`) and as
   `streaming_topk_cuda_tc3` over f32 queries ("K2tc3": the same kernel
   with the query in three bf16 pieces, `ops/bf16_split.py`), each counted
-  in its own launches.
+  in its own launches. So does K4 over a bf16 xt that TMA can read
+  (`xt_tma_readable`: N % 8 == 0, a 16-byte aligned base):
+  `streaming_topk_cuda_tc_xt` ("K4tc") and `streaming_topk_cuda_tc3_xt`
+  ("K4tc3"), K2tc's kernel and plan with the corpus boxes read MN-major.
 
 Order and sentinels, shared by every version: a higher score wins; on
 equal scores the lower row id wins. The running top-k starts as
@@ -80,9 +83,9 @@ ROW_CAP = 32
 SMEM_PER_BLOCK = 232_448
 
 #: The tensor-core scan kernels, K2tc (K2/K3 over bf16 queries and bf16
-#: rows, csrc/flat_topk_tc.cu `bf16_tc_pass1`) and K6/K7 (int8,
-#: csrc/int8_topk.cu `int8_tc_pass1`), share one block design, whose
-#: `TcLayoutOf` (csrc/hopper_tc.cuh) `tc_smem` mirrors: a consumer
+#: rows, and K4tc over a bf16 xt, csrc/flat_topk_tc.cu `bf16_tc_pass1`)
+#: and K6/K7 (int8, csrc/int8_topk.cu `int8_tc_pass1`), share one block
+#: design, whose `TcLayoutOf` (csrc/hopper_tc.cuh) `tc_smem` mirrors: a consumer
 #: warpgroup's product is TC_WG_ROWS query rows x TC_TILE_N corpus rows; a
 #: ring stage is a corpus box of TC_TILE_N rows x TC_BOX_BYTES (the swizzle
 #: span) of depth; a batch of at most TC_WG_ROWS takes a 64-row query tile
@@ -212,7 +215,7 @@ def _tc_lib():
 
         lib = cuda_build.load("flat_topk_tc")
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.flat_topk_tc.argtypes = [p, i, p, p, i, i, i, i, i, i, i, i, i, ll, i,
+        lib.flat_topk_tc.argtypes = [p, i, p, i, p, i, i, i, i, i, i, i, i, i, ll, i,
                                      p, p, p, p, p, p, p, p]
         lib.flat_topk_tc.restype = i
         lib.flat_topk_tc_smem.argtypes = [i, i, i, i, i]
@@ -350,18 +353,27 @@ def row_plan(layout: int, B: int, N: int, k: int, elt: int,
                    B * splits)
 
 
-def uses_tensor_cores(q_dtype: torch.dtype, x_dtype: torch.dtype, layout: int) -> bool:
-    """The pass-1 route of K1-K4 on a card, set by the inputs: bf16 rows in
-    K1's, K2's or K3's layout run on the tensor cores for bf16 and f32
-    queries (K1tc, and K2tc or K2tc3): a bf16 query multiplies the rows as
-    they are, where bf16 products are exact in f32 as in the TPU kernel's
-    dot, and an f32 query (`ShardedFlatIndex`, as the JAX sharded scan
-    hands them) as its three bf16 pieces (`QUERY_PIECES`), whose products
-    are exact too. f32 rows stay on `topk_pass1` (K1) and `rows_pass1`
-    (K2, K3), and K4 over any xt on `rows_pass1`. A contract, not a
-    fallback: each route launches its kernel or raises."""
-    return (x_dtype == torch.bfloat16 and q_dtype in QUERY_PIECES
-            and layout in (K1_LAYOUT, K2_LAYOUT, K3_LAYOUT))
+def uses_tensor_cores(q_dtype: torch.dtype, x_dtype: torch.dtype) -> bool:
+    """The pass-1 route of K1-K4 on a card, set by the inputs, the same in
+    every layout: bf16 rows (K4: a bf16 xt) run on the tensor cores for
+    bf16 and f32 queries (K1tc; K2tc or K2tc3; K4tc or K4tc3): a bf16
+    query multiplies the rows as they are, where bf16 products are exact
+    in f32 as in the TPU kernel's dot, and an f32 query
+    (`ShardedFlatIndex`, as the JAX sharded scan hands them) as its three
+    bf16 pieces (`QUERY_PIECES`), whose products are exact too. f32 rows
+    stay on `topk_pass1` (K1) and `rows_pass1` (K2-K4).
+    K4 takes the tensor cores only where TMA can read its bf16 xt as well
+    (`xt_tma_readable`); another bf16 xt (N % 8 != 0, or a base not 16-byte
+    aligned) runs `rows_pass1`, by its shape as f32 xt does by its dtype. A
+    contract, not a fallback: each route launches its kernel or raises."""
+    return x_dtype == torch.bfloat16 and q_dtype in QUERY_PIECES
+
+
+def xt_tma_readable(N: int, addr: int) -> bool:
+    """Whether TMA can read a bf16 corpus xt [D, N] at device address
+    `addr` (K4tc, K4tc3): every row of N elements a multiple of 16 bytes
+    (N % 8 == 0), and the base 16-byte aligned."""
+    return N % 8 == 0 and addr % 16 == 0
 
 
 def tc_smem(query_tile: int, resident: bool, stages: int, D: int, elt: int = 2,
@@ -376,7 +388,9 @@ def tc_smem(query_tile: int, resident: bool, stages: int, D: int, elt: int = 2,
     query tile (a box per piece and TC_BOX_BYTES of depth), TC_META_SLOTS
     meta slots, the flush staging areas (TC_BUF_CAP entries a half-warp),
     five 4-byte states for each of TC_SLOTS rows, and the barriers. It
-    does not depend on k."""
+    does not depend on k. K4tc reads a stage's corpus from xt [D, N] as two
+    boxes of TC_BOX_BYTES // 2 columns (the swizzle span) x TC_BOX_BYTES //
+    2 depths: the same bytes, so the same layout."""
     chunks = -(-D * elt // TC_BOX_BYTES)
     stage = TC_TILE_N * TC_BOX_BYTES + (0 if resident else pieces * query_tile * TC_BOX_BYTES)
     query = pieces * chunks * query_tile * TC_BOX_BYTES if resident else 0
@@ -601,13 +615,18 @@ def _launch_k1tc(q, x, bias, k: int):
     return out_s, out_i
 
 
-def _launch_tc(q, x, bias, k: int):
+def _launch_tc(q, x, bias, k: int, xt: bool = False):
     """K2tc (bf16 q) and K2tc3 (f32 q): `bf16_tc_pass1` as `tc_plan` lays
     it out, then pass 2. x stays bf16 and q goes in its bf16 pieces: the
-    tensor cores multiply them as the TPU kernel's dot."""
+    tensor cores multiply them as the TPU kernel's dot. xt: x is xt [D, N]
+    (K4tc, K4tc3), and q gets zero columns up to a multiple of 8 (TMA's
+    16-byte rows; xt's depths past D read as zeros)."""
     lib = _tc_lib()
+    xt_depth = q.shape[1] if xt else 0
+    if xt and xt_depth % 8:
+        q = torch.nn.functional.pad(q, (0, 8 - xt_depth % 8))
     B, D = q.shape
-    N = x.shape[0]
+    N = x.shape[1] if xt else x.shape[0]
     pieces = QUERY_PIECES[q.dtype]
     plan = tc_plan(B, N, D, k, sms=torch.cuda.get_device_properties(q.device).multi_processor_count,
                    pieces=pieces)
@@ -625,15 +644,20 @@ def _launch_tc(q, x, bias, k: int):
     cand_i = torch.empty((plan.cand_entries,), dtype=torch.int32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.flat_topk_tc(
-        qp.data_ptr(), pieces, x.data_ptr(), bias.data_ptr(), B, N, D, k, plan.query_tile,
+        qp.data_ptr(), pieces, x.data_ptr(), xt_depth, bias.data_ptr(), B, N, D, k, plan.query_tile,
         int(plan.resident), plan.stages, plan.splits, plan.rows_per_split, plan.smem, MERGE_GROUP,
         out_s.data_ptr(), out_i.data_ptr(), work_s.data_ptr(), work_i.data_ptr(),
         bound.data_ptr(), cand_s.data_ptr(), cand_i.data_ptr(), stream,
     )
     if err != 0:
         raise RuntimeError(f"flat_topk_tc kernel launch failed: CUDA error {err} "
-                           f"(B={B}, N={N}, D={D}, k={k}, {plan})")
+                           f"(B={B}, N={N}, D={D}, xt_depth={xt_depth}, k={k}, {plan})")
     return out_s, out_i
+
+
+def _launch_tc_xt(q, xt, bias, k: int):
+    """K4tc (bf16 q) and K4tc3 (f32 q): `_launch_tc` over xt [D, N]."""
+    return _launch_tc(q, xt, bias, k, xt=True)
 
 
 def k1_tm(B: int) -> int:
@@ -674,7 +698,7 @@ def streaming_topk_cuda(
     if _on_cpu(q, x, bias):
         return streaming_topk(q, x, bias, k, tile_n)
     _check(q, x, bias, k)
-    if uses_tensor_cores(q.dtype, x.dtype, K1_LAYOUT):
+    if uses_tensor_cores(q.dtype, x.dtype):
         return streaming_topk_cuda_k1tc(q, x, bias, k, tile_n)
     out = _launch_col(q, x, bias, k, k1_tm(q.shape[0]))
     with _count_lock:
@@ -697,7 +721,7 @@ def streaming_topk_cuda_qmajor(
     if _on_cpu(q, x, bias):
         return streaming_topk(q, x, bias, k, tile_n)
     _check(q, x, bias, k)
-    if uses_tensor_cores(q.dtype, x.dtype, K2_LAYOUT):
+    if uses_tensor_cores(q.dtype, x.dtype):
         return _tc_route(q)(q, x, bias, k, tile_n)
     out = _launch_rows(q, x, bias, k, K2_LAYOUT)
     with _count_lock:
@@ -718,7 +742,7 @@ def streaming_topk_cuda_qres(
     if _on_cpu(q, x, bias):
         return streaming_topk(q, x, bias, k, tile_n)
     _check(q, x, bias, k)
-    if uses_tensor_cores(q.dtype, x.dtype, K3_LAYOUT):
+    if uses_tensor_cores(q.dtype, x.dtype):
         return _tc_route(q)(q, x, bias, k, tile_n)
     out = _launch_rows(q, x, bias, k, K3_LAYOUT)
     with _count_lock:
@@ -726,17 +750,22 @@ def streaming_topk_cuda_qres(
     return out
 
 
-def _tensor_core_scan(q, x, bias, k, tile_n, q_dtype, launch, counted):
+def _tensor_core_scan(q, x, bias, k, tile_n, q_dtype, launch, counted, xt=False):
     """A tensor-core wrapper's body: the plain version on CPU tensors; on
-    CUDA tensors its kernel over bf16 rows and `q_dtype` queries (or a
-    raise), counted in `counted.launches`."""
+    CUDA tensors its kernel over bf16 rows (xt: a bf16 xt [D, N] that TMA
+    can read) and `q_dtype` queries (or a raise), counted in
+    `counted.launches`."""
     if _on_cpu(q, x, bias):
-        return streaming_topk(q, x, bias, k, tile_n)
-    _check(q, x, bias, k)
+        return streaming_topk(q, x.T if xt else x, bias, k, tile_n)
+    (_check_xt if xt else _check)(q, x, bias, k)
+    corpus = "a bf16 xt" if xt else "bf16 rows"
     if x.dtype != torch.bfloat16 or q.dtype not in q_dtype:
         names = " or ".join("bf16" if d == torch.bfloat16 else "f32" for d in q_dtype)
-        raise ValueError(f"the tensor-core kernel takes {names} queries over bf16 rows, got q "
+        raise ValueError(f"the tensor-core kernel takes {names} queries over {corpus}, got q "
                          f"{q.dtype} over x {x.dtype}")
+    if xt and not xt_tma_readable(x.shape[1], x.data_ptr()):
+        raise ValueError(f"TMA reads xt [D, N] only with N % 8 == 0 and a 16-byte aligned base, "
+                         f"got N={x.shape[1]} at {x.data_ptr() % 16} bytes past 16")
     out = launch(q, x, bias, k)
     with _count_lock:
         counted.launches += 1
@@ -793,9 +822,40 @@ def _tc_route(q: torch.Tensor):
     return streaming_topk_cuda_tc if q.dtype == torch.bfloat16 else streaming_topk_cuda_tc3
 
 
+def streaming_topk_cuda_tc_xt(
+    q: torch.Tensor, xt: torch.Tensor, bias: torch.Tensor, k: int,
+    tile_n: int = DEFAULT_TILE_N,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K4 over bf16 queries and a bf16 xt [D, N] ("K4tc"): K2tc's kernel
+    and plan with each stage's corpus read from xt as two MN-major boxes
+    (`wgmma` with the B operand transposed). Its results equal K2tc's on
+    xt.T. CPU tensors run `streaming_topk` on xt.T; CUDA tensors launch
+    the kernel, which takes bf16 q and xt only, any D, N % 8 == 0 and a
+    16-byte aligned xt (`xt_tma_readable`), or raise."""
+    return _tensor_core_scan(q, xt, bias, k, tile_n, (torch.bfloat16,), _launch_tc_xt,
+                             streaming_topk_cuda_tc_xt, xt=True)
+
+
+def streaming_topk_cuda_tc3_xt(
+    q: torch.Tensor, xt: torch.Tensor, bias: torch.Tensor, k: int,
+    tile_n: int = DEFAULT_TILE_N,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K4 over f32 queries and a bf16 xt [D, N] ("K4tc3"): K4tc's kernel
+    with each f32 query as its three bf16 pieces (`split_bf16`), as K2tc3.
+    Same contract as `streaming_topk_cuda_tc_xt`, for f32 q."""
+    return _tensor_core_scan(q, xt, bias, k, tile_n, (torch.float32,), _launch_tc_xt,
+                             streaming_topk_cuda_tc3_xt, xt=True)
+
+
+def _tc_xt_route(q: torch.Tensor):
+    """K4's wrapper over a bf16 xt for q's dtype."""
+    return streaming_topk_cuda_tc_xt if q.dtype == torch.bfloat16 else streaming_topk_cuda_tc3_xt
+
+
 def _check_xt(q: torch.Tensor, xt: torch.Tensor, bias: torch.Tensor, k: int) -> None:
-    """`_check` for a corpus xt [D, N], which K4 reads along N one element
-    at a time: no condition on D or alignment."""
+    """`_check` for a corpus xt [D, N], which `rows_pass1` reads along N
+    one element at a time: no condition on D or alignment (the
+    tensor-core route takes only the xt `xt_tma_readable` passes)."""
     if xt.dim() != 2 or q.dim() != 2 or bias.dim() != 1 or q.shape[1] != xt.shape[0] \
             or bias.shape[0] != xt.shape[1]:
         raise ValueError(f"shape mismatch: expected q [B, D], xt [D, N], bias [N], got q "
@@ -822,10 +882,18 @@ def streaming_topk_cuda_qmajor_xt(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K4: K2 over a pre-transposed corpus xt [D, N] (any N and D); its
     results equal K2's on xt.T. CPU tensors run `streaming_topk` on xt.T.
-    Returns (scores [B, k] f32, ids [B, k] int32)."""
+    A bf16 xt that TMA can read (`xt_tma_readable`) runs on the tensor
+    cores (`uses_tensor_cores`): bf16 queries as `streaming_topk_cuda_tc_xt`
+    ("K4tc"), f32 queries as `streaming_topk_cuda_tc3_xt` ("K4tc3"), each
+    counting in its own launches; f32 xt, and a bf16 xt with N % 8 != 0 or
+    an unaligned base, launch `rows_pass1` and count here. Returns (scores
+    [B, k] f32, ids [B, k] int32)."""
     if _on_cpu(q, xt, bias):
         return streaming_topk(q, xt.T, bias, k, tile_n)
     _check_xt(q, xt, bias, k)
+    if uses_tensor_cores(q.dtype, xt.dtype) and \
+            xt_tma_readable(xt.shape[1], xt.data_ptr()):
+        return _tc_xt_route(q)(q, xt, bias, k, tile_n)
     out = _launch_rows(q, xt, bias, k, K4_LAYOUT)
     with _count_lock:
         streaming_topk_cuda_qmajor_xt.launches += 1
@@ -839,6 +907,8 @@ streaming_topk_cuda_qmajor_xt.launches = 0
 streaming_topk_cuda_tc.launches = 0
 streaming_topk_cuda_tc3.launches = 0
 streaming_topk_cuda_k1tc.launches = 0
+streaming_topk_cuda_tc_xt.launches = 0
+streaming_topk_cuda_tc3_xt.launches = 0
 
 
 __all__ = [
@@ -855,7 +925,10 @@ __all__ = [
     "streaming_topk_cuda_tc",
     "streaming_topk_cuda_tc3",
     "streaming_topk_cuda_k1tc",
+    "streaming_topk_cuda_tc_xt",
+    "streaming_topk_cuda_tc3_xt",
     "k1tc_plan",
     "tc_plan",
     "uses_tensor_cores",
+    "xt_tma_readable",
 ]

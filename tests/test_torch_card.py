@@ -129,16 +129,36 @@ def test_kernels_match_plain_on_card(cuda_device, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_k4_matches_plain_on_card(cuda_device, dtype):
+    """K4 against its plain version on its routes: an f32 xt on rows_pass1
+    (f32 queries); a bf16 xt with N % 8 == 0 on K4tc (bf16 queries) and
+    K4tc3 (f32 queries), at both query tiles and a depth that is not a
+    multiple of 8 (q padded) nor of 64; a bf16 xt of a ragged N on
+    rows_pass1 with either query dtype. Each call launches once, counted
+    in its route's counter."""
     rng = np.random.default_rng(2)
-    q, x, bias = _case(rng, 70, 5003, 768, dead_frac=0.01)
     td = getattr(torch, dtype)
-    tq_, txt, tb = (t.to(cuda_device) for t in _t(q, np.ascontiguousarray(x.T), bias))
-    tq_, txt = tq_.to(td), txt.to(td)
-    for k in (1, 30, 300):
-        ks, ki = ttopk.streaming_topk_cuda_qmajor_xt(tq_, txt, tb, k)
-        ps, pi = ttopk.streaming_topk(tq_, txt.T, tb, k)
-        assert_topk_equiv(ks.cpu(), ki.cpu(), ps.cpu(), pi.cpu(), tq_.float().cpu().numpy(),
-                          txt.float().cpu().numpy().T, bias)
+    runs = ((5003, 768, (F32,)),) if td == F32 else \
+        ((5000, 768, (BF16, F32)), (5003, 768, (BF16, F32)), (1000, 100, (BF16, F32)))
+    for N, D, q_dtypes in runs:
+        q, x, bias = _case(rng, 70, N, D, dead_frac=0.01)
+        x[N - 1] = x[3]  # an exact tie across tiles
+        tq_, txt, tb = (t.to(cuda_device) for t in _t(q, np.ascontiguousarray(x.T), bias))
+        txt = txt.to(td)
+        for qd in q_dtypes:
+            counted = ttopk.streaming_topk_cuda_qmajor_xt
+            if td == BF16 and ttopk.xt_tma_readable(N, txt.data_ptr()):
+                counted = ttopk.streaming_topk_cuda_tc_xt if qd == BF16 else \
+                    ttopk.streaming_topk_cuda_tc3_xt
+            for B in (33, 70):
+                for k in (1, 30, 300):
+                    qb = tq_[:B].to(qd).contiguous()
+                    before = counted.launches
+                    ks, ki = ttopk.streaming_topk_cuda_qmajor_xt(qb, txt, tb, k)
+                    torch.cuda.synchronize()
+                    assert counted.launches == before + 1, (counted.__name__, N, D, qd, B, k)
+                    ps, pi = ttopk.streaming_topk(qb, txt.T, tb, k)
+                    assert_topk_equiv(ks.cpu(), ki.cpu(), ps.cpu(), pi.cpu(),
+                                      qb.float().cpu().numpy(), txt.float().cpu().numpy().T, bias)
 
 
 @pytest.mark.cuda
@@ -215,7 +235,7 @@ def test_k1tc_matches_plain_on_card(cuda_device, q_dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("route", ["K1tc", "K2tc3"])
+@pytest.mark.parametrize("route", ["K1tc", "K2tc3", "K4tc3"])
 def test_pieces_exact_on_one_hot_rows_on_card(cuda_device, route):
     """The three-piece routes use every piece: over one-hot bf16 rows
     (row n is e_(n % D), so rows n and n + D tie exactly) a score is the one
@@ -225,14 +245,20 @@ def test_pieces_exact_on_one_hot_rows_on_card(cuda_device, route):
     dropped or repeated a piece would miss by 1e-7 to 1e-6, inside the 1e-5
     that random rows allow. K1tc at one, two and four 8-row query tiles;
     K2tc3 on both sides of its 64- and 128-row query tiles, and K3's
-    route."""
+    route; K4tc3 likewise over the rows as xt (N a multiple of 8, so that
+    TMA reads it: a wrong k-step of the MN-major operand would mix depths)."""
     rng = np.random.default_rng(18)
+    xt_of = lambda f: lambda q_, x_, b_, k_: f(q_, x_.T.contiguous(), b_, k_)  # noqa: E731
     fn, counted, runs = {
         "K1tc": (ttopk.streaming_topk_cuda, ttopk.streaming_topk_cuda_k1tc, (1, 8, 9, 31)),
         "K2tc3": (ttopk.streaming_topk_cuda_qmajor, ttopk.streaming_topk_cuda_tc3,
                   (33, 64, 65, 129)),
+        "K4tc3": (xt_of(ttopk.streaming_topk_cuda_qmajor_xt), ttopk.streaming_topk_cuda_tc3_xt,
+                  (33, 64, 65, 129)),
     }[route]
     for D, N in ((768, 3 * 768 + 5), (200, 1003)):
+        if route == "K4tc3":
+            N -= N % 8
         q = _unit(rng.standard_normal((max(runs), D)))
         x = np.zeros((N, D), np.float32)
         x[np.arange(N), np.arange(N) % D] = 1.0

@@ -1,12 +1,13 @@
-"""K1, K2 and K3 over bf16 rows on the tensor cores ("K1tc",
-`codegraph_tpu_torch/csrc/flat_topk_k1tc.cu`; "K2tc" over bf16 queries and
-"K2tc3" over f32 queries, `csrc/flat_topk_tc.cu`): the route, the host
-plan of K2tc, and the wrappers held to the JAX package's Pallas kernels.
+"""K1, K2 and K3 over bf16 rows, and K4 over a bf16 xt, on the tensor
+cores ("K1tc", `codegraph_tpu_torch/csrc/flat_topk_k1tc.cu`; "K2tc" over
+bf16 queries and "K2tc3" over f32 queries, and K4's "K4tc" and "K4tc3",
+`csrc/flat_topk_tc.cu`): the route, the host plan of K2tc (K4tc's too),
+and the wrappers held to the JAX package's Pallas kernels.
 
 The route and the plan are host code and are tested here as they are. The
 wrappers get CPU tensors here, so they run their plain version; inputs are
 made with numpy from a seed and handed to both packages, and the Pallas
-kernels K2/K3 run in interpret mode, as the JAX package's tests run them.
+kernels K2/K3/K4 run in interpret mode, as the JAX package's tests run them.
 The CUDA kernels themselves are held to the plain version on the card
 (`chip_smoke.py` phase 1, and `tests/test_torch_card.py` where a GPU is
 present).
@@ -31,30 +32,43 @@ BF16, F32 = torch.bfloat16, torch.float32
 
 
 @pytest.mark.parametrize("q_dtype,x_dtype,layout,want", [
-    (BF16, BF16, K2, True), (BF16, BF16, K3, True), (BF16, BF16, K4, False),
-    (F32, BF16, K2, True), (F32, BF16, K3, True), (F32, BF16, K4, False),
+    (BF16, BF16, K2, True), (BF16, BF16, K3, True), (BF16, BF16, K4, True),
+    (F32, BF16, K2, True), (F32, BF16, K3, True), (F32, BF16, K4, True),
     (BF16, F32, K2, False), (BF16, F32, K3, False), (BF16, F32, K4, False),
     (F32, F32, K2, False), (F32, F32, K3, False), (F32, F32, K4, False),
     (BF16, BF16, K1, True), (F32, BF16, K1, True), (BF16, F32, K1, False), (F32, F32, K1, False),
 ])
 def test_route_is_set_by_the_inputs(q_dtype, x_dtype, layout, want):
-    """bf16 rows in K1's, K2's or K3's layout take the tensor cores, under
+    """bf16 rows in any layout (K4: a bf16 xt) take the tensor cores, under
     bf16 queries and under f32 queries (the sharded scan's, as three bf16
-    pieces); f32 rows and K4 over any xt stay on topk_pass1 and
-    rows_pass1."""
-    assert ttopk.uses_tensor_cores(q_dtype, x_dtype, layout) is want
+    pieces); f32 rows stay on topk_pass1 and rows_pass1. The route does
+    not depend on the layout: K4's own condition on xt's shape is
+    `xt_tma_readable`'s."""
+    assert ttopk.uses_tensor_cores(q_dtype, x_dtype) is want
+
+
+@pytest.mark.parametrize("N,addr,want", [
+    (8, 0, True), (296, 4096, True), (100008, 16, True), (1_000_000, 1 << 40, True),
+    (300, 0, False), (100003, 0, False), (7, 0, False), (1001, 16, False),
+    (296, 2, False), (296, 8, False), (1_000_000, (1 << 40) + 4, False),
+])
+def test_xt_route_is_set_by_n_and_alignment(N, addr, want):
+    """K4 over a bf16 xt [D, N] takes the tensor cores where TMA can read
+    xt: rows of N bf16 a multiple of 16 bytes (N % 8 == 0) and a 16-byte
+    aligned base; any other bf16 xt runs rows_pass1."""
+    assert ttopk.xt_tma_readable(N, addr) is want
 
 
 COUNTED = ("streaming_topk_cuda", "streaming_topk_cuda_qmajor", "streaming_topk_cuda_qres",
            "streaming_topk_cuda_qmajor_xt", "streaming_topk_cuda_tc", "streaming_topk_cuda_tc3",
-           "streaming_topk_cuda_k1tc")
+           "streaming_topk_cuda_k1tc", "streaming_topk_cuda_tc_xt", "streaming_topk_cuda_tc3_xt")
 
 
 @pytest.fixture
 def card_routes(monkeypatch):
     """The wrappers as they run on a card, with each launch recorded
     instead of made: (route, layout, query dtype) of every launch, the
-    tensor-core routes with their query pieces."""
+    tensor-core routes with their query pieces (K4 for xt, else None)."""
     seen = []
 
     def rows(q, x, bias, k, layout):
@@ -65,9 +79,9 @@ def card_routes(monkeypatch):
         seen.append(("topk_pass1", K1, q.dtype))
         return ttopk.streaming_topk(q, x, bias, k)
 
-    def tc(q, x, bias, k):
-        seen.append((f"tensor cores x{ttopk.QUERY_PIECES[q.dtype]}", None, q.dtype))
-        return ttopk.streaming_topk(q, x, bias, k)
+    def tc(q, x, bias, k, xt=False):
+        seen.append((f"tensor cores x{ttopk.QUERY_PIECES[q.dtype]}", K4 if xt else None, q.dtype))
+        return ttopk.streaming_topk(q, x.T if xt else x, bias, k)
 
     def k1tc(q, x, bias, k):
         seen.append((f"K1 tensor cores x{ttopk.QUERY_PIECES[q.dtype]}", K1, q.dtype))
@@ -90,9 +104,10 @@ def _launches():
 @pytest.mark.parametrize("q_dtype,x_dtype", [(BF16, BF16), (F32, BF16), (BF16, F32), (F32, F32)])
 def test_wrappers_launch_their_route_and_count_it(rng, card_routes, q_dtype, x_dtype):
     """Over bf16 rows K2 and K3 send bf16 queries to K2tc and f32 queries
-    to K2tc3 (three pieces), each counting the launch in its own counter
-    (K2's and K3's stay as they were); f32 rows launch rows_pass1 and
-    count in K2's or K3's; K4 always launches rows_pass1."""
+    to K2tc3 (three pieces), and K4 over a bf16 xt with N % 8 == 0 to K4tc
+    and K4tc3, each counting the launch in its own counter (K2's, K3's and
+    K4's stay as they were); f32 rows, and a bf16 xt of N = 300, launch
+    rows_pass1 and count in K2's, K3's or K4's."""
     q, x, bias = _case(rng, 40, 300, 64)
     tq, tx, tb = _t(q, x, bias)
     tq, tx = tq.to(q_dtype), tx.to(x_dtype)
@@ -100,14 +115,43 @@ def test_wrappers_launch_their_route_and_count_it(rng, card_routes, q_dtype, x_d
     pieces = ttopk.QUERY_PIECES[q_dtype]
     ttopk.streaming_topk_cuda_qmajor(tq, tx, tb, 10)
     ttopk.streaming_topk_cuda_qres(tq, tx, tb, 10)
-    ttopk.streaming_topk_cuda_qmajor_xt(tq, tx.T.contiguous(), tb, 10)
-    want = ([(f"tensor cores x{pieces}", None, q_dtype)] * 2 if tc else
-            [("rows_pass1", K2, q_dtype), ("rows_pass1", K3, q_dtype)])
+    ttopk.streaming_topk_cuda_qmajor_xt(tq, tx[:296].T.contiguous(), tb[:296], 10)
+    ttopk.streaming_topk_cuda_qmajor_xt(tq, tx.T.contiguous(), tb, 10)  # N % 8 == 4
+    want = ([(f"tensor cores x{pieces}", None, q_dtype)] * 2 +
+            [(f"tensor cores x{pieces}", K4, q_dtype)] if tc else
+            [("rows_pass1", K2, q_dtype), ("rows_pass1", K3, q_dtype), ("rows_pass1", K4, q_dtype)])
     assert card_routes == want + [("rows_pass1", K4, q_dtype)]
     tc_name = "streaming_topk_cuda_tc" if pieces == 1 else "streaming_topk_cuda_tc3"
-    assert _launches() == ({tc_name: 2, "streaming_topk_cuda_qmajor_xt": 1} if tc else
+    xt_name = "streaming_topk_cuda_tc_xt" if pieces == 1 else "streaming_topk_cuda_tc3_xt"
+    assert _launches() == ({tc_name: 2, xt_name: 1, "streaming_topk_cuda_qmajor_xt": 1} if tc else
                            {"streaming_topk_cuda_qmajor": 1, "streaming_topk_cuda_qres": 1,
-                            "streaming_topk_cuda_qmajor_xt": 1})
+                            "streaming_topk_cuda_qmajor_xt": 2})
+
+
+@pytest.mark.parametrize("q_dtype", [BF16, F32])
+@pytest.mark.parametrize("N,offset,tc", [(296, 0, True), (304, 0, True), (297, 0, False),
+                                         (300, 0, False), (296, 1, False), (296, 4, False)])
+def test_k4_bf16_xt_route_follows_n_and_alignment(rng, card_routes, q_dtype, N, offset, tc):
+    """K4 over a bf16 xt sends it to K4tc/K4tc3 where TMA can read it (N %
+    8 == 0, a 16-byte aligned base), else to rows_pass1 (a ragged N, or an
+    xt that starts 2 or 8 bytes past 16 inside a larger buffer), and counts
+    the launch in that route's counter alone."""
+    q, x, bias = _case(rng, 40, N, 64)
+    tq, tx, tb = _t(q, x, bias)
+    buf = torch.zeros(64 * N + 16, dtype=BF16)
+    base = (-buf.data_ptr() // 2) % 8 + offset  # elements to a 16-byte boundary, then offset
+    txt = buf[base: base + 64 * N].view(64, N)
+    txt.copy_(tx.to(BF16).T)
+    assert (txt.data_ptr() % 16 == 0) == (offset == 0)
+    ttopk.streaming_topk_cuda_qmajor_xt(tq.to(q_dtype), txt, tb, 10)
+    pieces = ttopk.QUERY_PIECES[q_dtype]
+    if tc:
+        assert card_routes == [(f"tensor cores x{pieces}", K4, q_dtype)]
+        assert _launches() == {"streaming_topk_cuda_tc_xt" if pieces == 1
+                               else "streaming_topk_cuda_tc3_xt": 1}
+    else:
+        assert card_routes == [("rows_pass1", K4, q_dtype)]
+        assert _launches() == {"streaming_topk_cuda_qmajor_xt": 1}
 
 
 @pytest.mark.parametrize("q_dtype,x_dtype", [(BF16, BF16), (F32, BF16), (BF16, F32), (F32, F32)])
@@ -154,6 +198,71 @@ def test_new_tc_wrappers_refuse_other_inputs(rng, card_routes, name, q_dtype, x_
     assert card_routes == [] and _launches() == {}
 
 
+@pytest.mark.parametrize("name,q_dtype,x_dtype,N,match", [
+    ("streaming_topk_cuda_tc_xt", F32, BF16, 296, "bf16 queries over a bf16 xt"),
+    ("streaming_topk_cuda_tc_xt", BF16, F32, 296, "bf16 queries over a bf16 xt"),
+    ("streaming_topk_cuda_tc3_xt", BF16, BF16, 296, "f32 queries over a bf16 xt"),
+    ("streaming_topk_cuda_tc3_xt", F32, F32, 296, "f32 queries over a bf16 xt"),
+    ("streaming_topk_cuda_tc_xt", BF16, BF16, 300, "N % 8 == 0"),
+    ("streaming_topk_cuda_tc3_xt", F32, BF16, 301, "N % 8 == 0"),
+])
+def test_xt_tc_wrappers_refuse_other_inputs(rng, card_routes, name, q_dtype, x_dtype, N, match):
+    """K4tc launches bf16 over a bf16 xt, K4tc3 f32 over a bf16 xt, each
+    only where TMA can read xt, or they raise: neither falls back."""
+    q, x, bias = _case(rng, 8, N, 64)
+    tq, tx, tb = _t(q, x, bias)
+    with pytest.raises(ValueError, match=match):
+        getattr(ttopk, name)(tq.to(q_dtype), tx.to(x_dtype).T.contiguous(), tb, 10)
+    assert card_routes == [] and _launches() == {}
+
+
+class _FakeTcLib:
+    """csrc/flat_topk_tc.cu's C interface as a recorder: the plan's sizes
+    as ops/topk.py computes them, and each launch's arguments."""
+
+    def __init__(self):
+        self.launches = []
+
+    def flat_topk_tc_smem(self, qt, resident, stages, D, pieces):
+        return ttopk.tc_smem(qt, bool(resident), stages, D, pieces=pieces)
+
+    def flat_topk_tc_work_entries(self, B, k, splits, group):
+        return ttopk.work_entries(B, k, splits, group)
+
+    def flat_topk_tc_cand_entries(self, B, qt, splits):
+        return -(-B // qt) * splits * ttopk.TC_SLOTS * ttopk.TC_BUF_CAP
+
+    def flat_topk_tc(self, *args):
+        self.launches.append(args)
+        return 0
+
+
+@pytest.mark.parametrize("q_dtype", [BF16, F32])
+@pytest.mark.parametrize("B,D,N,k", [(70, 768, 4096, 30), (64, 36, 1000, 10),
+                                     (129, 200, 296, 300), (1024, 1536, 8, 1)])
+def test_k4tc_launch_is_k2tc_plan_over_xt(monkeypatch, rng, q_dtype, B, D, N, k):
+    """The K4tc/K4tc3 launch hands flat_topk_tc K2tc's plan for q's depth
+    rounded up to 8 (zero columns: TMA's 16-byte rows), xt's own depth
+    (its rows past it read as zeros) and N from xt's columns."""
+    lib = _FakeTcLib()
+    monkeypatch.setattr(ttopk, "_tc_lib", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda dev: type("P", (), {"multi_processor_count": ttopk.TC_SMS}))
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: type("S", (), {"cuda_stream": 0}))
+    q, x, bias = _case(rng, B, N, D)
+    tq, tx, tb = _t(q, x, bias)
+    ttopk._launch_tc_xt(tq.to(q_dtype), tx.to(BF16).T.contiguous(), tb, k)
+    (args,) = lib.launches
+    pieces = ttopk.QUERY_PIECES[q_dtype]
+    d8 = -(-D // 8) * 8
+    plan = ttopk.tc_plan(B, N, d8, k, pieces=pieces)
+    assert args[1:2] == (pieces,) and args[3] == D and args[5:9] == (B, N, d8, k)
+    assert args[9:16] == (plan.query_tile, int(plan.resident), plan.stages, plan.splits,
+                          plan.rows_per_split, plan.smem, ttopk.MERGE_GROUP)
+    assert plan.smem <= ttopk.SMEM_PER_BLOCK
+
+
 def test_tc_smem_is_the_layout_sum():
     """tc_smem spells out csrc/flat_topk_tc.cu's TcLayout: a 128-row tile
     streamed through 6 stages of 32 KB at D = 768, and a 64-row tile
@@ -163,6 +272,25 @@ def test_tc_smem_is_the_layout_sum():
     assert ttopk.tc_smem(64, True, 6, 768) == 6 * 16384 + 12 * 8192 + rest + 21 * 8
     assert ttopk.tc_smem(64, True, 3, 1216) == 3 * 16384 + 19 * 8192 + rest + 15 * 8
     assert ttopk.tc_smem(64, False, 4, 4096) == 4 * 24576 + rest + 17 * 8
+
+
+def test_tc_smem_over_xt_is_the_layout_sum():
+    """K4tc's stage holds a 128-column corpus tile at 64 depths of xt as two
+    boxes of 64 columns (the 128-byte swizzle span) x 64 depths: 16 KB, a
+    row box's bytes, so K2tc's layout and plan serve it unchanged (K4tc3
+    too: three query pieces)."""
+    xt_box = (ttopk.TC_BOX_BYTES // 2) * ttopk.TC_BOX_BYTES  # 64 depths of 128-byte rows
+    assert 2 * xt_box == ttopk.TC_TILE_N * ttopk.TC_BOX_BYTES == 16384
+    rest = 1024 + 4 * 128 * 4 + 16 * 160 * 8 + 128 * 5 * 4
+    plan = ttopk.tc_plan(1024, 1_000_000, 768, 30)
+    assert (plan.query_tile, plan.resident, plan.stages) == (128, False, 6)
+    assert plan.smem == 6 * (2 * xt_box + 128 * 128) + rest + 21 * 8 == 222_888
+    plan3 = ttopk.tc_plan(1024, 1_000_000, 768, 30, pieces=3)
+    assert plan3.smem == plan3.stages * (2 * xt_box + 3 * 128 * 128) + rest \
+        + (2 * plan3.stages + 9) * 8 <= ttopk.SMEM_PER_BLOCK
+    plan64 = ttopk.tc_plan(64, 1_000_000, 40, 10)  # D = 36 padded to 40: one 64-depth chunk
+    assert plan64.resident and plan64.smem == 1024 + plan64.stages * 2 * xt_box + 64 * 128 + \
+        4 * 128 * 4 + 16 * 160 * 8 + 128 * 5 * 4 + (2 * plan64.stages + 9) * 8
 
 
 @pytest.mark.parametrize("B", [1, 32, 33, 64, 65, 128, 129, 256, 1000, 1024, 4096, 20000])
@@ -244,6 +372,66 @@ def test_bf16_wrappers_match_jax_pallas(rng, kernel, B, k):
     live = int((bias > ttopk.NEG_INF / 2).sum())
     if k > live:
         assert (ti[:, live:] == -1).all() and (ts[:, live:] == ttopk.NEG_INF).all()
+
+
+def _pallas_xt(q, xt, bias, k, tile_b, q_jdtype):
+    B, D = q.shape
+    qpad = np.zeros((-(-B // tile_b) * tile_b, D), np.float32)
+    qpad[:B] = q  # the Pallas kernel takes whole query tiles
+    js, ji = jtopk.streaming_topk_pallas_qmajor_xt(
+        jnp.asarray(qpad, q_jdtype), jnp.asarray(xt, jnp.bfloat16), jnp.asarray(bias), k,
+        tile_n=256, tile_b=tile_b, interpret=True)
+    return np.asarray(js)[:B], np.asarray(ji)[:B]
+
+
+@pytest.mark.parametrize("q_dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("B,N,k", [(64, 512, 10), (65, 512, 300), (129, 1024, 30),
+                                   (64, 768, 100)])
+def test_k4_bf16_xt_wrappers_match_jax_pallas(rng, q_dtype, B, N, k):
+    """K4 over a bf16 xt (K4tc with bf16 queries, K4tc3 with f32 queries:
+    the wrappers' plain version on CPU tensors) against
+    `streaming_topk_pallas_qmajor_xt` in interpret mode on the same bf16
+    xt and queries, which takes f32 queries over a bf16 xt as they are.
+    Duplicate rows (exact ties), one of them across the two 64-column
+    halves of a 128-column tile (rows 6 and 70, query 0 on row 6),
+    tombstones, and k above the live count (200 of N rows live)."""
+    D = 64
+    q, x, bias = _case(rng, B, N, D, dead_frac=0.01)
+    x[300:350] = x[100:150]
+    x[70] = x[6]
+    bias[6] = bias[70] = 0.0
+    bias[200:] = ttopk.NEG_INF
+    x = torch.from_numpy(x).to(BF16).float().numpy()  # the bf16 rows, exactly
+    q[0] = x[6]
+    td = getattr(torch, q_dtype)
+    q = torch.from_numpy(q).to(td).float().numpy()  # the queries in their own dtype
+    xt = np.ascontiguousarray(x.T)
+    js, ji = _pallas_xt(q, xt, bias, k, 64, jnp.bfloat16 if q_dtype == "bfloat16" else jnp.float32)
+    tq, txt, tb = _t(q, xt, bias)
+    tq, txt = tq.to(td), txt.to(BF16)
+    ts, ti = ttopk.streaming_topk_cuda_qmajor_xt(tq, txt, tb, k)
+    assert_topk_equiv(ts, ti, js, ji, q, x, bias)
+    wrapper = ttopk.streaming_topk_cuda_tc_xt if td == BF16 else ttopk.streaming_topk_cuda_tc3_xt
+    ws, wi = wrapper(tq, txt, tb, k)
+    ks, ki = ttopk.streaming_topk_cuda_qmajor(tq, txt.T.contiguous(), tb, k)
+    assert torch.equal(ws, ts) and torch.equal(wi, ti)
+    assert torch.equal(ks, ts) and torch.equal(ki, ti)  # K2 on xt.T: the same function
+    if k > 1:  # query 0 holds both rows of the pair across the halves, the lower id first
+        assert list(ti[0, :2].numpy()) == [6, 70]
+        assert sorted(np.asarray(ji)[0, :2].tolist()) == [6, 70]
+    if k > 200:
+        assert (ti[:, 200:] == -1).all() and (ts[:, 200:] == ttopk.NEG_INF).all()
+
+
+def test_pallas_xt_takes_f32_queries_over_bf16_xt_exactly(rng):
+    """The JAX K4 kernel multiplies f32 queries by a bf16 xt in f32 (the
+    function K4tc3 computes with three bf16 pieces a query): at 64 x 64 x
+    512 its k best scores are q @ xt_bf16.astype(f32) + bias's, to 0.0."""
+    q, x, bias = _case(rng, 64, 512, 64)
+    xt = np.ascontiguousarray(torch.from_numpy(x).to(BF16).float().numpy().T)
+    js, ji = _pallas_xt(q, xt, bias, 10, 64, jnp.float32)
+    full = q @ xt + bias[None, :]
+    np.testing.assert_array_equal(js, np.take_along_axis(full, ji.astype(np.int64), 1))
 
 
 def _variants_tool():

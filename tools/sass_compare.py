@@ -38,7 +38,11 @@ OUT = cuda_build.BUILD_DIR / "sass"
 
 
 def _code(lines) -> list:
-    return [ln.strip() for ln in lines if ln.strip().startswith(("/*", "Function", ".text"))]
+    """The instruction lines, each with its runs of blanks as one: cuobjdump
+    pads an instruction to a column that the longest line of the file sets,
+    so a kernel renamed to a longer template instance moves it."""
+    return [" ".join(ln.split()) for ln in lines
+            if ln.strip().startswith(("/*", "Function", ".text"))]
 
 
 def build(tag: str, csrc: pathlib.Path, name: str):
