@@ -14,6 +14,8 @@
     python3 chip_smoke.py --phases 0,1,3   # the kernels, checked and timed at real size (K4tc too)
     python3 chip_smoke.py --phases 0,15    # the bf16 main path (K1tc, K2tc) only
     python3 chip_smoke.py --phases 0,16    # the card's pytest cases (tests/test_torch_card.py)
+    python3 chip_smoke.py --phases 0,1,17  # every embedding width: the ragged routes, main path at D=100
+    python3 chip_smoke.py --phases 0,5     # the int8 tier at 10M rows, K6r at 768, 760 and 765
 
 Phases, each printing one JSON object per line as it ends:
 
@@ -46,8 +48,17 @@ Phases, each printing one JSON object per line as it ends:
      100, 300}, with an all-zero row (scale 0) and rows of +-127 everywhere
      (an int8 wrap would show), K6 at B = 33, 64 (the 64-row tile), 65,
      96, 128, 129, 255, 256 and 1000 (128-row tiles), K7 at 64, 96, 129
-     and 256, and K6 at D = 100 (not a multiple of 16: the mma.sync kernel,
-     K6s), its scores equal to the plain version's bit for bit. Both: a
+     and 256, and K6 at D = 100 (not a multiple of 16: the ragged-row
+     producer's instance, K6r), its scores equal to the plain version's
+     bit for bit. Every embedding width: K1-K3 over f32 rows and bf16 rows
+     (bf16 and f32 queries) and K5-K7 over int8 rows at D in {1, 3, 25,
+     50, 100, 300, 760, 764, 765, 1000}, and with the base one element off
+     16 bytes at 100, 765 and 1000, over 10,007 rows (duplicates, 1%
+     tombstones, a filter), B in {1, 9, 31, 33, 64, 65, 129}, k in {1, 10,
+     100, 300}: each call launches the route the rules name (K1r, K2r;
+     K1tcr, K2tcr, K2tc3r; K5r; K6r; or the 16-byte and TMA instances),
+     once; K1tcr and K2tc3r over one-hot rows at D = 100 and 765 bit for
+     bit. Both: a
      ragged N, 1% tombstones, an
      extra_bias filter, k above the live count, duplicate rows (exact
      ties), batches on both sides of 32. K4: K2's cases on xt = x.T; over
@@ -90,7 +101,11 @@ Phases, each printing one JSON object per line as it ends:
      f32 one; for K4tc and K4tc3 on xt's chunks), the bound (f32 queries
      over bf16 rows: three bf16 tensor-core products, or the bytes) and,
      for K2tc, K2tc3, K4tc and K4tc3, the bytes their blocks read by the
-     plan.
+     plan. Then the ragged routes at widths no 16-byte piece fits: 1M x
+     765 f32 (K1r at B=1 and 8, K2r at 64, 256, 1024) and 1M x 764 bf16
+     (K1tcr at B=1 and 8, both query dtypes; K2tcr and K2tc3r at 64, 256,
+     1024), k=30 and 300 (the tensor-core library call on zero-padded
+     copies, made untimed).
   4  the int8 main path: phase 2 with index.dtype = "int8" (Int8FlatIndex,
      bf16 rescore copy): 5 searches (K5) and 64 concurrent queries through
      QueryService (K6), checked against the same snapshot searched on the
@@ -99,10 +114,13 @@ Phases, each printing one JSON object per line as it ends:
   5  real size of the int8 tier: Int8FlatIndex of 10,000,000 x 768 rows
      with a bf16 rescore copy (about 23 GB), made on the card, 1%
      tombstoned; K5 at B=1 and 8, K6 and K7 at B=64, 256 and 1024, k=100
-     and 300, and the mma.sync kernel (K6s) at B=1024, k=100, timed as in
-     phase 3 against a chunked torch._int_mm + topk yardstick; and
-     Int8FlatIndex.search end to end at B=1 and 1024, with the time of
-     each of its stages at B=1024 (quantize, scan, rescore, copy back).
+     and 300, and K6r (the ragged-row producer's instance) called directly
+     at B=1024, k=100, timed as in phase 3 against a chunked torch._int_mm
+     + topk yardstick; Int8FlatIndex.search end to end at B=1 and 1024,
+     with the time of each of its stages at B=1024 (quantize, scan,
+     rescore, copy back); then 10M int8 rows of width 760 and 765 (K5 or
+     K5r at B=1 and 8, K6r at 64, 256, 1024; k=100 and 300; the yardstick
+     on a zero-padded copy at 765).
   6  the IVF-PQ main path: phase 2 with index.kind = "ivfpq" at the config
      defaults (nlist 4096, nprobe 64, pq_m 96, host int8 refine): 5
      searches, a filtered search keeping <= 3% of rows (a fetch above
@@ -247,6 +265,15 @@ Phases, each printing one JSON object per line as it ends:
      conftest imports JAX, which the card's machine lacks); every
      collected case must pass and none skip. Prints the pass count on a
      line of its own. It runs right after phase 1.
+  17 every embedding width on the main path: phase 2 at
+     embedding.dimension = 100 with index.dtype "float32" (K1, K2 on their
+     16-byte pieces), "bfloat16" (K1tcr, K2tcr: the ragged-row producer)
+     and phase 4's int8 path (K5's words, K6r), each checked as in phases
+     2 and 4, each launching its routes and no other kernel (no TMA
+     instance); then a bf16 ShardedFlatIndex (K1tcr at B=8, K2tc3r at
+     1024) and a ShardedInt8Index (K5 at 8, K6r at 256) over 1M rows of
+     that width on phase 13's 8-shard mesh, against one scan of the same
+     route over all rows and the oracle. It runs right after phase 15.
 
 Then the card's name and power limit, one JSON line with every kernel's
 numbers, and last {"ok": true, "device": {...}}. Any failed check exits
@@ -273,7 +300,7 @@ import time
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-WATCHDOG_S = 900
+WATCHDOG_S = 1100
 NEG_INF = -1e30
 
 # H100 SXM data sheet (dense): the bound of a kernel is the larger of its
@@ -307,6 +334,20 @@ K1TC_K_OTHER = (1, 30, 300, 1024)
 K4TC_D = (36, 200, 1536)
 K4TC_RAGGED = 100008
 
+#: the every-width family of phase 1: widths that TMA's tiled mode (bf16
+#: rows: D % 8; int8 rows: D % 16) or 16-byte pieces (f32 rows: D % 4) or
+#: words (int8 rows: D % 4) cannot read, and 1000 (bf16 TMA, int8 8-byte
+#: pieces); RAGGED_OFFSET_D also with the base one element off 16 bytes;
+#: a ragged N with duplicate rows, 1% tombstones and a filter
+RAGGED_D = (1, 3, 25, 50, 100, 300, 760, 764, 765, 1000)
+RAGGED_OFFSET_D = (100, 765, 1000)
+RAGGED_N = 10007
+RAGGED_K = (1, 10, 100, 300)
+#: (kernel, B): K1 (K5) on both sides of 8 and up to 31, K2 (K6) on both
+#: sides of 32 and of the 64- and 128-row query tiles, K3 (K7)
+RAGGED_SHAPES = (("K1", 1), ("K1", 9), ("K1", 31), ("K2", 33), ("K2", 64), ("K2", 65),
+                 ("K2", 129), ("K3", 129))
+
 #: the sources under codegraph_tpu_torch/csrc/, built in phase 0
 SOURCES = ("flat_topk", "flat_topk_tc", "flat_topk_k1tc", "int8_topk", "ivfpq_adc", "ivf_spill")
 
@@ -337,9 +378,25 @@ KERNELS = {
            "codegraph_tpu/ops/quantize.py:287"),
     "K7": ("quantize", "streaming_topk_int8_cuda_qres", INT8_CU,
            "codegraph_tpu/ops/quantize.py:396"),
-    # K6/K7 on the shapes TMA cannot take (D % 16 != 0, unaligned rows)
-    "K6s": ("quantize", "streaming_topk_int8_cuda_sync", INT8_CU,
+    # K6/K7 over rows TMA cannot read (D % 16 != 0, unaligned rows): the
+    # same wgmma kernel fed by the ragged-row producer (csrc/hopper_tc.cuh)
+    "K6r": ("quantize", "streaming_topk_int8_cuda_ragged", INT8_CU,
             "codegraph_tpu/ops/quantize.py:287"),
+    # K5 over rows that are not 4-byte aligned (D % 4 != 0, a base one byte in)
+    "K5r": ("quantize", "streaming_topk_int8_cuda_realigned", INT8_CU,
+            "codegraph_tpu/ops/quantize.py:182"),
+    # K1 and K2/K3 over f32 rows in 4-byte pieces (D % 4 != 0, unaligned rows)
+    "K1r": ("topk", "streaming_topk_cuda_ragged", FLAT_CU, "codegraph_tpu/ops/topk.py:347"),
+    "K2r": ("topk", "streaming_topk_cuda_qmajor_ragged", FLAT_CU,
+            "codegraph_tpu/ops/topk.py:456"),
+    # K1tc, K2tc and K2tc3 over bf16 rows TMA cannot read (D % 8 != 0,
+    # unaligned rows), fed by the ragged-row producer
+    "K1tcr": ("topk", "streaming_topk_cuda_k1tc_ragged", FLAT_K1TC_CU,
+              "codegraph_tpu/ops/topk.py:347"),
+    "K2tcr": ("topk", "streaming_topk_cuda_tc_ragged", FLAT_TC_CU,
+              "codegraph_tpu/ops/topk.py:456"),
+    "K2tc3r": ("topk", "streaming_topk_cuda_tc3_ragged", FLAT_TC_CU,
+               "codegraph_tpu/ops/topk.py:456"),
     "K8": ("ivfpq", "ivfpq_search_cuda", IVFPQ_CU, "codegraph_tpu/index/ivfpq.py:273"),
 }
 
@@ -461,7 +518,8 @@ def ptxas_summary(log: str) -> list:
         m = re.search(r"Compiling entry function '([^']+)'", ln)
         if m:
             k = re.search(r"(topk_pass1|rows_pass1|bf16_tc_pass1|bf16_k1_pass1|int8_dp4a_pass1|"
-                          r"int8_mma_pass1|"
+                          r"topk_ragged_pass1|bf16_tc_ragged_pass1|int8_dp4a_ragged_pass1|"
+                          r"int8_tc_ragged_pass1|"
                           r"int8_tc_pass1|adc_qmajor|"
                           r"merge_pairs_global|"
                           r"topk_merge)"
@@ -591,6 +649,7 @@ def phase1(torch, mods, errs) -> dict:
                             "max_abs_err": err, "id_mismatches": n_diff,
                             "mismatches_outside_ties": bad})
     cases += phase1_unaligned(torch, mods, errs, g)
+    cases += phase1_ragged(torch, mods, errs)
     cases += phase1_tc(torch, mods, errs)
     cases += phase1_k1tc(torch, mods, errs)
     cases += phase1_k4tc(torch, mods, errs)
@@ -611,7 +670,8 @@ def phase1(torch, mods, errs) -> dict:
 
 def phase1_unaligned(torch, mods, errs, g) -> list:
     """K6 and K7 at a D that is not a multiple of 16: their wrappers send
-    it to the mma.sync kernel (K6s), which must then have launched."""
+    it to the ragged-row producer's instance (K6r), which must then have
+    launched, and no other kernel."""
     quantize = mods["quantize"]
     dev = torch.device("cuda")
     N, D = 20011, 100
@@ -619,23 +679,126 @@ def phase1_unaligned(torch, mods, errs, g) -> list:
     bias = torch.zeros(N, device=dev)
     bias[torch.randperm(N, generator=g, device=dev)[: N // 100]] = NEG_INF
     cases = []
-    before = quantize.streaming_topk_int8_cuda_sync.launches
     for name, B in (("K6", 70), ("K6", 129), ("K7", 40)):
         qv, qs = quantize.quantize_rows(_unit(torch, torch.randn(B, D, generator=g, device=dev)))
         args = (qv, qs, xv, xs, bias)
         for k in (1, 10, 100, 300):
-            s_k, i_k = wrapper(mods, name)(*args, k)
+            (s_k, i_k), delta = _counted(mods, lambda: wrapper(mods, name)(*args, k))
             torch.cuda.synchronize()
+            require(delta == {"K6r": 1}, f"phase 1: {name} at D={D} B={B} k={k} launched {delta}, "
+                    "not K6r once")
             s_p, i_p = quantize.streaming_topk_int8(*args, k)
             err, n_diff, bad = check_topk(torch, None, None, None, s_k, i_k, s_p, i_p,
                                           judge=int8_judge(*args))
             bad += int(((s_k != s_p) & (s_p > NEG_INF / 2)).sum())
-            errs["K6s"] = max(errs["K6s"], err)
-            cases.append({"kernel": f"K6s (via {name})", "dtype": "int8", "N": N, "D": D, "B": B,
+            errs["K6r"] = max(errs["K6r"], err)
+            cases.append({"kernel": f"K6r (via {name})", "dtype": "int8", "N": N, "D": D, "B": B,
                           "k": k, "max_abs_err": err, "id_mismatches": n_diff,
                           "mismatches_outside_ties": bad})
-    require(quantize.streaming_topk_int8_cuda_sync.launches - before == len(cases),
-            "phase 1: K6/K7 at D % 16 != 0 did not run the mma.sync kernel")
+    return cases
+
+
+def _offset_copy(torch, t, offset):
+    """t's values in a tensor whose base lies `offset` elements past a
+    16-byte aligned address (0: a tensor of its own)."""
+    if offset == 0:
+        return t.clone()
+    buf = torch.zeros(t.numel() + offset + 16, dtype=t.dtype, device=t.device)
+    skip = (-buf.data_ptr() % 16) // t.element_size()
+    out = buf[skip + offset: skip + offset + t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _ragged_route(topk, quantize, dtype, kernel, q_dtype, x, xs=None, bias=None):
+    """The route (KERNELS name) that `kernel` ("K1", "K2", "K3") must take
+    over rows x of `dtype`, from the route rules (ops/topk.py
+    `flat_route`, ops/quantize.py `int8_route`)."""
+    if dtype == "int8":
+        k5 = quantize.int8_route("K5", x, x, xs, bias) == "4-byte pieces"
+        k6 = quantize.int8_route("K6", x, x, xs, bias) == "tma"
+        return {"K1": "K5" if k5 else "K5r", "K2": "K6" if k6 else "K6r",
+                "K3": "K7" if k6 else "K6r"}[kernel]
+    route = topk.flat_route(x)
+    if dtype == "float32":
+        wide = route == "16-byte pieces"
+        return {"K1": "K1" if wide else "K1r", "K2": "K2" if wide else "K2r",
+                "K3": "K3" if wide else "K2r"}[kernel]
+    if kernel == "K1":
+        return "K1tc" if route == "tma" else "K1tcr"
+    base = "K2tc" if q_dtype == "bfloat16" else "K2tc3"
+    return base if route == "tma" else base + "r"
+
+
+def phase1_ragged(torch, mods, errs) -> list:
+    """Every width on the card: K1-K3 over f32 and bf16 rows (bf16 and f32
+    queries) and K5-K7 over int8 rows at each width of RAGGED_D (and of
+    RAGGED_OFFSET_D with the base one element off 16 bytes), over a ragged
+    N with duplicate rows, 1% tombstones and a filter, at RAGGED_SHAPES x
+    RAGGED_K, through the public wrappers: each call launches the route
+    the rules name (the ragged-row producer's K1tcr, K2tcr, K2tc3r, K6r;
+    the 4-byte pieces of K1r, K2r; K5r's realigned words; or a TMA or
+    16-byte instance), once and no other kernel, and is held to the plain
+    version (int8 scores bit for bit)."""
+    topk, quantize = mods["topk"], mods["quantize"]
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(26)
+    fns = {"K1": topk.streaming_topk_cuda, "K2": topk.streaming_topk_cuda_qmajor,
+           "K3": topk.streaming_topk_cuda_qres}
+    int8_fns = {"K1": quantize.streaming_topk_int8_cuda,
+                "K2": quantize.streaming_topk_int8_cuda_qmajor,
+                "K3": quantize.streaming_topk_int8_cuda_qres}
+    cases = []
+    N = RAGGED_N
+    for D in RAGGED_D:
+        x0 = _unit(torch, torch.randn(N, D, generator=g, device=dev))
+        x0[1000:2000] = x0[0:1000]  # exact ties
+        bias = torch.zeros(N, device=dev)
+        bias[torch.randperm(N, generator=g, device=dev)[: N // 100]] = NEG_INF
+        bias = bias + torch.where(torch.rand(N, generator=g, device=dev) < 0.1, NEG_INF, 0.0)
+        q0 = _unit(torch, torch.randn(max(B for _, B in RAGGED_SHAPES), D, generator=g,
+                                      device=dev))
+        q0[0] = x0[5]  # its own duplicate pair tops the list
+        xv0, xs = quantize.quantize_rows(x0)
+        qv0, qs0 = quantize.quantize_rows(q0)
+        for offset in ((0, 1) if D in RAGGED_OFFSET_D else (0,)):
+            for dtype in ("float32", "bfloat16", "int8"):
+                if dtype == "int8":
+                    xv = _offset_copy(torch, xv0, offset)
+                    runs = [(int8_fns, "int8", (xv, xs, bias))]
+                else:
+                    x = _offset_copy(torch, x0.to(getattr(torch, dtype)), offset)
+                    runs = [(fns, q_d, (x, bias)) for q_d in
+                            (("bfloat16", "float32") if dtype == "bfloat16" else ("float32",))]
+                for table, q_d, corpus in runs:
+                    for kernel, B in RAGGED_SHAPES:
+                        if dtype == "int8":
+                            args = (qv0[:B].contiguous(), qs0[:B].contiguous(), *corpus)
+                            ran = _ragged_route(topk, quantize, dtype, kernel, q_d, corpus[0],
+                                                corpus[1], corpus[2])
+                            plain, judge = quantize.streaming_topk_int8, int8_judge(*args)
+                        else:
+                            qb = q0[:B].to(getattr(torch, q_d)).contiguous()
+                            args = (qb, *corpus)
+                            ran = _ragged_route(topk, quantize, dtype, kernel, q_d, corpus[0])
+                            plain, judge = topk.streaming_topk, dot_judge(*args)
+                        for k in RAGGED_K:
+                            (s_k, i_k), delta = _counted(mods, lambda: table[kernel](*args, k))
+                            torch.cuda.synchronize()
+                            require(delta == {ran: 1}, f"phase 1: {kernel} over {dtype} rows of "
+                                    f"width {D} at offset {offset} with {q_d} queries, B={B} "
+                                    f"k={k}, launched {delta}, not {ran} once")
+                            s_p, i_p = plain(*args, k)
+                            err, n_diff, bad = check_topk(torch, None, None, None, s_k, i_k, s_p,
+                                                          i_p, judge=judge)
+                            if dtype == "int8":
+                                bad += int(((s_k != s_p) & (s_p > NEG_INF / 2)).sum())
+                            errs[ran] = max(errs[ran], err)
+                            cases.append({"kernel": f"{ran} (via {kernel})", "dtype": dtype,
+                                          "q_dtype": q_d, "N": N, "D": D, "offset": offset,
+                                          "B": B, "k": k, "max_abs_err": err,
+                                          "id_mismatches": n_diff,
+                                          "mismatches_outside_ties": bad})
     return cases
 
 
@@ -799,6 +962,35 @@ def phase1_pieces_exact(torch, mods, errs) -> list:
                               "D": D, "B": B,
                               "k": k, "lo_nonzero": lo_share, "max_abs_err": err,
                               "id_mismatches": n_diff, "mismatches_outside_ties": bad})
+    # the ragged-row producer's routes at widths TMA cannot read: a chunk
+    # stored under the wrong swizzle, a stale byte of an earlier stage or a
+    # byte past D would change a score
+    for D in (100, 765):
+        N = 3 * D + 5
+        x = torch.zeros(N, D, device=dev)
+        x[torch.arange(N, device=dev), torch.arange(N, device=dev) % D] = 1.0
+        x = x.to(torch.bfloat16)
+        bias = torch.zeros(N, device=dev)
+        bias[torch.randperm(N, generator=g, device=dev)[: N // 100]] = NEG_INF
+        q = _unit(torch, torch.randn(129, D, generator=g, device=dev))
+        for kernel, ran, B in (("K1", "K1tcr", 1), ("K1", "K1tcr", 8), ("K1", "K1tcr", 9),
+                               ("K1", "K1tcr", 31), ("K2", "K2tc3r", 33), ("K2", "K2tc3r", 64),
+                               ("K2", "K2tc3r", 65), ("K2", "K2tc3r", 129),
+                               ("K3", "K2tc3r", 129)):
+            qb = q[:B].contiguous()
+            for k in (1, 30, 300):
+                (s_k, i_k), delta = _counted(mods, lambda: wrapper(mods, kernel)(qb, x, bias, k))
+                torch.cuda.synchronize()
+                require(delta == {ran: 1}, f"phase 1: {kernel} over one-hot bf16 rows of width "
+                        f"{D} with f32 queries, B={B} k={k}, launched {delta}, not {ran}")
+                s_p, i_p = topk.streaming_topk(qb, x, bias, k)
+                err, n_diff, bad = check_topk(torch, None, None, None, s_k, i_k, s_p, i_p, tol=0.0,
+                                              judge=dot_judge(qb, x, bias))
+                errs[ran] = max(errs[ran], err)
+                cases.append({"kernel": f"{ran} (via {kernel}, one-hot rows, exact)",
+                              "dtype": "bfloat16", "q_dtype": "float32", "N": N, "D": D, "B": B,
+                              "k": k, "max_abs_err": err, "id_mismatches": n_diff,
+                              "mismatches_outside_ties": bad})
     return cases
 
 
@@ -962,10 +1154,11 @@ QUERIES = [
 ]
 
 
-def phase2(torch, mods, errs, dtype="float32", phase=2) -> dict:
-    """The main path over a flat index of `dtype`: K1 for the 5 searches,
-    K2 for the service's batches (over bf16 rows the tensor cores: K1tc
-    and K2tc)."""
+def phase2(torch, mods, errs, dtype="float32", phase=2, D=768, kernels=None) -> dict:
+    """The main path over a flat index of `dtype` at embedding width D: K1
+    for the 5 searches, K2 for the service's batches (over bf16 rows the
+    tensor cores: K1tc and K2tc); `kernels` (single, batched) names the
+    routes another width takes, which must launch, and no other."""
     from codegraph_tpu_torch.api import CodeGraph
     from codegraph_tpu_torch.core.config import CodeGraphConfig
     from codegraph_tpu_torch.search.service import QueryService
@@ -979,10 +1172,11 @@ def phase2(torch, mods, errs, dtype="float32", phase=2) -> dict:
         shutil.copytree(src, proj, ignore=shutil.ignore_patterns("__pycache__"))
         cfg = CodeGraphConfig()
         cfg.embedding.provider = "hash"
-        cfg.embedding.dimension = 768
+        cfg.embedding.dimension = D
         cfg.data_dir = os.path.join(tmp, "data")
         cfg.index.dtype = dtype
-        single_kernel, batched_kernel = ("K1tc", "K2tc") if dtype == "bfloat16" else ("K1", "K2")
+        single_kernel, batched_kernel = kernels or (
+            ("K1tc", "K2tc") if dtype == "bfloat16" else ("K1", "K2"))
 
         topk = mods["topk"]
         reset_launches(mods)
@@ -1015,6 +1209,7 @@ def phase2(torch, mods, errs, dtype="float32", phase=2) -> dict:
         # as the index scores them (a bf16 index: bf16 queries)
         x, bias = index.arrays()
         require(x.dtype == getattr(torch, dtype), f"phase {phase}: the index holds {x.dtype} rows")
+        require(x.shape[1] == D, f"phase {phase}: the index holds rows of width {x.shape[1]}")
         qn = torch.nn.functional.normalize(torch.as_tensor(embs, device="cuda"), dim=1).to(x.dtype)
         s_b = torch.as_tensor(np.stack([b[0] for b in batched]), device="cuda")
         i_b = torch.as_tensor(np.stack([b[1] for b in batched]), device="cuda")
@@ -1039,7 +1234,8 @@ def phase2(torch, mods, errs, dtype="float32", phase=2) -> dict:
         hybrid = _hybrid_vs_cpu(torch, cg, cpu, hits, k,
                                 lambda q: dot_judge(q.to(x.dtype), x, bias))
         out = {
-            "phase": phase, "index_dtype": dtype, "files": stats.files_total, "nodes": stats.nodes,
+            "phase": phase, "index_dtype": dtype, "D": D, "files": stats.files_total,
+            "nodes": stats.nodes,
             "chunks": stats.chunks, "edges": stats.edges_total,
             "index_rows": index.n_rows, "index_capacity": index.capacity,
             "index_seconds": round(t_index, 3),
@@ -1080,6 +1276,127 @@ def phase15(torch, mods, errs) -> dict:
     tier the planner picks from 200k rows), so the searches run K1tc and
     QueryService's batches K2tc through FlatIndex.search."""
     return phase2(torch, mods, errs, dtype="bfloat16", phase=15)
+
+
+#: phase 17: the width of the main path at an embedding width TMA's tiled
+#: mode cannot read for every dtype (f32 rows 400 bytes: 16-byte pieces;
+#: bf16 rows 200 bytes: the ragged producer's 8-byte pieces; int8 rows 100
+#: bytes: K5's words and the ragged producer's 4-byte pieces), and the
+#: 8-shard indexes' rows at that width
+RAGGED_MAIN_D = 100
+RAGGED_SHARD_N = 1_000_000
+
+
+def phase17(torch, mods, errs) -> dict:
+    """The main path at embedding.dimension = 100 (`RAGGED_MAIN_D`), on the
+    hash provider, through CodeGraph.open -> .index() -> .search() ->
+    QueryService as phases 2 and 4 run it, with index.dtype "float32" (K1,
+    K2 on their 16-byte pieces), "bfloat16" (K1tcr, K2tcr) and "int8" (K5's
+    words, K6r): each run launches its routes and no other (no TMA
+    instance); then an 8-shard search at that width (bf16 and int8 rows on
+    phase 13's mesh) against one unsharded scan of the same route."""
+    D = RAGGED_MAIN_D
+    runs = {"float32": phase2(torch, mods, errs, "float32", 17, D, ("K1", "K2")),
+            "bfloat16": phase2(torch, mods, errs, "bfloat16", 17, D, ("K1tcr", "K2tcr")),
+            "int8": phase4(torch, mods, errs, 17, D, ("K5", "K6r"))}
+    mesh8 = _mesh(torch, (SHARDS,), ("data",))
+    reset_launches(mods)
+    sharded = _phase17_sharded(torch, mods, errs, mesh8, D)
+    shard_launches = read_launches(mods)
+    launches = {name: sum(r["launches"][name] for r in runs.values()) + shard_launches[name]
+                for name in KERNELS}
+    out = {"phase": 17, "D": D, "launches": launches, "shard_launches": shard_launches,
+           "runs": {k: {"launches": {n: v for n, v in r["launches"].items() if v}}
+                    for k, r in runs.items()},
+           "sharded": sharded}
+    emit(out)
+    require(all(launches[k] > 0 for k in ("K1", "K2", "K1tcr", "K2tcr", "K2tc3r", "K5", "K6r")),
+            f"phase 17: a route of the width-100 paths never launched: {launches}")
+    require(all(launches[k] == 0 for k in ("K1tc", "K2tc", "K2tc3", "K6")),
+            f"phase 17: a TMA instance launched at D = {D}: {launches}")
+    return out
+
+
+def _phase17_sharded(torch, mods, errs, mesh8, D) -> list:
+    """ShardedFlatIndex (bf16 rows: f32 queries, K1tcr at B = 8, K2tc3r at
+    B = 1024 on every shard) and ShardedInt8Index (K5 at B = 8, K6r at B =
+    256) over RAGGED_SHARD_N rows of width D, each search held to one scan
+    of the same route over all rows (the unsharded index's) and to the
+    oracle; the int8 candidates to the plain version."""
+    from codegraph_tpu_torch.ops import quantize as q8
+    from codegraph_tpu_torch.parallel import sharded_search as ss
+
+    topk = mods["topk"]
+    N = RAGGED_SHARD_N
+    g = torch.Generator(device="cuda").manual_seed(SHARD_SEED + 17)
+    out = []
+    rows = torch.randn(N, D, generator=g, device="cuda")
+    dead = torch.randperm(N, generator=g, device="cuda")[: N // 100].cpu().numpy()
+    flat = ss.ShardedFlatIndex(D, mesh8, dtype="bfloat16", tile_n=1024)
+    flat.build(rows)
+    flat.delete(dead)
+    x_full, b_full = flat._x.full, flat._bias.full
+    for B, k, kernel in ((8, 10, "K1tcr"), (1024, 100, "K2tc3r")):
+        q = _unit(torch, torch.randn(B, D, generator=g, device="cuda"))
+        (s_np, i_np), delta = _counted(mods, lambda: flat.search(q, k))
+        _require_per_shard(delta, kernel, SHARDS, f"bf16 ShardedFlatIndex.search D={D} B={B}")
+        qn = ss._normalize_rows(q)
+        scan = topk.streaming_topk_cuda_qmajor if B >= 32 else topk.streaming_topk_cuda
+        s_u, i_u = _uncounted(mods, lambda: scan(qn, x_full, b_full, k))
+        s_ref, i_ref = _sharded_oracle(torch, qn, flat.x_shards, flat.bias_shards, k)
+        got = _host_result(torch, s_np, i_np)
+        e_u, d_u, bad_u = check_topk(torch, qn, x_full, b_full, *got, s_u, i_u)
+        e_o, d_o, bad_o = check_topk(torch, qn, x_full, b_full, *got, s_ref, i_ref)
+        errs[kernel] = max(errs[kernel], e_o)
+        row = {"phase": 17, "index": "ShardedFlatIndex", "dtype": "bfloat16", "N": N, "D": D,
+               "shards": SHARDS, "B": B, "k": k, "kernel": kernel, "launches_per_search": delta,
+               "vs_unsharded": {"max_abs_err": e_u, "id_mismatches": d_u,
+                                "mismatches_outside_ties": bad_u},
+               "vs_oracle": {"max_abs_err": e_o, "id_mismatches": d_o,
+                             "mismatches_outside_ties": bad_o}}
+        emit(row)
+        out.append(row)
+        require(bad_u == 0 and bad_o == 0, f"phase 17: bf16 ShardedFlatIndex D={D} B={B}: "
+                f"{bad_u} mismatches against the unsharded scan, {bad_o} against the oracle")
+    del flat, x_full, b_full
+    int8 = ss.ShardedInt8Index(D, mesh8, rescore_k=100)
+    int8.build(rows)
+    int8.delete(dead)
+    del rows
+    qv_full, qs_full, b_full = int8._qv.full, int8._qs.full, int8._bias.full
+    for B, k, kernel in ((8, 10, "K5"), (256, 10, "K6r")):
+        q = _unit(torch, torch.randn(B, D, generator=g, device="cuda"))
+        (s_np, i_np), delta = _counted(mods, lambda: int8.search(q, k))
+        _require_per_shard(delta, kernel, SHARDS, f"ShardedInt8Index.search D={D} B={B}")
+        cand = int8.rescore_k
+        qv, qs = q8.quantize_rows(ss._normalize_rows(q))
+        s_k, i_k = _uncounted(mods, lambda: ss.sharded_topk_int8(
+            qv, qs, int8._qv.shards, int8._qs.shards, int8._bias.shards, cand, mesh8))
+        one = q8.streaming_topk_int8_cuda_qmajor if B >= 32 else q8.streaming_topk_int8_cuda
+        s_u, i_u = _uncounted(mods, lambda: one(qv, qs, qv_full, qs_full, b_full, cand))
+        s_p, i_p = q8.streaming_topk_int8(qv, qs, qv_full, qs_full, b_full, cand)
+        judge = int8_judge(qv, qs, qv_full, qs_full, b_full)
+        e_u, d_u, bad_u = check_topk(torch, None, None, None, s_k, i_k, s_u, i_u, judge=judge)
+        e_p, d_p, bad_p = check_topk(torch, None, None, None, s_k, i_k, s_p, i_p, judge=judge)
+        bad_p += int(((s_k != s_p) & (s_p > NEG_INF / 2)).sum())
+        live = ~np.isin(i_np, dead) & (i_np >= 0)
+        ok = bool(live.all() and (np.diff(s_np, axis=1) <= 0).all() and np.isfinite(s_np).all())
+        errs[kernel] = max(errs[kernel], e_p)
+        row = {"phase": 17, "index": "ShardedInt8Index", "dtype": "int8", "N": N, "D": D,
+               "shards": SHARDS, "B": B, "k": k, "rescore_k": cand, "kernel": kernel,
+               "launches_per_search": delta,
+               "candidates_vs_unsharded": {"max_abs_err": e_u, "id_mismatches": d_u,
+                                           "mismatches_outside_ties": bad_u},
+               "candidates_vs_plain": {"max_abs_err": e_p, "id_mismatches": d_p,
+                                       "mismatches_outside_ties": bad_p},
+               "results_ok": ok}
+        emit(row)
+        out.append(row)
+        require(bad_u == 0 and bad_p == 0 and ok, f"phase 17: ShardedInt8Index D={D} B={B}: "
+                f"{bad_u} and {bad_p} mismatches, results ok={ok}")
+    del int8, qv_full, qs_full, b_full
+    torch.cuda.empty_cache()
+    return out
 
 
 CARD_TESTS = "tests/test_torch_card.py"
@@ -1188,9 +1505,12 @@ def phase3(torch, topk, errs) -> list:
     from codegraph_tpu_torch.index.flat import FlatIndex
 
     dev = torch.device("cuda")
-    N, D = 1_000_000, 768
+    N = 1_000_000
     rows_out = []
-    for dtype_name in ("float32", "bfloat16"):
+    # 768, and the widths whose rows the ragged routes read (f32 765: 4-byte
+    # pieces; bf16 764: the ragged-row producer's 8-byte pieces)
+    for dtype_name, D in (("float32", 768), ("bfloat16", 768), ("float32", 765),
+                          ("bfloat16", 764)):
         g = torch.Generator(device=dev).manual_seed(2024)
         t0 = time.perf_counter()
         idx = FlatIndex(D, dtype=dtype_name, device="cuda")
@@ -1208,7 +1528,15 @@ def phase3(torch, topk, errs) -> list:
         # (kernel, wrapper, B, k, query dtype)
         f32, bf16 = torch.float32, torch.bfloat16
         xt = None
-        if dtype_name == "float32":
+        if dtype_name == "float32" and D != 768:  # K1r, K2r: 4-byte pieces
+            shapes = [("K1r", "K1", B, k, f32) for B in (1, 8) for k in (30, 300)]
+            shapes += [("K2r", "K2", B, k, f32) for B in (64, 256, 1024) for k in (30, 300)]
+        elif D != 768:  # K1tcr, K2tcr, K2tc3r: the ragged-row producer
+            shapes = [("K1tcr", "K1", B, k, qd) for qd in (bf16, f32) for B in (1, 8)
+                      for k in (30, 300)]
+            shapes += [("K2tcr", "K2", B, k, bf16) for B in (64, 256, 1024) for k in (30, 300)]
+            shapes += [("K2tc3r", "K2", B, k, f32) for B in (64, 256, 1024) for k in (30, 300)]
+        elif dtype_name == "float32":
             shapes = [("K1", "K1", B, k, f32) for B in (1, 8) for k in (30, 300)]
             shapes += [("K2", "K2", B, k, f32) for B in (32, 64) for k in (30, 300)]
             shapes += [(name, name, B, k, f32) for name in ("K2", "K3", "K4") for B in (256, 1024)
@@ -1229,6 +1557,7 @@ def phase3(torch, topk, errs) -> list:
                 "K3": topk.streaming_topk_cuda_qres,
                 "K4": lambda q_, x_, b_, k_: topk.streaming_topk_cuda_qmajor_xt(q_, xt, b_, k_)}
         plain_cache = {}
+        x_pad = None
         for name, via, B, k, q_dtype in shapes:
             fn = flat[via]
             batches = [
@@ -1251,7 +1580,15 @@ def phase3(torch, topk, errs) -> list:
                 # the f32 yardstick casts the bf16 rows to f32; the fair library
                 # call for a bf16 corpus is the tensor-core product
                 extra["library_f32_ms"] = lib_ms
-                lib_ms = _time_ms(torch, tc_yardstick, batches[:3])
+                lib_batches = batches[:3]
+                if D % 8:  # torch.mm's bf16 operands on a zero-padded copy, made untimed
+                    if x_pad is None:
+                        x_pad = torch.nn.functional.pad(x, (0, 8 - D % 8))
+                    lib_batches = [torch.nn.functional.pad(qb, (0, 8 - D % 8)) for qb in lib_batches]
+                    tc_yardstick = lambda qb: yardstick_tc(torch, qb, x_pad, bias, k)  # noqa: E731
+                    extra["library_note"] = (f"torch.mm on rows and queries zero-padded to "
+                                             f"{D + 8 - D % 8} columns (the copy not timed)")
+                lib_ms = _time_ms(torch, tc_yardstick, lib_batches)
             if on_xt:  # K4's route for a bf16 xt before K4tc, on the same xt
                 extra["rows_pass1_ms"] = _time_ms(
                     torch, lambda qb: topk._launch_rows(qb, xt, bias, k, topk.K4_LAYOUT),
@@ -1266,7 +1603,8 @@ def phase3(torch, topk, errs) -> list:
             s_y, i_y = yardstick(torch, qs, x, bias, k)
             err, n_diff, bad = check_topk(torch, qs, x, bias, s_k, i_k, s_y, i_y)
             if "library_f32_ms" in extra:
-                s_t, i_t = tc_yardstick(qs)
+                s_t, i_t = tc_yardstick(torch.nn.functional.pad(qs, (0, x_pad.shape[1] - D))
+                                        if x_pad is not None else qs)
                 extra["library_mismatches_outside_ties"] = check_topk(
                     torch, qs, x, bias, s_t, i_t, s_y, i_y)[2]
                 bad += extra["library_mismatches_outside_ties"]
@@ -1281,7 +1619,8 @@ def phase3(torch, topk, errs) -> list:
                 extra["bound_note"] = ("f32 queries over bf16 rows: three bf16 tensor-core "
                                        "products a score (hi + mid + lo == q, each exact in "
                                        "f32), or the bytes")
-            if name in ("K2tc", "K2tc3", "K4tc", "K4tc3"):  # bytes the blocks read, from L2 or HBM
+            if name in ("K2tc", "K2tc3", "K4tc", "K4tc3", "K2tcr", "K2tc3r"):
+                # bytes the blocks read, from L2 or HBM
                 plan = topk.tc_plan(B, N, D, k, sms=torch.cuda.get_device_properties(0)
                                     .multi_processor_count, pieces=pieces)
                 extra["l2_bytes"] = topk.tc_l2_bytes(plan, N, D, pieces=pieces)
@@ -1294,7 +1633,7 @@ def phase3(torch, topk, errs) -> list:
             emit(row)
             rows_out.append(row)
             require(bad == 0, f"phase 3: {bad} mismatches outside ties ({name} {dtype_name} B={B} k={k})")
-        del idx, x, xt, bias
+        del idx, x, xt, bias, x_pad
         torch.cuda.empty_cache()
     return rows_out
 
@@ -1331,8 +1670,10 @@ def _hybrid_vs_cpu(torch, cg, cpu, hits, k, judge) -> dict:
             "queries_with_prefetch_boundary_ties": boundary_ties}
 
 
-def phase4(torch, mods, errs) -> dict:
-    """The int8 main path: index.dtype = "int8" through the entry points."""
+def phase4(torch, mods, errs, phase=4, D=768, kernels=("K5", "K6")) -> dict:
+    """The int8 main path: index.dtype = "int8" through the entry points, at
+    embedding width D; `kernels` (single, batched) must launch, and no
+    other. At D = 768 the planner's int8 choice too."""
     from codegraph_tpu_torch.api import CodeGraph, index_memory_budget
     from codegraph_tpu_torch.core.config import CodeGraphConfig
     from codegraph_tpu_torch.index.int8_flat import Int8FlatIndex
@@ -1351,7 +1692,7 @@ def phase4(torch, mods, errs) -> dict:
         def config(data):
             cfg = CodeGraphConfig()
             cfg.embedding.provider = "hash"
-            cfg.embedding.dimension = 768
+            cfg.embedding.dimension = D
             cfg.data_dir = os.path.join(tmp, data)
             return cfg
 
@@ -1381,7 +1722,7 @@ def phase4(torch, mods, errs) -> dict:
         t_service = time.perf_counter() - t0
         # the main path ends here; later launches only check results
         launches = read_launches(mods)
-        require(isinstance(index, Int8FlatIndex), f"phase 4 built {type(index).__name__}")
+        require(isinstance(index, Int8FlatIndex), f"phase {phase} built {type(index).__name__}")
         singles = [index.search(e[None, :], k) for e in embs]
 
         # batched (K6) vs single (K5) final results: the rescore of the
@@ -1403,7 +1744,7 @@ def phase4(torch, mods, errs) -> dict:
         # each kernel against its plain version at the main path's shapes
         cand_k = min(max(k, index.rescore_k), index.capacity)
         main_shapes = {}
-        for name, B in (("K5", 1), ("K6", 64)):
+        for name, B in zip(kernels, (1, 64)):
             qv, qs = quantize.quantize_rows(qn[:B])
             args = (qv, qs, qv_x, s_x, bias)
             s_k, i_k = wrapper(mods, name)(*args, cand_k)
@@ -1418,19 +1759,11 @@ def phase4(torch, mods, errs) -> dict:
         # the same snapshot searched on the CPU (plain versions) as reference
         cpu = CodeGraph(cfg, device="cpu")
         require(isinstance(cpu.indexer.index, Int8FlatIndex) and
-                cpu.indexer.index.n_rows == index.n_rows, "phase 4: CPU snapshot load")
+                cpu.indexer.index.n_rows == index.n_rows, f"phase {phase}: CPU snapshot load")
         hybrid = _hybrid_vs_cpu(torch, cg, cpu, hits, k, rescore_judge)
 
-        # the planner: a capacity whose bf16 rows overflow this card's
-        # budget and whose int8 rows fit
-        budget = index_memory_budget("cuda")
-        capacity = int(budget // (768 * 1.5))
-        pcfg = config("planned")
-        pcfg.index.capacity = capacity
-        planned = CodeGraph.open(proj, config=pcfg, device="cuda")
-        plan = plan_index(capacity, 768, hbm_budget_bytes=budget)
         out = {
-            "phase": 4, "files": stats.files_total, "nodes": stats.nodes,
+            "phase": phase, "D": D, "files": stats.files_total, "nodes": stats.nodes,
             "chunks": stats.chunks, "edges": stats.edges_total,
             "index": type(index).__name__, "index_rows": index.n_rows,
             "index_capacity": index.capacity, "rescore_dtype": str(index.rescore_dtype),
@@ -1447,24 +1780,38 @@ def phase4(torch, mods, errs) -> dict:
                                   "mismatches_outside_ties": bad_svc},
             "hybrid_vs_cpu": hybrid,
             "kernel_vs_plain_main_shapes": main_shapes,
-            "plan": {"capacity": capacity, "budget_bytes": budget, "kind": pcfg.index.kind,
-                     "dtype": pcfg.index.dtype, "rescore_k": pcfg.index.rescore_k,
-                     "tile_n": plan.tile_n, "reason": plan.reason,
-                     "index": type(planned.indexer.index).__name__},
         }
+        if D == 768:
+            # the planner: a capacity whose bf16 rows overflow this card's
+            # budget and whose int8 rows fit
+            budget = index_memory_budget("cuda")
+            capacity = int(budget // (768 * 1.5))
+            pcfg = config("planned")
+            pcfg.index.capacity = capacity
+            planned = CodeGraph.open(proj, config=pcfg, device="cuda")
+            plan = plan_index(capacity, 768, hbm_budget_bytes=budget)
+            out["plan"] = {"capacity": capacity, "budget_bytes": budget, "kind": pcfg.index.kind,
+                           "dtype": pcfg.index.dtype, "rescore_k": pcfg.index.rescore_k,
+                           "tile_n": plan.tile_n, "reason": plan.reason,
+                           "index": type(planned.indexer.index).__name__}
         emit(out)
         require(stats.nodes > 0 and stats.chunks > 0 and stats.edges_total > 0, "empty index")
-        require(bad_svc == 0, "phase 4: service results disagree with single queries")
+        require(bad_svc == 0, f"phase {phase}: service results disagree with single queries")
         require(all(v["mismatches_outside_ties"] == 0 for v in main_shapes.values()),
-                "phase 4: a kernel disagrees with its plain version at the main path's shapes")
+                f"phase {phase}: a kernel disagrees with its plain version at the main path's "
+                "shapes")
         require(hybrid["mismatches_outside_ties"] == 0,
-                "phase 4: CUDA hybrid results disagree with the CPU path")
-        require(launches["K5"] > 0 and launches["K6"] > 0,
-                f"phase 4: int8 main path did not launch K5 and K6: {launches}")
-        require(launches["K1"] == launches["K2"] == 0,
-                f"phase 4: int8 main path launched a flat kernel: {launches}")
-        require(pcfg.index.dtype == "int8" and isinstance(planned.indexer.index, Int8FlatIndex),
-                f"phase 4: planner chose {pcfg.index.kind}/{pcfg.index.dtype} for {capacity} rows")
+                f"phase {phase}: CUDA hybrid results disagree with the CPU path")
+        require(all(launches[name] > 0 for name in kernels),
+                f"phase {phase}: int8 main path did not launch {kernels}: {launches}")
+        require(all(v == 0 for name, v in launches.items() if name not in kernels),
+                f"phase {phase}: int8 main path launched another kernel than {kernels}: "
+                f"{launches}")
+        if D == 768:
+            require(pcfg.index.dtype == "int8" and
+                    isinstance(planned.indexer.index, Int8FlatIndex),
+                    f"phase 4: planner chose {pcfg.index.kind}/{pcfg.index.dtype} for "
+                    f"{capacity} rows")
         return out
     finally:
         if svc is not None:
@@ -1516,7 +1863,9 @@ def phase5(torch, mods, errs) -> list:
     plain_cache = {}  # K6 and K7 compute the same function: one plain timing per shape
     shapes = [("K5", 1, 100), ("K5", 1, 300), ("K5", 8, 100), ("K5", 8, 300)]
     shapes += [(name, B, k) for name in ("K6", "K7") for B in (64, 256, 1024) for k in (100, 300)]
-    shapes += [("K6s", 1024, 100)]  # the mma.sync kernel, called directly at D=768
+    # K6r called directly at D = 768: like for like with K6 (and with the
+    # mma.sync kernel it replaces)
+    shapes += [("K6r", 1024, 100)]
     for name, B, k in shapes:
         fn = wrapper(mods, name)
         batches = [quantize.quantize_rows(_unit(torch, torch.randn(B, D, generator=g, device=dev)))
@@ -1574,6 +1923,93 @@ def phase5(torch, mods, errs) -> list:
         require(ok, f"phase 5: Int8FlatIndex.search at B={B} returned dead or missing rows")
     del idx, xv, xs, bias
     torch.cuda.empty_cache()
+    rows_out += _phase5_ragged(torch, mods, errs)
+    return rows_out
+
+
+#: phase 5's widths for the int8 routes that read rows TMA cannot: 760
+#: (K5's words, K6r's 8-byte pieces) and 765 (K5r's and K6r's realigned
+#: words), 10M rows each
+RAGGED_INT8_D = (760, 765)
+
+
+def _phase5_ragged(torch, mods, errs) -> list:
+    """K5 (B = 1, 8: K5 at 760, K5r at 765) and K6 (B = 64, 256, 1024: K6r)
+    through their wrappers over 10M int8 rows of each width of
+    RAGGED_INT8_D, k = 100 and 300, timed as phase 5's rows, with the
+    bound at the real D; torch._int_mm (the yardstick) takes a width that
+    is a multiple of 8, so at 765 it runs on a zero-padded copy, made
+    untimed."""
+    quantize = mods["quantize"]
+    dev = torch.device("cuda")
+    N = 10_000_000
+    rows_out = []
+    for D in RAGGED_INT8_D:
+        g = torch.Generator(device=dev).manual_seed(2026 + D)
+        t0 = time.perf_counter()
+        xv = torch.empty((N, D), dtype=torch.int8, device=dev)
+        xs = torch.empty(N, device=dev)
+        for base in range(0, N, 131072):
+            n = min(131072, N - base)
+            xv[base: base + n], xs[base: base + n] = quantize.quantize_rows(
+                torch.randn(n, D, generator=g, device=dev))
+        bias = torch.zeros(N, device=dev)
+        bias[torch.randperm(N, generator=g, device=dev)[: N // 100]] = NEG_INF
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        xv_lib, lib_note = xv, None
+        if D % 8:
+            xv_lib = torch.nn.functional.pad(xv, (0, 8 - D % 8))
+            lib_note = f"torch._int_mm on rows and queries zero-padded to {D + 8 - D % 8} columns"
+        plain_cache = {}
+        shapes = [("K5", B, k) for B in (1, 8) for k in (100, 300)]
+        shapes += [("K6", B, k) for B in (64, 256, 1024) for k in (100, 300)]
+        for via, B, k in shapes:
+            fn = wrapper(mods, via)
+            batches = [quantize.quantize_rows(_unit(torch, torch.randn(B, D, generator=g,
+                                                                       device=dev)))
+                       for _ in range(7)]
+            name = _ragged_route(mods["topk"], quantize, "int8", "K1" if via == "K5" else "K2",
+                                 "int8", xv, xs, bias)
+            counted = wrapper(mods, name)
+            launched = counted.launches
+            outs = []
+            ms = _time_ms(torch, lambda b: fn(b[0], b[1], xv, xs, bias, k), batches, outs)
+            require(counted.launches == launched + len(batches) + 1,
+                    f"phase 5: {via} at D={D} B={B} k={k} did not run {name}")
+            lib_batches = [(torch.nn.functional.pad(b[0], (0, xv_lib.shape[1] - D)), b[1])
+                           for b in batches[:3]]
+            lib_ms = _time_ms(torch, lambda b: int8_yardstick(torch, b[0], b[1], xv_lib, xs, bias,
+                                                              k), lib_batches)
+            if (B, k) not in plain_cache:  # one batch (after a warm one): ~1.3 s a call
+                plain_cache[(B, k)] = _time_ms(
+                    torch, lambda b: quantize.streaming_topk_int8(b[0], b[1], xv, xs, bias, k),
+                    batches[:1])
+            err, n_diff, bad = 0.0, 0, 0
+            m = min(B, 4)
+            for (qv, qs), (s_k, i_k) in zip(batches, outs):
+                args = (qv[:m].contiguous(), qs[:m].contiguous(), xv, xs, bias)
+                s_y, i_y = int8_yardstick(torch, torch.nn.functional.pad(args[0], (
+                    0, xv_lib.shape[1] - D)), args[1], xv_lib, xs, bias, k)
+                e, d, b_ = check_topk(torch, None, None, None, s_k[:m], i_k[:m], s_y, i_y,
+                                      judge=int8_judge(*args))
+                err, n_diff, bad = max(err, e), n_diff + d, bad + b_
+            errs[name] = max(errs[name], err)
+            bound, bound_by = _bound(N * D + 8 * N + B * D + 4 * B + B * k * 8,
+                                     2.0 * B * N * D, "int8")
+            row = {"phase": 5, "kernel": name, "via": via, "dtype": "int8", "N": N, "D": D,
+                   "B": B, "k": k, "ms": ms, "plain_ms": plain_cache[(B, k)], "library_ms": lib_ms,
+                   "bound_ms": bound, "bound_by": bound_by, "share_of_bound": bound / ms,
+                   "max_abs_err": err, "sampled_rows": m * len(batches), "id_mismatches": n_diff,
+                   "mismatches_outside_ties": bad, "index_build_seconds": round(build_s, 3)}
+            if lib_note:
+                row["library_note"] = lib_note
+            emit(row)
+            rows_out.append(row)
+            require(bad == 0, f"phase 5: {bad} mismatches outside ties ({name} D={D} B={B} "
+                              f"k={k})")
+        del xv, xs, bias, xv_lib
+        torch.cuda.empty_cache()
     return rows_out
 
 
@@ -3964,7 +4400,7 @@ def phase12(torch, mods, errs) -> dict:
 SHARDS = 8
 SHARD_N, SHARD_D = 10_000_000, 768
 SHARD_IVF_N = 1_000_000
-SHARD_REPS = 5
+SHARD_REPS = 3
 SHARD_SEED = 5150
 
 
@@ -4609,7 +5045,7 @@ def _on_alarm(signum, frame):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16",
+    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17",
                     help="comma-separated phases to run (default: all)")
     ap.add_argument("--shm-child", metavar="DIR",
                     help="run as phase 12's attaching process (started by phase 12)")
@@ -4658,6 +5094,7 @@ def main(argv=None) -> int:
         run(16, phase16, mods, errs)
         p2 = run(2, phase2, mods, errs)
         p15 = run(15, phase15, mods, errs)
+        p17 = run(17, phase17, mods, errs)
         p3 = run(3, phase3, topk, errs, empty=[])
         p4 = run(4, phase4, mods, errs)
         p5 = run(5, phase5, mods, errs, empty=[])
@@ -4678,33 +5115,43 @@ def main(argv=None) -> int:
         faulthandler.cancel_dump_traceback_later()
 
     # each kernel at one shape of its real-size phase (rows, their dtype,
-    # B, k, the queries' dtype where two are timed); launches from its
+    # B, k, the queries' dtype where two are timed, D); launches from its
     # tier's main path, for K1 and K2 the default configuration's (phase 8)
     # when it ran, else for K1 the served path's (phase 9), for K1tc and
     # K2tc the bf16 main path's (phase 15), for K2tc3 the sharded bf16
-    # index's (phase 13) (K3, K4, K4tc, K4tc3 and K7 are public ops that
-    # no index calls: 0 launches on every path; K6s runs only at a D that
-    # is not a multiple of 16)
-    shapes = {"K1": (p3, "float32", 1, 30, None), "K2": (p3, "float32", 1024, 30, None),
-              "K3": (p3, "float32", 1024, 100, None), "K4": (p3, "float32", 1024, 30, None),
-              "K1tc": (p3, "bfloat16", 1, 30, "bfloat16"),
-              "K2tc": (p3, "bfloat16", 1024, 30, None),
-              "K2tc3": (p3, "bfloat16", 1024, 30, None),
-              "K4tc": (p3, "bfloat16", 1024, 30, None),
-              "K4tc3": (p3, "bfloat16", 1024, 30, None),
-              "K5": (p5, "int8", 1, 100, None), "K6": (p5, "int8", 1024, 100, None),
-              "K7": (p5, "int8", 1024, 100, None), "K6s": (p5, "int8", 1024, 100, None),
-              "K8": (p7, "uint8 codes", 1, 40, None)}
+    # index's (phase 13), for the ragged routes the main path at D = 100
+    # (phase 17: K1tcr, K2tcr, K6r; K2tc3r on its 8-shard index) (K3, K4,
+    # K4tc, K4tc3 and K7 are public ops that no index calls: 0 launches on
+    # every path; K1r, K2r and K5r take widths that are not a multiple of
+    # 4, which phase 17's D = 100 is not)
+    shapes = {"K1": (p3, "float32", 1, 30, None, 768), "K2": (p3, "float32", 1024, 30, None, 768),
+              "K3": (p3, "float32", 1024, 100, None, 768),
+              "K4": (p3, "float32", 1024, 30, None, 768),
+              "K1tc": (p3, "bfloat16", 1, 30, "bfloat16", 768),
+              "K2tc": (p3, "bfloat16", 1024, 30, None, 768),
+              "K2tc3": (p3, "bfloat16", 1024, 30, None, 768),
+              "K4tc": (p3, "bfloat16", 1024, 30, None, 768),
+              "K4tc3": (p3, "bfloat16", 1024, 30, None, 768),
+              "K5": (p5, "int8", 1, 100, None, 768), "K6": (p5, "int8", 1024, 100, None, 768),
+              "K7": (p5, "int8", 1024, 100, None, 768),
+              "K6r": (p5, "int8", 1024, 100, None, 760), "K5r": (p5, "int8", 1, 100, None, 765),
+              "K1r": (p3, "float32", 1, 30, None, 765),
+              "K2r": (p3, "float32", 1024, 30, None, 765),
+              "K1tcr": (p3, "bfloat16", 1, 30, "bfloat16", 764),
+              "K2tcr": (p3, "bfloat16", 1024, 30, None, 764),
+              "K2tc3r": (p3, "bfloat16", 1024, 30, None, 764),
+              "K8": (p7, "uint8 codes", 1, 40, None, 768)}
     flat_path = p8 or p2
     paths = {"K1": p8 or p9 or p2, "K2": flat_path, "K3": flat_path, "K4": flat_path,
              "K1tc": p15, "K2tc": p15, "K2tc3": p13, "K4tc": p15, "K4tc3": p13, "K5": p4,
-             "K6": p4, "K7": p4, "K6s": p4, "K8": p6["ivfpq"] if p6 else None}
+             "K6": p4, "K7": p4, "K8": p6["ivfpq"] if p6 else None,
+             **{name: p17 for name in ("K1r", "K2r", "K1tcr", "K2tcr", "K2tc3r", "K5r", "K6r")}}
     kernels = []
     for name, (_, fn_name, source, replaces) in KERNELS.items():
-        rows, dtype, B, k, q_dtype = shapes[name]
+        rows, dtype, B, k, q_dtype, D = shapes[name]
         row = next((r for r in rows if r.get("kernel") == name and r["dtype"] == dtype
-                    and r["B"] == B and r["k"] == k
-                    and r.get("via", name) in (name, "K1", "K2", "K4")
+                    and r["B"] == B and r["k"] == k and r.get("D", 768) == D
+                    and r.get("via", name) in (name, "K1", "K2", "K4", "K5", "K6")
                     and q_dtype in (None, r.get("q_dtype"))), {})
         path = paths[name]
         kernels.append({
@@ -4713,14 +5160,20 @@ def main(argv=None) -> int:
             "launches_by_phase": {str(n): p["launches"][name] for n, p in
                                   ((2, p2), (4, p4), (6, p6["ivfpq"] if p6 else None), (8, p8),
                                    (9, p9), (10, p10), (12, p12), (13, p13), (14, p14),
-                                   (15, p15))
+                                   (15, p15), (17, p17))
                                   if p},
             "max_abs_err": errs[name],
             "ms": row.get("ms"), "plain_ms": row.get("plain_ms"),
             "bound_ms": row.get("bound_ms"), "bound_by": row.get("bound_by"),
             "library_ms": row.get("library_ms"),
-            "shape": f"N={row['N']} D=768 {dtype} B={B} k={k}" if row else None,
+            "shape": f"N={row['N']} D={D} {dtype} B={B} k={k}" if row else None,
         })
+    if phases >= set(range(18)):  # a whole run times every kernel at its shape
+        missing = [k["name"] for k in kernels
+                   if None in (k["ms"], k["plain_ms"], k["bound_ms"], k["launches"])]
+        if missing:
+            print(f"chip_smoke FAILED: no timed row for {missing}", file=sys.stderr, flush=True)
+            return 1
     emit({"phase": "total", "seconds": round(time.perf_counter() - t_all, 3),
           "phase_seconds": seconds, "build_seconds": p0["build_seconds"] if p0 else None})
     print(nvidia_smi_line(), flush=True)

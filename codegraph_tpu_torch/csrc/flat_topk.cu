@@ -7,7 +7,11 @@
 //   K3  streaming_topk_pallas_qres      / _flat_topk_qres_kernel       (query-resident)
 //   K4  streaming_topk_pallas_qmajor_xt / _flat_topk_qmajor_xt_kernel  (corpus as xt [D, N])
 // over f32 rows, and K4 over bf16 xt. Over bf16 rows K1 runs on the tensor
-// cores in flat_topk_k1tc.cu, K2 and K3 in flat_topk_tc.cu.
+// cores in flat_topk_k1tc.cu, K2 and K3 in flat_topk_tc.cu. The JAX
+// kernels take any width D; so do these: f32 rows are read in 16-byte
+// pieces where D % 4 == 0 and the base is 16-byte aligned, and otherwise
+// by the ragged instances (topk_ragged_pass1, rows_pass1<float, false, QT,
+// 4>), the same kernels with 4-byte pieces.
 //
 // Two pass-1 kernels, one pass 2:
 //   * topk_pass1 (K1 over f32 rows, "column warps"): up to 8 query rows per block; the 8
@@ -97,20 +101,24 @@ __device__ __forceinline__ void unpack(const uint4& v, float* out, float) {
   out[2] = __uint_as_float(v.z);
   out[3] = __uint_as_float(v.w);
 }
+__device__ __forceinline__ void unpack(const unsigned& v, float* out, float) {
+  out[0] = __uint_as_float(v);
+}
 
 // K1 pass 1: block (query tile, split) -> top-k of the split's rows per
-// query. x is [N, D] with D % (16 / sizeof(XT)) == 0 and 16-byte alignment.
-// A step's query and corpus slices are loaded into registers one step
-// ahead, while the block computes on the previous step's slices in shared
-// memory.
-template <typename XT, int WR, int TM, int TNN>
-__global__ void __launch_bounds__(kThreads)
-    topk_pass1(const float* __restrict__ q, const XT* __restrict__ x, const float* __restrict__ bias,
-               int B, int N, int D, int k, int rows_per_split, float* __restrict__ part_s,
-               int* __restrict__ part_i) {
+// query. x is [N, D], read in PB-byte pieces: 16 (D % (16 / sizeof(XT)) ==
+// 0 and 16-byte alignment) or 4 (f32 rows of any D). A step's query and
+// corpus slices are loaded into registers one step ahead, while the block
+// computes on the previous step's slices in shared memory.
+template <typename XT, int WR, int TM, int TNN, int PB>
+__device__ __forceinline__ void topk_body(const float* __restrict__ q, const XT* __restrict__ x,
+                                          const float* __restrict__ bias, int B, int N, int D,
+                                          int k, int rows_per_split, float* __restrict__ part_s,
+                                          int* __restrict__ part_i) {
   using L = Layout<WR, TM, TNN>;
+  using Piece = typename std::conditional<PB == 16, uint4, unsigned>::type;
   constexpr int BT = L::BT, TN = L::TN, QLD = L::QLD, XLD = L::XLD, WC = L::WC;
-  constexpr int EPV = 16 / sizeof(XT);                      // elements per 16-byte load
+  constexpr int EPV = PB / sizeof(XT);                      // elements per load
   constexpr int VPR = kDK / EPV;                            // loads per row per step
   constexpr int XV = TN * VPR / kThreads;                   // corpus loads per thread
   constexpr int QE = (BT * kDK + kThreads - 1) / kThreads;  // query loads per thread
@@ -137,7 +145,7 @@ __global__ void __launch_bounds__(kThreads)
     li[p] = -1;
   }
 
-  uint4 xr[XV];
+  Piece xr[XV];
   float qr[QE];
   auto load = [&](int step) {
     const int n0 = n_begin + (step / n_chunks) * TN;
@@ -146,8 +154,8 @@ __global__ void __launch_bounds__(kThreads)
     for (int v = 0; v < XV; ++v) {
       const int vi = tid + v * kThreads, r = vi / VPR, d = d0 + (vi % VPR) * EPV;
       xr[v] = (n0 + r < n_end && d < D)
-                  ? *reinterpret_cast<const uint4*>(x + (size_t)(n0 + r) * D + d)
-                  : make_uint4(0u, 0u, 0u, 0u);
+                  ? *reinterpret_cast<const Piece*>(x + (size_t)(n0 + r) * D + d)
+                  : Piece{};
     }
 #pragma unroll
     for (int e = 0; e < QE; ++e) {
@@ -251,28 +259,48 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <typename XT, int WR, int TM, int TNN>
+__global__ void __launch_bounds__(kThreads)
+    topk_pass1(const float* __restrict__ q, const XT* __restrict__ x, const float* __restrict__ bias,
+               int B, int N, int D, int k, int rows_per_split, float* __restrict__ part_s,
+               int* __restrict__ part_i) {
+  topk_body<XT, WR, TM, TNN, 16>(q, x, bias, B, N, D, k, rows_per_split, part_s, part_i);
+}
+
+// K1 over f32 rows in 4-byte pieces: any D, a 4-byte aligned base
+template <int WR, int TM, int TNN>
+__global__ void __launch_bounds__(kThreads)
+    topk_ragged_pass1(const float* __restrict__ q, const float* __restrict__ x,
+                      const float* __restrict__ bias, int B, int N, int D, int k,
+                      int rows_per_split, float* __restrict__ part_s, int* __restrict__ part_i) {
+  topk_body<float, WR, TM, TNN, 4>(q, x, bias, B, N, D, k, rows_per_split, part_s, part_i);
+}
+
+template <typename XT, int WR, int TM, int TNN>
 cudaError_t launch_pass1(const float* q, const void* x, const float* bias, int B, int N, int D, int k,
-                         int rows_per_split, int splits, float* part_s, int* part_i, cudaStream_t st) {
+                         int rows_per_split, int splits, bool ragged, float* part_s, int* part_i,
+                         cudaStream_t st) {
   using L = Layout<WR, TM, TNN>;
   if (rows_per_split % L::TN != 0) return cudaErrorInvalidValue;
   const size_t smem = L::smem(k);
-  cudaError_t err = cudaFuncSetAttribute(topk_pass1<XT, WR, TM, TNN>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  auto kern = ragged ? topk_ragged_pass1<WR, TM, TNN> : topk_pass1<XT, WR, TM, TNN>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((B + L::BT - 1) / L::BT, splits);
-  topk_pass1<XT, WR, TM, TNN><<<grid, kThreads, smem, st>>>(
-      q, static_cast<const XT*>(x), bias, B, N, D, k, rows_per_split, part_s, part_i);
+  kern<<<grid, kThreads, smem, st>>>(q, static_cast<const XT*>(x), bias, B, N, D, k,
+                                     rows_per_split, part_s, part_i);
   return cudaGetLastError();
 }
 
-// K1 with tm query rows per block, tm in {1, 2, 4, 8}
+// K1 with tm query rows per block, tm in {1, 2, 4, 8}; ragged: 4-byte pieces
 template <typename XT>
 cudaError_t dispatch_col(int tm, const float* q, const void* x, const float* bias, int B, int N, int D,
-                         int k, int rows_per_split, int splits, float* part_s, int* part_i,
-                         cudaStream_t st) {
+                         int k, int rows_per_split, int splits, bool ragged, float* part_s,
+                         int* part_i, cudaStream_t st) {
   switch (tm) {
-#define CG_COL(TM) \
-  launch_pass1<XT, 1, TM, 1>(q, x, bias, B, N, D, k, rows_per_split, splits, part_s, part_i, st)
+#define CG_COL(TM)                                                                            \
+  launch_pass1<XT, 1, TM, 1>(q, x, bias, B, N, D, k, rows_per_split, splits, ragged, part_s, \
+                             part_i, st)
     case 1: return CG_COL(1);
     case 2: return CG_COL(2);
     case 4: return CG_COL(4);
@@ -314,6 +342,12 @@ __device__ __forceinline__ unsigned smem_u32(const void* p) {
 // 16-byte asynchronous copy global -> shared; bytes = 0 zero-fills
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+// the same, 4 bytes
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
                "r"(bytes)
                : "memory");
 }
@@ -373,11 +407,12 @@ __device__ __forceinline__ int tile_col(int tx, int j) {
 // ty + 16 i and corpus columns tile_col(tx, j), i < MI = QT / 16, j < 8, so
 // the 16 lanes of a half-warp hold the whole tile row of their MI query
 // rows, and own those rows' buffers and lists. q is [B, ldq] f32 (ldq % 4
-// == 0, 16-byte aligned; columns D..ldq zero). x is [N, D] (D % 8 == 0,
-// 16-byte aligned) or, TRANS, xt [D, N], read in 16-byte pieces when vec
-// (N a multiple of 16 / sizeof(XT), 16-byte aligned), else an element a
-// thread. bound [B, S] holds NEG_INF at launch (share_bound).
-template <typename XT, bool TRANS, int QT>
+// == 0, 16-byte aligned; columns D..ldq zero). x is [N, D] f32 read in
+// PB-byte pieces (16: D % 4 == 0, 16-byte aligned; 4: any D) or, TRANS,
+// xt [D, N], read in 16-byte pieces when vec (N a multiple of 16 /
+// sizeof(XT), 16-byte aligned), else an element a thread. bound [B, S]
+// holds NEG_INF at launch (share_bound).
+template <typename XT, bool TRANS, int QT, int PB>
 __global__ void __launch_bounds__(kThreads, 2)
     rows_pass1(const float* __restrict__ q, int ldq, const XT* __restrict__ x,
                const float* __restrict__ bias, int B, int N, int D, int k, int rows_per_split,
@@ -445,12 +480,19 @@ __global__ void __launch_bounds__(kThreads, 2)
       const bool ok = b0 + r < B && d0 + c < ldq;
       cp_async16(qs + r * kQLD + c, ok ? q + (size_t)(b0 + r) * ldq + d0 + c : q, ok ? 16 : 0);
     }
-    if constexpr (!TRANS) {
+    if constexpr (!TRANS && PB == 16) {
 #pragma unroll
       for (int v = 0; v < XPT; ++v) {
         const int p = tid + v * kThreads, r = p / PPR, c = (p % PPR) * 4;
         const bool ok = n0 + r < n_end && d0 + c < D;
         cp_async16(xs + r * XLD + c, ok ? x + (size_t)(n0 + r) * D + d0 + c : x, ok ? 16 : 0);
+      }
+    } else if constexpr (!TRANS) {  // 4-byte pieces: an element a copy
+#pragma unroll
+      for (int v = 0; v < kTN * kRDK / kThreads; ++v) {
+        const int p = tid + v * kThreads, r = p / kRDK, c = p % kRDK;
+        const bool ok = n0 + r < n_end && d0 + c < D;
+        cp_async4(xs + r * XLD + c, ok ? x + (size_t)(n0 + r) * D + d0 + c : x, ok ? 4 : 0);
       }
     } else if (vec) {
       constexpr int EPC = 16 / sizeof(XT);  // elements per piece
@@ -590,13 +632,17 @@ __global__ void __launch_bounds__(kThreads, 2)
 template <typename XT, bool TRANS, int QT>
 cudaError_t launch_rows(const float* q, int ldq, const void* x, const float* bias, int B, int N,
                         int D, int k, int rows_per_split, int splits, int grid_x, int vec,
-                        long long smem, float* part_s, int* part_i, float* bound, cudaStream_t st) {
+                        bool ragged, long long smem, float* part_s, int* part_i, float* bound,
+                        cudaStream_t st) {
   using L = RowLayout<XT, TRANS, QT>;
   if (smem != (long long)L::kSmem || rows_per_split % kTN != 0 || (long long)grid_x * QT < B ||
       (long long)(grid_x - 1) * QT >= B || ldq % 4 != 0 || ldq < D) {
     return cudaErrorInvalidValue;
   }
-  auto kern = rows_pass1<XT, TRANS, QT>;
+  auto kern = rows_pass1<XT, TRANS, QT, 16>;
+  if constexpr (!TRANS && sizeof(XT) == 4) {
+    if (ragged) kern = rows_pass1<XT, TRANS, QT, 4>;  // 4-byte pieces
+  }
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -607,17 +653,17 @@ cudaError_t launch_rows(const float* q, int ldq, const void* x, const float* bia
 }
 
 // layout 1: K2 over x [N, D]; 2: K3, which runs K2's schedule; 3: K4 over
-// xt [D, N]; query tiles of query_tile (32, 64 or 128) rows. bf16 rows
-// take only layout 3: K2 and K3 over bf16 rows run on the tensor cores
-// (flat_topk_tc.cu).
+// xt [D, N]; query tiles of query_tile (32, 64 or 128) rows; ragged
+// (layouts 1 and 2): f32 rows in 4-byte pieces. bf16 rows take only layout
+// 3: K2 and K3 over bf16 rows run on the tensor cores (flat_topk_tc.cu).
 template <typename XT>
 cudaError_t dispatch_rows(int layout, int query_tile, const float* q, int ldq, const void* x,
                           const float* bias, int B, int N, int D, int k, int rows_per_split,
-                          int splits, int grid_x, int vec, long long smem, float* part_s,
-                          int* part_i, float* bound, cudaStream_t st) {
-#define CG_ROWS(TRANS, QT)                                                                    \
+                          int splits, int grid_x, int vec, bool ragged, long long smem,
+                          float* part_s, int* part_i, float* bound, cudaStream_t st) {
+#define CG_ROWS(TRANS, QT)                                                                     \
   launch_rows<XT, TRANS, QT>(q, ldq, x, bias, B, N, D, k, rows_per_split, splits, grid_x, vec, \
-                             smem, part_s, part_i, bound, st)
+                             ragged, smem, part_s, part_i, bound, st)
   if (layout == 3) {
     switch (query_tile) {
       case 32: return CG_ROWS(true, 32);
@@ -655,6 +701,13 @@ long long rows_smem(int layout, int x_bf16, int query_tile) {
   return 0;
 }
 
+// Whether f32 rows x [N, D] can be read in `piece`-byte pieces: 16 (D % 4
+// == 0 and x 16-byte aligned) or 4 (x 4-byte aligned).
+bool f32_piece_ok(const void* x, int D, int piece) {
+  const size_t a = reinterpret_cast<size_t>(x);
+  return piece == 16 ? D % 4 == 0 && (a & 15) == 0 : piece == 4 && (a & 3) == 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -679,22 +732,22 @@ long long flat_topk_work_entries(int B, int k, int splits, int group) {
 // entries each; out_s [B, k] f32 and out_i [B, k] i32. Each returns the
 // CUDA error code of its launches (0 = success).
 
-// K1 over f32 rows: column warps with tm query rows per block; ldq == D,
-// D % 8 == 0 and x 16-byte aligned.
+// K1 over f32 rows: column warps with tm query rows per block; ldq == D;
+// piece 16: topk_pass1's 16-byte pieces (D % 4 == 0, x 16-byte aligned);
+// piece 4: topk_ragged_pass1's 4-byte pieces (any D, x 4-byte aligned).
 int flat_topk(const float* q, const float* x, const float* bias, int B, int N, int D, int k, int tm,
-              int splits, int rows_per_split, int group, float* out_s, int* out_i, float* work_s,
-              int* work_i, void* stream) {
+              int splits, int rows_per_split, int group, int piece, float* out_s, int* out_i,
+              float* work_s, int* work_i, void* stream) {
   if (B < 1 || N < 1 || D < 1 || k < 1 || k > 1024 || splits < 1 || group < 2 ||
       rows_per_split < 1 || (long long)splits * rows_per_split < N ||
-      (long long)(splits - 1) * rows_per_split >= N || D % 8 != 0 ||
-      (reinterpret_cast<size_t>(x) & 15) != 0) {
+      (long long)(splits - 1) * rows_per_split >= N || !f32_piece_ok(x, D, piece)) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* part_s = splits == 1 ? out_s : work_s;
   int* part_i = splits == 1 ? out_i : work_i;
-  cudaError_t err =
-      dispatch_col<float>(tm, q, x, bias, B, N, D, k, rows_per_split, splits, part_s, part_i, st);
+  cudaError_t err = dispatch_col<float>(tm, q, x, bias, B, N, D, k, rows_per_split, splits,
+                                        piece == 4, part_s, part_i, st);
   if (err != cudaSuccess) return (int)err;
   if (splits == 1) return 0;
   return (int)merge_splits(B, k, splits, group, out_s, out_i, work_s, work_i, st);
@@ -702,19 +755,22 @@ int flat_topk(const float* q, const float* x, const float* bias, int B, int N, i
 
 // K2/K3/K4: row tiles (layout 1, 2 or 3) over grid_x = ceil(B / query_tile)
 // query tiles of query_tile (32, 64 or 128) rows; q is [B, ldq] (ldq % 4 == 0,
-// 16-byte aligned, zero past D); for layouts 1 and 2, f32 rows, D % 8 == 0
-// and x 16-byte aligned; for layout 3, vec = 1 reads xt in 16-byte pieces (N %
+// 16-byte aligned, zero past D); for layouts 1 and 2, f32 rows read in
+// `piece`-byte pieces (rows_pass1's PB): 16 (D % 4 == 0, x 16-byte
+// aligned) or 4 (any D, x 4-byte aligned); for layout 3 (piece ignored),
+// vec = 1 reads xt in 16-byte pieces (N %
 // (16 / element size) == 0, 16-byte aligned), else an element at a time.
 // smem must equal flat_topk_rows_smem(layout, x_bf16, query_tile); bound
 // holds B * splits f32 set to NEG_INF (-1e30).
 int flat_topk_rows(const float* q, int ldq, const void* x, int x_bf16, const float* bias, int B, int N,
                    int D, int k, int layout, int splits, int rows_per_split, int grid_x,
-                   int query_tile, int vec, long long smem, int group, float* out_s, int* out_i,
+                   int query_tile, int vec, int piece, long long smem, int group, float* out_s,
+                   int* out_i,
                    float* work_s, int* work_i, float* bound, void* stream) {
   const size_t elt = x_bf16 ? 2 : 4;
   const bool x_ok = layout == 3
                         ? !vec || ((size_t)N % (16 / elt) == 0 && (reinterpret_cast<size_t>(x) & 15) == 0)
-                        : D % 8 == 0 && (reinterpret_cast<size_t>(x) & 15) == 0;
+                        : !x_bf16 && f32_piece_ok(x, D, piece);
   if (B < 1 || N < 1 || D < 1 || k < 1 || k > 1024 || splits < 1 || group < 2 ||
       rows_per_split < 1 || (long long)splits * rows_per_split < N ||
       (long long)(splits - 1) * rows_per_split >= N || !x_ok ||
@@ -726,11 +782,11 @@ int flat_topk_rows(const float* q, int ldq, const void* x, int x_bf16, const flo
   int* part_i = splits == 1 ? out_i : work_i;
   cudaError_t err =
       x_bf16 ? dispatch_rows<__nv_bfloat16>(layout, query_tile, q, ldq, x, bias, B, N, D, k,
-                                            rows_per_split, splits, grid_x, vec, smem, part_s,
-                                            part_i, bound, st)
+                                            rows_per_split, splits, grid_x, vec, false, smem,
+                                            part_s, part_i, bound, st)
              : dispatch_rows<float>(layout, query_tile, q, ldq, x, bias, B, N, D, k,
-                                    rows_per_split, splits, grid_x, vec, smem, part_s, part_i,
-                                    bound, st);
+                                    rows_per_split, splits, grid_x, vec,
+                                    layout != 3 && piece == 4, smem, part_s, part_i, bound, st);
   if (err != cudaSuccess) return (int)err;
   if (splits == 1) return 0;
   return (int)merge_splits(B, k, splits, group, out_s, out_i, work_s, work_i, st);

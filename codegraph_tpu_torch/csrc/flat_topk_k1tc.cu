@@ -11,8 +11,13 @@
 // codegraph_tpu/ops/topk.py, streaming_topk_pallas / _flat_topk_kernel
 // (:347), which computes dot_general(q, x_bf16, preferred_element_type=f32)
 // + bias for batches under 32 and keeps a running top-k a query row. f32
-// rows stay on flat_topk.cu's topk_pass1. One pass-1 kernel,
-// bf16_k1_pass1<QN, PIECES>, and the pass 2 of topk_merge.cuh.
+// rows stay on flat_topk.cu's topk_pass1. Rows TMA cannot read (D % 8 !=
+// 0, or a base not 16-byte aligned) run bf16_k1_pass1<QN, PIECES, true>
+// ("K1tcr"): the same kernel with its corpus boxes and bias brought by
+// hopper_tc.cuh's ragged-row producer, laid out as TMA would (the queries,
+// padded by the wrapper to a multiple of 8, still come by TMA). One
+// pass-1 kernel, bf16_k1_pass1<QN, PIECES, RAGGED>, and the pass 2 of
+// topk_merge.cuh.
 //
 // What bounds it on the H100: the corpus bytes, read once a call, N*D*2 +
 // 4N: 1.54 GB at 1M x 768, 0.46 ms at 3.35 TB/s. Its products, 2*B*N*D a
@@ -46,6 +51,8 @@
 //   * Grid (query tiles, corpus splits), one block per SM and one wave, so
 //     that every split of a query runs at once and the shared bound holds
 //     from the first tiles; pass 2 merges the splits' lists.
+
+#include <type_traits>
 
 #include "hopper_tc.cuh"
 
@@ -88,6 +95,14 @@ struct K1Args {
   float* bound;   // [B, S], NEG_INF at launch
   int B, N, k, rows_per_split, resident, stages;
 };
+// K1tcr's arguments: K1's, and the corpus rows and bias that its producer
+// warps read (the TMA instance keeps K1Args as it was)
+struct K1RaggedArgs : K1Args {
+  RaggedRows rows;
+  const float* bias;
+};
+template <bool RAGGED>
+using K1ArgsOf = typename std::conditional<RAGGED, K1RaggedArgs, K1Args>::type;
 
 // d[N / 2] += A (64 x 16 bf16, K-major, descriptor da) * B (N x 16 bf16,
 // K-major, descriptor db)^T in f32; scale_d = 0 overwrites d instead.
@@ -189,12 +204,14 @@ __device__ __noinline__ void k1_flush_query(int qi, int n, float* buf_s, int* bu
 // of the consumers (0..15) owns queries h and h + 16: their states, lists
 // and flushes. qmap0..2: the query pieces [B, D] bf16 (hi, mid, lo; PIECES
 // of them) as boxes of 64 depths x QN rows; xmap: x [N, D] bf16 as boxes of
-// 64 depths x 128 rows; bmap: bias [N] as boxes of 128.
-template <int QN, int PIECES>
-__global__ void __launch_bounds__(kTcThreads, 1)
+// 64 depths x 128 rows; bmap: bias [N] as boxes of 128. RAGGED: xmap and
+// bmap are not read; the producer warp brings the corpus boxes and the
+// tiles' bias from a.rows and a.bias.
+template <int QN, int PIECES, bool RAGGED>
+__global__ void __launch_bounds__(RAGGED ? kRaggedThreads : kTcThreads, 1)
     bf16_k1_pass1(const __grid_constant__ CUtensorMap qmap0, const __grid_constant__ CUtensorMap qmap1,
                   const __grid_constant__ CUtensorMap qmap2, const __grid_constant__ CUtensorMap xmap,
-                  const __grid_constant__ CUtensorMap bmap, const K1Args a) {
+                  const __grid_constant__ CUtensorMap bmap, const K1ArgsOf<RAGGED> a) {
   static_assert(QN % 8 == 0 && QN <= 32, "query tiles of 8, 16, 24 or 32 rows");
   constexpr int kQBox = QN * kBoxBytes;  // a query box: QN rows x 128 bytes
   extern __shared__ __align__(1024) unsigned char smem_raw[];
@@ -215,20 +232,50 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   const int n_begin = blockIdx.y * a.rows_per_split;
   const int n_end = min(a.N, n_begin + a.rows_per_split);
 
+  constexpr int kFill = RAGGED ? kRaggedLanes : 1;  // arrivals that fill a stage or meta slot
   if (tid == 0) {
     for (int s = 0; s < a.stages; ++s) {
-      mbar_init(full_bar + 8 * s, 1);
+      mbar_init(full_bar + 8 * s, kFill);
       mbar_init(empty_bar + 8 * s, 4 * kTcConsumers);  // lane 0 of each consumer warp
     }
     mbar_init(q_bar, 1);
     for (int s = 0; s < kMetaSlots; ++s) {
-      mbar_init(meta_full + 8 * s, 1);
+      mbar_init(meta_full + 8 * s, kFill);
       mbar_init(meta_empty + 8 * s, 4 * kTcConsumers);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
+  if constexpr (RAGGED) {
+    if (wg == kTcConsumers) {
+      // ---- ragged producer: the query tile by TMA, the ring by the warps ----
+      const int lane = tid - kTcConsumers * 128;
+      const CUtensorMap* const qmaps[3] = {&qmap0, &qmap1, &qmap2};
+      if (a.resident && lane == 0) {
+        mbar_expect_tx(q_bar, L.query_bytes);
+        for (int p = 0; p < PIECES; ++p) {
+          for (int c = 0; c < L.chunks; ++c) {
+            tma_load(qtile + (p * L.chunks + c) * kQBox, qmaps[p], q_bar, c * kK1BoxD, b0);
+          }
+        }
+      }
+      ragged_produce<kK1Rows>(
+          a.rows, n_begin, n_end, L.chunks, a.stages, ring, L.stage_bytes, full_bar, empty_bar,
+          meta_full, meta_empty, lane,
+          [&](uint32_t box, uint32_t full, int c) {  // a streamed query box a piece
+            if (a.resident) return;
+            mbar_expect_tx_only(full, PIECES * kQBox);
+            for (int p = 0; p < PIECES; ++p) {
+              tma_load(box + kK1Rows * kBoxBytes + p * kQBox, qmaps[p], full, c * kK1BoxD, b0);
+            }
+          },
+          [&](int m, int n0) {  // the tile's bias
+            ragged_meta<kK1Rows>(meta + m * kK1MetaBytes, a.bias, n0, a.N, lane);
+          });
+      return;
+    }
+  }
   if (wg == kTcConsumers) {
     // ---- producer: the query tile once (if resident), then the ring ----
     if (tid == kTcConsumers * 128) {
@@ -430,13 +477,23 @@ __global__ void __launch_bounds__(kTcThreads, 1)
 
 template <int QN, int PIECES>
 cudaError_t launch_k1(const CUtensorMap (&qmaps)[3], const CUtensorMap& xmap,
-                      const CUtensorMap& bmap, const K1Args& a, int grid_x, int splits, long long smem,
-                      cudaStream_t st) {
-  auto kern = bf16_k1_pass1<QN, PIECES>;
+                      const CUtensorMap& bmap, const K1RaggedArgs& a, int grid_x, int splits,
+                      long long smem, bool ragged, cudaStream_t st) {
+  const dim3 grid(grid_x, splits);
+  if (ragged) {  // it reads neither xmap nor bmap (not encoded for it)
+    auto kern = bf16_k1_pass1<QN, PIECES, true>;
+    cudaError_t err =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    kern<<<grid, kRaggedThreads, (size_t)smem, st>>>(qmaps[0], qmaps[1], qmaps[2], qmaps[0],
+                                                     qmaps[0], a);
+    return cudaGetLastError();
+  }
+  auto kern = bf16_k1_pass1<QN, PIECES, false>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  kern<<<dim3(grid_x, splits), kTcThreads, (size_t)smem, st>>>(qmaps[0], qmaps[1], qmaps[2], xmap,
-                                                               bmap, a);
+  kern<<<grid, kTcThreads, (size_t)smem, st>>>(qmaps[0], qmaps[1], qmaps[2], xmap, bmap,
+                                               static_cast<const K1Args&>(a));
   return cudaGetLastError();
 }
 
@@ -462,42 +519,52 @@ long long flat_topk_k1tc_smem(int query_tile, int pieces, int resident, int stag
   return (long long)K1Layout(query_tile, pieces, resident, stages, D).smem;
 }
 
-// K1 over bf16 rows: bf16_k1_pass1 over grid (ceil(B / query_tile), splits),
-// then pass 2. q [pieces, B, D] bf16 (pieces = 1: bf16 queries; 3: an f32
-// query's split_bf16 pieces hi, mid, lo), x [N, D] bf16, bias [N] f32, all
-// contiguous on the device of `stream` and 16-byte aligned, D % 8 == 0
-// (TMA's strides and addresses). rows_per_split a multiple of 128; smem
-// must equal flat_topk_k1tc_smem(...). out_s [B, k] f32 and out_i [B, k]
+// K1 over bf16 rows: bf16_k1_pass1 (piece = 0) or, over rows TMA cannot
+// read, bf16_k1_pass1<QN, PIECES, true> (piece = 16, 8, 4 or 1: the ragged-row producer's
+// copies, see hopper_tc.cuh) over grid (ceil(B / query_tile), splits), then
+// pass 2. q [pieces, B, Dq] bf16 (pieces = 1: bf16 queries; 3: an f32
+// query's split_bf16 pieces hi, mid, lo), 16-byte aligned, Dq = D rounded
+// up to a multiple of 8 (zero columns past D); x [N, D] bf16, bias [N] f32,
+// all contiguous on the device of `stream`. piece 0: x and bias 16-byte
+// aligned, D % 8 == 0 (TMA's strides and addresses); piece p > 1: 2D % p ==
+// 0 and x p-byte aligned; piece 1: any D and address; the ragged instance
+// takes at least 3 stages. rows_per_split a multiple of 128; smem must
+// equal flat_topk_k1tc_smem(...). out_s [B, k] f32 and out_i [B, k]
 // i32; work_s / work_i hold flat_topk_k1tc_work_entries(B, k, splits,
 // group) entries each and bound B * splits, set to NEG_INF (-1e30).
 // Returns the CUDA error code of the launches (0 = success).
 int flat_topk_k1tc(const void* q, int pieces, const void* x, const float* bias, int B, int N, int D,
                    int k, int query_tile, int resident, int stages, int splits, int rows_per_split,
-                   long long smem, int group, float* out_s, int* out_i, float* work_s, int* work_i,
-                   float* bound, void* stream) {
-  if (B < 1 || N < 1 || D < 8 || D % 8 != 0 || k < 1 || k > 1024 || splits < 1 || group < 2 ||
+                   long long smem, int group, int piece, float* out_s, int* out_i,
+                   float* work_s, int* work_i, float* bound, void* stream) {
+  const size_t xa = reinterpret_cast<size_t>(x);
+  const bool shape_ok =
+      piece == 0 ? D % 8 == 0 && (xa & 15) == 0 && (reinterpret_cast<size_t>(bias) & 15) == 0
+      : piece == 1 ? stages >= 3
+      : (piece == 4 || piece == 8 || piece == 16) && (2 * D) % piece == 0 && xa % piece == 0 && stages >= 3;
+  if (B < 1 || N < 1 || D < 1 || k < 1 || k > 1024 || splits < 1 || group < 2 || !shape_ok ||
       stages < 2 || rows_per_split < 1 || rows_per_split % kK1Rows != 0 ||
       (long long)splits * rows_per_split < N || (long long)(splits - 1) * rows_per_split >= N ||
-      (reinterpret_cast<size_t>(q) & 15) != 0 || (reinterpret_cast<size_t>(x) & 15) != 0 ||
-      (reinterpret_cast<size_t>(bias) & 15) != 0 ||
+      (reinterpret_cast<size_t>(q) & 15) != 0 ||
       smem != flat_topk_k1tc_smem(query_tile, pieces, resident, stages, D) || smem > 232448) {
     return (int)cudaErrorInvalidValue;
   }
-  // one map a piece, each B rows (zeros past B), piece p at p * B * D
+  // one map a piece, each B rows (zeros past B), piece p at p * B * Dq
+  const int Dq = (D + 7) / 8 * 8;
   CUtensorMap qmaps[3], xmap, bmap;
   for (int p = 0; p < pieces; ++p) {
-    const void* qp = static_cast<const unsigned short*>(q) + (size_t)p * B * D;
-    if (!encode_rows(&qmaps[p], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, qp, B, D, query_tile)) {
+    const void* qp = static_cast<const unsigned short*>(q) + (size_t)p * B * Dq;
+    if (!encode_rows(&qmaps[p], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, qp, B, Dq, query_tile)) {
       return (int)cudaErrorInvalidValue;
     }
   }
   for (int p = pieces; p < 3; ++p) qmaps[p] = qmaps[0];  // not read
-  if (!encode_rows(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, N, D, kK1Rows) ||
-      !encode_vector(&bmap, bias, N, kK1Rows)) {
+  if (piece == 0 && (!encode_rows(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, N, D, kK1Rows) ||
+                     !encode_vector(&bmap, bias, N, kK1Rows))) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  K1Args a;
+  K1RaggedArgs a;
   a.L = K1Layout(query_tile, pieces, resident, stages, D);
   a.part_s = splits == 1 ? out_s : work_s;
   a.part_i = splits == 1 ? out_i : work_i;
@@ -508,12 +575,14 @@ int flat_topk_k1tc(const void* q, int pieces, const void* x, const float* bias, 
   a.rows_per_split = rows_per_split;
   a.resident = resident;
   a.stages = stages;
+  a.rows = RaggedRows{static_cast<const unsigned char*>(x), 2ll * D, N, piece};
+  a.bias = bias;
   const int grid_x = (B + query_tile - 1) / query_tile;
   cudaError_t err;
   switch (query_tile * 4 + pieces) {
 #define CG_K1(QN, P)  \
   case QN * 4 + P: \
-    err = launch_k1<QN, P>(qmaps, xmap, bmap, a, grid_x, splits, smem, st); \
+    err = launch_k1<QN, P>(qmaps, xmap, bmap, a, grid_x, splits, smem, piece != 0, st); \
     break;
     CG_K1(8, 1) CG_K1(16, 1) CG_K1(24, 1) CG_K1(32, 1)
     CG_K1(8, 3) CG_K1(16, 3) CG_K1(24, 3) CG_K1(32, 3)

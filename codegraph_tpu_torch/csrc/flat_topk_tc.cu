@@ -14,10 +14,14 @@
 // All compute dot_general(q, x_bf16, preferred_element_type=f32) + bias;
 // K3 runs K2's schedule here, as it does in flat_topk.cu, and K4 runs it
 // over the corpus stored as xt [D, N] ("K4tc", XT = true: the corpus boxes
-// MN-major, see below). f32 rows, and a bf16 xt that TMA cannot read (N %
-// 8 != 0, or a base not 16-byte aligned), stay on flat_topk.cu's
-// rows_pass1. One pass-1 kernel, bf16_tc_pass1<PIECES, XT>, and the pass 2
-// of topk_merge.cuh.
+// MN-major, see below). Rows TMA cannot read (D % 8 != 0, or a base not
+// 16-byte aligned) run bf16_tc_ragged_pass1<PIECES> ("K2tcr", "K2tc3r"):
+// the same kernel with its corpus boxes and bias brought by hopper_tc.cuh's
+// ragged-row producer, laid out as TMA would (the queries, padded by the
+// wrapper to a multiple of 8, still come by TMA). f32 rows, and a bf16 xt
+// that TMA cannot read (N % 8 != 0, or a base not 16-byte aligned), stay
+// on flat_topk.cu's rows_pass1. One pass-1 kernel body, bf16_tc_body<PIECES,
+// XT, RAGGED>, and the pass 2 of topk_merge.cuh.
 //
 // What bounds it on the H100:
 //   * 2*B*N*D bf16 operations a piece: 1.57 TFLOP at B = 1024 over 1M x
@@ -103,6 +107,10 @@ struct TcArgs {
   int* cand_i;
   int B, N, k, rows_per_split;
   int qt, resident, stages;
+  // K2tcr: the corpus rows and bias, read by the producer warp (not read
+  // by the TMA instances)
+  RaggedRows rows;
+  const float* bias;
 };
 
 // d[64] += A (64 x 16 bf16, K-major, descriptor da) * B (128 x 16 bf16,
@@ -216,14 +224,15 @@ __device__ __noinline__ void tc_flush_rows(unsigned full0, unsigned full1, TcSta
 // hi + mid + lo == q exactly; each corpus box meets the three query boxes
 // of its depth, three wgmma chains into the one f32 accumulator, so the
 // sums are those of the f32 query's products (each piece times a bf16
-// value is exact in f32).
-template <int PIECES, bool XT>
-__global__ void __launch_bounds__(kTcThreads, 1)
-    bf16_tc_pass1(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap xmap,
-                  const __grid_constant__ CUtensorMap bmap, const TcArgs a,
-                  const __grid_constant__ CUtensorMap qmap_mid,
-                  const __grid_constant__ CUtensorMap qmap_lo) {
+// value is exact in f32). RAGGED: xmap and bmap are not read; the producer
+// warp brings the corpus boxes and the tiles' bias from a.rows and a.bias.
+template <int PIECES, bool XT, bool RAGGED>
+__device__ __forceinline__ void bf16_tc_body(const CUtensorMap& qmap, const CUtensorMap& xmap,
+                                             const CUtensorMap& bmap, const TcArgs& a,
+                                             const CUtensorMap& qmap_mid,
+                                             const CUtensorMap& qmap_lo) {
   static_assert(PIECES == 1 || PIECES == 3, "a bf16 query, or an f32 query's three pieces");
+  static_assert(!(XT && RAGGED), "the ragged producer lays out row boxes (K-major)");
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const TcLayout& L = a.L;
   unsigned char* sp = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
@@ -243,21 +252,50 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   const int n_begin = blockIdx.y * a.rows_per_split;
   const int n_end = min(a.N, n_begin + a.rows_per_split);
 
+  constexpr int kFill = RAGGED ? kRaggedLanes : 1;  // arrivals that fill a stage or meta slot
   if (tid == 0) {
     for (int s = 0; s < a.stages; ++s) {
-      mbar_init(full_bar + 8 * s, 1);
+      mbar_init(full_bar + 8 * s, kFill);
       mbar_init(empty_bar + 8 * s, 4 * consumers);  // lane 0 of each consumer warp
     }
     mbar_init(q_bar, 1);
     for (int s = 0; s < kMetaSlots; ++s) {
-      mbar_init(meta_full + 8 * s, 1);
+      mbar_init(meta_full + 8 * s, kFill);
       mbar_init(meta_empty + 8 * s, 4 * consumers);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  if (wg == kTcConsumers) {
+  if (wg == kTcConsumers && RAGGED) {
+    // ---- ragged producer: the query tile by TMA, the ring by the warps ----
+    const int lane = tid - kTcConsumers * 128;
+    if (a.resident && lane == 0) {
+      mbar_expect_tx(q_bar, L.query_bytes);
+      for (int c = 0; c < L.chunks; ++c) {
+        tma_load(qtile + c * a.qt * kBoxBytes, &qmap, q_bar, c * kBoxD, b0);
+        if constexpr (PIECES == 3) {
+          tma_load(qtile + (L.chunks + c) * a.qt * kBoxBytes, &qmap_mid, q_bar, c * kBoxD, b0);
+          tma_load(qtile + (2 * L.chunks + c) * a.qt * kBoxBytes, &qmap_lo, q_bar, c * kBoxD, b0);
+        }
+      }
+    }
+    ragged_produce<kWgN>(
+        a.rows, n_begin, n_end, L.chunks, a.stages, ring, L.stage_bytes, full_bar, empty_bar,
+        meta_full, meta_empty, lane,
+        [&](uint32_t st, uint32_t full, int c) {  // a streamed query box a piece
+          if (a.resident) return;
+          mbar_expect_tx_only(full, PIECES * a.qt * kBoxBytes);
+          tma_load(st + L.corpus_bytes, &qmap, full, c * kBoxD, b0);
+          if constexpr (PIECES == 3) {
+            tma_load(st + L.corpus_bytes + a.qt * kBoxBytes, &qmap_mid, full, c * kBoxD, b0);
+            tma_load(st + L.corpus_bytes + 2 * a.qt * kBoxBytes, &qmap_lo, full, c * kBoxD, b0);
+          }
+        },
+        [&](int m, int n0) {  // the tile's bias
+          ragged_meta<kWgN>(meta + m * kMetaSlotBytes, a.bias, n0, a.N, lane);
+        });
+  } else if (wg == kTcConsumers) {
     // ---- producer: the query tile once (if resident), then the ring ----
     if (tid == kTcConsumers * 128) {
       if (a.resident) {
@@ -491,6 +529,23 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   }
 }
 
+template <int PIECES, bool XT>
+__global__ void __launch_bounds__(kTcThreads, 1)
+    bf16_tc_pass1(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap xmap,
+                  const __grid_constant__ CUtensorMap bmap, const TcArgs a,
+                  const __grid_constant__ CUtensorMap qmap_mid,
+                  const __grid_constant__ CUtensorMap qmap_lo) {
+  bf16_tc_body<PIECES, XT, false>(qmap, xmap, bmap, a, qmap_mid, qmap_lo);
+}
+
+template <int PIECES>
+__global__ void __launch_bounds__(kRaggedThreads, 1)
+    bf16_tc_ragged_pass1(const __grid_constant__ CUtensorMap qmap, const TcArgs a,
+                         const __grid_constant__ CUtensorMap qmap_mid,
+                         const __grid_constant__ CUtensorMap qmap_lo) {
+  bf16_tc_body<PIECES, false, true>(qmap, qmap, qmap, a, qmap_mid, qmap_lo);
+}
+
 }  // namespace
 
 extern "C" {
@@ -520,14 +575,19 @@ long long flat_topk_tc_smem(int query_tile, int resident, int stages, int D, int
   return (long long)TcLayout(query_tile, resident, stages, D, pieces).smem;
 }
 
-// K2/K3 over bf16 rows and K4 over a bf16 xt: bf16_tc_pass1 over grid
-// (ceil(B / query_tile), splits), then pass 2. q [pieces, B, D] bf16
-// (pieces = 1: bf16 queries; 3: an f32 query's split_bf16 pieces hi, mid,
-// lo); xt_depth = 0: x [N, D] bf16 rows; xt_depth > 0: x is xt [xt_depth,
-// N] bf16 (K4), N % 8 == 0, and q's D is xt_depth rounded up to a multiple
-// of 8 (zero columns past xt_depth); bias [N] f32; all contiguous on the
-// device of `stream` and 16-byte aligned, D % 8 == 0 (TMA's strides and
-// addresses). query_tile: 64 or 128; the query tile is
+// K2/K3 over bf16 rows and K4 over a bf16 xt: bf16_tc_pass1 (piece = 0)
+// or, over rows TMA cannot read, bf16_tc_ragged_pass1 (piece = 16, 8, 4 or 1:
+// the ragged-row producer's copies, see hopper_tc.cuh) over grid (ceil(B /
+// query_tile), splits), then pass 2. q [pieces, B, Dq] bf16 (pieces = 1:
+// bf16 queries; 3: an f32 query's split_bf16 pieces hi, mid, lo), 16-byte
+// aligned, Dq = D rounded up to a multiple of 8 (zero columns past D);
+// xt_depth = 0: x [N, D] bf16 rows; xt_depth > 0 (piece 0 only): x is xt
+// [xt_depth, N] bf16 (K4), N % 8 == 0, and D is xt_depth rounded up to a
+// multiple of 8; bias [N] f32; all contiguous on the device of `stream`.
+// piece 0: x and bias 16-byte aligned, D % 8 == 0 (TMA's strides and
+// addresses); piece p > 1: 2D % p == 0 and x p-byte aligned; piece 1: any
+// D and address; the ragged instance takes at least 3 stages. query_tile:
+// 64 or 128; the query tile is
 // resident (resident = 1) or streams with the corpus through the ring of
 // `stages`; rows_per_split a multiple of 128; smem must equal
 // flat_topk_tc_smem(..., pieces). out_s [B, k] f32 and out_i [B, k] i32; work_s /
@@ -538,35 +598,43 @@ long long flat_topk_tc_smem(int query_tile, int resident, int stages, int D, int
 // success).
 int flat_topk_tc(const void* q, int pieces, const void* x, int xt_depth, const float* bias, int B,
                  int N, int D, int k, int query_tile, int resident, int stages, int splits,
-                 int rows_per_split, long long smem, int group, float* out_s, int* out_i,
-                 float* work_s, int* work_i, float* bound, float* cand_s, int* cand_i,
+                 int rows_per_split, long long smem, int group, int piece, float* out_s,
+                 int* out_i, float* work_s, int* work_i, float* bound, float* cand_s, int* cand_i,
                  void* stream) {
-  if (B < 1 || N < 1 || D < 8 || D % 8 != 0 || k < 1 || k > 1024 || splits < 1 || group < 2 ||
+  const size_t xa = reinterpret_cast<size_t>(x);
+  const bool shape_ok =
+      piece == 0 ? D % 8 == 0 && (xa & 15) == 0 && (reinterpret_cast<size_t>(bias) & 15) == 0
+      : piece == 1 ? xt_depth == 0 && stages >= 3
+      : (piece == 4 || piece == 8 || piece == 16) && xt_depth == 0 && (2 * D) % piece == 0 && xa % piece == 0 &&
+            stages >= 3;
+  if (B < 1 || N < 1 || D < 1 || k < 1 || k > 1024 || splits < 1 || group < 2 || !shape_ok ||
       (xt_depth != 0 && (xt_depth < 0 || xt_depth > D || D - xt_depth >= 8 || N % 8 != 0)) ||
       stages < 2 || rows_per_split < 1 || rows_per_split % kWgN != 0 ||
       (long long)splits * rows_per_split < N || (long long)(splits - 1) * rows_per_split >= N ||
-      (reinterpret_cast<size_t>(q) & 15) != 0 || (reinterpret_cast<size_t>(x) & 15) != 0 ||
-      (reinterpret_cast<size_t>(bias) & 15) != 0 ||
+      (reinterpret_cast<size_t>(q) & 15) != 0 ||
       smem != flat_topk_tc_smem(query_tile, resident, stages, D, pieces) || smem > 232448) {
     return (int)cudaErrorInvalidValue;
   }
-  // one map a piece, each B rows (zeros past B), piece p at p * B * D
+  // one map a piece, each B rows (zeros past B), piece p at p * B * Dq
+  const int Dq = (D + 7) / 8 * 8;
   CUtensorMap qmaps[3], xmap, bmap;
   for (int p = 0; p < pieces; ++p) {
-    const void* qp = static_cast<const unsigned short*>(q) + (size_t)p * B * D;
-    if (!encode_rows(&qmaps[p], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, qp, B, D, query_tile)) {
+    const void* qp = static_cast<const unsigned short*>(q) + (size_t)p * B * Dq;
+    if (!encode_rows(&qmaps[p], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, qp, B, Dq, query_tile)) {
       return (int)cudaErrorInvalidValue;
     }
   }
   for (int p = pieces; p < 3; ++p) qmaps[p] = qmaps[0];  // not read
   // xt [xt_depth, N]: xt_depth rows of N columns, boxes of 64 columns x
   // kBoxD depths
-  const bool built = xt_depth ? encode_rows(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x,
-                                            xt_depth, N, kBoxD)
-                              : encode_rows(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, N, D,
-                                            kWgN);
-  if (!built || !encode_vector(&bmap, bias, N, kWgN)) {
-    return (int)cudaErrorInvalidValue;
+  if (piece == 0) {
+    const bool built = xt_depth ? encode_rows(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x,
+                                              xt_depth, N, kBoxD)
+                                : encode_rows(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, N, D,
+                                              kWgN);
+    if (!built || !encode_vector(&bmap, bias, N, kWgN)) {
+      return (int)cudaErrorInvalidValue;
+    }
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   TcArgs a;
@@ -583,12 +651,22 @@ int flat_topk_tc(const void* q, int pieces, const void* x, int xt_depth, const f
   a.qt = query_tile;
   a.resident = resident;
   a.stages = stages;
-  auto kern = xt_depth ? (pieces == 1 ? bf16_tc_pass1<1, true> : bf16_tc_pass1<3, true>)
-                       : (pieces == 1 ? bf16_tc_pass1<1, false> : bf16_tc_pass1<3, false>);
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  kern<<<dim3((B + query_tile - 1) / query_tile, splits), kTcThreads, (size_t)smem, st>>>(
-      qmaps[0], xmap, bmap, a, qmaps[1], qmaps[2]);
+  a.rows = RaggedRows{static_cast<const unsigned char*>(x), 2ll * D, N, piece};
+  a.bias = bias;
+  const dim3 grid((B + query_tile - 1) / query_tile, splits);
+  cudaError_t err;
+  if (piece == 0) {
+    auto kern = xt_depth ? (pieces == 1 ? bf16_tc_pass1<1, true> : bf16_tc_pass1<3, true>)
+                         : (pieces == 1 ? bf16_tc_pass1<1, false> : bf16_tc_pass1<3, false>);
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    kern<<<grid, kTcThreads, (size_t)smem, st>>>(qmaps[0], xmap, bmap, a, qmaps[1], qmaps[2]);
+  } else {
+    auto kern = pieces == 1 ? bf16_tc_ragged_pass1<1> : bf16_tc_ragged_pass1<3>;
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    kern<<<grid, kRaggedThreads, (size_t)smem, st>>>(qmaps[0], a, qmaps[1], qmaps[2]);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   if (splits == 1) return 0;

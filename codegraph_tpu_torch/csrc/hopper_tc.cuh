@@ -318,6 +318,199 @@ __device__ __forceinline__ void merge_sorted(const float* bs, const int* bi, int
 }
 
 // ---------------------------------------------------------------------------
+// The ragged-row producer. TMA's tiled mode reads rows whose byte stride is
+// a multiple of 16 from a 16-byte aligned base; a corpus of any other width
+// or base (an embedding width of 100, 300, 765, ...; a view one element
+// into its storage) is brought into the same ring by the producer warp
+// itself. It writes a stage exactly as a TMA box with the 128-byte swizzle
+// would hold it, so the consumers, their wgmma descriptors, the epilogue
+// and the flush are those of the TMA instance:
+//   * box row r (corpus row n0 + r) at r * 128 bytes, its 16-byte chunk j
+//     (bytes c * 128 + 16 j .. of the row) at chunk j ^ (r & 7), the ring
+//     1024-byte aligned as for TMA (ops/topk.py `swizzled_box` models it);
+//   * zeros past the row's bytes and past the corpus's rows, written into
+//     every stage (a stage's previous bytes never reach the sums);
+//   * each lane copies its chunks with cp.async of the widest piece the
+//     rows allow (16, 8 or 4 bytes: the row stride and the base both
+//     multiples of it), zero-filled where a piece runs past the data; a
+//     corpus whose rows are not 4-byte aligned (an odd int8 width, an odd
+//     bf16 width, a base one element in) is read as the aligned words that
+//     hold each chunk, funnel-shifted into place and stored with st.shared;
+//   * completion: the lane waits for its group of copies one stage behind
+//     the one it issues (so two stages are in flight; a ring of 3 stages
+//     at least, or the consumers could wait on a stage the producer has not
+//     published while it waits on them), fences its writes to the async
+//     proxy that wgmma reads through (fence.proxy.async.shared::cta), then
+//     arrives on the stage's full barrier, which counts the producer's lanes
+//     (and a streamed query box's TMA bytes, expected without an arrive).
+// The tiles' metadata (bias, int8's scales) comes by 4-byte cp.async into
+// the same meta slots, completed with the tile's first stage. A ragged
+// instance's block is the consumers and a producer warpgroup (kRaggedWarps:
+// one warp fed K6r at 10M x 768, B=1024, in 58 ms, four in 39, and four at
+// a realigned width 765 in 67 where one took 191; keeping 5 stages in
+// flight instead of 2 gained nothing: PERF.md). 384 threads keep the
+// consumers' 168 registers.
+
+constexpr int kRaggedWarps = 4;                  // the producer warps of a ragged instance
+constexpr int kRaggedLanes = 32 * kRaggedWarps;  // arrivals that fill its stage or meta slot
+constexpr int kRaggedThreads = 128 * kTcConsumers + kRaggedLanes;  // its block
+
+struct RaggedRows {
+  const unsigned char* base;  // row 0's first byte
+  long long row_bytes;        // bytes of a row (D x element size), also its stride
+  int rows;                   // rows past this one read as zeros (N)
+  int piece;                  // 16, 8 or 4: cp.async pieces; 1: realigned words
+};
+
+// an mbarrier's expected transaction bytes, without an arrive
+__device__ __forceinline__ void mbar_expect_tx_only(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.expect_tx.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void fence_proxy_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// P bytes global -> shared (both P-byte aligned), of which the first
+// `bytes` are read and the rest zero-filled
+template <int P>
+__device__ __forceinline__ void cp_async_zfill(uint32_t dst, const void* src, int bytes) {
+  if constexpr (P == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(bytes)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst), "l"(src), "n"(P),
+                 "r"(bytes)
+                 : "memory");
+  }
+}
+// W words from byte address a (any alignment), bytes from `valid` on zero:
+// the aligned words that hold a byte of [a, a + valid), funnel-shifted
+// into place. Reads no word outside them.
+template <int W>
+__device__ __forceinline__ void load_realigned(const unsigned char* a, int valid, uint32_t (&out)[W]) {
+  const uintptr_t p = reinterpret_cast<uintptr_t>(a);
+  const uint32_t* aw = reinterpret_cast<const uint32_t*>(p & ~uintptr_t(3));
+  const int lead = (int)(p & 3);
+  const int words = valid > 0 ? (lead + valid + 3) >> 2 : 0;
+  uint32_t w[W + 1];
+#pragma unroll
+  for (int i = 0; i <= W; ++i) w[i] = i < words ? __ldg(aw + i) : 0u;
+#pragma unroll
+  for (int i = 0; i < W; ++i) {
+    const uint32_t v = __funnelshift_r(w[i], w[i + 1], 8 * lead);
+    const int keep = valid - 4 * i;  // bytes of this word that are data
+    out[i] = keep >= 4 ? v : keep <= 0 ? 0u : v & ((1u << (8 * keep)) - 1u);
+  }
+}
+
+template <int R, int P>
+__device__ __forceinline__ void ragged_fill_p(uint32_t dst, const RaggedRows& g, int n0, int c,
+                                              int lane) {
+  const long long off0 = (long long)c * kBoxBytes;
+#pragma unroll 4
+  for (int p = lane; p < R * (kBoxBytes / 16); p += kRaggedLanes) {
+    const int r = p >> 3, j = p & 7;
+    const uint32_t d = dst + r * kBoxBytes + ((j ^ (r & 7)) << 4);
+    const long long off = off0 + 16 * j;
+    const int valid = n0 + r < g.rows ? (int)max(0ll, min(16ll, g.row_bytes - off)) : 0;
+    const unsigned char* src = valid ? g.base + (long long)(n0 + r) * g.row_bytes + off : g.base;
+    if constexpr (P == 1) {
+      uint32_t v[4];
+      load_realigned<4>(src, valid, v);
+      asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(d), "r"(v[0]), "r"(v[1]),
+                   "r"(v[2]), "r"(v[3])
+                   : "memory");
+    } else {
+#pragma unroll
+      for (int e = 0; e < 16 / P; ++e) {
+        const int b = min(max(valid - e * P, 0), P);
+        cp_async_zfill<P>(d + e * P, b ? src + e * P : g.base, b);
+      }
+    }
+  }
+}
+
+// The producer warp's fill of one ring stage: rows n0 .. n0 + R - 1 of g,
+// bytes c * kBoxBytes .. + kBoxBytes - 1 of each, into the R x kBoxBytes
+// box at dst (1024-byte aligned), as described above; the lane's copies
+// join its open cp.async group.
+template <int R>
+__device__ __forceinline__ void ragged_fill(uint32_t dst, const RaggedRows& g, int n0, int c,
+                                            int lane) {
+  switch (g.piece) {
+    case 16: ragged_fill_p<R, 16>(dst, g, n0, c, lane); break;
+    case 8: ragged_fill_p<R, 8>(dst, g, n0, c, lane); break;
+    case 4: ragged_fill_p<R, 4>(dst, g, n0, c, lane); break;
+    default: ragged_fill_p<R, 1>(dst, g, n0, c, lane); break;
+  }
+}
+
+// A tile's R f32 of a per-row array (scales, bias) from row n0 into dst,
+// zeros past `rows`; the lane's copies join its open cp.async group.
+template <int R>
+__device__ __forceinline__ void ragged_meta(uint32_t dst, const float* src, int n0, int rows,
+                                            int lane) {
+  for (int i = lane; i < R; i += kRaggedLanes) {
+    const bool ok = n0 + i < rows;
+    cp_async_zfill<4>(dst + 4 * i, ok ? src + n0 + i : src, ok ? 4 : 0);
+  }
+}
+
+// Publish the stage (and the meta slot, if meta_full is not 0) of the
+// lane's cp.async group PENDING groups back: wait for its copies, fence
+// them (and the lane's st.shared) to the async proxy, arrive.
+template <int PENDING>
+__device__ __forceinline__ void ragged_publish(uint32_t full, uint32_t meta_full) {
+  cp_async_wait_group<PENDING>();
+  fence_proxy_async_smem();
+  mbar_arrive(full);
+  if (meta_full) mbar_arrive(meta_full);
+}
+
+// The ragged producer's loop, run by its kRaggedLanes threads (lane 0 ..):
+// for each R-row tile of [n_begin, n_end) and each of its `chunks` stages,
+// wait for the stage's slot, call query(stage, full barrier, chunk) (a
+// streamed query box by TMA, from lane 0), fill the corpus box, and with a
+// tile's first stage call meta(meta slot, n0); publish each stage once the
+// next one is issued, the last at the end.
+template <int R, typename Query, typename Meta>
+__device__ __forceinline__ void ragged_produce(const RaggedRows& rows, int n_begin, int n_end,
+                                               int chunks, int stages, uint32_t ring,
+                                               int stage_bytes, uint32_t full_bar,
+                                               uint32_t empty_bar, uint32_t meta_full,
+                                               uint32_t meta_empty, int lane, Query query,
+                                               Meta meta) {
+  int slot = 0, prev = -1, prev_m = -1;  // the stage (and its meta slot) not yet published
+  uint32_t phase = 0;
+  for (int n0 = n_begin, tile = 0; n0 < n_end; n0 += R, ++tile) {
+    const int m = tile % kMetaSlots;
+    mbar_wait(meta_empty + 8 * m, ((tile / kMetaSlots) & 1) ^ 1);
+    for (int c = 0; c < chunks; ++c) {
+      mbar_wait(empty_bar + 8 * slot, phase ^ 1);
+      const uint32_t st = ring + slot * stage_bytes;
+      if (lane == 0) query(st, full_bar + 8 * slot, c);
+      ragged_fill<R>(st, rows, n0, c, lane);
+      if (c == 0) meta(m, n0);
+      cp_async_commit();
+      if (prev >= 0) ragged_publish<1>(full_bar + 8 * prev, prev_m >= 0 ? meta_full + 8 * prev_m : 0);
+      prev = slot;
+      prev_m = c == 0 ? m : -1;
+      if (++slot == stages) {
+        slot = 0;
+        phase ^= 1;
+      }
+    }
+  }
+  if (prev >= 0) ragged_publish<0>(full_bar + 8 * prev, prev_m >= 0 ? meta_full + 8 * prev_m : 0);
+}
+
+// ---------------------------------------------------------------------------
 
 // cuTensorMapEncodeTiled, from the driver through the runtime (no -lcuda)
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,

@@ -8,16 +8,24 @@
 //   K5  streaming_topk_int8_pallas / _int8_topk_kernel         (batches < 32)
 //   K6  streaming_topk_int8_qmajor / _int8_topk_qmajor_kernel  (batches >= 32)
 //   K7  streaming_topk_int8_qres   / _int8_topk_qres_kernel    (query-resident)
-// Three pass-1 kernels, one pass 2 (topk_merge.cuh):
+// The JAX kernels take any width D (their blocks span the whole row); so
+// do these. Two pass-1 kernels, each in two instances, one pass 2
+// (topk_merge.cuh):
 //   * int8_dp4a_pass1 (K5): __dp4a with the column warps of flat_topk.cu,
-//     up to 8 query rows a block, lists in shared memory.
+//     up to 8 query rows a block, lists in shared memory. Rows are read as
+//     4-byte words; int8_dp4a_ragged_pass1 is the same kernel for rows that
+//     are not 4-byte aligned (D % 4 != 0, or a base one byte in), which
+//     reads each word as the aligned words that hold it, realigned, with
+//     zeros past D.
 //   * int8_tc_pass1 (K6 and K7, one schedule): wgmma s8 on the tensor
 //     cores, operands brought by TMA, lists in device memory. K7's idea, a
 //     query tile resident for a whole corpus split, is this kernel's
-//     design, so K7 runs it too.
-//   * int8_mma_pass1 (K6/K7 for shapes TMA cannot take: D % 16 != 0 or
-//     rows, scales or bias not 16-byte aligned): mma.sync m16n8k32 s8 from
-//     register-staged 32-bit words, lists in shared memory.
+//     design, so K7 runs it too. int8_tc_ragged_pass1 ("K6r") is the same
+//     kernel for the corpora TMA cannot read (D % 16 != 0, or rows, scales
+//     or bias not 16-byte aligned): the corpus boxes and the tiles' scales
+//     and bias come from the ragged-row producer of hopper_tc.cuh, which
+//     lays each stage out as TMA would; the queries, padded by the wrapper
+//     to a multiple of 16 bytes, still come by TMA.
 //
 // What bounds them on the H100:
 //   * K5 reads the corpus once per call: N*D + 8N bytes (rows, scales,
@@ -39,6 +47,11 @@
 //     after set-up. The block's query tile (128 rows x D bytes, 96 KB at D
 //     = 768) is loaded once by TMA and stays resident, so only the corpus
 //     streams; where it does not fit (D above 1,152), it streams with it.
+//     K6r fills the same ring with the producer warp's own copies
+//     (hopper_tc.cuh's ragged-row producer), so that a width TMA cannot
+//     read still runs on the tensor cores: its cost is the producer's
+//     instructions (at most 4,096 four-byte copies a 16 KB stage), not the
+//     consumers'.
 //   * Two consumer warpgroups take the two 64-row halves of the query tile
 //     against each stage (a batch of <= 64: one warpgroup, a 64-row tile).
 //     Each waits on the full barriers on its own and releases a stage
@@ -67,10 +80,9 @@
 
 namespace {
 
-constexpr int kThreads = 256;  // K5 and the mma.sync kernel
+constexpr int kThreads = 256;  // K5
 constexpr int kWarps = kThreads / 32;
 constexpr int kDKW = 32;          // depth staged per step, in words of 4 int8
-constexpr int kRowLd = kDKW + 4;  // row stride (words) of a staged row-major tile
 
 __device__ __forceinline__ float int8_score(int acc, float qscale, float xscale, float b) {
   return __fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(acc), qscale), xscale), b);
@@ -132,22 +144,27 @@ struct Dp4aLayout {
   }
 };
 
-// qw [B, D/4] and xw [N, D/4] are the int8 rows read as words. At most 128
-// registers, so that two blocks share an SM: K5 is memory bound, and one
-// block per SM (the compiler's choice without the bound, ~165 registers)
-// keeps too few bytes in flight (PERF.md, design 3).
-template <int TM>
-__global__ void __launch_bounds__(kThreads, 2)
-    int8_dp4a_pass1(const int* __restrict__ qw, const float* __restrict__ qsc,
-                    const int* __restrict__ xw, const float* __restrict__ xsc,
-                    const float* __restrict__ bias, int B, int N, int D, int k, int rows_per_split,
-                    float* __restrict__ part_s, int* __restrict__ part_i) {
+// qw [B, D4] and xw [N, D4] are the int8 rows read as words (D4 = D / 4;
+// RAGGED: D4 = ceil(D / 4), qw padded with zeros to D4 words, and xw the
+// rows' bytes, D a row, at any byte address). At most 128 registers, so
+// that two blocks share an SM: K5 is memory bound, and one block per SM
+// (the compiler's choice without the bound, ~165 registers) keeps too few
+// bytes in flight (PERF.md, design 3).
+template <int TM, bool RAGGED>
+__device__ __forceinline__ void int8_dp4a_body(const int* __restrict__ qw,
+                                               const float* __restrict__ qsc,
+                                               const int* __restrict__ xw,
+                                               const float* __restrict__ xsc,
+                                               const float* __restrict__ bias, int B, int N, int D,
+                                               int k, int rows_per_split,
+                                               float* __restrict__ part_s,
+                                               int* __restrict__ part_i) {
   using L = Dp4aLayout<TM>;
   constexpr int TN = L::TN, QLD = L::QLD, XLD = L::XLD;
   constexpr int XW = TN * kDKW / kThreads;                     // corpus words per thread
   constexpr int QW = (TM * kDKW + kThreads - 1) / kThreads;    // query words per thread
   extern __shared__ __align__(16) unsigned char smem[];
-  const int D4 = D / 4;
+  const int D4 = RAGGED ? (D + 3) / 4 : D / 4;
   const int n_chunks = (D4 + kDKW - 1) / kDKW;
   int* qs = reinterpret_cast<int*>(smem);                 // [DKW][QLD]
   int* xs = qs + kDKW * QLD;                              // [DKW][XLD]
@@ -179,7 +196,15 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
     for (int w = 0; w < XW; ++w) {
       const int wi = tid + w * kThreads, r = wi / kDKW, d = d0 + wi % kDKW;
-      xr[w] = (n0 + r < n_end && d < D4) ? xw[(size_t)(n0 + r) * D4 + d] : 0;
+      if constexpr (RAGGED) {  // bytes 4d .. 4d + 3 of the row, zeros past D
+        const bool ok = n0 + r < n_end && d < D4;
+        const unsigned char* row = reinterpret_cast<const unsigned char*>(xw) + (size_t)(n0 + r) * D;
+        uint32_t v[1];
+        load_realigned<1>(ok ? row + 4 * d : row, ok ? min(4, D - 4 * d) : 0, v);
+        xr[w] = (int)v[0];
+      } else {
+        xr[w] = (n0 + r < n_end && d < D4) ? xw[(size_t)(n0 + r) * D4 + d] : 0;
+      }
     }
 #pragma unroll
     for (int e = 0; e < QW; ++e) {
@@ -256,188 +281,23 @@ __global__ void __launch_bounds__(kThreads, 2)
   write_lists<TM>(ls, li, k, B, b0, split, part_s, part_i, warp, lane);
 }
 
-// ---------------------------------------------------------------------------
-// K6/K7 for shapes TMA cannot take: mma.sync m16n8k32 s8. The block's BT =
-// WM * MT * 16 query rows x 128 corpus rows; the 8 warps as WM (query rows)
-// x 8/WM (corpus rows), each warp MT m-tiles of 16 rows x NT n-tiles of 8
-// corpus rows. Rows are staged as 32-bit words through registers, 32 words
-// of depth per step; the lists and a score tile live in shared memory.
-// ---------------------------------------------------------------------------
-
-template <int WM, int MT>
-struct MmaLayout {
-  static constexpr int WN = kWarps / WM;
-  static constexpr int BT = WM * MT * 16;  // query rows per block
-  static constexpr int TN = 128;           // corpus rows per tile
-  static constexpr int NT = TN / 8 / WN;   // n-tiles per warp
-  static constexpr int SSLD = TN + 8;      // ss row stride (floats)
-  static size_t smem(int k) {
-    return sizeof(int) * ((size_t)(BT + TN) * kRowLd + (size_t)BT * SSLD + BT) +
-           (size_t)BT * k * (sizeof(float) + sizeof(int));
-  }
-};
-
-// c += a (16x32 s8, row) * b (32x8 s8, col), int32
-__device__ __forceinline__ void mma_s8(int* c, int a0, int a1, int a2, int a3, int b0, int b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
-      "{%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+template <int TM>
+__global__ void __launch_bounds__(kThreads, 2)
+    int8_dp4a_pass1(const int* __restrict__ qw, const float* __restrict__ qsc,
+                    const int* __restrict__ xw, const float* __restrict__ xsc,
+                    const float* __restrict__ bias, int B, int N, int D, int k, int rows_per_split,
+                    float* __restrict__ part_s, int* __restrict__ part_i) {
+  int8_dp4a_body<TM, false>(qw, qsc, xw, xsc, bias, B, N, D, k, rows_per_split, part_s, part_i);
 }
 
-template <int WM, int MT>
-__global__ void __launch_bounds__(kThreads)
-    int8_mma_pass1(const int* __restrict__ qw, const float* __restrict__ qsc,
-                   const int* __restrict__ xw, const float* __restrict__ xsc,
-                   const float* __restrict__ bias, int B, int N, int D, int k, int rows_per_split,
-                   float* __restrict__ part_s, int* __restrict__ part_i) {
-  using L = MmaLayout<WM, MT>;
-  constexpr int BT = L::BT, TN = L::TN, NT = L::NT, WN = L::WN, SSLD = L::SSLD;
-  constexpr int XW = TN * kDKW / kThreads;  // corpus words per thread
-  constexpr int QW = BT * kDKW / kThreads;  // query words per thread
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int D4 = D / 4;
-  const int n_chunks = (D4 + kDKW - 1) / kDKW;
-  int* qs = reinterpret_cast<int*>(smem);                    // [BT][kRowLd]
-  int* xs = qs + BT * kRowLd;                                // [TN][kRowLd]
-  float* ss = reinterpret_cast<float*>(xs + TN * kRowLd);    // [BT][SSLD]
-  float* ls = ss + BT * SSLD;                                // [BT][k]
-  int* li = reinterpret_cast<int*>(ls + BT * k);
-  int* rflag = li + BT * k;                                  // [BT]
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;  // groupID, threadID_in_group
-  const int row0 = (warp / WN) * MT * 16;  // the warp's first query row
-  const int col0 = (warp % WN) * NT * 8;   // the warp's first corpus row
-  const int b0 = blockIdx.x * BT;
-  const int split = blockIdx.y;
-  const int n_begin = split * rows_per_split;
-  const int n_end = min(N, n_begin + rows_per_split);
-  const int steps = (n_end - n_begin + TN - 1) / TN * n_chunks;
-
-  for (int p = tid; p < BT * k; p += kThreads) {
-    ls[p] = kNegInf;
-    li[p] = -1;
-  }
-  if (tid < BT) rflag[tid] = 0;
-
-  int xr[XW];
-  int qr[QW];
-  auto load = [&](int step) {
-    const int n0 = n_begin + (step / n_chunks) * TN;
-    const int d0 = (step % n_chunks) * kDKW;
-#pragma unroll
-    for (int w = 0; w < XW; ++w) {
-      const int wi = tid + w * kThreads, r = wi / kDKW, d = d0 + wi % kDKW;
-      xr[w] = (n0 + r < n_end && d < D4) ? xw[(size_t)(n0 + r) * D4 + d] : 0;
-    }
-#pragma unroll
-    for (int e = 0; e < QW; ++e) {
-      const int p = tid + e * kThreads, r = p / kDKW, d = d0 + p % kDKW;
-      qr[e] = (b0 + r < B && d < D4) ? qw[(size_t)(b0 + r) * D4 + d] : 0;
-    }
-  };
-  auto store = [&]() {
-#pragma unroll
-    for (int w = 0; w < XW; ++w) {
-      const int wi = tid + w * kThreads;
-      xs[(wi / kDKW) * kRowLd + wi % kDKW] = xr[w];
-    }
-#pragma unroll
-    for (int e = 0; e < QW; ++e) {
-      const int p = tid + e * kThreads;
-      qs[(p / kDKW) * kRowLd + p % kDKW] = qr[e];
-    }
-  };
-
-  int acc[MT][NT][4];
-  if (steps > 0) load(0);
-  for (int step = 0; step < steps; ++step) {
-    const int chunk = step % n_chunks;
-    if (chunk == 0) {
-#pragma unroll
-      for (int i = 0; i < MT; ++i)
-#pragma unroll
-        for (int j = 0; j < NT; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
-    }
-    store();
-    __syncthreads();
-    if (step + 1 < steps) load(step + 1);  // in flight during the products below
-
-    // The lane with threadID_in_group t takes words 8t .. 8t+7 of each row
-    // it touches (words 8t+2j and 8t+2j+1 fill its two k slots in k-step
-    // j), the same words for query and corpus rows, so the sum over all
-    // k-steps and lanes is the whole dot product. Rows have a stride of 36
-    // words, so those 8 words are two conflict-free 16-byte loads.
-    int qa[MT][2][8];
-#pragma unroll
-    for (int i = 0; i < MT; ++i)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int* p = qs + (row0 + i * 16 + h * 8 + g) * kRowLd + t * 8;
-        *reinterpret_cast<int4*>(&qa[i][h][0]) = *reinterpret_cast<const int4*>(p);
-        *reinterpret_cast<int4*>(&qa[i][h][4]) = *reinterpret_cast<const int4*>(p + 4);
-      }
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      int xb[8];
-      const int* p = xs + (col0 + j * 8 + g) * kRowLd + t * 8;
-      *reinterpret_cast<int4*>(&xb[0]) = *reinterpret_cast<const int4*>(p);
-      *reinterpret_cast<int4*>(&xb[4]) = *reinterpret_cast<const int4*>(p + 4);
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-        for (int i = 0; i < MT; ++i)
-          mma_s8(acc[i][j], qa[i][0][2 * kk], qa[i][1][2 * kk], qa[i][0][2 * kk + 1],
-                 qa[i][1][2 * kk + 1], xb[2 * kk], xb[2 * kk + 1]);
-    }
-    __syncthreads();
-    if (chunk != n_chunks - 1) continue;
-
-    // The tile's sums are complete: scale them into ss, then offer the rows.
-    // acc[i][j] holds rows (g, g + 8) x corpus rows (2t, 2t + 1) of its tile.
-    const int n0 = n_begin + (step / n_chunks) * TN;
-    float xj[NT][2], bj[NT][2];
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int n = n0 + col0 + j * 8 + 2 * t + e;
-        xj[j][e] = n < n_end ? xsc[n] : 0.f;
-        bj[j][e] = n < n_end ? bias[n] : 0.f;
-      }
-#pragma unroll
-    for (int i = 0; i < MT; ++i)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = row0 + i * 16 + h * 8 + g;
-        const bool live_row = b0 + r < B;
-        const float qi = live_row ? qsc[b0 + r] : 0.f;
-        const float ts = ls[r * k + k - 1];  // the row's k-th entry before this tile
-        const int ti = li[r * k + k - 1];
-        bool cand = false;
-#pragma unroll
-        for (int j = 0; j < NT; ++j) {
-          const int c = col0 + j * 8 + 2 * t;
-          const float s0 = int8_score(acc[i][j][2 * h], qi, xj[j][0], bj[j][0]);
-          const float s1 = int8_score(acc[i][j][2 * h + 1], qi, xj[j][1], bj[j][1]);
-          *reinterpret_cast<float2*>(ss + r * SSLD + c) = make_float2(s0, s1);
-          cand |= (n0 + c < n_end && beats(s0, n0 + c, ts, ti)) ||
-                  (n0 + c + 1 < n_end && beats(s1, n0 + c + 1, ts, ti));
-        }
-        if (cand && live_row) rflag[r] = 1;
-      }
-    __syncthreads();
-    offer_tile<BT, TN>(ss, SSLD, rflag, ls, li, k, B, b0, n0, n_end, warp, lane);
-    // the next write of ss and rflag comes after at least one more __syncthreads
-  }
-  __syncthreads();  // lists were written by their owner warps
-  write_lists<BT>(ls, li, k, B, b0, split, part_s, part_i, warp, lane);
+template <int TM>
+__global__ void __launch_bounds__(kThreads, 2)
+    int8_dp4a_ragged_pass1(const int* __restrict__ qw, const float* __restrict__ qsc,
+                           const int* __restrict__ xw, const float* __restrict__ xsc,
+                           const float* __restrict__ bias, int B, int N, int D, int k,
+                           int rows_per_split, float* __restrict__ part_s,
+                           int* __restrict__ part_i) {
+  int8_dp4a_body<TM, true>(qw, qsc, xw, xsc, bias, B, N, D, k, rows_per_split, part_s, part_i);
 }
 
 // ---------------------------------------------------------------------------
@@ -459,6 +319,11 @@ struct TcArgs {
   int* cand_i;
   int B, N, k, rows_per_split;
   int qt, resident, stages;
+  // K6r: the corpus rows and their scales and bias, read by the producer
+  // warp (not read by the TMA instance)
+  RaggedRows rows;
+  const float* xs;
+  const float* bias;
 };
 
 // d[64] += A (64 x 32 s8, K-major, descriptor da) * B (128 x 32 s8, K-major,
@@ -555,7 +420,7 @@ __device__ __noinline__ void tc_flush_rows(unsigned full0, unsigned full1, TcSta
   }
 }
 
-// Pass 1 of K6/K7: block (query tile of qt = 64 or 128 rows, corpus split)
+// Pass 1 of K6/K7 (RAGGED: K6r): block (query tile of qt = 64 or 128 rows, corpus split)
 // -> the top-k of the split's rows for each query, in part_s/part_i
 // [B, S, k]. Warps 0-7 are the consumer warpgroups, warp 8 the producer
 // (one thread issues the copies). Every thread has 168 registers: with a
@@ -564,11 +429,13 @@ __device__ __noinline__ void tc_flush_rows(unsigned full0, unsigned full1, TcSta
 // the code is written for 168. Consumer w computes query rows 64w .. 64w +
 // 63 of the tile against each 128-row corpus stage; a 64-row tile has one
 // consumer. qmap / xmap: qv [B, D] and xv [N, D] as boxes of 128 bytes x
-// qt / 128 rows; smap / bmap: xs [N] and bias [N] as boxes of 128.
-__global__ void __launch_bounds__(kTcThreads, 1)
-    int8_tc_pass1(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap xmap,
-                  const __grid_constant__ CUtensorMap smap, const __grid_constant__ CUtensorMap bmap,
-                  const TcArgs a) {
+// qt / 128 rows; smap / bmap: xs [N] and bias [N] as boxes of 128. RAGGED:
+// xmap, smap and bmap are not read; the producer warp brings the corpus
+// boxes and the tiles' scales and bias from a.rows, a.xs and a.bias.
+template <bool RAGGED>
+__device__ __forceinline__ void int8_tc_body(const CUtensorMap& qmap, const CUtensorMap& xmap,
+                                             const CUtensorMap& smap, const CUtensorMap& bmap,
+                                             const TcArgs& a) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const TcLayout& L = a.L;
   unsigned char* sp = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
@@ -588,21 +455,41 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   const int n_begin = blockIdx.y * a.rows_per_split;
   const int n_end = min(a.N, n_begin + a.rows_per_split);
 
+  constexpr int kFill = RAGGED ? kRaggedLanes : 1;  // arrivals that fill a stage or meta slot
   if (tid == 0) {
     for (int s = 0; s < a.stages; ++s) {
-      mbar_init(full_bar + 8 * s, 1);
+      mbar_init(full_bar + 8 * s, kFill);
       mbar_init(empty_bar + 8 * s, 4 * consumers);  // lane 0 of each consumer warp
     }
     mbar_init(q_bar, 1);
     for (int s = 0; s < kMetaSlots; ++s) {
-      mbar_init(meta_full + 8 * s, 1);
+      mbar_init(meta_full + 8 * s, kFill);
       mbar_init(meta_empty + 8 * s, 4 * consumers);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  if (wg == kTcConsumers) {
+  if (wg == kTcConsumers && RAGGED) {
+    // ---- ragged producer: the query tile by TMA, the ring by the warps ----
+    const int lane = tid - kTcConsumers * 128;
+    if (a.resident && lane == 0) {
+      mbar_expect_tx(q_bar, L.query_bytes);
+      for (int c = 0; c < L.chunks; ++c) tma_load(qtile + c * a.qt * kBoxD, &qmap, q_bar, c * kBoxD, b0);
+    }
+    ragged_produce<kWgN>(
+        a.rows, n_begin, n_end, L.chunks, a.stages, ring, L.stage_bytes, full_bar, empty_bar,
+        meta_full, meta_empty, lane,
+        [&](uint32_t st, uint32_t full, int c) {  // a streamed query box
+          if (a.resident) return;
+          mbar_expect_tx_only(full, a.qt * kBoxD);
+          tma_load(st + L.corpus_bytes, &qmap, full, c * kBoxD, b0);
+        },
+        [&](int m, int n0) {  // the tile's scales and bias
+          ragged_meta<kWgN>(meta + m * kMetaSlotBytes, a.xs, n0, a.N, lane);
+          ragged_meta<kWgN>(meta + m * kMetaSlotBytes + kMetaSlotBytes / 2, a.bias, n0, a.N, lane);
+        });
+  } else if (wg == kTcConsumers) {
     // ---- producer: the query tile once (if resident), then the ring ----
     if (tid == kTcConsumers * 128) {
       if (a.resident) {
@@ -809,6 +696,18 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   }
 }
 
+__global__ void __launch_bounds__(kTcThreads, 1)
+    int8_tc_pass1(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap xmap,
+                  const __grid_constant__ CUtensorMap smap, const __grid_constant__ CUtensorMap bmap,
+                  const TcArgs a) {
+  int8_tc_body<false>(qmap, xmap, smap, bmap, a);
+}
+
+__global__ void __launch_bounds__(kRaggedThreads, 1)
+    int8_tc_ragged_pass1(const __grid_constant__ CUtensorMap qmap, const TcArgs a) {
+  int8_tc_body<true>(qmap, qmap, qmap, qmap, a);
+}
+
 // ---------------------------------------------------------------------------
 
 template <typename Kernel>
@@ -824,64 +723,32 @@ cudaError_t launch(Kernel kernel, size_t smem, int bt, const int* qw, const floa
   return cudaGetLastError();
 }
 
-// layout 0: __dp4a column warps (K5), tm (query rows) in {1, 2, 4, 8}, corpus tile 256;
-// layout 1: mma.sync (K6/K7 on shapes TMA cannot take), tm in {2, 4, 8, 16} =
-// query tile / 8, corpus tile 128. smem_only: return the shared memory the
-// launch needs (bytes) in *smem and launch nothing.
-cudaError_t dispatch(int layout, int tm, bool smem_only, size_t* smem, const int* qw,
-                     const float* qsc, const int* xw, const float* xsc, const float* bias, int B,
-                     int N, int D, int k, int rows_per_split, int splits, float* part_s,
-                     int* part_i, cudaStream_t st) {
-#define CG_DP4A(TM)                                                                          \
-  {                                                                                          \
-    *smem = Dp4aLayout<TM>::smem(k);                                                         \
-    if (smem_only) return cudaSuccess;                                                       \
-    if (rows_per_split % Dp4aLayout<TM>::TN != 0) return cudaErrorInvalidValue;              \
-    return launch(int8_dp4a_pass1<TM>, *smem, TM, qw, qsc, xw, xsc, bias, B, N, D, k,        \
-                  rows_per_split, splits, part_s, part_i, st);                               \
+// K5: __dp4a column warps, tm (query rows) in {1, 2, 4, 8}, corpus tile
+// 256; ragged: the instance that realigns rows that are not 4-byte aligned.
+cudaError_t dispatch_dp4a(int tm, bool ragged, const int* qw, const float* qsc, const int* xw,
+                          const float* xsc, const float* bias, int B, int N, int D, int k,
+                          int rows_per_split, int splits, float* part_s, int* part_i,
+                          cudaStream_t st) {
+#define CG_DP4A(TM)                                                                           \
+  {                                                                                           \
+    const size_t smem = Dp4aLayout<TM>::smem(k);                                              \
+    if (rows_per_split % Dp4aLayout<TM>::TN != 0) return cudaErrorInvalidValue;               \
+    return launch(ragged ? int8_dp4a_ragged_pass1<TM> : int8_dp4a_pass1<TM>, smem, TM, qw, qsc, \
+                  xw, xsc, bias, B, N, D, k, rows_per_split, splits, part_s, part_i, st);     \
   }
-#define CG_MMA(WM, MT)                                                                       \
-  {                                                                                          \
-    using L = MmaLayout<WM, MT>;                                                             \
-    *smem = L::smem(k);                                                                      \
-    if (smem_only) return cudaSuccess;                                                       \
-    if (rows_per_split % L::TN != 0) return cudaErrorInvalidValue;                           \
-    return launch(int8_mma_pass1<WM, MT>, *smem, L::BT, qw, qsc, xw, xsc, bias, B, N, D, k,  \
-                  rows_per_split, splits, part_s, part_i, st);                               \
-  }
-  if (layout == 0) {
-    switch (tm) {
-      case 1: CG_DP4A(1)
-      case 2: CG_DP4A(2)
-      case 4: CG_DP4A(4)
-      case 8: CG_DP4A(8)
-    }
-  } else if (layout == 1) {
-    switch (tm) {
-      case 2: CG_MMA(1, 1)
-      case 4: CG_MMA(1, 2)
-      case 8: CG_MMA(2, 2)
-      case 16: CG_MMA(4, 2)
-    }
+  switch (tm) {
+    case 1: CG_DP4A(1)
+    case 2: CG_DP4A(2)
+    case 4: CG_DP4A(4)
+    case 8: CG_DP4A(8)
   }
 #undef CG_DP4A
-#undef CG_MMA
-  *smem = 0;
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 extern "C" {
-
-// Shared memory (bytes) that pass 1 of layout 0 (__dp4a column warps) or 1
-// (mma.sync) needs for tm, k and depth D; 0 for an unknown layout or tm.
-long long int8_topk_pass1_smem(int layout, int tm, int k, int D) {
-  size_t smem = 0;
-  dispatch(layout, tm, true, &smem, nullptr, nullptr, nullptr, nullptr, nullptr, 0, 0, D, k, 0,
-           0, nullptr, nullptr, nullptr);
-  return (long long)smem;
-}
 
 // Scratch entries (per scores and per ids) that int8_topk or int8_topk_tc
 // needs for `lists` list slots per query row (int8_topk: the splits).
@@ -904,61 +771,78 @@ long long int8_topk_tc_smem(int query_tile, int resident, int stages, int D) {
   return (long long)TcLayout(query_tile, resident, stages, D).smem;
 }
 
-// qv [B, D] int8, qs [B] f32, xv [N, D] int8, xs [N] f32, bias [N] f32, all
-// contiguous on the device of `stream`, qv and xv 4-byte aligned with
-// D % 4 == 0. Writes out_s [B, k] f32 and out_i [B, k] i32. Pass 1 runs
-// `layout` (0 __dp4a, 1 mma.sync) with tile size `tm` over `splits` ranges
-// of `rows_per_split` corpus rows (a multiple of the layout's corpus tile);
-// work_s / work_i hold int8_topk_work_entries(B, k, splits, group) entries
-// each. Returns the CUDA error code of the launches (0 = success).
+// K5: qv [B, D4 * 4] int8 (D4 = ceil(D / 4), columns past D zero, 4-byte
+// aligned), qs [B] f32, xv [N, D] int8 at any byte address, xs [N] f32,
+// bias [N] f32, all contiguous on the device of `stream`. piece 4:
+// int8_dp4a_pass1 reads rows as words (D % 4 == 0, xv 4-byte aligned);
+// piece 1: int8_dp4a_ragged_pass1 realigns them (any D and address). Writes out_s [B, k] f32 and out_i
+// [B, k] i32. Pass 1 runs with tile size tm over `splits` ranges of
+// `rows_per_split` corpus rows (a multiple of 256); work_s / work_i hold
+// int8_topk_work_entries(B, k, splits, group) entries each. Returns the
+// CUDA error code of the launches (0 = success).
 int int8_topk(const void* qv, const float* qs, const void* xv, const float* xs, const float* bias,
-              int B, int N, int D, int k, int layout, int tm, int splits, int rows_per_split,
-              int group, float* out_s, int* out_i, float* work_s, int* work_i, void* stream) {
-  if (B < 1 || N < 1 || D < 4 || D % 4 != 0 || k < 1 || k > 1024 || splits < 1 || group < 2 ||
+              int B, int N, int D, int k, int tm, int splits, int rows_per_split, int group,
+              int piece, float* out_s, int* out_i, float* work_s, int* work_i, void* stream) {
+  const bool words = D % 4 == 0 && (reinterpret_cast<size_t>(xv) & 3) == 0;
+  if (B < 1 || N < 1 || D < 1 || k < 1 || k > 1024 || splits < 1 || group < 2 ||
       rows_per_split < 1 || (long long)splits * rows_per_split < N ||
       (long long)(splits - 1) * rows_per_split >= N || (reinterpret_cast<size_t>(qv) & 3) != 0 ||
-      (reinterpret_cast<size_t>(xv) & 3) != 0) {
+      !(piece == 1 || (piece == 4 && words))) {
     return (int)cudaErrorInvalidValue;
   }
+  const bool ragged = piece == 1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* part_s = splits == 1 ? out_s : work_s;
   int* part_i = splits == 1 ? out_i : work_i;
-  size_t smem = 0;
-  cudaError_t err = dispatch(layout, tm, false, &smem, static_cast<const int*>(qv), qs,
-                             static_cast<const int*>(xv), xs, bias, B, N, D, k, rows_per_split,
-                             splits, part_s, part_i, st);
+  cudaError_t err = dispatch_dp4a(tm, ragged, static_cast<const int*>(qv), qs,
+                                  static_cast<const int*>(xv), xs, bias, B, N, D, k,
+                                  rows_per_split, splits, part_s, part_i, st);
   if (err != cudaSuccess) return (int)err;
   if (splits == 1) return 0;
   return (int)merge_splits(B, k, splits, group, out_s, out_i, work_s, work_i, st);
 }
 
-// K6/K7: int8_tc_pass1 over grid (ceil(B / query_tile), splits), then pass
-// 2. Inputs as int8_topk's, with D % 16 == 0 and qv, xv, xs and bias
-// 16-byte aligned (TMA's strides and addresses). query_tile: 64 or 128; the
-// query tile is resident (resident = 1) or streams with the corpus through
-// the ring of `stages`; rows_per_split a multiple of 128; smem must equal
-// int8_topk_tc_smem(...). work_s / work_i hold int8_topk_work_entries(B,
-// k, splits, group) entries each and bound B * splits, set to NEG_INF
-// (-1e30); cand_s / cand_i hold int8_topk_tc_cand_entries(B, query_tile,
-// splits) entries each (the candidate buffers, no initial value). Returns
-// the CUDA error code of the launches (0 = success).
+// K6/K7: int8_tc_pass1 (piece = 0) or, for a corpus TMA cannot read,
+// int8_tc_ragged_pass1 ("K6r", piece = 16, 8, 4 or 1: the ragged-row
+// producer's copies, see hopper_tc.cuh) over grid (ceil(B / query_tile),
+// splits), then pass 2. qv [B, Dq] int8 (Dq = D for piece 0, else D
+// rounded up to a multiple of 16 with zero columns), 16-byte aligned; qs
+// [B] f32; xv [N, D] int8, xs [N] f32 and bias [N] f32, all contiguous on
+// the device of `stream`. piece 0: D % 16 == 0 and xv, xs and bias 16-byte
+// aligned (TMA's strides and addresses); piece p > 1: D % p == 0 and xv
+// p-byte aligned; piece 1: any D and address; the ragged instance takes at
+// least 3 stages. query_tile: 64 or 128; the query tile is resident
+// (resident = 1) or streams with the corpus through the ring of `stages`;
+// rows_per_split a multiple of 128; smem must equal int8_topk_tc_smem(...).
+// work_s / work_i hold int8_topk_work_entries(B, k, splits, group) entries
+// each and bound B * splits, set to NEG_INF (-1e30); cand_s / cand_i hold
+// int8_topk_tc_cand_entries(B, query_tile, splits) entries each (the
+// candidate buffers, no initial value). Returns the CUDA error code of the
+// launches (0 = success).
 int int8_topk_tc(const void* qv, const float* qs, const void* xv, const float* xs,
                  const float* bias, int B, int N, int D, int k, int query_tile, int resident,
-                 int stages, int splits, int rows_per_split, long long smem, int group,
+                 int stages, int splits, int rows_per_split, long long smem, int group, int piece,
                  float* out_s, int* out_i, float* work_s, int* work_i, float* bound, float* cand_s,
                  int* cand_i, void* stream) {
-  if (B < 1 || N < 1 || D < 16 || D % 16 != 0 || k < 1 || k > 1024 || splits < 1 || group < 2 ||
+  const size_t xa = reinterpret_cast<size_t>(xv);
+  const bool shape_ok =
+      piece == 0 ? D % 16 == 0 && (xa & 15) == 0 && (reinterpret_cast<size_t>(xs) & 15) == 0 &&
+                       (reinterpret_cast<size_t>(bias) & 15) == 0
+      : piece == 1 ? stages >= 3
+      : (piece == 4 || piece == 8 || piece == 16) && D % piece == 0 && xa % piece == 0 &&
+            stages >= 3;
+  if (B < 1 || N < 1 || D < 1 || k < 1 || k > 1024 || splits < 1 || group < 2 || !shape_ok ||
       stages < 2 || rows_per_split < 1 || rows_per_split % kWgN != 0 ||
       (long long)splits * rows_per_split < N || (long long)(splits - 1) * rows_per_split >= N ||
-      (reinterpret_cast<size_t>(qv) & 15) != 0 || (reinterpret_cast<size_t>(xv) & 15) != 0 ||
-      (reinterpret_cast<size_t>(xs) & 15) != 0 || (reinterpret_cast<size_t>(bias) & 15) != 0 ||
+      (reinterpret_cast<size_t>(qv) & 15) != 0 ||
       smem != int8_topk_tc_smem(query_tile, resident, stages, D) || smem > 232448) {
     return (int)cudaErrorInvalidValue;
   }
+  const int Dq = piece == 0 ? D : (D + 15) / 16 * 16;
   CUtensorMap qmap, xmap, smap, bmap;
-  if (!encode_rows(&qmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, qv, B, D, query_tile) ||
-      !encode_rows(&xmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, xv, N, D, kWgN) ||
-      !encode_vector(&smap, xs, N, kWgN) || !encode_vector(&bmap, bias, N, kWgN)) {
+  if (!encode_rows(&qmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, qv, B, Dq, query_tile) ||
+      (piece == 0 && (!encode_rows(&xmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, xv, N, D, kWgN) ||
+                      !encode_vector(&smap, xs, N, kWgN) || !encode_vector(&bmap, bias, N, kWgN)))) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -977,11 +861,21 @@ int int8_topk_tc(const void* qv, const float* qs, const void* xv, const float* x
   a.qt = query_tile;
   a.resident = resident;
   a.stages = stages;
-  cudaError_t err = cudaFuncSetAttribute(int8_tc_pass1, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  int8_tc_pass1<<<dim3((B + query_tile - 1) / query_tile, splits), kTcThreads, (size_t)smem, st>>>(
-      qmap, xmap, smap, bmap, a);
+  a.rows = RaggedRows{static_cast<const unsigned char*>(xv), (long long)D, N, piece};
+  a.xs = xs;
+  a.bias = bias;
+  const dim3 grid((B + query_tile - 1) / query_tile, splits);
+  cudaError_t err;
+  if (piece == 0) {
+    err = cudaFuncSetAttribute(int8_tc_pass1, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    int8_tc_pass1<<<grid, kTcThreads, (size_t)smem, st>>>(qmap, xmap, smap, bmap, a);
+  } else {
+    err = cudaFuncSetAttribute(int8_tc_ragged_pass1, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    int8_tc_ragged_pass1<<<grid, kRaggedThreads, (size_t)smem, st>>>(qmap, a);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   if (splits == 1) return 0;

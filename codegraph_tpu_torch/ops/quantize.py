@@ -16,10 +16,15 @@ top candidates (`rescore_topk`).
   TMA) and `streaming_topk_int8_cuda_qres` (K7, which runs K6's schedule:
   its resident query tile is that schedule's design) launch the
   hand-written kernels in `csrc/int8_topk.cu` on CUDA tensors and run
-  `streaming_topk_int8` on CPU tensors. K6 and K7 send a shape TMA cannot
-  take (`tma_shape`) to `streaming_topk_int8_cuda_sync` (`mma.sync`). On
-  a CUDA tensor they launch or raise; nothing falls back. `tc_plan` is
-  the host-side plan of K6/K7.
+  `streaming_topk_int8` on CPU tensors. They take any width D, as the JAX
+  kernels do (`int8_route` says how rows are read): K6 and K7 send a
+  corpus TMA cannot read (`tma_shape`) to `streaming_topk_int8_cuda_ragged`
+  ("K6r": the same `wgmma` kernel with its corpus brought by the
+  ragged-row producer of `csrc/hopper_tc.cuh`), and K5 rows that are not
+  4-byte aligned (D % 4 != 0, or a base one byte in) to
+  `streaming_topk_int8_cuda_realigned` ("K5r"). On a CUDA tensor they
+  launch or raise; nothing falls back. `tc_plan` is the host-side plan of
+  K6/K7.
 
 The int8 dot product must be exact. `torch.mm` of two int8 tensors returns
 int8 and wraps, so the plain version widens first: to int32 on the CPU; on
@@ -38,10 +43,10 @@ import torch
 
 from codegraph_tpu_torch.ops.topk import (
     K1_LAYOUT,
-    K2_LAYOUT,
     MAX_K,
     MERGE_GROUP,
     NEG_INF,
+    PIECE_NAMES,
     ROW_CAP,  # ROW_CAP, SMEM_PER_BLOCK and TC_*: the shared plan's, for tc_plan's callers
     SMEM_PER_BLOCK,
     TC_BUF_CAP,
@@ -53,21 +58,14 @@ from codegraph_tpu_torch.ops.topk import (
     _plan,
     _sort_desc,
     k1_tm,
+    load_piece,
     merge_topk,
-    query_tile,
-    row_warps_tm,
 )
 from codegraph_tpu_torch.ops.topk import tc_plan as topk_tc_plan
 from codegraph_tpu_torch.ops.topk import tc_smem as topk_tc_smem
 
 INT8_MAX = 127.0
 DEFAULT_TILE_N = 2048
-#: the mma.sync kernel (K6/K7 on shapes TMA cannot take) takes query tiles
-#: of 8 * tm rows, tm in MMA_TMS: the largest whose lists, staging tiles
-#: and score tile fit MMA_SMEM_BYTES, all the shared memory a block may
-#: have on an H100
-MMA_TMS = (16, 8, 4, 2)
-MMA_SMEM_BYTES = 227 * 1024
 #: the largest D whose int8 dot products an f32 matmul sums exactly
 #: (|q . x| <= D * 127^2 < 2^24)
 F32_EXACT_MAX_D = (2**24 - 1) // (127 * 127)
@@ -177,15 +175,13 @@ def _lib():
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.int8_topk.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, i, p, p, p, p, p]
         lib.int8_topk.restype = i
-        lib.int8_topk_tc.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, i, ll, i,
+        lib.int8_topk_tc.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, i, ll, i, i,
                                      p, p, p, p, p, p, p, p]
         lib.int8_topk_tc.restype = i
         lib.int8_topk_tc_cand_entries.argtypes = [i, i, i]
         lib.int8_topk_tc_cand_entries.restype = ll
         lib.int8_topk_tc_smem.argtypes = [i, i, i, i]
         lib.int8_topk_tc_smem.restype = ll
-        lib.int8_topk_pass1_smem.argtypes = [i, i, i, i]
-        lib.int8_topk_pass1_smem.restype = ll
         lib.int8_topk_work_entries.argtypes = [i, i, i, i]
         lib.int8_topk_work_entries.restype = ll
         _lib_handle = lib
@@ -208,9 +204,8 @@ def _check(qv, qs, xv, xs, bias, k: int) -> None:
         raise ValueError("qs, xs and bias must be float32")
     if not all(t.is_contiguous() for t in (qv, qs, xv, xs, bias)):
         raise ValueError("qv, qs, xv, xs and bias must be contiguous")
-    if D % 4 or qv.data_ptr() % 4 or xv.data_ptr() % 4:
-        raise ValueError(f"the kernel reads rows as 4-byte words: D={D} must be a multiple "
-                         "of 4 and qv, xv 4-byte aligned")
+    if any(t.data_ptr() % 4 for t in (qs, xs, bias)):
+        raise ValueError("qs, xs and bias must be aligned to their element size")
     if not 1 <= k <= MAX_K:
         raise ValueError(f"k={k} outside the kernel's range 1..{MAX_K}")
     if N >= 2**31 - 1024 or xv.numel() >= 2**62:
@@ -222,9 +217,25 @@ def tma_shape(qv: torch.Tensor, xv: torch.Tensor, xs: torch.Tensor,
     """The shape rule of K6/K7: TMA reads rows whose byte stride is a
     multiple of 16 from 16-byte aligned addresses (the rows qv and xv, and
     the corpus scales xs and bias), so `int8_tc_pass1` takes D % 16 == 0
-    with all four 16-byte aligned; every other shape goes to the mma.sync
-    kernel (`streaming_topk_int8_cuda_sync`)."""
+    with all four 16-byte aligned; every other shape goes to the same
+    kernel fed by the ragged-row producer (`streaming_topk_int8_cuda_ragged`,
+    "K6r")."""
     return qv.shape[1] % 16 == 0 and all(t.data_ptr() % 16 == 0 for t in (qv, xv, xs, bias))
+
+
+def int8_route(kernel: str, qv: torch.Tensor, xv: torch.Tensor, xs: torch.Tensor,
+               bias: torch.Tensor) -> str:
+    """How `kernel` ("K5", or "K6"/"K7") reads the int8 rows xv [N, D] on a
+    card, from D and the addresses: K5 "4-byte pieces" (its words) or
+    "bytes" (K5r: the aligned words that hold each, realigned); K6/K7
+    "tma" or "ragged, <piece>" (K6r: the ragged-row producer's copies,
+    `load_piece`). Every width and address torch hands over takes one."""
+    D, addr = xv.shape[1], xv.data_ptr()
+    if kernel == "K5":
+        return PIECE_NAMES[4] if D % 4 == 0 and addr % 4 == 0 else PIECE_NAMES[1]
+    if tma_shape(qv, xv, xs, bias):
+        return "tma"
+    return "ragged, " + PIECE_NAMES[load_piece(D, addr)]
 
 
 #: K6/K7 on wgmma (csrc/int8_topk.cu `int8_tc_pass1`) share K2tc's block
@@ -234,31 +245,48 @@ tc_smem = functools.partial(topk_tc_smem, elt=1, meta=8)
 tc_plan = functools.partial(topk_tc_plan, elt=1, meta=8)
 
 
-def _launch(qv, qs, xv, xs, bias, k: int, layout: int, tm: int):
-    """K5 (layout 0, __dp4a) or the mma.sync kernel (layout 1)."""
+def _padded_queries(qv: torch.Tensor, multiple: int) -> torch.Tensor:
+    """qv [B, D] with zero columns up to a multiple of `multiple` and a
+    16-byte aligned base (the B x D queries are padded, never the
+    corpus)."""
+    if qv.shape[1] % multiple:
+        qv = torch.nn.functional.pad(qv, (0, multiple - qv.shape[1] % multiple))
+    return qv if qv.data_ptr() % 16 == 0 else qv.clone()
+
+
+def _launch(qv, qs, xv, xs, bias, k: int, tm: int, piece: int):
+    """K5: __dp4a column warps with tm query rows a block, the rows read as
+    words (piece 4) or realigned from the words that hold them (piece 1:
+    K5r); qv goes as words, zero-padded to a multiple of 4 columns."""
     lib = _lib()
     B, D = qv.shape
     N = xv.shape[0]
-    splits, rows = _plan(B, N, layout, query_tile(layout, tm))
+    qv = _padded_queries(qv, 4)
+    splits, rows = _plan(B, N, K1_LAYOUT, tm)
     out_s, out_i, work_s, work_i = _outputs(
         B, k, lib.int8_topk_work_entries(B, k, splits, MERGE_GROUP), qv.device)
     stream = torch.cuda.current_stream(qv.device).cuda_stream
     err = lib.int8_topk(
         qv.data_ptr(), qs.data_ptr(), xv.data_ptr(), xs.data_ptr(), bias.data_ptr(),
-        B, N, D, k, layout, tm, splits, rows, MERGE_GROUP,
+        B, N, D, k, tm, splits, rows, MERGE_GROUP, piece,
         out_s.data_ptr(), out_i.data_ptr(), work_s.data_ptr(), work_i.data_ptr(), stream,
     )
     if err != 0:
         raise RuntimeError(f"int8_topk kernel launch failed: CUDA error {err} "
-                           f"(B={B}, N={N}, D={D}, k={k}, layout={layout}, tm={tm})")
+                           f"(B={B}, N={N}, D={D}, k={k}, tm={tm}, piece={piece})")
     return out_s, out_i
 
 
-def _launch_tc(qv, qs, xv, xs, bias, k: int):
-    """K6/K7: `int8_tc_pass1` as `tc_plan` lays it out, then pass 2."""
+def _launch_tc(qv, qs, xv, xs, bias, k: int, ragged: bool = False):
+    """K6/K7 (K6r: ragged): `int8_tc_pass1` as `tc_plan` lays it out, then
+    pass 2. The ragged instance reads the corpus in `load_piece` copies
+    and takes qv padded to a multiple of 16 columns (TMA still reads it)."""
     lib = _lib()
     B, D = qv.shape
     N = xv.shape[0]
+    piece = load_piece(D, xv.data_ptr()) if ragged else 0
+    if ragged:
+        qv = _padded_queries(qv, 16)
     plan = tc_plan(B, N, D, k, sms=torch.cuda.get_device_properties(qv.device).multi_processor_count)
     if lib.int8_topk_tc_smem(plan.query_tile, int(plan.resident), plan.stages, D) != plan.smem \
             or lib.int8_topk_work_entries(B, k, plan.splits, MERGE_GROUP) != plan.work_entries or \
@@ -272,13 +300,13 @@ def _launch_tc(qv, qs, xv, xs, bias, k: int):
     err = lib.int8_topk_tc(
         qv.data_ptr(), qs.data_ptr(), xv.data_ptr(), xs.data_ptr(), bias.data_ptr(),
         B, N, D, k, plan.query_tile, int(plan.resident), plan.stages,
-        plan.splits, plan.rows_per_split, plan.smem, MERGE_GROUP,
+        plan.splits, plan.rows_per_split, plan.smem, MERGE_GROUP, piece,
         out_s.data_ptr(), out_i.data_ptr(), work_s.data_ptr(), work_i.data_ptr(),
         bound.data_ptr(), cand_s.data_ptr(), cand_i.data_ptr(), stream,
     )
     if err != 0:
         raise RuntimeError(f"int8_topk_tc kernel launch failed: CUDA error {err} "
-                           f"(B={B}, N={N}, D={D}, k={k}, {plan})")
+                           f"(B={B}, N={N}, D={D}, k={k}, piece={piece}, {plan})")
     return out_s, out_i
 
 
@@ -286,12 +314,15 @@ def streaming_topk_int8_cuda(qv, qs, xv, xs, bias, k: int, tile_n: int = DEFAULT
     """K5: exact int8 top-k for small query batches (query tiles of up to 8
     rows, corpus split across blocks). CPU tensors run
     `streaming_topk_int8` (tile_n is its tile); CUDA tensors launch the
-    kernel, which needs D a multiple of 4. Returns (scores [B, k] f32,
-    ids [B, k] int32)."""
+    kernel at any D: rows that are not 4-byte aligned (D % 4 != 0, or a
+    base one byte in) run `streaming_topk_int8_cuda_realigned` ("K5r") and
+    count there. Returns (scores [B, k] f32, ids [B, k] int32)."""
     if _on_cpu(qv, qs, xv, xs, bias):
         return streaming_topk_int8(qv, qs, xv, xs, bias, k, tile_n)
     _check(qv, qs, xv, xs, bias, k)
-    out = _launch(qv, qs, xv, xs, bias, k, K1_LAYOUT, k1_tm(qv.shape[0]))
+    if int8_route("K5", qv, xv, xs, bias) != PIECE_NAMES[4]:
+        return streaming_topk_int8_cuda_realigned(qv, qs, xv, xs, bias, k, tile_n)
+    out = _launch(qv, qs, xv, xs, bias, k, k1_tm(qv.shape[0]), 4)
     with _count_lock:
         streaming_topk_int8_cuda.launches += 1
     return out
@@ -305,14 +336,14 @@ def streaming_topk_int8_cuda_qmajor(qv, qs, xv, xs, bias, k: int,
     a per-row threshold and candidate buffer, so every k takes the same
     tile). Shape rule (`tma_shape`): D % 16 == 0 with qv and xv 16-byte
     aligned and xs and bias 16-byte aligned runs `int8_tc_pass1`; any other
-    shape runs the mma.sync kernel
-    and counts in `streaming_topk_int8_cuda_sync.launches`. Same contract
-    as `streaming_topk_int8_cuda`."""
+    shape runs the same kernel fed by the ragged-row producer ("K6r") and
+    counts in `streaming_topk_int8_cuda_ragged.launches`. Same contract as
+    `streaming_topk_int8_cuda`."""
     if _on_cpu(qv, qs, xv, xs, bias):
         return streaming_topk_int8(qv, qs, xv, xs, bias, k, tile_n)
     _check(qv, qs, xv, xs, bias, k)
     if not tma_shape(qv, xv, xs, bias):
-        return streaming_topk_int8_cuda_sync(qv, qs, xv, xs, bias, k, tile_n)
+        return streaming_topk_int8_cuda_ragged(qv, qs, xv, xs, bias, k, tile_n)
     out = _launch_tc(qv, qs, xv, xs, bias, k)
     with _count_lock:
         streaming_topk_int8_cuda_qmajor.launches += 1
@@ -329,35 +360,53 @@ def streaming_topk_int8_cuda_qres(qv, qs, xv, xs, bias, k: int,
         return streaming_topk_int8(qv, qs, xv, xs, bias, k, tile_n)
     _check(qv, qs, xv, xs, bias, k)
     if not tma_shape(qv, xv, xs, bias):
-        return streaming_topk_int8_cuda_sync(qv, qs, xv, xs, bias, k, tile_n)
+        return streaming_topk_int8_cuda_ragged(qv, qs, xv, xs, bias, k, tile_n)
     out = _launch_tc(qv, qs, xv, xs, bias, k)
     with _count_lock:
         streaming_topk_int8_cuda_qres.launches += 1
     return out
 
 
-def streaming_topk_int8_cuda_sync(qv, qs, xv, xs, bias, k: int,
-                                  tile_n: int = DEFAULT_TILE_N):
-    """K6/K7 for the shapes TMA cannot take (D % 16 != 0, or rows not
-    16-byte aligned): `mma.sync` m16n8k32 s8 on rows staged as 32-bit
-    words (D % 4 == 0), query tiles of 16 to 128 rows (`row_warps_tm`),
-    lists in shared memory. It takes any shape K5 takes. Same contract as
+def streaming_topk_int8_cuda_ragged(qv, qs, xv, xs, bias, k: int,
+                                    tile_n: int = DEFAULT_TILE_N):
+    """K6/K7 over a corpus of any width and base ("K6r"): `int8_tc_pass1`'s
+    `wgmma` schedule, plan, epilogue and flush, with its corpus boxes and
+    the tiles' scales and bias brought by the producer warp's own copies
+    (csrc/hopper_tc.cuh's ragged-row producer: cp.async pieces of
+    `load_piece` bytes, or realigned words), laid out as TMA's boxes; qv,
+    padded to a multiple of 16 columns, still comes by TMA. K6 and K7 send
+    it what `tma_shape` rejects; it takes any shape. Scores bit for bit
+    the plain version's. Same contract as `streaming_topk_int8_cuda`."""
+    if _on_cpu(qv, qs, xv, xs, bias):
+        return streaming_topk_int8(qv, qs, xv, xs, bias, k, tile_n)
+    _check(qv, qs, xv, xs, bias, k)
+    out = _launch_tc(qv, qs, xv, xs, bias, k, ragged=True)
+    with _count_lock:
+        streaming_topk_int8_cuda_ragged.launches += 1
+    return out
+
+
+def streaming_topk_int8_cuda_realigned(qv, qs, xv, xs, bias, k: int,
+                                       tile_n: int = DEFAULT_TILE_N):
+    """K5 over rows that are not 4-byte aligned ("K5r": D % 4 != 0, or a
+    base one byte in): `int8_dp4a_ragged_pass1`, K5's kernel with each
+    4-byte word of a row read as the aligned words that hold it, realigned,
+    zeros past D; it takes any rows. Same contract as
     `streaming_topk_int8_cuda`."""
     if _on_cpu(qv, qs, xv, xs, bias):
         return streaming_topk_int8(qv, qs, xv, xs, bias, k, tile_n)
     _check(qv, qs, xv, xs, bias, k)
-    B, D = qv.shape
-    tm = row_warps_tm(_lib().int8_topk_pass1_smem, K2_LAYOUT, B, k, D, MMA_TMS, MMA_SMEM_BYTES)
-    out = _launch(qv, qs, xv, xs, bias, k, K2_LAYOUT, tm)
+    out = _launch(qv, qs, xv, xs, bias, k, k1_tm(qv.shape[0]), 1)
     with _count_lock:
-        streaming_topk_int8_cuda_sync.launches += 1
+        streaming_topk_int8_cuda_realigned.launches += 1
     return out
 
 
 streaming_topk_int8_cuda.launches = 0
 streaming_topk_int8_cuda_qmajor.launches = 0
 streaming_topk_int8_cuda_qres.launches = 0
-streaming_topk_int8_cuda_sync.launches = 0
+streaming_topk_int8_cuda_ragged.launches = 0
+streaming_topk_int8_cuda_realigned.launches = 0
 
 
 __all__ = [
@@ -372,7 +421,9 @@ __all__ = [
     "streaming_topk_int8_cuda",
     "streaming_topk_int8_cuda_qmajor",
     "streaming_topk_int8_cuda_qres",
-    "streaming_topk_int8_cuda_sync",
+    "streaming_topk_int8_cuda_ragged",
+    "streaming_topk_int8_cuda_realigned",
+    "int8_route",
     "tc_plan",
     "tma_shape",
 ]

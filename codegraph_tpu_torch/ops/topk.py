@@ -30,6 +30,19 @@ sorted descending.
   (`xt_tma_readable`: N % 8 == 0, a 16-byte aligned base):
   `streaming_topk_cuda_tc_xt` ("K4tc") and `streaming_topk_cuda_tc3_xt`
   ("K4tc3"), K2tc's kernel and plan with the corpus boxes read MN-major.
+* Every embedding width runs on the card, as the JAX kernels take any D
+  (`flat_route` says how rows are read). bf16 rows that TMA cannot read
+  (a row not a multiple of 16 bytes, or a base not 16-byte aligned) run
+  the same tensor-core kernels with their corpus brought by the ragged-row
+  producer of `csrc/hopper_tc.cuh`, which lays each stage out as a TMA box
+  would (`swizzled_box` is its numpy model): `streaming_topk_cuda_k1tc_ragged`
+  ("K1tcr"), `streaming_topk_cuda_tc_ragged` ("K2tcr") and
+  `streaming_topk_cuda_tc3_ragged` ("K2tc3r"). f32 rows that 16-byte pieces
+  cannot read (D % 4 != 0, or a base not 16-byte aligned) run K1 and K2/K3
+  in 4-byte pieces: `streaming_topk_cuda_ragged` ("K1r") and
+  `streaming_topk_cuda_qmajor_ragged` ("K2r"). Each counts its own
+  launches; the queries are padded with zero columns (B x D bytes), never
+  the corpus.
 
 Order and sentinels, shared by every version: a higher score wins; on
 equal scores the lower row id wins. The running top-k starts as
@@ -58,9 +71,8 @@ MAX_K = 1024
 #: row tiles (`rows_pass1`: 128 query rows x 128 corpus rows per block for
 #: every k, each thread an 8 x 8 micro tile, or 32 or 64 query rows when
 #: the batch fits them; K3 runs K2's schedule; K4 reads the corpus from xt
-#: [D, N]). csrc/int8_topk.cu numbers
-#: K5/K6/K7 like K1/K2/K3, with the same corpus tiles and query tiles of tm
-#: or 8 * tm rows (`row_warps_tm`).
+#: [D, N]). csrc/int8_topk.cu's K5 takes K1's corpus tile and plan,
+#: with tm query rows a block.
 K1_LAYOUT, K2_LAYOUT, K3_LAYOUT, K4_LAYOUT = 0, 1, 2, 3
 CORPUS_TILE = {K1_LAYOUT: 256, K2_LAYOUT: 128, K3_LAYOUT: 128, K4_LAYOUT: 128}
 #: pass 1 aims at this many blocks per kernel (4 or 2 per SM of an H100);
@@ -125,6 +137,64 @@ K1TC_STAGES = (8, 6, 4, 3)
 #: the bf16 pieces of a query of each dtype on the tensor cores: a bf16
 #: query as it is, an f32 query as `split_bf16`'s hi + mid + lo
 QUERY_PIECES = {torch.bfloat16: 1, torch.float32: 3}
+
+#: how the ragged-row producer (csrc/hopper_tc.cuh) and the FMA kernels
+#: copy a row: cp.async pieces of 16, 8 or 4 bytes, or (1) the aligned
+#: words that hold each chunk, realigned
+PIECE_NAMES = {16: "16-byte pieces", 8: "8-byte pieces", 4: "4-byte pieces", 1: "bytes"}
+
+
+def load_piece(row_bytes: int, addr: int) -> int:
+    """The widest copy (16, 8 or 4 bytes) that both the row stride
+    `row_bytes` and the base address `addr` are multiples of, so that every
+    piece of every row is aligned; 1 where none is (an odd int8 or bf16
+    width, or a base one element in): the kernels then read aligned words
+    and realign them."""
+    return next((p for p in (16, 8, 4) if row_bytes % p == 0 and addr % p == 0), 1)
+
+
+def rows_tma_readable(row_bytes: int, *addrs: int) -> bool:
+    """Whether TMA's tiled mode reads rows of `row_bytes` (their stride) at
+    these base addresses: a stride that is a multiple of 16 bytes, and
+    every base 16-byte aligned."""
+    return row_bytes % 16 == 0 and all(a % 16 == 0 for a in addrs)
+
+
+def flat_route(x: torch.Tensor) -> str:
+    """How K1-K3 read the rows x [N, D] on a card, from D and x's address:
+    bf16 rows "tma" (K1tc, K2tc, K2tc3) or "ragged, <piece>" (K1tcr, K2tcr,
+    K2tc3r: the ragged-row producer's copies, `load_piece`); f32 rows
+    "16-byte pieces" (K1, K2) or "4-byte pieces" (K1r, K2r). Every width
+    and address torch hands over takes one of them."""
+    row_bytes, addr = x.shape[1] * x.element_size(), x.data_ptr()
+    if x.dtype == torch.bfloat16:
+        if rows_tma_readable(row_bytes, addr):
+            return "tma"
+        return "ragged, " + PIECE_NAMES[load_piece(row_bytes, addr)]
+    return PIECE_NAMES[16] if load_piece(row_bytes, addr) == 16 else PIECE_NAMES[4]
+
+
+def swizzled_box(rows, n0: int, c: int, R: int = 128):
+    """numpy model of one ring stage of the tensor-core kernels: the bytes a
+    TMA box of R rows x 128 bytes with the 128-byte swizzle holds, which
+    the ragged-row producer (csrc/hopper_tc.cuh `ragged_fill`) writes
+    itself. rows: [N, row_bytes] uint8, the corpus's bytes. Box row r is
+    corpus row n0 + r, bytes c * 128 .. c * 128 + 127 of it, stored at r *
+    128 with its 16-byte chunk j at chunk j ^ (r & 7); zeros past the
+    row's bytes and past N. Returns [R * 128] uint8."""
+    import numpy as np
+
+    rows = np.asarray(rows, np.uint8)
+    N, row_bytes = rows.shape
+    box = np.zeros((R, 128), np.uint8)
+    lo = c * 128
+    width = max(0, min(128, row_bytes - lo))
+    live = max(0, min(R, N - n0))
+    box[:live, :width] = rows[n0: n0 + live, lo: lo + width]
+    out = np.zeros((R, 8, 16), np.uint8)
+    for r in range(R):
+        out[r, np.arange(8) ^ (r & 7)] = box[r].reshape(8, 16)
+    return out.reshape(-1)
 
 
 def _sort_desc(s: torch.Tensor, i: torch.Tensor, k: int):
@@ -197,7 +267,7 @@ def _k1tc_lib():
 
         lib = cuda_build.load("flat_topk_k1tc")
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.flat_topk_k1tc.argtypes = [p, i, p, p, i, i, i, i, i, i, i, i, i, ll, i,
+        lib.flat_topk_k1tc.argtypes = [p, i, p, p, i, i, i, i, i, i, i, i, i, ll, i, i,
                                        p, p, p, p, p, p]
         lib.flat_topk_k1tc.restype = i
         lib.flat_topk_k1tc_smem.argtypes = [i, i, i, i, i]
@@ -215,7 +285,7 @@ def _tc_lib():
 
         lib = cuda_build.load("flat_topk_tc")
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.flat_topk_tc.argtypes = [p, i, p, i, p, i, i, i, i, i, i, i, i, i, ll, i,
+        lib.flat_topk_tc.argtypes = [p, i, p, i, p, i, i, i, i, i, i, i, i, i, ll, i, i,
                                      p, p, p, p, p, p, p, p]
         lib.flat_topk_tc.restype = i
         lib.flat_topk_tc_smem.argtypes = [i, i, i, i, i]
@@ -235,9 +305,9 @@ def _lib():
 
         lib = cuda_build.load("flat_topk")
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.flat_topk.argtypes = [p, p, p, i, i, i, i, i, i, i, i, p, p, p, p, p]
+        lib.flat_topk.argtypes = [p, p, p, i, i, i, i, i, i, i, i, i, p, p, p, p, p]
         lib.flat_topk.restype = i
-        lib.flat_topk_rows.argtypes = [p, i, p, i, p, i, i, i, i, i, i, i, i, i, i, ll, i,
+        lib.flat_topk_rows.argtypes = [p, i, p, i, p, i, i, i, i, i, i, i, i, i, i, i, ll, i,
                                        p, p, p, p, p, p]
         lib.flat_topk_rows.restype = i
         lib.flat_topk_rows_smem.argtypes = [i, i, i]
@@ -274,9 +344,8 @@ def _check(q: torch.Tensor, x: torch.Tensor, bias: torch.Tensor, k: int) -> None
         raise ValueError(f"bias must be float32, got {bias.dtype}")
     if not (q.is_contiguous() and x.is_contiguous() and bias.is_contiguous()):
         raise ValueError("q, x and bias must be contiguous")
-    if x.shape[1] % 8 or x.data_ptr() % 16:
-        raise ValueError(f"the kernel reads rows in 16-byte pieces: D={x.shape[1]} must be a "
-                         "multiple of 8 and x 16-byte aligned")
+    if x.data_ptr() % x.element_size() or bias.data_ptr() % 4:
+        raise ValueError("x and bias must be aligned to their element size")
     if not 1 <= k <= MAX_K:
         raise ValueError(f"k={k} outside the kernel's range 1..{MAX_K}")
     if x.shape[0] >= 2**31 - 1024 or x.numel() >= 2**62:
@@ -373,7 +442,7 @@ def xt_tma_readable(N: int, addr: int) -> bool:
     """Whether TMA can read a bf16 corpus xt [D, N] at device address
     `addr` (K4tc, K4tc3): every row of N elements a multiple of 16 bytes
     (N % 8 == 0), and the base 16-byte aligned."""
-    return N % 8 == 0 and addr % 16 == 0
+    return rows_tma_readable(2 * N, addr)
 
 
 def tc_smem(query_tile: int, resident: bool, stages: int, D: int, elt: int = 2,
@@ -522,8 +591,9 @@ def _outputs(B: int, k: int, n_work: int, dev):
             torch.empty((max(1, n_work),), dtype=torch.int32, device=dev))
 
 
-def _launch_col(q, x, bias, k: int, tm: int):
-    """K1 over f32 rows: column warps, tm query rows per block."""
+def _launch_col(q, x, bias, k: int, tm: int, piece: int = 16):
+    """K1 over f32 rows: column warps, tm query rows per block, the rows in
+    `piece`-byte pieces (16, or 4: K1r)."""
     lib = _lib()
     B, D = q.shape
     N = x.shape[0]
@@ -533,16 +603,17 @@ def _launch_col(q, x, bias, k: int, tm: int):
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.flat_topk(
         q.data_ptr(), x.data_ptr(), bias.data_ptr(), B, N, D, k, tm, splits, rows, MERGE_GROUP,
-        out_s.data_ptr(), out_i.data_ptr(), work_s.data_ptr(), work_i.data_ptr(), stream,
+        piece, out_s.data_ptr(), out_i.data_ptr(), work_s.data_ptr(), work_i.data_ptr(), stream,
     )
     if err != 0:
         raise RuntimeError(f"flat_topk kernel launch failed: CUDA error {err} "
-                           f"(B={B}, N={N}, D={D}, k={k}, K1 tm={tm})")
+                           f"(B={B}, N={N}, D={D}, k={k}, K1 tm={tm}, piece={piece})")
     return out_s, out_i
 
 
-def _launch_rows(q, x, bias, k: int, layout: int):
-    """K2/K3/K4: the row-tile schedule; x is xt [D, N] for K4."""
+def _launch_rows(q, x, bias, k: int, layout: int, piece: int = 16):
+    """K2/K3/K4: the row-tile schedule; x is xt [D, N] for K4; f32 rows in
+    `piece`-byte pieces (16, or 4: K2r)."""
     lib = _lib()
     B, D = q.shape
     N = x.shape[1] if layout == K4_LAYOUT else x.shape[0]
@@ -564,8 +635,9 @@ def _launch_rows(q, x, bias, k: int, layout: int):
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.flat_topk_rows(
         q.data_ptr(), q.shape[1], x.data_ptr(), int(elt == 2), bias.data_ptr(), B, N, D, k,
-        layout, plan.splits, plan.rows_per_split, plan.grid_x, plan.query_tile, vec, plan.smem,
-        MERGE_GROUP, out_s.data_ptr(), out_i.data_ptr(), work_s.data_ptr(), work_i.data_ptr(),
+        layout, plan.splits, plan.rows_per_split, plan.grid_x, plan.query_tile, vec, piece,
+        plan.smem, MERGE_GROUP, out_s.data_ptr(), out_i.data_ptr(), work_s.data_ptr(),
+        work_i.data_ptr(),
         bound.data_ptr(), stream,
     )
     if err != 0:
@@ -575,18 +647,32 @@ def _launch_rows(q, x, bias, k: int, layout: int):
 
 
 def _query_pieces(q: torch.Tensor) -> torch.Tensor:
-    """q [B, D] as its bf16 pieces [pieces, B, D], contiguous and 16-byte
-    aligned for TMA: a bf16 q as it is, an f32 q as `split_bf16`'s hi, mid
-    and lo (hi + mid + lo == q), an elementwise pass over the batch."""
+    """q [B, D] as its bf16 pieces [pieces, B, Dq], contiguous and 16-byte
+    aligned for TMA, with zero columns up to Dq, D rounded up to a multiple
+    of 8 (TMA's 16-byte rows; the B x D queries are padded, never the
+    corpus): a bf16 q as it is, an f32 q as `split_bf16`'s hi, mid and lo
+    (hi + mid + lo == q), an elementwise pass over the batch."""
+    if q.shape[1] % 8:
+        q = torch.nn.functional.pad(q, (0, 8 - q.shape[1] % 8))
     if q.dtype == torch.bfloat16:
         return q[None] if q.data_ptr() % 16 == 0 else q[None].clone()
     return torch.stack(split_bf16(q.float()))
 
 
-def _launch_k1tc(q, x, bias, k: int):
-    """K1tc: `bf16_k1_pass1` as `k1tc_plan` lays it out, then pass 2; the
-    rows stay bf16 and the query goes to the tensor cores in its bf16
-    pieces."""
+def _tc_piece(x: torch.Tensor, bias: torch.Tensor, ragged: bool) -> Tuple[int, torch.Tensor]:
+    """(piece, bias) for a tensor-core launch over bf16 rows x: 0 and a
+    16-byte aligned bias (cloned if it is not: 4 bytes a row) for the TMA
+    instance; for the ragged one the producer's copy width (`load_piece`)
+    and the bias as it is (4-byte copies)."""
+    if ragged:
+        return load_piece(x.shape[1] * 2, x.data_ptr()), bias
+    return 0, bias if bias.data_ptr() % 16 == 0 else bias.clone()
+
+
+def _launch_k1tc(q, x, bias, k: int, ragged: bool = False):
+    """K1tc (K1tcr: ragged): `bf16_k1_pass1` as `k1tc_plan` lays it out,
+    then pass 2; the rows stay bf16 and the query goes to the tensor cores
+    in its bf16 pieces."""
     lib = _k1tc_lib()
     B, D = q.shape
     N = x.shape[0]
@@ -598,29 +684,29 @@ def _launch_k1tc(q, x, bias, k: int):
             lib.flat_topk_k1tc_work_entries(B, k, plan.splits, MERGE_GROUP) != plan.work_entries:
         raise RuntimeError("ops/topk.py k1tc_plan disagrees with csrc/flat_topk_k1tc.cu")
     qp = _query_pieces(q)
-    if bias.data_ptr() % 16:  # TMA reads bias from 16-byte aligned addresses (x: `_check`)
-        bias = bias.clone()
+    piece, bias = _tc_piece(x, bias, ragged)
     out_s, out_i, work_s, work_i = _outputs(B, k, plan.work_entries, q.device)
     bound = torch.full((plan.bound_entries,), NEG_INF, dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.flat_topk_k1tc(
         qp.data_ptr(), pieces, x.data_ptr(), bias.data_ptr(), B, N, D, k, plan.query_tile,
         int(plan.resident), plan.stages, plan.splits, plan.rows_per_split, plan.smem, MERGE_GROUP,
-        out_s.data_ptr(), out_i.data_ptr(), work_s.data_ptr(), work_i.data_ptr(),
+        piece, out_s.data_ptr(), out_i.data_ptr(), work_s.data_ptr(), work_i.data_ptr(),
         bound.data_ptr(), stream,
     )
     if err != 0:
         raise RuntimeError(f"flat_topk_k1tc kernel launch failed: CUDA error {err} "
-                           f"(B={B}, N={N}, D={D}, k={k}, {plan})")
+                           f"(B={B}, N={N}, D={D}, k={k}, piece={piece}, {plan})")
     return out_s, out_i
 
 
-def _launch_tc(q, x, bias, k: int, xt: bool = False):
-    """K2tc (bf16 q) and K2tc3 (f32 q): `bf16_tc_pass1` as `tc_plan` lays
-    it out, then pass 2. x stays bf16 and q goes in its bf16 pieces: the
-    tensor cores multiply them as the TPU kernel's dot. xt: x is xt [D, N]
-    (K4tc, K4tc3), and q gets zero columns up to a multiple of 8 (TMA's
-    16-byte rows; xt's depths past D read as zeros)."""
+def _launch_tc(q, x, bias, k: int, xt: bool = False, ragged: bool = False):
+    """K2tc (bf16 q) and K2tc3 (f32 q) (K2tcr, K2tc3r: ragged):
+    `bf16_tc_pass1` as `tc_plan` lays it out, then pass 2. x stays bf16 and
+    q goes in its bf16 pieces: the tensor cores multiply them as the TPU
+    kernel's dot. xt: x is xt [D, N] (K4tc, K4tc3), and q gets zero columns
+    up to a multiple of 8 (TMA's 16-byte rows; xt's depths past D read as
+    zeros)."""
     lib = _tc_lib()
     xt_depth = q.shape[1] if xt else 0
     if xt and xt_depth % 8:
@@ -636,8 +722,7 @@ def _launch_tc(q, x, bias, k: int, xt: bool = False):
             or lib.flat_topk_tc_cand_entries(B, plan.query_tile, plan.splits) != plan.cand_entries:
         raise RuntimeError("ops/topk.py tc_plan disagrees with csrc/flat_topk_tc.cu")
     qp = _query_pieces(q)
-    if bias.data_ptr() % 16:  # TMA reads bias from 16-byte aligned addresses (x: `_check`)
-        bias = bias.clone()
+    piece, bias = _tc_piece(x, bias, ragged)
     out_s, out_i, work_s, work_i = _outputs(B, k, plan.work_entries, q.device)
     bound = torch.full((plan.bound_entries,), NEG_INF, dtype=torch.float32, device=q.device)
     cand_s = torch.empty((plan.cand_entries,), dtype=torch.float32, device=q.device)
@@ -646,12 +731,13 @@ def _launch_tc(q, x, bias, k: int, xt: bool = False):
     err = lib.flat_topk_tc(
         qp.data_ptr(), pieces, x.data_ptr(), xt_depth, bias.data_ptr(), B, N, D, k, plan.query_tile,
         int(plan.resident), plan.stages, plan.splits, plan.rows_per_split, plan.smem, MERGE_GROUP,
-        out_s.data_ptr(), out_i.data_ptr(), work_s.data_ptr(), work_i.data_ptr(),
+        piece, out_s.data_ptr(), out_i.data_ptr(), work_s.data_ptr(), work_i.data_ptr(),
         bound.data_ptr(), cand_s.data_ptr(), cand_i.data_ptr(), stream,
     )
     if err != 0:
         raise RuntimeError(f"flat_topk_tc kernel launch failed: CUDA error {err} "
-                           f"(B={B}, N={N}, D={D}, xt_depth={xt_depth}, k={k}, {plan})")
+                           f"(B={B}, N={N}, D={D}, xt_depth={xt_depth}, k={k}, piece={piece}, "
+                           f"{plan})")
     return out_s, out_i
 
 
@@ -665,41 +751,27 @@ def k1_tm(B: int) -> int:
     return next(tm for tm in (1, 2, 4, 8) if tm >= min(B, 8))
 
 
-def query_tile(layout: int, tm: int) -> int:
-    """Query rows per block of the int8 kernels (csrc/int8_topk.cu): tm
-    for column warps, 8 * tm for row warps."""
-    return tm if layout == K1_LAYOUT else 8 * tm
-
-
-def row_warps_tm(pass1_smem, layout: int, B: int, k: int, D: int, tms, budget: int) -> int:
-    """Micro-tile rows of the int8 row-warp layouts (K6/K7, query tile
-    8 * tm): the largest of `tms` whose pass-1 shared memory
-    (`pass1_smem(layout, tm, k, D)`: lists, operand tiles and, for a
-    resident query tile, the tile) fits `budget`, and no larger than the
-    batch needs; the smallest when none fits (the launch then reports it)."""
-    for tm in tms:
-        if tm > tms[-1] and 4 * tm >= B:
-            continue  # half the tile would be padding
-        if pass1_smem(layout, tm, k, D) <= budget:
-            return tm
-    return tms[-1]
-
-
 def streaming_topk_cuda(
     q: torch.Tensor, x: torch.Tensor, bias: torch.Tensor, k: int,
     tile_n: int = DEFAULT_TILE_N,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K1: exact top-k for small query batches (query tiles of up to 8
     rows, corpus split across blocks). CPU tensors run `streaming_topk`
-    (tile_n is its tile); CUDA tensors launch the kernel, which needs D a
-    multiple of 8. bf16 rows run `streaming_topk_cuda_k1tc` (the tensor
-    cores, `uses_tensor_cores`) and count in its launches. Returns (scores
-    [B, k] f32, ids [B, k] int32)."""
+    (tile_n is its tile); CUDA tensors launch a kernel, at any D, by the
+    route `flat_route` names: f32 rows in 16-byte pieces here, in 4-byte
+    pieces as `streaming_topk_cuda_ragged` ("K1r"); bf16 rows on the
+    tensor cores (`uses_tensor_cores`) as `streaming_topk_cuda_k1tc` or,
+    rows TMA cannot read, `streaming_topk_cuda_k1tc_ragged`. Each counts
+    in its own launches. Returns (scores [B, k] f32, ids [B, k] int32)."""
     if _on_cpu(q, x, bias):
         return streaming_topk(q, x, bias, k, tile_n)
     _check(q, x, bias, k)
+    route = flat_route(x)
     if uses_tensor_cores(q.dtype, x.dtype):
-        return streaming_topk_cuda_k1tc(q, x, bias, k, tile_n)
+        fn = streaming_topk_cuda_k1tc if route == "tma" else streaming_topk_cuda_k1tc_ragged
+        return fn(q, x, bias, k, tile_n)
+    if route != PIECE_NAMES[16]:
+        return streaming_topk_cuda_ragged(q, x, bias, k, tile_n)
     out = _launch_col(q, x, bias, k, k1_tm(q.shape[0]))
     with _count_lock:
         streaming_topk_cuda.launches += 1
@@ -715,14 +787,18 @@ def streaming_topk_cuda_qmajor(
     tiles for a batch that fits one; the top-k lists live in device memory
     behind a per-row threshold and candidate buffer). bf16 rows run on the
     tensor cores (`uses_tensor_cores`): bf16 queries as
-    `streaming_topk_cuda_tc`, f32 queries as `streaming_topk_cuda_tc3`,
-    each counting in its own launches. Same contract as
+    `streaming_topk_cuda_tc`, f32 queries as `streaming_topk_cuda_tc3`
+    (rows TMA cannot read: their `_ragged` forms), each counting in its
+    own launches; f32 rows that 16-byte pieces cannot read run
+    `streaming_topk_cuda_qmajor_ragged` ("K2r"). Same contract as
     `streaming_topk_cuda`."""
     if _on_cpu(q, x, bias):
         return streaming_topk(q, x, bias, k, tile_n)
     _check(q, x, bias, k)
     if uses_tensor_cores(q.dtype, x.dtype):
-        return _tc_route(q)(q, x, bias, k, tile_n)
+        return _tc_route(q, x)(q, x, bias, k, tile_n)
+    if flat_route(x) != PIECE_NAMES[16]:
+        return streaming_topk_cuda_qmajor_ragged(q, x, bias, k, tile_n)
     out = _launch_rows(q, x, bias, k, K2_LAYOUT)
     with _count_lock:
         streaming_topk_cuda_qmajor.launches += 1
@@ -737,23 +813,27 @@ def streaming_topk_cuda_qres(
     K2's schedule, whose query tiles of a corpus split read each corpus
     slice from the 50 MB L2 within a few microseconds of each other (a
     thread block cluster sharing each slice ran about twice as slow on an
-    H100: PERF.md). bf16 rows run on the tensor cores, as K2's do. Same
-    contract as `streaming_topk_cuda`."""
+    H100: PERF.md). bf16 rows run on the tensor cores, and f32 rows that
+    16-byte pieces cannot read in 4-byte pieces, as K2's do (counted in
+    those routes' launches). Same contract as `streaming_topk_cuda`."""
     if _on_cpu(q, x, bias):
         return streaming_topk(q, x, bias, k, tile_n)
     _check(q, x, bias, k)
     if uses_tensor_cores(q.dtype, x.dtype):
-        return _tc_route(q)(q, x, bias, k, tile_n)
+        return _tc_route(q, x)(q, x, bias, k, tile_n)
+    if flat_route(x) != PIECE_NAMES[16]:
+        return streaming_topk_cuda_qmajor_ragged(q, x, bias, k, tile_n)
     out = _launch_rows(q, x, bias, k, K3_LAYOUT)
     with _count_lock:
         streaming_topk_cuda_qres.launches += 1
     return out
 
 
-def _tensor_core_scan(q, x, bias, k, tile_n, q_dtype, launch, counted, xt=False):
+def _tensor_core_scan(q, x, bias, k, tile_n, q_dtype, launch, counted, xt=False, ragged=False):
     """A tensor-core wrapper's body: the plain version on CPU tensors; on
     CUDA tensors its kernel over bf16 rows (xt: a bf16 xt [D, N] that TMA
-    can read) and `q_dtype` queries (or a raise), counted in
+    can read; not ragged: rows TMA can read; ragged: any rows, through the
+    ragged-row producer) and `q_dtype` queries (or a raise), counted in
     `counted.launches`."""
     if _on_cpu(q, x, bias):
         return streaming_topk(q, x.T if xt else x, bias, k, tile_n)
@@ -766,7 +846,11 @@ def _tensor_core_scan(q, x, bias, k, tile_n, q_dtype, launch, counted, xt=False)
     if xt and not xt_tma_readable(x.shape[1], x.data_ptr()):
         raise ValueError(f"TMA reads xt [D, N] only with N % 8 == 0 and a 16-byte aligned base, "
                          f"got N={x.shape[1]} at {x.data_ptr() % 16} bytes past 16")
-    out = launch(q, x, bias, k)
+    if not xt and not ragged and flat_route(x) != "tma":
+        raise ValueError(f"TMA reads rows only of a multiple of 16 bytes from a 16-byte aligned "
+                         f"base, got D={x.shape[1]} at {x.data_ptr() % 16} bytes past 16: the "
+                         "ragged route (`_ragged`) reads them")
+    out = launch(q, x, bias, k, ragged=True) if ragged else launch(q, x, bias, k)
     with _count_lock:
         counted.launches += 1
     return out
@@ -782,8 +866,8 @@ def streaming_topk_cuda_tc(
     lists in device memory behind a per-row threshold and candidate
     buffer, so every k takes the same tile). CPU tensors run
     `streaming_topk`; CUDA tensors launch the kernel, which takes bf16 q
-    and x only (D a multiple of 8), or raise. Returns (scores [B, k] f32,
-    ids [B, k] int32)."""
+    over bf16 rows that TMA can read only (`flat_route` "tma"), or
+    raise. Returns (scores [B, k] f32, ids [B, k] int32)."""
     return _tensor_core_scan(q, x, bias, k, tile_n, (torch.bfloat16,), _launch_tc,
                              streaming_topk_cuda_tc)
 
@@ -796,8 +880,8 @@ def streaming_topk_cuda_tc3(
     with each f32 query as its three bf16 pieces hi + mid + lo == q
     (`split_bf16`), three products into one f32 accumulator, so the
     scores are the f32 query's. CPU tensors run `streaming_topk`; CUDA
-    tensors launch the kernel, which takes f32 q over bf16 x only (D a
-    multiple of 8), or raise."""
+    tensors launch the kernel, which takes f32 q over bf16 rows that TMA
+    can read only, or raise."""
     return _tensor_core_scan(q, x, bias, k, tile_n, (torch.float32,), _launch_tc,
                              streaming_topk_cuda_tc3)
 
@@ -812,14 +896,98 @@ def streaming_topk_cuda_k1tc(
     pieces; per-query candidate buffers in shared memory behind the
     list's k-th entry and the bound the corpus splits share. CPU tensors
     run `streaming_topk`; CUDA tensors launch the kernel, which takes bf16
-    or f32 q over bf16 x (D a multiple of 8), or raise."""
+    or f32 q over bf16 rows that TMA can read, or raise."""
     return _tensor_core_scan(q, x, bias, k, tile_n, (torch.bfloat16, torch.float32),
                              _launch_k1tc, streaming_topk_cuda_k1tc)
 
 
-def _tc_route(q: torch.Tensor):
-    """K2's and K3's wrapper over bf16 rows for q's dtype."""
-    return streaming_topk_cuda_tc if q.dtype == torch.bfloat16 else streaming_topk_cuda_tc3
+def streaming_topk_cuda_k1tc_ragged(
+    q: torch.Tensor, x: torch.Tensor, bias: torch.Tensor, k: int,
+    tile_n: int = DEFAULT_TILE_N,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1 over bf16 rows of any width and base ("K1tcr"): K1tc's kernel
+    with its corpus boxes and bias brought by the producer warp's own
+    copies (csrc/hopper_tc.cuh's ragged-row producer: cp.async pieces of
+    `load_piece` bytes, or realigned words), laid out as TMA's boxes; the
+    queries, padded to a multiple of 8 columns, still come by TMA. K1
+    sends it the rows TMA cannot read (`flat_route`); it takes any. CPU
+    tensors run `streaming_topk`; CUDA tensors launch the kernel, which
+    takes bf16 or f32 q over bf16 x, or raise."""
+    return _tensor_core_scan(q, x, bias, k, tile_n, (torch.bfloat16, torch.float32),
+                             _launch_k1tc, streaming_topk_cuda_k1tc_ragged, ragged=True)
+
+
+def streaming_topk_cuda_tc_ragged(
+    q: torch.Tensor, x: torch.Tensor, bias: torch.Tensor, k: int,
+    tile_n: int = DEFAULT_TILE_N,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2 and K3 over bf16 queries and bf16 rows of any width and base
+    ("K2tcr"): K2tc's kernel fed by the ragged-row producer, as
+    `streaming_topk_cuda_k1tc_ragged` is K1tc's. Same contract as
+    `streaming_topk_cuda_tc`, for any rows."""
+    return _tensor_core_scan(q, x, bias, k, tile_n, (torch.bfloat16,), _launch_tc,
+                             streaming_topk_cuda_tc_ragged, ragged=True)
+
+
+def streaming_topk_cuda_tc3_ragged(
+    q: torch.Tensor, x: torch.Tensor, bias: torch.Tensor, k: int,
+    tile_n: int = DEFAULT_TILE_N,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2 and K3 over f32 queries (three bf16 pieces) and bf16 rows of any
+    width and base ("K2tc3r"): K2tc3's kernel fed by the ragged-row
+    producer. Same contract as `streaming_topk_cuda_tc3`, for any rows."""
+    return _tensor_core_scan(q, x, bias, k, tile_n, (torch.float32,), _launch_tc,
+                             streaming_topk_cuda_tc3_ragged, ragged=True)
+
+
+def _tc_route(q: torch.Tensor, x: torch.Tensor):
+    """K2's and K3's wrapper over bf16 rows for q's dtype and x's route."""
+    if flat_route(x) == "tma":
+        return streaming_topk_cuda_tc if q.dtype == torch.bfloat16 else streaming_topk_cuda_tc3
+    return (streaming_topk_cuda_tc_ragged if q.dtype == torch.bfloat16
+            else streaming_topk_cuda_tc3_ragged)
+
+
+def _f32_pieces_scan(q, x, bias, k, tile_n, launch, counted):
+    """K1r's and K2r's body: the plain version on CPU tensors; on CUDA
+    tensors its kernel over f32 rows in 4-byte pieces (or a raise),
+    counted in `counted.launches`."""
+    if _on_cpu(q, x, bias):
+        return streaming_topk(q, x, bias, k, tile_n)
+    _check(q, x, bias, k)
+    if x.dtype != torch.float32:
+        raise ValueError(f"the 4-byte-piece kernels read f32 rows, got x {x.dtype}")
+    out = launch(q, x, bias, k)
+    with _count_lock:
+        counted.launches += 1
+    return out
+
+
+def streaming_topk_cuda_ragged(
+    q: torch.Tensor, x: torch.Tensor, bias: torch.Tensor, k: int,
+    tile_n: int = DEFAULT_TILE_N,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1 over f32 rows in 4-byte pieces ("K1r": `topk_ragged_pass1`, K1's
+    column warps, tile and pass 2), for rows 16-byte pieces cannot read (D
+    % 4 != 0, or a base not 16-byte aligned); it takes any f32 rows. CPU
+    tensors run `streaming_topk`; CUDA tensors launch the kernel or raise."""
+    return _f32_pieces_scan(q, x, bias, k, tile_n,
+                            lambda q_, x_, b_, k_: _launch_col(q_, x_, b_, k_, k1_tm(q_.shape[0]),
+                                                               piece=4),
+                            streaming_topk_cuda_ragged)
+
+
+def streaming_topk_cuda_qmajor_ragged(
+    q: torch.Tensor, x: torch.Tensor, bias: torch.Tensor, k: int,
+    tile_n: int = DEFAULT_TILE_N,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2 and K3 over f32 rows in 4-byte pieces ("K2r": `rows_ragged_pass1`,
+    K2's row tiles, ring and pass 2), for rows 16-byte pieces cannot read;
+    it takes any f32 rows. Same contract as `streaming_topk_cuda_ragged`."""
+    return _f32_pieces_scan(q, x, bias, k, tile_n,
+                            lambda q_, x_, b_, k_: _launch_rows(q_, x_, b_, k_, K2_LAYOUT,
+                                                                piece=4),
+                            streaming_topk_cuda_qmajor_ragged)
 
 
 def streaming_topk_cuda_tc_xt(
@@ -909,6 +1077,11 @@ streaming_topk_cuda_tc3.launches = 0
 streaming_topk_cuda_k1tc.launches = 0
 streaming_topk_cuda_tc_xt.launches = 0
 streaming_topk_cuda_tc3_xt.launches = 0
+streaming_topk_cuda_ragged.launches = 0
+streaming_topk_cuda_qmajor_ragged.launches = 0
+streaming_topk_cuda_k1tc_ragged.launches = 0
+streaming_topk_cuda_tc_ragged.launches = 0
+streaming_topk_cuda_tc3_ragged.launches = 0
 
 
 __all__ = [
@@ -927,6 +1100,15 @@ __all__ = [
     "streaming_topk_cuda_k1tc",
     "streaming_topk_cuda_tc_xt",
     "streaming_topk_cuda_tc3_xt",
+    "streaming_topk_cuda_ragged",
+    "streaming_topk_cuda_qmajor_ragged",
+    "streaming_topk_cuda_k1tc_ragged",
+    "streaming_topk_cuda_tc_ragged",
+    "streaming_topk_cuda_tc3_ragged",
+    "flat_route",
+    "load_piece",
+    "rows_tma_readable",
+    "swizzled_box",
     "k1tc_plan",
     "tc_plan",
     "uses_tensor_cores",

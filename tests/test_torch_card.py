@@ -13,6 +13,10 @@ The CPU tests hold the plain versions to the JAX package; these cases
 hold each kernel to its plain version on the same inputs, made with numpy
 from a seed.
 
+The ragged cases run every route at widths that TMA's tiled mode or
+16-byte pieces cannot read (D = 100, 765, 25, 3) and at a base one
+element into its storage.
+
 Tolerances: f32 and bf16 scores within 1e-5 (unit-norm rows and queries,
 scores in [-1, 1]: f32 sums taken in another order differ by ~1e-7 at
 D = 768, and bf16 products, and the bf16 pieces of an f32 query times a
@@ -282,6 +286,112 @@ def test_pieces_exact_on_one_hot_rows_on_card(cuda_device, route):
                 assert_topk_equiv(ks.cpu(), ki.cpu(), ps.cpu(), pi.cpu(), q[:B], x, bias, tol=0.0)
 
 
+# -- every width: the ragged-row producer and the narrow pieces -----------------
+
+#: widths that TMA's tiled mode cannot read as bf16 rows (200 and 1530
+#: bytes a row), f32 widths that 16-byte pieces cannot read (765), and the
+#: base one element into its storage
+RAGGED_D = (100, 765)
+
+
+def _offset_copy(t: torch.Tensor, offset: int) -> torch.Tensor:
+    """t's values in a fresh tensor whose base lies `offset` elements into
+    its storage (0: a tensor of its own)."""
+    if offset == 0:
+        return t.clone()
+    buf = torch.zeros(t.numel() + offset, dtype=t.dtype, device=t.device)
+    out = buf[offset:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["K1tcr", "K2tcr", "K2tc3r"])
+def test_ragged_tc_matches_plain_on_card(cuda_device, route):
+    """The tensor-core kernels over bf16 rows that TMA cannot read, through
+    the public K1/K2/K3 wrappers: widths of RAGGED_D and a base one element
+    in (the producer's 8-, 4-byte pieces and realigned words), ties,
+    tombstones, k above the live rows, both query tiles of K2tcr; each call
+    launches the ragged route once and no TMA instance."""
+    rng = np.random.default_rng(26)
+    qd = F32 if route == "K2tc3r" else BF16
+    counted = {"K1tcr": ttopk.streaming_topk_cuda_k1tc_ragged,
+               "K2tcr": ttopk.streaming_topk_cuda_tc_ragged,
+               "K2tc3r": ttopk.streaming_topk_cuda_tc3_ragged}[route]
+    calls = ((ttopk.streaming_topk_cuda, (1, 8, 9, 31)) if route == "K1tcr" else
+             ((ttopk.streaming_topk_cuda_qmajor, (33, 64, 65, 129)),
+              (ttopk.streaming_topk_cuda_qres, (129,))))
+    if route == "K1tcr":
+        calls = (calls,)
+    for D in RAGGED_D:
+        for offset, live in ((0, None), (1, 150)):
+            tq_, tx, tb = _bf16_case(rng, cuda_device, 129, 3001, D, dup=True, live=live)
+            tx = _offset_copy(tx, offset)
+            assert ttopk.flat_route(tx) != "tma"
+            tq_ = tq_.to(qd)
+            for fn, batches in calls:
+                for B in batches:
+                    for k in (1, 30, 300):
+                        _held(fn, tq_[:B].contiguous(), tx, tb, k, counted)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["K1tcr", "K2tc3r"])
+def test_ragged_pieces_exact_on_one_hot_rows_on_card(cuda_device, route):
+    """The one-hot rows of `test_pieces_exact_on_one_hot_rows_on_card` at
+    widths TMA cannot read: each score is the one query element q[n % D],
+    so a chunk stored under the wrong swizzle, a stale byte of an earlier
+    stage or a byte past D would change a score; they equal the plain
+    version's bit for bit."""
+    rng = np.random.default_rng(27)
+    fn, counted, runs = {
+        "K1tcr": (ttopk.streaming_topk_cuda, ttopk.streaming_topk_cuda_k1tc_ragged, (1, 9, 31)),
+        "K2tc3r": (ttopk.streaming_topk_cuda_qmajor, ttopk.streaming_topk_cuda_tc3_ragged,
+                   (33, 65, 129)),
+    }[route]
+    for D in RAGGED_D:
+        N = 3 * D + 5
+        q = _unit(rng.standard_normal((max(runs), D)))
+        x = np.zeros((N, D), np.float32)
+        x[np.arange(N), np.arange(N) % D] = 1.0
+        bias = np.zeros(N, np.float32)
+        tq_, tx, tb = (t.to(cuda_device) for t in _t(q, x, bias))
+        tx = tx.to(BF16)
+        for B in runs:
+            for k in (1, 30, 300):
+                qb = tq_[:B].contiguous()
+                before = counted.launches
+                ks, ki = fn(qb, tx, tb, k)
+                torch.cuda.synchronize()
+                assert counted.launches == before + 1, (route, D, B, k)
+                ps, pi = ttopk.streaming_topk(qb, tx, tb, k)
+                assert_topk_equiv(ks.cpu(), ki.cpu(), ps.cpu(), pi.cpu(), q[:B], x, bias, tol=0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["K1r", "K2r"])
+def test_f32_four_byte_pieces_match_plain_on_card(cuda_device, route):
+    """K1 and K2/K3 over f32 rows that 16-byte pieces cannot read (D % 4 !=
+    0, or a base one element in): the 4-byte-piece instances, through the
+    public wrappers, each call counted once in its route."""
+    rng = np.random.default_rng(28)
+    counted = (ttopk.streaming_topk_cuda_ragged if route == "K1r"
+               else ttopk.streaming_topk_cuda_qmajor_ragged)
+    calls = (((ttopk.streaming_topk_cuda, (1, 5, 8)),) if route == "K1r" else
+             ((ttopk.streaming_topk_cuda_qmajor, (33, 64, 70)),
+              (ttopk.streaming_topk_cuda_qres, (129,))))
+    for D, offset in ((765, 0), (100, 1), (3, 0)):
+        q, x, bias = _case(rng, 129, 3001, D, dead_frac=0.01)
+        x[2000] = x[3]  # an exact tie across tiles
+        tq_, tx, tb = (t.to(cuda_device) for t in _t(q, x, bias))
+        tx = _offset_copy(tx, offset)
+        assert ttopk.flat_route(tx) == "4-byte pieces"
+        for fn, batches in calls:
+            for B in batches:
+                for k in (1, 30, 300):
+                    _held(fn, tq_[:B].contiguous(), tx, tb, k, counted)
+
+
 # -- K5-K7: csrc/int8_topk.cu ---------------------------------------------------
 
 
@@ -309,8 +419,8 @@ def _int8_true(qv, qs, xv, xs, bias):
 def test_int8_kernels_match_plain_on_card(cuda_device):
     """Each kernel equals the plain version bit for bit on its scores, with
     ids equal outside ties: K5, K6 and K7 on both sides of the 64- and
-    128-row query tiles, and the mma.sync kernel at a D that TMA cannot
-    take."""
+    128-row query tiles, and K6 at a D that TMA cannot read (K6r, the
+    ragged-row producer)."""
     rng = np.random.default_rng(1)
     for D, runs in ((768, ((tq.streaming_topk_int8_cuda, 3), (tq.streaming_topk_int8_cuda_qmajor, 64),
                            (tq.streaming_topk_int8_cuda_qmajor, 70),
@@ -329,6 +439,44 @@ def test_int8_kernels_match_plain_on_card(cuda_device):
                 assert_topk_equiv(ks.cpu(), ki.cpu(), ps.cpu(), pi.cpu(), None, None, None,
                                   tol=INT8_TIE_TOL,
                                   true=_int8_true(case[0][:B], case[1][:B], *case[2:]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["K6r", "K5r"])
+def test_int8_ragged_match_plain_on_card(cuda_device, route):
+    """K6/K7 over rows TMA cannot read (K6r: 4-byte pieces at D = 100,
+    realigned words at 765 and at a base one byte in) and K5 over rows
+    that are not 4-byte aligned (K5r), through the public wrappers: scores
+    bit for bit the plain version's, ids equal outside ties, each call
+    counted once in its route."""
+    rng = np.random.default_rng(29)
+    counted = (tq.streaming_topk_int8_cuda_ragged if route == "K6r"
+               else tq.streaming_topk_int8_cuda_realigned)
+    runs = (((tq.streaming_topk_int8_cuda_qmajor, (33, 64, 70, 129)),
+             (tq.streaming_topk_int8_cuda_qres, (129,))) if route == "K6r" else
+            ((tq.streaming_topk_int8_cuda, (1, 3, 8)),))
+    for D, offset in ((100, 0), (765, 0), (100, 1), (25, 0)):
+        if route == "K5r" and D % 4 == 0 and offset == 0:
+            continue  # words: K5's own instance
+        case = _int8_case(rng, 129, 3001, D)
+        case[2][2000], case[3][2000] = case[2][3], case[3][3]  # an exact tie
+        tc = [t.to(cuda_device) for t in _t(*case)]
+        tc[2] = _offset_copy(tc[2], offset)
+        kernel = "K6" if route == "K6r" else "K5"
+        assert tq.int8_route(kernel, tc[0], tc[2], tc[3], tc[4]) not in ("tma", "4-byte pieces")
+        for fn, batches in runs:
+            for B in batches:
+                sub = [tc[0][:B].contiguous(), tc[1][:B].contiguous(), *tc[2:]]
+                for k in (1, 100, 300):
+                    before = counted.launches
+                    ks, ki = fn(*sub, k)
+                    torch.cuda.synchronize()
+                    assert counted.launches == before + 1, (route, D, offset, B, k)
+                    ps, pi = tq.streaming_topk_int8(*sub, k)
+                    np.testing.assert_array_equal(ks.cpu().numpy(), ps.cpu().numpy())
+                    assert_topk_equiv(ks.cpu(), ki.cpu(), ps.cpu(), pi.cpu(), None, None, None,
+                                      tol=INT8_TIE_TOL,
+                                      true=_int8_true(case[0][:B], case[1][:B], *case[2:]))
 
 
 # -- K8: csrc/ivfpq_adc.cu --------------------------------------------------------

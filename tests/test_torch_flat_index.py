@@ -158,3 +158,26 @@ def test_cuda_without_gpu_raises():
 def test_unported_dtype_raises():
     with pytest.raises(NotImplementedError, match="Int8FlatIndex"):
         TFlat(64, dtype="int8", device="cpu")
+
+
+#: embedding widths users configure that are not a multiple of 8 (the
+#: hash provider, matryoshka-truncated provider dimensions), and D = 1
+RAGGED_WIDTHS = (1, 25, 100, 300)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", RAGGED_WIDTHS)
+def test_ragged_widths_match_jax(rng, dtype, D):
+    """Widths that are not a multiple of 8 run the same search as JAX's
+    Pallas kernels (in interpret mode): a ragged N, 1% tombstones, an
+    extra_bias filter, k above the live rows, a K1 and a K2 batch."""
+    j = JFlat(D, dtype=dtype, backend="pallas")
+    j.add(_rows(rng, 203, D))
+    j.delete(rng.choice(203, size=2, replace=False))
+    t = _loaded(j, dtype)
+    assert t.arrays()[0].shape[1] == D
+    eb = np.where(rng.random(203) < 0.1, ttopk.NEG_INF, 0.0).astype(np.float32)
+    for B in (4, 40):
+        q = _rows(rng, B, D)
+        _assert_same(j, t, q, 10, extra_bias=eb)
+        _assert_same(j, t, q, 250, extra_bias=eb)  # above the live rows: padded

@@ -217,3 +217,64 @@ def test_cuda_without_gpu_raises():
         pytest.skip("a GPU is present; this checks the no-GPU refusal")
     with pytest.raises(RuntimeError, match="cuda"):
         TInt8(D)  # device defaults to "cuda"
+
+
+#: embedding widths users configure that are not a multiple of 16 (so
+#: K6/K7 take the ragged producer on a card; 25 and 1 are not a multiple of
+#: 4 either, so K5 realigns its words)
+RAGGED_WIDTHS = (1, 25, 100, 300)
+
+
+@pytest.mark.parametrize("D_", RAGGED_WIDTHS)
+@pytest.mark.parametrize("B", [4, 40])  # K5 path, K6 path
+def test_ragged_widths_match_jax(rng, D_, B):
+    """An int8 index at a width that is not a multiple of 16 against JAX's:
+    a ragged N, 1% tombstones, an extra_bias filter, k above the live
+    rows, the bf16 rescore."""
+    kw = dict(metric="cosine", rescore_dtype="bfloat16", rescore_k=50, tile_n=256)
+    j = JInt8(D_, **kw)
+    j.add(rng.standard_normal((203, D_)).astype(np.float32))
+    j.delete(rng.choice(203, size=2, replace=False))
+    t = TInt8(D_, device="cpu", **kw)
+    qa, sa, ra, ba = j.arrays()
+    t.load_arrays(np.asarray(qa), np.asarray(sa), np.asarray(ra, np.float32), np.asarray(ba),
+                  j.n_rows, j.n_live)
+    eb = np.where(rng.random(203) < 0.1, NEG_INF, 0.0).astype(np.float32)
+    q = rng.standard_normal((B, D_)).astype(np.float32)
+    for k in (10, 250):
+        _assert_same(j, t, q, k, extra_bias=eb)
+
+
+@pytest.mark.parametrize("D_", RAGGED_WIDTHS)
+@pytest.mark.parametrize("kernel", ["K5", "K6"])
+def test_ragged_width_scans_match_jax_pallas(rng, D_, kernel):
+    """The int8 scans at those widths against JAX's Pallas kernels in
+    interpret mode (their blocks span the whole row, any D): K5 at B = 5,
+    K6 at B = 40 (the route a card takes there: K5r or K5, K6r), with
+    tombstones, a filter and k above the live rows; the port's wrappers run
+    their plain version on CPU tensors."""
+    from codegraph_tpu.ops import quantize as jq
+
+    B, tile_b = (5, 8) if kernel == "K5" else (40, 16)
+    x = rng.standard_normal((203, D_)).astype(np.float32)
+    qv, qs = (np.array(a) for a in jq.quantize_rows(rng.standard_normal((B, D_))
+                                                        .astype(np.float32)))
+    xv, xs = (np.array(a) for a in jq.quantize_rows(x))
+    bias = np.where(rng.random(203) < 0.1, NEG_INF, 0.0).astype(np.float32)
+    bias[:2] = NEG_INF
+    jfn = jq.streaming_topk_int8_pallas if kernel == "K5" else jq.streaming_topk_int8_qmajor
+    tfn = tq.streaming_topk_int8_cuda if kernel == "K5" else tq.streaming_topk_int8_cuda_qmajor
+    b_pad = -(-B // tile_b) * tile_b
+    # the Pallas kernels take whole tiles: the corpus padded to 256 dead
+    # rows (as an index's capacity pads it); the port gets the 203 rows
+    n_pad = 256 - len(x)
+    padded = (np.pad(xv, ((0, n_pad), (0, 0))), np.pad(xs, (0, n_pad)),
+              np.pad(bias, (0, n_pad), constant_values=NEG_INF))
+    for k in (10, 250):
+        js, ji = jfn(np.pad(qv, ((0, b_pad - B), (0, 0))), np.pad(qs, (0, b_pad - B)), *padded,
+                     k, tile_n=128, tile_b=tile_b, interpret=True)
+        ts, ti = tfn(*(torch.from_numpy(a) for a in (qv, qs, xv, xs, bias)), k)
+        raw = (qv.astype(np.int64) @ xv.astype(np.int64).T).astype(np.float32)
+        true = (raw * qs[:, None] * xs[None, :] + bias[None, :]).astype(np.float64)
+        assert_topk_equiv(ts, ti, np.asarray(js)[:B], np.asarray(ji)[:B], None, None, None,
+                          tol=1e-6, true=true)

@@ -137,19 +137,20 @@ def test_streaming_topk_int8_ragged_n(rng, N, tile_n):
     ("K5", 1, 10), ("K5", 8, 100), ("K5", 5, 300),
     ("K6", 32, 10), ("K6", 64, 100),
     ("K7", 32, 10), ("K7", 48, 100),
-    ("K6 sync", 32, 10), ("K6 sync", 40, 300),
+    ("K6r", 32, 10), ("K6r", 40, 300),
 ])
 def test_int8_wrappers_match_jax_pallas(rng, kernel, B, k):
-    """K5/K6/K7 wrappers and the mma.sync one that K6/K7 hand the shapes
-    TMA cannot take (plain path on CPU tensors) vs the Pallas kernels in
-    interpret mode, with tombstones and a zero row."""
-    N, D = 1024, 64
+    """K5/K6/K7 wrappers and the ragged one that K6/K7 hand the corpora TMA
+    cannot read (K6r, at D = 100, a width TMA cannot read; plain path on
+    CPU tensors) vs the Pallas kernels in interpret mode, with tombstones
+    and a zero row."""
+    N, D = 1024, 100 if kernel == "K6r" else 64
     case = _int8_case(rng, B, N, D)
     jfn, tfn, tile_b = {
         "K5": (jq.streaming_topk_int8_pallas, tq.streaming_topk_int8_cuda, 8),
         "K6": (jq.streaming_topk_int8_qmajor, tq.streaming_topk_int8_cuda_qmajor, 16),
         "K7": (jq.streaming_topk_int8_qres, tq.streaming_topk_int8_cuda_qres, 16),
-        "K6 sync": (jq.streaming_topk_int8_qmajor, tq.streaming_topk_int8_cuda_sync, 16),
+        "K6r": (jq.streaming_topk_int8_qmajor, tq.streaming_topk_int8_cuda_ragged, 16),
     }[kernel]
     qv, qs = case[0], case[1]
     b_pad = -(-B // tile_b) * tile_b  # the Pallas kernels take whole query tiles
@@ -204,11 +205,15 @@ def test_rescore_topk_matches_jax(rng):
 
 
 @pytest.mark.parametrize("bad,err", [
-    (dict(k=0), "k=0"), (dict(D=30), "multiple of 4"), (dict(xdtype=torch.float32), "int8"),
+    (dict(k=0), "k=0"), (dict(D=30), "route: bytes"), (dict(xdtype=torch.float32), "int8"),
     (dict(sdtype=torch.float64), "float32"), (dict(noncontig=True), "contiguous"),
-    (dict(N2=99), "shape mismatch"), (dict(offset=1), "aligned"),
+    (dict(N2=99), "shape mismatch"), (dict(offset=1), "route: bytes"),
 ])
 def test_int8_kernel_input_checks(bad, err):
+    """Contract breaches raise; a width that is not a multiple of 4 (the
+    rule before every width ran on the card) or a base one byte in is no
+    breach: K5 reads such rows as realigned words (K5r) and K6/K7 through
+    the ragged producer (K6r)."""
     D = bad.get("D", 64)
     qv = torch.zeros((4, D), dtype=torch.int8)
     xv = torch.zeros((100, D), dtype=bad.get("xdtype", torch.int8))
@@ -219,6 +224,11 @@ def test_int8_kernel_input_checks(bad, err):
     qs = torch.ones(4)
     xs = torch.ones(bad.get("N2", 100), dtype=bad.get("sdtype", torch.float32))
     bias = torch.zeros(100)
+    if err.startswith("route: "):
+        tq._check(qv, qs, xv, xs, bias, bad.get("k", 10))
+        assert tq.int8_route("K5", qv, xv, xs, bias) == err[len("route: "):]
+        assert tq.int8_route("K6", qv, xv, xs, bias) == "ragged, bytes"
+        return
     with pytest.raises(ValueError, match=err):
         tq._check(qv, qs, xv, xs, bias, bad.get("k", 10))
 
@@ -231,8 +241,8 @@ def test_int8_kernel_input_checks(bad, err):
 def test_tensor_core_staging_width(D, offset, xs_offset, want):
     """K6/K7 run on TMA-fed wgmma only where D % 16 == 0 and both row
     matrices and the corpus scales and bias are 16-byte aligned (TMA's
-    stride and address rule); every other shape goes
-    to the mma.sync kernel, which stages 32-bit words."""
+    stride and address rule); every other shape goes to the same kernel
+    fed by the ragged-row producer (K6r)."""
     xv = torch.zeros(100 * D + 16, dtype=torch.int8)[offset: offset + 100 * D].view(100, D)
     qv = torch.zeros((3, D), dtype=torch.int8)
     xs = torch.zeros(104)[xs_offset: xs_offset + 100]
@@ -240,6 +250,37 @@ def test_tensor_core_staging_width(D, offset, xs_offset, want):
     assert xv.data_ptr() % 16 == offset % 16 and qv.data_ptr() % 16 == 0
     assert xs.data_ptr() % 16 == 4 * xs_offset % 16 and bias.data_ptr() % 16 == 0
     assert tq.tma_shape(qv, xv, xs, bias) is want
+    assert (tq.int8_route("K6", qv, xv, xs, bias) == "tma") is want
+
+
+#: the route of each width's int8 rows at a 16-byte aligned base: K5's
+#: words or realigned bytes, K6/K7's TMA or the ragged producer's widest
+#: aligned copy (D = 768, a multiple of 16, beside the widths of the flat
+#: route test)
+INT8_ROUTES = {
+    1: ("bytes", "ragged, bytes"), 3: ("bytes", "ragged, bytes"), 25: ("bytes", "ragged, bytes"),
+    50: ("bytes", "ragged, bytes"), 60: ("4-byte pieces", "ragged, 4-byte pieces"),
+    100: ("4-byte pieces", "ragged, 4-byte pieces"), 300: ("4-byte pieces", "ragged, 4-byte pieces"),
+    764: ("4-byte pieces", "ragged, 4-byte pieces"), 765: ("bytes", "ragged, bytes"),
+    768: ("4-byte pieces", "tma"), 1000: ("4-byte pieces", "ragged, 8-byte pieces"),
+}
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("D", sorted(INT8_ROUTES))
+def test_every_int8_width_and_base_takes_a_route(D, offset):
+    """No int8 width or base raises: `_check` takes it, and `int8_route`
+    names the route of K5 and of K6/K7; a base one byte in is read as
+    realigned words by both."""
+    buf = torch.zeros(40 * D + 80, dtype=torch.int8)
+    skip = -buf.data_ptr() % 64
+    xv = buf[skip + offset: skip + offset + 40 * D].view(40, D)
+    qv = torch.zeros((3, D), dtype=torch.int8)
+    xs, bias = torch.ones(40), torch.zeros(40)
+    tq._check(qv, torch.ones(3), xv, xs, bias, 10)
+    k5, k6 = ("bytes", "ragged, bytes") if offset else INT8_ROUTES[D]
+    assert tq.int8_route("K5", qv, xv, xs, bias) == k5
+    assert tq.int8_route("K6", qv, xv, xs, bias) == tq.int8_route("K7", qv, xv, xs, bias) == k6
 
 
 @pytest.mark.parametrize("B,tile", [
@@ -324,13 +365,14 @@ def _variants_tool():
 
 @pytest.mark.parametrize("name", list(_variants_tool().VARIANTS))
 def test_int8_variant_tool_anchors_in_source(name):
-    """Every text change of tools/int8_topk_variants.py still applies to
-    csrc/int8_topk.cu or csrc/topk_merge.cuh, and every constant it sets
-    exists in ops/topk.py, whose tensor-core plan K6/K7 share."""
+    """Every text change of tools/int8_topk_variants.py still applies to one
+    of its sources (csrc/int8_topk.cu, csrc/topk_merge.cuh, and
+    csrc/hopper_tc.cuh for the ragged producer's), and every constant it
+    sets exists in ops/topk.py, whose tensor-core plan K6/K7 share."""
     from codegraph_tpu_torch.ops import cuda_build
     from codegraph_tpu_torch.ops import topk as ttopk
 
-    srcs = [(cuda_build.CSRC_DIR / f).read_text() for f in ("int8_topk.cu", "topk_merge.cuh")]
+    srcs = [(cuda_build.CSRC_DIR / f).read_text() for f in _variants_tool().SOURCES]
     subs, consts, _ = _variants_tool().VARIANTS[name]
     for anchor, _ in subs:
         assert any(anchor in src for src in srcs)

@@ -218,6 +218,71 @@ def test_query_service_batches_match_single_queries(built):
     assert_topk_equiv(s_b, i_b, s_1, i_1, qn, x.numpy(), bias.numpy())
 
 
+# -- a width that is not a multiple of 8: embedding.dimension = 100 ----------
+
+
+@pytest.fixture(scope="module")
+def built_d100(tmp_path_factory):
+    """The slice with the hash provider at embedding.dimension = 100 (a
+    width users configure; its f32 rows are 400 bytes, its bf16 rows 200,
+    its int8 rows 100: none of TMA's multiples of 16 but the first), over
+    the same project as `built`."""
+    root = tmp_path_factory.mktemp("slice_d100")
+    proj = root / "proj"
+    shutil.copytree(os.path.join(REPO, "codegraph_tpu", "parser"), proj,
+                    ignore=shutil.ignore_patterns("__pycache__"))
+
+    def cfg(cls, data):
+        c = _cfg(cls, root / data)
+        c.embedding.dimension = 100
+        return c
+
+    j = JCodeGraph.open(str(proj), config=cfg(JConfig, "jax_data"))
+    t = TCodeGraph.open(str(proj), config=cfg(TConfig, "torch_data"), device="cpu")
+    return {"j": j, "t": t, "js": j.index(), "ts": t.index()}
+
+
+def test_d100_index_rows_equal(built_d100):
+    """Both packages index the same chunks into 100-wide rows, equal
+    within 1e-6 by chunk id."""
+    assert built_d100["js"].to_dict()["chunks"] == built_d100["ts"].to_dict()["chunks"] > 100
+    jx, jb = built_d100["j"].indexer.index.arrays()
+    tx, tb = built_d100["t"].indexer.index.arrays()
+    assert tx.shape == jx.shape and tx.shape[1] == 100
+    jrows = built_d100["j"].indexer.store.chunk_rows
+    trows = built_d100["t"].indexer.store.chunk_rows
+    ids = sorted(jrows)
+    np.testing.assert_allclose(tx.numpy()[[trows[c] for c in ids]],
+                               np.asarray(jx)[[jrows[c] for c in ids]], rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(tb.numpy()[[trows[c] for c in ids]],
+                                  np.asarray(jb)[[jrows[c] for c in ids]])
+
+
+@pytest.mark.parametrize("query", QUERIES)
+def test_d100_hybrid_search_top10_matches_jax(built_d100, query):
+    """index -> search at D = 100: the same top-10 as JAX within 1e-5."""
+    _assert_hits_equal(built_d100["j"].search(query, limit=10),
+                       built_d100["t"].search(query, limit=10))
+
+
+def test_d100_query_service_batches_match_single_queries(built_d100):
+    """QueryService's batches (K2 on a card) equal single queries (K1) at
+    D = 100."""
+    index = built_d100["t"].indexer.index
+    embs = built_d100["t"].indexer.provider.embed_texts([f"{q} {i}" for i, q in
+                                                         enumerate(QUERIES * 10)])
+    svc = QueryService.auto(index, k=10)
+    try:
+        got = [f.result(timeout=60) for f in [svc.submit(e) for e in embs]]
+    finally:
+        svc.close()
+    s_1, i_1 = index.search(embs, 10)
+    x, bias = index.arrays()
+    qn = embs / np.maximum(np.linalg.norm(embs, axis=1, keepdims=True), 1e-6)
+    assert_topk_equiv(np.stack([g[0] for g in got]), np.stack([g[1] for g in got]), s_1, i_1,
+                      qn, x.numpy(), bias.numpy())
+
+
 @pytest.mark.parametrize("B,K,n,deg", [(1, 30, 50, 4), (3, 17, 200, 32)])
 def test_adjacency_boost_matches_jax(rng, B, K, n, deg):
     from codegraph_tpu.graph.csr import adjacency_boost as jboost

@@ -225,9 +225,13 @@ def test_k1_query_tile(B, tm):
     (dict(k=0), "k=0"), (dict(k=ttopk.MAX_K + 1), "k="),
     (dict(qdtype=torch.float16), "q must be"), (dict(bias_dtype=torch.float64), "bias must"),
     (dict(D2=32), "shape mismatch"), (dict(noncontig=True), "contiguous"),
-    (dict(D=60), "multiple of 8"), (dict(offset=1), "aligned"),
+    (dict(D=60), "route: 16-byte pieces"), (dict(offset=1), "route: 4-byte pieces"),
 ])
 def test_kernel_input_checks(bad, err):
+    """Contract breaches raise; a width that is not a multiple of 8 (the
+    rule before any width ran on the card) or a base one element in is no
+    breach: the rows take a route (f32 rows: 16-byte pieces at D % 4 == 0,
+    else 4-byte ones)."""
     D = bad.get("D", 64)
     q = torch.zeros((4, D), dtype=bad.get("qdtype", torch.float32))
     x = torch.zeros((100, bad.get("D2", D)))
@@ -236,8 +240,100 @@ def test_kernel_input_checks(bad, err):
     if bad.get("offset"):
         x = torch.zeros(100 * D + 1)[1:].view(100, D)
     bias = torch.zeros(100, dtype=bad.get("bias_dtype", torch.float32))
+    if err.startswith("route: "):
+        ttopk._check(q, x, bias, bad.get("k", 10))
+        assert ttopk.flat_route(x) == err[len("route: "):]
+        return
     with pytest.raises(ValueError, match=err):
         ttopk._check(q, x, bias, bad.get("k", 10))
+
+
+#: the widths of the route tests: not a multiple of 16, 8 or 4 bytes a row
+#: as bf16, f32 and int8 rows, and widths users configure (100, 300, 1000)
+RAGGED_WIDTHS = (1, 3, 25, 50, 60, 100, 300, 764, 765, 1000)
+#: (bf16 route, f32 route) of each width at a 16-byte aligned base: TMA
+#: needs rows of a multiple of 16 bytes; the ragged producer copies the
+#: widest piece the row stride allows, else realigns words; f32 rows take
+#: 16-byte pieces at D % 4 == 0, else 4-byte ones
+FLAT_ROUTES = {
+    1: ("ragged, bytes", "4-byte pieces"), 3: ("ragged, bytes", "4-byte pieces"),
+    25: ("ragged, bytes", "4-byte pieces"), 50: ("ragged, 4-byte pieces", "4-byte pieces"),
+    60: ("ragged, 8-byte pieces", "16-byte pieces"),
+    100: ("ragged, 8-byte pieces", "16-byte pieces"),
+    300: ("ragged, 8-byte pieces", "16-byte pieces"),
+    764: ("ragged, 8-byte pieces", "16-byte pieces"), 765: ("ragged, bytes", "4-byte pieces"),
+    1000: ("tma", "16-byte pieces"),
+}
+
+
+def _at_offset(N, D, dtype, offset):
+    """An [N, D] tensor of `dtype` whose base lies `offset` elements into a
+    64-byte aligned storage."""
+    buf = torch.zeros(N * D + offset + 64, dtype=dtype)
+    skip = (-buf.data_ptr() % 64) // buf.element_size()
+    return buf[skip + offset: skip + offset + N * D].view(N, D)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("D", RAGGED_WIDTHS)
+def test_every_width_and_base_takes_a_route(D, offset, dtype):
+    """No width or base that torch hands over raises: `_check` takes it, and
+    `flat_route` names the route K1-K3 read it by (bf16: TMA, or the ragged
+    producer's 8- or 4-byte pieces or realigned words; f32: 16- or 4-byte
+    pieces). A base one element in takes the narrowest route."""
+    td = getattr(torch, dtype)
+    x = _at_offset(40, D, td, offset)
+    assert x.data_ptr() % 16 == (offset * x.element_size()) % 16
+    q = torch.zeros((3, D), dtype=td)
+    ttopk._check(q, x, torch.zeros(40), 10)
+    bf16_route, f32_route = FLAT_ROUTES[D]
+    if offset:
+        bf16_route, f32_route = "ragged, bytes", "4-byte pieces"
+    assert ttopk.flat_route(x) == (bf16_route if td == torch.bfloat16 else f32_route)
+    assert ttopk.uses_tensor_cores(q.dtype, x.dtype) == (td == torch.bfloat16)
+
+
+@pytest.mark.parametrize("elt", [1, 2])
+@pytest.mark.parametrize("D", [1, 100, 765, 1000])
+def test_swizzled_box_unswizzles_to_the_rows(D, elt):
+    """The stage layout the ragged producer writes (`swizzled_box`, the
+    128-byte swizzle of a TMA box) holds exactly the corpus bytes: undoing
+    the swizzle (chunk j of row r back from chunk j ^ (r & 7)) gives rows
+    n0 .. n0 + 127, bytes c * 128 .. c * 128 + 127, with zeros past the
+    row's bytes and past N, for every chunk c of a row; the last tile of a
+    ragged N runs past N."""
+    rng = np.random.default_rng(D)
+    N = 300
+    rows = rng.integers(1, 256, (N, D * elt), dtype=np.uint8)
+    chunks = -(-D * elt // 128)
+    for n0 in (0, 256):
+        for c in range(chunks):
+            box = ttopk.swizzled_box(rows, n0, c).reshape(128, 8, 16)
+            plain = np.stack([box[r, np.arange(8) ^ (r & 7)] for r in range(128)]).reshape(128, 128)
+            want = np.zeros((128, 128), np.uint8)
+            live = min(128, N - n0)
+            width = min(128, D * elt - c * 128)
+            want[:live, :width] = rows[n0: n0 + live, c * 128: c * 128 + width]
+            np.testing.assert_array_equal(plain, want)
+            assert (plain[:, width:] == 0).all() and (plain[live:] == 0).all()
+    # the swizzle moves chunks within a row: row r's chunk j is at j ^ (r & 7)
+    box = ttopk.swizzled_box(rows, 0, 0).reshape(128, 8, 16)
+    for r in (0, 1, 7, 9):
+        first = np.zeros(128, np.uint8)
+        first[: min(128, D * elt)] = rows[r, :128]
+        np.testing.assert_array_equal(box[r, 1 ^ (r & 7)], first[16:32])
+
+
+@pytest.mark.parametrize("row_bytes,addr,want", [
+    (200, 0, 8), (200, 8, 8), (200, 4, 4), (1530, 0, 1), (1536, 0, 16), (1536, 2, 1),
+    (100, 0, 4), (765, 0, 1), (1000, 0, 8), (3060, 0, 4), (400, 16, 16), (400, 4, 4),
+])
+def test_load_piece_is_the_widest_aligned_copy(row_bytes, addr, want):
+    """The producer's copy width: the widest of 16, 8 and 4 bytes that the
+    row stride and the base both divide, else 1 (realigned words)."""
+    assert ttopk.load_piece(row_bytes, addr) == want
+    assert ttopk.rows_tma_readable(row_bytes, addr) == (row_bytes % 16 == 0 and addr % 16 == 0)
 
 
 def test_kernel_wrapper_rejects_mixed_devices():
@@ -271,20 +367,6 @@ def test_combine_bias_matches_jax(rng):
 
 
 
-
-
-@pytest.mark.parametrize("B,k,want", [(1024, 30, 16), (1024, 300, 4), (64, 30, 8),
-                                      (2, 30, 1), (1024, 10**6, 1)])
-def test_row_warps_tile_choice(B, k, want):
-    """The int8 row-warp micro tile (csrc/int8_topk.cu) is the largest of
-    `tms` whose pass-1 shared memory fits the budget, never larger than the
-    batch needs, and the smallest one when none fits (the launch then
-    reports it). Here with lists of [8 tm, k] entries and a 112 KB budget."""
-    lists = lambda layout, tm, k_, D: 8 * tm * k_ * 8  # [8 tm, k] scores + ids
-    assert ttopk.row_warps_tm(lists, ttopk.K2_LAYOUT, B, k, 768, (16, 8, 4, 2, 1),
-                              112 * 1024) == want
-    assert ttopk.query_tile(ttopk.K2_LAYOUT, want) == 8 * want
-    assert ttopk.query_tile(ttopk.K1_LAYOUT, 4) == 4
 
 
 ROW_LAYOUTS = (ttopk.K2_LAYOUT, ttopk.K3_LAYOUT, ttopk.K4_LAYOUT)
@@ -363,18 +445,6 @@ def test_row_smem_fits_two_blocks_per_sm(layout, elt):
         assert ttopk.row_smem(layout, elt, 128) == smem
     assert ttopk.row_plan(layout, 32, 50_000, 1024, elt).smem == \
         ttopk.row_smem(layout, elt, 32) < ttopk.row_smem(layout, elt, 64) < smem
-
-
-@pytest.mark.parametrize("B,k,want", [(1024, 100, 16), (1024, 300, 8), (64, 100, 8),
-                                      (32, 10, 4), (1, 10, 2), (1024, 1024, 2)])
-def test_tensor_core_tile_choice(B, k, want):
-    """K6/K7 (int8, tensor cores): query tiles of 16 to 128 rows, the
-    largest whose lists fit the card's 227 KB beside ~100 KB of tiles."""
-    from codegraph_tpu_torch.ops import quantize as tq
-
-    smem = lambda layout, tm, k_, D: 8 * tm * (k_ * 8 + 700) + 18_432
-    assert tq.row_warps_tm(smem, ttopk.K2_LAYOUT, B, k, 768, tq.MMA_TMS,
-                           tq.MMA_SMEM_BYTES) == want
 
 
 def _variants_tool():

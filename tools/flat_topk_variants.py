@@ -154,8 +154,8 @@ K1_VARIANTS = {
     "6 ring stages": ([], {"K1TC_STAGES": (6, 4, 3)}, True),
     "4 ring stages": ([], {"K1TC_STAGES": (4, 3)}, True),
     "2 blocks per SM of 4 ring stages": (
-        [("__launch_bounds__(kTcThreads, 1)\n    bf16_k1_pass1",
-          "__launch_bounds__(kTcThreads, 2)\n    bf16_k1_pass1")],
+        [("__launch_bounds__(RAGGED ? kRaggedThreads : kTcThreads, 1)\n    bf16_k1_pass1",
+          "__launch_bounds__(RAGGED ? kRaggedThreads : kTcThreads, 2)\n    bf16_k1_pass1")],
         {"K1TC_STAGES": (4, 3), "k1tc_plan": _k1tc_plan_two_per_sm}, True),
     "flush at 64 entries": ([("constexpr int kCap = 32;", "constexpr int kCap = 64;")],
                             {"ROW_CAP": 64, "TC_BUF_CAP": 64 + 128}, True),

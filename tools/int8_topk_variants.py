@@ -3,6 +3,12 @@
 `int8_tc_pass1`) against variants of its design, on one NVIDIA GPU.
 
     python3 tools/int8_topk_variants.py [--rows 10000000] [--only NAME,NAME]
+    python3 tools/int8_topk_variants.py --ragged [--width 760] [--only NAME,NAME]
+
+With --ragged the timed kernel is K6r (`streaming_topk_int8_cuda_ragged`,
+`int8_tc_ragged_pass1`: the ragged-row producer of csrc/hopper_tc.cuh) at
+--width (default 768), and the "ragged:" variant runs its producer on one
+warp instead of a warpgroup (kRaggedWarps).
 
 Each variant is the committed csrc/int8_topk.cu and csrc/topk_merge.cuh with
 its text changes and the tensor-core constants of ops/topk.py (below),
@@ -36,6 +42,7 @@ OFFER = "      if (rounds) {"
 BOUND_TEST = "s >= lb[h] && beats"
 BOUND_THR = "fmaxf(fmaxf(st.thr_s()[sr], st.bnd()[sr]), above_neg_inf)"
 FLUSH = "flush_row_inline<kBufCap>(stage_s"
+RAGGED_WARPS = "constexpr int kRaggedWarps = 4;"
 # name -> (text substitutions, ops/quantize.py constants it changes, checked)
 VARIANTS = {
     "shipped": ([], {}, True),
@@ -56,24 +63,29 @@ VARIANTS = {
     "4 ring stages": ([], {"TC_STAGES": (4, 3)}, True),
     "flush at 64 entries": ([("constexpr int kCap = 32;", "constexpr int kCap = 64;")],
                             {"ROW_CAP": 64, "TC_BUF_CAP": 64 + 128}, True),
+    "ragged: one producer warp": ([(RAGGED_WARPS, RAGGED_WARPS.replace("= 4;", "= 1;"))], {},
+                                  True),
 }
 SHAPES = ((64, 100), (64, 300), (256, 100), (256, 300), (1024, 100), (1024, 300))
-SOURCES = ("int8_topk.cu", "topk_merge.cuh")
+SOURCES = ("int8_topk.cu", "topk_merge.cuh", "hopper_tc.cuh")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=10_000_000)
     ap.add_argument("--only", default="", help="comma-separated variant names (default: all)")
+    ap.add_argument("--ragged", action="store_true", help="time K6r (the ragged-row producer)")
+    ap.add_argument("--width", type=int, default=768, help="the rows' width D")
     args = ap.parse_args()
     if not vh.start():
         return 2
     chosen = vh.chosen(VARIANTS, args.only)
-    built = vh.build_all(chosen, VARIANTS, SOURCES, ("int8_tc_pass1",), "variants_int8")
+    built = vh.build_all(chosen, VARIANTS, SOURCES, ("int8_tc_pass1", "int8_tc_ragged_pass1"),
+                         "variants_int8")
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(2025)
-    N, D = args.rows, 768
+    N, D = args.rows, args.width
     xv = torch.empty((N, D), dtype=torch.int8, device=dev)
     xs = torch.empty(N, device=dev)
     for base in range(0, N, 131072):
@@ -90,7 +102,8 @@ def main() -> int:
         ref[(B, k)] = quantize.streaming_topk_int8(qv, qsc, xv, xs, bias, k, tile_n=1 << 20)
     ms = {n: {} for n in built}
     bad = {n: 0 for n in built}
-    k6 = quantize.streaming_topk_int8_cuda_qmajor
+    k6 = (quantize.streaming_topk_int8_cuda_ragged if args.ragged
+          else quantize.streaming_topk_int8_cuda_qmajor)
 
     def run(n):
         for B, k in SHAPES:
