@@ -11,7 +11,7 @@
     python3 chip_smoke.py --phases 0,11    # encoder and cross-encoder training only
     python3 chip_smoke.py --phases 0,12    # the shared-memory hand-off only
     python3 chip_smoke.py --phases 0,13,14 # the parallel/ slice (an 8-shard mesh on one card)
-    python3 chip_smoke.py --phases 0,1,3   # the kernels, checked and timed at real size (K4tc too)
+    python3 chip_smoke.py --phases 0,1,3   # the kernels, checked and timed at real size (K4tc, K4tcr too)
     python3 chip_smoke.py --phases 0,15    # the bf16 main path (K1tc, K2tc) only
     python3 chip_smoke.py --phases 0,16    # the card's pytest cases (tests/test_torch_card.py)
     python3 chip_smoke.py --phases 0,1,17  # every embedding width: the ragged routes, main path at D=100
@@ -64,10 +64,14 @@ Phases, each printing one JSON object per line as it ends:
      ties), batches on both sides of 32. K4: K2's cases on xt = x.T; over
      a bf16 xt with N % 8 == 0 (and 100,008 columns with duplicate rows
      and a filter) K4tc with bf16 queries and K4tc3 with f32 ones, over
-     100,003 columns rows_pass1 with both; K4tc and K4tc3 are held as well
-     at B in {33, 64, 65, 129, 1000} x k in {1, 30, 300, 1024} over xt of
-     depths 36 (q padded to 40), 200 and 1536, and K4tc3 over one-hot rows
-     bit for bit. K8:
+     100,003 columns K4tcr and K4tc3r (the ragged-row producer); K4tc and
+     K4tc3 are held as well at B in {33, 64, 65, 129, 1000} x k in {1, 30,
+     300, 1024} over xt of depths 36 (q padded to 40), 200 and 1536, and
+     K4tc3 over one-hot rows bit for bit; K4tcr and K4tc3r at B in {33,
+     65, 129} x k in {1, 30, 300, 1024} over xt of N in {297, 300, 302,
+     1001, 5000, 5003, 100003} (8- and 4-byte pieces, realigned words) and
+     bases 2, 4 and 8 bytes past 16 (K4TCR_XT), and K4tc3r over one-hot
+     rows as xt bit for bit. K8:
      synthetic IVF-PQ cells filled to random depths (the fills passed as
      extents, and once not), m in {6, 16, 96}, ksub in {16, 256}, nprobe in
      {1, 8, 32, 64, nlist}, k from 1 to 20,000 (above the live probed
@@ -93,8 +97,7 @@ Phases, each printing one JSON object per line as it ends:
      and 300, and through K3's at B=1024, k=100; K2tc3 (f32 queries over
      the bf16 rows) at B=64, 256 and 1024, k=30 and 300; K4tc and K4tc3
      (K4 over xt = x.T of the bf16 rows, bf16 and f32 queries) at the same
-     shapes, and K4tc at B=1024, k=100, each beside rows_pass1 over the
-     same bf16 xt (rows_pass1_ms: K4's route for a bf16 xt until K4tc):
+     shapes, and K4tc at B=1024, k=100:
      median kernel ms over 7 batches (CUDA events), the plain version's
      ms, a chunked matmul + topk yardstick (library_ms, checked against;
      for bf16 queries the tensor-core torch.mm(out_dtype=f32), beside the
@@ -102,10 +105,14 @@ Phases, each printing one JSON object per line as it ends:
      over bf16 rows: three bf16 tensor-core products, or the bytes) and,
      for K2tc, K2tc3, K4tc and K4tc3, the bytes their blocks read by the
      plan. Then the ragged routes at widths no 16-byte piece fits: 1M x
-     765 f32 (K1r at B=1 and 8, K2r at 64, 256, 1024) and 1M x 764 bf16
-     (K1tcr at B=1 and 8, both query dtypes; K2tcr and K2tc3r at 64, 256,
-     1024), k=30 and 300 (the tensor-core library call on zero-padded
-     copies, made untimed).
+     765 f32 (K1r at B=1 and 8, K2r at 64, 256, 1024) beside K2 over 1M x
+     764 f32 (16-byte pieces) and 1M x 764 bf16 (K1tcr at B=1 and 8, both
+     query dtypes; K2tcr and K2tc3r at 64, 256, 1024), k=30 and 300 (the
+     tensor-core library call on zero-padded copies, made untimed); and K4
+     over a bf16 xt [768, N] of N = 1,000,004, 1,000,002 and 1,000,003
+     columns (the producer's 8- and 4-byte pieces and realigned words):
+     K4tcr (bf16 queries) and K4tc3r (f32 queries) at B=64, 256, 1024,
+     k=30 and 300, the library call on the same xt.
   4  the int8 main path: phase 2 with index.dtype = "int8" (Int8FlatIndex,
      bf16 rescore copy): 5 searches (K5) and 64 concurrent queries through
      QueryService (K6), checked against the same snapshot searched on the
@@ -333,6 +340,18 @@ K1TC_K_OTHER = (1, 30, 300, 1024)
 #: streamed query tiles; the corpus of duplicate rows has N % 8 == 0
 K4TC_D = (36, 200, 1536)
 K4TC_RAGGED = 100008
+#: K4tcr's and K4tc3r's family in phase 1: (N, depth, base in elements
+#: past 16 bytes) of xt [D, N] that TMA cannot read: N % 8 = 1, 4, 6, 1,
+#: 3, 0 and 3 (realigned words, 8- and 4-byte pieces) at aligned bases,
+#: and N = 5000 and 5003 at 2, 4 and 8 bytes in; depths 36 (q padded),
+#: 200 and 768
+K4TCR_XT = ((297, 200, 0), (300, 200, 0), (302, 36, 0), (1001, 768, 0), (5003, 200, 0),
+            (5003, 768, 1), (5000, 200, 1), (5000, 200, 2), (5000, 768, 4), (100003, 200, 2))
+K4TCR_B = (33, 65, 129)
+K4TCR_K = (1, 30, 300, 1024)
+#: phase 3's xt of N columns for K4tcr and K4tc3r: 8- and 4-byte pieces,
+#: realigned words
+K4TCR_TIMED_N = (1_000_004, 1_000_002, 1_000_003)
 
 #: the every-width family of phase 1: widths that TMA's tiled mode (bf16
 #: rows: D % 8; int8 rows: D % 16) or 16-byte pieces (f32 rows: D % 4) or
@@ -373,6 +392,12 @@ KERNELS = {
     "K4tc": ("topk", "streaming_topk_cuda_tc_xt", FLAT_TC_CU, "codegraph_tpu/ops/topk.py:664"),
     # the same over f32 queries, each as three bf16 pieces
     "K4tc3": ("topk", "streaming_topk_cuda_tc3_xt", FLAT_TC_CU, "codegraph_tpu/ops/topk.py:664"),
+    # K4tc and K4tc3 over a bf16 xt TMA cannot read (N % 8 != 0, unaligned),
+    # fed by the ragged-row producer
+    "K4tcr": ("topk", "streaming_topk_cuda_tc_xt_ragged", FLAT_TC_CU,
+              "codegraph_tpu/ops/topk.py:664"),
+    "K4tc3r": ("topk", "streaming_topk_cuda_tc3_xt_ragged", FLAT_TC_CU,
+               "codegraph_tpu/ops/topk.py:664"),
     "K5": ("quantize", "streaming_topk_int8_cuda", INT8_CU, "codegraph_tpu/ops/quantize.py:182"),
     "K6": ("quantize", "streaming_topk_int8_cuda_qmajor", INT8_CU,
            "codegraph_tpu/ops/quantize.py:287"),
@@ -552,7 +577,7 @@ def phase1(torch, mods, errs) -> dict:
     # (N, duplicate rows, filter, live rows)
     corpora = ((131072, False, False, None), (100003, True, True, None), (200, False, False, 150))
     # a bf16 xt with N % 8 == 0 but not a multiple of 128, with duplicate
-    # rows: K4tc's ragged N (100,003 takes rows_pass1); K4 alone runs on it
+    # rows: K4tc's ragged N (100,003 takes K4tcr); K4 alone runs on it
     k4_only = (K4TC_RAGGED, True, True, None)
     for dtype in (torch.float32, torch.bfloat16, torch.int8):
         for N, dup, filt, live in corpora + ((k4_only,) if dtype == torch.bfloat16 else ()):
@@ -599,12 +624,11 @@ def phase1(torch, mods, errs) -> dict:
                     kernel = {"K1": "K5", "K2": "K6", "K3": "K7"}[kernel]
                 fn = kernels[kernel]
                 # over bf16 rows K1 runs K1tc, K2 and K3 K2tc (bf16 queries),
-                # K4 K4tc where TMA can read xt (else rows_pass1)
+                # K4 K4tc where TMA can read xt, else K4tcr
                 name = {"K1": "K1tc", "K2": "K2tc", "K3": "K2tc"}.get(kernel, kernel) \
                     if dtype == torch.bfloat16 else kernel
-                if dtype == torch.bfloat16 and kernel == "K4" and \
-                        topk.xt_tma_readable(N, xt.data_ptr()):
-                    name = "K4tc"
+                if dtype == torch.bfloat16 and kernel == "K4":
+                    name = "K4tc" if topk.xt_tma_readable(N, xt.data_ptr()) else "K4tcr"
                 q = _unit(torch, torch.randn(B, D, generator=g, device=dev))
                 if dtype == torch.int8:
                     qv, qs = quantize.quantize_rows(q)
@@ -627,7 +651,7 @@ def phase1(torch, mods, errs) -> dict:
                 runs = [(name, kernel if name == kernel else f"{name} (via {kernel})", args, judge)]
                 if dtype == torch.bfloat16:  # the same rows under f32 queries: three pieces
                     qf = q.float()
-                    ran = {"K1tc": "K1tc", "K2tc": "K2tc3", "K4tc": "K4tc3", "K4": "K4"}[name]
+                    ran = {"K1tc": "K1tc", "K2tc": "K2tc3", "K4tc": "K4tc3", "K4tcr": "K4tc3r"}[name]
                     runs.append((ran, f"{ran} (via {kernel}, f32 q)", (qf, x, bias),
                                  dot_judge(qf, x, bias)))
                 for k in ks:
@@ -653,6 +677,7 @@ def phase1(torch, mods, errs) -> dict:
     cases += phase1_tc(torch, mods, errs)
     cases += phase1_k1tc(torch, mods, errs)
     cases += phase1_k4tc(torch, mods, errs)
+    cases += phase1_k4tcr(torch, mods, errs)
     cases += phase1_pieces_exact(torch, mods, errs)
     cases += phase1_k8(torch, mods, errs)
     spill = phase1_spill(mods)
@@ -915,6 +940,51 @@ def phase1_k4tc(torch, mods, errs) -> list:
                      ragged=K4TC_RAGGED)
 
 
+def phase1_k4tcr(torch, mods, errs) -> list:
+    """K4 over a bf16 xt that TMA cannot read, through its wrapper: bf16
+    queries launch K4tcr and f32 queries K4tc3r (the ragged-row producer's
+    two MN-major boxes a stage), each alone, held to the plain version at
+    K4TCR_B x K4TCR_K over each xt of K4TCR_XT (N % 8 != 0, or a base 2, 4
+    or 8 bytes past 16; duplicate rows where N > 2,000, a filter, and 150
+    live columns of the 297), so that the producer's 8- and 4-byte pieces
+    and realigned words, the zeros past N and D, and a split's last tile
+    running past its end are each exercised."""
+    topk = mods["topk"]
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(20)
+    routes = {torch.bfloat16: "K4tcr", torch.float32: "K4tc3r"}
+    cases = []
+    for N, D, offset in K4TCR_XT:
+        live = 150 if N == 297 else None
+        x, bias = _tc_corpus(torch, g, dev, N, D, N > 2000, True, live)
+        xt = _offset_copy(torch, x.T.contiguous(), offset)
+        require(not topk.xt_tma_readable(N, xt.data_ptr()),
+                f"phase 1: xt of N={N} at offset {offset} is one TMA reads")
+        for B in K4TCR_B:
+            q = _unit(torch, torch.randn(B, D, generator=g, device=dev))
+            if N > 2000:
+                q[0] = x[5].float()  # its own duplicate pair tops the list
+            for k in K4TCR_K:
+                for q_dtype, ran in routes.items():
+                    qd = q.to(q_dtype)
+                    (s_k, i_k), delta = _counted(
+                        mods, lambda: topk.streaming_topk_cuda_qmajor_xt(qd, xt, bias, k))
+                    torch.cuda.synchronize()
+                    require(delta == {ran: 1}, f"phase 1: K4 over a bf16 xt of N={N} D={D} at "
+                            f"offset {offset} with {q_dtype} queries, B={B} k={k}, launched "
+                            f"{delta}, not {ran}")
+                    s_p, i_p = topk.streaming_topk(qd, x, bias, k)
+                    err, n_diff, bad = check_topk(torch, None, None, None, s_k, i_k, s_p, i_p,
+                                                  judge=dot_judge(qd, x, bias))
+                    errs[ran] = max(errs[ran], err)
+                    cases.append({"kernel": f"{ran} (via K4)", "dtype": "bfloat16",
+                                  "q_dtype": str(q_dtype)[6:], "N": N, "D": D, "offset": offset,
+                                  "piece": topk.load_piece(2 * N, xt.data_ptr()), "B": B, "k": k,
+                                  "live": live or N, "max_abs_err": err, "id_mismatches": n_diff,
+                                  "mismatches_outside_ties": bad})
+    return cases
+
+
 def phase1_pieces_exact(torch, mods, errs) -> list:
     """The three-piece routes use every piece of an f32 query: over one-hot
     bf16 rows (row n is e_(n % D), so rows n and n + D tie exactly) each
@@ -964,7 +1034,8 @@ def phase1_pieces_exact(torch, mods, errs) -> list:
                               "id_mismatches": n_diff, "mismatches_outside_ties": bad})
     # the ragged-row producer's routes at widths TMA cannot read: a chunk
     # stored under the wrong swizzle, a stale byte of an earlier stage or a
-    # byte past D would change a score
+    # byte past D would change a score; K4tc3r over the same rows as xt,
+    # N = 3D + 5 columns (realigned words at D = 100, 8-byte pieces at 765)
     for D in (100, 765):
         N = 3 * D + 5
         x = torch.zeros(N, D, device=dev)
@@ -973,13 +1044,17 @@ def phase1_pieces_exact(torch, mods, errs) -> list:
         bias = torch.zeros(N, device=dev)
         bias[torch.randperm(N, generator=g, device=dev)[: N // 100]] = NEG_INF
         q = _unit(torch, torch.randn(129, D, generator=g, device=dev))
+        xt = x.T.contiguous()
         for kernel, ran, B in (("K1", "K1tcr", 1), ("K1", "K1tcr", 8), ("K1", "K1tcr", 9),
                                ("K1", "K1tcr", 31), ("K2", "K2tc3r", 33), ("K2", "K2tc3r", 64),
                                ("K2", "K2tc3r", 65), ("K2", "K2tc3r", 129),
-                               ("K3", "K2tc3r", 129)):
+                               ("K3", "K2tc3r", 129), ("K4", "K4tc3r", 33), ("K4", "K4tc3r", 65),
+                               ("K4", "K4tc3r", 129)):
             qb = q[:B].contiguous()
+            corpus = xt if kernel == "K4" else x
             for k in (1, 30, 300):
-                (s_k, i_k), delta = _counted(mods, lambda: wrapper(mods, kernel)(qb, x, bias, k))
+                (s_k, i_k), delta = _counted(mods,
+                                             lambda: wrapper(mods, kernel)(qb, corpus, bias, k))
                 torch.cuda.synchronize()
                 require(delta == {ran: 1}, f"phase 1: {kernel} over one-hot bf16 rows of width "
                         f"{D} with f32 queries, B={B} k={k}, launched {delta}, not {ran}")
@@ -1505,30 +1580,47 @@ def phase3(torch, topk, errs) -> list:
     from codegraph_tpu_torch.index.flat import FlatIndex
 
     dev = torch.device("cuda")
-    N = 1_000_000
     rows_out = []
     # 768, and the widths whose rows the ragged routes read (f32 765: 4-byte
-    # pieces; bf16 764: the ragged-row producer's 8-byte pieces)
-    for dtype_name, D in (("float32", 768), ("bfloat16", 768), ("float32", 765),
-                          ("bfloat16", 764)):
+    # pieces, beside K2 at 764; bf16 764: the ragged-row producer's 8-byte
+    # pieces); then K4 over bf16 xt of N columns that TMA cannot read
+    for dtype_name, D, N in (("float32", 768, 1_000_000), ("bfloat16", 768, 1_000_000),
+                             ("float32", 765, 1_000_000), ("float32", 764, 1_000_000),
+                             ("bfloat16", 764, 1_000_000),
+                             *(("bfloat16", 768, n) for n in K4TCR_TIMED_N)):
         g = torch.Generator(device=dev).manual_seed(2024)
         t0 = time.perf_counter()
-        idx = FlatIndex(D, dtype=dtype_name, device="cuda")
-        idx.reserve(N)
-        for base in range(0, N, 131072):
-            n = min(131072, N - base)
-            idx.add(torch.randn(n, D, generator=g, device=dev))
-        dead = torch.randperm(N, generator=g, device=dev)[: N // 100]
-        idx.delete(dead.cpu().numpy())
+        f32, bf16 = torch.float32, torch.bfloat16
+        x, xt, idx = None, None, None
+        if N in K4TCR_TIMED_N:  # only xt [D, N] is read: made directly, no index
+            bias = torch.zeros(N, device=dev)
+            bias[torch.randperm(N, generator=g, device=dev)[: N // 100]] = NEG_INF
+            xt = torch.empty((D, N), dtype=bf16, device=dev)
+            for base in range(0, N, 131072):
+                n = min(131072, N - base)
+                xt[:, base: base + n] = torch.nn.functional.normalize(
+                    torch.randn(n, D, generator=g, device=dev), dim=1).to(bf16).T
+            x = xt.T  # the rows as a view, for the plain version and the checks
+        else:
+            idx = FlatIndex(D, dtype=dtype_name, device="cuda")
+            idx.reserve(N)
+            for base in range(0, N, 131072):
+                n = min(131072, N - base)
+                idx.add(torch.randn(n, D, generator=g, device=dev))
+            dead = torch.randperm(N, generator=g, device=dev)[: N // 100]
+            idx.delete(dead.cpu().numpy())
+            x, bias = idx.arrays()
+            x, bias = x[:N], bias[:N]  # capacity padding is dead rows; time the live corpus
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t0
-        x, bias = idx.arrays()
-        x, bias = x[:N], bias[:N]  # capacity padding is dead rows; time the live corpus
         elt = x.element_size()
         # (kernel, wrapper, B, k, query dtype)
-        f32, bf16 = torch.float32, torch.bfloat16
-        xt = None
-        if dtype_name == "float32" and D != 768:  # K1r, K2r: 4-byte pieces
+        if N in K4TCR_TIMED_N:  # K4tcr, K4tc3r: the ragged-row producer over xt
+            shapes = [(name, "K4", B, k, qd) for name, qd in (("K4tcr", bf16), ("K4tc3r", f32))
+                      for B in (64, 256, 1024) for k in (30, 300)]
+        elif dtype_name == "float32" and D == 764:  # K2 beside K2r, 16-byte pieces
+            shapes = [("K2", "K2", B, k, f32) for B in (64, 256, 1024) for k in (30, 300)]
+        elif dtype_name == "float32" and D != 768:  # K1r, K2r: 4-byte pieces
             shapes = [("K1r", "K1", B, k, f32) for B in (1, 8) for k in (30, 300)]
             shapes += [("K2r", "K2", B, k, f32) for B in (64, 256, 1024) for k in (30, 300)]
         elif D != 768:  # K1tcr, K2tcr, K2tc3r: the ragged-row producer
@@ -1569,8 +1661,8 @@ def phase3(torch, topk, errs) -> list:
             ms = _time_ms(torch, lambda qb: fn(qb, x, bias, k), batches)
             require(counted.launches == launched + len(batches) + 1,
                     f"phase 3: {via} {dtype_name} B={B} k={k} did not run {name}")
-            # K4tc/K4tc3: the library calls on the layout they read, xt
-            on_xt = name in ("K4tc", "K4tc3")
+            # K4tc/K4tc3 (K4tcr/K4tc3r): the library calls on the layout they read, xt
+            on_xt = name in ("K4tc", "K4tc3", "K4tcr", "K4tc3r")
             lib_ms = _time_ms(torch, lambda qb: yardstick(torch, qb, xt, bias, k, xt=True) if on_xt
                               else yardstick(torch, qb, x, bias, k), batches[:3])
             extra = {"via": via, "q_dtype": str(q_dtype)[6:]}
@@ -1589,10 +1681,8 @@ def phase3(torch, topk, errs) -> list:
                     extra["library_note"] = (f"torch.mm on rows and queries zero-padded to "
                                              f"{D + 8 - D % 8} columns (the copy not timed)")
                 lib_ms = _time_ms(torch, tc_yardstick, lib_batches)
-            if on_xt:  # K4's route for a bf16 xt before K4tc, on the same xt
-                extra["rows_pass1_ms"] = _time_ms(
-                    torch, lambda qb: topk._launch_rows(qb, xt, bias, k, topk.K4_LAYOUT),
-                    batches[:3])
+            if name in ("K4tcr", "K4tc3r"):
+                extra["piece"] = topk.load_piece(2 * N, xt.data_ptr())
             if (B, k, q_dtype) not in plain_cache:  # K2, K3 and K4 share their plain version
                 plain_cache[(B, k, q_dtype)] = _time_ms(
                     torch, lambda qb: topk.streaming_topk(qb, x, bias, k), batches[:2])
@@ -1619,7 +1709,7 @@ def phase3(torch, topk, errs) -> list:
                 extra["bound_note"] = ("f32 queries over bf16 rows: three bf16 tensor-core "
                                        "products a score (hi + mid + lo == q, each exact in "
                                        "f32), or the bytes")
-            if name in ("K2tc", "K2tc3", "K4tc", "K4tc3", "K2tcr", "K2tc3r"):
+            if name in ("K2tc", "K2tc3", "K4tc", "K4tc3", "K2tcr", "K2tc3r", "K4tcr", "K4tc3r"):
                 # bytes the blocks read, from L2 or HBM
                 plan = topk.tc_plan(B, N, D, k, sms=torch.cuda.get_device_properties(0)
                                     .multi_processor_count, pieces=pieces)
@@ -5115,15 +5205,16 @@ def main(argv=None) -> int:
         faulthandler.cancel_dump_traceback_later()
 
     # each kernel at one shape of its real-size phase (rows, their dtype,
-    # B, k, the queries' dtype where two are timed, D); launches from its
+    # B, k, the queries' dtype where two are timed, D, and N where one D
+    # has several); launches from its
     # tier's main path, for K1 and K2 the default configuration's (phase 8)
     # when it ran, else for K1 the served path's (phase 9), for K1tc and
     # K2tc the bf16 main path's (phase 15), for K2tc3 the sharded bf16
     # index's (phase 13), for the ragged routes the main path at D = 100
     # (phase 17: K1tcr, K2tcr, K6r; K2tc3r on its 8-shard index) (K3, K4,
-    # K4tc, K4tc3 and K7 are public ops that no index calls: 0 launches on
-    # every path; K1r, K2r and K5r take widths that are not a multiple of
-    # 4, which phase 17's D = 100 is not)
+    # K4tc, K4tc3, K4tcr, K4tc3r and K7 are public ops that no index calls:
+    # 0 launches on every path; K1r, K2r and K5r take widths that are not a
+    # multiple of 4, which phase 17's D = 100 is not)
     shapes = {"K1": (p3, "float32", 1, 30, None, 768), "K2": (p3, "float32", 1024, 30, None, 768),
               "K3": (p3, "float32", 1024, 100, None, 768),
               "K4": (p3, "float32", 1024, 30, None, 768),
@@ -5132,6 +5223,8 @@ def main(argv=None) -> int:
               "K2tc3": (p3, "bfloat16", 1024, 30, None, 768),
               "K4tc": (p3, "bfloat16", 1024, 30, None, 768),
               "K4tc3": (p3, "bfloat16", 1024, 30, None, 768),
+              "K4tcr": (p3, "bfloat16", 1024, 30, None, 768, K4TCR_TIMED_N[0]),
+              "K4tc3r": (p3, "bfloat16", 1024, 30, None, 768, K4TCR_TIMED_N[0]),
               "K5": (p5, "int8", 1, 100, None, 768), "K6": (p5, "int8", 1024, 100, None, 768),
               "K7": (p5, "int8", 1024, 100, None, 768),
               "K6r": (p5, "int8", 1024, 100, None, 760), "K5r": (p5, "int8", 1, 100, None, 765),
@@ -5143,14 +5236,16 @@ def main(argv=None) -> int:
               "K8": (p7, "uint8 codes", 1, 40, None, 768)}
     flat_path = p8 or p2
     paths = {"K1": p8 or p9 or p2, "K2": flat_path, "K3": flat_path, "K4": flat_path,
-             "K1tc": p15, "K2tc": p15, "K2tc3": p13, "K4tc": p15, "K4tc3": p13, "K5": p4,
+             "K1tc": p15, "K2tc": p15, "K2tc3": p13, "K4tc": p15, "K4tc3": p13, "K4tcr": p15,
+             "K4tc3r": p13, "K5": p4,
              "K6": p4, "K7": p4, "K8": p6["ivfpq"] if p6 else None,
              **{name: p17 for name in ("K1r", "K2r", "K1tcr", "K2tcr", "K2tc3r", "K5r", "K6r")}}
     kernels = []
     for name, (_, fn_name, source, replaces) in KERNELS.items():
-        rows, dtype, B, k, q_dtype, D = shapes[name]
+        rows, dtype, B, k, q_dtype, D, *n_of = shapes[name]
         row = next((r for r in rows if r.get("kernel") == name and r["dtype"] == dtype
                     and r["B"] == B and r["k"] == k and r.get("D", 768) == D
+                    and n_of in ([], [r.get("N")])
                     and r.get("via", name) in (name, "K1", "K2", "K4", "K5", "K6")
                     and q_dtype in (None, r.get("q_dtype"))), {})
         path = paths[name]

@@ -6,8 +6,9 @@
 //   K2  streaming_topk_pallas_qmajor    / _flat_topk_qmajor_kernel     (batches >= 32)
 //   K3  streaming_topk_pallas_qres      / _flat_topk_qres_kernel       (query-resident)
 //   K4  streaming_topk_pallas_qmajor_xt / _flat_topk_qmajor_xt_kernel  (corpus as xt [D, N])
-// over f32 rows, and K4 over bf16 xt. Over bf16 rows K1 runs on the tensor
-// cores in flat_topk_k1tc.cu, K2 and K3 in flat_topk_tc.cu. The JAX
+// over f32 rows and an f32 xt. Over bf16 rows K1 runs on the tensor cores
+// in flat_topk_k1tc.cu, K2 and K3 in flat_topk_tc.cu, as does K4 over
+// any bf16 xt (K4tc where TMA can read it, K4tcr otherwise). The JAX
 // kernels take any width D; so do these: f32 rows are read in 16-byte
 // pieces where D % 4 == 0 and the base is 16-byte aligned, and otherwise
 // by the ragged instances (topk_ragged_pass1, rows_pass1<float, false, QT,
@@ -59,7 +60,6 @@
 //   * No atomics: every list is built in a fixed order, so the output is
 //     deterministic.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -357,10 +357,12 @@ __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// xf[d][jj] = corpus column tile_col(j0 + jj) at depth c + d, widened to f32
+// xf[d][jj] = corpus column tile_col(j0 + jj) at depth c + d (f32 rows; a
+// bf16 corpus runs on the tensor cores, flat_topk_tc.cu)
 template <typename XT, bool TRANS, int XLD, int J>
 __device__ __forceinline__ void load_xfrag(const XT* xs, int c, int tx, int j0, float (&xf)[4][J]) {
-  if constexpr (!TRANS && sizeof(XT) == 4) {
+  static_assert(sizeof(XT) == 4, "rows_pass1 reads f32 rows and an f32 xt");
+  if constexpr (!TRANS) {
 #pragma unroll
     for (int jj = 0; jj < J; ++jj) {
       const float4 v = *reinterpret_cast<const float4*>(xs + (tx + 16 * (j0 + jj)) * XLD + c);
@@ -370,27 +372,16 @@ __device__ __forceinline__ void load_xfrag(const XT* xs, int c, int tx, int j0, 
       xf[3][jj] = v.w;
     }
   } else {
-    static_assert(TRANS, "bf16 rows along the depth run on the tensor cores (flat_topk_tc.cu)");
 #pragma unroll
     for (int d = 0; d < 4; ++d)
 #pragma unroll
       for (int h = 0; h < J / 4; ++h) {
         const XT* src = xs + (c + d) * XLD + tx * 4 + 64 * (j0 / 4 + h);
-        if constexpr (sizeof(XT) == 4) {
-          const float4 v = *reinterpret_cast<const float4*>(src);
-          xf[d][4 * h] = v.x;
-          xf[d][4 * h + 1] = v.y;
-          xf[d][4 * h + 2] = v.z;
-          xf[d][4 * h + 3] = v.w;
-        } else {
-          const uint2 u = *reinterpret_cast<const uint2*>(src);
-          const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-          const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-          xf[d][4 * h] = a.x;
-          xf[d][4 * h + 1] = a.y;
-          xf[d][4 * h + 2] = b.x;
-          xf[d][4 * h + 3] = b.y;
-        }
+        const float4 v = *reinterpret_cast<const float4*>(src);
+        xf[d][4 * h] = v.x;
+        xf[d][4 * h + 1] = v.y;
+        xf[d][4 * h + 2] = v.z;
+        xf[d][4 * h + 3] = v.w;
       }
   }
 }
@@ -409,9 +400,9 @@ __device__ __forceinline__ int tile_col(int tx, int j) {
 // rows, and own those rows' buffers and lists. q is [B, ldq] f32 (ldq % 4
 // == 0, 16-byte aligned; columns D..ldq zero). x is [N, D] f32 read in
 // PB-byte pieces (16: D % 4 == 0, 16-byte aligned; 4: any D) or, TRANS,
-// xt [D, N], read in 16-byte pieces when vec (N a multiple of 16 /
-// sizeof(XT), 16-byte aligned), else an element a thread. bound [B, S]
-// holds NEG_INF at launch (share_bound).
+// xt [D, N] f32, read in 16-byte pieces when vec (N % 4 == 0, 16-byte
+// aligned), else an element a thread. bound [B, S] holds NEG_INF at launch
+// (share_bound).
 template <typename XT, bool TRANS, int QT, int PB>
 __global__ void __launch_bounds__(kThreads, 2)
     rows_pass1(const float* __restrict__ q, int ldq, const XT* __restrict__ x,
@@ -424,7 +415,6 @@ __global__ void __launch_bounds__(kThreads, 2)
   // corpus columns per register fragment: 4 (x [N, D]) or 8 (xt), the
   // faster of the two for each on the H100 (PERF.md)
   constexpr int kFragJ = TRANS ? 8 : 4;
-  using Raw = typename std::conditional<sizeof(XT) == 4, unsigned, unsigned short>::type;
   extern __shared__ __align__(16) unsigned char smem[];
   float* thr_s = reinterpret_cast<float*>(smem + kStages * L::kStageBytes);
   int* thr_i = reinterpret_cast<int*>(thr_s + QT);
@@ -487,12 +477,23 @@ __global__ void __launch_bounds__(kThreads, 2)
         const bool ok = n0 + r < n_end && d0 + c < D;
         cp_async16(xs + r * XLD + c, ok ? x + (size_t)(n0 + r) * D + d0 + c : x, ok ? 16 : 0);
       }
-    } else if constexpr (!TRANS) {  // 4-byte pieces: an element a copy
+    } else if constexpr (!TRANS) {  // 4-byte pieces: one row pointer, rows 16 apart
+      // A thread's 8 elements share its depth tid % kRDK and take rows
+      // tid / kRDK + 16 v: one 64-bit pointer stepped 16 rows a copy and
+      // one bound a row fit the 128-row tile's registers, where an address
+      // and two bounds a copy spill (PERF.md)
+      constexpr int kRowStep = kThreads / kRDK;  // rows between a thread's pieces
+      const int r = tid / kRDK, c = tid % kRDK;
+      const int rows_left = n_end - n0 - r;  // its rows r + kRowStep v below n_end
+      const bool col_ok = d0 + c < D;
+      const float* src = x + ((size_t)(n0 + r) * D + d0 + c);
+      const size_t step = (size_t)kRowStep * D;
+      XT* dst = xs + r * XLD + c;
 #pragma unroll
-      for (int v = 0; v < kTN * kRDK / kThreads; ++v) {
-        const int p = tid + v * kThreads, r = p / kRDK, c = p % kRDK;
-        const bool ok = n0 + r < n_end && d0 + c < D;
-        cp_async4(xs + r * XLD + c, ok ? x + (size_t)(n0 + r) * D + d0 + c : x, ok ? 4 : 0);
+      for (int v = 0; v < kTN / kRowStep; ++v) {
+        const bool ok = col_ok && kRowStep * v < rows_left;
+        cp_async4(dst + kRowStep * v * XLD, ok ? src : x, ok ? 4 : 0);
+        src += step;
       }
     } else if (vec) {
       constexpr int EPC = 16 / sizeof(XT);  // elements per piece
@@ -505,12 +506,12 @@ __global__ void __launch_bounds__(kThreads, 2)
         cp_async16(xs + dr * XLD + c, ok ? x + (size_t)(d0 + dr) * N + n0 + c : x, ok ? 16 : 0);
       }
     } else {
-      const Raw* xr = reinterpret_cast<const Raw*>(x);
-      Raw* xw = reinterpret_cast<Raw*>(xs);
+      const unsigned* xr = reinterpret_cast<const unsigned*>(x);
+      unsigned* xw = reinterpret_cast<unsigned*>(xs);
 #pragma unroll
       for (int v = 0; v < kRDK * kTN / kThreads; ++v) {
         const int p = tid + v * kThreads, dr = p / kTN, c = p % kTN;
-        xw[dr * XLD + c] = (d0 + dr < D && n0 + c < n_end) ? xr[(size_t)(d0 + dr) * N + n0 + c] : Raw(0);
+        xw[dr * XLD + c] = (d0 + dr < D && n0 + c < n_end) ? xr[(size_t)(d0 + dr) * N + n0 + c] : 0u;
       }
     }
   };
@@ -629,74 +630,63 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
-template <typename XT, bool TRANS, int QT>
-cudaError_t launch_rows(const float* q, int ldq, const void* x, const float* bias, int B, int N,
+template <bool TRANS, int QT>
+cudaError_t launch_rows(const float* q, int ldq, const float* x, const float* bias, int B, int N,
                         int D, int k, int rows_per_split, int splits, int grid_x, int vec,
                         bool ragged, long long smem, float* part_s, int* part_i, float* bound,
                         cudaStream_t st) {
-  using L = RowLayout<XT, TRANS, QT>;
+  using L = RowLayout<float, TRANS, QT>;
   if (smem != (long long)L::kSmem || rows_per_split % kTN != 0 || (long long)grid_x * QT < B ||
       (long long)(grid_x - 1) * QT >= B || ldq % 4 != 0 || ldq < D) {
     return cudaErrorInvalidValue;
   }
-  auto kern = rows_pass1<XT, TRANS, QT, 16>;
-  if constexpr (!TRANS && sizeof(XT) == 4) {
-    if (ragged) kern = rows_pass1<XT, TRANS, QT, 4>;  // 4-byte pieces
+  auto kern = rows_pass1<float, TRANS, QT, 16>;
+  if constexpr (!TRANS) {
+    if (ragged) kern = rows_pass1<float, TRANS, QT, 4>;  // 4-byte pieces
   }
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   kern<<<dim3(grid_x, splits), kThreads, (size_t)smem, st>>>(
-      q, ldq, static_cast<const XT*>(x), bias, B, N, D, k, rows_per_split, vec, part_s, part_i,
-      bound);
+      q, ldq, x, bias, B, N, D, k, rows_per_split, vec, part_s, part_i, bound);
   return cudaGetLastError();
 }
 
 // layout 1: K2 over x [N, D]; 2: K3, which runs K2's schedule; 3: K4 over
 // xt [D, N]; query tiles of query_tile (32, 64 or 128) rows; ragged
-// (layouts 1 and 2): f32 rows in 4-byte pieces. bf16 rows take only layout
-// 3: K2 and K3 over bf16 rows run on the tensor cores (flat_topk_tc.cu).
-template <typename XT>
-cudaError_t dispatch_rows(int layout, int query_tile, const float* q, int ldq, const void* x,
+// (layouts 1 and 2): rows in 4-byte pieces. f32 only: a bf16 corpus runs
+// on the tensor cores (flat_topk_tc.cu).
+cudaError_t dispatch_rows(int layout, int query_tile, const float* q, int ldq, const float* x,
                           const float* bias, int B, int N, int D, int k, int rows_per_split,
                           int splits, int grid_x, int vec, bool ragged, long long smem,
                           float* part_s, int* part_i, float* bound, cudaStream_t st) {
-#define CG_ROWS(TRANS, QT)                                                                     \
-  launch_rows<XT, TRANS, QT>(q, ldq, x, bias, B, N, D, k, rows_per_split, splits, grid_x, vec, \
-                             ragged, smem, part_s, part_i, bound, st)
-  if (layout == 3) {
-    switch (query_tile) {
-      case 32: return CG_ROWS(true, 32);
-      case 64: return CG_ROWS(true, 64);
-      case 128: return CG_ROWS(true, 128);
-    }
-  } else if constexpr (sizeof(XT) == 4) {
-    if (layout == 1 || layout == 2) {
-      switch (query_tile) {
-        case 32: return CG_ROWS(false, 32);
-        case 64: return CG_ROWS(false, 64);
-        case 128: return CG_ROWS(false, 128);
-      }
-    }
+#define CG_ROWS(TRANS, QT)                                                                 \
+  launch_rows<TRANS, QT>(q, ldq, x, bias, B, N, D, k, rows_per_split, splits, grid_x, vec, \
+                         ragged, smem, part_s, part_i, bound, st)
+  if (layout < 1 || layout > 3) return cudaErrorInvalidValue;
+  const bool trans = layout == 3;
+  switch (query_tile) {
+    case 32: return trans ? CG_ROWS(true, 32) : CG_ROWS(false, 32);
+    case 64: return trans ? CG_ROWS(true, 64) : CG_ROWS(false, 64);
+    case 128: return trans ? CG_ROWS(true, 128) : CG_ROWS(false, 128);
   }
   return cudaErrorInvalidValue;
 #undef CG_ROWS
 }
 
-template <typename XT, int QT>
+template <int QT>
 long long rows_smem_t(bool trans) {
-  return trans ? (long long)RowLayout<XT, true, QT>::kSmem
-               : (long long)RowLayout<XT, false, QT>::kSmem;
+  return trans ? (long long)RowLayout<float, true, QT>::kSmem
+               : (long long)RowLayout<float, false, QT>::kSmem;
 }
 
-long long rows_smem(int layout, int x_bf16, int query_tile) {
+long long rows_smem(int layout, int query_tile) {
+  if (layout < 1 || layout > 3) return 0;
   const bool trans = layout == 3;
-  if (layout < 1 || layout > 3 || (x_bf16 && !trans)) return 0;
   switch (query_tile) {
-    case 32: return x_bf16 ? rows_smem_t<__nv_bfloat16, 32>(trans) : rows_smem_t<float, 32>(trans);
-    case 64: return x_bf16 ? rows_smem_t<__nv_bfloat16, 64>(trans) : rows_smem_t<float, 64>(trans);
-    case 128:
-      return x_bf16 ? rows_smem_t<__nv_bfloat16, 128>(trans) : rows_smem_t<float, 128>(trans);
+    case 32: return rows_smem_t<32>(trans);
+    case 64: return rows_smem_t<64>(trans);
+    case 128: return rows_smem_t<128>(trans);
   }
   return 0;
 }
@@ -713,10 +703,10 @@ bool f32_piece_ok(const void* x, int D, int piece) {
 extern "C" {
 
 // Shared memory (bytes) of the row-tile pass 1 for layout 1 (K2), 2 (K3)
-// or 3 (K4), the corpus type and the query tile (32, 64 or 128); 0 for an
-// unknown layout or tile, and for bf16 rows in layout 1 or 2.
-long long flat_topk_rows_smem(int layout, int x_bf16, int query_tile) {
-  return rows_smem(layout, x_bf16, query_tile);
+// or 3 (K4) and the query tile (32, 64 or 128); 0 for an unknown layout or
+// tile.
+long long flat_topk_rows_smem(int layout, int query_tile) {
+  return rows_smem(layout, query_tile);
 }
 
 // Scratch entries (per scores and per ids) that flat_topk needs.
@@ -725,7 +715,7 @@ long long flat_topk_work_entries(int B, int k, int splits, int group) {
 }
 
 // Inputs shared by both entries: q [B, ldq] f32, x [N, D] f32, or for
-// layout 3 xt [D, N] f32 (x_bf16 = 0) or bf16 (x_bf16 = 1), bias [N] f32, all
+// layout 3 xt [D, N] f32, bias [N] f32, all
 // contiguous on the device of `stream`. Pass 1 runs over `splits` ranges
 // of `rows_per_split` corpus rows (a multiple of the layout's corpus
 // tile); work_s / work_i hold flat_topk_work_entries(B, k, splits, group)
@@ -758,19 +748,16 @@ int flat_topk(const float* q, const float* x, const float* bias, int B, int N, i
 // 16-byte aligned, zero past D); for layouts 1 and 2, f32 rows read in
 // `piece`-byte pieces (rows_pass1's PB): 16 (D % 4 == 0, x 16-byte
 // aligned) or 4 (any D, x 4-byte aligned); for layout 3 (piece ignored),
-// vec = 1 reads xt in 16-byte pieces (N %
-// (16 / element size) == 0, 16-byte aligned), else an element at a time.
-// smem must equal flat_topk_rows_smem(layout, x_bf16, query_tile); bound
-// holds B * splits f32 set to NEG_INF (-1e30).
-int flat_topk_rows(const float* q, int ldq, const void* x, int x_bf16, const float* bias, int B, int N,
-                   int D, int k, int layout, int splits, int rows_per_split, int grid_x,
-                   int query_tile, int vec, int piece, long long smem, int group, float* out_s,
-                   int* out_i,
+// vec = 1 reads xt in 16-byte pieces (N % 4 == 0, 16-byte aligned), else
+// an element at a time. smem must equal flat_topk_rows_smem(layout,
+// query_tile); bound holds B * splits f32 set to NEG_INF (-1e30).
+int flat_topk_rows(const float* q, int ldq, const float* x, const float* bias, int B, int N, int D,
+                   int k, int layout, int splits, int rows_per_split, int grid_x, int query_tile,
+                   int vec, int piece, long long smem, int group, float* out_s, int* out_i,
                    float* work_s, int* work_i, float* bound, void* stream) {
-  const size_t elt = x_bf16 ? 2 : 4;
   const bool x_ok = layout == 3
-                        ? !vec || ((size_t)N % (16 / elt) == 0 && (reinterpret_cast<size_t>(x) & 15) == 0)
-                        : !x_bf16 && f32_piece_ok(x, D, piece);
+                        ? !vec || (N % 4 == 0 && (reinterpret_cast<size_t>(x) & 15) == 0)
+                        : f32_piece_ok(x, D, piece);
   if (B < 1 || N < 1 || D < 1 || k < 1 || k > 1024 || splits < 1 || group < 2 ||
       rows_per_split < 1 || (long long)splits * rows_per_split < N ||
       (long long)(splits - 1) * rows_per_split >= N || !x_ok ||
@@ -780,13 +767,9 @@ int flat_topk_rows(const float* q, int ldq, const void* x, int x_bf16, const flo
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* part_s = splits == 1 ? out_s : work_s;
   int* part_i = splits == 1 ? out_i : work_i;
-  cudaError_t err =
-      x_bf16 ? dispatch_rows<__nv_bfloat16>(layout, query_tile, q, ldq, x, bias, B, N, D, k,
-                                            rows_per_split, splits, grid_x, vec, false, smem,
-                                            part_s, part_i, bound, st)
-             : dispatch_rows<float>(layout, query_tile, q, ldq, x, bias, B, N, D, k,
-                                    rows_per_split, splits, grid_x, vec,
-                                    layout != 3 && piece == 4, smem, part_s, part_i, bound, st);
+  cudaError_t err = dispatch_rows(layout, query_tile, q, ldq, x, bias, B, N, D, k, rows_per_split,
+                                  splits, grid_x, vec, layout != 3 && piece == 4, smem, part_s,
+                                  part_i, bound, st);
   if (err != cudaSuccess) return (int)err;
   if (splits == 1) return 0;
   return (int)merge_splits(B, k, splits, group, out_s, out_i, work_s, work_i, st);

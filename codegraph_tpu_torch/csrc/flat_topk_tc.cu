@@ -15,13 +15,14 @@
 // K3 runs K2's schedule here, as it does in flat_topk.cu, and K4 runs it
 // over the corpus stored as xt [D, N] ("K4tc", XT = true: the corpus boxes
 // MN-major, see below). Rows TMA cannot read (D % 8 != 0, or a base not
-// 16-byte aligned) run bf16_tc_ragged_pass1<PIECES> ("K2tcr", "K2tc3r"):
+// 16-byte aligned) run bf16_tc_ragged_pass1<PIECES, false> ("K2tcr",
+// "K2tc3r"), and a bf16 xt TMA cannot read (N % 8 != 0, or a base not
+// 16-byte aligned) bf16_tc_ragged_pass1<PIECES, true> ("K4tcr", "K4tc3r"):
 // the same kernel with its corpus boxes and bias brought by hopper_tc.cuh's
 // ragged-row producer, laid out as TMA would (the queries, padded by the
-// wrapper to a multiple of 8, still come by TMA). f32 rows, and a bf16 xt
-// that TMA cannot read (N % 8 != 0, or a base not 16-byte aligned), stay
-// on flat_topk.cu's rows_pass1. One pass-1 kernel body, bf16_tc_body<PIECES,
-// XT, RAGGED>, and the pass 2 of topk_merge.cuh.
+// wrapper to a multiple of 8, still come by TMA). f32 rows and an f32 xt
+// stay on flat_topk.cu's rows_pass1. One pass-1 kernel body,
+// bf16_tc_body<PIECES, XT, RAGGED>, and the pass 2 of topk_merge.cuh.
 //
 // What bounds it on the H100:
 //   * 2*B*N*D bf16 operations a piece: 1.57 TFLOP at B = 1024 over 1M x
@@ -83,7 +84,11 @@
 //     them as an MN-major B operand (imm-trans-b = 1): `smem_desc_mn`, the
 //     second box one LBO further, and a k16 step 16 rows of depth (2 KB)
 //     on, where a K-major box steps 32 bytes. TMA needs N % 8 == 0 (rows of
-//     xt a multiple of 16 bytes) and zero-fills past N and D.
+//     xt a multiple of 16 bytes) and zero-fills past N and D; over any
+//     other xt the ragged-row producer writes the same two boxes (K4tcr),
+//     their rows xt's depths and their bytes 64 columns, zeros past N and
+//     D. A split's last tile may hold real columns past its end (inside
+//     N), as TMA's boxes do: the epilogue's `room` discards them.
 
 #include "hopper_tc.cuh"
 
@@ -225,14 +230,14 @@ __device__ __noinline__ void tc_flush_rows(unsigned full0, unsigned full1, TcSta
 // of its depth, three wgmma chains into the one f32 accumulator, so the
 // sums are those of the f32 query's products (each piece times a bf16
 // value is exact in f32). RAGGED: xmap and bmap are not read; the producer
-// warp brings the corpus boxes and the tiles' bias from a.rows and a.bias.
+// warps bring the corpus boxes (XT: two MN-major boxes a stage, the rows
+// of a.rows being xt's depths) and the tiles' bias from a.rows and a.bias.
 template <int PIECES, bool XT, bool RAGGED>
 __device__ __forceinline__ void bf16_tc_body(const CUtensorMap& qmap, const CUtensorMap& xmap,
                                              const CUtensorMap& bmap, const TcArgs& a,
                                              const CUtensorMap& qmap_mid,
                                              const CUtensorMap& qmap_lo) {
   static_assert(PIECES == 1 || PIECES == 3, "a bf16 query, or an f32 query's three pieces");
-  static_assert(!(XT && RAGGED), "the ragged producer lays out row boxes (K-major)");
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const TcLayout& L = a.L;
   unsigned char* sp = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
@@ -280,7 +285,7 @@ __device__ __forceinline__ void bf16_tc_body(const CUtensorMap& qmap, const CUte
         }
       }
     }
-    ragged_produce<kWgN>(
+    ragged_produce<kWgN, XT>(
         a.rows, n_begin, n_end, L.chunks, a.stages, ring, L.stage_bytes, full_bar, empty_bar,
         meta_full, meta_empty, lane,
         [&](uint32_t st, uint32_t full, int c) {  // a streamed query box a piece
@@ -538,12 +543,12 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   bf16_tc_body<PIECES, XT, false>(qmap, xmap, bmap, a, qmap_mid, qmap_lo);
 }
 
-template <int PIECES>
+template <int PIECES, bool XT>
 __global__ void __launch_bounds__(kRaggedThreads, 1)
     bf16_tc_ragged_pass1(const __grid_constant__ CUtensorMap qmap, const TcArgs a,
                          const __grid_constant__ CUtensorMap qmap_mid,
                          const __grid_constant__ CUtensorMap qmap_lo) {
-  bf16_tc_body<PIECES, false, true>(qmap, qmap, qmap, a, qmap_mid, qmap_lo);
+  bf16_tc_body<PIECES, XT, true>(qmap, qmap, qmap, a, qmap_mid, qmap_lo);
 }
 
 }  // namespace
@@ -581,12 +586,13 @@ long long flat_topk_tc_smem(int query_tile, int resident, int stages, int D, int
 // query_tile), splits), then pass 2. q [pieces, B, Dq] bf16 (pieces = 1:
 // bf16 queries; 3: an f32 query's split_bf16 pieces hi, mid, lo), 16-byte
 // aligned, Dq = D rounded up to a multiple of 8 (zero columns past D);
-// xt_depth = 0: x [N, D] bf16 rows; xt_depth > 0 (piece 0 only): x is xt
-// [xt_depth, N] bf16 (K4), N % 8 == 0, and D is xt_depth rounded up to a
-// multiple of 8; bias [N] f32; all contiguous on the device of `stream`.
-// piece 0: x and bias 16-byte aligned, D % 8 == 0 (TMA's strides and
-// addresses); piece p > 1: 2D % p == 0 and x p-byte aligned; piece 1: any
-// D and address; the ragged instance takes at least 3 stages. query_tile:
+// xt_depth = 0: x [N, D] bf16 rows; xt_depth > 0: x is xt [xt_depth, N]
+// bf16 (K4), and D is xt_depth rounded up to a multiple of 8; bias [N] f32;
+// all contiguous on the device of `stream`. A corpus row is D bf16 (x) or
+// N bf16 (xt): row_bytes below. piece 0: row_bytes % 16 == 0, x and bias
+// 16-byte aligned, D % 8 == 0 (TMA's strides and addresses); piece p > 1:
+// row_bytes % p == 0 and x p-byte aligned; piece 1: any width and address;
+// the ragged instance takes at least 3 stages. query_tile:
 // 64 or 128; the query tile is
 // resident (resident = 1) or streams with the corpus through the ring of
 // `stages`; rows_per_split a multiple of 128; smem must equal
@@ -602,13 +608,15 @@ int flat_topk_tc(const void* q, int pieces, const void* x, int xt_depth, const f
                  int* out_i, float* work_s, int* work_i, float* bound, float* cand_s, int* cand_i,
                  void* stream) {
   const size_t xa = reinterpret_cast<size_t>(x);
+  const long long row_bytes = 2ll * (xt_depth ? N : D);
   const bool shape_ok =
-      piece == 0 ? D % 8 == 0 && (xa & 15) == 0 && (reinterpret_cast<size_t>(bias) & 15) == 0
-      : piece == 1 ? xt_depth == 0 && stages >= 3
-      : (piece == 4 || piece == 8 || piece == 16) && xt_depth == 0 && (2 * D) % piece == 0 && xa % piece == 0 &&
+      piece == 0 ? row_bytes % 16 == 0 && D % 8 == 0 && (xa & 15) == 0 &&
+                       (reinterpret_cast<size_t>(bias) & 15) == 0
+      : piece == 1 ? stages >= 3
+      : (piece == 4 || piece == 8 || piece == 16) && row_bytes % piece == 0 && xa % piece == 0 &&
             stages >= 3;
   if (B < 1 || N < 1 || D < 1 || k < 1 || k > 1024 || splits < 1 || group < 2 || !shape_ok ||
-      (xt_depth != 0 && (xt_depth < 0 || xt_depth > D || D - xt_depth >= 8 || N % 8 != 0)) ||
+      (xt_depth != 0 && (xt_depth < 0 || xt_depth > D || D - xt_depth >= 8)) ||
       stages < 2 || rows_per_split < 1 || rows_per_split % kWgN != 0 ||
       (long long)splits * rows_per_split < N || (long long)(splits - 1) * rows_per_split >= N ||
       (reinterpret_cast<size_t>(q) & 15) != 0 ||
@@ -651,7 +659,9 @@ int flat_topk_tc(const void* q, int pieces, const void* x, int xt_depth, const f
   a.qt = query_tile;
   a.resident = resident;
   a.stages = stages;
-  a.rows = RaggedRows{static_cast<const unsigned char*>(x), 2ll * D, N, piece};
+  // the producer's rows: x's N rows of D bf16, or xt's xt_depth rows of N
+  a.rows = RaggedRows{static_cast<const unsigned char*>(x), row_bytes, xt_depth ? xt_depth : N,
+                      piece};
   a.bias = bias;
   const dim3 grid((B + query_tile - 1) / query_tile, splits);
   cudaError_t err;
@@ -662,7 +672,10 @@ int flat_topk_tc(const void* q, int pieces, const void* x, int xt_depth, const f
     if (err != cudaSuccess) return (int)err;
     kern<<<grid, kTcThreads, (size_t)smem, st>>>(qmaps[0], xmap, bmap, a, qmaps[1], qmaps[2]);
   } else {
-    auto kern = pieces == 1 ? bf16_tc_ragged_pass1<1> : bf16_tc_ragged_pass1<3>;
+    auto kern = xt_depth ? (pieces == 1 ? bf16_tc_ragged_pass1<1, true>
+                                        : bf16_tc_ragged_pass1<3, true>)
+                         : (pieces == 1 ? bf16_tc_ragged_pass1<1, false>
+                                        : bf16_tc_ragged_pass1<3, false>);
     err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     kern<<<grid, kRaggedThreads, (size_t)smem, st>>>(qmaps[0], a, qmaps[1], qmaps[2]);

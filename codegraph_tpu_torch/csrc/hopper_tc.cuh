@@ -328,8 +328,12 @@ __device__ __forceinline__ void merge_sorted(const float* bs, const int* bi, int
 //   * box row r (corpus row n0 + r) at r * 128 bytes, its 16-byte chunk j
 //     (bytes c * 128 + 16 j .. of the row) at chunk j ^ (r & 7), the ring
 //     1024-byte aligned as for TMA (ops/topk.py `swizzled_box` models it);
-//   * zeros past the row's bytes and past the corpus's rows, written into
-//     every stage (a stage's previous bytes never reach the sums);
+//     over a bf16 corpus stored as xt [D, N] (K4) a stage is two such boxes
+//     of 64 rows, whose rows are depths c * 64 .. and whose bytes are 64
+//     columns, MN-major as K4tc's TMA boxes (`swizzled_xt_stage`);
+//   * zeros past the row's bytes and past the corpus's rows (xt: past N
+//     and past D), written into every stage (a stage's previous bytes
+//     never reach the sums);
 //   * each lane copies its chunks with cp.async of the widest piece the
 //     rows allow (16, 8 or 4 bytes: the row stride and the base both
 //     multiples of it), zero-filled where a piece runs past the data; a
@@ -358,7 +362,7 @@ constexpr int kRaggedThreads = 128 * kTcConsumers + kRaggedLanes;  // its block
 struct RaggedRows {
   const unsigned char* base;  // row 0's first byte
   long long row_bytes;        // bytes of a row (D x element size), also its stride
-  int rows;                   // rows past this one read as zeros (N)
+  int rows;                   // rows past this one read as zeros (N; xt's depth D)
   int piece;                  // 16, 8 or 4: cp.async pieces; 1: realigned words
 };
 
@@ -389,18 +393,22 @@ __device__ __forceinline__ void cp_async_zfill(uint32_t dst, const void* src, in
                  : "memory");
   }
 }
-// W words from byte address a (any alignment), bytes from `valid` on zero:
-// the aligned words that hold a byte of [a, a + valid), funnel-shifted
-// into place. Reads no word outside them.
+// The W + 1 aligned words that hold bytes [a, a + valid) of a byte address
+// a of any alignment, zeros past them; reads no word outside them.
 template <int W>
-__device__ __forceinline__ void load_realigned(const unsigned char* a, int valid, uint32_t (&out)[W]) {
+__device__ __forceinline__ void load_words(const unsigned char* a, int valid,
+                                           uint32_t (&w)[W + 1]) {
   const uintptr_t p = reinterpret_cast<uintptr_t>(a);
   const uint32_t* aw = reinterpret_cast<const uint32_t*>(p & ~uintptr_t(3));
-  const int lead = (int)(p & 3);
-  const int words = valid > 0 ? (lead + valid + 3) >> 2 : 0;
-  uint32_t w[W + 1];
+  const int words = valid > 0 ? ((int)(p & 3) + valid + 3) >> 2 : 0;
 #pragma unroll
   for (int i = 0; i <= W; ++i) w[i] = i < words ? __ldg(aw + i) : 0u;
+}
+// W words of them from byte `lead` (a & 3) on, funnel-shifted into place,
+// bytes from `valid` on zero
+template <int W>
+__device__ __forceinline__ void shift_words(const uint32_t (&w)[W + 1], int lead, int valid,
+                                            uint32_t (&out)[W]) {
 #pragma unroll
   for (int i = 0; i < W; ++i) {
     const uint32_t v = __funnelshift_r(w[i], w[i + 1], 8 * lead);
@@ -408,46 +416,91 @@ __device__ __forceinline__ void load_realigned(const unsigned char* a, int valid
     out[i] = keep >= 4 ? v : keep <= 0 ? 0u : v & ((1u << (8 * keep)) - 1u);
   }
 }
+// W words from byte address a (any alignment), bytes from `valid` on zero:
+// the aligned words that hold a byte of [a, a + valid), funnel-shifted
+// into place. Reads no word outside them.
+template <int W>
+__device__ __forceinline__ void load_realigned(const unsigned char* a, int valid, uint32_t (&out)[W]) {
+  uint32_t w[W + 1];
+  load_words<W>(a, valid, w);
+  shift_words<W>(w, (int)(reinterpret_cast<uintptr_t>(a) & 3), valid, out);
+}
 
-template <int R, int P>
-__device__ __forceinline__ void ragged_fill_p(uint32_t dst, const RaggedRows& g, int n0, int c,
-                                              int lane) {
-  const long long off0 = (long long)c * kBoxBytes;
-#pragma unroll 4
-  for (int p = lane; p < R * (kBoxBytes / 16); p += kRaggedLanes) {
-    const int r = p >> 3, j = p & 7;
-    const uint32_t d = dst + r * kBoxBytes + ((j ^ (r & 7)) << 4);
-    const long long off = off0 + 16 * j;
-    const int valid = n0 + r < g.rows ? (int)max(0ll, min(16ll, g.row_bytes - off)) : 0;
-    const unsigned char* src = valid ? g.base + (long long)(n0 + r) * g.row_bytes + off : g.base;
-    if constexpr (P == 1) {
-      uint32_t v[4];
-      load_realigned<4>(src, valid, v);
-      asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(d), "r"(v[0]), "r"(v[1]),
-                   "r"(v[2]), "r"(v[3])
-                   : "memory");
-    } else {
+// The producer warps' fill of one R x kBoxBytes box at dst (1024-byte
+// aligned), as described above: box row r holds row r0 + r % RB of g,
+// bytes off0 + kBoxBytes * (r / RB) .. of it (RB = R: a K-major stage,
+// corpus rows n0 .., bytes c * kBoxBytes ..; RB = R / 2: the two MN-major
+// boxes of a stage of xt [D, N] as one fill, rows r and r + 64 the depth
+// c * 64 + r, columns n0 .. and n0 + 64 ..: the second box starts 64 rows,
+// 8 KB, after the first, and a row keeps its swizzle, r & 7). The lane's
+// cp.async pieces join its open cp.async group; realigned words are
+// loaded for every chunk of the lane first and stored after, so that all
+// of its loads of the stage are in flight at once.
+template <int R, int P, int RB>
+__device__ __forceinline__ void ragged_fill_p(uint32_t dst, const RaggedRows& g, int r0,
+                                              long long off0, int lane) {
+  constexpr int kStep = kRaggedLanes / 8;  // box rows between a lane's chunks (8 lanes a row)
+  constexpr int kMine = R / kStep;         // chunks a lane
+  static_assert(R % kStep == 0 && RB % kStep == 0, "whole rows a lane step");
+  const int lr = lane >> 3, j = lane & 7;  // the lane's chunk j of box rows lr + kStep i
+  // the lane's chunk i: where it goes (chunk j of box row r at j ^ (r & 7)),
+  // where it comes from, and how many of its bytes are data; i is known at
+  // compile time where RB < R, so the box it falls in costs nothing
+  auto chunk = [&](int i, uint32_t& d, const unsigned char*& src) -> int {
+    const int r = lr + kStep * i;
+    d = dst + r * kBoxBytes + ((j ^ (r & 7)) << 4);
+    const int row = RB == R ? r0 + r : r0 + lr + kStep * (i % (RB / kStep));
+    const long long off =
+        RB == R ? off0 + 16 * j : off0 + kBoxBytes * (i / (RB / kStep)) + 16 * j;
+    const int valid = row < g.rows ? (int)max(0ll, min(16ll, g.row_bytes - off)) : 0;
+    src = valid ? g.base + (long long)row * g.row_bytes + off : g.base;
+    return valid;
+  };
+  auto copy = [&](int i) {  // cp.async of P-byte pieces, zero-filled past the data
+    uint32_t d;
+    const unsigned char* src;
+    const int valid = chunk(i, d, src);
 #pragma unroll
-      for (int e = 0; e < 16 / P; ++e) {
-        const int b = min(max(valid - e * P, 0), P);
-        cp_async_zfill<P>(d + e * P, b ? src + e * P : g.base, b);
-      }
+    for (int e = 0; e < 16 / P; ++e) {
+      const int b = min(max(valid - e * P, 0), P);
+      cp_async_zfill<P>(d + e * P, b ? src + e * P : g.base, b);
     }
+  };
+  if constexpr (P == 1) {
+    uint32_t w[kMine][5], d[kMine];
+    int valid[kMine], lead[kMine];
+#pragma unroll
+    for (int i = 0; i < kMine; ++i) {
+      const unsigned char* src;
+      valid[i] = chunk(i, d[i], src);
+      lead[i] = (int)(reinterpret_cast<uintptr_t>(src) & 3);
+      load_words<4>(src, valid[i], w[i]);
+    }
+#pragma unroll
+    for (int i = 0; i < kMine; ++i) {
+      uint32_t v[4];
+      shift_words<4>(w[i], lead[i], valid[i], v);
+      asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(d[i]), "r"(v[0]),
+                   "r"(v[1]), "r"(v[2]), "r"(v[3])
+                   : "memory");
+    }
+  } else if constexpr (RB != R) {
+#pragma unroll
+    for (int i = 0; i < kMine; ++i) copy(i);
+  } else {
+#pragma unroll 4
+    for (int i = 0; i < kMine; ++i) copy(i);
   }
 }
 
-// The producer warp's fill of one ring stage: rows n0 .. n0 + R - 1 of g,
-// bytes c * kBoxBytes .. + kBoxBytes - 1 of each, into the R x kBoxBytes
-// box at dst (1024-byte aligned), as described above; the lane's copies
-// join its open cp.async group.
-template <int R>
-__device__ __forceinline__ void ragged_fill(uint32_t dst, const RaggedRows& g, int n0, int c,
-                                            int lane) {
+template <int R, int RB>
+__device__ __forceinline__ void ragged_fill(uint32_t dst, const RaggedRows& g, int r0,
+                                            long long off0, int lane) {
   switch (g.piece) {
-    case 16: ragged_fill_p<R, 16>(dst, g, n0, c, lane); break;
-    case 8: ragged_fill_p<R, 8>(dst, g, n0, c, lane); break;
-    case 4: ragged_fill_p<R, 4>(dst, g, n0, c, lane); break;
-    default: ragged_fill_p<R, 1>(dst, g, n0, c, lane); break;
+    case 16: ragged_fill_p<R, 16, RB>(dst, g, r0, off0, lane); break;
+    case 8: ragged_fill_p<R, 8, RB>(dst, g, r0, off0, lane); break;
+    case 4: ragged_fill_p<R, 4, RB>(dst, g, r0, off0, lane); break;
+    default: ragged_fill_p<R, 1, RB>(dst, g, r0, off0, lane); break;
   }
 }
 
@@ -478,8 +531,11 @@ __device__ __forceinline__ void ragged_publish(uint32_t full, uint32_t meta_full
 // wait for the stage's slot, call query(stage, full barrier, chunk) (a
 // streamed query box by TMA, from lane 0), fill the corpus box, and with a
 // tile's first stage call meta(meta slot, n0); publish each stage once the
-// next one is issued, the last at the end.
-template <int R, typename Query, typename Meta>
+// next one is issued, the last at the end. XT: `rows` is a bf16 corpus
+// stored as xt [D, N] (its rows the depths, row_bytes 2N), and a stage is
+// the two MN-major boxes of K4tc's TMA instance: columns n0 + 64h .. of
+// depths c * 64 .. at h * 8 KB, h = 0, 1 (R = 128 columns).
+template <int R, bool XT = false, typename Query, typename Meta>
 __device__ __forceinline__ void ragged_produce(const RaggedRows& rows, int n_begin, int n_end,
                                                int chunks, int stages, uint32_t ring,
                                                int stage_bytes, uint32_t full_bar,
@@ -495,7 +551,12 @@ __device__ __forceinline__ void ragged_produce(const RaggedRows& rows, int n_beg
       mbar_wait(empty_bar + 8 * slot, phase ^ 1);
       const uint32_t st = ring + slot * stage_bytes;
       if (lane == 0) query(st, full_bar + 8 * slot, c);
-      ragged_fill<R>(st, rows, n0, c, lane);
+      if constexpr (XT) {  // depths c * 64 .., 128 bytes a chunk: columns n0 ..
+        static_assert(R == kBoxBytes, "an xt stage is two boxes of 64 bf16 columns x 64 depths");
+        ragged_fill<R, R / 2>(st, rows, c * (R / 2), 2ll * n0, lane);
+      } else {
+        ragged_fill<R, R>(st, rows, n0, (long long)c * kBoxBytes, lane);
+      }
       if (c == 0) meta(m, n0);
       cp_async_commit();
       if (prev >= 0) ragged_publish<1>(full_bar + 8 * prev, prev_m >= 0 ? meta_full + 8 * prev_m : 0);

@@ -26,10 +26,14 @@ sorted descending.
   bf16 fed by TMA in `csrc/flat_topk_tc.cu`, planned by `tc_plan`) and as
   `streaming_topk_cuda_tc3` over f32 queries ("K2tc3": the same kernel
   with the query in three bf16 pieces, `ops/bf16_split.py`), each counted
-  in its own launches. So does K4 over a bf16 xt that TMA can read
-  (`xt_tma_readable`: N % 8 == 0, a 16-byte aligned base):
+  in its own launches. So does K4 over a bf16 xt [D, N]: where TMA can
+  read it (`xt_tma_readable`: N % 8 == 0, a 16-byte aligned base) as
   `streaming_topk_cuda_tc_xt` ("K4tc") and `streaming_topk_cuda_tc3_xt`
-  ("K4tc3"), K2tc's kernel and plan with the corpus boxes read MN-major.
+  ("K4tc3"), K2tc's kernel and plan with the corpus boxes read MN-major,
+  and otherwise as `streaming_topk_cuda_tc_xt_ragged` ("K4tcr") and
+  `streaming_topk_cuda_tc3_xt_ragged` ("K4tc3r"), the same kernel with the
+  two boxes of each stage written by the ragged-row producer
+  (`swizzled_xt_stage` models them). An f32 xt runs `rows_pass1`.
 * Every embedding width runs on the card, as the JAX kernels take any D
   (`flat_route` says how rows are read). bf16 rows that TMA cannot read
   (a row not a multiple of 16 bytes, or a base not 16-byte aligned) run
@@ -68,11 +72,11 @@ MAX_K = 1024
 
 #: pass-1 layouts of csrc/flat_topk.cu: K1 = column warps (the 8 warps
 #: share up to 8 query rows and split a 256-row corpus tile); K2, K3, K4 =
-#: row tiles (`rows_pass1`: 128 query rows x 128 corpus rows per block for
-#: every k, each thread an 8 x 8 micro tile, or 32 or 64 query rows when
-#: the batch fits them; K3 runs K2's schedule; K4 reads the corpus from xt
-#: [D, N]). csrc/int8_topk.cu's K5 takes K1's corpus tile and plan,
-#: with tm query rows a block.
+#: row tiles (`rows_pass1`, f32 rows or an f32 xt: 128 query rows x 128
+#: corpus rows per block for every k, each thread an 8 x 8 micro tile, or
+#: 32 or 64 query rows when the batch fits them; K3 runs K2's schedule; K4
+#: reads the corpus from xt [D, N]). csrc/int8_topk.cu's K5 takes K1's
+#: corpus tile and plan, with tm query rows a block.
 K1_LAYOUT, K2_LAYOUT, K3_LAYOUT, K4_LAYOUT = 0, 1, 2, 3
 CORPUS_TILE = {K1_LAYOUT: 256, K2_LAYOUT: 128, K3_LAYOUT: 128, K4_LAYOUT: 128}
 #: pass 1 aims at this many blocks per kernel (4 or 2 per SM of an H100);
@@ -174,20 +178,37 @@ def flat_route(x: torch.Tensor) -> str:
     return PIECE_NAMES[16] if load_piece(row_bytes, addr) == 16 else PIECE_NAMES[4]
 
 
-def swizzled_box(rows, n0: int, c: int, R: int = 128):
+def swizzled_xt_stage(xt_bytes, n0: int, c: int):
+    """numpy model of one ring stage of K4tcr/K4tc3r over a bf16 corpus
+    stored as xt [D, N] (csrc/hopper_tc.cuh `ragged_produce` with XT): the
+    two MN-major boxes that K4tc's TMA loads bring (columns n0 .. n0 + 127
+    at depths c * 64 .. c * 64 + 63), written by the ragged-row producer.
+    xt_bytes: [D, 2N] uint8, xt's bytes. Box h (at h * 8192 bytes) is the
+    `swizzled_box` of 64 rows from row r0 = c * 64 at byte offset off0 =
+    2 * (n0 + 64 h): its rows are xt's depths, its bytes 64 columns, zeros
+    past N (bytes past 2N) and past D. Returns [2 * 64 * 128] uint8."""
+    import numpy as np
+
+    return np.concatenate([swizzled_box(xt_bytes, c * 64, 0, R=64, off0=2 * (n0 + 64 * h))
+                           for h in range(2)])
+
+
+def swizzled_box(rows, n0: int, c: int, R: int = 128, off0: Optional[int] = None):
     """numpy model of one ring stage of the tensor-core kernels: the bytes a
     TMA box of R rows x 128 bytes with the 128-byte swizzle holds, which
     the ragged-row producer (csrc/hopper_tc.cuh `ragged_fill`) writes
     itself. rows: [N, row_bytes] uint8, the corpus's bytes. Box row r is
     corpus row n0 + r, bytes c * 128 .. c * 128 + 127 of it, stored at r *
     128 with its 16-byte chunk j at chunk j ^ (r & 7); zeros past the
-    row's bytes and past N. Returns [R * 128] uint8."""
+    row's bytes and past N. off0 (default c * 128) is the first byte of the
+    box in each row, as the producer takes it (`ragged_fill`'s off0).
+    Returns [R * 128] uint8."""
     import numpy as np
 
     rows = np.asarray(rows, np.uint8)
     N, row_bytes = rows.shape
     box = np.zeros((R, 128), np.uint8)
-    lo = c * 128
+    lo = c * 128 if off0 is None else off0
     width = max(0, min(128, row_bytes - lo))
     live = max(0, min(R, N - n0))
     box[:live, :width] = rows[n0: n0 + live, lo: lo + width]
@@ -307,10 +328,10 @@ def _lib():
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.flat_topk.argtypes = [p, p, p, i, i, i, i, i, i, i, i, i, p, p, p, p, p]
         lib.flat_topk.restype = i
-        lib.flat_topk_rows.argtypes = [p, i, p, i, p, i, i, i, i, i, i, i, i, i, i, i, ll, i,
+        lib.flat_topk_rows.argtypes = [p, i, p, p, i, i, i, i, i, i, i, i, i, i, i, ll, i,
                                        p, p, p, p, p, p]
         lib.flat_topk_rows.restype = i
-        lib.flat_topk_rows_smem.argtypes = [i, i, i]
+        lib.flat_topk_rows_smem.argtypes = [i, i]
         lib.flat_topk_rows_smem.restype = ll
         lib.flat_topk_work_entries.argtypes = [i, i, i, i]
         lib.flat_topk_work_entries.restype = ll
@@ -372,10 +393,14 @@ def work_entries(B: int, k: int, splits: int, group: int = MERGE_GROUP) -> int:
 
 def row_smem(layout: int, elt: int, query_tile: int) -> int:
     """Shared memory (bytes) of one K2/K3/K4 block of `query_tile` query
-    rows for a corpus of `elt` bytes an element: the ring of ROW_STAGES
-    (query slice, corpus slice), each row's threshold, buffer count, list
-    length and shared bound, and the candidate buffers. It depends on
-    neither k nor D."""
+    rows for a corpus of `elt` bytes an element (4: `rows_pass1` reads f32
+    rows and an f32 xt; a bf16 corpus runs on the tensor cores, so 2
+    raises): the ring of ROW_STAGES (query slice, corpus slice), each row's
+    threshold, buffer count, list length and shared bound, and the
+    candidate buffers. It depends on neither k nor D."""
+    if elt != 4:
+        raise ValueError(f"rows_pass1 reads f32 rows (4 bytes an element), not {elt}-byte "
+                         "elements: a bf16 corpus runs on the tensor cores")
     trans = layout == K4_LAYOUT
     xld = ROW_CORPUS_TILE if trans else ROW_DEPTH + 4
     x_rows = ROW_DEPTH if trans else ROW_CORPUS_TILE
@@ -410,9 +435,9 @@ class RowPlan:
 def row_plan(layout: int, B: int, N: int, k: int, elt: int,
              group: int = MERGE_GROUP) -> RowPlan:
     """The launch of K2 (layout 1), K3 (2, K2's schedule) or K4 (3) for B
-    queries over N corpus rows of `elt` bytes: the query tile from B, the
-    same tiles for every k, enough splits to fill the card, whole corpus
-    tiles per split."""
+    queries over N f32 corpus rows (`elt` = 4; `row_smem` refuses others):
+    the query tile from B, the same tiles for every k, enough splits to
+    fill the card, whole corpus tiles per split."""
     if layout not in (K2_LAYOUT, K3_LAYOUT, K4_LAYOUT):
         raise ValueError(f"layout {layout} is not a row-tile layout")
     tile = row_query_tile(B)
@@ -430,18 +455,18 @@ def uses_tensor_cores(q_dtype: torch.dtype, x_dtype: torch.dtype) -> bool:
     in f32 as in the TPU kernel's dot, and an f32 query
     (`ShardedFlatIndex`, as the JAX sharded scan hands them) as its three
     bf16 pieces (`QUERY_PIECES`), whose products are exact too. f32 rows
-    stay on `topk_pass1` (K1) and `rows_pass1` (K2-K4).
-    K4 takes the tensor cores only where TMA can read its bf16 xt as well
-    (`xt_tma_readable`); another bf16 xt (N % 8 != 0, or a base not 16-byte
-    aligned) runs `rows_pass1`, by its shape as f32 xt does by its dtype. A
-    contract, not a fallback: each route launches its kernel or raises."""
+    stay on `topk_pass1` (K1) and `rows_pass1` (K2-K4). Whether TMA or the
+    ragged-row producer brings the corpus (`flat_route`, and for K4's xt
+    `xt_tma_readable`) picks the instance, not the unit. A contract, not a
+    fallback: each route launches its kernel or raises."""
     return x_dtype == torch.bfloat16 and q_dtype in QUERY_PIECES
 
 
 def xt_tma_readable(N: int, addr: int) -> bool:
     """Whether TMA can read a bf16 corpus xt [D, N] at device address
     `addr` (K4tc, K4tc3): every row of N elements a multiple of 16 bytes
-    (N % 8 == 0), and the base 16-byte aligned."""
+    (N % 8 == 0), and the base 16-byte aligned. Any other bf16 xt runs
+    K4tcr or K4tc3r (the ragged-row producer)."""
     return rows_tma_readable(2 * N, addr)
 
 
@@ -612,14 +637,13 @@ def _launch_col(q, x, bias, k: int, tm: int, piece: int = 16):
 
 
 def _launch_rows(q, x, bias, k: int, layout: int, piece: int = 16):
-    """K2/K3/K4: the row-tile schedule; x is xt [D, N] for K4; f32 rows in
-    `piece`-byte pieces (16, or 4: K2r)."""
+    """K2/K3/K4: the row-tile schedule over f32 rows; x is xt [D, N] for
+    K4; rows in `piece`-byte pieces (16, or 4: K2r)."""
     lib = _lib()
     B, D = q.shape
     N = x.shape[1] if layout == K4_LAYOUT else x.shape[0]
-    elt = x.element_size()
-    plan = row_plan(layout, B, N, k, elt)
-    if lib.flat_topk_rows_smem(layout, int(elt == 2), plan.query_tile) != plan.smem or \
+    plan = row_plan(layout, B, N, k, x.element_size())
+    if lib.flat_topk_rows_smem(layout, plan.query_tile) != plan.smem or \
             lib.flat_topk_work_entries(B, k, plan.splits, MERGE_GROUP) != plan.work_entries:
         raise RuntimeError("ops/topk.py row_plan disagrees with csrc/flat_topk.cu")
     # queries as [B, ldq] f32 rows in 16-byte pieces: zero columns up to a
@@ -629,12 +653,12 @@ def _launch_rows(q, x, bias, k: int, layout: int, piece: int = 16):
         q = torch.nn.functional.pad(q, (0, 4 - D % 4))
     if q.data_ptr() % 16:
         q = q.clone()
-    vec = int(layout == K4_LAYOUT and N % (16 // elt) == 0 and x.data_ptr() % 16 == 0)
+    vec = int(layout == K4_LAYOUT and N % 4 == 0 and x.data_ptr() % 16 == 0)
     out_s, out_i, work_s, work_i = _outputs(B, k, plan.work_entries, q.device)
     bound = torch.full((plan.bound_entries,), NEG_INF, dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.flat_topk_rows(
-        q.data_ptr(), q.shape[1], x.data_ptr(), int(elt == 2), bias.data_ptr(), B, N, D, k,
+        q.data_ptr(), q.shape[1], x.data_ptr(), bias.data_ptr(), B, N, D, k,
         layout, plan.splits, plan.rows_per_split, plan.grid_x, plan.query_tile, vec, piece,
         plan.smem, MERGE_GROUP, out_s.data_ptr(), out_i.data_ptr(), work_s.data_ptr(),
         work_i.data_ptr(),
@@ -704,7 +728,8 @@ def _launch_tc(q, x, bias, k: int, xt: bool = False, ragged: bool = False):
     """K2tc (bf16 q) and K2tc3 (f32 q) (K2tcr, K2tc3r: ragged):
     `bf16_tc_pass1` as `tc_plan` lays it out, then pass 2. x stays bf16 and
     q goes in its bf16 pieces: the tensor cores multiply them as the TPU
-    kernel's dot. xt: x is xt [D, N] (K4tc, K4tc3), and q gets zero columns
+    kernel's dot. xt: x is xt [D, N] (K4tc, K4tc3; K4tcr, K4tc3r: ragged,
+    the producer's rows xt's depths of 2N bytes), and q gets zero columns
     up to a multiple of 8 (TMA's 16-byte rows; xt's depths past D read as
     zeros)."""
     lib = _tc_lib()
@@ -741,9 +766,10 @@ def _launch_tc(q, x, bias, k: int, xt: bool = False, ragged: bool = False):
     return out_s, out_i
 
 
-def _launch_tc_xt(q, xt, bias, k: int):
-    """K4tc (bf16 q) and K4tc3 (f32 q): `_launch_tc` over xt [D, N]."""
-    return _launch_tc(q, xt, bias, k, xt=True)
+def _launch_tc_xt(q, xt, bias, k: int, ragged: bool = False):
+    """K4tc (bf16 q) and K4tc3 (f32 q) (K4tcr, K4tc3r: ragged): `_launch_tc`
+    over xt [D, N]."""
+    return _launch_tc(q, xt, bias, k, xt=True, ragged=ragged)
 
 
 def k1_tm(B: int) -> int:
@@ -831,10 +857,10 @@ def streaming_topk_cuda_qres(
 
 def _tensor_core_scan(q, x, bias, k, tile_n, q_dtype, launch, counted, xt=False, ragged=False):
     """A tensor-core wrapper's body: the plain version on CPU tensors; on
-    CUDA tensors its kernel over bf16 rows (xt: a bf16 xt [D, N] that TMA
-    can read; not ragged: rows TMA can read; ragged: any rows, through the
-    ragged-row producer) and `q_dtype` queries (or a raise), counted in
-    `counted.launches`."""
+    CUDA tensors its kernel over bf16 rows, or with xt over a bf16 xt [D,
+    N] (not ragged: rows, or an xt, that TMA can read; ragged: any,
+    through the ragged-row producer) and `q_dtype` queries (or a raise),
+    counted in `counted.launches`."""
     if _on_cpu(q, x, bias):
         return streaming_topk(q, x.T if xt else x, bias, k, tile_n)
     (_check_xt if xt else _check)(q, x, bias, k)
@@ -843,9 +869,10 @@ def _tensor_core_scan(q, x, bias, k, tile_n, q_dtype, launch, counted, xt=False,
         names = " or ".join("bf16" if d == torch.bfloat16 else "f32" for d in q_dtype)
         raise ValueError(f"the tensor-core kernel takes {names} queries over {corpus}, got q "
                          f"{q.dtype} over x {x.dtype}")
-    if xt and not xt_tma_readable(x.shape[1], x.data_ptr()):
+    if xt and not ragged and not xt_tma_readable(x.shape[1], x.data_ptr()):
         raise ValueError(f"TMA reads xt [D, N] only with N % 8 == 0 and a 16-byte aligned base, "
-                         f"got N={x.shape[1]} at {x.data_ptr() % 16} bytes past 16")
+                         f"got N={x.shape[1]} at {x.data_ptr() % 16} bytes past 16: the ragged "
+                         "route (`_xt_ragged`) reads it")
     if not xt and not ragged and flat_route(x) != "tma":
         raise ValueError(f"TMA reads rows only of a multiple of 16 bytes from a 16-byte aligned "
                          f"base, got D={x.shape[1]} at {x.data_ptr() % 16} bytes past 16: the "
@@ -1015,15 +1042,48 @@ def streaming_topk_cuda_tc3_xt(
                              streaming_topk_cuda_tc3_xt, xt=True)
 
 
-def _tc_xt_route(q: torch.Tensor):
-    """K4's wrapper over a bf16 xt for q's dtype."""
-    return streaming_topk_cuda_tc_xt if q.dtype == torch.bfloat16 else streaming_topk_cuda_tc3_xt
+def streaming_topk_cuda_tc_xt_ragged(
+    q: torch.Tensor, xt: torch.Tensor, bias: torch.Tensor, k: int,
+    tile_n: int = DEFAULT_TILE_N,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K4 over bf16 queries and a bf16 xt [D, N] of any N and base
+    ("K4tcr"): K4tc's kernel with the two MN-major boxes of each stage
+    written by the ragged-row producer (csrc/hopper_tc.cuh: cp.async pieces
+    of `load_piece(2N, addr)` bytes, or realigned words; `swizzled_xt_stage`
+    models a stage), zeros past N and D; the queries still come by TMA. K4
+    sends it every bf16 xt that TMA cannot read; it takes any. Same
+    contract as `streaming_topk_cuda_tc_xt`, for any xt."""
+    return _tensor_core_scan(q, xt, bias, k, tile_n, (torch.bfloat16,), _launch_tc_xt,
+                             streaming_topk_cuda_tc_xt_ragged, xt=True, ragged=True)
+
+
+def streaming_topk_cuda_tc3_xt_ragged(
+    q: torch.Tensor, xt: torch.Tensor, bias: torch.Tensor, k: int,
+    tile_n: int = DEFAULT_TILE_N,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K4 over f32 queries (three bf16 pieces) and a bf16 xt of any N and
+    base ("K4tc3r"): K4tc3's kernel fed by the ragged-row producer. Same
+    contract as `streaming_topk_cuda_tc3_xt`, for any xt."""
+    return _tensor_core_scan(q, xt, bias, k, tile_n, (torch.float32,), _launch_tc_xt,
+                             streaming_topk_cuda_tc3_xt_ragged, xt=True, ragged=True)
+
+
+def _tc_xt_route(q: torch.Tensor, xt: torch.Tensor):
+    """K4's wrapper over a bf16 xt for q's dtype and xt's shape and base:
+    TMA's instance where `xt_tma_readable`, else the ragged-row
+    producer's."""
+    if xt_tma_readable(xt.shape[1], xt.data_ptr()):
+        return streaming_topk_cuda_tc_xt if q.dtype == torch.bfloat16 else \
+            streaming_topk_cuda_tc3_xt
+    return (streaming_topk_cuda_tc_xt_ragged if q.dtype == torch.bfloat16
+            else streaming_topk_cuda_tc3_xt_ragged)
 
 
 def _check_xt(q: torch.Tensor, xt: torch.Tensor, bias: torch.Tensor, k: int) -> None:
-    """`_check` for a corpus xt [D, N], which `rows_pass1` reads along N
-    one element at a time: no condition on D or alignment (the
-    tensor-core route takes only the xt `xt_tma_readable` passes)."""
+    """`_check` for a corpus xt [D, N]: no condition on D, N or alignment
+    (`rows_pass1` reads an f32 xt along N in 16-byte pieces or one element
+    at a time; a bf16 xt runs on the tensor cores, through TMA where
+    `xt_tma_readable`, else through the ragged-row producer)."""
     if xt.dim() != 2 or q.dim() != 2 or bias.dim() != 1 or q.shape[1] != xt.shape[0] \
             or bias.shape[0] != xt.shape[1]:
         raise ValueError(f"shape mismatch: expected q [B, D], xt [D, N], bias [N], got q "
@@ -1050,18 +1110,18 @@ def streaming_topk_cuda_qmajor_xt(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K4: K2 over a pre-transposed corpus xt [D, N] (any N and D); its
     results equal K2's on xt.T. CPU tensors run `streaming_topk` on xt.T.
-    A bf16 xt that TMA can read (`xt_tma_readable`) runs on the tensor
-    cores (`uses_tensor_cores`): bf16 queries as `streaming_topk_cuda_tc_xt`
-    ("K4tc"), f32 queries as `streaming_topk_cuda_tc3_xt` ("K4tc3"), each
-    counting in its own launches; f32 xt, and a bf16 xt with N % 8 != 0 or
-    an unaligned base, launch `rows_pass1` and count here. Returns (scores
-    [B, k] f32, ids [B, k] int32)."""
+    A bf16 xt runs on the tensor cores (`uses_tensor_cores`), each route
+    counting in its own launches: where TMA can read it
+    (`xt_tma_readable`) bf16 queries as `streaming_topk_cuda_tc_xt`
+    ("K4tc") and f32 queries as `streaming_topk_cuda_tc3_xt` ("K4tc3"),
+    any other bf16 xt as their `_ragged` forms ("K4tcr", "K4tc3r"); an f32
+    xt launches `rows_pass1` and counts here. Returns (scores [B, k] f32,
+    ids [B, k] int32)."""
     if _on_cpu(q, xt, bias):
         return streaming_topk(q, xt.T, bias, k, tile_n)
     _check_xt(q, xt, bias, k)
-    if uses_tensor_cores(q.dtype, xt.dtype) and \
-            xt_tma_readable(xt.shape[1], xt.data_ptr()):
-        return _tc_xt_route(q)(q, xt, bias, k, tile_n)
+    if uses_tensor_cores(q.dtype, xt.dtype):
+        return _tc_xt_route(q, xt)(q, xt, bias, k, tile_n)
     out = _launch_rows(q, xt, bias, k, K4_LAYOUT)
     with _count_lock:
         streaming_topk_cuda_qmajor_xt.launches += 1
@@ -1082,6 +1142,8 @@ streaming_topk_cuda_qmajor_ragged.launches = 0
 streaming_topk_cuda_k1tc_ragged.launches = 0
 streaming_topk_cuda_tc_ragged.launches = 0
 streaming_topk_cuda_tc3_ragged.launches = 0
+streaming_topk_cuda_tc_xt_ragged.launches = 0
+streaming_topk_cuda_tc3_xt_ragged.launches = 0
 
 
 __all__ = [
@@ -1105,10 +1167,13 @@ __all__ = [
     "streaming_topk_cuda_k1tc_ragged",
     "streaming_topk_cuda_tc_ragged",
     "streaming_topk_cuda_tc3_ragged",
+    "streaming_topk_cuda_tc_xt_ragged",
+    "streaming_topk_cuda_tc3_xt_ragged",
     "flat_route",
     "load_piece",
     "rows_tma_readable",
     "swizzled_box",
+    "swizzled_xt_stage",
     "k1tc_plan",
     "tc_plan",
     "uses_tensor_cores",

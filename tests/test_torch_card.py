@@ -136,30 +136,41 @@ def test_k4_matches_plain_on_card(cuda_device, dtype):
     """K4 against its plain version on its routes: an f32 xt on rows_pass1
     (f32 queries); a bf16 xt with N % 8 == 0 on K4tc (bf16 queries) and
     K4tc3 (f32 queries), at both query tiles and a depth that is not a
-    multiple of 8 (q padded) nor of 64; a bf16 xt of a ragged N on
-    rows_pass1 with either query dtype. Each call launches once, counted
-    in its route's counter."""
+    multiple of 8 (q padded) nor of 64; a bf16 xt that TMA cannot read (N
+    in {297, 300, 302, 1001, 5003}, or a base 2, 4 or 8 bytes past 16) on
+    K4tcr and K4tc3r, whose ragged-row producer then copies realigned
+    words, 8- or 4-byte pieces. Each call launches once, counted in its
+    route's counter."""
     rng = np.random.default_rng(2)
     td = getattr(torch, dtype)
-    runs = ((5003, 768, (F32,)),) if td == F32 else \
-        ((5000, 768, (BF16, F32)), (5003, 768, (BF16, F32)), (1000, 100, (BF16, F32)))
-    for N, D, q_dtypes in runs:
+    # (N, D, base in elements past the storage's start, query dtypes)
+    runs = ((5003, 768, 0, (F32,)),) if td == F32 else tuple(
+        (N, D, offset, (BF16, F32)) for N, D, offset in (
+            (5000, 768, 0), (5003, 768, 0), (1000, 100, 0), (297, 200, 0), (300, 200, 0),
+            (302, 36, 0), (1001, 100, 0), (5000, 768, 1), (5000, 200, 2), (5000, 200, 4),
+            (300, 100, 4)))
+    for N, D, offset, q_dtypes in runs:
         q, x, bias = _case(rng, 70, N, D, dead_frac=0.01)
         x[N - 1] = x[3]  # an exact tie across tiles
         tq_, txt, tb = (t.to(cuda_device) for t in _t(q, np.ascontiguousarray(x.T), bias))
-        txt = txt.to(td)
+        txt = _offset_copy(txt.to(td), offset)
         for qd in q_dtypes:
             counted = ttopk.streaming_topk_cuda_qmajor_xt
-            if td == BF16 and ttopk.xt_tma_readable(N, txt.data_ptr()):
-                counted = ttopk.streaming_topk_cuda_tc_xt if qd == BF16 else \
-                    ttopk.streaming_topk_cuda_tc3_xt
+            if td == BF16:
+                tma = ttopk.xt_tma_readable(N, txt.data_ptr())
+                assert tma == (N % 8 == 0 and offset % 8 == 0), (N, offset)
+                counted = {(BF16, True): ttopk.streaming_topk_cuda_tc_xt,
+                           (F32, True): ttopk.streaming_topk_cuda_tc3_xt,
+                           (BF16, False): ttopk.streaming_topk_cuda_tc_xt_ragged,
+                           (F32, False): ttopk.streaming_topk_cuda_tc3_xt_ragged}[(qd, tma)]
             for B in (33, 70):
                 for k in (1, 30, 300):
                     qb = tq_[:B].to(qd).contiguous()
                     before = counted.launches
                     ks, ki = ttopk.streaming_topk_cuda_qmajor_xt(qb, txt, tb, k)
                     torch.cuda.synchronize()
-                    assert counted.launches == before + 1, (counted.__name__, N, D, qd, B, k)
+                    assert counted.launches == before + 1, (counted.__name__, N, D, offset, qd, B,
+                                                            k)
                     ps, pi = ttopk.streaming_topk(qb, txt.T, tb, k)
                     assert_topk_equiv(ks.cpu(), ki.cpu(), ps.cpu(), pi.cpu(),
                                       qb.float().cpu().numpy(), txt.float().cpu().numpy().T, bias)
@@ -336,27 +347,39 @@ def test_ragged_tc_matches_plain_on_card(cuda_device, route):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("route", ["K1tcr", "K2tc3r"])
+@pytest.mark.parametrize("route", ["K1tcr", "K2tc3r", "K4tcr", "K4tc3r"])
 def test_ragged_pieces_exact_on_one_hot_rows_on_card(cuda_device, route):
     """The one-hot rows of `test_pieces_exact_on_one_hot_rows_on_card` at
     widths TMA cannot read: each score is the one query element q[n % D],
     so a chunk stored under the wrong swizzle, a stale byte of an earlier
     stage or a byte past D would change a score; they equal the plain
-    version's bit for bit."""
+    version's bit for bit. K4tcr (bf16 queries: the element exactly) and
+    K4tc3r take the rows as xt of N = 3D + 5 columns (realigned words at
+    D = 100, 8-byte pieces at 765), so that a box's rows are depths and a
+    byte of the wrong column or depth would show."""
     rng = np.random.default_rng(27)
+    xt_of = lambda f: lambda q_, x_, b_, k_: f(q_, x_.T.contiguous(), b_, k_)  # noqa: E731
     fn, counted, runs = {
         "K1tcr": (ttopk.streaming_topk_cuda, ttopk.streaming_topk_cuda_k1tc_ragged, (1, 9, 31)),
         "K2tc3r": (ttopk.streaming_topk_cuda_qmajor, ttopk.streaming_topk_cuda_tc3_ragged,
                    (33, 65, 129)),
+        "K4tcr": (xt_of(ttopk.streaming_topk_cuda_qmajor_xt),
+                  ttopk.streaming_topk_cuda_tc_xt_ragged, (33, 65, 129)),
+        "K4tc3r": (xt_of(ttopk.streaming_topk_cuda_qmajor_xt),
+                   ttopk.streaming_topk_cuda_tc3_xt_ragged, (33, 65, 129)),
     }[route]
     for D in RAGGED_D:
         N = 3 * D + 5
         q = _unit(rng.standard_normal((max(runs), D)))
+        if route == "K4tcr":  # bf16 queries: each score is the bf16 element exactly
+            q = torch.from_numpy(q).to(BF16).float().numpy()
         x = np.zeros((N, D), np.float32)
         x[np.arange(N), np.arange(N) % D] = 1.0
         bias = np.zeros(N, np.float32)
         tq_, tx, tb = (t.to(cuda_device) for t in _t(q, x, bias))
         tx = tx.to(BF16)
+        if route == "K4tcr":
+            tq_ = tq_.to(BF16)
         for B in runs:
             for k in (1, 30, 300):
                 qb = tq_[:B].contiguous()
@@ -373,22 +396,29 @@ def test_ragged_pieces_exact_on_one_hot_rows_on_card(cuda_device, route):
 def test_f32_four_byte_pieces_match_plain_on_card(cuda_device, route):
     """K1 and K2/K3 over f32 rows that 16-byte pieces cannot read (D % 4 !=
     0, or a base one element in): the 4-byte-piece instances, through the
-    public wrappers, each call counted once in its route."""
+    public wrappers, each call counted once in its route; K2r at its 32-,
+    64- and 128-row query tiles (B = 129 and 256 at k = 300: the 128-row
+    tile's 8 query rows a thread) at D in {1, 3, 25, 765} and bases one
+    element in."""
     rng = np.random.default_rng(28)
     counted = (ttopk.streaming_topk_cuda_ragged if route == "K1r"
                else ttopk.streaming_topk_cuda_qmajor_ragged)
-    calls = (((ttopk.streaming_topk_cuda, (1, 5, 8)),) if route == "K1r" else
-             ((ttopk.streaming_topk_cuda_qmajor, (33, 64, 70)),
-              (ttopk.streaming_topk_cuda_qres, (129,))))
-    for D, offset in ((765, 0), (100, 1), (3, 0)):
-        q, x, bias = _case(rng, 129, 3001, D, dead_frac=0.01)
+    # (wrapper, batches, k)
+    calls = (((ttopk.streaming_topk_cuda, (1, 5, 8), (1, 30, 300)),) if route == "K1r" else
+             ((ttopk.streaming_topk_cuda_qmajor, (33, 64, 70), (1, 30, 300)),
+              (ttopk.streaming_topk_cuda_qres, (129,), (1, 30, 300)),
+              (ttopk.streaming_topk_cuda_qmajor, (129, 256), (300,))))
+    widths = ((765, 0), (100, 1), (3, 0)) if route == "K1r" else \
+        ((765, 0), (100, 1), (3, 0), (1, 0), (25, 1), (765, 1))
+    for D, offset in widths:
+        q, x, bias = _case(rng, 256, 3001, D, dead_frac=0.01)
         x[2000] = x[3]  # an exact tie across tiles
         tq_, tx, tb = (t.to(cuda_device) for t in _t(q, x, bias))
         tx = _offset_copy(tx, offset)
         assert ttopk.flat_route(tx) == "4-byte pieces"
-        for fn, batches in calls:
+        for fn, batches, ks in calls:
             for B in batches:
-                for k in (1, 30, 300):
+                for k in ks:
                     _held(fn, tq_[:B].contiguous(), tx, tb, k, counted)
 
 

@@ -376,13 +376,16 @@ ROW_LAYOUTS = (ttopk.K2_LAYOUT, ttopk.K3_LAYOUT, ttopk.K4_LAYOUT)
 @pytest.mark.parametrize("k", [1, 30, 300, 1024])
 def test_row_plan_tiles_and_stages(layout, k):
     """K2/K3/K4 take one block tile for every k: 128 queries x 128 corpus
-    rows, a ring of at least 3 slices of 16 depths."""
-    for elt in (4, 2):
-        plan = ttopk.row_plan(layout, 1024, 1_000_000, k, elt)
-        assert (plan.query_tile, plan.corpus_tile) == (128, 128)
-        assert plan.stages >= 3 and plan.depth_step == 16
-        assert plan.smem == ttopk.row_smem(layout, elt, 128) == \
-            ttopk.row_plan(layout, 1024, 1_000_000, 1, elt).smem
+    rows, a ring of at least 3 slices of 16 depths. They read f32 rows (an
+    f32 xt) only: a bf16 corpus runs on the tensor cores, and a plan for
+    2-byte elements is refused."""
+    plan = ttopk.row_plan(layout, 1024, 1_000_000, k, 4)
+    assert (plan.query_tile, plan.corpus_tile) == (128, 128)
+    assert plan.stages >= 3 and plan.depth_step == 16
+    assert plan.smem == ttopk.row_smem(layout, 4, 128) == \
+        ttopk.row_plan(layout, 1024, 1_000_000, 1, 4).smem
+    with pytest.raises(ValueError, match="tensor cores"):
+        ttopk.row_plan(layout, 1024, 1_000_000, k, 2)
 
 
 @pytest.mark.parametrize("layout", ROW_LAYOUTS)
@@ -435,7 +438,14 @@ def test_row_plan_scratch_entries(B, N, k):
 def test_row_smem_fits_two_blocks_per_sm(layout, elt):
     """For k = 1..1024 and D = 8..4096 a block's shared memory stays within
     the 232,448 bytes a block may have, and two blocks (with the 1 KB each
-    reserves) fit an H100 SM's 228 KB."""
+    reserves) fit an H100 SM's 228 KB. rows_pass1 reads 4-byte elements
+    only: a bf16 corpus (2 bytes) has no row plan, it runs on the tensor
+    cores."""
+    if elt == 2:
+        for tile in (32, 64, 128):
+            with pytest.raises(ValueError, match="tensor cores"):
+                ttopk.row_smem(layout, elt, tile)
+        return
     sizes = {ttopk.row_plan(layout, 1024, 50_000, k, elt).smem for k in (1, 2, 100, 1023, 1024)}
     assert len(sizes) == 1
     smem = sizes.pop()
@@ -470,6 +480,22 @@ def test_variant_tool_anchors_in_source(name):
     subs, consts, _ = tool.VARIANTS[name]
     for anchor, _ in subs:
         assert any(anchor in src for src in srcs)
+    for const in consts:
+        assert hasattr(ttopk, const)
+
+
+@pytest.mark.parametrize("name", list(_variants_tool().RAGGED_VARIANTS))
+def test_ragged_variant_tool_anchors_in_source(name):
+    """Every text change of tools/flat_topk_variants.py's RAGGED_VARIANTS
+    (K2r's copies) still applies to csrc/flat_topk.cu, once, so that the
+    tool times what it names."""
+    from codegraph_tpu_torch.ops import cuda_build
+
+    tool = _variants_tool()
+    srcs = [(cuda_build.CSRC_DIR / f).read_text() for f in tool.SOURCES]
+    subs, consts, _ = tool.RAGGED_VARIANTS[name]
+    for anchor, _ in subs:
+        assert [src.count(anchor) for src in srcs if anchor in src][:1] == [1]
     for const in consts:
         assert hasattr(ttopk, const)
 

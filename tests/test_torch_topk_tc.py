@@ -1,8 +1,10 @@
 """K1, K2 and K3 over bf16 rows, and K4 over a bf16 xt, on the tensor
 cores ("K1tc", `codegraph_tpu_torch/csrc/flat_topk_k1tc.cu`; "K2tc" over
 bf16 queries and "K2tc3" over f32 queries, and K4's "K4tc" and "K4tc3",
-`csrc/flat_topk_tc.cu`): the route, the host plan of K2tc (K4tc's too),
-and the wrappers held to the JAX package's Pallas kernels.
+`csrc/flat_topk_tc.cu`, with "K4tcr" and "K4tc3r" over an xt TMA cannot
+read): the route, the host plan of K2tc (K4tc's too), the ragged-row
+producer's MN-major stage (`swizzled_xt_stage`), and the wrappers held to
+the JAX package's Pallas kernels.
 
 The route and the plan are host code and are tested here as they are. The
 wrappers get CPU tensors here, so they run their plain version; inputs are
@@ -53,22 +55,25 @@ def test_route_is_set_by_the_inputs(q_dtype, x_dtype, layout, want):
     (296, 2, False), (296, 8, False), (1_000_000, (1 << 40) + 4, False),
 ])
 def test_xt_route_is_set_by_n_and_alignment(N, addr, want):
-    """K4 over a bf16 xt [D, N] takes the tensor cores where TMA can read
-    xt: rows of N bf16 a multiple of 16 bytes (N % 8 == 0) and a 16-byte
-    aligned base; any other bf16 xt runs rows_pass1."""
+    """K4 over a bf16 xt [D, N] takes TMA's instance (K4tc, K4tc3) where TMA
+    can read xt: rows of N bf16 a multiple of 16 bytes (N % 8 == 0) and a
+    16-byte aligned base; any other bf16 xt runs the ragged-row producer's
+    (K4tcr, K4tc3r), on the tensor cores as well."""
     assert ttopk.xt_tma_readable(N, addr) is want
 
 
 COUNTED = ("streaming_topk_cuda", "streaming_topk_cuda_qmajor", "streaming_topk_cuda_qres",
            "streaming_topk_cuda_qmajor_xt", "streaming_topk_cuda_tc", "streaming_topk_cuda_tc3",
-           "streaming_topk_cuda_k1tc", "streaming_topk_cuda_tc_xt", "streaming_topk_cuda_tc3_xt")
+           "streaming_topk_cuda_k1tc", "streaming_topk_cuda_tc_xt", "streaming_topk_cuda_tc3_xt",
+           "streaming_topk_cuda_tc_xt_ragged", "streaming_topk_cuda_tc3_xt_ragged")
 
 
 @pytest.fixture
 def card_routes(monkeypatch):
     """The wrappers as they run on a card, with each launch recorded
     instead of made: (route, layout, query dtype) of every launch, the
-    tensor-core routes with their query pieces (K4 for xt, else None)."""
+    tensor-core routes with their query pieces and, for the ragged-row
+    producer's instances, " ragged" (K4 for xt, else None)."""
     seen = []
 
     def rows(q, x, bias, k, layout):
@@ -79,8 +84,9 @@ def card_routes(monkeypatch):
         seen.append(("topk_pass1", K1, q.dtype))
         return ttopk.streaming_topk(q, x, bias, k)
 
-    def tc(q, x, bias, k, xt=False):
-        seen.append((f"tensor cores x{ttopk.QUERY_PIECES[q.dtype]}", K4 if xt else None, q.dtype))
+    def tc(q, x, bias, k, xt=False, ragged=False):
+        route = f"tensor cores x{ttopk.QUERY_PIECES[q.dtype]}" + (" ragged" if ragged else "")
+        seen.append((route, K4 if xt else None, q.dtype))
         return ttopk.streaming_topk(q, x.T if xt else x, bias, k)
 
     def k1tc(q, x, bias, k):
@@ -105,9 +111,10 @@ def _launches():
 def test_wrappers_launch_their_route_and_count_it(rng, card_routes, q_dtype, x_dtype):
     """Over bf16 rows K2 and K3 send bf16 queries to K2tc and f32 queries
     to K2tc3 (three pieces), and K4 over a bf16 xt with N % 8 == 0 to K4tc
-    and K4tc3, each counting the launch in its own counter (K2's, K3's and
-    K4's stay as they were); f32 rows, and a bf16 xt of N = 300, launch
-    rows_pass1 and count in K2's, K3's or K4's."""
+    and K4tc3 and over a bf16 xt of N = 300 to K4tcr and K4tc3r, each
+    counting the launch in its own counter (K2's, K3's and K4's stay as
+    they were); f32 rows and an f32 xt launch rows_pass1 and count in K2's,
+    K3's or K4's."""
     q, x, bias = _case(rng, 40, 300, 64)
     tq, tx, tb = _t(q, x, bias)
     tq, tx = tq.to(q_dtype), tx.to(x_dtype)
@@ -118,12 +125,14 @@ def test_wrappers_launch_their_route_and_count_it(rng, card_routes, q_dtype, x_d
     ttopk.streaming_topk_cuda_qmajor_xt(tq, tx[:296].T.contiguous(), tb[:296], 10)
     ttopk.streaming_topk_cuda_qmajor_xt(tq, tx.T.contiguous(), tb, 10)  # N % 8 == 4
     want = ([(f"tensor cores x{pieces}", None, q_dtype)] * 2 +
-            [(f"tensor cores x{pieces}", K4, q_dtype)] if tc else
-            [("rows_pass1", K2, q_dtype), ("rows_pass1", K3, q_dtype), ("rows_pass1", K4, q_dtype)])
-    assert card_routes == want + [("rows_pass1", K4, q_dtype)]
+            [(f"tensor cores x{pieces}", K4, q_dtype),
+             (f"tensor cores x{pieces} ragged", K4, q_dtype)] if tc else
+            [("rows_pass1", K2, q_dtype), ("rows_pass1", K3, q_dtype), ("rows_pass1", K4, q_dtype),
+             ("rows_pass1", K4, q_dtype)])
+    assert card_routes == want
     tc_name = "streaming_topk_cuda_tc" if pieces == 1 else "streaming_topk_cuda_tc3"
     xt_name = "streaming_topk_cuda_tc_xt" if pieces == 1 else "streaming_topk_cuda_tc3_xt"
-    assert _launches() == ({tc_name: 2, xt_name: 1, "streaming_topk_cuda_qmajor_xt": 1} if tc else
+    assert _launches() == ({tc_name: 2, xt_name: 1, xt_name + "_ragged": 1} if tc else
                            {"streaming_topk_cuda_qmajor": 1, "streaming_topk_cuda_qres": 1,
                             "streaming_topk_cuda_qmajor_xt": 2})
 
@@ -133,9 +142,10 @@ def test_wrappers_launch_their_route_and_count_it(rng, card_routes, q_dtype, x_d
                                          (300, 0, False), (296, 1, False), (296, 4, False)])
 def test_k4_bf16_xt_route_follows_n_and_alignment(rng, card_routes, q_dtype, N, offset, tc):
     """K4 over a bf16 xt sends it to K4tc/K4tc3 where TMA can read it (N %
-    8 == 0, a 16-byte aligned base), else to rows_pass1 (a ragged N, or an
-    xt that starts 2 or 8 bytes past 16 inside a larger buffer), and counts
-    the launch in that route's counter alone."""
+    8 == 0, a 16-byte aligned base), else to K4tcr/K4tc3r, the ragged-row
+    producer's instances (a ragged N, or an xt that starts 2 or 8 bytes
+    past 16 inside a larger buffer), and counts the launch in that route's
+    counter alone: every bf16 xt runs on the tensor cores."""
     q, x, bias = _case(rng, 40, N, 64)
     tq, tx, tb = _t(q, x, bias)
     buf = torch.zeros(64 * N + 16, dtype=BF16)
@@ -145,13 +155,13 @@ def test_k4_bf16_xt_route_follows_n_and_alignment(rng, card_routes, q_dtype, N, 
     assert (txt.data_ptr() % 16 == 0) == (offset == 0)
     ttopk.streaming_topk_cuda_qmajor_xt(tq.to(q_dtype), txt, tb, 10)
     pieces = ttopk.QUERY_PIECES[q_dtype]
+    xt_name = "streaming_topk_cuda_tc_xt" if pieces == 1 else "streaming_topk_cuda_tc3_xt"
     if tc:
         assert card_routes == [(f"tensor cores x{pieces}", K4, q_dtype)]
-        assert _launches() == {"streaming_topk_cuda_tc_xt" if pieces == 1
-                               else "streaming_topk_cuda_tc3_xt": 1}
+        assert _launches() == {xt_name: 1}
     else:
-        assert card_routes == [("rows_pass1", K4, q_dtype)]
-        assert _launches() == {"streaming_topk_cuda_qmajor_xt": 1}
+        assert card_routes == [(f"tensor cores x{pieces} ragged", K4, q_dtype)]
+        assert _launches() == {xt_name + "_ragged": 1}
 
 
 @pytest.mark.parametrize("q_dtype,x_dtype", [(BF16, BF16), (F32, BF16), (BF16, F32), (F32, F32)])
@@ -205,10 +215,15 @@ def test_new_tc_wrappers_refuse_other_inputs(rng, card_routes, name, q_dtype, x_
     ("streaming_topk_cuda_tc3_xt", F32, F32, 296, "f32 queries over a bf16 xt"),
     ("streaming_topk_cuda_tc_xt", BF16, BF16, 300, "N % 8 == 0"),
     ("streaming_topk_cuda_tc3_xt", F32, BF16, 301, "N % 8 == 0"),
+    ("streaming_topk_cuda_tc_xt_ragged", F32, BF16, 297, "bf16 queries over a bf16 xt"),
+    ("streaming_topk_cuda_tc_xt_ragged", BF16, F32, 297, "bf16 queries over a bf16 xt"),
+    ("streaming_topk_cuda_tc3_xt_ragged", BF16, BF16, 300, "f32 queries over a bf16 xt"),
+    ("streaming_topk_cuda_tc3_xt_ragged", F32, F32, 300, "f32 queries over a bf16 xt"),
 ])
 def test_xt_tc_wrappers_refuse_other_inputs(rng, card_routes, name, q_dtype, x_dtype, N, match):
     """K4tc launches bf16 over a bf16 xt, K4tc3 f32 over a bf16 xt, each
-    only where TMA can read xt, or they raise: neither falls back."""
+    only where TMA can read xt, and K4tcr and K4tc3r the same over any bf16
+    xt, or they raise: none falls back."""
     q, x, bias = _case(rng, 8, N, 64)
     tq, tx, tb = _t(q, x, bias)
     with pytest.raises(ValueError, match=match):
@@ -261,6 +276,89 @@ def test_k4tc_launch_is_k2tc_plan_over_xt(monkeypatch, rng, q_dtype, B, D, N, k)
     assert args[9:16] == (plan.query_tile, int(plan.resident), plan.stages, plan.splits,
                           plan.rows_per_split, plan.smem, ttopk.MERGE_GROUP)
     assert plan.smem <= ttopk.SMEM_PER_BLOCK
+
+
+#: the ragged-row producer's copy over xt [D, N] at a base this many bytes
+#: past 16: 2N bytes a row, `load_piece(2N, base)`
+XT_PIECES = {(7, 0): 1, (7, 2): 1, (7, 4): 1, (7, 8): 1,
+             (297, 0): 1, (297, 2): 1, (297, 4): 1, (297, 8): 1,
+             (300, 0): 8, (300, 2): 1, (300, 4): 4, (300, 8): 8,
+             (302, 0): 4, (302, 2): 1, (302, 4): 4, (302, 8): 4,
+             (1001, 0): 1, (1001, 2): 1, (1001, 4): 1, (1001, 8): 1}
+
+
+def _xt_at(x_bf16: torch.Tensor, base: int) -> torch.Tensor:
+    """x's rows as a bf16 xt [D, N] whose first byte lies `base` bytes past a
+    64-byte boundary of its storage."""
+    N, D = x_bf16.shape
+    buf = torch.zeros(D * N + base // 2 + 32, dtype=BF16)
+    skip = (-buf.data_ptr() % 64) // 2 + base // 2
+    xt = buf[skip: skip + D * N].view(D, N)
+    xt.copy_(x_bf16.T)
+    assert xt.data_ptr() % 16 == base
+    return xt
+
+
+@pytest.mark.parametrize("base", [0, 2, 4, 8])
+@pytest.mark.parametrize("N", [7, 297, 300, 1001])
+def test_swizzled_xt_stage_reads_back_the_rows(rng, N, base):
+    """The stage the ragged-row producer writes over a bf16 xt [D, N]
+    (`swizzled_xt_stage`: two 64-row boxes of xt's depths, 128 bytes of
+    columns each, 128-byte swizzled), read MN-major as K4tc's wgmma reads
+    its TMA boxes (box h: depth r at row r, column n0 + 64 h + j at bytes 2
+    j after undoing the swizzle), gives back x[n0:n0 + 128, c * 64:(c + 1)
+    * 64], with zeros past N and past D, for every chunk c and for the
+    first and last tile; the copy width the producer takes at each base is
+    `load_piece(2N, base)`, 8- and 4-byte pieces or realigned words."""
+    D = 100  # chunk 1 holds depths 64..99, then zeros
+    x = torch.from_numpy(rng.standard_normal((N, D)).astype(np.float32)).to(BF16)
+    xt = _xt_at(x, base)
+    assert ttopk.load_piece(2 * N, xt.data_ptr()) == XT_PIECES[(N, base)]
+    assert not ttopk.xt_tma_readable(N, xt.data_ptr())
+    xt_bytes = xt.contiguous().view(torch.uint8).numpy()  # [D, 2N], the bytes the producer reads
+    rows16 = x.view(torch.int16).numpy()
+    for n0 in sorted({0, (N - 1) // 128 * 128}):
+        for c in range(-(-D // 64)):
+            stage = ttopk.swizzled_xt_stage(xt_bytes, n0, c).reshape(2, 64, 8, 16)
+            plain = np.stack([np.stack([stage[h, r, np.arange(8) ^ (r & 7)] for r in range(64)])
+                              for h in range(2)]).reshape(2, 64, 128)
+            # [depth, 128 columns] of bf16, then MN-major: [column, depth]
+            got = np.concatenate([plain[0], plain[1]], axis=1).view(np.int16).T
+            want = np.zeros((128, 64), np.int16)
+            cols, deps = min(128, N - n0), min(64, D - 64 * c)
+            want[:cols, :deps] = rows16[n0: n0 + cols, 64 * c: 64 * c + deps]
+            np.testing.assert_array_equal(got, want)
+            assert (got[cols:] == 0).all() and (got[:, deps:] == 0).all()
+
+
+@pytest.mark.parametrize("q_dtype", [BF16, F32])
+@pytest.mark.parametrize("N,base", [(297, 0), (300, 0), (302, 0), (1001, 0), (300, 2), (300, 4),
+                                    (300, 8), (296, 8)])
+def test_k4tcr_launch_hands_the_producer_its_piece(monkeypatch, rng, q_dtype, N, base):
+    """K4tcr/K4tc3r launch flat_topk_tc with K4tc's plan (q's depth rounded
+    up to 8, xt's own depth, N from xt's columns) and the producer's copy
+    width over xt's rows of 2N bytes, `load_piece(2N, base)`, and the bias
+    as it is (4-byte copies); TMA's instance takes piece 0."""
+    lib = _FakeTcLib()
+    monkeypatch.setattr(ttopk, "_tc_lib", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda dev: type("P", (), {"multi_processor_count": ttopk.TC_SMS}))
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: type("S", (), {"cuda_stream": 0}))
+    B, D, k = 70, 36, 30
+    q, x, bias = _case(rng, B, N, D)
+    tq, tx, tb = _t(q, x, bias)
+    xt = _xt_at(tx.to(BF16), base)
+    ttopk._launch_tc_xt(tq.to(q_dtype), xt, tb, k, ragged=True)
+    (args,) = lib.launches
+    plan = ttopk.tc_plan(B, N, 40, k, pieces=ttopk.QUERY_PIECES[q_dtype])
+    assert args[2] == xt.data_ptr() and args[3] == D and args[4] == tb.data_ptr()
+    assert args[5:9] == (B, N, 40, k) and args[9:14] == (plan.query_tile, int(plan.resident),
+                                                          plan.stages, plan.splits,
+                                                          plan.rows_per_split)
+    assert args[16] == ttopk.load_piece(2 * N, base) >= 1
+    ttopk._launch_tc_xt(tq.to(q_dtype), xt, tb, k)
+    assert lib.launches[1][16] == 0
 
 
 def test_tc_smem_is_the_layout_sum():
@@ -421,6 +519,49 @@ def test_k4_bf16_xt_wrappers_match_jax_pallas(rng, q_dtype, B, N, k):
         assert sorted(np.asarray(ji)[0, :2].tolist()) == [6, 70]
     if k > 200:
         assert (ti[:, 200:] == -1).all() and (ts[:, 200:] == ttopk.NEG_INF).all()
+
+
+@pytest.mark.parametrize("q_dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("N", [297, 300, 1001])
+@pytest.mark.parametrize("B,k", [(65, 300), (129, 30)])
+def test_k4_ragged_bf16_xt_matches_jax_pallas(rng, card_routes, q_dtype, N, B, k):
+    """K4 over a bf16 xt whose N TMA cannot read takes K4tcr (bf16 queries)
+    or K4tc3r (f32 queries) on a card, and its function is the JAX
+    package's: the wrapper (its launch recorded, the plain version run)
+    against `streaming_topk_pallas_qmajor_xt` in interpret mode on the same
+    bf16 xt padded with zero columns to whole 256-column tiles whose bias is
+    NEG_INF (the Pallas kernel takes whole tiles; such columns never enter
+    a list). Duplicate rows across the two 64-column halves of a tile,
+    tombstones, the last tile running past N, k above the live count at
+    N = 297 (150 live). Tolerance 1e-5 on unit rows, ids equal but where
+    scores tie (`assert_topk_equiv`)."""
+    D = 64
+    q, x, bias = _case(rng, B, N, D, dead_frac=0.01)
+    x[70] = x[6]
+    bias[6] = bias[70] = 0.0
+    if N == 297:
+        bias[150:] = ttopk.NEG_INF
+    x = torch.from_numpy(x).to(BF16).float().numpy()  # the bf16 rows, exactly
+    q[0] = x[6]
+    td = getattr(torch, q_dtype)
+    q = torch.from_numpy(q).to(td).float().numpy()  # the queries in their own dtype
+    n_pad = -(-N // 256) * 256
+    xt_pad = np.zeros((D, n_pad), np.float32)
+    xt_pad[:, :N] = x.T
+    bias_pad = np.full(n_pad, ttopk.NEG_INF, np.float32)
+    bias_pad[:N] = bias
+    js, ji = _pallas_xt(q, xt_pad, bias_pad, k, 64,
+                        jnp.bfloat16 if q_dtype == "bfloat16" else jnp.float32)
+    tq, txt, tb = _t(q, np.ascontiguousarray(x.T), bias)
+    tq, txt = tq.to(td), txt.to(BF16)
+    ts, ti = ttopk.streaming_topk_cuda_qmajor_xt(tq, txt, tb, k)
+    pieces = ttopk.QUERY_PIECES[td]
+    assert card_routes == [(f"tensor cores x{pieces} ragged", K4, td)]
+    assert_topk_equiv(ts, ti, js, ji, q, x, bias)
+    assert list(ti[0, :2].numpy()) == [6, 70]  # the pair across the halves, lower id first
+    live = int((bias > ttopk.NEG_INF / 2).sum())
+    if k > live:
+        assert (ti[:, live:] == -1).all() and (ts[:, live:] == ttopk.NEG_INF).all()
 
 
 def test_pallas_xt_takes_f32_queries_over_bf16_xt_exactly(rng):

@@ -5,6 +5,7 @@ NVIDIA GPU.
 
     python3 tools/flat_topk_variants.py [--rows 1000000] [--only NAME,NAME]
     python3 tools/flat_topk_variants.py --k1 [--old-csrc DIR] [--rows 1000000] [--only ...]
+    python3 tools/flat_topk_variants.py --ragged [--rows 1000000] [--only NAME,NAME]
 
 Each variant is the committed csrc/flat_topk.cu and csrc/topk_merge.cuh
 with its text changes and ops/topk.py constants (below), built and loaded
@@ -32,6 +33,17 @@ timing-only variants skip a phase (the products, the offers, pass 2), so
 the differences attribute a call's time by phase; the profile variant
 adds each consumer warp's cycles by phase (products and barrier waits,
 scores and vote, offers, the tile barrier, flushes) and its flush rounds.
+
+With --ragged the variants are RAGGED_VARIANTS of K2r (`rows_pass1<float,
+false, QT, 4>`: f32 rows that 16-byte pieces cannot read), each timed
+through K2's wrapper at RAGGED_SHAPES (B = 64, 256, 1024; k = 30, 300) on
+a 1% tombstoned f32 corpus of unit rows at D = 765 beside K2's 16-byte
+instance on such rows at D = 764 (the same depth slices; its code is not
+changed by these variants), so that each turn carries its own reference.
+Its timing-only variants take K2r's corpus copies out (the ring's corpus
+slices stay zero) or replace them by 16-byte copies of the same bytes
+rounded down to 16-byte addresses (wrong values); the others are
+candidate designs of the copies, checked against a chunked matmul + topk.
 """
 
 import argparse
@@ -179,6 +191,132 @@ OLD_K1_VARIANTS = {
     "column warps: no pass 2 (timing only)": ([(OLD_PASS2, "  return 0;\n}\n\n// K2/K3/K4")],
                                               {}, False),
 }
+# --- K2r: f32 rows in 4-byte pieces (rows_pass1<float, false, QT, 4>) ----------
+# K2r's copy loop as shipped: one row pointer a thread, rows 16 apart
+K2R_COPIES = """    } else if constexpr (!TRANS) {  // 4-byte pieces: one row pointer, rows 16 apart
+      // A thread's 8 elements share its depth tid % kRDK and take rows
+      // tid / kRDK + 16 v: one 64-bit pointer stepped 16 rows a copy and
+      // one bound a row fit the 128-row tile's registers, where an address
+      // and two bounds a copy spill (PERF.md)
+      constexpr int kRowStep = kThreads / kRDK;  // rows between a thread's pieces
+      const int r = tid / kRDK, c = tid % kRDK;
+      const int rows_left = n_end - n0 - r;  // its rows r + kRowStep v below n_end
+      const bool col_ok = d0 + c < D;
+      const float* src = x + ((size_t)(n0 + r) * D + d0 + c);
+      const size_t step = (size_t)kRowStep * D;
+      XT* dst = xs + r * XLD + c;
+#pragma unroll
+      for (int v = 0; v < kTN / kRowStep; ++v) {
+        const bool ok = col_ok && kRowStep * v < rows_left;
+        cp_async4(dst + kRowStep * v * XLD, ok ? src : x, ok ? 4 : 0);
+        src += step;
+      }
+"""
+# K2r's earlier copy loop: a 4-byte cp.async an element, each with its own
+# address and two bounds
+K2R_PR18 = """    } else if constexpr (!TRANS) {  // 4-byte pieces: an element a copy
+#pragma unroll
+      for (int v = 0; v < kTN * kRDK / kThreads; ++v) {
+        const int p = tid + v * kThreads, r = p / kRDK, c = p % kRDK;
+        const bool ok = n0 + r < n_end && d0 + c < D;
+        cp_async4(xs + r * XLD + c, ok ? x + (size_t)(n0 + r) * D + d0 + c : x, ok ? 4 : 0);
+      }
+"""
+K2R_RING = "  // A slice of q (and of x [N, D]) is QT (kTN) rows x kRDK / 4 pieces of 4\n"
+# the ring zeroed once, so that a variant without corpus copies multiplies zeros
+K2R_ZERO_RING = ("  for (int i = tid; i < kStages * (int)L::kStageBytes / 4; i += kThreads) {\n"
+                 "    reinterpret_cast<float*>(smem)[i] = 0.f;\n  }\n  __syncthreads();\n" + K2R_RING)
+K2R_NO_COPIES = "    } else if constexpr (!TRANS) {  // (timing only) no corpus copies\n"
+K2R_ALIGNED16 = """    } else if constexpr (!TRANS) {  // (timing only) 16-byte copies, addresses rounded down
+#pragma unroll
+      for (int v = 0; v < XPT; ++v) {
+        const int p = tid + v * kThreads, r = p / PPR, c = (p % PPR) * 4;
+        const bool ok = n0 + r < n_end && d0 + c < D;
+        const float* src = reinterpret_cast<const float*>(
+            reinterpret_cast<size_t>(x + (size_t)(n0 + r) * D + d0 + c) & ~(size_t)15);
+        cp_async16(xs + r * XLD + c, ok ? src : x, ok ? 16 : 0);
+      }
+"""
+# shipped, and no row bound in a tile that lies inside the split
+K2R_HOISTED_WHOLE = """    } else if constexpr (!TRANS) {  // 4-byte pieces: one row pointer, rows 16 apart
+      constexpr int kRowStep = kThreads / kRDK;  // rows between a thread's pieces
+      const int r = tid / kRDK, c = tid % kRDK;
+      const int rows_left = n_end - n0 - r;  // its rows r + kRowStep v below n_end
+      const bool col_ok = d0 + c < D;
+      const float* src = x + ((size_t)(n0 + r) * D + d0 + c);
+      const size_t step = (size_t)kRowStep * D;
+      XT* dst = xs + r * XLD + c;
+      if (col_ok && rows_left > kTN - kRowStep) {  // every row of the tile is in the split
+#pragma unroll
+        for (int v = 0; v < kTN / kRowStep; ++v) {
+          cp_async4(dst + kRowStep * v * XLD, src, 4);
+          src += step;
+        }
+      } else {
+#pragma unroll
+        for (int v = 0; v < kTN / kRowStep; ++v) {
+          const bool ok = col_ok && kRowStep * v < rows_left;
+          cp_async4(dst + kRowStep * v * XLD, ok ? src : x, ok ? 4 : 0);
+          src += step;
+        }
+      }
+"""
+# each row's 16-element slice as the 5 aligned 16-byte pieces
+# that hold it (4 when it starts aligned) into its 20-float slot, then, once
+# the slice has landed, a pass that shifts each row into place (two threads
+# a row, one warp: read, __syncwarp, write) and zeros depths past D
+K2R_REALIGNED = """    } else if constexpr (!TRANS) {  // the aligned 16-byte pieces that hold each row's slice
+      const size_t xend = reinterpret_cast<size_t>(x + (size_t)N * D);
+#pragma unroll
+      for (int v = 0; v < (kTN * 5 + kThreads - 1) / kThreads; ++v) {
+        const int p = tid + v * kThreads, r = p / 5, c = p % 5;
+        if (p >= kTN * 5) break;
+        const size_t a = reinterpret_cast<size_t>(x + (size_t)(n0 + r) * D + d0);
+        const size_t al = (a & ~(size_t)15) + 16 * c;
+        const bool ok = n0 + r < n_end && (c < 4 || (a & 15) != 0) && al < xend;
+        const int bytes = ok ? (xend - al < 16 ? (int)(xend - al) : 16) : 0;
+        cp_async16(xs + r * XLD + 4 * c, bytes ? reinterpret_cast<const float*>(al) : x, bytes);
+      }
+"""
+K2R_REALIGN_PASS = ISSUE_NEXT + """
+      if constexpr (!TRANS && PB == 4) {  // shift each row's slice into place
+        float* xw = reinterpret_cast<float*>(smem + slot * L::kStageBytes + L::kQBytes);
+        const int r = tid >> 1, h = tid & 1;
+        const int sh = (int)(((reinterpret_cast<size_t>(x) >> 2) + (size_t)(n0 + r) * D) & 3);
+        float w[12];
+#pragma unroll
+        for (int i = 0; i < 3; ++i) {
+          const float4 v = *reinterpret_cast<const float4*>(xw + r * XLD + 8 * h + 4 * i);
+          w[4 * i] = v.x;
+          w[4 * i + 1] = v.y;
+          w[4 * i + 2] = v.z;
+          w[4 * i + 3] = v.w;
+        }
+        __syncwarp();
+        float o[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float v = sh == 0 ? w[j] : sh == 1 ? w[j + 1] : sh == 2 ? w[j + 2] : w[j + 3];
+          o[j] = d0 + 8 * h + j < D ? v : 0.f;
+        }
+        *reinterpret_cast<float4*>(xw + r * XLD + 8 * h) = make_float4(o[0], o[1], o[2], o[3]);
+        *reinterpret_cast<float4*>(xw + r * XLD + 8 * h + 4) = make_float4(o[4], o[5], o[6], o[7]);
+        __syncthreads();
+      }"""
+# name -> (text substitutions, ops/topk.py constants it changes, checked)
+RAGGED_VARIANTS = {
+    "shipped": ([], {}, True),
+    "an address and two bounds a copy (the earlier loop)": ([(K2R_COPIES, K2R_PR18)], {}, True),
+    "no corpus copies (timing only)": ([(K2R_COPIES, K2R_NO_COPIES), (K2R_RING, K2R_ZERO_RING)],
+                                       {}, False),
+    "16-byte copies, addresses rounded down (timing only)": ([(K2R_COPIES, K2R_ALIGNED16)], {},
+                                                             False),
+    "no row bound in whole tiles": ([(K2R_COPIES, K2R_HOISTED_WHOLE)], {}, True),
+    "realigned 16-byte copies and a shift pass": (
+        [(K2R_COPIES, K2R_REALIGNED), (ISSUE_NEXT, K2R_REALIGN_PASS)], {}, True),
+}
+RAGGED_SHAPES = tuple((B, k) for B in (64, 256, 1024) for k in (30, 300))
+
 SHAPES = (("K2", 32, 30), ("K2", 32, 300), ("K2", 64, 30), ("K2", 64, 300), ("K2", 1024, 30),
           ("K2", 1024, 300), ("K2", 256, 300), ("K4", 1024, 30), ("K4", 1024, 300))
 
@@ -283,11 +421,59 @@ def main_k1(args) -> int:
                      {n: {"cycles_per_warp": prof[n]} for n in built if prof[n]})
 
 
+def main_ragged(args) -> int:
+    """--ragged: K2r's variants at D = 765 beside K2 at D = 764, in turns."""
+    chosen = vh.chosen(RAGGED_VARIANTS, args.only)
+    built = vh.build_all(chosen, RAGGED_VARIANTS, SOURCES,
+                         ("rows_pass1IfLb0ELi128ELi4E", "rows_pass1IfLb0ELi64ELi4E",
+                          "rows_pass1IfLb0ELi128ELi16E"), "variants_ragged")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(2027)
+    N = args.rows
+    xs, qs, ref = {}, {}, {}
+    for D in (765, 764):
+        x = torch.empty((N, D), device=dev)
+        for base in range(0, N, 131072):
+            n = min(131072, N - base)
+            x[base: base + n] = cs._unit(torch, torch.randn(n, D, generator=g, device=dev))
+        xs[D] = x
+        qs[D] = {B: [cs._unit(torch, torch.randn(B, D, generator=g, device=dev)) for _ in range(3)]
+                 for B in {b for b, _ in RAGGED_SHAPES}}
+    bias = torch.zeros(N, device=dev)
+    bias[torch.randperm(N, generator=g, device=dev)[: N // 100]] = cs.NEG_INF
+    for B, k in RAGGED_SHAPES:
+        q16 = qs[765][B][0][:16].contiguous()
+        ref[(B, k)] = (q16, cs.yardstick(torch, q16, xs[765], bias, k))
+    ms = {n: {} for n in built}
+    bad = {n: 0 for n in built}
+
+    def run(n):
+        for D, route in ((765, "K2r"), (764, "K2")):
+            for B, k in RAGGED_SHAPES:
+                fn = lambda qb: topk.streaming_topk_cuda_qmajor(qb, xs[D], bias, k)  # noqa: E731
+                ms[n].setdefault(f"{route} D={D} B={B} k={k}", []).append(
+                    cs._time_ms(torch, fn, qs[D][B]))
+                if D == 765 and RAGGED_VARIANTS[n][2]:
+                    q16, (s_y, i_y) = ref[(B, k)]
+                    s_k, i_k = topk.streaming_topk_cuda_qmajor(qs[D][B][0], xs[D], bias, k)
+                    bad[n] += cs.check_topk(torch, q16, xs[D], bias, s_k[:16], i_k[:16], s_y,
+                                            i_y)[2]
+
+    vh.in_turns(built, "flat_topk", topk, run, {n: RAGGED_VARIANTS[n][1] for n in built})
+    for B, k in RAGGED_SHAPES:
+        lib = cs._time_ms(torch, lambda qb: cs.yardstick(torch, qb, xs[765], bias, k),
+                          qs[765][B])
+        print(json.dumps({"library": f"D=765 B={B} k={k}", "ms": lib}), flush=True)
+    return vh.report(chosen, built, ms, bad, {n: RAGGED_VARIANTS[n][2] for n in built})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=1_000_000)
     ap.add_argument("--only", default="", help="comma-separated variant names (default: all)")
     ap.add_argument("--k1", action="store_true", help="K1 over bf16 rows (K1_VARIANTS)")
+    ap.add_argument("--ragged", action="store_true",
+                    help="K2r, f32 rows in 4-byte pieces (RAGGED_VARIANTS)")
     ap.add_argument("--old-csrc", default="", help="with --k1: a csrc/ directory holding the "
                     "column-warp K1 over bf16 rows, to time it too")
     args = ap.parse_args()
@@ -295,6 +481,8 @@ def main() -> int:
         return 2
     if args.k1:
         return main_k1(args)
+    if args.ragged:
+        return main_ragged(args)
     chosen = vh.chosen(VARIANTS, args.only)
     built = vh.build_all(chosen, VARIANTS, SOURCES, ("rows_pass1IfLb0ELi128E", "rows_pass1IfLb1ELi128E",
                                                      "rows_pass1IfLb0ELi32E"), "variants")

@@ -3,16 +3,20 @@
 checkout of the repo (for example the parent commit unpacked with `git
 archive`), in turns, on one NVIDIA GPU.
 
-    python3 tools/kernel_vs_checkout.py OTHER_DIR [--kernel K2|K2tc|K4tc|K4tc3|K6|K8]
-                                        [--rows N] [--shapes B:k,B:k,...]
+    python3 tools/kernel_vs_checkout.py OTHER_DIR [--kernel K2|K2r|K2tc|K4tc|K4tc3|K4tcr|K4tc3r|K6|K8]
+                                        [--rows N[,N...]] [--shapes B:k,B:k,...]
 
 K2 (`streaming_topk_cuda_qmajor`, csrc/flat_topk.cu) runs on a 1%
 tombstoned f32 corpus of unit rows at D=768, 1,000,000 rows by default;
+K2r the same wrapper over such rows at D=765 (4-byte pieces);
 K2tc (the same wrapper over the same rows and queries rounded to bf16: the
 tensor cores, csrc/flat_topk_tc.cu) likewise; K4tc and K4tc3
 (`streaming_topk_cuda_qmajor_xt` over the same bf16 rows stored as xt [D,
 N], with bf16 or f32 queries: the tensor cores where the checkout routes a
-bf16 xt there, else its rows_pass1) likewise;
+bf16 xt there, else its rows_pass1) likewise; K4tcr and K4tc3r the same
+over an xt whose N TMA cannot read (1,000,004, 1,000,002 and 1,000,003
+columns by default, every N of --rows in each turn: the ragged-row
+producer where the checkout routes such an xt there, else its rows_pass1);
 K6 (`streaming_topk_int8_cuda_qmajor`, csrc/int8_topk.cu) on the same
 rows quantized to int8, 10,000,000 by default; K8 (`ivfpq_search_cuda`,
 csrc/ivfpq_adc.cu) on synthetic IVF-PQ cells at chip_smoke.py's phase-7
@@ -46,12 +50,16 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-DEFAULTS = {"K2": (1_000_000, "32:30,64:30,64:300,1024:30"),
-            "K2tc": (1_000_000, "64:30,64:300,256:30,256:100,256:300,1024:30,1024:300"),
-            "K4tc": (1_000_000, "64:30,64:300,256:30,256:300,1024:30,1024:100,1024:300"),
-            "K4tc3": (1_000_000, "64:30,64:300,256:30,256:300,1024:30,1024:300"),
-            "K6": (10_000_000, "64:100,64:300,256:100,256:300,1024:100,1024:300"),
-            "K8": (10_000_000, "1:40,1:300,8:40,8:300,256:40,256:300,1024:40,1024:300")}
+THREE_B = "64:30,64:300,256:30,256:300,1024:30,1024:300"
+DEFAULTS = {"K2": ("1000000", "32:30,64:30,64:300,1024:30"),
+            "K2r": ("1000000", THREE_B),
+            "K2tc": ("1000000", "64:30,64:300,256:30,256:100,256:300,1024:30,1024:300"),
+            "K4tc": ("1000000", "64:30,64:300,256:30,256:300,1024:30,1024:100,1024:300"),
+            "K4tc3": ("1000000", THREE_B),
+            "K4tcr": ("1000004,1000002,1000003", THREE_B),
+            "K4tc3r": ("1000004,1000002,1000003", THREE_B),
+            "K6": ("10000000", "64:100,64:300,256:100,256:300,1024:100,1024:300"),
+            "K8": ("10000000", "1:40,1:300,8:40,8:300,256:40,256:300,1024:40,1024:300")}
 
 
 def worker_k8(root: str, shapes, save: str) -> dict:
@@ -110,8 +118,10 @@ def worker_k8(root: str, shapes, save: str) -> dict:
     return out
 
 
-def worker(root: str, kernel: str, rows: int, shapes) -> dict:
-    """One turn: the kernel of the checkout at `root` on every shape."""
+def worker(root: str, kernel: str, rows, shapes) -> dict:
+    """One turn: the kernel of the checkout at `root` on every shape, over
+    a corpus of each row count of `rows` (times keyed "B:k", or "N:B:k"
+    when there are several)."""
     import torch
 
     sys.path.insert(0, ROOT)
@@ -122,17 +132,29 @@ def worker(root: str, kernel: str, rows: int, shapes) -> dict:
     from codegraph_tpu_torch.ops import quantize, topk
 
     torch.backends.cuda.matmul.allow_tf32 = False
+    out = {"root": root, "ms": {}, "mismatches_outside_ties": 0}
+    for N in rows:
+        one = _worker_n(torch, cs, topk, quantize, kernel, N, shapes)
+        out["module"] = one["module"]
+        out["mismatches_outside_ties"] += one["mismatches_outside_ties"]
+        out["ms"].update({(key if len(rows) == 1 else f"{N}:{key}"): v
+                          for key, v in one["ms"].items()})
+    return out
+
+
+def _worker_n(torch, cs, topk, quantize, kernel: str, N: int, shapes) -> dict:
+    """`worker` over one corpus of N rows."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(2024)
-    N, D = rows, 768
+    D = 765 if kernel == "K2r" else 768
     bias = torch.zeros(N, device=dev)
     bias[torch.randperm(N, generator=g, device=dev)[: N // 100]] = cs.NEG_INF
-    flat = kernel in ("K2", "K2tc", "K4tc", "K4tc3")
-    dtype = torch.float32 if kernel == "K2" else torch.bfloat16
-    q_dtype = torch.bfloat16 if kernel in ("K2tc", "K4tc") else torch.float32
+    flat = kernel in ("K2", "K2r", "K2tc", "K4tc", "K4tc3", "K4tcr", "K4tc3r")
+    dtype = torch.float32 if kernel in ("K2", "K2r") else torch.bfloat16
+    q_dtype = torch.bfloat16 if kernel in ("K2tc", "K4tc", "K4tcr") else torch.float32
     if flat:
         x = cs._unit(torch, torch.randn(N, D, generator=g, device=dev)).to(dtype)
-        if kernel in ("K4tc", "K4tc3"):  # the rows as xt [D, N]
+        if kernel.startswith("K4"):  # the rows as xt [D, N]
             xt = x.T.contiguous()
             fn = lambda qb, k: topk.streaming_topk_cuda_qmajor_xt(qb, xt, bias, k)  # noqa: E731
         else:
@@ -148,7 +170,7 @@ def worker(root: str, kernel: str, rows: int, shapes) -> dict:
         fn = lambda qb, k: quantize.streaming_topk_int8_cuda_qmajor(  # noqa: E731
             qb[0], qb[1], xv, xs, bias, k)
         module = quantize.__file__
-    out = {"root": root, "module": module, "ms": {}, "mismatches_outside_ties": 0}
+    out = {"module": module, "ms": {}, "mismatches_outside_ties": 0}
     for B, k in shapes:
         qs = [cs._unit(torch, torch.randn(B, D, generator=g, device=dev)) for _ in range(7)]
         if flat:
@@ -172,7 +194,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("other", help="root of the other checkout")
     ap.add_argument("--kernel", choices=sorted(DEFAULTS), default="K2")
-    ap.add_argument("--rows", type=int)
+    ap.add_argument("--rows", help="rows of the corpus (N[,N...])")
     ap.add_argument("--shapes")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     ap.add_argument("--save", help=argparse.SUPPRESS)
@@ -180,9 +202,10 @@ def main() -> int:
     args.rows = args.rows or DEFAULTS[args.kernel][0]
     args.shapes = args.shapes or DEFAULTS[args.kernel][1]
     shapes = [tuple(int(v) for v in s.split(":")) for s in args.shapes.split(",")]
+    rows = [int(n) for n in args.rows.split(",")]
     if args.worker:
         res = (worker_k8(args.worker, shapes, args.save) if args.kernel == "K8"
-               else worker(args.worker, args.kernel, args.rows, shapes))
+               else worker(args.worker, args.kernel, rows, shapes))
         print(json.dumps(res), flush=True)
         return 0
     import torch
@@ -200,7 +223,7 @@ def main() -> int:
     for t, name in enumerate(("other", "this", "this", "other")):
         root = args.other if name == "other" else ROOT
         proc = subprocess.run([sys.executable, os.path.abspath(__file__), args.other,
-                               "--kernel", args.kernel, "--rows", str(args.rows),
+                               "--kernel", args.kernel, "--rows", args.rows,
                                "--shapes", args.shapes, "--worker", root,
                                "--save", os.path.join(tmp, f"{t}_{name}.pt")],
                               capture_output=True, text=True)
@@ -216,7 +239,8 @@ def main() -> int:
               for t, n in ((0, "other"), (1, "this"))} if args.kernel == "K8" else {})
     shutil.rmtree(tmp, ignore_errors=True)
     for key in turns["this"][0]["ms"]:
-        row = {"kernel": args.kernel, "N": args.rows, "D": 768, "B:k": key,
+        row = {"kernel": args.kernel, "N": args.rows, "D": 765 if args.kernel == "K2r" else 768,
+               "B:k": key,
                "other_ms": [t["ms"][key] for t in turns["other"]],
                "this_ms": [t["ms"][key] for t in turns["this"]]}
         if saved:  # the first batch of both checkouts, bit for bit
