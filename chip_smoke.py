@@ -11,7 +11,7 @@
     python3 chip_smoke.py --phases 0,11    # encoder and cross-encoder training only
     python3 chip_smoke.py --phases 0,12    # the shared-memory hand-off only
     python3 chip_smoke.py --phases 0,13,14 # the parallel/ slice (an 8-shard mesh on one card)
-    python3 chip_smoke.py --phases 0,1,3   # the kernels, checked and timed at real size (K4tc, K4tcr too)
+    python3 chip_smoke.py --phases 0,1,3   # the kernels, checked and timed at real size (K4tc, K4r too)
     python3 chip_smoke.py --phases 0,15    # the bf16 main path (K1tc, K2tc) only
     python3 chip_smoke.py --phases 0,16    # the card's pytest cases (tests/test_torch_card.py)
     python3 chip_smoke.py --phases 0,1,17  # every embedding width: the ragged routes, main path at D=100
@@ -61,7 +61,8 @@ Phases, each printing one JSON object per line as it ends:
      bit. Both: a
      ragged N, 1% tombstones, an
      extra_bias filter, k above the live count, duplicate rows (exact
-     ties), batches on both sides of 32. K4: K2's cases on xt = x.T; over
+     ties), batches on both sides of 32. K4: K2's cases on xt = x.T (an f32
+     xt of 100,003 columns runs K4r, 4-byte pieces); over
      a bf16 xt with N % 8 == 0 (and 100,008 columns with duplicate rows
      and a filter) K4tc with bf16 queries and K4tc3 with f32 ones, over
      100,003 columns K4tcr and K4tc3r (the ragged-row producer); K4tc and
@@ -70,8 +71,10 @@ Phases, each printing one JSON object per line as it ends:
      K4tc3 over one-hot rows bit for bit; K4tcr and K4tc3r at B in {33,
      65, 129} x k in {1, 30, 300, 1024} over xt of N in {297, 300, 302,
      1001, 5000, 5003, 100003} (8- and 4-byte pieces, realigned words) and
-     bases 2, 4 and 8 bytes past 16 (K4TCR_XT), and K4tc3r over one-hot
-     rows as xt bit for bit. K8:
+     bases 2, 4 and 8 bytes past 16 (K4TCR_XT), the same values as an f32
+     xt (bases 4, 8 and 16 bytes past 16) under f32 queries on K4r, or K4
+     where N % 4 == 0 at an aligned base, and K4tc3r over one-hot rows as
+     xt bit for bit. K8:
      synthetic IVF-PQ cells filled to random depths (the fills passed as
      extents, and once not), m in {6, 16, 96}, ksub in {16, 256}, nprobe in
      {1, 8, 32, 64, nlist}, k from 1 to 20,000 (above the live probed
@@ -105,14 +108,17 @@ Phases, each printing one JSON object per line as it ends:
      over bf16 rows: three bf16 tensor-core products, or the bytes) and,
      for K2tc, K2tc3, K4tc and K4tc3, the bytes their blocks read by the
      plan. Then the ragged routes at widths no 16-byte piece fits: 1M x
-     765 f32 (K1r at B=1 and 8, K2r at 64, 256, 1024) beside K2 over 1M x
-     764 f32 (16-byte pieces) and 1M x 764 bf16 (K1tcr at B=1 and 8, both
+     765 f32 (K1r at B=1 and 8, K2r at 64, 256, 1024) beside K1 and K2 over
+     1M x 764 f32 (16-byte pieces) and 1M x 764 bf16 (K1tcr at B=1 and 8, both
      query dtypes; K2tcr and K2tc3r at 64, 256, 1024), k=30 and 300 (the
      tensor-core library call on zero-padded copies, made untimed); and K4
      over a bf16 xt [768, N] of N = 1,000,004, 1,000,002 and 1,000,003
      columns (the producer's 8- and 4-byte pieces and realigned words):
      K4tcr (bf16 queries) and K4tc3r (f32 queries) at B=64, 256, 1024,
-     k=30 and 300, the library call on the same xt.
+     k=30 and 300, the library call on the same xt; and K4r over an f32 xt
+     [768, N] of N = 1,000,003 and 1,000,002 (4-byte pieces) at the same
+     shapes, beside K4 over xt = x.T of the 1M x 768 f32 rows (B=64 too),
+     the f32 library call on the same xt.
   4  the int8 main path: phase 2 with index.dtype = "int8" (Int8FlatIndex,
      bf16 rescore copy): 5 searches (K5) and 64 concurrent queries through
      QueryService (K6), checked against the same snapshot searched on the
@@ -352,6 +358,9 @@ K4TCR_K = (1, 30, 300, 1024)
 #: phase 3's xt of N columns for K4tcr and K4tc3r: 8- and 4-byte pieces,
 #: realigned words
 K4TCR_TIMED_N = (1_000_004, 1_000_002, 1_000_003)
+#: phase 3's f32 xt of N columns that 16-byte pieces cannot read (K4r): N
+#: odd, and N % 4 = 2
+K4R_TIMED_N = (1_000_003, 1_000_002)
 
 #: the every-width family of phase 1: widths that TMA's tiled mode (bf16
 #: rows: D % 8; int8 rows: D % 16) or 16-byte pieces (f32 rows: D % 4) or
@@ -382,6 +391,9 @@ KERNELS = {
     "K2": ("topk", "streaming_topk_cuda_qmajor", FLAT_CU, "codegraph_tpu/ops/topk.py:456"),
     "K3": ("topk", "streaming_topk_cuda_qres", FLAT_CU, "codegraph_tpu/ops/topk.py:561"),
     "K4": ("topk", "streaming_topk_cuda_qmajor_xt", FLAT_CU, "codegraph_tpu/ops/topk.py:664"),
+    # K4 over an f32 xt that 16-byte pieces cannot read (N % 4 != 0, unaligned)
+    "K4r": ("topk", "streaming_topk_cuda_qmajor_xt_ragged", FLAT_CU,
+            "codegraph_tpu/ops/topk.py:664"),
     # K1 over bf16 rows, bf16 or f32 queries (wgmma, the corpus as the 64-row operand)
     "K1tc": ("topk", "streaming_topk_cuda_k1tc", FLAT_K1TC_CU, "codegraph_tpu/ops/topk.py:347"),
     # K2 and K3 over bf16 queries and bf16 rows (wgmma bf16 on the tensor cores)
@@ -624,11 +636,14 @@ def phase1(torch, mods, errs) -> dict:
                     kernel = {"K1": "K5", "K2": "K6", "K3": "K7"}[kernel]
                 fn = kernels[kernel]
                 # over bf16 rows K1 runs K1tc, K2 and K3 K2tc (bf16 queries),
-                # K4 K4tc where TMA can read xt, else K4tcr
+                # K4 K4tc where TMA can read xt, else K4tcr; over an f32 xt
+                # K4 where 16-byte pieces can read it, else K4r
                 name = {"K1": "K1tc", "K2": "K2tc", "K3": "K2tc"}.get(kernel, kernel) \
                     if dtype == torch.bfloat16 else kernel
                 if dtype == torch.bfloat16 and kernel == "K4":
                     name = "K4tc" if topk.xt_tma_readable(N, xt.data_ptr()) else "K4tcr"
+                elif kernel == "K4" and topk.flat_route(xt) != "16-byte pieces":
+                    name = "K4r"
                 q = _unit(torch, torch.randn(B, D, generator=g, device=dev))
                 if dtype == torch.int8:
                     qv, qs = quantize.quantize_rows(q)
@@ -941,47 +956,56 @@ def phase1_k4tc(torch, mods, errs) -> list:
 
 
 def phase1_k4tcr(torch, mods, errs) -> list:
-    """K4 over a bf16 xt that TMA cannot read, through its wrapper: bf16
+    """K4 over an xt that TMA (bf16) or 16-byte pieces (f32) cannot read,
+    through its wrapper, at K4TCR_B x K4TCR_K over each xt of K4TCR_XT (N
+    % 8 != 0, or a base 2, 4 or 8 bytes past 16 as bf16, 4, 8 or 16 as f32;
+    duplicate rows where N > 2,000, a filter, and 150 live columns of the
+    297), each call held to the plain version: over the bf16 xt bf16
     queries launch K4tcr and f32 queries K4tc3r (the ragged-row producer's
-    two MN-major boxes a stage), each alone, held to the plain version at
-    K4TCR_B x K4TCR_K over each xt of K4TCR_XT (N % 8 != 0, or a base 2, 4
-    or 8 bytes past 16; duplicate rows where N > 2,000, a filter, and 150
-    live columns of the 297), so that the producer's 8- and 4-byte pieces
-    and realigned words, the zeros past N and D, and a split's last tile
-    running past its end are each exercised."""
+    two MN-major boxes a stage), so that the producer's 8- and 4-byte
+    pieces and realigned words, the zeros past N and D, and a split's last
+    tile running past its end are each exercised; over the same values as
+    an f32 xt f32 queries launch K4r (4-byte pieces) or, where N % 4 == 0
+    and the base is 16-byte aligned, K4, each alone."""
     topk = mods["topk"]
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(20)
-    routes = {torch.bfloat16: "K4tcr", torch.float32: "K4tc3r"}
     cases = []
     for N, D, offset in K4TCR_XT:
         live = 150 if N == 297 else None
         x, bias = _tc_corpus(torch, g, dev, N, D, N > 2000, True, live)
-        xt = _offset_copy(torch, x.T.contiguous(), offset)
-        require(not topk.xt_tma_readable(N, xt.data_ptr()),
-                f"phase 1: xt of N={N} at offset {offset} is one TMA reads")
-        for B in K4TCR_B:
-            q = _unit(torch, torch.randn(B, D, generator=g, device=dev))
-            if N > 2000:
-                q[0] = x[5].float()  # its own duplicate pair tops the list
-            for k in K4TCR_K:
-                for q_dtype, ran in routes.items():
-                    qd = q.to(q_dtype)
-                    (s_k, i_k), delta = _counted(
-                        mods, lambda: topk.streaming_topk_cuda_qmajor_xt(qd, xt, bias, k))
-                    torch.cuda.synchronize()
-                    require(delta == {ran: 1}, f"phase 1: K4 over a bf16 xt of N={N} D={D} at "
-                            f"offset {offset} with {q_dtype} queries, B={B} k={k}, launched "
-                            f"{delta}, not {ran}")
-                    s_p, i_p = topk.streaming_topk(qd, x, bias, k)
-                    err, n_diff, bad = check_topk(torch, None, None, None, s_k, i_k, s_p, i_p,
-                                                  judge=dot_judge(qd, x, bias))
-                    errs[ran] = max(errs[ran], err)
-                    cases.append({"kernel": f"{ran} (via K4)", "dtype": "bfloat16",
-                                  "q_dtype": str(q_dtype)[6:], "N": N, "D": D, "offset": offset,
-                                  "piece": topk.load_piece(2 * N, xt.data_ptr()), "B": B, "k": k,
-                                  "live": live or N, "max_abs_err": err, "id_mismatches": n_diff,
-                                  "mismatches_outside_ties": bad})
+        for xt_dtype in (torch.bfloat16, torch.float32):
+            xt = _offset_copy(torch, x.T.contiguous().to(xt_dtype), offset)
+            if xt_dtype == torch.bfloat16:
+                require(not topk.xt_tma_readable(N, xt.data_ptr()),
+                        f"phase 1: xt of N={N} at offset {offset} is one TMA reads")
+                routes = {torch.bfloat16: "K4tcr", torch.float32: "K4tc3r"}
+                piece = topk.load_piece(2 * N, xt.data_ptr())
+            else:
+                routes = {torch.float32: "K4" if topk.flat_route(xt) == "16-byte pieces" else "K4r"}
+                piece = topk.load_piece(4 * N, xt.data_ptr())
+            for B in K4TCR_B:
+                q = _unit(torch, torch.randn(B, D, generator=g, device=dev))
+                if N > 2000:
+                    q[0] = x[5].float()  # its own duplicate pair tops the list
+                for k in K4TCR_K:
+                    for q_dtype, ran in routes.items():
+                        qd = q.to(q_dtype)
+                        (s_k, i_k), delta = _counted(
+                            mods, lambda: topk.streaming_topk_cuda_qmajor_xt(qd, xt, bias, k))
+                        torch.cuda.synchronize()
+                        require(delta == {ran: 1}, f"phase 1: K4 over a {xt_dtype} xt of N={N} "
+                                f"D={D} at offset {offset} with {q_dtype} queries, B={B} k={k}, "
+                                f"launched {delta}, not {ran}")
+                        s_p, i_p = topk.streaming_topk(qd, x, bias, k)
+                        err, n_diff, bad = check_topk(torch, None, None, None, s_k, i_k, s_p, i_p,
+                                                      judge=dot_judge(qd, x, bias))
+                        errs[ran] = max(errs[ran], err)
+                        cases.append({"kernel": f"{ran} (via K4)", "dtype": str(xt_dtype)[6:],
+                                      "q_dtype": str(q_dtype)[6:], "N": N, "D": D,
+                                      "offset": offset, "piece": piece, "B": B, "k": k,
+                                      "live": live or N, "max_abs_err": err,
+                                      "id_mismatches": n_diff, "mismatches_outside_ties": bad})
     return cases
 
 
@@ -1582,24 +1606,27 @@ def phase3(torch, topk, errs) -> list:
     dev = torch.device("cuda")
     rows_out = []
     # 768, and the widths whose rows the ragged routes read (f32 765: 4-byte
-    # pieces, beside K2 at 764; bf16 764: the ragged-row producer's 8-byte
-    # pieces); then K4 over bf16 xt of N columns that TMA cannot read
+    # pieces, beside K1 and K2 at 764; bf16 764: the ragged-row producer's
+    # 8-byte pieces); then K4 over bf16 xt of N columns that TMA cannot read
+    # and over f32 xt of N columns that 16-byte pieces cannot read
     for dtype_name, D, N in (("float32", 768, 1_000_000), ("bfloat16", 768, 1_000_000),
                              ("float32", 765, 1_000_000), ("float32", 764, 1_000_000),
                              ("bfloat16", 764, 1_000_000),
-                             *(("bfloat16", 768, n) for n in K4TCR_TIMED_N)):
+                             *(("bfloat16", 768, n) for n in K4TCR_TIMED_N),
+                             *(("float32", 768, n) for n in K4R_TIMED_N)):
         g = torch.Generator(device=dev).manual_seed(2024)
         t0 = time.perf_counter()
         f32, bf16 = torch.float32, torch.bfloat16
         x, xt, idx = None, None, None
-        if N in K4TCR_TIMED_N:  # only xt [D, N] is read: made directly, no index
+        xt_only = N in K4TCR_TIMED_N + K4R_TIMED_N
+        if xt_only:  # only xt [D, N] is read: made directly, no index
             bias = torch.zeros(N, device=dev)
             bias[torch.randperm(N, generator=g, device=dev)[: N // 100]] = NEG_INF
-            xt = torch.empty((D, N), dtype=bf16, device=dev)
+            xt = torch.empty((D, N), dtype=getattr(torch, dtype_name), device=dev)
             for base in range(0, N, 131072):
                 n = min(131072, N - base)
                 xt[:, base: base + n] = torch.nn.functional.normalize(
-                    torch.randn(n, D, generator=g, device=dev), dim=1).to(bf16).T
+                    torch.randn(n, D, generator=g, device=dev), dim=1).to(xt.dtype).T
             x = xt.T  # the rows as a view, for the plain version and the checks
         else:
             idx = FlatIndex(D, dtype=dtype_name, device="cuda")
@@ -1615,11 +1642,14 @@ def phase3(torch, topk, errs) -> list:
         build_s = time.perf_counter() - t0
         elt = x.element_size()
         # (kernel, wrapper, B, k, query dtype)
-        if N in K4TCR_TIMED_N:  # K4tcr, K4tc3r: the ragged-row producer over xt
+        if xt_only and dtype_name == "float32":  # K4r: 4-byte pieces of an f32 xt
+            shapes = [("K4r", "K4", B, k, f32) for B in (64, 256, 1024) for k in (30, 300)]
+        elif xt_only:  # K4tcr, K4tc3r: the ragged-row producer over xt
             shapes = [(name, "K4", B, k, qd) for name, qd in (("K4tcr", bf16), ("K4tc3r", f32))
                       for B in (64, 256, 1024) for k in (30, 300)]
-        elif dtype_name == "float32" and D == 764:  # K2 beside K2r, 16-byte pieces
-            shapes = [("K2", "K2", B, k, f32) for B in (64, 256, 1024) for k in (30, 300)]
+        elif dtype_name == "float32" and D == 764:  # K1 beside K1r, K2 beside K2r: 16-byte pieces
+            shapes = [("K1", "K1", B, k, f32) for B in (1, 8) for k in (30, 300)]
+            shapes += [("K2", "K2", B, k, f32) for B in (64, 256, 1024) for k in (30, 300)]
         elif dtype_name == "float32" and D != 768:  # K1r, K2r: 4-byte pieces
             shapes = [("K1r", "K1", B, k, f32) for B in (1, 8) for k in (30, 300)]
             shapes += [("K2r", "K2", B, k, f32) for B in (64, 256, 1024) for k in (30, 300)]
@@ -1633,6 +1663,7 @@ def phase3(torch, topk, errs) -> list:
             shapes += [("K2", "K2", B, k, f32) for B in (32, 64) for k in (30, 300)]
             shapes += [(name, name, B, k, f32) for name in ("K2", "K3", "K4") for B in (256, 1024)
                        for k in (30, 100, 300)]
+            shapes += [("K4", "K4", 64, k, f32) for k in (30, 300)]  # beside K4r's shapes
             xt = x.T.contiguous()  # K4's corpus: the same rows as xt [D, N]
         else:  # bf16 queries (FlatIndex's) and f32 queries (ShardedFlatIndex's, three pieces)
             shapes = [("K1tc", "K1", B, k, qd) for qd in (bf16, f32) for B in (1, 8)
@@ -1661,8 +1692,8 @@ def phase3(torch, topk, errs) -> list:
             ms = _time_ms(torch, lambda qb: fn(qb, x, bias, k), batches)
             require(counted.launches == launched + len(batches) + 1,
                     f"phase 3: {via} {dtype_name} B={B} k={k} did not run {name}")
-            # K4tc/K4tc3 (K4tcr/K4tc3r): the library calls on the layout they read, xt
-            on_xt = name in ("K4tc", "K4tc3", "K4tcr", "K4tc3r")
+            # K4tc/K4tc3 (K4tcr/K4tc3r, K4r): the library calls on the layout they read, xt
+            on_xt = name in ("K4tc", "K4tc3", "K4tcr", "K4tc3r", "K4r")
             lib_ms = _time_ms(torch, lambda qb: yardstick(torch, qb, xt, bias, k, xt=True) if on_xt
                               else yardstick(torch, qb, x, bias, k), batches[:3])
             extra = {"via": via, "q_dtype": str(q_dtype)[6:]}
@@ -1681,11 +1712,13 @@ def phase3(torch, topk, errs) -> list:
                     extra["library_note"] = (f"torch.mm on rows and queries zero-padded to "
                                              f"{D + 8 - D % 8} columns (the copy not timed)")
                 lib_ms = _time_ms(torch, tc_yardstick, lib_batches)
-            if name in ("K4tcr", "K4tc3r"):
-                extra["piece"] = topk.load_piece(2 * N, xt.data_ptr())
+            if name in ("K4tcr", "K4tc3r", "K4r"):
+                extra["piece"] = topk.load_piece(elt * N, xt.data_ptr())
             if (B, k, q_dtype) not in plain_cache:  # K2, K3 and K4 share their plain version
+                # one timed call after the warm-up: the plain version is no
+                # yardstick of speed, and its calls take most of the phase
                 plain_cache[(B, k, q_dtype)] = _time_ms(
-                    torch, lambda qb: topk.streaming_topk(qb, x, bias, k), batches[:2])
+                    torch, lambda qb: topk.streaming_topk(qb, x, bias, k), batches[:1])
             plain_ms = plain_cache[(B, k, q_dtype)]
             # correctness on a sample of the first batch against the yardstick
             qs = batches[0][: min(B, 16)].contiguous()
@@ -5212,12 +5245,13 @@ def main(argv=None) -> int:
     # K2tc the bf16 main path's (phase 15), for K2tc3 the sharded bf16
     # index's (phase 13), for the ragged routes the main path at D = 100
     # (phase 17: K1tcr, K2tcr, K6r; K2tc3r on its 8-shard index) (K3, K4,
-    # K4tc, K4tc3, K4tcr, K4tc3r and K7 are public ops that no index calls:
+    # K4r, K4tc, K4tc3, K4tcr, K4tc3r and K7 are public ops that no index calls:
     # 0 launches on every path; K1r, K2r and K5r take widths that are not a
     # multiple of 4, which phase 17's D = 100 is not)
     shapes = {"K1": (p3, "float32", 1, 30, None, 768), "K2": (p3, "float32", 1024, 30, None, 768),
               "K3": (p3, "float32", 1024, 100, None, 768),
               "K4": (p3, "float32", 1024, 30, None, 768),
+              "K4r": (p3, "float32", 1024, 30, None, 768, K4R_TIMED_N[0]),
               "K1tc": (p3, "bfloat16", 1, 30, "bfloat16", 768),
               "K2tc": (p3, "bfloat16", 1024, 30, None, 768),
               "K2tc3": (p3, "bfloat16", 1024, 30, None, 768),
@@ -5236,6 +5270,7 @@ def main(argv=None) -> int:
               "K8": (p7, "uint8 codes", 1, 40, None, 768)}
     flat_path = p8 or p2
     paths = {"K1": p8 or p9 or p2, "K2": flat_path, "K3": flat_path, "K4": flat_path,
+             "K4r": flat_path,
              "K1tc": p15, "K2tc": p15, "K2tc3": p13, "K4tc": p15, "K4tc3": p13, "K4tcr": p15,
              "K4tc3r": p13, "K5": p4,
              "K6": p4, "K7": p4, "K8": p6["ivfpq"] if p6 else None,

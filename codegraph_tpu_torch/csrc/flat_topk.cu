@@ -12,7 +12,9 @@
 // kernels take any width D; so do these: f32 rows are read in 16-byte
 // pieces where D % 4 == 0 and the base is 16-byte aligned, and otherwise
 // by the ragged instances (topk_ragged_pass1, rows_pass1<float, false, QT,
-// 4>), the same kernels with 4-byte pieces.
+// 4>), the same kernels with 4-byte pieces; likewise an f32 xt by N % 4
+// (rows_pass1<float, true, QT, 16 or 4>). Every piece is an asynchronous
+// copy into shared memory but K1's, which go through registers.
 //
 // Two pass-1 kernels, one pass 2:
 //   * topk_pass1 (K1 over f32 rows, "column warps"): up to 8 query rows per block; the 8
@@ -46,8 +48,9 @@
 //     one 16-byte shared-memory load per 16 FMAs. __launch_bounds__(256, 2)
 //     holds it to 128 registers, so two blocks share an SM.
 //   * Operands reach shared memory through a ring of kStages slices filled
-//     by 16-byte cp.async (zero-filled past B, N and D), with no round trip
-//     through registers and one barrier per slice.
+//     by 16-byte cp.async (4-byte for rows or an xt that 16-byte pieces
+//     cannot read; zero-filled past B, N and D), with no round trip through
+//     registers and one barrier per slice.
 //   * The top-k lists do not take shared memory: each row has a threshold
 //     (its list's k-th entry) and a 32-entry candidate buffer in shared
 //     memory, which only scores beating the threshold enter. A full buffer
@@ -109,7 +112,10 @@ __device__ __forceinline__ void unpack(const unsigned& v, float* out, float) {
 // query. x is [N, D], read in PB-byte pieces: 16 (D % (16 / sizeof(XT)) ==
 // 0 and 16-byte alignment) or 4 (f32 rows of any D). A step's query and
 // corpus slices are loaded into registers one step ahead, while the block
-// computes on the previous step's slices in shared memory.
+// computes on the previous step's slices in shared memory. A thread's
+// 4-byte pieces share one row pointer: an address and two bounds a piece
+// took up to 165 registers, and 4-byte cp.async into a ring of slices ran
+// 1.2-1.5x slower than these loads (PERF.md).
 template <typename XT, int WR, int TM, int TNN, int PB>
 __device__ __forceinline__ void topk_body(const float* __restrict__ q, const XT* __restrict__ x,
                                           const float* __restrict__ bias, int B, int N, int D,
@@ -150,12 +156,28 @@ __device__ __forceinline__ void topk_body(const float* __restrict__ q, const XT*
   auto load = [&](int step) {
     const int n0 = n_begin + (step / n_chunks) * TN;
     const int d0 = (step % n_chunks) * kDK;
+    if constexpr (PB == 4) {  // one row pointer, rows kThreads / VPR apart
+      // A thread's XV pieces share its depth tid % VPR and take rows tid /
+      // VPR + kRowStep v (the rows store() writes them to)
+      constexpr int kRowStep = kThreads / VPR;
+      const int r = tid / VPR, c = tid % VPR;
+      const int rows_left = n_end - n0 - r;  // its rows r + kRowStep v below n_end
+      const bool col_ok = d0 + c < D;
+      const XT* src = x + ((size_t)(n0 + r) * D + d0 + c);
+      const size_t stride = (size_t)kRowStep * D;
 #pragma unroll
-    for (int v = 0; v < XV; ++v) {
-      const int vi = tid + v * kThreads, r = vi / VPR, d = d0 + (vi % VPR) * EPV;
-      xr[v] = (n0 + r < n_end && d < D)
-                  ? *reinterpret_cast<const Piece*>(x + (size_t)(n0 + r) * D + d)
-                  : Piece{};
+      for (int v = 0; v < XV; ++v) {
+        xr[v] = col_ok && kRowStep * v < rows_left ? *reinterpret_cast<const Piece*>(src) : Piece{};
+        src += stride;
+      }
+    } else {
+#pragma unroll
+      for (int v = 0; v < XV; ++v) {
+        const int vi = tid + v * kThreads, r = vi / VPR, d = d0 + (vi % VPR) * EPV;
+        xr[v] = (n0 + r < n_end && d < D)
+                    ? *reinterpret_cast<const Piece*>(x + (size_t)(n0 + r) * D + d)
+                    : Piece{};
+      }
     }
 #pragma unroll
     for (int e = 0; e < QE; ++e) {
@@ -398,17 +420,15 @@ __device__ __forceinline__ int tile_col(int tx, int j) {
 // ty + 16 i and corpus columns tile_col(tx, j), i < MI = QT / 16, j < 8, so
 // the 16 lanes of a half-warp hold the whole tile row of their MI query
 // rows, and own those rows' buffers and lists. q is [B, ldq] f32 (ldq % 4
-// == 0, 16-byte aligned; columns D..ldq zero). x is [N, D] f32 read in
-// PB-byte pieces (16: D % 4 == 0, 16-byte aligned; 4: any D) or, TRANS,
-// xt [D, N] f32, read in 16-byte pieces when vec (N % 4 == 0, 16-byte
-// aligned), else an element a thread. bound [B, S] holds NEG_INF at launch
-// (share_bound).
+// == 0, 16-byte aligned; columns D..ldq zero). x is [N, D] f32 or, TRANS,
+// xt [D, N] f32, read in PB-byte pieces: 16 (a row length, D or N, % 4 ==
+// 0 and x 16-byte aligned) or 4 (any, x 4-byte aligned). bound [B, S]
+// holds NEG_INF at launch (share_bound).
 template <typename XT, bool TRANS, int QT, int PB>
 __global__ void __launch_bounds__(kThreads, 2)
     rows_pass1(const float* __restrict__ q, int ldq, const XT* __restrict__ x,
                const float* __restrict__ bias, int B, int N, int D, int k, int rows_per_split,
-               int vec, float* __restrict__ part_s, int* __restrict__ part_i,
-               float* __restrict__ bound) {
+               float* __restrict__ part_s, int* __restrict__ part_i, float* __restrict__ bound) {
   using L = RowLayout<XT, TRANS, QT>;
   constexpr int XLD = L::XLD;
   constexpr int MI = QT / 16;  // query rows a thread
@@ -495,7 +515,7 @@ __global__ void __launch_bounds__(kThreads, 2)
         cp_async4(dst + kRowStep * v * XLD, ok ? src : x, ok ? 4 : 0);
         src += step;
       }
-    } else if (vec) {
+    } else if constexpr (PB == 16) {
       constexpr int EPC = 16 / sizeof(XT);  // elements per piece
       constexpr int CPR = kTN / EPC;        // pieces per depth row
 #pragma unroll
@@ -505,13 +525,24 @@ __global__ void __launch_bounds__(kThreads, 2)
         const bool ok = d0 + dr < D && n0 + c < n_end;
         cp_async16(xs + dr * XLD + c, ok ? x + (size_t)(d0 + dr) * N + n0 + c : x, ok ? 16 : 0);
       }
-    } else {
-      const unsigned* xr = reinterpret_cast<const unsigned*>(x);
-      unsigned* xw = reinterpret_cast<unsigned*>(xs);
+    } else {  // xt in 4-byte pieces (K4r): one pointer, depths 2 apart
+      // A thread's 8 elements share its column tid % kTN and take depths
+      // tid / kTN + 2 v: one pointer stepped 2 N a copy, one column bound
+      // and one count of depths left; asynchronous, so that the ring
+      // overlaps them with the FMAs (a synchronous copy an element waited
+      // for its round trip in every issue: PERF.md)
+      constexpr int kDepthStep = kThreads / kTN;  // depths between a thread's pieces
+      const int dr = tid / kTN, c = tid % kTN;
+      const int depths_left = D - d0 - dr;  // its depths dr + kDepthStep v below D
+      const bool col_ok = n0 + c < n_end;
+      const XT* src = x + ((size_t)(d0 + dr) * N + n0 + c);
+      const size_t step = (size_t)kDepthStep * N;
+      XT* dst = xs + dr * XLD + c;
 #pragma unroll
-      for (int v = 0; v < kRDK * kTN / kThreads; ++v) {
-        const int p = tid + v * kThreads, dr = p / kTN, c = p % kTN;
-        xw[dr * XLD + c] = (d0 + dr < D && n0 + c < n_end) ? xr[(size_t)(d0 + dr) * N + n0 + c] : 0u;
+      for (int v = 0; v < kRDK / kDepthStep; ++v) {
+        const bool ok = col_ok && kDepthStep * v < depths_left;
+        cp_async4(dst + kDepthStep * v * XLD, ok ? src : x, ok ? 4 : 0);
+        src += step;
       }
     }
   };
@@ -632,37 +663,35 @@ __global__ void __launch_bounds__(kThreads, 2)
 
 template <bool TRANS, int QT>
 cudaError_t launch_rows(const float* q, int ldq, const float* x, const float* bias, int B, int N,
-                        int D, int k, int rows_per_split, int splits, int grid_x, int vec,
-                        bool ragged, long long smem, float* part_s, int* part_i, float* bound,
+                        int D, int k, int rows_per_split, int splits, int grid_x, bool ragged,
+                        long long smem, float* part_s, int* part_i, float* bound,
                         cudaStream_t st) {
   using L = RowLayout<float, TRANS, QT>;
   if (smem != (long long)L::kSmem || rows_per_split % kTN != 0 || (long long)grid_x * QT < B ||
       (long long)(grid_x - 1) * QT >= B || ldq % 4 != 0 || ldq < D) {
     return cudaErrorInvalidValue;
   }
-  auto kern = rows_pass1<float, TRANS, QT, 16>;
-  if constexpr (!TRANS) {
-    if (ragged) kern = rows_pass1<float, TRANS, QT, 4>;  // 4-byte pieces
-  }
+  // 16- or 4-byte pieces
+  auto kern = ragged ? rows_pass1<float, TRANS, QT, 4> : rows_pass1<float, TRANS, QT, 16>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   kern<<<dim3(grid_x, splits), kThreads, (size_t)smem, st>>>(
-      q, ldq, x, bias, B, N, D, k, rows_per_split, vec, part_s, part_i, bound);
+      q, ldq, x, bias, B, N, D, k, rows_per_split, part_s, part_i, bound);
   return cudaGetLastError();
 }
 
 // layout 1: K2 over x [N, D]; 2: K3, which runs K2's schedule; 3: K4 over
-// xt [D, N]; query tiles of query_tile (32, 64 or 128) rows; ragged
-// (layouts 1 and 2): rows in 4-byte pieces. f32 only: a bf16 corpus runs
-// on the tensor cores (flat_topk_tc.cu).
+// xt [D, N]; query tiles of query_tile (32, 64 or 128) rows; ragged: rows
+// (layout 3: xt's rows) in 4-byte pieces. f32 only: a bf16 corpus runs on
+// the tensor cores (flat_topk_tc.cu).
 cudaError_t dispatch_rows(int layout, int query_tile, const float* q, int ldq, const float* x,
                           const float* bias, int B, int N, int D, int k, int rows_per_split,
-                          int splits, int grid_x, int vec, bool ragged, long long smem,
-                          float* part_s, int* part_i, float* bound, cudaStream_t st) {
-#define CG_ROWS(TRANS, QT)                                                                 \
-  launch_rows<TRANS, QT>(q, ldq, x, bias, B, N, D, k, rows_per_split, splits, grid_x, vec, \
-                         ragged, smem, part_s, part_i, bound, st)
+                          int splits, int grid_x, bool ragged, long long smem, float* part_s,
+                          int* part_i, float* bound, cudaStream_t st) {
+#define CG_ROWS(TRANS, QT)                                                                   \
+  launch_rows<TRANS, QT>(q, ldq, x, bias, B, N, D, k, rows_per_split, splits, grid_x, ragged, \
+                         smem, part_s, part_i, bound, st)
   if (layout < 1 || layout > 3) return cudaErrorInvalidValue;
   const bool trans = layout == 3;
   switch (query_tile) {
@@ -691,11 +720,12 @@ long long rows_smem(int layout, int query_tile) {
   return 0;
 }
 
-// Whether f32 rows x [N, D] can be read in `piece`-byte pieces: 16 (D % 4
-// == 0 and x 16-byte aligned) or 4 (x 4-byte aligned).
-bool f32_piece_ok(const void* x, int D, int piece) {
+// Whether f32 rows of `len` elements (x [N, D]: D; xt [D, N]: N) can be
+// read in `piece`-byte pieces: 16 (len % 4 == 0 and x 16-byte aligned) or 4
+// (x 4-byte aligned).
+bool f32_piece_ok(const void* x, int len, int piece) {
   const size_t a = reinterpret_cast<size_t>(x);
-  return piece == 16 ? D % 4 == 0 && (a & 15) == 0 : piece == 4 && (a & 3) == 0;
+  return piece == 16 ? len % 4 == 0 && (a & 15) == 0 : piece == 4 && (a & 3) == 0;
 }
 
 }  // namespace
@@ -745,19 +775,16 @@ int flat_topk(const float* q, const float* x, const float* bias, int B, int N, i
 
 // K2/K3/K4: row tiles (layout 1, 2 or 3) over grid_x = ceil(B / query_tile)
 // query tiles of query_tile (32, 64 or 128) rows; q is [B, ldq] (ldq % 4 == 0,
-// 16-byte aligned, zero past D); for layouts 1 and 2, f32 rows read in
-// `piece`-byte pieces (rows_pass1's PB): 16 (D % 4 == 0, x 16-byte
-// aligned) or 4 (any D, x 4-byte aligned); for layout 3 (piece ignored),
-// vec = 1 reads xt in 16-byte pieces (N % 4 == 0, 16-byte aligned), else
-// an element at a time. smem must equal flat_topk_rows_smem(layout,
-// query_tile); bound holds B * splits f32 set to NEG_INF (-1e30).
+// 16-byte aligned, zero past D); f32 rows (layout 3: xt's rows of N) read
+// in `piece`-byte pieces (rows_pass1's PB): 16 (D, or N, % 4 == 0 and x
+// 16-byte aligned) or 4 (any, x 4-byte aligned). smem must equal
+// flat_topk_rows_smem(layout, query_tile); bound holds B * splits f32 set
+// to NEG_INF (-1e30).
 int flat_topk_rows(const float* q, int ldq, const float* x, const float* bias, int B, int N, int D,
                    int k, int layout, int splits, int rows_per_split, int grid_x, int query_tile,
-                   int vec, int piece, long long smem, int group, float* out_s, int* out_i,
-                   float* work_s, int* work_i, float* bound, void* stream) {
-  const bool x_ok = layout == 3
-                        ? !vec || (N % 4 == 0 && (reinterpret_cast<size_t>(x) & 15) == 0)
-                        : f32_piece_ok(x, D, piece);
+                   int piece, long long smem, int group, float* out_s, int* out_i, float* work_s,
+                   int* work_i, float* bound, void* stream) {
+  const bool x_ok = f32_piece_ok(x, layout == 3 ? N : D, piece);
   if (B < 1 || N < 1 || D < 1 || k < 1 || k > 1024 || splits < 1 || group < 2 ||
       rows_per_split < 1 || (long long)splits * rows_per_split < N ||
       (long long)(splits - 1) * rows_per_split >= N || !x_ok ||
@@ -768,8 +795,7 @@ int flat_topk_rows(const float* q, int ldq, const float* x, const float* bias, i
   float* part_s = splits == 1 ? out_s : work_s;
   int* part_i = splits == 1 ? out_i : work_i;
   cudaError_t err = dispatch_rows(layout, query_tile, q, ldq, x, bias, B, N, D, k, rows_per_split,
-                                  splits, grid_x, vec, layout != 3 && piece == 4, smem, part_s,
-                                  part_i, bound, st);
+                                  splits, grid_x, piece == 4, smem, part_s, part_i, bound, st);
   if (err != cudaSuccess) return (int)err;
   if (splits == 1) return 0;
   return (int)merge_splits(B, k, splits, group, out_s, out_i, work_s, work_i, st);

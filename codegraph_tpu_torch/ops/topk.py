@@ -33,7 +33,10 @@ sorted descending.
   and otherwise as `streaming_topk_cuda_tc_xt_ragged` ("K4tcr") and
   `streaming_topk_cuda_tc3_xt_ragged` ("K4tc3r"), the same kernel with the
   two boxes of each stage written by the ragged-row producer
-  (`swizzled_xt_stage` models them). An f32 xt runs `rows_pass1`.
+  (`swizzled_xt_stage` models them). An f32 xt runs `rows_pass1`, in
+  16-byte pieces where N % 4 == 0 and the base is 16-byte aligned, else
+  in 4-byte pieces as `streaming_topk_cuda_qmajor_xt_ragged` ("K4r";
+  `flat_route` of xt names the route).
 * Every embedding width runs on the card, as the JAX kernels take any D
   (`flat_route` says how rows are read). bf16 rows that TMA cannot read
   (a row not a multiple of 16 bytes, or a base not 16-byte aligned) run
@@ -169,7 +172,10 @@ def flat_route(x: torch.Tensor) -> str:
     bf16 rows "tma" (K1tc, K2tc, K2tc3) or "ragged, <piece>" (K1tcr, K2tcr,
     K2tc3r: the ragged-row producer's copies, `load_piece`); f32 rows
     "16-byte pieces" (K1, K2) or "4-byte pieces" (K1r, K2r). Every width
-    and address torch hands over takes one of them."""
+    and address torch hands over takes one of them. K4 reads xt [D, N] by
+    the same rule over its rows of N: a bf16 xt "tma" (K4tc, K4tc3,
+    `xt_tma_readable`) or "ragged, <piece>" (K4tcr, K4tc3r), an f32 xt
+    "16-byte pieces" (K4) or "4-byte pieces" (K4r)."""
     row_bytes, addr = x.shape[1] * x.element_size(), x.data_ptr()
     if x.dtype == torch.bfloat16:
         if rows_tma_readable(row_bytes, addr):
@@ -328,7 +334,7 @@ def _lib():
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.flat_topk.argtypes = [p, p, p, i, i, i, i, i, i, i, i, i, p, p, p, p, p]
         lib.flat_topk.restype = i
-        lib.flat_topk_rows.argtypes = [p, i, p, p, i, i, i, i, i, i, i, i, i, i, i, ll, i,
+        lib.flat_topk_rows.argtypes = [p, i, p, p, i, i, i, i, i, i, i, i, i, i, ll, i,
                                        p, p, p, p, p, p]
         lib.flat_topk_rows.restype = i
         lib.flat_topk_rows_smem.argtypes = [i, i]
@@ -638,7 +644,8 @@ def _launch_col(q, x, bias, k: int, tm: int, piece: int = 16):
 
 def _launch_rows(q, x, bias, k: int, layout: int, piece: int = 16):
     """K2/K3/K4: the row-tile schedule over f32 rows; x is xt [D, N] for
-    K4; rows in `piece`-byte pieces (16, or 4: K2r)."""
+    K4; rows (xt's rows of N) in `piece`-byte pieces (16, or 4: K2r,
+    K4r)."""
     lib = _lib()
     B, D = q.shape
     N = x.shape[1] if layout == K4_LAYOUT else x.shape[0]
@@ -653,20 +660,20 @@ def _launch_rows(q, x, bias, k: int, layout: int, piece: int = 16):
         q = torch.nn.functional.pad(q, (0, 4 - D % 4))
     if q.data_ptr() % 16:
         q = q.clone()
-    vec = int(layout == K4_LAYOUT and N % 4 == 0 and x.data_ptr() % 16 == 0)
     out_s, out_i, work_s, work_i = _outputs(B, k, plan.work_entries, q.device)
     bound = torch.full((plan.bound_entries,), NEG_INF, dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.flat_topk_rows(
         q.data_ptr(), q.shape[1], x.data_ptr(), bias.data_ptr(), B, N, D, k,
-        layout, plan.splits, plan.rows_per_split, plan.grid_x, plan.query_tile, vec, piece,
+        layout, plan.splits, plan.rows_per_split, plan.grid_x, plan.query_tile, piece,
         plan.smem, MERGE_GROUP, out_s.data_ptr(), out_i.data_ptr(), work_s.data_ptr(),
         work_i.data_ptr(),
         bound.data_ptr(), stream,
     )
     if err != 0:
         raise RuntimeError(f"flat_topk_rows kernel launch failed: CUDA error {err} "
-                           f"(B={B}, N={N}, D={D}, k={k}, layout={layout}, {plan})")
+                           f"(B={B}, N={N}, D={D}, k={k}, layout={layout}, piece={piece}, "
+                           f"{plan})")
     return out_s, out_i
 
 
@@ -975,13 +982,13 @@ def _tc_route(q: torch.Tensor, x: torch.Tensor):
             else streaming_topk_cuda_tc3_ragged)
 
 
-def _f32_pieces_scan(q, x, bias, k, tile_n, launch, counted):
-    """K1r's and K2r's body: the plain version on CPU tensors; on CUDA
-    tensors its kernel over f32 rows in 4-byte pieces (or a raise),
-    counted in `counted.launches`."""
+def _f32_pieces_scan(q, x, bias, k, tile_n, launch, counted, xt=False):
+    """K1r's, K2r's and (xt: x is xt [D, N]) K4r's body: the plain version
+    on CPU tensors; on CUDA tensors its kernel over f32 rows in 4-byte
+    pieces (or a raise), counted in `counted.launches`."""
     if _on_cpu(q, x, bias):
-        return streaming_topk(q, x, bias, k, tile_n)
-    _check(q, x, bias, k)
+        return streaming_topk(q, x.T if xt else x, bias, k, tile_n)
+    (_check_xt if xt else _check)(q, x, bias, k)
     if x.dtype != torch.float32:
         raise ValueError(f"the 4-byte-piece kernels read f32 rows, got x {x.dtype}")
     out = launch(q, x, bias, k)
@@ -1008,9 +1015,10 @@ def streaming_topk_cuda_qmajor_ragged(
     q: torch.Tensor, x: torch.Tensor, bias: torch.Tensor, k: int,
     tile_n: int = DEFAULT_TILE_N,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K2 and K3 over f32 rows in 4-byte pieces ("K2r": `rows_ragged_pass1`,
-    K2's row tiles, ring and pass 2), for rows 16-byte pieces cannot read;
-    it takes any f32 rows. Same contract as `streaming_topk_cuda_ragged`."""
+    """K2 and K3 over f32 rows in 4-byte pieces ("K2r": `rows_pass1<float,
+    false, QT, 4>`, K2's row tiles, ring and pass 2), for rows 16-byte
+    pieces cannot read; it takes any f32 rows. Same contract as
+    `streaming_topk_cuda_ragged`."""
     return _f32_pieces_scan(q, x, bias, k, tile_n,
                             lambda q_, x_, b_, k_: _launch_rows(q_, x_, b_, k_, K2_LAYOUT,
                                                                 piece=4),
@@ -1072,7 +1080,7 @@ def _tc_xt_route(q: torch.Tensor, xt: torch.Tensor):
     """K4's wrapper over a bf16 xt for q's dtype and xt's shape and base:
     TMA's instance where `xt_tma_readable`, else the ragged-row
     producer's."""
-    if xt_tma_readable(xt.shape[1], xt.data_ptr()):
+    if flat_route(xt) == "tma":
         return streaming_topk_cuda_tc_xt if q.dtype == torch.bfloat16 else \
             streaming_topk_cuda_tc3_xt
     return (streaming_topk_cuda_tc_xt_ragged if q.dtype == torch.bfloat16
@@ -1081,9 +1089,9 @@ def _tc_xt_route(q: torch.Tensor, xt: torch.Tensor):
 
 def _check_xt(q: torch.Tensor, xt: torch.Tensor, bias: torch.Tensor, k: int) -> None:
     """`_check` for a corpus xt [D, N]: no condition on D, N or alignment
-    (`rows_pass1` reads an f32 xt along N in 16-byte pieces or one element
-    at a time; a bf16 xt runs on the tensor cores, through TMA where
-    `xt_tma_readable`, else through the ragged-row producer)."""
+    beyond the element's (`flat_route` of xt: `rows_pass1` reads an f32 xt
+    along N in 16- or 4-byte pieces; a bf16 xt runs on the tensor cores,
+    through TMA or the ragged-row producer)."""
     if xt.dim() != 2 or q.dim() != 2 or bias.dim() != 1 or q.shape[1] != xt.shape[0] \
             or bias.shape[0] != xt.shape[1]:
         raise ValueError(f"shape mismatch: expected q [B, D], xt [D, N], bias [N], got q "
@@ -1098,6 +1106,8 @@ def _check_xt(q: torch.Tensor, xt: torch.Tensor, bias: torch.Tensor, k: int) -> 
         raise ValueError(f"bias must be float32, got {bias.dtype}")
     if not (q.is_contiguous() and xt.is_contiguous() and bias.is_contiguous()):
         raise ValueError("q, xt and bias must be contiguous")
+    if xt.data_ptr() % xt.element_size() or bias.data_ptr() % 4:
+        raise ValueError("xt and bias must be aligned to their element size")
     if not 1 <= k <= MAX_K:
         raise ValueError(f"k={k} outside the kernel's range 1..{MAX_K}")
     if xt.shape[1] >= 2**31 - 1024 or xt.numel() >= 2**62:
@@ -1115,17 +1125,37 @@ def streaming_topk_cuda_qmajor_xt(
     (`xt_tma_readable`) bf16 queries as `streaming_topk_cuda_tc_xt`
     ("K4tc") and f32 queries as `streaming_topk_cuda_tc3_xt` ("K4tc3"),
     any other bf16 xt as their `_ragged` forms ("K4tcr", "K4tc3r"); an f32
-    xt launches `rows_pass1` and counts here. Returns (scores [B, k] f32,
-    ids [B, k] int32)."""
+    xt launches `rows_pass1` in 16-byte pieces and counts here, or, where
+    `flat_route` of xt says "4-byte pieces", runs
+    `streaming_topk_cuda_qmajor_xt_ragged` ("K4r"). Returns (scores [B, k]
+    f32, ids [B, k] int32)."""
     if _on_cpu(q, xt, bias):
         return streaming_topk(q, xt.T, bias, k, tile_n)
     _check_xt(q, xt, bias, k)
     if uses_tensor_cores(q.dtype, xt.dtype):
         return _tc_xt_route(q, xt)(q, xt, bias, k, tile_n)
+    if flat_route(xt) != PIECE_NAMES[16]:
+        return streaming_topk_cuda_qmajor_xt_ragged(q, xt, bias, k, tile_n)
     out = _launch_rows(q, xt, bias, k, K4_LAYOUT)
     with _count_lock:
         streaming_topk_cuda_qmajor_xt.launches += 1
     return out
+
+
+def streaming_topk_cuda_qmajor_xt_ragged(
+    q: torch.Tensor, xt: torch.Tensor, bias: torch.Tensor, k: int,
+    tile_n: int = DEFAULT_TILE_N,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K4 over an f32 xt [D, N] in 4-byte pieces ("K4r": `rows_pass1<float,
+    true, QT, 4>`, K4's row tiles, ring and pass 2, each thread's pieces
+    asynchronous copies into the ring), for an xt that 16-byte pieces
+    cannot read (N % 4 != 0, or a base not 16-byte aligned); it takes any
+    f32 xt. CPU tensors run `streaming_topk` on xt.T; CUDA tensors launch
+    the kernel or raise."""
+    return _f32_pieces_scan(q, xt, bias, k, tile_n,
+                            lambda q_, x_, b_, k_: _launch_rows(q_, x_, b_, k_, K4_LAYOUT,
+                                                                piece=4),
+                            streaming_topk_cuda_qmajor_xt_ragged, xt=True)
 
 
 streaming_topk_cuda.launches = 0
@@ -1139,6 +1169,7 @@ streaming_topk_cuda_tc_xt.launches = 0
 streaming_topk_cuda_tc3_xt.launches = 0
 streaming_topk_cuda_ragged.launches = 0
 streaming_topk_cuda_qmajor_ragged.launches = 0
+streaming_topk_cuda_qmajor_xt_ragged.launches = 0
 streaming_topk_cuda_k1tc_ragged.launches = 0
 streaming_topk_cuda_tc_ragged.launches = 0
 streaming_topk_cuda_tc3_ragged.launches = 0
@@ -1164,6 +1195,7 @@ __all__ = [
     "streaming_topk_cuda_tc3_xt",
     "streaming_topk_cuda_ragged",
     "streaming_topk_cuda_qmajor_ragged",
+    "streaming_topk_cuda_qmajor_xt_ragged",
     "streaming_topk_cuda_k1tc_ragged",
     "streaming_topk_cuda_tc_ragged",
     "streaming_topk_cuda_tc3_ragged",

@@ -134,8 +134,9 @@ def test_kernels_match_plain_on_card(cuda_device, dtype):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_k4_matches_plain_on_card(cuda_device, dtype):
     """K4 against its plain version on its routes: an f32 xt on rows_pass1
-    (f32 queries); a bf16 xt with N % 8 == 0 on K4tc (bf16 queries) and
-    K4tc3 (f32 queries), at both query tiles and a depth that is not a
+    (f32 queries) in 16-byte pieces (N = 5000, K4) and in 4-byte pieces (N =
+    5003, K4r); a bf16 xt with N % 8 == 0 on K4tc (bf16 queries) and K4tc3
+    (f32 queries), at both query tiles and a depth that is not a
     multiple of 8 (q padded) nor of 64; a bf16 xt that TMA cannot read (N
     in {297, 300, 302, 1001, 5003}, or a base 2, 4 or 8 bytes past 16) on
     K4tcr and K4tc3r, whose ragged-row producer then copies realigned
@@ -144,7 +145,7 @@ def test_k4_matches_plain_on_card(cuda_device, dtype):
     rng = np.random.default_rng(2)
     td = getattr(torch, dtype)
     # (N, D, base in elements past the storage's start, query dtypes)
-    runs = ((5003, 768, 0, (F32,)),) if td == F32 else tuple(
+    runs = ((5000, 768, 0, (F32,)), (5003, 768, 0, (F32,))) if td == F32 else tuple(
         (N, D, offset, (BF16, F32)) for N, D, offset in (
             (5000, 768, 0), (5003, 768, 0), (1000, 100, 0), (297, 200, 0), (300, 200, 0),
             (302, 36, 0), (1001, 100, 0), (5000, 768, 1), (5000, 200, 2), (5000, 200, 4),
@@ -155,7 +156,9 @@ def test_k4_matches_plain_on_card(cuda_device, dtype):
         tq_, txt, tb = (t.to(cuda_device) for t in _t(q, np.ascontiguousarray(x.T), bias))
         txt = _offset_copy(txt.to(td), offset)
         for qd in q_dtypes:
-            counted = ttopk.streaming_topk_cuda_qmajor_xt
+            counted = (ttopk.streaming_topk_cuda_qmajor_xt
+                       if ttopk.flat_route(txt) == "16-byte pieces"
+                       else ttopk.streaming_topk_cuda_qmajor_xt_ragged)
             if td == BF16:
                 tma = ttopk.xt_tma_readable(N, txt.data_ptr())
                 assert tma == (N % 8 == 0 and offset % 8 == 0), (N, offset)
@@ -392,19 +395,27 @@ def test_ragged_pieces_exact_on_one_hot_rows_on_card(cuda_device, route):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("route", ["K1r", "K2r"])
+@pytest.mark.parametrize("route", ["K1r", "K2r", "K4r"])
 def test_f32_four_byte_pieces_match_plain_on_card(cuda_device, route):
     """K1 and K2/K3 over f32 rows that 16-byte pieces cannot read (D % 4 !=
     0, or a base one element in): the 4-byte-piece instances, through the
-    public wrappers, each call counted once in its route; K2r at its 32-,
-    64- and 128-row query tiles (B = 129 and 256 at k = 300: the 128-row
-    tile's 8 query rows a thread) at D in {1, 3, 25, 765} and bases one
-    element in."""
+    public wrappers, each call counted once in its route; K1r at B = 1, 5,
+    8 up to k = 1024 (its ring of slices beside the lists of 8 rows); K2r
+    at its 32-, 64- and 128-row query tiles (B = 129 and 256 at k = 300:
+    the 128-row tile's 8 query rows a thread) at D in {1, 3, 25, 765} and
+    bases one element in. K4 over f32 xt [D, N] of N in {297, 300, 302,
+    1001, 5003} at bases 0 and one element in: K4r (4-byte pieces) but for
+    N = 300 at base 0, which K4's 16-byte pieces read, each call counted
+    in its route, at B in {1, 31, 32, 129, 256} (the 32-, 64- and 128-row
+    query tiles) and k up to 1024, above the live count."""
     rng = np.random.default_rng(28)
+    if route == "K4r":
+        _k4r_on_card(rng, cuda_device)
+        return
     counted = (ttopk.streaming_topk_cuda_ragged if route == "K1r"
                else ttopk.streaming_topk_cuda_qmajor_ragged)
     # (wrapper, batches, k)
-    calls = (((ttopk.streaming_topk_cuda, (1, 5, 8), (1, 30, 300)),) if route == "K1r" else
+    calls = (((ttopk.streaming_topk_cuda, (1, 5, 8), (1, 30, 300, 1024)),) if route == "K1r" else
              ((ttopk.streaming_topk_cuda_qmajor, (33, 64, 70), (1, 30, 300)),
               (ttopk.streaming_topk_cuda_qres, (129,), (1, 30, 300)),
               (ttopk.streaming_topk_cuda_qmajor, (129, 256), (300,))))
@@ -420,6 +431,31 @@ def test_f32_four_byte_pieces_match_plain_on_card(cuda_device, route):
             for B in batches:
                 for k in ks:
                     _held(fn, tq_[:B].contiguous(), tx, tb, k, counted)
+
+
+def _k4r_on_card(rng, dev):
+    """test_f32_four_byte_pieces_match_plain_on_card's K4 cases."""
+    for N, D in ((297, 200), (300, 200), (302, 36), (1001, 100), (5003, 200)):
+        q, x, bias = _case(rng, 256, N, D, dead_frac=0.01)
+        x[N - 1] = x[3]  # an exact tie across tiles
+        true = q.astype(np.float64) @ x.astype(np.float64).T + bias[None, :]
+        tq_, txt, tb = (t.to(dev) for t in _t(q, np.ascontiguousarray(x.T), bias))
+        for offset in (0, 1):
+            xt = _offset_copy(txt, offset)
+            four = (N, offset) != (300, 0)
+            assert ttopk.flat_route(xt) == ("4-byte pieces" if four else "16-byte pieces")
+            counted = (ttopk.streaming_topk_cuda_qmajor_xt_ragged if four
+                       else ttopk.streaming_topk_cuda_qmajor_xt)
+            for B in (1, 31, 32, 129, 256):
+                for k in (1, 30, 300, 1024):
+                    qb = tq_[:B].contiguous()
+                    before = counted.launches
+                    ks, ki = ttopk.streaming_topk_cuda_qmajor_xt(qb, xt, tb, k)
+                    torch.cuda.synchronize()
+                    assert counted.launches == before + 1, (counted.__name__, N, offset, B, k)
+                    ps, pi = ttopk.streaming_topk(qb, xt.T, tb, k)
+                    assert_topk_equiv(ks.cpu(), ki.cpu(), ps.cpu(), pi.cpu(), None, None, None,
+                                      true=true[:B])
 
 
 # -- K5-K7: csrc/int8_topk.cu ---------------------------------------------------

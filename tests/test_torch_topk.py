@@ -516,6 +516,23 @@ def test_k1_variant_tool_anchors_in_source(name):
         assert hasattr(ttopk, const)
 
 
+@pytest.mark.parametrize("table,name", [(t, n) for t in ("RAGGED_K1_VARIANTS", "RAGGED_XT_VARIANTS")
+                                         for n in getattr(_variants_tool(), t)])
+def test_ragged_k1_and_xt_variant_tool_anchors_in_source(table, name):
+    """Every text change of tools/flat_topk_variants.py's RAGGED_K1_VARIANTS
+    (K1r's copies) and RAGGED_XT_VARIANTS (K4r's) still applies to
+    csrc/flat_topk.cu, once, so that the tool times what it names."""
+    from codegraph_tpu_torch.ops import cuda_build
+
+    tool = _variants_tool()
+    srcs = [(cuda_build.CSRC_DIR / f).read_text() for f in tool.SOURCES]
+    subs, consts, _ = getattr(tool, table)[name]
+    for anchor, _ in subs:
+        assert [src.count(anchor) for src in srcs if anchor in src][:1] == [1]
+    for const in consts:
+        assert hasattr(ttopk, const)
+
+
 def test_kernel_build_refuses_without_nvcc(monkeypatch, tmp_path):
     """No nvcc, no kernel: the build raises; nothing falls back."""
     import shutil
@@ -567,6 +584,63 @@ def test_k4_ragged_n_and_odd_depth(rng):
     ts, ti = ttopk.streaming_topk_cuda_qmajor_xt(*args, 50)
     es, ei = jtopk.exact_topk(q, x, 50, bias=bias)
     assert_topk_equiv(ts, ti, es, ei, q, x, bias)
+
+
+#: the xt of the route tests: N odd, N % 4 = 2 and N % 4 = 0 (300; as
+#: bf16 rows of 600 bytes, 8-byte pieces)
+XT_N = (297, 300, 302, 1001, 5003)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("offset_bytes", [0, 4])
+@pytest.mark.parametrize("N", XT_N)
+def test_flat_route_of_xt_follows_n_and_base(N, offset_bytes, dtype):
+    """`flat_route` of xt [D, N] names how K4 reads it, from N and the
+    base: an f32 xt in 16-byte pieces (K4) only where N % 4 == 0 at a
+    16-byte aligned base, else in 4-byte pieces (K4r); a bf16 xt through
+    TMA only where N % 8 == 0 at an aligned base, else through the
+    ragged-row producer's widest piece (`load_piece` of rows of 2N bytes)
+    or realigned words."""
+    td = getattr(torch, dtype)
+    xt = _at_offset(40, N, td, offset_bytes // torch.empty(0, dtype=td).element_size())
+    assert xt.data_ptr() % 16 == offset_bytes
+    if td == torch.float32:
+        want = "16-byte pieces" if (N, offset_bytes) == (300, 0) else "4-byte pieces"
+    else:
+        piece = {297: "bytes", 300: "8-byte pieces", 302: "4-byte pieces", 1001: "bytes",
+                 5003: "bytes"}[N]
+        if offset_bytes and piece == "8-byte pieces":
+            piece = "4-byte pieces"
+        want = "ragged, " + piece
+    assert ttopk.flat_route(xt) == want
+    ttopk._check_xt(torch.zeros((3, 40), dtype=td), xt, torch.zeros(N), 10)
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("N,k", [(297, 30), (302, 300), (1001, 100), (5003, 10)])
+def test_k4r_wrapper_matches_jax_pallas(rng, N, k, offset):
+    """The K4 wrapper over an f32 xt that 16-byte pieces cannot read (its
+    route K4r; the plain path on CPU tensors), N odd or N % 4 = 2 and a
+    base one element in, vs `streaming_topk_pallas_qmajor_xt` in interpret
+    mode on the same xt padded with zero columns to whole tiles, whose bias
+    is NEG_INF: ids equal outside ties, scores within 1e-5."""
+    B, D, tile_n = 64, 64, 256
+    q, x, bias = _case(rng, B, N, D, dead_frac=0.01)
+    x[N - 1] = x[3]  # an exact tie across tiles
+    xt = _at_offset(D, N, torch.float32, offset)
+    xt.copy_(torch.from_numpy(np.ascontiguousarray(x.T)))
+    assert ttopk.flat_route(xt) == "4-byte pieces"
+    tq, tb = _t(q, bias)
+    ts, ti = ttopk.streaming_topk_cuda_qmajor_xt(tq, xt, tb, k)
+    n_pad = -(-N // tile_n) * tile_n
+    xt_pad = np.zeros((D, n_pad), np.float32)
+    xt_pad[:, :N] = x.T
+    bias_pad = np.full(n_pad, ttopk.NEG_INF, np.float32)
+    bias_pad[:N] = bias
+    js, ji = jtopk.streaming_topk_pallas_qmajor_xt(jnp.asarray(q), jnp.asarray(xt_pad),
+                                                   jnp.asarray(bias_pad), k, tile_n=tile_n,
+                                                   tile_b=64, interpret=True)
+    assert_topk_equiv(ts, ti, js, ji, q, x, bias)
 
 
 @pytest.mark.parametrize("bad,err", [

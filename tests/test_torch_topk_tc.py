@@ -65,7 +65,8 @@ def test_xt_route_is_set_by_n_and_alignment(N, addr, want):
 COUNTED = ("streaming_topk_cuda", "streaming_topk_cuda_qmajor", "streaming_topk_cuda_qres",
            "streaming_topk_cuda_qmajor_xt", "streaming_topk_cuda_tc", "streaming_topk_cuda_tc3",
            "streaming_topk_cuda_k1tc", "streaming_topk_cuda_tc_xt", "streaming_topk_cuda_tc3_xt",
-           "streaming_topk_cuda_tc_xt_ragged", "streaming_topk_cuda_tc3_xt_ragged")
+           "streaming_topk_cuda_tc_xt_ragged", "streaming_topk_cuda_tc3_xt_ragged",
+           "streaming_topk_cuda_qmajor_xt_ragged")
 
 
 @pytest.fixture
@@ -76,8 +77,8 @@ def card_routes(monkeypatch):
     producer's instances, " ragged" (K4 for xt, else None)."""
     seen = []
 
-    def rows(q, x, bias, k, layout):
-        seen.append(("rows_pass1", layout, q.dtype))
+    def rows(q, x, bias, k, layout, piece=16):
+        seen.append(("rows_pass1" + ("" if piece == 16 else f" {piece}-byte"), layout, q.dtype))
         return ttopk.streaming_topk(q, x.T if layout == K4 else x, bias, k)
 
     def col(q, x, bias, k, tm):
@@ -162,6 +163,29 @@ def test_k4_bf16_xt_route_follows_n_and_alignment(rng, card_routes, q_dtype, N, 
     else:
         assert card_routes == [(f"tensor cores x{pieces} ragged", K4, q_dtype)]
         assert _launches() == {xt_name + "_ragged": 1}
+
+
+@pytest.mark.parametrize("offset", [0, 1, 2])
+@pytest.mark.parametrize("N", [296, 297, 300, 302])
+def test_k4_f32_xt_route_follows_n_and_alignment(rng, card_routes, N, offset):
+    """K4 over an f32 xt runs rows_pass1 in 16-byte pieces, counted in K4's
+    launches, only where N % 4 == 0 at a 16-byte aligned base; any other
+    f32 xt (N odd or N % 4 = 2, or a base 4 or 8 bytes past 16 inside a
+    larger buffer) in 4-byte pieces, K4r, counted in its own launches."""
+    q, x, bias = _case(rng, 40, N, 64)
+    tq, tx, tb = _t(q, x, bias)
+    buf = torch.zeros(64 * N + 16)
+    base = (-buf.data_ptr() // 4) % 4 + offset  # elements to a 16-byte boundary, then offset
+    txt = buf[base: base + 64 * N].view(64, N)
+    txt.copy_(tx.T)
+    assert (txt.data_ptr() % 16 == 0) == (offset == 0)
+    s, i = ttopk.streaming_topk_cuda_qmajor_xt(tq, txt, tb, 10)
+    four = N % 4 != 0 or offset != 0
+    assert ttopk.flat_route(txt) == ("4-byte pieces" if four else "16-byte pieces")
+    assert card_routes == [("rows_pass1 4-byte" if four else "rows_pass1", K4, F32)]
+    assert _launches() == {"streaming_topk_cuda_qmajor_xt" + ("_ragged" if four else ""): 1}
+    es, ei = ttopk.streaming_topk(tq, tx, tb, 10)
+    assert torch.equal(s, es) and torch.equal(i, ei)
 
 
 @pytest.mark.parametrize("q_dtype,x_dtype", [(BF16, BF16), (F32, BF16), (BF16, F32), (F32, F32)])

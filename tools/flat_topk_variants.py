@@ -6,6 +6,8 @@ NVIDIA GPU.
     python3 tools/flat_topk_variants.py [--rows 1000000] [--only NAME,NAME]
     python3 tools/flat_topk_variants.py --k1 [--old-csrc DIR] [--rows 1000000] [--only ...]
     python3 tools/flat_topk_variants.py --ragged [--rows 1000000] [--only NAME,NAME]
+    python3 tools/flat_topk_variants.py --ragged-k1 [--rows 1000000] [--only NAME,NAME]
+    python3 tools/flat_topk_variants.py --ragged-xt [--rows 1000000] [--only NAME,NAME]
 
 Each variant is the committed csrc/flat_topk.cu and csrc/topk_merge.cuh
 with its text changes and ops/topk.py constants (below), built and loaded
@@ -44,6 +46,23 @@ Its timing-only variants take K2r's corpus copies out (the ring's corpus
 slices stay zero) or replace them by 16-byte copies of the same bytes
 rounded down to 16-byte addresses (wrong values); the others are
 candidate designs of the copies, checked against a chunked matmul + topk.
+
+With --ragged-k1 the variants are RAGGED_K1_VARIANTS of K1r
+(`topk_ragged_pass1`: K1 over f32 rows in 4-byte pieces), timed through
+K1's wrapper at RAGGED_K1_SHAPES (B = 1, 8; k = 30, 300) over 1% tombstoned
+f32 rows at D = 765 beside K1's 16-byte instance at D = 764, median ms over
+7 batches: the shipped loads (one row pointer a thread, into registers),
+the same under register caps of 3 and 4 blocks an SM, the earlier loads
+(an address and two bounds a piece), 4-byte cp.async straight into rings
+of 3 and 2 transposed slices, and timing-only variants without corpus
+loads or with 16-byte loads of the same bytes, addresses rounded down.
+
+With --ragged-xt the variants are RAGGED_XT_VARIANTS of K4r (`rows_pass1<float,
+true, QT, 4>`: an f32 xt that 16-byte pieces cannot read), timed through
+K4's wrapper at RAGGED_SHAPES over xt [768, N] of N = rows + 3 (odd) and
+rows + 2 (N % 4 = 2) beside K4's 16-byte instance over N = rows: the
+shipped asynchronous 4-byte copies, 8-byte copies where N is even and the
+base 8-byte aligned, and the earlier synchronous copy an element.
 """
 
 import argparse
@@ -316,6 +335,203 @@ RAGGED_VARIANTS = {
         [(K2R_COPIES, K2R_REALIGNED), (ISSUE_NEXT, K2R_REALIGN_PASS)], {}, True),
 }
 RAGGED_SHAPES = tuple((B, k) for B in (64, 256, 1024) for k in (30, 300))
+# --- K1r: f32 rows in 4-byte pieces (topk_ragged_pass1) ------------------------
+# K1r's loads as shipped: one row pointer a thread, rows 8 apart, into registers
+K1R_LOADS = """    if constexpr (PB == 4) {  // one row pointer, rows kThreads / VPR apart
+      // A thread's XV pieces share its depth tid % VPR and take rows tid /
+      // VPR + kRowStep v (the rows store() writes them to)
+      constexpr int kRowStep = kThreads / VPR;
+      const int r = tid / VPR, c = tid % VPR;
+      const int rows_left = n_end - n0 - r;  // its rows r + kRowStep v below n_end
+      const bool col_ok = d0 + c < D;
+      const XT* src = x + ((size_t)(n0 + r) * D + d0 + c);
+      const size_t stride = (size_t)kRowStep * D;
+#pragma unroll
+      for (int v = 0; v < XV; ++v) {
+        xr[v] = col_ok && kRowStep * v < rows_left ? *reinterpret_cast<const Piece*>(src) : Piece{};
+        src += stride;
+      }
+    } else {
+"""
+# the 16-byte instance's loads (and K1r's earlier ones: an address and two
+# bounds a piece)
+K1_LOADS = """#pragma unroll
+      for (int v = 0; v < XV; ++v) {
+        const int vi = tid + v * kThreads, r = vi / VPR, d = d0 + (vi % VPR) * EPV;
+        xr[v] = (n0 + r < n_end && d < D)
+                    ? *reinterpret_cast<const Piece*>(x + (size_t)(n0 + r) * D + d)
+                    : Piece{};
+      }
+    }
+"""
+K1R_BOUNDS = "__launch_bounds__(kThreads)\n    topk_ragged_pass1"
+K1_DK = "constexpr int kDK = 32;  // depth staged per step"
+K1R_BODY = "  topk_body<float, WR, TM, TNN, 4>(q, x, bias, B, N, D, k, rows_per_split, part_s, part_i);"
+# 16-byte loads of the same bytes, each address rounded down to 16 bytes
+# where the row length is not a multiple of 4 (the 16-byte instance beside
+# it pays a no-op mask)
+K1R_ALIGNED16 = K1_LOADS.replace(
+    "*reinterpret_cast<const Piece*>(x + (size_t)(n0 + r) * D + d)",
+    "*reinterpret_cast<const Piece*>(\n"
+    "                          reinterpret_cast<size_t>(x + (size_t)(n0 + r) * D + d) &\n"
+    "                          (D & 3 ? ~(size_t)15 : ~(size_t)0))")
+# 4-byte cp.async straight into the transposed slices of a ring of
+# kK1rStages (a K1r design timed and not kept): no register holds a piece
+K1R_RING = [
+    ("constexpr int kDK = 32;  // depth staged per step\n",
+     "constexpr int kDK = 32;  // depth staged per step\nconstexpr int kK1rStages = 3;\n"),
+    ("""  static size_t smem(int k) {
+    return sizeof(float) * ((size_t)kDK * QLD + (size_t)kDK * XLD +
+                            (size_t)BT * TN) +""",
+     """  static constexpr int kSlice = kDK * QLD + kDK * XLD;
+  static size_t smem(int k, int slices = 1) {
+    return sizeof(float) * ((size_t)slices * kSlice + (size_t)BT * TN) +"""),
+    ("  constexpr int BT = L::BT, TN = L::TN, QLD = L::QLD, XLD = L::XLD, WC = L::WC;\n",
+     "  constexpr int BT = L::BT, TN = L::TN, QLD = L::QLD, XLD = L::XLD, WC = L::WC;\n"
+     "  constexpr bool kRing = PB == 4;\n  constexpr int kSlices = kRing ? kK1rStages : 1;\n"),
+    ("  float* ss = xs + kDK * XLD;                  // [BT][TN]\n",
+     "  float* ss = qs + kSlices * L::kSlice;        // [BT][TN]\n"),
+    ("  auto store = [&]() {", """  auto issue = [&](int s) {  // step s into ring slot s % kSlices
+    float* qw = qs + (s % kSlices) * L::kSlice;
+    float* xw = qw + kDK * QLD;
+    const int n0 = n_begin + (s / n_chunks) * TN;
+    const int d0 = (s % n_chunks) * kDK;
+    const int rows_left = n_end - n0 - warp;
+    const bool col_ok = d0 + lane < D;
+    const XT* src = x + ((size_t)(n0 + warp) * D + d0 + lane);
+    const size_t stride = (size_t)kWarps * D;
+    auto copy4 = [](void* dst, const void* from, int bytes) {
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\\n" ::"r"(
+                       static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+                   "l"(from), "r"(bytes)
+                   : "memory");
+    };
+#pragma unroll
+    for (int v = 0; v < TN / kWarps; ++v) {
+      const bool ok = col_ok && kWarps * v < rows_left;
+      copy4(xw + lane * XLD + warp + kWarps * v, ok ? src : x, ok ? 4 : 0);
+      src += stride;
+    }
+    if (warp < BT) {  // query row b0 + warp at the same depth
+      const bool ok = col_ok && b0 + warp < B;
+      copy4(qw + lane * QLD + warp, ok ? q + (size_t)(b0 + warp) * D + d0 + lane : q, ok ? 4 : 0);
+    }
+  };
+  auto store = [&]() {"""),
+    ("""  if (steps > 0) load(0);
+  for (int step = 0; step < steps; ++step) {""", """  if constexpr (kRing) {
+#pragma unroll 1
+    for (int s = 0; s < kSlices - 1; ++s) {
+      if (s < steps) issue(s);
+      asm volatile("cp.async.commit_group;\\n" ::: "memory");
+    }
+  } else {
+    if (steps > 0) load(0);
+  }
+  for (int step = 0; step < steps; ++step) {"""),
+    ("""    store();
+    __syncthreads();
+    if (step + 1 < steps) load(step + 1);  // in flight during the FMAs below
+    const float* qstep = qs;
+""", """    if constexpr (kRing) {
+      asm volatile("cp.async.wait_group %0;\\n" ::"n"(kSlices - 2) : "memory");
+      __syncthreads();
+      if (step + kSlices - 1 < steps) issue(step + kSlices - 1);
+      asm volatile("cp.async.commit_group;\\n" ::: "memory");
+    } else {
+      store();
+      __syncthreads();
+      if (step + 1 < steps) load(step + 1);
+    }
+    const float* qstep = qs + (step % kSlices) * L::kSlice;
+    const float* xstep = qstep + kDK * QLD;
+"""),
+    ("xv[j] = xs[c * XLD + wc * 32 * TNN + lane + 32 * j];",
+     "xv[j] = xstep[c * XLD + wc * 32 * TNN + lane + 32 * j];"),
+    ("""    }
+    __syncthreads();
+    if (chunk != n_chunks - 1) continue;""", """    }
+    if constexpr (!kRing) __syncthreads();
+    if (chunk != n_chunks - 1) continue;"""),
+    ("  const size_t smem = L::smem(k);\n  auto kern = ragged",
+     "  const size_t smem = L::smem(k, ragged ? kK1rStages : 1);\n  auto kern = ragged"),
+]
+RAGGED_K1_VARIANTS = {
+    "shipped": ([], {}, True),
+    "at most 80 registers (3 blocks an SM)": (
+        [(K1R_BOUNDS, K1R_BOUNDS.replace("kThreads)", "kThreads, 3)"))], {}, True),
+    "at most 64 registers (4 blocks an SM)": (
+        [(K1R_BOUNDS, K1R_BOUNDS.replace("kThreads)", "kThreads, 4)"))], {}, True),
+    "an address and two bounds a piece (the earlier loads)": ([(K1R_LOADS, "    {\n")], {}, True),
+    "16-deep steps (K1 too)": ([(K1_DK, K1_DK.replace("32", "16"))], {}, True),
+    "16-deep steps (K1 too) capped at 80 registers": (
+        [(K1_DK, K1_DK.replace("32", "16")),
+         (K1R_BOUNDS, K1R_BOUNDS.replace("kThreads)", "kThreads, 3)"))], {}, True),
+    "16-deep steps (K1 too) capped at 64 registers": (
+        [(K1_DK, K1_DK.replace("32", "16")),
+         (K1R_BOUNDS, K1R_BOUNDS.replace("kThreads)", "kThreads, 4)"))], {}, True),
+    "4-byte cp.async into a ring of 3 slices": (K1R_RING, {}, True),
+    "4-byte cp.async into a ring of 2 slices": (
+        [(K1R_RING[0][0], K1R_RING[0][1].replace("= 3;", "= 2;"))] + K1R_RING[1:], {}, True),
+    "no corpus loads (timing only)": (
+        [(K1R_LOADS, K1R_LOADS.replace(
+            "col_ok && kRowStep * v < rows_left ? *reinterpret_cast<const Piece*>(src) : Piece{}",
+            "Piece{}"))], {}, False),
+    "16-byte loads of the same bytes at addresses rounded down (timing only)": (
+        [(K1R_BODY, K1R_BODY.replace(", 4>", ", 16>")), (K1_LOADS, K1R_ALIGNED16)], {}, False),
+}
+RAGGED_K1_SHAPES = ((1, 30), (1, 300), (8, 30), (8, 300))
+# --- K4r: an f32 xt in 4-byte pieces (rows_pass1<float, true, QT, 4>) -----------
+K4R_COPIES = """      constexpr int kDepthStep = kThreads / kTN;  // depths between a thread's pieces
+      const int dr = tid / kTN, c = tid % kTN;
+      const int depths_left = D - d0 - dr;  // its depths dr + kDepthStep v below D
+      const bool col_ok = n0 + c < n_end;
+      const XT* src = x + ((size_t)(d0 + dr) * N + n0 + c);
+      const size_t step = (size_t)kDepthStep * N;
+      XT* dst = xs + dr * XLD + c;
+#pragma unroll
+      for (int v = 0; v < kRDK / kDepthStep; ++v) {
+        const bool ok = col_ok && kDepthStep * v < depths_left;
+        cp_async4(dst + kDepthStep * v * XLD, ok ? src : x, ok ? 4 : 0);
+        src += step;
+      }
+"""
+# 8-byte copies (two columns) where N is even and the base 8-byte aligned:
+# a split ends at an even column, so a pair is wholly in or out
+K4R_EIGHT = """      if ((N & 1) == 0 && (reinterpret_cast<size_t>(x) & 7) == 0) {
+        constexpr int kDepthStep = kThreads / (kTN / 2);
+        const int dr = tid / (kTN / 2), c = (tid % (kTN / 2)) * 2;
+        const int depths_left = D - d0 - dr;
+        const bool col_ok = n0 + c < n_end;
+        const XT* src = x + ((size_t)(d0 + dr) * N + n0 + c);
+        const size_t step = (size_t)kDepthStep * N;
+        XT* dst = xs + dr * XLD + c;
+#pragma unroll
+        for (int v = 0; v < kRDK / kDepthStep; ++v) {
+          const bool ok = col_ok && kDepthStep * v < depths_left;
+          asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\\n" ::"r"(
+                           smem_u32(dst + kDepthStep * v * XLD)),
+                       "l"(ok ? src : x), "r"(ok ? 8 : 0)
+                       : "memory");
+          src += step;
+        }
+      } else {
+""" + K4R_COPIES + "      }\n"
+# the copy before K4r's: an element a thread, loaded and stored by the thread
+K4R_SYNC = """      const unsigned* xr = reinterpret_cast<const unsigned*>(x);
+      unsigned* xw = reinterpret_cast<unsigned*>(xs);
+#pragma unroll
+      for (int v = 0; v < kRDK * kTN / kThreads; ++v) {
+        const int p = tid + v * kThreads, dr = p / kTN, c = p % kTN;
+        xw[dr * XLD + c] = (d0 + dr < D && n0 + c < n_end) ? xr[(size_t)(d0 + dr) * N + n0 + c] : 0u;
+      }
+"""
+RAGGED_XT_VARIANTS = {
+    "shipped": ([], {}, True),
+    "8-byte pieces where N is even and the base 8-byte aligned": ([(K4R_COPIES, K4R_EIGHT)], {},
+                                                                   True),
+    "a synchronous copy an element (the earlier copies)": ([(K4R_COPIES, K4R_SYNC)], {}, True),
+}
 
 SHAPES = (("K2", 32, 30), ("K2", 32, 300), ("K2", 64, 30), ("K2", 64, 300), ("K2", 1024, 30),
           ("K2", 1024, 300), ("K2", 256, 300), ("K4", 1024, 30), ("K4", 1024, 300))
@@ -467,6 +683,99 @@ def main_ragged(args) -> int:
     return vh.report(chosen, built, ms, bad, {n: RAGGED_VARIANTS[n][2] for n in built})
 
 
+def _f32_rows(torch, g, N, D, dev):
+    """Unit f32 rows [N, D] made on the card in chunks."""
+    x = torch.empty((N, D), device=dev)
+    for base in range(0, N, 131072):
+        n = min(131072, N - base)
+        x[base: base + n] = cs._unit(torch, torch.randn(n, D, generator=g, device=dev))
+    return x
+
+
+def main_ragged_k1(args) -> int:
+    """--ragged-k1: K1r's variants at D = 765 beside K1 at D = 764, in turns."""
+    chosen = vh.chosen(RAGGED_K1_VARIANTS, args.only)
+    built = vh.build_all(chosen, RAGGED_K1_VARIANTS, SOURCES,
+                         ("topk_ragged_pass1", "topk_pass1"), "variants_ragged_k1")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(2030)
+    N = args.rows
+    xs = {D: _f32_rows(torch, g, N, D, dev) for D in (765, 764)}
+    qs = {D: {B: [cs._unit(torch, torch.randn(B, D, generator=g, device=dev)) for _ in range(7)]
+              for B in {b for b, _ in RAGGED_K1_SHAPES}} for D in xs}
+    bias = torch.zeros(N, device=dev)
+    bias[torch.randperm(N, generator=g, device=dev)[: N // 100]] = cs.NEG_INF
+    ref = {(B, k): cs.yardstick(torch, qs[765][B][0], xs[765], bias, k)
+           for B, k in RAGGED_K1_SHAPES}
+    ms = {n: {} for n in built}
+    bad = {n: 0 for n in built}
+
+    def run(n):
+        for D, route in ((765, "K1r"), (764, "K1")):
+            for B, k in RAGGED_K1_SHAPES:
+                fn = lambda qb: topk.streaming_topk_cuda(qb, xs[D], bias, k)  # noqa: E731
+                ms[n].setdefault(f"{route} D={D} B={B} k={k}", []).append(
+                    cs._time_ms(torch, fn, qs[D][B]))
+                if D == 765 and RAGGED_K1_VARIANTS[n][2]:
+                    s_k, i_k = fn(qs[D][B][0])
+                    bad[n] += cs.check_topk(torch, qs[D][B][0], xs[D], bias, s_k, i_k,
+                                            *ref[(B, k)])[2]
+
+    vh.in_turns(built, "flat_topk", topk, run, {n: RAGGED_K1_VARIANTS[n][1] for n in built})
+    for B, k in RAGGED_K1_SHAPES:
+        lib = cs._time_ms(torch, lambda qb: cs.yardstick(torch, qb, xs[765], bias, k),
+                          qs[765][B])
+        print(json.dumps({"library": f"D=765 B={B} k={k}", "ms": lib}), flush=True)
+    return vh.report(chosen, built, ms, bad, {n: RAGGED_K1_VARIANTS[n][2] for n in built})
+
+
+def main_ragged_xt(args) -> int:
+    """--ragged-xt: K4r's variants over xt of N = rows + 3 and rows + 2
+    beside K4 over N = rows, in turns."""
+    chosen = vh.chosen(RAGGED_XT_VARIANTS, args.only)
+    built = vh.build_all(chosen, RAGGED_XT_VARIANTS, SOURCES,
+                         ("rows_pass1IfLb1ELi128ELi4E", "rows_pass1IfLb1ELi64ELi4E",
+                          "rows_pass1IfLb1ELi128ELi16E"), "variants_ragged_xt")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(2031)
+    D = 768
+    xts, bias, ref = {}, {}, {}
+    for N in (args.rows + 3, args.rows + 2, args.rows):
+        xts[N] = _f32_rows(torch, g, N, D, dev).T.contiguous()
+        torch.cuda.empty_cache()
+        bias[N] = torch.zeros(N, device=dev)
+        bias[N][torch.randperm(N, generator=g, device=dev)[: N // 100]] = cs.NEG_INF
+    qs = {B: [cs._unit(torch, torch.randn(B, D, generator=g, device=dev)) for _ in range(3)]
+          for B in {b for b, _ in RAGGED_SHAPES}}
+    for N in xts:
+        for B, k in RAGGED_SHAPES:
+            q16 = qs[B][0][:16].contiguous()
+            ref[(N, B, k)] = (q16, cs.yardstick(torch, q16, xts[N], bias[N], k, xt=True))
+    ms = {n: {} for n in built}
+    bad = {n: 0 for n in built}
+
+    def run(n):
+        for N, xt in xts.items():
+            route = "K4" if N == args.rows else "K4r"
+            for B, k in RAGGED_SHAPES:
+                fn = lambda qb: topk.streaming_topk_cuda_qmajor_xt(qb, xt, bias[N], k)  # noqa: E731
+                ms[n].setdefault(f"{route} N={N} B={B} k={k}", []).append(
+                    cs._time_ms(torch, fn, qs[B]))
+                if route == "K4r" and RAGGED_XT_VARIANTS[n][2]:
+                    q16, (s_y, i_y) = ref[(N, B, k)]
+                    s_k, i_k = fn(qs[B][0])
+                    bad[n] += cs.check_topk(torch, q16, xt.T, bias[N], s_k[:16], i_k[:16], s_y,
+                                            i_y)[2]
+
+    vh.in_turns(built, "flat_topk", topk, run, {n: RAGGED_XT_VARIANTS[n][1] for n in built})
+    for N, xt in xts.items():
+        for B, k in RAGGED_SHAPES:
+            lib = cs._time_ms(torch, lambda qb: cs.yardstick(torch, qb, xt, bias[N], k, xt=True),
+                              qs[B])
+            print(json.dumps({"library": f"xt N={N} B={B} k={k}", "ms": lib}), flush=True)
+    return vh.report(chosen, built, ms, bad, {n: RAGGED_XT_VARIANTS[n][2] for n in built})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=1_000_000)
@@ -474,6 +783,10 @@ def main() -> int:
     ap.add_argument("--k1", action="store_true", help="K1 over bf16 rows (K1_VARIANTS)")
     ap.add_argument("--ragged", action="store_true",
                     help="K2r, f32 rows in 4-byte pieces (RAGGED_VARIANTS)")
+    ap.add_argument("--ragged-k1", action="store_true",
+                    help="K1r, f32 rows in 4-byte pieces (RAGGED_K1_VARIANTS)")
+    ap.add_argument("--ragged-xt", action="store_true",
+                    help="K4r, an f32 xt in 4-byte pieces (RAGGED_XT_VARIANTS)")
     ap.add_argument("--old-csrc", default="", help="with --k1: a csrc/ directory holding the "
                     "column-warp K1 over bf16 rows, to time it too")
     args = ap.parse_args()
@@ -483,6 +796,10 @@ def main() -> int:
         return main_k1(args)
     if args.ragged:
         return main_ragged(args)
+    if args.ragged_k1:
+        return main_ragged_k1(args)
+    if args.ragged_xt:
+        return main_ragged_xt(args)
     chosen = vh.chosen(VARIANTS, args.only)
     built = vh.build_all(chosen, VARIANTS, SOURCES, ("rows_pass1IfLb0ELi128E", "rows_pass1IfLb1ELi128E",
                                                      "rows_pass1IfLb0ELi32E"), "variants")

@@ -3,12 +3,20 @@
 checkout of the repo (for example the parent commit unpacked with `git
 archive`), in turns, on one NVIDIA GPU.
 
-    python3 tools/kernel_vs_checkout.py OTHER_DIR [--kernel K2|K2r|K2tc|K4tc|K4tc3|K4tcr|K4tc3r|K6|K8]
-                                        [--rows N[,N...]] [--shapes B:k,B:k,...]
+    python3 tools/kernel_vs_checkout.py OTHER_DIR
+        [--kernel K1r|K2|K2r|K2tc|K4r|K4tc|K4tc3|K4tcr|K4tc3r|K6|K8]
+        [--rows N[,N...]] [--shapes B:k,B:k,...]
 
 K2 (`streaming_topk_cuda_qmajor`, csrc/flat_topk.cu) runs on a 1%
 tombstoned f32 corpus of unit rows at D=768, 1,000,000 rows by default;
-K2r the same wrapper over such rows at D=765 (4-byte pieces);
+K2r the same wrapper over such rows at D=765 (4-byte pieces), and K1r
+K1's wrapper (`streaming_topk_cuda`) over them; K4r
+(`streaming_topk_cuda_qmajor_xt`) over such rows at D=768 stored as an f32
+xt [D, N] whose N 16-byte pieces cannot read (1,000,003 and 1,000,002
+columns, and 1,000,000 with the base one element in: `N+1` in --rows),
+beside 1,000,000 (K4's 16-byte pieces), every N in each turn, with the
+library call on the same xt (chunked f32 torch.matmul + torch.topk, TF32
+off) timed in each turn;
 K2tc (the same wrapper over the same rows and queries rounded to bf16: the
 tensor cores, csrc/flat_topk_tc.cu) likewise; K4tc and K4tc3
 (`streaming_topk_cuda_qmajor_xt` over the same bf16 rows stored as xt [D,
@@ -51,8 +59,10 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 THREE_B = "64:30,64:300,256:30,256:300,1024:30,1024:300"
-DEFAULTS = {"K2": ("1000000", "32:30,64:30,64:300,1024:30"),
+DEFAULTS = {"K1r": ("1000000", "1:30,1:300,8:30,8:300"),
+            "K2": ("1000000", "32:30,64:30,64:300,1024:30"),
             "K2r": ("1000000", THREE_B),
+            "K4r": ("1000003,1000002,1000000+1,1000000", THREE_B),
             "K2tc": ("1000000", "64:30,64:300,256:30,256:100,256:300,1024:30,1024:300"),
             "K4tc": ("1000000", "64:30,64:300,256:30,256:300,1024:30,1024:100,1024:300"),
             "K4tc3": ("1000000", THREE_B),
@@ -132,31 +142,42 @@ def worker(root: str, kernel: str, rows, shapes) -> dict:
     from codegraph_tpu_torch.ops import quantize, topk
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    out = {"root": root, "ms": {}, "mismatches_outside_ties": 0}
-    for N in rows:
-        one = _worker_n(torch, cs, topk, quantize, kernel, N, shapes)
+    out = {"root": root, "ms": {}, "library_ms": {}, "mismatches_outside_ties": 0}
+    for n in rows:
+        one = _worker_n(torch, cs, topk, quantize, kernel, n, shapes)
         out["module"] = one["module"]
         out["mismatches_outside_ties"] += one["mismatches_outside_ties"]
-        out["ms"].update({(key if len(rows) == 1 else f"{N}:{key}"): v
-                          for key, v in one["ms"].items()})
+        for field in ("ms", "library_ms"):
+            out[field].update({(key if len(rows) == 1 else f"{n}:{key}"): v
+                               for key, v in one[field].items()})
     return out
 
 
-def _worker_n(torch, cs, topk, quantize, kernel: str, N: int, shapes) -> dict:
-    """`worker` over one corpus of N rows."""
+def _worker_n(torch, cs, topk, quantize, kernel: str, rows: str, shapes) -> dict:
+    """`worker` over one corpus of `rows` rows ("N", or "N+o": an xt whose
+    base lies o elements past a 16-byte aligned address)."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(2024)
-    D = 765 if kernel == "K2r" else 768
+    N, offset = (int(v) for v in (rows.split("+") + ["0"])[:2])
+    D = 765 if kernel in ("K1r", "K2r") else 768
     bias = torch.zeros(N, device=dev)
     bias[torch.randperm(N, generator=g, device=dev)[: N // 100]] = cs.NEG_INF
-    flat = kernel in ("K2", "K2r", "K2tc", "K4tc", "K4tc3", "K4tcr", "K4tc3r")
-    dtype = torch.float32 if kernel in ("K2", "K2r") else torch.bfloat16
+    flat = kernel in ("K1r", "K2", "K2r", "K2tc", "K4r", "K4tc", "K4tc3", "K4tcr", "K4tc3r")
+    dtype = torch.float32 if kernel in ("K1r", "K2", "K2r", "K4r") else torch.bfloat16
     q_dtype = torch.bfloat16 if kernel in ("K2tc", "K4tc", "K4tcr") else torch.float32
+    lib_fn = None
     if flat:
         x = cs._unit(torch, torch.randn(N, D, generator=g, device=dev)).to(dtype)
         if kernel.startswith("K4"):  # the rows as xt [D, N]
-            xt = x.T.contiguous()
+            xt = cs._offset_copy(torch, x.T.contiguous(), offset)
+            x = xt.T
+            torch.cuda.empty_cache()
             fn = lambda qb, k: topk.streaming_topk_cuda_qmajor_xt(qb, xt, bias, k)  # noqa: E731
+            if kernel == "K4r":
+                lib_fn = lambda qb, k: cs.yardstick(torch, qb, xt, bias, k, xt=True)  # noqa: E731
+        elif kernel == "K1r":
+            fn = lambda qb, k: topk.streaming_topk_cuda(qb, x, bias, k)  # noqa: E731
+            lib_fn = lambda qb, k: cs.yardstick(torch, qb, x, bias, k)  # noqa: E731
         else:
             fn = lambda qb, k: topk.streaming_topk_cuda_qmajor(qb, x, bias, k)  # noqa: E731
         module = topk.__file__
@@ -170,7 +191,7 @@ def _worker_n(torch, cs, topk, quantize, kernel: str, N: int, shapes) -> dict:
         fn = lambda qb, k: quantize.streaming_topk_int8_cuda_qmajor(  # noqa: E731
             qb[0], qb[1], xv, xs, bias, k)
         module = quantize.__file__
-    out = {"module": module, "ms": {}, "mismatches_outside_ties": 0}
+    out = {"module": module, "ms": {}, "library_ms": {}, "mismatches_outside_ties": 0}
     for B, k in shapes:
         qs = [cs._unit(torch, torch.randn(B, D, generator=g, device=dev)) for _ in range(7)]
         if flat:
@@ -187,6 +208,8 @@ def _worker_n(torch, cs, topk, quantize, kernel: str, N: int, shapes) -> dict:
             out["mismatches_outside_ties"] += cs.check_topk(
                 torch, None, None, None, s_k[:4], i_k[:4], s_y, i_y, judge=cs.int8_judge(*args))[2]
         out["ms"][f"{B}:{k}"] = cs._time_ms(torch, lambda qb: fn(qb, k), qs)
+        if lib_fn is not None:
+            out["library_ms"][f"{B}:{k}"] = cs._time_ms(torch, lambda qb: lib_fn(qb, k), qs[:3])
     return out
 
 
@@ -202,7 +225,7 @@ def main() -> int:
     args.rows = args.rows or DEFAULTS[args.kernel][0]
     args.shapes = args.shapes or DEFAULTS[args.kernel][1]
     shapes = [tuple(int(v) for v in s.split(":")) for s in args.shapes.split(",")]
-    rows = [int(n) for n in args.rows.split(",")]
+    rows = args.rows.split(",")
     if args.worker:
         res = (worker_k8(args.worker, shapes, args.save) if args.kernel == "K8"
                else worker(args.worker, args.kernel, rows, shapes))
@@ -239,10 +262,12 @@ def main() -> int:
               for t, n in ((0, "other"), (1, "this"))} if args.kernel == "K8" else {})
     shutil.rmtree(tmp, ignore_errors=True)
     for key in turns["this"][0]["ms"]:
-        row = {"kernel": args.kernel, "N": args.rows, "D": 765 if args.kernel == "K2r" else 768,
-               "B:k": key,
+        row = {"kernel": args.kernel, "N": args.rows,
+               "D": 765 if args.kernel in ("K1r", "K2r") else 768, "B:k": key,
                "other_ms": [t["ms"][key] for t in turns["other"]],
                "this_ms": [t["ms"][key] for t in turns["this"]]}
+        if key in turns["this"][0].get("library_ms", {}):
+            row["library_ms"] = [t["library_ms"][key] for t in turns["other"] + turns["this"]]
         if saved:  # the first batch of both checkouts, bit for bit
             (s_o, i_o), (s_t, i_t) = saved["other"][key], saved["this"][key]
             row["scores_equal"] = bool(torch.equal(s_o, s_t))
