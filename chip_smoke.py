@@ -15,7 +15,7 @@
     python3 chip_smoke.py --phases 0,15    # the bf16 main path (K1tc, K2tc) only
     python3 chip_smoke.py --phases 0,16    # the card's pytest cases (tests/test_torch_card.py)
     python3 chip_smoke.py --phases 0,1,17  # every embedding width: the ragged routes, main path at D=100
-    python3 chip_smoke.py --phases 0,5     # the int8 tier at 10M rows, K6r at 768, 760 and 765
+    python3 chip_smoke.py --phases 0,5     # the int8 tier at 10M rows; K5r, K6r at 760, 764, 765
 
 Phases, each printing one JSON object per line as it ends:
 
@@ -58,7 +58,10 @@ Phases, each printing one JSON object per line as it ends:
      100, 300}: each call launches the route the rules name (K1r, K2r;
      K1tcr, K2tcr, K2tc3r; K5r; K6r; or the 16-byte and TMA instances),
      once; K1tcr and K2tc3r over one-hot rows at D = 100 and 765 bit for
-     bit. Both: a
+     bit. K5r's own family (K5R_*): int8 rows of width 1, 3, 25, 101 and
+     765 at bases 0-3 bytes past 16, and 765 as the tail of its storage,
+     over 10,007 rows, B in {1, 5, 8}, k in {1, 100, 300, 1024}, scores bit
+     for bit. Both: a
      ragged N, 1% tombstones, an
      extra_bias filter, k above the live count, duplicate rows (exact
      ties), batches on both sides of 32. K4: K2's cases on xt = x.T (an f32
@@ -131,9 +134,12 @@ Phases, each printing one JSON object per line as it ends:
      at B=1024, k=100, timed as in phase 3 against a chunked torch._int_mm
      + topk yardstick; Int8FlatIndex.search end to end at B=1 and 1024,
      with the time of each of its stages at B=1024 (quantize, scan,
-     rescore, copy back); then 10M int8 rows of width 760 and 765 (K5 or
-     K5r at B=1 and 8, K6r at 64, 256, 1024; k=100 and 300; the yardstick
-     on a zero-padded copy at 765).
+     rescore, copy back); then 10M int8 rows of width 760, 764 and 765 (K5
+     at 760 and 764, K5r at 765, at B=1 and 8; K6r at 64, 256, 1024 at 760
+     and 765; k=100 and 300; the yardstick on a zero-padded copy at 764 and
+     765), and Int8FlatIndex.search over the rows of width 765 with a bf16
+     rescore copy (load_arrays) at B=1 and 8, limit 10: ms, each stage's
+     ms, and K5r's launches (the kernels line's for K5r).
   6  the IVF-PQ main path: phase 2 with index.kind = "ivfpq" at the config
      defaults (nlist 4096, nprobe 64, pq_m 96, host int8 refine): 5
      searches, a filtered search keeping <= 3% of rows (a fetch above
@@ -375,6 +381,15 @@ RAGGED_K = (1, 10, 100, 300)
 #: sides of 32 and of the 64- and 128-row query tiles, K3 (K7)
 RAGGED_SHAPES = (("K1", 1), ("K1", 9), ("K1", 31), ("K2", 33), ("K2", 64), ("K2", 65),
                  ("K2", 129), ("K3", 129))
+#: K5r's own family in phase 1 (and tests/test_torch_card.py's): int8 rows
+#: of widths that words cannot read at bases 0-3 bytes past a 16-byte
+#: aligned address (every lead of a row occurs), one batch on each side of
+#: K5's 4- and 8-row query tiles, k up to MAX_K; and 765 as the tail of its
+#: storage, the last row ending at the storage's last byte
+K5R_D = (1, 3, 25, 101, 765)
+K5R_OFFSETS = (0, 1, 2, 3)
+K5R_B = (1, 5, 8)
+K5R_K = (1, 100, 300, 1024)
 
 #: the sources under codegraph_tpu_torch/csrc/, built in phase 0
 SOURCES = ("flat_topk", "flat_topk_tc", "flat_topk_k1tc", "int8_topk", "ivfpq_adc", "ivf_spill")
@@ -689,6 +704,7 @@ def phase1(torch, mods, errs) -> dict:
                             "mismatches_outside_ties": bad})
     cases += phase1_unaligned(torch, mods, errs, g)
     cases += phase1_ragged(torch, mods, errs)
+    cases += phase1_k5r(torch, mods, errs)
     cases += phase1_tc(torch, mods, errs)
     cases += phase1_k1tc(torch, mods, errs)
     cases += phase1_k4tc(torch, mods, errs)
@@ -748,6 +764,70 @@ def _offset_copy(torch, t, offset):
     out = buf[skip + offset: skip + offset + t.numel()].view(t.shape)
     out.copy_(t)
     return out
+
+
+def _storage_tail(torch, t, offset):
+    """t's values in a tensor that begins `offset` bytes past a 16-byte
+    aligned address and ends at the last byte of its storage."""
+    nbytes = t.numel() * t.element_size()
+    buf = torch.empty(nbytes + offset, dtype=torch.uint8, device=t.device)
+    require(buf.data_ptr() % 16 == 0, "a fresh allocation is not 16-byte aligned")
+    out = buf[offset:].view(t.dtype).view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def phase1_k5r(torch, mods, errs) -> list:
+    """K5r's own family: K5 over int8 rows that are not 4-byte aligned, at
+    each width of K5R_D and base of K5R_OFFSETS and once as the tail of its
+    storage (765), over a ragged N with duplicate rows, 1% tombstones and a
+    filter, B in K5R_B, k in K5R_K: each call launches K5r once and no
+    other kernel, ids equal the plain version's outside ties and scores bit
+    for bit."""
+    quantize = mods["quantize"]
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(32)
+    N = RAGGED_N
+    cases = []
+    t0 = time.perf_counter()
+    for D in K5R_D:
+        x0 = _unit(torch, torch.randn(N, D, generator=g, device=dev))
+        x0[1000:2000] = x0[0:1000]  # exact ties
+        bias = torch.zeros(N, device=dev)
+        bias[torch.randperm(N, generator=g, device=dev)[: N // 100]] = NEG_INF
+        bias = bias + torch.where(torch.rand(N, generator=g, device=dev) < 0.1, NEG_INF, 0.0)
+        q0 = _unit(torch, torch.randn(max(K5R_B), D, generator=g, device=dev))
+        q0[0] = x0[5]  # its own duplicate pair tops the list
+        xv0, xs = quantize.quantize_rows(x0)
+        qv0, qs0 = quantize.quantize_rows(q0)
+        bases = [(o, _offset_copy(torch, xv0, o)) for o in K5R_OFFSETS]
+        if D == 765:
+            bases.append(("tail", _storage_tail(torch, xv0, 1)))
+        plain = {}  # the same rows at every base: one plain result a (B, k)
+        for offset, xv in bases:
+            require(quantize.int8_route("K5", xv, xv, xs, bias) != "4-byte pieces",
+                    f"phase 1: K5 reads int8 rows of width {D} at offset {offset} as words")
+            for B in K5R_B:
+                args = (qv0[:B].contiguous(), qs0[:B].contiguous(), xv, xs, bias)
+                for k in K5R_K:
+                    (s_k, i_k), delta = _counted(
+                        mods, lambda: quantize.streaming_topk_int8_cuda(*args, k))
+                    torch.cuda.synchronize()
+                    require(delta == {"K5r": 1}, f"phase 1: K5 over int8 rows of width {D} at "
+                            f"offset {offset}, B={B} k={k}, launched {delta}, not K5r once")
+                    if (B, k) not in plain:
+                        plain[(B, k)] = quantize.streaming_topk_int8(*args, k)
+                    s_p, i_p = plain[(B, k)]
+                    err, n_diff, bad = check_topk(torch, None, None, None, s_k, i_k, s_p, i_p,
+                                                  judge=int8_judge(*args))
+                    bad += int(((s_k != s_p) & (s_p > NEG_INF / 2)).sum())
+                    errs["K5r"] = max(errs["K5r"], err)
+                    cases.append({"kernel": "K5r (via K5)", "dtype": "int8", "N": N, "D": D,
+                                  "offset": offset, "B": B, "k": k, "max_abs_err": err,
+                                  "id_mismatches": n_diff, "mismatches_outside_ties": bad})
+    emit({"phase": 1, "family": "K5r", "cases": len(cases),
+          "seconds": round(time.perf_counter() - t0, 3)})
+    return cases
 
 
 def _ragged_route(topk, quantize, dtype, kernel, q_dtype, x, xs=None, bias=None):
@@ -2051,18 +2131,20 @@ def phase5(torch, mods, errs) -> list:
 
 
 #: phase 5's widths for the int8 routes that read rows TMA cannot: 760
-#: (K5's words, K6r's 8-byte pieces) and 765 (K5r's and K6r's realigned
+#: (K5's words, K6r's 8-byte pieces), 764 (K5's words, the width nearest
+#: 765 that K5 reads as words; K5 only) and 765 (K5r's and K6r's realigned
 #: words), 10M rows each
-RAGGED_INT8_D = (760, 765)
+RAGGED_INT8_D = (760, 764, 765)
 
 
 def _phase5_ragged(torch, mods, errs) -> list:
-    """K5 (B = 1, 8: K5 at 760, K5r at 765) and K6 (B = 64, 256, 1024: K6r)
-    through their wrappers over 10M int8 rows of each width of
-    RAGGED_INT8_D, k = 100 and 300, timed as phase 5's rows, with the
-    bound at the real D; torch._int_mm (the yardstick) takes a width that
-    is a multiple of 8, so at 765 it runs on a zero-padded copy, made
-    untimed."""
+    """K5 (B = 1, 8: K5 at 760 and 764, K5r at 765) and K6 (B = 64, 256,
+    1024: K6r; not at 764) through their wrappers over 10M int8 rows of
+    each width of RAGGED_INT8_D, k = 100 and 300, timed as phase 5's rows,
+    with the bound at the real D; torch._int_mm (the yardstick) takes a
+    width that is a multiple of 8, so at 764 and 765 it runs on a
+    zero-padded copy, made untimed. At 765, then, Int8FlatIndex.search over
+    the same rows (`_phase5_ragged_search`)."""
     quantize = mods["quantize"]
     dev = torch.device("cuda")
     N = 10_000_000
@@ -2086,7 +2168,8 @@ def _phase5_ragged(torch, mods, errs) -> list:
             lib_note = f"torch._int_mm on rows and queries zero-padded to {D + 8 - D % 8} columns"
         plain_cache = {}
         shapes = [("K5", B, k) for B in (1, 8) for k in (100, 300)]
-        shapes += [("K6", B, k) for B in (64, 256, 1024) for k in (100, 300)]
+        if D != 764:
+            shapes += [("K6", B, k) for B in (64, 256, 1024) for k in (100, 300)]
         for via, B, k in shapes:
             fn = wrapper(mods, via)
             batches = [quantize.quantize_rows(_unit(torch, torch.randn(B, D, generator=g,
@@ -2104,7 +2187,9 @@ def _phase5_ragged(torch, mods, errs) -> list:
                            for b in batches[:3]]
             lib_ms = _time_ms(torch, lambda b: int8_yardstick(torch, b[0], b[1], xv_lib, xs, bias,
                                                               k), lib_batches)
-            if (B, k) not in plain_cache:  # one batch (after a warm one): ~1.3 s a call
+            # one batch (after a warm one): ~1.3 s a call; at 764, where K5 stands
+            # beside K5r, not timed (K5's plain time is phase 5's at 768)
+            if D != 764 and (B, k) not in plain_cache:
                 plain_cache[(B, k)] = _time_ms(
                     torch, lambda b: quantize.streaming_topk_int8(b[0], b[1], xv, xs, bias, k),
                     batches[:1])
@@ -2121,7 +2206,7 @@ def _phase5_ragged(torch, mods, errs) -> list:
             bound, bound_by = _bound(N * D + 8 * N + B * D + 4 * B + B * k * 8,
                                      2.0 * B * N * D, "int8")
             row = {"phase": 5, "kernel": name, "via": via, "dtype": "int8", "N": N, "D": D,
-                   "B": B, "k": k, "ms": ms, "plain_ms": plain_cache[(B, k)], "library_ms": lib_ms,
+                   "B": B, "k": k, "ms": ms, "plain_ms": plain_cache.get((B, k)), "library_ms": lib_ms,
                    "bound_ms": bound, "bound_by": bound_by, "share_of_bound": bound / ms,
                    "max_abs_err": err, "sampled_rows": m * len(batches), "id_mismatches": n_diff,
                    "mismatches_outside_ties": bad, "index_build_seconds": round(build_s, 3)}
@@ -2131,8 +2216,65 @@ def _phase5_ragged(torch, mods, errs) -> list:
             rows_out.append(row)
             require(bad == 0, f"phase 5: {bad} mismatches outside ties ({name} D={D} B={B} "
                               f"k={k})")
-        del xv, xs, bias, xv_lib
+        del xv_lib
         torch.cuda.empty_cache()
+        if D == 765:
+            rows_out += _phase5_ragged_search(torch, mods, xv, xs, bias, g)
+        del xv, xs, bias
+        torch.cuda.empty_cache()
+    return rows_out
+
+
+def _phase5_ragged_search(torch, mods, xv, xs, bias, g) -> list:
+    """The int8 tier's served search over rows that are not 4-byte aligned:
+    Int8FlatIndex.search over the 10M int8 rows of width 765 (xv, xs, bias)
+    with a bf16 rescore copy (the rows dequantized), adopted through
+    load_arrays, at B = 1 and 8 (K5r's route), limit 10: the search's ms
+    (host clock, 7 searches after a warm one) and each stage's
+    (`search_stages`). The launch counts go to 0 just before the timed
+    searches and are read just after: K5r must have launched once a
+    search, and no other kernel."""
+    from codegraph_tpu_torch.index.int8_flat import Int8FlatIndex
+
+    N, D = xv.shape
+    t0 = time.perf_counter()
+    r = torch.empty((N, D), dtype=torch.bfloat16, device=xv.device)
+    for base in range(0, N, 131072):
+        r[base: base + 131072] = (xv[base: base + 131072].float()
+                                  * xs[base: base + 131072, None]).to(torch.bfloat16)
+    idx = Int8FlatIndex(D, rescore_dtype="bfloat16", device="cuda")
+    idx.load_arrays(xv, xs, r, bias, N, N - int((bias < NEG_INF / 2).sum()))
+    del r  # the index holds it
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    live = (bias > NEG_INF / 2).cpu()
+    rows_out = []
+    for B in (1, 8):
+        stages = search_stages(torch, mods, idx, g, B, 10)
+        batches = [torch.randn(B, D, generator=g, device=xv.device) for _ in range(7)]
+        idx.search(batches[0], 10)  # warm
+        reset_launches(mods)
+        times = []
+        for qb in batches:
+            t0 = time.perf_counter()
+            s_np, i_np = idx.search(qb, 10)  # returns host arrays: synchronized
+            times.append((time.perf_counter() - t0) * 1e3)
+        launches = read_launches(mods)
+        ok = (s_np.shape == (B, 10) and np.isfinite(s_np).all() and (i_np >= 0).all()
+              and bool(live[torch.as_tensor(i_np).long()].all()))
+        row = {"phase": 5, "kind": "Int8FlatIndex.search", "N": N, "D": D, "B": B, "k": 10,
+               "rescore_k": idx.rescore_k, "ms": statistics.median(times),
+               "ms_all": [round(t, 3) for t in times], "stage_ms": stages,
+               "launches": launches, "results_ok": ok,
+               "index_load_seconds": round(load_s, 3)}
+        emit(row)
+        rows_out.append(row)
+        require(ok, f"phase 5: Int8FlatIndex.search at D={D} B={B} returned dead or missing rows")
+        require(launches["K5r"] == len(batches) and
+                all(v == 0 for name, v in launches.items() if name != "K5r"),
+                f"phase 5: Int8FlatIndex.search at D={D} B={B} launched {launches}, not K5r "
+                f"once a search")
+    del idx
     return rows_out
 
 
@@ -5244,9 +5386,10 @@ def main(argv=None) -> int:
     # when it ran, else for K1 the served path's (phase 9), for K1tc and
     # K2tc the bf16 main path's (phase 15), for K2tc3 the sharded bf16
     # index's (phase 13), for the ragged routes the main path at D = 100
-    # (phase 17: K1tcr, K2tcr, K6r; K2tc3r on its 8-shard index) (K3, K4,
+    # (phase 17: K1tcr, K2tcr, K6r; K2tc3r on its 8-shard index), for K5r
+    # the int8 index's searches over 10M rows of width 765 (phase 5) (K3, K4,
     # K4r, K4tc, K4tc3, K4tcr, K4tc3r and K7 are public ops that no index calls:
-    # 0 launches on every path; K1r, K2r and K5r take widths that are not a
+    # 0 launches on every path; K1r and K2r take widths that are not a
     # multiple of 4, which phase 17's D = 100 is not)
     shapes = {"K1": (p3, "float32", 1, 30, None, 768), "K2": (p3, "float32", 1024, 30, None, 768),
               "K3": (p3, "float32", 1024, 100, None, 768),
@@ -5269,12 +5412,16 @@ def main(argv=None) -> int:
               "K2tc3r": (p3, "bfloat16", 1024, 30, None, 764),
               "K8": (p7, "uint8 codes", 1, 40, None, 768)}
     flat_path = p8 or p2
+    p5_search = [r for r in p5 if r.get("kind") == "Int8FlatIndex.search" and "launches" in r]
+    p5_ragged = ({"launches": {name: sum(r["launches"][name] for r in p5_search)
+                               for name in KERNELS}} if p5_search else None)
     paths = {"K1": p8 or p9 or p2, "K2": flat_path, "K3": flat_path, "K4": flat_path,
              "K4r": flat_path,
              "K1tc": p15, "K2tc": p15, "K2tc3": p13, "K4tc": p15, "K4tc3": p13, "K4tcr": p15,
              "K4tc3r": p13, "K5": p4,
              "K6": p4, "K7": p4, "K8": p6["ivfpq"] if p6 else None,
-             **{name: p17 for name in ("K1r", "K2r", "K1tcr", "K2tcr", "K2tc3r", "K5r", "K6r")}}
+             "K5r": p5_ragged,
+             **{name: p17 for name in ("K1r", "K2r", "K1tcr", "K2tcr", "K2tc3r", "K6r")}}
     kernels = []
     for name, (_, fn_name, source, replaces) in KERNELS.items():
         rows, dtype, B, k, q_dtype, D, *n_of = shapes[name]
@@ -5288,7 +5435,8 @@ def main(argv=None) -> int:
             "name": f"{name} {fn_name}", "route": "cuda", "source": source, "replaces": replaces,
             "launches": path["launches"][name] if path else None,
             "launches_by_phase": {str(n): p["launches"][name] for n, p in
-                                  ((2, p2), (4, p4), (6, p6["ivfpq"] if p6 else None), (8, p8),
+                                  ((2, p2), (4, p4), (5, p5_ragged),
+                                   (6, p6["ivfpq"] if p6 else None), (8, p8),
                                    (9, p9), (10, p10), (12, p12), (13, p13), (14, p14),
                                    (15, p15), (17, p17))
                                   if p},

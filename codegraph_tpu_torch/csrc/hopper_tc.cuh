@@ -416,15 +416,6 @@ __device__ __forceinline__ void shift_words(const uint32_t (&w)[W + 1], int lead
     out[i] = keep >= 4 ? v : keep <= 0 ? 0u : v & ((1u << (8 * keep)) - 1u);
   }
 }
-// W words from byte address a (any alignment), bytes from `valid` on zero:
-// the aligned words that hold a byte of [a, a + valid), funnel-shifted
-// into place. Reads no word outside them.
-template <int W>
-__device__ __forceinline__ void load_realigned(const unsigned char* a, int valid, uint32_t (&out)[W]) {
-  uint32_t w[W + 1];
-  load_words<W>(a, valid, w);
-  shift_words<W>(w, (int)(reinterpret_cast<uintptr_t>(a) & 3), valid, out);
-}
 
 // The producer warps' fill of one R x kBoxBytes box at dst (1024-byte
 // aligned), as described above: box row r holds row r0 + r % RB of g,

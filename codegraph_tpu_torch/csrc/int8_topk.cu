@@ -13,10 +13,12 @@
 // (topk_merge.cuh):
 //   * int8_dp4a_pass1 (K5): __dp4a with the column warps of flat_topk.cu,
 //     up to 8 query rows a block, lists in shared memory. Rows are read as
-//     4-byte words; int8_dp4a_ragged_pass1 is the same kernel for rows that
-//     are not 4-byte aligned (D % 4 != 0, or a base one byte in), which
-//     reads each word as the aligned words that hold it, realigned, with
-//     zeros past D.
+//     4-byte words; int8_dp4a_ragged_pass1 ("K5r") is the same kernel for
+//     rows that are not 4-byte aligned (D % 4 != 0, or a base one byte in):
+//     it stages the aligned words that hold each row, one load a word and
+//     one more a row and step, and realigns them as it reads them back
+//     (one funnel shift a word; the queries' zero columns past D cancel
+//     the bytes beyond the row).
 //   * int8_tc_pass1 (K6 and K7, one schedule): wgmma s8 on the tensor
 //     cores, operands brought by TMA, lists in device memory. K7's idea, a
 //     query tile resident for a whole corpus split, is this kernel's
@@ -133,13 +135,14 @@ __device__ __forceinline__ void write_lists(const float* ls, const int* li, int 
 // int32 sums of one corpus row.
 // ---------------------------------------------------------------------------
 
-template <int TM>
+template <int TM, bool RAGGED = false>
 struct Dp4aLayout {
   static constexpr int TN = kThreads;  // corpus rows per tile
   static constexpr int QLD = TM + 4;   // qs row stride ([DKW][QLD] words)
-  static constexpr int XLD = TN + 1;   // xs row stride ([DKW][XLD] words)
+  static constexpr int XLD = TN + 1;   // xs row stride ([XROWS][XLD] words)
+  static constexpr int XROWS = kDKW + (RAGGED ? 1 : 0);  // K5r: a row's 33rd aligned word too
   static size_t smem(int k) {
-    return sizeof(int) * ((size_t)kDKW * (QLD + XLD) + (size_t)TM * TN + TM) +
+    return sizeof(int) * ((size_t)kDKW * QLD + (size_t)XROWS * XLD + (size_t)TM * TN + TM) +
            (size_t)TM * k * (sizeof(float) + sizeof(int));
   }
 };
@@ -150,6 +153,17 @@ struct Dp4aLayout {
 // that two blocks share an SM: K5 is memory bound, and one block per SM
 // (the compiler's choice without the bound, ~165 registers) keeps too few
 // bytes in flight (PERF.md, design 3).
+//
+// RAGGED reads a step's 32 words of a row as the 33 aligned words that
+// hold them: warp w's lane l loads aligned word l of rows w + 8v (v < 32)
+// through one pointer stepped 8 rows a load, and each thread loads word 32
+// of the row it scores, into a 33rd row of xs; the dot products read word
+// c as bytes lead .. lead + 3 of aligned words c and c + 1 (a funnel
+// shift). A row's lead, its base & 3, is the same at every step (a tile
+// starts at a multiple of 256 rows, a step 128 bytes on), so it is
+// computed once. A word that holds no byte of its row is not read (zero);
+// the bytes of the next row that the last word of a row takes in meet the
+// queries' zero columns past D, so the sums are exact.
 template <int TM, bool RAGGED>
 __device__ __forceinline__ void int8_dp4a_body(const int* __restrict__ qw,
                                                const float* __restrict__ qsc,
@@ -159,7 +173,7 @@ __device__ __forceinline__ void int8_dp4a_body(const int* __restrict__ qw,
                                                int k, int rows_per_split,
                                                float* __restrict__ part_s,
                                                int* __restrict__ part_i) {
-  using L = Dp4aLayout<TM>;
+  using L = Dp4aLayout<TM, RAGGED>;
   constexpr int TN = L::TN, QLD = L::QLD, XLD = L::XLD;
   constexpr int XW = TN * kDKW / kThreads;                     // corpus words per thread
   constexpr int QW = (TM * kDKW + kThreads - 1) / kThreads;    // query words per thread
@@ -167,8 +181,8 @@ __device__ __forceinline__ void int8_dp4a_body(const int* __restrict__ qw,
   const int D4 = RAGGED ? (D + 3) / 4 : D / 4;
   const int n_chunks = (D4 + kDKW - 1) / kDKW;
   int* qs = reinterpret_cast<int*>(smem);                 // [DKW][QLD]
-  int* xs = qs + kDKW * QLD;                              // [DKW][XLD]
-  float* ss = reinterpret_cast<float*>(xs + kDKW * XLD);  // [TM][TN]
+  int* xs = qs + kDKW * QLD;                              // [XROWS][XLD]
+  float* ss = reinterpret_cast<float*>(xs + L::XROWS * XLD);  // [TM][TN]
   float* ls = ss + TM * TN;                               // [TM][k]
   int* li = reinterpret_cast<int*>(ls + TM * k);
   int* rflag = li + TM * k;                               // [TM]
@@ -190,19 +204,34 @@ __device__ __forceinline__ void int8_dp4a_body(const int* __restrict__ qw,
 
   int xr[XW];
   int qr[QW];
+  // RAGGED: the lead of the rows this warp loads and of the row this thread
+  // scores, and that row's aligned word 32 of a step (loaded and stored with it)
+  const size_t xa = reinterpret_cast<size_t>(xw);
+  [[maybe_unused]] const int lead_w = RAGGED ? (int)((xa + (size_t)warp * D) & 3) : 0;
+  [[maybe_unused]] const int lead_t = RAGGED ? (int)((xa + (size_t)tid * D) & 3) : 0;
+  [[maybe_unused]] int x_ext = 0;
   auto load = [&](int step) {
     const int n0 = n_begin + (step / n_chunks) * TN;
     const int d0 = (step % n_chunks) * kDKW;
+    if constexpr (RAGGED) {  // aligned words d0 + lane of rows warp + 8w, one row pointer
+      const int rows_left = n_end - n0 - warp;  // its rows warp + 8w below n_end
+      const bool col_ok = 4 * (d0 + lane) - lead_w < D;  // the word holds a byte of the row
+      const uint32_t* src =
+          reinterpret_cast<const uint32_t*>(xa + (size_t)(n0 + warp) * D - lead_w) + d0 + lane;
+      const size_t stride = 2 * (size_t)D;  // 8 rows, in words
 #pragma unroll
-    for (int w = 0; w < XW; ++w) {
-      const int wi = tid + w * kThreads, r = wi / kDKW, d = d0 + wi % kDKW;
-      if constexpr (RAGGED) {  // bytes 4d .. 4d + 3 of the row, zeros past D
-        const bool ok = n0 + r < n_end && d < D4;
-        const unsigned char* row = reinterpret_cast<const unsigned char*>(xw) + (size_t)(n0 + r) * D;
-        uint32_t v[1];
-        load_realigned<1>(ok ? row + 4 * d : row, ok ? min(4, D - 4 * d) : 0, v);
-        xr[w] = (int)v[0];
-      } else {
+      for (int w = 0; w < XW; ++w) {
+        xr[w] = col_ok && 8 * w < rows_left ? (int)__ldg(src) : 0;
+        src += stride;
+      }
+      const int ext = 4 * (d0 + kDKW) - lead_t;  // aligned word 32 of the thread's row
+      x_ext = lead_t != 0 && ext < D && n0 + tid < n_end
+                  ? (int)__ldg(reinterpret_cast<const uint32_t*>(xa + (size_t)(n0 + tid) * D + ext))
+                  : 0;
+    } else {
+#pragma unroll
+      for (int w = 0; w < XW; ++w) {
+        const int wi = tid + w * kThreads, r = wi / kDKW, d = d0 + wi % kDKW;
         xr[w] = (n0 + r < n_end && d < D4) ? xw[(size_t)(n0 + r) * D4 + d] : 0;
       }
     }
@@ -218,6 +247,7 @@ __device__ __forceinline__ void int8_dp4a_body(const int* __restrict__ qw,
       const int wi = tid + w * kThreads;
       xs[(wi % kDKW) * XLD + wi / kDKW] = xr[w];
     }
+    if constexpr (RAGGED) xs[kDKW * XLD + tid] = x_ext;
 #pragma unroll
     for (int e = 0; e < QW; ++e) {
       const int p = tid + e * kThreads;
@@ -236,6 +266,7 @@ __device__ __forceinline__ void int8_dp4a_body(const int* __restrict__ qw,
     store();
     __syncthreads();
     if (step + 1 < steps) load(step + 1);  // in flight during the dot products below
+    [[maybe_unused]] int x_lo = RAGGED ? xs[tid] : 0;
 #pragma unroll 4
     for (int c = 0; c < kDKW; ++c) {
       int qv[TM];
@@ -253,7 +284,14 @@ __device__ __forceinline__ void int8_dp4a_body(const int* __restrict__ qw,
 #pragma unroll
         for (int i = 0; i < TM; ++i) qv[i] = qrow[i];
       }
-      const int xv = xs[c * XLD + tid];
+      int xv;
+      if constexpr (RAGGED) {  // bytes lead_t .. lead_t + 3 of aligned words c and c + 1
+        const int x_hi = xs[(c + 1) * XLD + tid];
+        xv = (int)__funnelshift_r((uint32_t)x_lo, (uint32_t)x_hi, 8 * lead_t);
+        x_lo = x_hi;
+      } else {
+        xv = xs[c * XLD + tid];
+      }
 #pragma unroll
       for (int i = 0; i < TM; ++i) acc[i] = __dp4a(qv[i], xv, acc[i]);
     }
@@ -731,7 +769,7 @@ cudaError_t dispatch_dp4a(int tm, bool ragged, const int* qw, const float* qsc, 
                           cudaStream_t st) {
 #define CG_DP4A(TM)                                                                           \
   {                                                                                           \
-    const size_t smem = Dp4aLayout<TM>::smem(k);                                              \
+    const size_t smem = ragged ? Dp4aLayout<TM, true>::smem(k) : Dp4aLayout<TM>::smem(k);     \
     if (rows_per_split % Dp4aLayout<TM>::TN != 0) return cudaErrorInvalidValue;               \
     return launch(ragged ? int8_dp4a_ragged_pass1<TM> : int8_dp4a_pass1<TM>, smem, TM, qw, qsc, \
                   xw, xsc, bias, B, N, D, k, rows_per_split, splits, part_s, part_i, st);     \
@@ -775,8 +813,9 @@ long long int8_topk_tc_smem(int query_tile, int resident, int stages, int D) {
 // aligned), qs [B] f32, xv [N, D] int8 at any byte address, xs [N] f32,
 // bias [N] f32, all contiguous on the device of `stream`. piece 4:
 // int8_dp4a_pass1 reads rows as words (D % 4 == 0, xv 4-byte aligned);
-// piece 1: int8_dp4a_ragged_pass1 realigns them (any D and address). Writes out_s [B, k] f32 and out_i
-// [B, k] i32. Pass 1 runs with tile size tm over `splits` ranges of
+// piece 1: int8_dp4a_ragged_pass1 realigns them (any D and address; qv's
+// zero columns cancel the bytes it reads past a row). Writes out_s [B, k]
+// f32 and out_i [B, k] i32. Pass 1 runs with tile size tm over `splits` ranges of
 // `rows_per_split` corpus rows (a multiple of 256); work_s / work_i hold
 // int8_topk_work_entries(B, k, splits, group) entries each. Returns the
 // CUDA error code of the launches (0 = success).

@@ -389,10 +389,11 @@ def streaming_topk_int8_cuda_ragged(qv, qs, xv, xs, bias, k: int,
 def streaming_topk_int8_cuda_realigned(qv, qs, xv, xs, bias, k: int,
                                        tile_n: int = DEFAULT_TILE_N):
     """K5 over rows that are not 4-byte aligned ("K5r": D % 4 != 0, or a
-    base one byte in): `int8_dp4a_ragged_pass1`, K5's kernel with each
-    4-byte word of a row read as the aligned words that hold it, realigned,
-    zeros past D; it takes any rows. Same contract as
-    `streaming_topk_int8_cuda`."""
+    base one byte in): `int8_dp4a_ragged_pass1`, K5's kernel reading the
+    aligned words that hold each row (one load a word, one pointer a warp's
+    rows) and realigning them in its dot products; the queries' zero
+    columns past D cancel the bytes beyond a row. It takes any rows. Same
+    contract as `streaming_topk_int8_cuda`."""
     if _on_cpu(qv, qs, xv, xs, bias):
         return streaming_topk_int8(qv, qs, xv, xs, bias, k, tile_n)
     _check(qv, qs, xv, xs, bias, k)

@@ -512,18 +512,21 @@ def test_int8_kernels_match_plain_on_card(cuda_device):
 def test_int8_ragged_match_plain_on_card(cuda_device, route):
     """K6/K7 over rows TMA cannot read (K6r: 4-byte pieces at D = 100,
     realigned words at 765 and at a base one byte in) and K5 over rows
-    that are not 4-byte aligned (K5r), through the public wrappers: scores
-    bit for bit the plain version's, ids equal outside ties, each call
-    counted once in its route."""
+    that are not 4-byte aligned (K5r: D in {1, 3, 25, 101, 765} at bases
+    0-3 bytes in, each base past 0 a slice that ends at the last byte of
+    its storage; B in {1, 5, 8}, k up to 1024), through the public
+    wrappers: scores bit for bit the plain version's, ids equal outside
+    ties, each call counted once in its route."""
     rng = np.random.default_rng(29)
     counted = (tq.streaming_topk_int8_cuda_ragged if route == "K6r"
                else tq.streaming_topk_int8_cuda_realigned)
     runs = (((tq.streaming_topk_int8_cuda_qmajor, (33, 64, 70, 129)),
              (tq.streaming_topk_int8_cuda_qres, (129,))) if route == "K6r" else
-            ((tq.streaming_topk_int8_cuda, (1, 3, 8)),))
-    for D, offset in ((100, 0), (765, 0), (100, 1), (25, 0)):
-        if route == "K5r" and D % 4 == 0 and offset == 0:
-            continue  # words: K5's own instance
+            ((tq.streaming_topk_int8_cuda, (1, 5, 8)),))
+    families = (((100, 0), (765, 0), (100, 1), (25, 0)) if route == "K6r" else
+                tuple((D, o) for D in (1, 3, 25, 101, 765) for o in (0, 1, 2, 3)))
+    ks = (1, 100, 300) if route == "K6r" else (1, 100, 300, 1024)
+    for D, offset in families:
         case = _int8_case(rng, 129, 3001, D)
         case[2][2000], case[3][2000] = case[2][3], case[3][3]  # an exact tie
         tc = [t.to(cuda_device) for t in _t(*case)]
@@ -533,16 +536,16 @@ def test_int8_ragged_match_plain_on_card(cuda_device, route):
         for fn, batches in runs:
             for B in batches:
                 sub = [tc[0][:B].contiguous(), tc[1][:B].contiguous(), *tc[2:]]
-                for k in (1, 100, 300):
+                true = _int8_true(case[0][:B], case[1][:B], *case[2:])
+                for k in ks:
                     before = counted.launches
-                    ks, ki = fn(*sub, k)
+                    s_k, i_k = fn(*sub, k)
                     torch.cuda.synchronize()
                     assert counted.launches == before + 1, (route, D, offset, B, k)
                     ps, pi = tq.streaming_topk_int8(*sub, k)
-                    np.testing.assert_array_equal(ks.cpu().numpy(), ps.cpu().numpy())
-                    assert_topk_equiv(ks.cpu(), ki.cpu(), ps.cpu(), pi.cpu(), None, None, None,
-                                      tol=INT8_TIE_TOL,
-                                      true=_int8_true(case[0][:B], case[1][:B], *case[2:]))
+                    np.testing.assert_array_equal(s_k.cpu().numpy(), ps.cpu().numpy())
+                    assert_topk_equiv(s_k.cpu(), i_k.cpu(), ps.cpu(), pi.cpu(), None, None, None,
+                                      tol=INT8_TIE_TOL, true=true)
 
 
 # -- K8: csrc/ivfpq_adc.cu --------------------------------------------------------

@@ -138,16 +138,19 @@ def test_streaming_topk_int8_ragged_n(rng, N, tile_n):
     ("K6", 32, 10), ("K6", 64, 100),
     ("K7", 32, 10), ("K7", 48, 100),
     ("K6r", 32, 10), ("K6r", 40, 300),
+    ("K5r", 1, 10), ("K5r", 5, 300), ("K5r", 8, 100),
 ])
 def test_int8_wrappers_match_jax_pallas(rng, kernel, B, k):
-    """K5/K6/K7 wrappers and the ragged one that K6/K7 hand the corpora TMA
-    cannot read (K6r, at D = 100, a width TMA cannot read; plain path on
-    CPU tensors) vs the Pallas kernels in interpret mode, with tombstones
-    and a zero row."""
-    N, D = 1024, 100 if kernel == "K6r" else 64
+    """K5/K6/K7 wrappers, the ragged one that K6/K7 hand the corpora TMA
+    cannot read (K6r, at D = 100, a width TMA cannot read) and the one
+    that K5 hands rows that are not 4-byte aligned (K5r, at D = 101: rows
+    begin at every byte of a word); plain path on CPU tensors, vs the
+    Pallas kernels in interpret mode, with tombstones and a zero row."""
+    N, D = 1024, {"K6r": 100, "K5r": 101}.get(kernel, 64)
     case = _int8_case(rng, B, N, D)
     jfn, tfn, tile_b = {
         "K5": (jq.streaming_topk_int8_pallas, tq.streaming_topk_int8_cuda, 8),
+        "K5r": (jq.streaming_topk_int8_pallas, tq.streaming_topk_int8_cuda_realigned, 8),
         "K6": (jq.streaming_topk_int8_qmajor, tq.streaming_topk_int8_cuda_qmajor, 16),
         "K7": (jq.streaming_topk_int8_qres, tq.streaming_topk_int8_cuda_qres, 16),
         "K6r": (jq.streaming_topk_int8_qmajor, tq.streaming_topk_int8_cuda_ragged, 16),
@@ -363,18 +366,23 @@ def _variants_tool():
     return mod
 
 
-@pytest.mark.parametrize("name", list(_variants_tool().VARIANTS))
-def test_int8_variant_tool_anchors_in_source(name):
-    """Every text change of tools/int8_topk_variants.py still applies to one
-    of its sources (csrc/int8_topk.cu, csrc/topk_merge.cuh, and
-    csrc/hopper_tc.cuh for the ragged producer's), and every constant it
-    sets exists in ops/topk.py, whose tensor-core plan K6/K7 share."""
+@pytest.mark.parametrize("table,name", [
+    *(pytest.param("VARIANTS", n, id=n) for n in _variants_tool().VARIANTS),
+    *(pytest.param("RAGGED_K5_VARIANTS", n, id=f"ragged-k5: {n}")
+      for n in _variants_tool().RAGGED_K5_VARIANTS),
+])
+def test_int8_variant_tool_anchors_in_source(table, name):
+    """Every text change of tools/int8_topk_variants.py (its K6 table, and
+    --ragged-k5's table of K5r) applies exactly once to its sources
+    (csrc/int8_topk.cu, csrc/topk_merge.cuh, and csrc/hopper_tc.cuh for the
+    ragged producer's), and every constant it sets exists in ops/topk.py,
+    whose tensor-core plan K6/K7 share."""
     from codegraph_tpu_torch.ops import cuda_build
     from codegraph_tpu_torch.ops import topk as ttopk
 
     srcs = [(cuda_build.CSRC_DIR / f).read_text() for f in _variants_tool().SOURCES]
-    subs, consts, _ = _variants_tool().VARIANTS[name]
+    subs, consts, _ = getattr(_variants_tool(), table)[name]
     for anchor, _ in subs:
-        assert any(anchor in src for src in srcs)
+        assert sum(src.count(anchor) for src in srcs) == 1, anchor
     for const in consts:
         assert hasattr(ttopk, const)

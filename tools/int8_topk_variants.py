@@ -4,11 +4,28 @@
 
     python3 tools/int8_topk_variants.py [--rows 10000000] [--only NAME,NAME]
     python3 tools/int8_topk_variants.py --ragged [--width 760] [--only NAME,NAME]
+    python3 tools/int8_topk_variants.py --ragged-k5 [--rows 10000000] [--only NAME,NAME]
 
 With --ragged the timed kernel is K6r (`streaming_topk_int8_cuda_ragged`,
 `int8_tc_ragged_pass1`: the ragged-row producer of csrc/hopper_tc.cuh) at
 --width (default 768), and the "ragged:" variant runs its producer on one
 warp instead of a warpgroup (kRaggedWarps).
+
+With --ragged-k5 the variants are RAGGED_K5_VARIANTS of K5r
+(`int8_dp4a_ragged_pass1`: K5 over int8 rows that are not 4-byte
+aligned), timed through K5's wrapper at RAGGED_K5_SHAPES (B = 1, 8; k =
+100, 300) over 1% tombstoned int8 rows of width 765 beside K5's own
+instance (`int8_dp4a_pass1`, words) over rows of width 764, whose code no
+variant changes, median ms over 7 batches, all variants in turns; then the
+library call (torch._int_mm + topk on a zero-padded copy) at 765. The
+variants: the shipped reads (one row pointer a warp, a 33rd aligned word a
+row, realigned in the dot products), the loads before them (an address,
+two bounds and two loads a word, realigned in registers), one row pointer
+with those two loads a word, one row pointer realigned by
+__shfl_down_sync as the words are stored, and timing-only ones without
+corpus loads, with one aligned load a word at the address rounded down,
+and without the 33rd word and the shift. Prints each variant's ptxas lines
+for both K5 instances (registers, spills).
 
 Each variant is the committed csrc/int8_topk.cu and csrc/topk_merge.cuh with
 its text changes and the tensor-core constants of ops/topk.py (below),
@@ -25,6 +42,7 @@ change no longer applies, a build fails, or a checked variant disagrees.
 """
 
 import argparse
+import json
 import os
 import sys
 
@@ -69,23 +87,105 @@ VARIANTS = {
 SHAPES = ((64, 100), (64, 300), (256, 100), (256, 300), (1024, 100), (1024, 300))
 SOURCES = ("int8_topk.cu", "topk_merge.cuh", "hopper_tc.cuh")
 
+# --- K5r: K5 over int8 rows that are not 4-byte aligned (int8_dp4a_ragged_pass1) ---
+# the shipped loads of a step: aligned words of rows warp + 8w through one
+# row pointer, and aligned word 32 of the thread's own row
+K5R_LOADS = """      for (int w = 0; w < XW; ++w) {
+        xr[w] = col_ok && 8 * w < rows_left ? (int)__ldg(src) : 0;
+        src += stride;
+      }
+"""
+K5R_EXT = """      x_ext = lead_t != 0 && ext < D && n0 + tid < n_end
+                  ? (int)__ldg(reinterpret_cast<const uint32_t*>(xa + (size_t)(n0 + tid) * D + ext))
+                  : 0;
+"""
+K5R_EXT_STORE = "    if constexpr (RAGGED) xs[kDKW * XLD + tid] = x_ext;\n"
+K5R_SHIFT = "xv = (int)__funnelshift_r((uint32_t)x_lo, (uint32_t)x_hi, 8 * lead_t);"
+K5_STORE = "      xs[(wi % kDKW) * XLD + wi / kDKW] = xr[w];\n"
+# the whole of the shipped branch of load(), for variants that replace it
+K5R_BRANCH = """      const int rows_left = n_end - n0 - warp;  // its rows warp + 8w below n_end
+      const bool col_ok = 4 * (d0 + lane) - lead_w < D;  // the word holds a byte of the row
+      const uint32_t* src =
+          reinterpret_cast<const uint32_t*>(xa + (size_t)(n0 + warp) * D - lead_w) + d0 + lane;
+      const size_t stride = 2 * (size_t)D;  // 8 rows, in words
+#pragma unroll
+""" + K5R_LOADS + """      const int ext = 4 * (d0 + kDKW) - lead_t;  // aligned word 32 of the thread's row
+""" + K5R_EXT
+# the loads before this design: each word an address, two bounds and two
+# predicated loads of the aligned words that hold it (hopper_tc.cuh
+# load_words), funnel-shifted and masked in registers (shift_words)
+K5R_EARLIER = """#pragma unroll
+      for (int w = 0; w < XW; ++w) {
+        const int wi = tid + w * kThreads, r = wi / kDKW, d = d0 + wi % kDKW;
+        const bool ok = n0 + r < n_end && d < D4;
+        const unsigned char* row = reinterpret_cast<const unsigned char*>(xw) + (size_t)(n0 + r) * D;
+        const unsigned char* a = ok ? row + 4 * d : row;
+        const int valid = ok ? min(4, D - 4 * d) : 0;
+        uint32_t w2[2], v[1];
+        load_words<1>(a, valid, w2);
+        shift_words<1>(w2, (int)(reinterpret_cast<uintptr_t>(a) & 3), valid, v);
+        xr[w] = (int)v[0];
+      }
+"""
+# one aligned load a word at the word's address rounded down (wrong values)
+K5R_ROUNDED = """#pragma unroll
+      for (int w = 0; w < XW; ++w) {
+        const int wi = tid + w * kThreads, r = wi / kDKW, d = d0 + wi % kDKW;
+        const size_t a = xa + (size_t)(n0 + r) * D + 4 * d;
+        xr[w] = n0 + r < n_end && d < D4 ? (int)__ldg(reinterpret_cast<const uint32_t*>(a & ~(size_t)3)) : 0;
+      }
+"""
+# one row pointer, each word's two aligned words loaded and shifted into place
+K5R_POINTER_TWO = K5R_LOADS.replace(
+    "xr[w] = col_ok && 8 * w < rows_left ? (int)__ldg(src) : 0;",
+    "const bool ok = col_ok && 8 * w < rows_left;\n"
+    "        const bool ok1 = ok && 4 * (d0 + lane + 1) - lead_w < D;\n"
+    "        xr[w] = (int)__funnelshift_r(ok ? __ldg(src) : 0u, ok1 ? __ldg(src + 1) : 0u, 8 * lead_w);")
+# one row pointer; lane v loads aligned word 32 of row warp + 8v, and the
+# stored words are realigned by __shfl_down_sync (lane 31 takes word 32 from
+# lane w) and one funnel shift
+K5R_SHFL_EXT = """      const bool ext_ok = lead_w != 0 && 4 * (d0 + kDKW) - lead_w < D && 8 * lane < rows_left;
+      x_ext = ext_ok ? (int)__ldg(reinterpret_cast<const uint32_t*>(
+                           xa + (size_t)(n0 + warp + 8 * lane) * D - lead_w) + d0 + kDKW)
+                     : 0;
+"""
+K5R_SHFL_STORE = """      if constexpr (RAGGED) {
+        const int hi = __shfl_down_sync(0xffffffffu, xr[w], 1);
+        const int ext_w = __shfl_sync(0xffffffffu, x_ext, w);
+        xs[(wi % kDKW) * XLD + wi / kDKW] =
+            (int)__funnelshift_r((uint32_t)xr[w], (uint32_t)(lane == 31 ? ext_w : hi), 8 * lead_w);
+      } else {
+        xs[(wi % kDKW) * XLD + wi / kDKW] = xr[w];
+      }
+"""
+PLAIN_READ = "xv = xs[c * XLD + tid];"
+RAGGED_K5_VARIANTS = {
+    "shipped": ([], {}, True),
+    "the earlier loads: an address, two bounds and two loads a word": (
+        [(K5R_BRANCH, K5R_EARLIER), (K5R_EXT_STORE, ""), (K5R_SHIFT, PLAIN_READ)], {}, True),
+    "one row pointer, two loads a word shifted in registers": (
+        [(K5R_LOADS, K5R_POINTER_TWO), (K5R_EXT, ""), (K5R_EXT_STORE, ""),
+         (K5R_SHIFT, PLAIN_READ)], {}, True),
+    "one row pointer, realigned by __shfl_down_sync on the store": (
+        [(K5R_EXT, K5R_SHFL_EXT), (K5_STORE, K5R_SHFL_STORE), (K5R_EXT_STORE, ""),
+         (K5R_SHIFT, PLAIN_READ)], {}, True),
+    "no corpus loads (timing only)": (
+        [(K5R_LOADS, K5R_LOADS.replace("col_ok && 8 * w < rows_left ? (int)__ldg(src) : 0", "0")),
+         (K5R_EXT, "      x_ext = 0;\n")], {}, False),
+    "the earlier kernel without corpus loads (timing only)": (
+        [(K5R_BRANCH, "#pragma unroll\n      for (int w = 0; w < XW; ++w) xr[w] = 0;\n"),
+         (K5R_EXT_STORE, ""), (K5R_SHIFT, PLAIN_READ)], {}, False),
+    "one aligned load a word at its address rounded down (timing only)": (
+        [(K5R_BRANCH, K5R_ROUNDED), (K5R_EXT_STORE, ""), (K5R_SHIFT, PLAIN_READ)], {}, False),
+    "one row pointer, no word 32 and no shift (timing only)": (
+        [(K5R_EXT, "      x_ext = 0;\n"), (K5R_SHIFT, PLAIN_READ)], {}, False),
+}
+RAGGED_K5_SHAPES = ((1, 100), (1, 300), (8, 100), (8, 300))
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--rows", type=int, default=10_000_000)
-    ap.add_argument("--only", default="", help="comma-separated variant names (default: all)")
-    ap.add_argument("--ragged", action="store_true", help="time K6r (the ragged-row producer)")
-    ap.add_argument("--width", type=int, default=768, help="the rows' width D")
-    args = ap.parse_args()
-    if not vh.start():
-        return 2
-    chosen = vh.chosen(VARIANTS, args.only)
-    built = vh.build_all(chosen, VARIANTS, SOURCES, ("int8_tc_pass1", "int8_tc_ragged_pass1"),
-                         "variants_int8")
 
-    dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(2025)
-    N, D = args.rows, args.width
+def _int8_rows(g, N, D, dev):
+    """Quantized unit rows [N, D] int8 and their scales, made on the card in
+    chunks, and a bias with 1% of the rows tombstoned."""
     xv = torch.empty((N, D), dtype=torch.int8, device=dev)
     xs = torch.empty(N, device=dev)
     for base in range(0, N, 131072):
@@ -94,6 +194,78 @@ def main() -> int:
             cs._unit(torch, torch.randn(n, D, generator=g, device=dev)))
     bias = torch.zeros(N, device=dev)
     bias[torch.randperm(N, generator=g, device=dev)[: N // 100]] = cs.NEG_INF
+    return xv, xs, bias
+
+
+def main_ragged_k5(args) -> int:
+    """--ragged-k5: K5r's variants at D = 765 beside K5 at D = 764, in turns."""
+    chosen = vh.chosen(RAGGED_K5_VARIANTS, args.only)
+    built = vh.build_all(chosen, RAGGED_K5_VARIANTS, SOURCES,
+                         ("int8_dp4a_ragged_pass1", "int8_dp4a_pass1"), "variants_ragged_k5")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(2032)
+    N = args.rows
+    corpora = {D: _int8_rows(g, N, D, dev) for D in (765, 764)}
+    qs = {D: {B: [quantize.quantize_rows(cs._unit(torch, torch.randn(B, D, generator=g,
+                                                                      device=dev)))
+                  for _ in range(7)] for B in {b for b, _ in RAGGED_K5_SHAPES}} for D in corpora}
+    xv, xs, bias = corpora[765]
+    ref = {(B, k): quantize.streaming_topk_int8(*qs[765][B][0], xv, xs, bias, k, tile_n=1 << 20)
+           for B, k in RAGGED_K5_SHAPES}
+    ms = {n: {} for n in built}
+    bad = {n: 0 for n in built}
+
+    def run(n):
+        for D, route in ((765, "K5r"), (764, "K5")):
+            counted = (quantize.streaming_topk_int8_cuda_realigned if route == "K5r"
+                       else quantize.streaming_topk_int8_cuda)
+            for B, k in RAGGED_K5_SHAPES:
+                fn = lambda b: quantize.streaming_topk_int8_cuda(*b, *corpora[D], k)  # noqa: E731
+                before = counted.launches
+                ms[n].setdefault(f"{route} D={D} B={B} k={k}", []).append(
+                    cs._time_ms(torch, fn, qs[D][B]))
+                if counted.launches != before + len(qs[D][B]) + 1:
+                    raise RuntimeError(f"{route} at D={D} did not run its own instance")
+                if D == 765 and RAGGED_K5_VARIANTS[n][2]:
+                    s_k, i_k = fn(qs[D][B][0])
+                    s_r, i_r = ref[(B, k)]
+                    bad[n] += cs.check_topk(torch, None, None, None, s_k, i_k, s_r, i_r,
+                                            judge=cs.int8_judge(*qs[D][B][0], xv, xs, bias))[2]
+                    bad[n] += int(((s_k != s_r) & (s_r > cs.NEG_INF / 2)).sum())
+
+    vh.in_turns(built, "int8_topk", quantize, run, {n: RAGGED_K5_VARIANTS[n][1] for n in built})
+    # the library call: torch._int_mm takes a width that is a multiple of 8
+    xv_lib = torch.nn.functional.pad(xv, (0, 768 - 765))
+    for B, k in RAGGED_K5_SHAPES:
+        lib = cs._time_ms(torch, lambda b: cs.int8_yardstick(
+            torch, torch.nn.functional.pad(b[0], (0, 3)), b[1], xv_lib, xs, bias, k),
+            qs[765][B][:3])
+        print(json.dumps({"library": f"D=765 (zero-padded to 768) B={B} k={k}", "ms": lib}),
+              flush=True)
+    return vh.report(chosen, built, ms, bad, {n: RAGGED_K5_VARIANTS[n][2] for n in built})
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--rows", type=int, default=10_000_000)
+    ap.add_argument("--only", default="", help="comma-separated variant names (default: all)")
+    ap.add_argument("--ragged", action="store_true", help="time K6r (the ragged-row producer)")
+    ap.add_argument("--ragged-k5", action="store_true",
+                    help="K5r, int8 rows that are not 4-byte aligned (RAGGED_K5_VARIANTS)")
+    ap.add_argument("--width", type=int, default=768, help="the rows' width D")
+    args = ap.parse_args()
+    if not vh.start():
+        return 2
+    if args.ragged_k5:
+        return main_ragged_k5(args)
+    chosen = vh.chosen(VARIANTS, args.only)
+    built = vh.build_all(chosen, VARIANTS, SOURCES, ("int8_tc_pass1", "int8_tc_ragged_pass1"),
+                         "variants_int8")
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(2025)
+    N, D = args.rows, args.width
+    xv, xs, bias = _int8_rows(g, N, D, dev)
     qs = {B: [quantize.quantize_rows(cs._unit(torch, torch.randn(B, D, generator=g, device=dev)))
               for _ in range(3)] for B in {b for b, _ in SHAPES}}
     ref = {}

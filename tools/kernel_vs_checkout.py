@@ -4,7 +4,7 @@ checkout of the repo (for example the parent commit unpacked with `git
 archive`), in turns, on one NVIDIA GPU.
 
     python3 tools/kernel_vs_checkout.py OTHER_DIR
-        [--kernel K1r|K2|K2r|K2tc|K4r|K4tc|K4tc3|K4tcr|K4tc3r|K6|K8]
+        [--kernel K1r|K2|K2r|K2tc|K4r|K4tc|K4tc3|K4tcr|K4tc3r|K5r|K6|K8]
         [--rows N[,N...]] [--shapes B:k,B:k,...]
 
 K2 (`streaming_topk_cuda_qmajor`, csrc/flat_topk.cu) runs on a 1%
@@ -26,7 +26,12 @@ over an xt whose N TMA cannot read (1,000,004, 1,000,002 and 1,000,003
 columns by default, every N of --rows in each turn: the ragged-row
 producer where the checkout routes such an xt there, else its rows_pass1);
 K6 (`streaming_topk_int8_cuda_qmajor`, csrc/int8_topk.cu) on the same
-rows quantized to int8, 10,000,000 by default; K8 (`ivfpq_search_cuda`,
+rows quantized to int8, 10,000,000 by default; K5r K5's wrapper
+(`streaming_topk_int8_cuda`) over such int8 rows of width 765 (rows that
+are not 4-byte aligned: `int8_dp4a_ragged_pass1`) beside width 764 (K5's
+words), both in each turn (`NxD` in --rows), with the library call
+(chunked torch._int_mm + torch.topk on a copy zero-padded to 768
+columns) timed at 765 in each turn; K8 (`ivfpq_search_cuda`,
 csrc/ivfpq_adc.cu) on synthetic IVF-PQ cells at chip_smoke.py's phase-7
 shape (chip_smoke.synthetic_ivfpq_cells: nlist 4096, m 96, cap 4992,
 ~10M rows, 1% tombstoned; --rows is ignored), nprobe 64, with
@@ -68,6 +73,7 @@ DEFAULTS = {"K1r": ("1000000", "1:30,1:300,8:30,8:300"),
             "K4tc3": ("1000000", THREE_B),
             "K4tcr": ("1000004,1000002,1000003", THREE_B),
             "K4tc3r": ("1000004,1000002,1000003", THREE_B),
+            "K5r": ("10000000x765,10000000x764", "1:100,1:300,8:100,8:300"),
             "K6": ("10000000", "64:100,64:300,256:100,256:300,1024:100,1024:300"),
             "K8": ("10000000", "1:40,1:300,8:40,8:300,256:40,256:300,1024:40,1024:300")}
 
@@ -154,12 +160,14 @@ def worker(root: str, kernel: str, rows, shapes) -> dict:
 
 
 def _worker_n(torch, cs, topk, quantize, kernel: str, rows: str, shapes) -> dict:
-    """`worker` over one corpus of `rows` rows ("N", or "N+o": an xt whose
-    base lies o elements past a 16-byte aligned address)."""
+    """`worker` over one corpus of `rows` rows ("N", "N+o": an xt whose
+    base lies o elements past a 16-byte aligned address, or "NxD": rows of
+    width D)."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(2024)
+    rows, _, width = rows.partition("x")
     N, offset = (int(v) for v in (rows.split("+") + ["0"])[:2])
-    D = 765 if kernel in ("K1r", "K2r") else 768
+    D = int(width) if width else 765 if kernel in ("K1r", "K2r") else 768
     bias = torch.zeros(N, device=dev)
     bias[torch.randperm(N, generator=g, device=dev)[: N // 100]] = cs.NEG_INF
     flat = kernel in ("K1r", "K2", "K2r", "K2tc", "K4r", "K4tc", "K4tc3", "K4tcr", "K4tc3r")
@@ -188,8 +196,15 @@ def _worker_n(torch, cs, topk, quantize, kernel: str, rows: str, shapes) -> dict
             n = min(131072, N - base)
             xv[base: base + n], xs[base: base + n] = quantize.quantize_rows(
                 cs._unit(torch, torch.randn(n, D, generator=g, device=dev)))
-        fn = lambda qb, k: quantize.streaming_topk_int8_cuda_qmajor(  # noqa: E731
-            qb[0], qb[1], xv, xs, bias, k)
+        kern = (quantize.streaming_topk_int8_cuda if kernel == "K5r"
+                else quantize.streaming_topk_int8_cuda_qmajor)
+        fn = lambda qb, k: kern(qb[0], qb[1], xv, xs, bias, k)  # noqa: E731
+        # torch._int_mm takes a width that is a multiple of 8: zero-padded copies
+        xv_lib = torch.nn.functional.pad(xv, (0, -D % 8)) if D % 8 else xv
+        pad = lambda v: torch.nn.functional.pad(v, (0, -D % 8)) if D % 8 else v  # noqa: E731
+        if kernel == "K5r" and D % 4:
+            lib_fn = lambda qb, k: cs.int8_yardstick(  # noqa: E731
+                torch, pad(qb[0]), qb[1], xv_lib, xs, bias, k)
         module = quantize.__file__
     out = {"module": module, "ms": {}, "library_ms": {}, "mismatches_outside_ties": 0}
     for B, k in shapes:
@@ -204,7 +219,7 @@ def _worker_n(torch, cs, topk, quantize, kernel: str, rows: str, shapes) -> dict
             qs = [quantize.quantize_rows(q) for q in qs]
             s_k, i_k = fn(qs[0], k)
             args = (qs[0][0][:4].contiguous(), qs[0][1][:4].contiguous(), xv, xs, bias)
-            s_y, i_y = cs.int8_yardstick(torch, *args, k)
+            s_y, i_y = cs.int8_yardstick(torch, pad(args[0]), args[1], xv_lib, xs, bias, k)
             out["mismatches_outside_ties"] += cs.check_topk(
                 torch, None, None, None, s_k[:4], i_k[:4], s_y, i_y, judge=cs.int8_judge(*args))[2]
         out["ms"][f"{B}:{k}"] = cs._time_ms(torch, lambda qb: fn(qb, k), qs)
@@ -263,7 +278,8 @@ def main() -> int:
     shutil.rmtree(tmp, ignore_errors=True)
     for key in turns["this"][0]["ms"]:
         row = {"kernel": args.kernel, "N": args.rows,
-               "D": 765 if args.kernel in ("K1r", "K2r") else 768, "B:k": key,
+               "D": (int(key.split(":")[0].partition("x")[2]) if "x" in key
+                     else 765 if args.kernel in ("K1r", "K2r") else 768), "B:k": key,
                "other_ms": [t["ms"][key] for t in turns["other"]],
                "this_ms": [t["ms"][key] for t in turns["this"]]}
         if key in turns["this"][0].get("library_ms", {}):
