@@ -22,9 +22,10 @@ Phases, each printing one JSON object per line as it ends:
   0  card name and power limit, torch and nvcc versions; builds the CUDA
      sources from csrc/ (flat_topk.cu, flat_topk_tc.cu, flat_topk_k1tc.cu,
      int8_topk.cu, ivfpq_adc.cu and the host helper ivf_spill.cu, one nvcc
-     each, in parallel) and prints the
-     build seconds and the ptxas line (registers, spills) of every kernel
-     instance.
+     each, in parallel) and, beside them, the host library csrc/cghost.cpp
+     (g++ -march=native), and prints the build seconds, the g++ version,
+     the host CPU's model and the ptxas line (registers, spills) of every
+     kernel instance.
   1  every kernel against its plain PyTorch version on the card. K1, K2
      and K3: f32 and bf16 corpora up to 131,072 x 768, k in {1, 10, 30,
      100, 300, 1024}, K2-K4 at B = 20, 31 and 32 (a 32-row query tile), 33,
@@ -86,14 +87,25 @@ Phases, each printing one JSON object per line as it ends:
      by every query of a batch of up to 600, and extents outside [0, cap]
      (clipped); the shared-memory plan against index/ivfpq.py; and the
      compiled spill
-     placement against the Python loop on overflowing cells. Fails on any
-     id mismatch outside ties.
+     placement against the Python loop on overflowing cells. The host
+     library against its plain versions (the Python loops): the padded
+     adjacency of 20,000 nodes and 80,000 edges (hubs, tied weights),
+     trigram preselection of 20 targets over 19,010 symbols (ten tied for
+     eight places, one target without a candidate), BM25 over 100,000 docs
+     (five queries, top 200), each timed. Fails on any id mismatch outside
+     ties.
   2  the main path: CodeGraph.open(<copy of codegraph_tpu/>, device="cuda")
      with the hash provider at D=768, .index(), .search() for 5 queries
      (checked against the same snapshot searched on the CPU), then 64
      concurrent queries through QueryService (checked against single
-     queries). Prints the counts and the kernels' launch counters, which
-     must both be above zero.
+     queries). Prints the counts, the kernels' launch counters and the host
+     library's call counters (padded adjacency, trigram preselection, BM25:
+     each must be called), the resolve stage's seconds, the first and
+     second search's ms by part (query embedding, vector search, BM25, the
+     graph boost and in it the boost table, the rest), the card and the
+     host CPU; then the host library alone
+     at real size: padded adjacency over 1,000,000 nodes and 4,000,000
+     edges, BM25 over phase 1's 100,000 docs beside its plain version.
   3  real size: FlatIndex of 1,000,000 x 768 rows, f32 then bf16, made on
      the card from a seeded generator, 1% tombstoned; K1 (f32) and K1tc
      (bf16 rows, bf16 and f32 queries) at B=1 and 8, k=30 and 300; K2
@@ -164,7 +176,8 @@ Phases, each printing one JSON object per line as it ends:
      checkpoints/encoder_r3_512.npz and its BPE-16k tokenizer on the card;
      .index() (stage seconds, the encoder's host tokenization apart from
      its forward, texts/s, tokens/s; the hash member must embed nothing
-     and no provider fail), 5 searches (K1) and 64 QueryService queries
+     and no provider fail), 5 searches (K1; the first two by part, as in
+     phase 2) and 64 QueryService queries
      (K2; no other kernel may launch), checked as in phase 2; the encoder
      against the JAX package's golden embeddings (tests/data/
      encoder_r3_golden.npz) and against its CPU path, within 2e-3, and one
@@ -314,6 +327,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -393,6 +407,7 @@ K5R_K = (1, 100, 300, 1024)
 
 #: the sources under codegraph_tpu_torch/csrc/, built in phase 0
 SOURCES = ("flat_topk", "flat_topk_tc", "flat_topk_k1tc", "int8_topk", "ivfpq_adc", "ivf_spill")
+HOST_SOURCE = "cghost"  # csrc/cghost.cpp, the host library (g++)
 
 
 # name -> (wrapper module, wrapper, source, line of the TPU kernel's pallas_call)
@@ -551,13 +566,36 @@ def phase0(torch) -> dict:
     nvcc = cuda_build.find_nvcc()
     ver = subprocess.run([nvcc, "--version"], capture_output=True, text=True,
                          timeout=60, check=True).stdout.strip().splitlines()[-1]
+    cxx = cuda_build.find_cxx()
+    cxx_ver = subprocess.run([cxx, "--version"], capture_output=True, text=True,
+                             timeout=60, check=True).stdout.strip().splitlines()[0]
+    # the host library (g++) beside the CUDA sources (one nvcc each), all at once
+    host, host_err = {}, []
+
+    def _host():
+        t = time.perf_counter()
+        try:
+            cuda_build.build_host(HOST_SOURCE)
+        except Exception as exc:  # raised below, after the CUDA builds end
+            host_err.append(exc)
+        host["seconds"] = time.perf_counter() - t
+
+    host_thread = threading.Thread(target=_host)
     t0 = time.perf_counter()
+    host_thread.start()
     cuda_build.build_all(SOURCES)
+    host_thread.join()
     build_s = time.perf_counter() - t0
+    if host_err:
+        raise host_err[0]
     ptxas = [f"{name}: {line}" for name in SOURCES for line in ptxas_summary(cuda_build.build_log(name))]
     out = {"phase": 0, "gpu": smi, "torch": torch.__version__,
            "torch_cuda": torch.version.cuda, "nvcc": ver,
-           "build_seconds": round(build_s, 3), "ptxas": ptxas}
+           "build_seconds": round(build_s, 3), "ptxas": ptxas,
+           "host_library": {"source": f"codegraph_tpu_torch/csrc/{HOST_SOURCE}.cpp", "cxx": cxx_ver,
+                            "flags": " ".join(cuda_build.HOST_FLAGS),
+                            "cpu": cuda_build.host_cpu_model(),
+                            "build_seconds": round(host["seconds"], 3)}}
     emit(out)
     return out
 
@@ -712,8 +750,11 @@ def phase1(torch, mods, errs) -> dict:
     cases += phase1_pieces_exact(torch, mods, errs)
     cases += phase1_k8(torch, mods, errs)
     spill = phase1_spill(mods)
+    host = phase1_host()
     n_bad = sum(c["mismatches_outside_ties"] for c in cases)
+    n_host = sum(h["mismatches_outside_ties"] for h in host.values() if isinstance(h, dict))
     out = {"phase": 1, "cases": len(cases), "spill_compiled_vs_python": spill,
+           "host_library_vs_plain": host,
            "max_abs_err": {k: v for k, v in errs.items()},
            "id_mismatches": sum(c["id_mismatches"] for c in cases),
            "mismatches_outside_ties": n_bad,
@@ -721,6 +762,7 @@ def phase1(torch, mods, errs) -> dict:
     emit(out)
     require(n_bad == 0, f"phase 1: {n_bad} mismatches outside ties")
     require(spill["equal"], "phase 1: the compiled spill placement differs from the Python loop")
+    require(n_host == 0, f"phase 1: the host library differs from its plain versions: {host}")
     return out
 
 
@@ -1324,6 +1366,280 @@ def phase1_spill(mods) -> dict:
                           and np.array_equal(f_py, f_c))}
 
 
+# ---------------------------------------------------------------------------
+# the host library (csrc/cghost.cpp): padded adjacency, trigram
+# preselection, BM25; each held to its plain version (the Python loop
+# beside its caller) in phase 1 and timed at real size in phase 2
+# ---------------------------------------------------------------------------
+
+HOST_ADJ_CHECK = (20_000, 80_000)        # phase 1: nodes, edges
+HOST_ADJ_REAL = (1_000_000, 4_000_000)   # phase 2
+HOST_MAX_DEG = 32                        # HybridSearch's max_deg
+HOST_TRIGRAM = (20, 19_000)              # targets, symbols (codegraph_tpu/ has ~19k)
+HOST_BM25_DOCS = 100_000
+HOST_BM25_K = 200                        # HybridSearch's BM25 fetch at limit 10 is 30
+HOST_RTOL = 1e-5
+HOST_WORDS = ("parse file load config render page compute checksum total graph node edge "
+              "index search query token chunk plan budget embed vector score rank filter "
+              "cache store snapshot manifest resolve symbol import module class method "
+              "function call path root tree lexer string comment batch shard merge").split()
+_host_data: dict = {}
+
+
+def host_graph(n, m, seed):
+    """CSR of n nodes and m edges shaped like codegraph_tpu/'s own graph,
+    whose heaviest hub holds ~6% of the edges: 15% of the sources are
+    Zipf-ranked hubs (the first ~6.6% of all edges), the rest uniform;
+    weights from a small set (ties at every cut), self loops, edge types
+    that boost and that do not."""
+    from codegraph_tpu_torch.core.types import EDGE_TYPE_CODES
+    from codegraph_tpu_torch.graph.csr import build_csr
+
+    rng = np.random.default_rng(seed)
+    src = np.where(rng.random(m) < 0.15, (rng.zipf(1.6, m) - 1) % n, rng.integers(0, n, m))
+    dst = rng.integers(0, n, m)
+    codes = np.array(sorted(EDGE_TYPE_CODES.values()), np.int16)
+    et = codes[rng.integers(0, len(codes), m)]
+    w = rng.choice(np.array([0.25, 0.5, 1.0, 2.0], np.float32), m)
+    return build_csr(n, src, dst, et, w)
+
+
+def adjacency_row_right(csr, row, table, max_deg) -> bool:
+    """One row of a padded-adjacency table against the CSR: each kept
+    neighbour with the weight, edge type and direction of its heaviest
+    boost edge (outgoing first on a tie), no neighbour twice, and the
+    heaviest min(degree, max_deg) weights kept."""
+    from codegraph_tpu_torch.graph.csr import BOOST_EDGE_CODES
+
+    truth = {}
+    for ptr, ids, ets, ws, d in ((csr.indptr, csr.indices, csr.etype, csr.weight, 0),
+                                 (csr.r_indptr, csr.r_indices, csr.r_etype, csr.r_weight, 1)):
+        for j in range(int(ptr[row]), int(ptr[row + 1])):
+            if int(ets[j]) in BOOST_EDGE_CODES:
+                i = int(ids[j])
+                if i not in truth or float(ws[j]) > truth[i][0]:
+                    truth[i] = (float(ws[j]), int(ets[j]), d)
+    nbr, wgt, et, dirn = (t[row] for t in table)
+    kept = [(int(i), (float(w), int(e), int(d))) for i, w, e, d in zip(nbr, wgt, et, dirn) if i >= 0]
+    heaviest = sorted((w for w, _, _ in truth.values()), reverse=True)[:max_deg]
+    return (len({i for i, _ in kept}) == len(kept) == len(heaviest)
+            and all(truth.get(i) == v for i, v in kept)
+            and sorted((v[0] for _, v in kept), reverse=True) == heaviest)
+
+
+def adjacency_mismatches(csr, a, b, max_deg) -> int:
+    """Rows where two padded-adjacency tables differ and one of them is
+    wrong by `adjacency_row_right` (two right rows differ only among the
+    neighbours tied at a full row's cut, or in order)."""
+    differ = np.zeros(a[0].shape[0], bool)
+    for ta, tb in zip(a, b):
+        differ |= (ta != tb).any(1)
+    return sum(not (adjacency_row_right(csr, row, a, max_deg)
+                    and adjacency_row_right(csr, row, b, max_deg))
+               for row in np.nonzero(differ)[0])
+
+
+def host_symbols(n, seed):
+    """n distinct identifiers of one to four words, snake_case or
+    CamelCase, a few with a non-ASCII letter."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    while len(out) < n:
+        parts = list(rng.choice(HOST_WORDS, int(rng.integers(1, 5))))
+        name = "".join(w.capitalize() for w in parts) if rng.random() < 0.3 else "_".join(parts)
+        if rng.random() < 0.01:
+            name += "\u00e9"
+        out[name] = None
+    return list(out)
+
+
+def host_targets(symbols, n, seed):
+    """n call targets: symbols one edit away (a letter dropped, added or
+    recased), one with ten tied candidates, one with none."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for name in rng.choice(symbols, n - 2, replace=False):
+        i = int(rng.integers(0, len(name)))
+        edit = int(rng.integers(0, 3))
+        out.append(name[:i] + name[i + 1:] if edit == 0 else
+                   name[:i] + "s" + name[i:] if edit == 1 else name.swapcase())
+    return out + ["plan_budget_x", "zzqxv"]
+
+
+def preselect_mismatches(targets, symbols, a, b) -> int:
+    """Targets whose preselections differ outside ties: other scores, or
+    other ids but among those at a full row's cut score (each checked
+    against its own jaccard)."""
+    from codegraph_tpu_torch.native import _fnv_trigrams
+
+    (ia, sa), (ib, sb) = a, b
+    bad = 0
+    for row, target in enumerate(targets):
+        if not np.array_equal(sa[row], sb[row]) or not np.array_equal(ia[row] >= 0, ib[row] >= 0):
+            bad += 1
+            continue
+        va = ia[row] >= 0
+        if set(ia[row][va]) == set(ib[row][va]):
+            continue
+        cut = sa[row][-1]
+        keep = sa[row] > cut
+        tt = _fnv_trigrams(target)
+
+        def jac(j):
+            st = _fnv_trigrams(symbols[int(j)])
+            n = len(tt & st)
+            return np.float32(n) / np.float32(len(tt) + len(st) - n)
+
+        if not va.all() or set(ia[row][keep]) != set(ib[row][keep]) or \
+                any(jac(j) != cut for j in list(ia[row][~keep]) + list(ib[row][~keep])):
+            bad += 1
+    return bad
+
+
+def host_bm25():
+    """A BM25Index of HOST_BM25_DOCS docs (3-60 tokens of a 20,000-term
+    vocabulary, Zipf) and five queries of five common terms; built once
+    (phase 1 checks it, phase 2 times it)."""
+    if "bm25" not in _host_data:
+        from codegraph_tpu_torch.search.bm25 import BM25Index
+
+        rng = np.random.default_rng(21)
+        vocab = [f"{HOST_WORDS[i % len(HOST_WORDS)]}{i}" for i in range(20_000)]
+        p = 1.0 / np.arange(1, len(vocab) + 1) ** 1.1
+        lens = rng.integers(3, 61, HOST_BM25_DOCS)
+        ids = rng.choice(len(vocab), int(lens.sum()), p=p / p.sum())
+        index, off = BM25Index(), 0
+        t0 = time.perf_counter()
+        for d, n in enumerate(lens):
+            index.add(d, " ".join(vocab[i] for i in ids[off:off + n]))
+            off += n
+        queries = [" ".join(vocab[i] for i in rng.choice(40, 5, replace=False)) for _ in range(5)]
+        _host_data["bm25"] = (index, queries, time.perf_counter() - t0)
+    return _host_data["bm25"]
+
+
+def bm25_mismatches(index, terms, avg_len, a, b, rtol=HOST_RTOL) -> int:
+    """Positions where two (doc, score) lists, highest first, differ
+    outside ties: a score off by more than rtol, or a doc on one side only
+    whose own score (recomputed in f64) is not the cut's."""
+    if len(a) != len(b):
+        return max(len(a), len(b))
+    sa = np.array([x for _, x in a])
+    sb = np.array([x for _, x in b])
+    bad = int((np.abs(sa - sb) > rtol * np.abs(sa)).sum())
+    cut = sa[-1] if len(sa) else 0.0
+    for d in dict(a).keys() ^ dict(b).keys():
+        score = 0.0
+        for t in terms:
+            tf = index.postings[t].get(d, 0)
+            if tf:
+                dl = index.doc_len[d]
+                score += index._idf(t) * tf * (index.k1 + 1) / (
+                    tf + index.k1 * (1 - index.b + index.b * dl / avg_len))
+        bad += abs(score - cut) > rtol * abs(cut)
+    return bad
+
+
+def _host_query_terms(index, query):
+    from codegraph_tpu_torch.search.bm25 import tokenize
+
+    return [t for t in set(tokenize(query)) if t in index.postings], index.total_len / index.n_docs
+
+
+def phase1_host() -> dict:
+    """Each function of the host library against its plain version at a
+    check size: padded adjacency over 20,000 nodes and 80,000 edges,
+    trigram preselection of 20 targets over 19,000 symbols, BM25 over
+    100,000 docs (five queries, top 200)."""
+    from codegraph_tpu_torch import native
+
+    t_all = time.perf_counter()
+    native.lib()  # built in phase 0: load it (and key it) before timing a call
+    out = {}
+    csr = host_graph(*HOST_ADJ_CHECK, seed=5)
+    t0 = time.perf_counter()
+    lib = csr.padded_adjacency(max_deg=HOST_MAX_DEG)
+    t1 = time.perf_counter()
+    plain = csr.padded_adjacency_plain(max_deg=HOST_MAX_DEG)
+    t2 = time.perf_counter()
+    out["padded_adjacency"] = {
+        "nodes": HOST_ADJ_CHECK[0], "edges": HOST_ADJ_CHECK[1], "max_deg": HOST_MAX_DEG,
+        "rows_cut": int(((lib[0] >= 0).sum(1) == HOST_MAX_DEG).sum()),
+        "rows_ordered_otherwise": int((lib[0] != plain[0]).any(1).sum()),
+        "ms": round((t1 - t0) * 1e3, 3), "plain_ms": round((t2 - t1) * 1e3, 3),
+        "mismatches_outside_ties": adjacency_mismatches(csr, lib, plain, HOST_MAX_DEG)}
+
+    symbols = host_symbols(HOST_TRIGRAM[1], seed=6)
+    targets = host_targets(symbols, HOST_TRIGRAM[0], seed=7)
+    symbols += [f"plan_budget_{c}" for c in "abcdefghij"]  # ten ties for eight places
+    t0 = time.perf_counter()
+    lib = native.trigram_preselect_native(targets, symbols, 0.3, 8)
+    t1 = time.perf_counter()
+    plain = native.trigram_preselect_plain(targets, symbols, 0.3, 8)
+    t2 = time.perf_counter()
+    out["trigram_preselect"] = {
+        "targets": len(targets), "symbols": len(symbols), "top_j": 8,
+        "candidates": int((lib[0] >= 0).sum()), "targets_without": int((lib[0] < 0).all(1).sum()),
+        "ms": round((t1 - t0) * 1e3, 3), "plain_ms": round((t2 - t1) * 1e3, 3),
+        "mismatches_outside_ties": preselect_mismatches(targets, symbols, lib, plain)}
+
+    index, queries, build_s = host_bm25()
+    ms, plain_ms, bad = [], [], 0
+    for q in queries:
+        terms, avg = _host_query_terms(index, q)
+        t0 = time.perf_counter()
+        lib = index._search_native(terms, avg, HOST_BM25_K)
+        t1 = time.perf_counter()
+        plain = index._search_plain(terms, avg, HOST_BM25_K)
+        t2 = time.perf_counter()
+        ms.append((t1 - t0) * 1e3)
+        plain_ms.append((t2 - t1) * 1e3)
+        bad += bm25_mismatches(index, terms, avg, lib, plain)
+    out["bm25"] = {"docs": index.n_docs, "queries": len(queries), "top": HOST_BM25_K,
+                   "index_build_seconds": round(build_s, 3),
+                   "ms": round(statistics.median(ms), 3),
+                   "plain_ms": round(statistics.median(plain_ms), 3),
+                   "mismatches_outside_ties": bad}
+    out["seconds"] = round(time.perf_counter() - t_all, 3)
+    return out
+
+
+def host_real_size() -> dict:
+    """The host library's functions alone at real size: padded adjacency
+    over 1,000,000 nodes and 4,000,000 edges (its plain version, ~100 s
+    there, is timed at phase 1's size), and BM25 over phase 1's 100,000
+    docs beside its plain version (median of five queries)."""
+    from codegraph_tpu_torch import native
+
+    t0 = t_all = time.perf_counter()
+    csr = host_graph(*HOST_ADJ_REAL, seed=8)
+    t1 = time.perf_counter()
+    nbr, _, _, _ = csr.padded_adjacency(max_deg=HOST_MAX_DEG)
+    t2 = time.perf_counter()
+    out = {"padded_adjacency": {"nodes": HOST_ADJ_REAL[0], "edges": HOST_ADJ_REAL[1],
+                                "max_deg": HOST_MAX_DEG, "csr_build_ms": round((t1 - t0) * 1e3, 3),
+                                "ms": round((t2 - t1) * 1e3, 3),
+                                "rows_cut": int(((nbr >= 0).sum(1) == HOST_MAX_DEG).sum())}}
+    index, queries, _ = host_bm25()
+    ms, plain_ms = [], []
+    for q in queries:
+        terms, avg = _host_query_terms(index, q)
+        t0 = time.perf_counter()
+        before = native.calls["bm25_score"]
+        index.search(q, HOST_BM25_K)
+        t1 = time.perf_counter()
+        index._search_plain(terms, avg, HOST_BM25_K)
+        t2 = time.perf_counter()
+        require(native.calls["bm25_score"] == before + 1, "BM25Index.search did not score in the host library")
+        ms.append((t1 - t0) * 1e3)
+        plain_ms.append((t2 - t1) * 1e3)
+    out["bm25_search"] = {"docs": index.n_docs, "queries": len(queries), "top": HOST_BM25_K,
+                          "ms": round(statistics.median(ms), 3),
+                          "plain_ms": round(statistics.median(plain_ms), 3)}
+    out["seconds"] = round(time.perf_counter() - t_all, 3)
+    return out
+
+
 QUERIES = [
     "parse a source file into nodes and edges",
     "streaming top-k kernel over the corpus",
@@ -1340,6 +1656,7 @@ def phase2(torch, mods, errs, dtype="float32", phase=2, D=768, kernels=None) -> 
     routes another width takes, which must launch, and no other."""
     from codegraph_tpu_torch.api import CodeGraph
     from codegraph_tpu_torch.core.config import CodeGraphConfig
+    from codegraph_tpu_torch.ops.cuda_build import host_cpu_model
     from codegraph_tpu_torch.search.service import QueryService
 
     src = os.path.join(ROOT, "codegraph_tpu")
@@ -1359,13 +1676,20 @@ def phase2(torch, mods, errs, dtype="float32", phase=2, D=768, kernels=None) -> 
 
         topk = mods["topk"]
         reset_launches(mods)
+        host_calls = reset_host_calls()
         t0 = time.perf_counter()
         cg = CodeGraph.open(proj, config=cfg, device="cuda")
         stats = cg.index()
         t_index = time.perf_counter() - t0
 
         t0 = time.perf_counter()
-        hits = [cg.search(qt, limit=10) for qt in QUERIES]
+        with StageTimer(torch, hybrid_parts(cg)) as first_parts:
+            hits = [cg.search(QUERIES[0], limit=10)]
+        t_first = time.perf_counter() - t0
+        with StageTimer(torch, hybrid_parts(cg)) as second_parts:
+            hits.append(cg.search(QUERIES[1], limit=10))
+        t_second = time.perf_counter() - t0 - t_first
+        hits += [cg.search(qt, limit=10) for qt in QUERIES[2:]]
         t_search = time.perf_counter() - t0
 
         index = cg.indexer.index
@@ -1382,6 +1706,7 @@ def phase2(torch, mods, errs, dtype="float32", phase=2, D=768, kernels=None) -> 
         t_service = time.perf_counter() - t0
         # the main path ends here; later launches only check results
         launches = read_launches(mods)
+        host_calls = dict(host_calls)
         singles = [index.search(e[None, :], k) for e in embs]
 
         # batched (K2) vs single (K1) results on the same index; the queries
@@ -1419,8 +1744,14 @@ def phase2(torch, mods, errs, dtype="float32", phase=2, D=768, kernels=None) -> 
             "index_rows": index.n_rows, "index_capacity": index.capacity,
             "index_seconds": round(t_index, 3),
             "stage_seconds": {k: round(v, 3) for k, v in stats.stage_seconds.items()},
+            "resolve_seconds": round(stats.stage_seconds["resolve"], 3),
             "search_seconds_5": round(t_search, 3),
+            "first_search_ms": round(t_first * 1e3, 3),
+            "first_search_parts_ms": _parts_ms(first_parts, t_first),
+            "second_search_ms": round(t_second * 1e3, 3),
+            "second_search_parts_ms": _parts_ms(second_parts, t_second),
             "search_perf": cg.indexer.search.monitor.report(),
+            "host_library_calls": host_calls,
             "service_seconds_64": round(t_service, 3),
             "service_batches": svc_stats.batches, "service_max_batch": svc_stats.max_batch_seen,
             "launches": launches,
@@ -1429,8 +1760,15 @@ def phase2(torch, mods, errs, dtype="float32", phase=2, D=768, kernels=None) -> 
                                   "mismatches_outside_ties": bad_svc},
             "hybrid_vs_cpu": hybrid,
             "kernel_vs_plain_main_shapes": main_shapes,
+            "gpu": nvidia_smi_line(), "cpu": host_cpu_model(),
         }
         emit(out)
+        if phase == 2:  # the host library alone at real size, beside the main path
+            out["host_real_size"] = host_real_size()
+            emit({"phase": phase, "host_real_size": out["host_real_size"],
+                  "gpu": out["gpu"], "cpu": out["cpu"]})
+        require(all(host_calls.values()),
+                f"phase {phase}: the main path did not call every host function: {host_calls}")
         require(stats.nodes > 0 and stats.chunks > 0 and stats.edges_total > 0, "empty index")
         require(bad_svc == 0, f"phase {phase}: service results disagree with single queries")
         require(all(v["mismatches_outside_ties"] == 0 for v in main_shapes.values()),
@@ -1448,6 +1786,36 @@ def phase2(torch, mods, errs, dtype="float32", phase=2, D=768, kernels=None) -> 
         if svc is not None:
             svc.close()
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def reset_host_calls() -> dict:
+    """The host library's call counts, set to 0: called just before a main
+    path; the dict is live, so read (copy) it just after."""
+    from codegraph_tpu_torch import native
+
+    for name in native.calls:
+        native.calls[name] = 0
+    return native.calls
+
+
+def hybrid_parts(cg) -> dict:
+    """StageTimer's targets for CodeGraph.search: the query's embedding, the
+    vector search (the kernel and its copies), BM25, and the graph boost
+    (the device gather and compare), of it the boost table's build (the
+    host library's padded adjacency, then its copy to the card)."""
+    hs = cg.indexer.search
+    return {"embed_query": (hs.provider, "embed_texts"), "vector_search": (hs.index, "search"),
+            "bm25": (hs.bm25, "search"), "graph_boost": (hs, "_graph_boost"),
+            "boost_table": (hs, "_adjacency")}
+
+
+def _parts_ms(timer, total_s) -> dict:
+    """The parts' ms, and "other": the search's ms outside them (the boost
+    table is inside the graph boost)."""
+    out = {name: round(sec * 1e3, 3) for name, sec in timer.seconds.items()}
+    if out:
+        out["other"] = round(total_s * 1e3 - sum(v for k, v in out.items() if k != "boost_table"), 3)
+    return out
 
 
 def phase15(torch, mods, errs) -> dict:
@@ -2888,11 +3256,15 @@ def phase8(torch, mods, errs) -> dict:
         counters = enc.counters.to_dict()
         index_texts = enc.metrics.texts
 
-        hits, search_s = [], []
-        for qt in QUERIES:
+        hits, search_s, parts = [], [], []
+        for i, qt in enumerate(QUERIES):
             t0 = time.perf_counter()
-            hits.append(cg.search(qt, limit=10))
+            # the first two searches by part (the first one after index())
+            with StageTimer(torch, hybrid_parts(cg) if i < 2 else {}) as timer:
+                hits.append(cg.search(qt, limit=10))
             search_s.append(time.perf_counter() - t0)
+            if i < 2:
+                parts.append(_parts_ms(timer, search_s[-1]))
         # the encoder's share of a B=1 search: the same queries' embedding alone
         embed_s = []
         for qt in QUERIES:
@@ -3009,6 +3381,7 @@ def phase8(torch, mods, errs) -> dict:
                           for p in (ens, enc, hsh)},
             "search_seconds_5": round(sum(search_s), 3),
             "search_ms_each": [round(t * 1e3, 3) for t in search_s],
+            "search_parts_ms_first_two": parts,
             "query_embed_ms_each": [round(t * 1e3, 3) for t in embed_s],
             "search_perf": cg.indexer.search.monitor.report(),
             "service_seconds_64": round(t_service, 3),

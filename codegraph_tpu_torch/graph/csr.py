@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from codegraph_tpu_torch.core.types import EDGE_TYPE_CODES, EdgeType
+from codegraph_tpu_torch.native import padded_adjacency_native
 
 # edge types that boost hybrid search (reference joins these, surql:481)
 BOOST_EDGE_TYPES = (EdgeType.CALLS, EdgeType.USES, EdgeType.DEPENDS_ON)
@@ -88,7 +89,30 @@ class CSRGraph:
         Neighbors beyond max_deg are dropped highest-weight-first kept.
         symmetric=True unions out- and in-edges (the reference joins both
         directions, surql:481-511); outgoing wins weight ties.
+
+        The symmetric table comes from the host library
+        (`native.padded_adjacency_native`), as in the JAX package; among
+        neighbours of equal weight it keeps and orders as its hash table
+        does. `padded_adjacency_plain` is its plain version.
         """
+        if symmetric:
+            return padded_adjacency_native(
+                self.n_nodes,
+                self.indptr, self.indices, self.etype, self.weight,
+                self.r_indptr, self.r_indices, self.r_etype, self.r_weight,
+                etypes, max_deg,
+            )
+        return self.padded_adjacency_plain(max_deg, etypes, symmetric)
+
+    def padded_adjacency_plain(
+        self,
+        max_deg: int = 32,
+        etypes: Sequence[int] = BOOST_EDGE_CODES,
+        symmetric: bool = True,
+    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+        """`padded_adjacency` as a Python loop over rows (the JAX package's
+        fallback): the same table, ties kept and ordered by weight, then
+        outgoing before incoming, then CSR order."""
         n = self.n_nodes
         nbr = np.full((n, max_deg), -1, np.int32)
         wgt = np.zeros((n, max_deg), np.float32)

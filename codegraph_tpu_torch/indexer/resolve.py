@@ -50,6 +50,7 @@ from typing import Dict, List, Optional, Sequence, Set, Tuple
 from codegraph_tpu_torch.core.errors import ProviderUnavailable
 from codegraph_tpu_torch.core.types import (
     CodeEdge, CodeNode, EdgeType, Language, NodeType)
+from codegraph_tpu_torch.native import trigram_preselect_native
 
 logger = logging.getLogger("codegraph_tpu_torch.resolve")
 
@@ -235,18 +236,6 @@ def _normalize_variants(name: str) -> List[str]:
     if snake != base:
         out.append(snake)
     return out
-
-
-def _trigrams(s: str) -> Set[str]:
-    s = s.lower()
-    return {s[i : i + 3] for i in range(len(s) - 2)} if len(s) > 2 else {s}
-
-
-def _trigram_jaccard(a: str, b: str) -> float:
-    ta, tb = _trigrams(a), _trigrams(b)
-    if not ta or not tb:
-        return 0.0
-    return len(ta & tb) / len(ta | tb)
 
 
 def parse_import_aliases(node: CodeNode) -> List[Tuple[str, str]]:
@@ -599,13 +588,13 @@ class EdgeResolver:
             return 0
         targets = sorted({e.dst for e in pending})
         # trigram preselection: only embed targets with a plausible candidate
+        # (the host library's inverted trigram index, as in the JAX package)
         presel: Dict[str, List[str]] = {}
-        for t in targets:
-            cands = [s for s in symbol_names if _trigram_jaccard(t, s) >= 0.3]
+        idx, _score = trigram_preselect_native(targets, symbol_names, 0.3, 8)
+        for ti, t in enumerate(targets):
+            cands = [symbol_names[j] for j in idx[ti] if j >= 0]
             if cands:
-                presel[t] = sorted(
-                    cands, key=lambda s: -_trigram_jaccard(t, s)
-                )[:8]
+                presel[t] = cands
         if not presel:
             return 0
 

@@ -20,6 +20,8 @@ from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
+from codegraph_tpu_torch.native import bm25_score_native
+
 _WORD_RE = re.compile(r"[A-Za-z_][A-Za-z0-9_]*|\d+")
 _CAMEL_RE = re.compile(r"(?<=[a-z0-9])(?=[A-Z])|(?<=[A-Z])(?=[A-Z][a-z])")
 
@@ -84,6 +86,10 @@ class BM25Index:
             return 0.0
         return math.log(1.0 + (self.n_docs - df + 0.5) / (df + 0.5))
 
+    # from this corpus size the host library scores (the JAX package's
+    # threshold: below it the packing costs more than the loop)
+    NATIVE_THRESHOLD = 2000
+
     def search(self, query: str, limit: int = 50) -> List[Tuple[int, float]]:
         """Top-`limit` (doc_id, bm25_score), descending."""
         if self.n_docs == 0:
@@ -92,6 +98,13 @@ class BM25Index:
         terms = [t for t in set(tokenize(query)) if t in self.postings]
         if not terms:
             return []
+        if self.n_docs >= self.NATIVE_THRESHOLD:
+            return self._search_native(terms, avg_len, limit)
+        return self._search_plain(terms, avg_len, limit)
+
+    def _search_plain(self, terms, avg_len, limit) -> List[Tuple[int, float]]:
+        """The scores in Python (f64 sums), ties in posting order: the path
+        below NATIVE_THRESHOLD, and the plain version of `_search_native`."""
         scores: Dict[int, float] = {}
         for term in terms:
             idf = self._idf(term)
@@ -103,6 +116,34 @@ class BM25Index:
                 scores[doc_id] = scores.get(doc_id, 0.0) + idf * tf * (self.k1 + 1) / denom
         top = sorted(scores.items(), key=lambda kv: -kv[1])[:limit]
         return top
+
+    def _search_native(self, terms, avg_len, limit) -> List[Tuple[int, float]]:
+        """Score in the host library over packed per-term postings: f64
+        sums, f32 scores, ties in its hash table's order."""
+        post_off = [0]
+        post_doc: List[int] = []
+        post_tf: List[int] = []
+        max_doc = -1
+        for t in terms:
+            docs_tf = self.postings.get(t, {})
+            for d, tf in docs_tf.items():
+                post_doc.append(d)
+                post_tf.append(tf)
+                if d > max_doc:
+                    max_doc = d
+            post_off.append(len(post_doc))
+        if max_doc < 0:
+            return []
+        doc_len = np.zeros((max_doc + 1,), np.int32)
+        for d, n in self.doc_len.items():
+            if d <= max_doc:
+                doc_len[d] = n
+        out_doc, out_score = bm25_score_native(
+            np.asarray(post_off, np.int64), np.asarray(post_doc, np.int32),
+            np.asarray(post_tf, np.int32), doc_len, avg_len,
+            self.k1, self.b, limit, n_docs=self.n_docs,
+        )
+        return [(int(d), float(s)) for d, s in zip(out_doc, out_score)]
 
     def scores_for(self, query: str, doc_ids: Sequence[int]) -> np.ndarray:
         """BM25 scores for specific docs (the hybrid mix needs aligned

@@ -325,10 +325,13 @@ def _boost_inputs(data_dir, replies) -> str:
     """Both packages' boost inputs for every hit of the search replies (a
     failure's diagnostic): the hit's row and its boost neighbours with their
     weights, from each package's `padded_adjacency` of the snapshot."""
+    import codegraph_tpu.native as jnative
     from codegraph_tpu.graph.store import GraphStore as JStore
     from codegraph_tpu_torch.graph.store import GraphStore as TStore
 
-    lines = []
+    # whether the JAX side built its boost table with its g++ library (else
+    # its Python loop); the port's `start` process builds it with its own
+    lines = [f"codegraph_tpu.native.available() in this process: {jnative.available()}"]
     for name, store in (("jax", JStore.load(data_dir)), ("port", TStore.load(data_dir))):
         nbr, wgt, _, _ = store.csr().padded_adjacency(max_deg=32)
         for reply in replies:

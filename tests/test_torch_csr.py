@@ -3,14 +3,16 @@ held to the JAX package on the CPU.
 
 `HybridSearch` keeps a node's `max_deg = 32` heaviest boost neighbours. One
 hub here has 44: four heavy ones and 40 of one equal weight, so 28 of the 40
-tied ones are kept. The port runs the Python loop of the JAX package (its
-stable sort keeps ties in CSR order) and must equal the JAX package's Python
-path exactly. The JAX package itself builds the table with its native
-library where that is available, whose `partial_sort` keeps tied neighbours
-in hash-map order: the two tables then hold the same count and weights in
-every row, and differ only in which of the tied ids at the cut they keep.
-A hit beside the hub gets the hub's boost on one side and not the other
-exactly where that tied id is kept by one table only (ROADMAP queue 3).
+tied ones are kept. Both packages build the table with their g++ library
+(the port's copy of it, `csrc/cghost.cpp`; `tests/test_torch_host.py` holds
+the two equal), whose `partial_sort` keeps tied neighbours in hash-map order.
+The port's plain version, `padded_adjacency_plain`, is the Python loop of
+the JAX package (its stable sort keeps ties in CSR order) and must equal the
+JAX package's Python path exactly. The library's table and the Python
+loop's hold the same count and weights in every row, and differ only in
+which of the tied ids at the cut they keep. A hit beside the hub gets the
+hub's boost from one table and not the other exactly where that tied id is
+kept by one table only.
 """
 
 import numpy as np
@@ -69,7 +71,7 @@ def _python_path(jg, monkeypatch):
 def test_port_equals_the_jax_python_path(graphs, monkeypatch):
     jg, tg = graphs
     want = _python_path(jg, monkeypatch)
-    got = tg.padded_adjacency(max_deg=MAX_DEG)
+    got = tg.padded_adjacency_plain(max_deg=MAX_DEG)
     for a, b in zip(want, got):
         assert a.dtype == b.dtype and np.array_equal(a, b)
     nbr, wgt = got[0][HUB], got[1][HUB]
@@ -84,11 +86,12 @@ def _tied_at_cut(wgt_row, valid):
 
 
 def test_native_table_differs_only_among_tied_ids(graphs, monkeypatch):
-    """Row by row against the table the JAX package builds by default (its
-    native library where available, else its Python path)."""
+    """Row by row: the port's plain version against the table the JAX
+    package builds by default (its native library where available, else its
+    Python path)."""
     jg, tg = graphs
     native = jg.padded_adjacency(max_deg=MAX_DEG)
-    port = tg.padded_adjacency(max_deg=MAX_DEG)
+    port = tg.padded_adjacency_plain(max_deg=MAX_DEG)
     if not jnative.available():
         for a, b in zip(native, port):
             assert np.array_equal(a, b)
@@ -120,10 +123,10 @@ def test_boost_gap_is_the_tied_ids(graphs):
     hub's boost is TIE_W where its table keeps x, else 0, on each side, so
     the two packages' boosts differ exactly on the tied ids that one table
     keeps and the other does not; x's own boost (its row holds the hub)
-    is the same on both."""
+    is the same on both (the port's side: its plain version's table)."""
     jg, tg = graphs
     native = jg.padded_adjacency(max_deg=MAX_DEG)
-    port = tg.padded_adjacency(max_deg=MAX_DEG)
+    port = tg.padded_adjacency_plain(max_deg=MAX_DEG)
     tied = list(range(1, 41))
     cand = np.array([[HUB, x] for x in tied], np.int32)
     b_jax = np.asarray(jcsr.adjacency_boost(cand, native[0], native[1]))

@@ -80,7 +80,12 @@ PARALLEL_MODULES = [
 ]
 
 
-@pytest.mark.parametrize("module", SERVING_MODULES + TRAINING_SHM_MODULES + PARALLEL_MODULES)
+# the host library (csrc/cghost.cpp) and its three callers
+HOST_LIBRARY_MODULES = ["native", "ops.cuda_build", "graph.csr", "indexer.resolve", "search.bm25"]
+
+
+@pytest.mark.parametrize("module", SERVING_MODULES + TRAINING_SHM_MODULES + PARALLEL_MODULES
+                         + HOST_LIBRARY_MODULES)
 def test_serving_module_imports_alone_without_jax(module):
     code = BLOCKED_IMPORT.split("import codegraph_tpu_torch\n")[0] + (
         f"import codegraph_tpu_torch.{module}\n"
@@ -91,6 +96,21 @@ def test_serving_module_imports_alone_without_jax(module):
     assert proc.returncode == 0, proc.stderr
     assert os.path.exists(os.path.join(PKG, *module.split("."))) or os.path.exists(
         os.path.join(PKG, *module.split(".")) + ".py")
+
+
+def test_host_library_runs_without_jax():
+    """The port's host library builds (or is found built) and runs in a
+    process where the JAX package and its library cannot be imported."""
+    code = BLOCKED_IMPORT.split("import codegraph_tpu_torch\n")[0] + (
+        "from codegraph_tpu_torch import native\n"
+        "idx, score = native.trigram_preselect_native(['parse_file'], ['parse_files', 'x'])\n"
+        "assert idx[0].tolist()[:2] == [0, -1] and score[0, 0] > 0.7, (idx, score)\n"
+        "assert native.calls['trigram_preselect'] == 1\n"
+        "leaked = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'codegraph_tpu') and sys.modules[m] is not None)\n"
+        "assert not leaked, leaked\n")
+    proc = _run(["-c", code], cwd=REPO)
+    assert proc.returncode == 0, proc.stderr
 
 
 def test_no_import_line_names_jax_or_the_jax_package():

@@ -9,8 +9,9 @@ server is built as its CLI builds it (`cli._make_server`); the port's by
 JSON-RPC method then answers alike: replies equal exactly, except
 `semantic_code_search` hits, whose scores are held to 1e-5 (f32 sums in
 another order), whose ids may swap only where neighbouring scores tie within
-1e-5, and whose `related` lists are compared as sets (ROADMAP queue 3:
-equal-weight neighbours are ordered by the JAX package's native library).
+1e-5, and whose `related` lists are compared as sets (equal-weight
+neighbours are ordered by the g++ library's hash table, and by the JAX
+package's Python loop where its library does not load).
 The agents run under one scripted LLM on both sides and must give the same
 traces, turns and answer.
 """

@@ -16,6 +16,7 @@ four places) and ranker scores within TOL = 1e-4.
 
 import os
 import shutil
+import types
 
 import pytest
 
@@ -201,7 +202,86 @@ def test_ask_equals_jax_with_a_scripted_llm(snap, monkeypatch):
 @pytest.mark.parametrize("topic", ["chunk planning", "file watcher", "python extractor",
                                    "zzz nothing matches qqq"])
 def test_insights_equal_jax(snap, topic):
-    assert snap["t"].insights(topic) == snap["j"].insights(topic)
+    a, b = snap["j"].insights(topic), snap["t"].insights(topic)
+    hits = snap["j"].indexer.search.search_text(topic, 5)
+    assert _insights_equal(hits, snap["j"].graph, topic, a, b), _search_report(snap, topic)
+
+
+def _insights_equal(jax_hits, jax_graph, topic, a, b) -> bool:
+    """The port's insights `b` equal the JAX package's `a`; where the port
+    ranks the relevant-code hits in another order only among hits whose
+    scores tie within TOL, the JAX package's insights are built again from
+    its own hits `jax_hits` put in the port's order (the same input) and
+    must equal the port's. Near-duplicate chunks tie so: the same import
+    line in three files of the fixture, whose chunks differ only in the
+    path, score within 1e-7 of each other under some project paths, and
+    each package's f32 rounding orders them."""
+    if a == b:
+        return True
+    from codegraph_tpu.rag.insights import InsightsGenerator
+
+    port = next((i["nodes"] for i in b if i["kind"] == "relevant_code"), None)
+    by_id = {h.node_id: h for h in jax_hits}
+    if port is None or sorted(port) != sorted(by_id):
+        return False
+    if any(abs(by_id[m].score - by_id[n].score) > TOL
+           for m, n in zip([h.node_id for h in jax_hits], port)):
+        return False
+    ordered = [by_id[n] for n in port]
+    again = InsightsGenerator(types.SimpleNamespace(search_text=lambda q, limit: ordered),
+                              jax_graph)
+    return [i.to_dict() for i in again.generate(topic)] == b
+
+
+def test_insights_of_tied_hits_in_either_order(snap):
+    """A tie between two relevant-code hits, made by giving both packages'
+    insights the same five hits with two of equal score: the port's
+    insights with the tied pair in the other order equal the JAX package's
+    (an exact comparison, which `test_insights_equal_jax` made until now,
+    rejects them), and the same swap of two hits that do not tie is
+    rejected."""
+    import dataclasses
+
+    from codegraph_tpu.rag.insights import InsightsGenerator as JInsights
+    from codegraph_tpu_torch.rag.insights import InsightsGenerator as TInsights
+
+    topic = "python extractor"
+    hits = [dataclasses.replace(h) for h in snap["j"].indexer.search.search_text(topic, 5)]
+    assert len(hits) == 5 and hits[1].score - hits[3].score > TOL
+    hits[4].score = hits[3].score  # the last two tie
+
+    def insights(gen_cls, graph, order):
+        fixed = types.SimpleNamespace(search_text=lambda q, limit: order)
+        return [i.to_dict() for i in gen_cls(fixed, graph).generate(topic)]
+
+    def port_insights(order):
+        return insights(TInsights, snap["t"].graph,
+                        [TResult(**dataclasses.asdict(hits[i])) for i in order])
+
+    a = insights(JInsights, snap["j"].graph, hits)
+    assert port_insights([0, 1, 2, 3, 4]) == a
+    tied = port_insights([0, 1, 2, 4, 3])
+    assert tied != a and _insights_equal(hits, snap["j"].graph, topic, a, tied)
+    untied = port_insights([0, 3, 2, 1, 4])
+    assert not _insights_equal(hits, snap["j"].graph, topic, a, untied)
+
+
+def _search_report(snap, topic, limit=5) -> str:
+    """Both sides' hits behind an insight, a mismatch's diagnostic: each
+    hit's node row in the snapshot, its score and the score's parts, and
+    whether the JAX package's g++ library is loaded in this process (else
+    the JAX side ran its Python branches)."""
+    import codegraph_tpu.native as jnative
+
+    lines = [f"codegraph_tpu.native.available(): {jnative.available()}"]
+    for side in ("j", "t"):
+        cg = snap[side]
+        rows = cg.indexer.store.node_rows
+        lines += [f"{side} row={rows.get(h.node_id, -1)} {h.name} score={h.score:.7f} "
+                  f"vector={h.vector_score:.7f} text={h.text_score:.7f} "
+                  f"graph_boost={h.graph_boost:.7f}"
+                  for h in cg.indexer.search.search_text(topic, limit)]
+    return "\n".join(lines)
 
 
 def _result(cls, name="compute_invoice", score=0.9, snippet="def compute_invoice(items): ..."):

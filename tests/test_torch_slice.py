@@ -120,11 +120,36 @@ def _assert_hits_equal(a, b):
             assert abs(x.graph_boost - y.graph_boost) <= TOL
 
 
+def _hits_report(cgs, hit_lists) -> str:
+    """Both sides' hits, a mismatch's diagnostic: each hit's node row in its
+    package's store, its score and the score's parts, and whether the JAX
+    package's g++ library is loaded in this process (else the JAX side ran
+    its Python branches)."""
+    import codegraph_tpu.native as jnative
+
+    lines = [f"codegraph_tpu.native.available(): {jnative.available()}"]
+    for side, cg, hits in zip(("jax", "port"), cgs, hit_lists):
+        rows = cg.indexer.store.node_rows
+        lines += [f"{side} row={rows.get(h.node_id, -1)} {h.name} score={h.score:.7f} "
+                  f"vector={h.vector_score:.7f} text={h.text_score:.7f} "
+                  f"graph_boost={h.graph_boost:.7f}" for h in hits]
+    return "\n".join(lines)
+
+
+def _hits_equal_or_explain(cgs, a, b, check=None):
+    """`_assert_hits_equal` (or `check`), and on a mismatch both sides' hits
+    in the failure's message."""
+    try:
+        (check or _assert_hits_equal)(a, b)
+    except AssertionError as exc:
+        raise AssertionError(f"{exc}\n{_hits_report(cgs, (a, b))}") from exc
+
+
 @pytest.mark.parametrize("query", QUERIES)
 def test_hybrid_search_top10_matches_jax(built, query):
     a = built["j"].search(query, limit=10)
     b = built["t"].search(query, limit=10)
-    _assert_hits_equal(a, b)
+    _hits_equal_or_explain((built["j"], built["t"]), a, b)
     assert [h.node_id for h in a][:3] == [h.node_id for h in b][:3]
 
 
@@ -261,8 +286,9 @@ def test_d100_index_rows_equal(built_d100):
 @pytest.mark.parametrize("query", QUERIES)
 def test_d100_hybrid_search_top10_matches_jax(built_d100, query):
     """index -> search at D = 100: the same top-10 as JAX within 1e-5."""
-    _assert_hits_equal(built_d100["j"].search(query, limit=10),
-                       built_d100["t"].search(query, limit=10))
+    _hits_equal_or_explain((built_d100["j"], built_d100["t"]),
+                           built_d100["j"].search(query, limit=10),
+                           built_d100["t"].search(query, limit=10))
 
 
 def test_d100_query_service_batches_match_single_queries(built_d100):
@@ -757,7 +783,9 @@ def _assert_hits_close(a, b, tol=ENC_TOL):
 
 @pytest.mark.parametrize("query", DEFAULT_QUERIES)
 def test_default_config_search_matches_jax(built_default, query):
-    _assert_hits_close(built_default["j"].search(query, 10), built_default["t"].search(query, 10))
+    _hits_equal_or_explain((built_default["j"], built_default["t"]),
+                           built_default["j"].search(query, 10),
+                           built_default["t"].search(query, 10), check=_assert_hits_close)
 
 
 def test_default_config_tools_on_one_snapshot(built_default):
@@ -781,7 +809,11 @@ def test_default_config_tools_on_one_snapshot(built_default):
         b = tt.execute("semantic_code_search", {"query": query, "limit": 5})
         assert a["count"] == b["count"] > 0
         for x, y in zip(a["results"], b["results"]):
-            assert abs(x["score"] - y["score"]) <= ENC_TOL
+            # on a mismatch, both sides' reranked hits and their hybrid hits
+            assert abs(x["score"] - y["score"]) <= ENC_TOL, (
+                f"{query}\njax: {[(r['name'], r['score']) for r in a['results']]}\n"
+                f"port: {[(r['name'], r['score']) for r in b['results']]}\n"
+                f"{_hits_report((j, t), (j.search(query, 5), t.search(query, 5)))}")
             if x["node_id"] == y["node_id"]:
                 assert x.keys() == y.keys()
     for tool, params in (("get_hub_nodes", {"limit": 5}),

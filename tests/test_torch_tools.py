@@ -119,10 +119,11 @@ def _related_key(entries):
 def _assert_results_close(a, b, cap=8):
     """Results position by position (a swap only where scores tie). A hit's
     `related` evidence lists the same neighbours, but in the order of the
-    padded adjacency, whose neighbours of equal weight the JAX package orders
-    by its native library and the port by the Python loop it copies: so the
-    lists are compared as sets, and where one reached the cap (8) only their
-    weights, since ties at the cap may keep another neighbour."""
+    padded adjacency, whose neighbours of equal weight both packages order
+    by their g++ library's hash table, and the JAX package by its Python
+    loop where its library does not load: so the lists are compared as
+    sets, and where one reached the cap (8) only their weights, since ties
+    at the cap may keep another neighbour."""
     assert a["count"] == b["count"] > 0
     for x, y in zip(a["results"], b["results"]):
         assert abs(x["score"] - y["score"]) <= TOL
