@@ -5,7 +5,10 @@ Port of `codegraph_tpu/index/flat.py`. The corpus lives as one padded
 via capacity padding + a NEG_INF bias vector (tombstones). Searches run
 the exact streaming top-k: kernel K1 for batches under 32 and K2 for
 batches of 32 and more (`ops/topk.py`), on a CUDA index; their plain
-PyTorch version on a CPU index.
+PyTorch version on a CPU index. A search records its host steps as
+spans (`utils/perfmon.py`): `index.search` (n = B) and inside it
+`index.upload`, `index.prepare`, `index.scan`, `index.copy_back`,
+`index.post`.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from codegraph_tpu_torch.ops.topk import (
     streaming_topk_cuda,
     streaming_topk_cuda_qmajor,
 )
+from codegraph_tpu_torch.utils.perfmon import span
 
 #: batches of this many queries or more take K2 (corpus read once per
 #: call for many queries), smaller ones K1
@@ -37,6 +41,16 @@ def _as_tensor(a) -> torch.Tensor:
     if torch.is_tensor(a):
         return a
     return torch.from_numpy(np.require(a, requirements=["C", "W"]))
+
+
+def _finish(s_np: np.ndarray, i_np: np.ndarray, k: int, k_eff: int):
+    """Rows of dead or missing hits set to -1, both padded to k columns."""
+    dead = s_np <= float(NEG_INF) / 2
+    i_np = np.where(dead, -1, i_np).astype(np.int32)
+    if k_eff < k:
+        s_np = np.pad(s_np, ((0, 0), (0, k - k_eff)), constant_values=float(NEG_INF))
+        i_np = np.pad(i_np, ((0, 0), (0, k - k_eff)), constant_values=-1)
+    return s_np, i_np
 
 
 def resolve_device(device) -> torch.device:
@@ -158,29 +172,30 @@ class FlatIndex:
                 np.full((B, k), float(NEG_INF), np.float32),
                 np.full((B, k), -1, np.int32),
             )
-        q = torch.as_tensor(queries).to(self.device).float()
-        if q.dim() == 1:
-            q = q[None, :]
-        if q.shape[1] != self.dim:
-            raise DimensionMismatch(self.dim, q.shape[1])
-        if self.metric == "cosine":
-            q = l2_normalize(q)
-        # a bf16 index scores bf16 queries (flat.py:171-175 of the JAX index)
-        q = q.to(self.dtype).contiguous()
-
-        k_eff = min(k, self.capacity)
-        bias = combine_bias(self._bias, extra_bias, self.capacity)
-        kernel = (streaming_topk_cuda_qmajor if q.shape[0] >= QMAJOR_MIN_BATCH
-                  else streaming_topk_cuda)
-        s, i = kernel(q, self._x, bias, k_eff, tile_n=min(self.tile_n, self.capacity))
-
-        s_np, i_np = s.cpu().numpy(), i.cpu().numpy()
-        dead = s_np <= float(NEG_INF) / 2
-        i_np = np.where(dead, -1, i_np).astype(np.int32)
-        if k_eff < k:
-            s_np = np.pad(s_np, ((0, 0), (0, k - k_eff)), constant_values=float(NEG_INF))
-            i_np = np.pad(i_np, ((0, 0), (0, k - k_eff)), constant_values=-1)
-        return s_np, i_np
+        with span("index.search") as top:
+            with span("index.upload"):
+                q = torch.as_tensor(queries).to(self.device)
+            with span("index.prepare"):
+                q = q.float()
+                if q.dim() == 1:
+                    q = q[None, :]
+                if q.shape[1] != self.dim:
+                    raise DimensionMismatch(self.dim, q.shape[1])
+                top.n = q.shape[0]
+                if self.metric == "cosine":
+                    q = l2_normalize(q)
+                # a bf16 index scores bf16 queries (flat.py:171-175 of the JAX index)
+                q = q.to(self.dtype).contiguous()
+            with span("index.scan"):
+                k_eff = min(k, self.capacity)
+                bias = combine_bias(self._bias, extra_bias, self.capacity)
+                kernel = (streaming_topk_cuda_qmajor if q.shape[0] >= QMAJOR_MIN_BATCH
+                          else streaming_topk_cuda)
+                s, i = kernel(q, self._x, bias, k_eff, tile_n=min(self.tile_n, self.capacity))
+            with span("index.copy_back"):
+                s_np, i_np = s.cpu().numpy(), i.cpu().numpy()
+            with span("index.post"):
+                return _finish(s_np, i_np, k, k_eff)
 
     def get_vectors(self, rows) -> np.ndarray:
         """Gather stored vectors (f32) for rescoring."""

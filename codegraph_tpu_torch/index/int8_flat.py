@@ -7,7 +7,9 @@ two stages: an exact int8 scan for the top max(k, rescore_k) candidates
 (kernel K5 for batches under 32, K6 for 32 and more, `ops/quantize.py`, on
 a CUDA index; their plain PyTorch version on a CPU index), then the
 rescore of those candidates against the high-precision copy, truncated to
-k.
+k. A search records its host steps as spans (`utils/perfmon.py`):
+`index.search` (n = B) and inside it `index.upload`, `index.prepare`,
+`index.scan`, `index.rescore`, `index.copy_back`, `index.post`.
 """
 
 from __future__ import annotations
@@ -19,7 +21,12 @@ import torch
 
 from codegraph_tpu_torch.core.errors import DimensionMismatch
 from codegraph_tpu_torch.core.padding import aligned_rows, combine_bias, grow_capacity
-from codegraph_tpu_torch.index.flat import QMAJOR_MIN_BATCH, _as_tensor, resolve_device
+from codegraph_tpu_torch.index.flat import (
+    QMAJOR_MIN_BATCH,
+    _as_tensor,
+    _finish,
+    resolve_device,
+)
 from codegraph_tpu_torch.ops.quantize import (
     DEFAULT_TILE_N,
     quantize_rows,
@@ -29,6 +36,7 @@ from codegraph_tpu_torch.ops.quantize import (
 )
 from codegraph_tpu_torch.ops.similarity import l2_normalize
 from codegraph_tpu_torch.ops.topk import NEG_INF
+from codegraph_tpu_torch.utils.perfmon import span
 
 _RESCORE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -152,34 +160,36 @@ class Int8FlatIndex:
                 np.full((B, k), float(NEG_INF), np.float32),
                 np.full((B, k), -1, np.int32),
             )
-        q = torch.as_tensor(queries).to(self.device).float()
-        if q.dim() == 1:
-            q = q[None, :]
-        if q.shape[1] != self.dim:
-            raise DimensionMismatch(self.dim, q.shape[1])
-        if self.metric == "cosine":
-            q = l2_normalize(q)
-
-        cand_k = min(max(k, self.rescore_k), self.capacity)
-        bias = combine_bias(self._bias, extra_bias, self.capacity)
-        qv, qs = quantize_rows(q)
-        kernel = (streaming_topk_int8_cuda_qmajor if q.shape[0] >= QMAJOR_MIN_BATCH
-                  else streaming_topk_int8_cuda)
-        s, i = kernel(qv, qs, self._q, self._s, bias, cand_k,
-                      tile_n=min(self.tile_n, self.capacity))
-        k_eff = min(k, cand_k)
-        if self._r is not None:
-            s, i = rescore_topk(q, self._r, i, s, k_eff)
-        else:
-            s, i = s[:, :k_eff], i[:, :k_eff]
-
-        s_np, i_np = s.cpu().numpy(), i.cpu().numpy()
-        dead = s_np <= float(NEG_INF) / 2
-        i_np = np.where(dead, -1, i_np).astype(np.int32)
-        if k_eff < k:
-            s_np = np.pad(s_np, ((0, 0), (0, k - k_eff)), constant_values=float(NEG_INF))
-            i_np = np.pad(i_np, ((0, 0), (0, k - k_eff)), constant_values=-1)
-        return s_np, i_np
+        with span("index.search") as top:
+            with span("index.upload"):
+                q = torch.as_tensor(queries).to(self.device)
+            with span("index.prepare"):
+                q = q.float()
+                if q.dim() == 1:
+                    q = q[None, :]
+                if q.shape[1] != self.dim:
+                    raise DimensionMismatch(self.dim, q.shape[1])
+                top.n = q.shape[0]
+                if self.metric == "cosine":
+                    q = l2_normalize(q)
+                qv, qs = quantize_rows(q)
+            with span("index.scan"):
+                cand_k = min(max(k, self.rescore_k), self.capacity)
+                bias = combine_bias(self._bias, extra_bias, self.capacity)
+                kernel = (streaming_topk_int8_cuda_qmajor if q.shape[0] >= QMAJOR_MIN_BATCH
+                          else streaming_topk_int8_cuda)
+                s, i = kernel(qv, qs, self._q, self._s, bias, cand_k,
+                              tile_n=min(self.tile_n, self.capacity))
+            k_eff = min(k, cand_k)
+            if self._r is not None:
+                with span("index.rescore"):
+                    s, i = rescore_topk(q, self._r, i, s, k_eff)
+            else:
+                s, i = s[:, :k_eff], i[:, :k_eff]
+            with span("index.copy_back"):
+                s_np, i_np = s.cpu().numpy(), i.cpu().numpy()
+            with span("index.post"):
+                return _finish(s_np, i_np, k, k_eff)
 
     # -- state -------------------------------------------------------------
 

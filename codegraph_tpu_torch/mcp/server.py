@@ -412,7 +412,12 @@ class MCPServer:
         * GET /metrics — Prometheus text exposition (reference ships the
           prometheus crate for its HTTP server, Cargo.toml:219); exports
           tool call counts, cache hit rates, perfmon windows, graph and
-          index sizes via utils/metrics.py. Unauthenticated by design
+          index sizes via utils/metrics.py. An operator registers more
+          sources on `self.metrics_registry` before building:
+          `make_service_source(service)` for a QueryService's counters
+          and, beside it, `make_span_source()` for the span recorder's
+          totals by span name, full collections and dropped records
+          (utils/perfmon.py). Unauthenticated by design
           (scrapers don't carry MCP bearer tokens; no request data is
           exposed).
         * Optional bearer auth: `auth_token` or CODEGRAPH_HTTP_TOKEN.

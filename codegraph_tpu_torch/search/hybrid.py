@@ -181,7 +181,7 @@ class HybridSearch:
             ]
 
         prefetch = max(limit * self.config.prefetch_multiplier, limit)
-        with self.monitor.timer("vector_search_ms"):
+        with self.monitor.timer("vector_search_ms", "hybrid.vector_search"):
             scores, rows = self._vector_search(embedding, prefetch, filters)
         scores, rows = scores[0], rows[0]
 

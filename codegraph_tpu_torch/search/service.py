@@ -1,6 +1,13 @@
 """Copy of `codegraph_tpu/search/service.py` for the PyTorch port;
-`close()` joins the collector thread and shuts the flush pool, and
-`ShmServedIndex` uploads each snapshot to the device it is given.
+`close()` joins the collector thread and shuts the flush pool,
+`ShmServedIndex` uploads each snapshot to the device it is given, and the
+service records its steps as spans (`utils/perfmon.py`; PERF.md §3):
+`service.linger` (the max_wait sleep), `service.collect` (wake to batch
+taken; n rows, m their summed queue wait in µs), `service.flush` (batch
+taken to last future set; n rows searched, m zero rows padded; opened on
+the collector, closed on the flush worker) and inside it
+`service.assemble` and `service.fanout`, all under one request id per
+flush. Submit stamps are on the recorder's clock (`perf_counter_ns`).
 
 Batching query service: concurrent queries -> device-sized batches.
 
@@ -23,6 +30,8 @@ from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
 import numpy as np
+
+from codegraph_tpu_torch.utils import perfmon
 
 
 @dataclass
@@ -157,11 +166,11 @@ class QueryService:
         self.workers = max(1, int(workers))
         self.max_pending = (int(max_pending) if max_pending is not None
                             else 8 * self.max_batch * self.workers)
-        self.queue_timeout_s = (queue_timeout_ms / 1000.0
-                                if queue_timeout_ms else None)
+        self.queue_timeout_ns = (int(queue_timeout_ms * 1e6)
+                                 if queue_timeout_ms else None)
         self.stats = ServiceStats()
         self._lock = threading.Lock()
-        self._pending: List[Tuple[np.ndarray, Future, float]] = []
+        self._pending: List[Tuple[np.ndarray, Future, int]] = []
         self._wake = threading.Event()
         self._stop = threading.Event()
         self._pool = (
@@ -183,7 +192,7 @@ class QueryService:
                 raise ServiceOverloaded(
                     f"pending queue full ({self.max_pending}); retry later")
             self._pending.append(
-                (np.asarray(query, np.float32), fut, time.monotonic()))
+                (np.asarray(query, np.float32), fut, time.perf_counter_ns()))
         # always wake: the collector blocks indefinitely while idle and
         # only uses the max_wait timeout between first enqueue and flush
         self._wake.set()
@@ -212,12 +221,14 @@ class QueryService:
             self._wake.wait()
             if self._stop.is_set():
                 break
+            rid = perfmon.new_request()
             # collect: give stragglers max_wait to join the batch unless
             # it is already full
             with self._lock:
                 n = len(self._pending)
             if 0 < n < self.max_batch:
-                time.sleep(self.max_wait_s)
+                with perfmon.span("service.linger", n=n, rid=rid):
+                    time.sleep(self.max_wait_s)
             self._wake.clear()
             if self._pool is not None:
                 # acquire the in-flight slot BEFORE slicing the batch:
@@ -229,57 +240,72 @@ class QueryService:
                 # capacity thrown away (padded rows cost the same HBM
                 # scan as real ones).
                 self._inflight.acquire()
-                batch = self._take_batch()
+                batch, flush = self._take_batch(rid)
                 if not batch:
                     self._inflight.release()
                     continue
-                self._pool.submit(self._flush_release, batch)
+                self._pool.submit(self._flush_release, batch, flush)
             else:
-                batch = self._take_batch()
+                batch, flush = self._take_batch(rid)
                 if batch:
-                    self._flush(batch)
+                    self._flush(batch, flush)
 
-    def _take_batch(self) -> List[Tuple[np.ndarray, Future, float]]:
-        with self._lock:
-            batch = self._pending[: self.max_batch]
-            self._pending = self._pending[self.max_batch:]
-            if self._pending:  # leftovers: keep the loop hot
-                self._wake.set()
-        return batch
+    def _take_batch(self, rid: int):
+        """The next batch, and its `service.flush` span, opened here."""
+        with perfmon.span("service.collect", rid=rid) as collect:
+            with self._lock:
+                batch = self._pending[: self.max_batch]
+                self._pending = self._pending[self.max_batch:]
+                if self._pending:  # leftovers: keep the loop hot
+                    self._wake.set()
+            if collect is not perfmon.OFF:
+                taken = time.perf_counter_ns()
+                collect.n = len(batch)
+                collect.m = (taken * len(batch) - sum(t for _, _, t in batch)) // 1000
+        return batch, (perfmon.begin("service.flush", rid=rid) if batch else perfmon.OFF)
 
-    def _flush_release(
-            self, batch: List[Tuple[np.ndarray, Future, float]]) -> None:
+    def _flush_release(self, batch: List[Tuple[np.ndarray, Future, int]], flush) -> None:
         try:
-            self._flush(batch)
+            self._flush(batch, flush)
         finally:
             self._inflight.release()
 
-    def _flush(self, batch: List[Tuple[np.ndarray, Future, float]]) -> None:
-        if self.queue_timeout_s is not None:
-            now = time.monotonic()
-            live = []
-            for q, fut, t in batch:
-                if now - t > self.queue_timeout_s:
-                    with self._lock:
-                        self.stats.expired += 1
-                    if not fut.cancelled():
-                        fut.set_exception(TimeoutError(
-                            f"query queued > {self.queue_timeout_s:.3f}s"))
-                else:
-                    live.append((q, fut, t))
-            batch = live
-            if not batch:
-                return
-        queries = np.stack([q for q, _, _ in batch])
-        if self.pad_to_max:
-            shape = next(b for b in self.pad_buckets
-                         if b >= queries.shape[0])
-            if queries.shape[0] < shape:
-                queries = np.concatenate([
-                    queries,
-                    np.zeros((shape - queries.shape[0],
-                              queries.shape[1]), queries.dtype),
-                ])
+    def _flush(self, batch: List[Tuple[np.ndarray, Future, int]], flush) -> None:
+        """Search `batch` and resolve its futures; ends `flush`."""
+        try:
+            with perfmon.current(flush):
+                self._search_batch(batch, flush)
+        finally:
+            perfmon.end(flush)
+
+    def _search_batch(self, batch, flush) -> None:
+        with perfmon.span("service.assemble"):
+            if self.queue_timeout_ns is not None:
+                now = time.perf_counter_ns()
+                live = []
+                for q, fut, t in batch:
+                    if now - t > self.queue_timeout_ns:
+                        with self._lock:
+                            self.stats.expired += 1
+                        if not fut.cancelled():
+                            fut.set_exception(TimeoutError(
+                                f"query queued > {self.queue_timeout_ns / 1e9:.3f}s"))
+                    else:
+                        live.append((q, fut, t))
+                batch = live
+                if not batch:
+                    return
+            queries = np.stack([q for q, _, _ in batch])
+            if self.pad_to_max:
+                shape = next(b for b in self.pad_buckets
+                             if b >= queries.shape[0])
+                if queries.shape[0] < shape:
+                    queries = np.concatenate([
+                        queries,
+                        np.zeros((shape - queries.shape[0],
+                                  queries.shape[1]), queries.dtype),
+                    ])
+            flush.n, flush.m = len(batch), queries.shape[0] - len(batch)
         try:
             scores, rows = self.index.search(queries, self.k)
         except Exception as exc:
@@ -292,9 +318,10 @@ class QueryService:
             self.stats.batches += 1
             self.stats.max_batch_seen = max(self.stats.max_batch_seen,
                                             len(batch))
-        for i, (_, fut, _) in enumerate(batch):
-            if not fut.cancelled():
-                fut.set_result((scores[i], rows[i]))
+        with perfmon.span("service.fanout", n=len(batch)):
+            for i, (_, fut, _) in enumerate(batch):
+                if not fut.cancelled():
+                    fut.set_result((scores[i], rows[i]))
 
     def close(self, timeout: float = 30.0) -> None:
         """Stop the collector, flush what is still queued, and shut the
@@ -308,7 +335,7 @@ class QueryService:
             leftover = self._pending
             self._pending = []
         if leftover:
-            self._flush(leftover)
+            self._flush(leftover, perfmon.begin("service.flush"))
         if self._pool is not None:
             self._pool.shutdown(wait=True)
 

@@ -6,7 +6,8 @@ Reference: the HTTP server ships the `prometheus` crate
 (the reference's Cargo.toml:219) so operators can scrape the serving
 process; the rebuild's counters already exist (PerformanceMonitor
 targets, SearchCache hit rates, GraphToolExecutor call counts,
-QueryService ServiceStats, served-index generation) — this module
+QueryService ServiceStats, served-index generation; in the port also the
+span recorder's totals, `make_span_source`) — this module
 renders them in the Prometheus exposition format (text/plain; version
 0.0.4) and `mcp/server.py` serves them at GET /metrics.
 
@@ -188,8 +189,36 @@ def make_service_source(service) -> Callable[[], Dict[str, Any]]:
     return pull
 
 
+def make_span_source(recorder=None) -> Callable[[], Dict[str, Any]]:
+    """Metrics source over the span recorder (utils/perfmon.py; default
+    its process-global one): per span name `span_count_total` and
+    `span_seconds_total` (label `span`), the full collections
+    (`gc_full_total`, `gc_full_seconds_total`), the collections of each
+    generation (`gc_collections_total`, label `generation`) and the
+    records the ring overwrote (`spans_dropped_total`)."""
+    if recorder is None:
+        from codegraph_tpu_torch.utils.perfmon import RECORDER as recorder
+
+    def pull() -> Dict[str, Any]:
+        totals = recorder.totals()
+        out: Dict[str, Any] = {}
+        for name, (count, seconds) in sorted(totals.items()):
+            out[f"span_count_total__{name}"] = (float(count), {"span": name})
+            out[f"span_seconds_total__{name}"] = (seconds, {"span": name})
+        count, seconds = totals.get("gc.full", (0, 0.0))
+        out["gc_full_total"] = float(count)
+        out["gc_full_seconds_total"] = seconds
+        for gen, n in enumerate(recorder.gc_collections):
+            out[f"gc_collections_total__{gen}"] = (float(n), {"generation": str(gen)})
+        out["spans_dropped_total"] = float(recorder.dropped())
+        return out
+
+    return pull
+
+
 __all__ = [
     "MetricsRegistry",
     "make_server_source",
     "make_service_source",
+    "make_span_source",
 ]
